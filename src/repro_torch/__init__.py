@@ -1,0 +1,24 @@
+"""PyTorch + CUDA port of ``repro`` for NVIDIA Hopper (H100).
+
+Slice 1 of the port: Gaussian-k TopK-SGD training of the dense decoder
+LMs on one card — fixed-k, the ``bucketed`` pipeline and the
+``allgather`` wire at world size 1.  The three fused error-feedback
+kernels of that path are hand-written for ``sm_90a``:
+
+* ``kernels/ef_fused/fused_moments.py``  K1, Triton: sum, sum of squares
+  and abs-max of ``u = g + e``;
+* ``kernels/ef_fused/tree_count.py``     K2, Triton: counts of
+  ``|u| > t_j`` over the refinement tree's thresholds;
+* ``kernels/ef_fused/compact_residual.py`` + ``csrc/compact_residual.cu``
+  K3, CUDA C++: threshold compaction into per-block staging rows, then
+  the residual write.
+
+Params are stored leaf for leaf the way the JAX package stores them
+(``x @ W`` with ``W`` shaped ``(in, out)``, scan-stacked layers as one
+``(L, ...)`` tensor) and flattened in key-sorted order (``tree.py``), so
+the bucket layout, every per-leaf ``k`` and every selection agree with
+the JAX reference.  Nothing here imports ``jax``.
+
+What later slices carry is listed in ``slices.py``; asking for it raises
+``NotImplementedError`` naming the slice.
+"""

@@ -1,0 +1,10 @@
+"""llama3.2-1b — small llama3, GQA kv=8. [hf:meta-llama/Llama-3.2-1B]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b", arch_type="dense",
+    num_layers=16, d_model=2048, num_heads=32, num_kv_heads=8,
+    d_ff=8192, vocab_size=128256, rope_theta=500_000.0,
+    density_policy="variance",
+    source="hf:meta-llama/Llama-3.2-1B",
+).validate()

@@ -1,0 +1,108 @@
+"""One frozen config for every compression consumer (port of
+``repro.core.compression``).
+
+:class:`CompressionConfig` carries what to compress with and how to move
+it; construction validates it as the reference does.  Values this slice
+does not carry (adaptive density, momentum correction, chunking, the
+other wire strategies, a down-cast wire dtype) are accepted by the
+vocabulary checks and then rejected by
+:meth:`CompressionConfig.require_slice1` with an error naming the slice
+that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+from repro_torch.core.compressors import CompressorSpec, get_compressor
+from repro_torch.core.error_feedback import BACKENDS
+from repro_torch.slices import not_ported
+
+STRATEGIES = ("allgather", "gtopk", "hierarchical", "hier_gtopk")
+
+# compressor spelling for Dense-SGD (no sparsification, dense mean)
+DENSE = "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionConfig:
+    """``compressor`` registry name or ``"none"``; ``ratio`` density k/d
+    per leaf; ``strategy`` wire pattern; ``codec_dtype`` wire dtype of
+    the values (None = f32, the only one this slice sends); ``momentum_correction`` DGC factor;
+    ``backend`` auto | fused | reference; ``density_policy`` adaptive
+    density (None = fixed k); ``chunks`` wire chunk count."""
+
+    compressor: str = "gaussiank"
+    ratio: float = 0.001
+    strategy: str = "allgather"
+    codec_dtype: Optional[Any] = None
+    momentum_correction: float = 0.0
+    backend: str = "auto"
+    density_policy: Optional[Any] = None
+    chunks: int = 1
+
+    def __post_init__(self):
+        if self.compressor is None:
+            object.__setattr__(self, "compressor", DENSE)
+        if self.strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy {self.strategy!r}; "
+                             f"have {STRATEGIES}")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; "
+                             f"have {BACKENDS}")
+        if self.chunks < 1:
+            raise ValueError(f"chunks must be >= 1, got {self.chunks}")
+        if self.momentum_correction < 0.0 or self.momentum_correction >= 1.0:
+            raise ValueError("momentum_correction must be in [0, 1), "
+                             f"got {self.momentum_correction}")
+        if not self.dense:
+            get_compressor(self.compressor)   # raises on unknown names
+            if not 0.0 < self.ratio <= 1.0:
+                raise ValueError(f"ratio must be in (0, 1], got {self.ratio}")
+        else:
+            if self.density_policy is not None:
+                raise ValueError("density_policy has no meaning for "
+                                 "Dense-SGD (compressor='none')")
+            if self.momentum_correction:
+                raise ValueError("momentum_correction rides the sparse EF "
+                                 "pipeline; meaningless for Dense-SGD")
+
+    @property
+    def dense(self) -> bool:
+        return self.compressor == DENSE
+
+    @property
+    def spec(self) -> Optional[CompressorSpec]:
+        return None if self.dense else get_compressor(self.compressor)
+
+    @property
+    def adaptive(self) -> bool:
+        return self.density_policy is not None
+
+    def replace(self, **changes) -> "CompressionConfig":
+        return dataclasses.replace(self, **changes)
+
+    def require_slice1(self) -> "CompressionConfig":
+        """Raise for every field value this slice does not run."""
+        if self.strategy != "allgather":
+            raise not_ported(f"strategy {self.strategy!r}", self.strategy)
+        if self.density_policy is not None:
+            raise not_ported("adaptive density", "density_policy")
+        if self.momentum_correction:
+            raise not_ported("momentum correction", "momentum_correction")
+        if self.chunks != 1:
+            raise not_ported("chunks > 1", "chunks")
+        if self.codec_dtype is not None:
+            raise not_ported(f"codec_dtype {self.codec_dtype}",
+                             "codec_dtype")
+        return self
+
+
+def as_config(value) -> CompressionConfig:
+    """Coerce ``None`` (defaults) or a config; reject everything else."""
+    if value is None:
+        return CompressionConfig()
+    if isinstance(value, CompressionConfig):
+        return value
+    raise TypeError("expected a CompressionConfig (or None), got "
+                    f"{type(value).__name__}")

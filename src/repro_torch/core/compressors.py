@@ -1,0 +1,109 @@
+"""Sparsification operators (port of ``repro.core.compressors``).
+
+Every compressor maps a flat vector ``u = g + e`` to a fixed-capacity
+``(values, indices)`` pair (``codec.py``).  This slice ports the
+key-free operators of the main path:
+
+=============  ==========================================  ==========
+name           selection rule                              k_cap
+=============  ==========================================  ==========
+``topk``       exact top-k by ``|u|``, ties to the lower   k
+               index (``lax.top_k``'s order)
+``gaussiank``  paper Algorithm 1: Gaussian-ppf threshold   ceil(4k/3)
+               + ≤4 refinement steps (band [2k/3, 4k/3])
+``gaussiank2`` the same with ``p = 1 - k/(2d)``            ceil(4k/3)
+=============  ==========================================  ==========
+
+The other registered names raise ``NotImplementedError`` naming the
+slice that ports them.
+"""
+from __future__ import annotations
+
+import math
+from functools import partial
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import codec
+from repro_torch.slices import not_ported
+
+
+class CompressorSpec(NamedTuple):
+    name: str
+    select: Callable  # (u, k, key) -> (values, indices)
+    k_cap: Callable[[int, int], int]  # (k, d) -> capacity
+    needs_key: bool = False
+
+
+def topk_select(u: torch.Tensor, k: int, key=None):
+    """Exact ``Top_k`` by ``|u|``.  A stable descending sort puts the
+    lower index first among equal magnitudes — ``lax.top_k``'s order
+    (``torch.topk`` breaks ties otherwise)."""
+    _, order = torch.sort(torch.abs(u), descending=True, stable=True)
+    idx = order[:k]
+    return u[idx], idx.to(torch.int32)
+
+
+def gaussian_threshold(u: torch.Tensor, k: int, refine_iters: int = 4,
+                       two_sided: bool = False) -> torch.Tensor:
+    """The ``|u|`` threshold selecting ~k elements (Algorithm 1 lines
+    2-13), with the POPULATION std as in the reference."""
+    d = u.shape[0]
+    mu = torch.mean(u)
+    sigma = torch.std(u, unbiased=False) + 1e-12
+    p = 1.0 - (k / (2.0 * d) if two_sided else k / d)
+    q = torch.special.ndtri(torch.tensor(p, dtype=u.dtype, device=u.device))
+    thres = torch.abs(q * sigma + mu)
+    lo = torch.tensor(2.0 * k / 3.0, dtype=u.dtype, device=u.device)
+    hi = torch.tensor(4.0 * k / 3.0, dtype=u.dtype, device=u.device)
+    abs_u = torch.abs(u)
+    done = torch.zeros((), dtype=torch.bool, device=u.device)
+    for _ in range(refine_iters):
+        est = torch.sum(abs_u > thres).to(torch.float32)
+        new = torch.where(est < lo, 0.5 * thres,
+                          torch.where(est > hi, 1.5 * thres, thres))
+        in_band = (est >= lo) & (est <= hi)
+        thres = torch.where(done, thres, new)
+        done = done | in_band
+    return thres
+
+
+def gaussiank_select(u: torch.Tensor, k: int, key=None,
+                     refine_iters: int = 4, two_sided: bool = False):
+    """``Gaussian_k`` (paper Algorithm 1): threshold + fixed-capacity
+    compaction."""
+    k_cap = gaussiank_cap(k, u.shape[0])
+    thres = gaussian_threshold(u, k, refine_iters, two_sided)
+    return codec.compact_by_mask(u, torch.abs(u) > thres, k_cap)
+
+
+def gaussiank_cap(k: int, d: int) -> int:
+    # accept band upper edge (4k/3) — Algorithm 1 stops inside the band
+    return min(d, int(math.ceil(4.0 * k / 3.0)))
+
+
+_REGISTRY = {
+    "topk": CompressorSpec("topk", topk_select, lambda k, d: k),
+    "gaussiank": CompressorSpec("gaussiank", gaussiank_select, gaussiank_cap),
+    "gaussiank2": CompressorSpec(
+        "gaussiank2", partial(gaussiank_select, two_sided=True),
+        gaussiank_cap),
+}
+# registered in the reference, ported by a later slice
+_LATER = ("randk", "dgck", "trimmedk", "histk", "rtopk")
+
+
+def get_compressor(name: str) -> CompressorSpec:
+    if name in _LATER:
+        raise not_ported(f"compressor {name!r}", name)
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown compressor {name!r}; have "
+                       f"{sorted(_REGISTRY) + sorted(_LATER)}")
+    return _REGISTRY[name]
+
+
+def available() -> list:
+    """The compressors this slice runs."""
+    return sorted(_REGISTRY)
+

@@ -1,0 +1,3 @@
+from repro_torch.data.synthetic import batch_for, lm_batch
+
+__all__ = ["batch_for", "lm_batch"]

@@ -1,0 +1,16 @@
+"""Distributed layer (port of ``repro.dist``): the static bucket layout
+and the Eq.-2 aggregation over it.  This slice runs one card (world
+size 1); the NCCL wire lands with the multi-GPU slice."""
+from repro_torch.dist import aggregate, layout
+from repro_torch.dist.aggregate import (AggregateResult, aggregate_bucketed,
+                                        aggregate_dense, bucket_compress)
+from repro_torch.dist.layout import (BucketLayout, LeafSegment, build_layout,
+                                     collective_count, init_flat_residual,
+                                     leaf_key_salt, pack_grads,
+                                     strategy_wire_pairs, unpack_tree)
+
+__all__ = ["aggregate", "layout", "AggregateResult", "aggregate_bucketed",
+           "aggregate_dense", "bucket_compress", "BucketLayout",
+           "LeafSegment", "build_layout", "collective_count",
+           "init_flat_residual", "leaf_key_salt", "pack_grads",
+           "strategy_wire_pairs", "unpack_tree"]

@@ -1,0 +1,211 @@
+"""K3 — pass B of the fused EF pipeline: threshold compaction into
+per-block staging rows, then the residual write; plus the staging
+assembly into the fixed ``(k_cap,)`` codec.
+
+Replaces the TPU kernel ``repro/kernels/ef_fused/compact_residual.py:
+compact_residual`` (``pallas_call`` at lines 191, 208 and 237) and
+ports ``repro/kernels/gaussian_topk/ops.py:assemble_staging`` as torch
+glue.  The kernels are CUDA C++ in ``repro_torch/csrc/compact_residual.cu``
+(its header says what bounds them and how the design answers); this
+module builds them at first use (``kernels/cuda_build.py``), checks the
+operands, launches on the current stream and counts launches.
+
+Two launches, the race-free shape of the reference's GPU lowering:
+
+1. :func:`compact_stage` writes each block's ``(vals, offs, cnt)``;
+2. the wrapper takes the exact int64 exclusive cumsum of
+   ``min(cnt, bcap)`` (``enc_before``);
+3. :func:`compact_resid` re-streams ``g``/``e``, recomputes each
+   element's in-block position and writes ``e'``.
+
+The plain versions (``*_plain``) compute the same with torch ops over
+the zero-padded ``(nblocks, block)`` view; the wrappers take them for
+CPU tensors only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.codec import SENTINEL
+from repro_torch.kernels import cuda_build
+from repro_torch.kernels.ef_fused.fused_moments import (_blocks, _check,
+                                                        _check_cuda_f32)
+
+SOURCE = "compact_residual.cu"
+_SIGS = []
+
+
+def _lib():
+    lib = cuda_build.load(SOURCE)
+    if not _SIGS:
+        p, f, i, ll = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_longlong)
+        lib.compact_stage_f32.argtypes = [p, p, ll, f, i, i, ll, p, p, p, p]
+        lib.compact_stage_f32.restype = i
+        lib.compact_resid_f32.argtypes = [p, p, ll, f, i, i, ll, ll, p, p,
+                                          p]
+        lib.compact_resid_f32.restype = i
+        _SIGS.append(True)
+    return lib
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _geometry(g: torch.Tensor, block: int, bcap: int) -> int:
+    if block < 1 or bcap < 1 or bcap > block:
+        raise ValueError(f"need 1 <= bcap <= block, got block={block} "
+                         f"bcap={bcap}")
+    return max(1, -(-g.shape[0] // block))
+
+
+def _select(x: torch.Tensor, thres: float, bcap: int):
+    """Per-block mask, in-block position, keep and uncapped count."""
+    mask = x.abs() > thres
+    cnt = mask.sum(dim=1, dtype=torch.int32)
+    pos = torch.cumsum(mask, dim=1, dtype=torch.int64) - 1
+    keep = mask & (pos < bcap)
+    return pos, keep, cnt
+
+
+def _u(g, e):
+    u = g.to(torch.float32)
+    return u if e is None else u + e.to(torch.float32)
+
+
+def compact_stage_plain(g, e, thres: float, *, block: int, bcap: int):
+    """Plain PyTorch version of the stage kernel: ``(vals (nb, bcap) f32,
+    offs (nb, bcap) int32, cnt (nb,) int32)``."""
+    nb = _geometry(g, block, bcap)
+    x = _blocks(_u(g, e), block)
+    pos, keep, cnt = _select(x, thres, bcap)
+    slot = torch.where(keep, pos, torch.full_like(pos, bcap))
+    vals = torch.zeros((nb, bcap + 1), dtype=torch.float32, device=g.device)
+    vals.scatter_(1, slot, x)
+    offs = torch.full((nb, bcap + 1), SENTINEL, dtype=torch.int32,
+                      device=g.device)
+    iota = torch.arange(block, dtype=torch.int32, device=g.device)
+    offs.scatter_(1, slot, iota.expand(nb, block))
+    # column bcap is the scratch slot every unkept element wrote to
+    return vals[:, :bcap].contiguous(), offs[:, :bcap].contiguous(), cnt
+
+
+def compact_resid_plain(g, e, thres: float, enc_before: torch.Tensor, *,
+                        block: int, bcap: int, k_cap: int, out=None):
+    """Plain PyTorch version of the residual kernel: ``e' = 0`` where the
+    element survives to the wire, else ``u``; ``(d,)`` f32."""
+    d = g.shape[0]
+    x = _blocks(_u(g, e), block)
+    pos, keep, _ = _select(x, thres, bcap)
+    on_wire = keep & (enc_before.to(torch.int64)[:, None] + pos < k_cap)
+    new_e = torch.where(on_wire, torch.zeros_like(x), x).reshape(-1)[:d]
+    if out is None:
+        return new_e
+    out.copy_(new_e)
+    return out
+
+
+def compact_stage(g: torch.Tensor, e, thres: float, *, block: int,
+                  bcap: int):
+    """Stage launch: per-block staging rows and uncapped counts."""
+    _check(g, e)
+    if g.device.type != "cuda":
+        return compact_stage_plain(g, e, thres, block=block, bcap=bcap)
+    _check_cuda_f32("compact_stage", g, e)
+    nb = _geometry(g, block, bcap)
+    vals = torch.empty((nb, bcap), dtype=torch.float32, device=g.device)
+    offs = torch.empty((nb, bcap), dtype=torch.int32, device=g.device)
+    cnt = torch.empty((nb,), dtype=torch.int32, device=g.device)
+    lib = _lib()
+    with torch.cuda.device(g.device):
+        rc = lib.compact_stage_f32(
+            g.data_ptr(), None if e is None else e.data_ptr(), g.shape[0],
+            float(thres), block, bcap, nb, vals.data_ptr(), offs.data_ptr(),
+            cnt.data_ptr(), _stream(g))
+    cuda_build.check(rc, "compact_stage")
+    compact_stage.launches += 1
+    return vals, offs, cnt
+
+
+def compact_resid(g: torch.Tensor, e, thres: float,
+                  enc_before: torch.Tensor, *, block: int, bcap: int,
+                  k_cap: int, out=None) -> torch.Tensor:
+    """Residual launch: ``e'`` as a ``(d,)`` f32 tensor, written into
+    ``out`` when given (``out`` may be ``e`` itself — in place)."""
+    _check(g, e)
+    if g.device.type != "cuda":
+        return compact_resid_plain(g, e, thres, enc_before, block=block,
+                                   bcap=bcap, k_cap=k_cap, out=out)
+    _check_cuda_f32("compact_resid", g, e, out)
+    nb = _geometry(g, block, bcap)
+    if (enc_before.shape != (nb,) or enc_before.dtype != torch.int64
+            or enc_before.device != g.device
+            or not enc_before.is_contiguous()):
+        raise ValueError("enc_before must be a contiguous int64 (nblocks,) "
+                         "tensor on g's device")
+    if out is None:
+        out = torch.empty_like(g, dtype=torch.float32)
+    elif (out.shape != g.shape or out.device != g.device
+          or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous tensor shaped and placed "
+                         "like g")
+    lib = _lib()
+    with torch.cuda.device(g.device):
+        rc = lib.compact_resid_f32(
+            g.data_ptr(), None if e is None else e.data_ptr(), g.shape[0],
+            float(thres), block, bcap, int(k_cap), nb,
+            enc_before.data_ptr(), out.data_ptr(), _stream(g))
+    cuda_build.check(rc, "compact_resid")
+    compact_resid.launches += 1
+    return out
+
+
+compact_stage.launches = 0
+compact_resid.launches = 0
+
+
+def exclusive_enc(cnt: torch.Tensor, bcap: int) -> torch.Tensor:
+    """Exact int64 exclusive cumsum of the capped per-block counts."""
+    capped = torch.clamp(cnt.to(torch.int64), max=bcap)
+    return torch.cumsum(capped, 0) - capped
+
+
+def compact_residual(g: torch.Tensor, e, thres: float, *, block: int,
+                     bcap: int, k_cap: int, out=None):
+    """Both launches: ``(vals, offs, cnt, new_e)``."""
+    vals, offs, cnt = compact_stage(g, e, thres, block=block, bcap=bcap)
+    new_e = compact_resid(g, e, thres, exclusive_enc(cnt, bcap),
+                          block=block, bcap=bcap, k_cap=k_cap, out=out)
+    return vals, offs, cnt, new_e
+
+
+def assemble_staging(vals: torch.Tensor, offs: torch.Tensor,
+                     cnts: torch.Tensor, k_cap: int, *, block: int):
+    """Staging rows into the fixed ``(k_cap,)`` codec (port of
+    ``repro/kernels/gaussian_topk/ops.py:assemble_staging``): block
+    entries land at slot ``cumsum(min(cnt, bcap)) + j``; anything at or
+    past ``k_cap`` is dropped.  Written as a GATHER over the ``k_cap``
+    output slots (each finds its block by a binary search of the running
+    counts) rather than the reference's scatter of all ``nblocks·bcap``
+    staging entries: the same pair, with ``k``-sized instead of
+    ``d/16``-sized work.  The reference also cuts indices ``>= d``; that
+    cut cannot fire: a padding element is 0 and the threshold is
+    ``>= 0``, so no padding element is ever staged.  Global indices are computed in
+    int64, stored int32."""
+    nblocks, bcap = vals.shape
+    dev = vals.device
+    enc = torch.clamp(cnts.to(torch.int64), max=bcap)
+    ends = torch.cumsum(enc, 0)                      # inclusive
+    slot = torch.arange(k_cap, dtype=torch.int64, device=dev)
+    row = torch.searchsorted(ends, slot, right=True).clamp_(max=nblocks - 1)
+    j = (slot - (ends[row] - enc[row])).clamp_(0, bcap - 1)
+    flat = row * bcap + j
+    valid = slot < ends[-1]
+    values = torch.where(valid, vals.reshape(-1)[flat],
+                         torch.zeros((), dtype=vals.dtype, device=dev))
+    gidx = row * block + offs.reshape(-1)[flat].to(torch.int64)
+    indices = torch.where(valid, gidx, SENTINEL).to(torch.int32)
+    return values.to(torch.float32), indices

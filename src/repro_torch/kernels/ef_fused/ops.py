@@ -1,0 +1,175 @@
+"""Fused error-feedback compression pipeline (port of
+``repro/kernels/ef_fused/ops.py``: ``fused_default_bcap``,
+``_tree_thresholds``, ``_replay_refinement``,
+``_gaussian_threshold_fused``, ``_resolve``, ``fused_compress_ef``).
+
+Per leaf, four launches on the card:
+
+  K1 ``fused_moments``  → ``(s, sq)`` → Gaussian ppf threshold ``t0``
+  K2 ``tree_count``     → counts at the 15 thresholds the refinement
+                          loop can reach → replayed final threshold
+  K3 ``compact_stage``  → per-block staging rows
+  K3 ``compact_resid``  → the new residual ``e'``
+
+then the staging assembly into the ``(k_cap,)`` codec pair.  The
+threshold glue between the launches (ppf, tree, replay) runs in f32 on
+the host on a handful of scalars, so the card and the CPU path derive
+the same threshold from the same ``(s, sq)`` and counts.
+
+Conservation ``decode(values, indices, d) + e' == g + e`` holds bit for
+bit: every element is either on the wire (``e' = 0``, its value a copy
+of ``u``) or left in the residual (``e' = u``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.compressors import gaussiank_cap
+from repro_torch.kernels.ef_fused import passes, tuning
+from repro_torch.kernels.ef_fused.compact_residual import (
+    assemble_staging, compact_residual)
+from repro_torch.kernels.ef_fused.fused_moments import fused_moments
+from repro_torch.kernels.ef_fused.tree_count import tree_count
+from repro_torch.slices import not_ported
+
+# compressor names whose selection the fused pipeline implements here
+FUSED_COMPRESSORS = ("gaussiank", "gaussiank2", "histk")
+
+
+def supports_fused(name: str) -> bool:
+    return name in FUSED_COMPRESSORS
+
+
+def fused_default_bcap(k_cap: int, d: int, block: int,
+                       slack: float = 2.0) -> int:
+    """Per-block staging width: ``slack``× the expected per-block
+    selection, at least 64, at most ``block``, a multiple of 8."""
+    expected = k_cap * block / max(d, 1)
+    return int(min(block, max(64, 8 * math.ceil(expected * slack / 8))))
+
+
+def _tree_thresholds(t0: np.float32, refine_iters: int):
+    """Heap-ordered thresholds of the refinement tree, depth 0..R:
+    ``heap[2i+1] = 0.5·heap[i]``, ``heap[2i+2] = 1.5·heap[i]`` as f32
+    products — exactly what the sequential loop computes on any path.
+    Returns ``(heap, n_internal = 2^R - 1)``."""
+    n_full = 2 ** (refine_iters + 1) - 1
+    heap = np.zeros(n_full, np.float32)
+    heap[0] = t0
+    half, three_halves = np.float32(0.5), np.float32(1.5)
+    for i in range((n_full - 1) // 2):
+        heap[2 * i + 1] = half * heap[i]
+        heap[2 * i + 2] = three_halves * heap[i]
+    return heap, 2 ** refine_iters - 1
+
+
+def _replay_refinement(heap: np.ndarray, counts: np.ndarray, k,
+                       refine_iters: int) -> np.float32:
+    """Replay Algorithm 1's decisions on the count table: move to the
+    half / 1.5× child while the count is outside ``[2k/3, 4k/3]``, freeze
+    once inside.  The band edges compare in f32, like the reference's
+    weakly typed Python floats."""
+    lo = np.float32(2.0 * k / 3.0)
+    hi = np.float32(4.0 * k / 3.0)
+    idx, done = 0, False
+    for _ in range(refine_iters):
+        est = np.float32(counts[idx])
+        in_band = bool(lo <= est <= hi)
+        if not (done or in_band):
+            idx = 2 * idx + 1 if est < lo else 2 * idx + 2
+        done = done or in_band
+    return heap[idx]
+
+
+def gaussian_t0(s, sq, d: int, k, two_sided: bool) -> np.float32:
+    """The ppf start threshold ``|mean + (std + 1e-12)·ndtri(p)|``, f32,
+    with the population std ``sqrt(max(sq/d - mean², 0))`` — the
+    reference's ``ops.py:154-158`` in the same operation order."""
+    s = torch.as_tensor(s, dtype=torch.float32).cpu()
+    sq = torch.as_tensor(sq, dtype=torch.float32).cpu()
+    mean = s / d
+    var = torch.clamp(sq / d - mean * mean, min=0.0)
+    std = torch.sqrt(var)
+    p = 1.0 - (k / (2.0 * d) if two_sided else k / d)
+    q = torch.special.ndtri(torch.tensor(p, dtype=torch.float32))
+    t0 = torch.abs(q * (std + 1e-12) + mean)
+    return np.float32(max(float(t0), 0.0))
+
+
+def _gaussian_threshold_fused(g, e, d: int, k, *, stats_block: int,
+                              refine_iters: int, two_sided: bool
+                              ) -> np.float32:
+    s, sq, _ = fused_moments(g, e, block=stats_block)
+    passes.record("moments", 1)
+    t0 = gaussian_t0(s, sq, d, k, two_sided)
+    heap, n_cnt = _tree_thresholds(t0, refine_iters)
+    counts = tree_count(g, e, torch.from_numpy(heap[:n_cnt]).to(g.device),
+                        block=stats_block)
+    passes.record("tree_count", 1)
+    return _replay_refinement(heap, counts.cpu().numpy(), k, refine_iters)
+
+
+def _resolve(g, e, name, k, k_cap, block, stats_block, bcap):
+    """Backend + geometry: explicit ``block``/``stats_block``/``bcap``
+    win, the heuristic of ``tuning`` fills the rest.  Returns ``(d,
+    k_cap, block, stats_block, bcap)``."""
+    if name == "histk":
+        raise not_ported("the fused hist-k pipeline", "histk")
+    if not supports_fused(name):
+        raise ValueError(f"compressor {name!r} has no fused pipeline; "
+                         f"supported: {FUSED_COMPRESSORS}")
+    if g.dim() != 1:
+        raise ValueError(f"g must be 1-D, got shape {tuple(g.shape)}")
+    d = g.shape[0]
+    if e is not None and e.shape != g.shape:
+        raise ValueError(f"e shape {tuple(e.shape)} != g shape "
+                         f"{tuple(g.shape)}")
+    cfg = tuning.resolve_config(d, tuning.resolve_backend(g))
+    block = cfg.block if block is None else block
+    stats_block = cfg.stats_block if stats_block is None else stats_block
+    k_cap = gaussiank_cap(k, d) if k_cap is None else k_cap
+    if bcap is None:
+        bcap = fused_default_bcap(k_cap, d, block, cfg.bcap_slack)
+    return d, k_cap, block, stats_block, bcap
+
+
+def compress_at_threshold(g, e, thres, *, k_cap: int, block: int, bcap: int,
+                          out: Optional[torch.Tensor] = None):
+    """K3 at a given threshold plus the staging assembly: ``(values,
+    indices, new_e)``.  ``out`` receives ``e'`` (may be ``e`` — in
+    place)."""
+    thres = float(np.float32(max(float(thres), 0.0)))
+    vals, offs, cnt, new_e = compact_residual(g, e, thres, block=block,
+                                              bcap=bcap, k_cap=k_cap, out=out)
+    passes.record("compact", 1)
+    passes.record("residual_write", 1)
+    values, indices = assemble_staging(vals, offs, cnt, k_cap, block=block)
+    return values, indices, new_e
+
+
+def fused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor], name: str,
+                      k, *, k_cap: Optional[int] = None,
+                      block: Optional[int] = None,
+                      stats_block: Optional[int] = None,
+                      refine_iters: int = 4, bcap: Optional[int] = None,
+                      out: Optional[torch.Tensor] = None):
+    """One EF compression step on ``u = g + e`` (``e=None``: ``u = g``).
+
+    Returns ``(values, indices, new_e)``: a ``(k_cap,)`` f32/int32 codec
+    pair and the ``(d,)`` f32 residual, with ``decode(values, indices,
+    d) + new_e == g + e`` bit for bit.  CUDA tensors run the Hopper
+    kernels (f32 only), CPU tensors their plain versions; the backend is
+    the tensor's device.  ``out`` receives ``new_e`` — pass ``e`` to update the
+    residual in place (the residual launch reads each element before it
+    writes it)."""
+    d, k_cap, block, stats_block, bcap = _resolve(
+        g, e, name, k, k_cap, block, stats_block, bcap)
+    thres = _gaussian_threshold_fused(
+        g, e, d, k, stats_block=stats_block, refine_iters=refine_iters,
+        two_sided=(name == "gaussiank2"))
+    return compress_at_threshold(g, e, thres, k_cap=k_cap, block=block,
+                                 bcap=bcap, out=out)

@@ -1,0 +1,148 @@
+"""Dense-decoder layers: RMSNorm, RoPE, GQA attention (full-causal and
+sliding-window), SwiGLU MLP (port of ``repro/models/layers.py``,
+lines 20-108, 142-168, 198-199).
+
+Plain functions on tensors with the JAX package's layouts: params are
+nested dicts, weights are ``(in, out)`` and applied as ``x @ W``, q/k/v
+are ``(B, T, heads, hd)``.  The JAX code computes these with plain jnp,
+so the port does too with plain torch ops — no fused attention: the
+softmax is taken in f32 over ``-1e30``-masked logits exactly as
+``layers._sdpa`` writes it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+
+def dense_init(gen: torch.Generator, shape, dtype, *, fan_in: int,
+               scale: Optional[float] = None, device=None) -> torch.Tensor:
+    """``scale · N(0, 1)`` with ``scale = 1/sqrt(fan_in)`` by default (the
+    reference's ``_dense_init``; ``fan_in`` is the per-layer input width
+    when ``shape`` carries a leading layer axis)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return x.mul_(scale).to(dtype)
+
+
+def init_attention(gen, cfg: ModelConfig, dtype, lead=(), device=None):
+    hd, H, KV, D = cfg.hd, cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    p = {
+        "wq": dense_init(gen, lead + (D, H * hd), dtype, fan_in=D,
+                         device=device),
+        "wk": dense_init(gen, lead + (D, KV * hd), dtype, fan_in=D,
+                         device=device),
+        "wv": dense_init(gen, lead + (D, KV * hd), dtype, fan_in=D,
+                         device=device),
+        "wo": dense_init(gen, lead + (H * hd, D), dtype, fan_in=H * hd,
+                         device=device),
+    }
+    if cfg.use_bias:
+        for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd),
+                        ("bo", D)):
+            p[name] = torch.zeros(lead + (n,), dtype=dtype, device=device)
+    return p
+
+
+def init_mlp(gen, d_model: int, d_ff: int, dtype, lead=(), device=None):
+    return {
+        "w_gate": dense_init(gen, lead + (d_model, d_ff), dtype,
+                             fan_in=d_model, device=device),
+        "w_up": dense_init(gen, lead + (d_model, d_ff), dtype,
+                           fan_in=d_model, device=device),
+        "w_down": dense_init(gen, lead + (d_ff, d_model), dtype, fan_in=d_ff,
+                             device=device),
+    }
+
+
+def init_rmsnorm(d: int, dtype, lead=(), device=None):
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    x32 = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (x32 * p["scale"].to(torch.float32)).to(dt)
+
+
+def rope_angles(positions: torch.Tensor, hd: int, theta: float):
+    """positions: (...,) int -> cos/sin of shape (..., hd//2)."""
+    exps = torch.arange(0, hd, 2, dtype=torch.float32,
+                        device=positions.device) / hd
+    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                       device=positions.device), exps)
+    ang = positions[..., None].to(torch.float32) * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """Half-split RoPE. x: (..., T, heads, hd); cos/sin: (..., T, hd//2)."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    c, s = cos[..., None, :], sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+
+
+def _qkv(p, x, cfg: ModelConfig):
+    hd, H, KV = cfg.hd, cfg.num_heads, cfg.num_kv_heads
+    B, T, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.use_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(B, T, H, hd), k.reshape(B, T, KV, hd),
+            v.reshape(B, T, KV, hd))
+
+
+def _sdpa(q, k, v, mask, cfg: ModelConfig):
+    """q: (B,T,H,hd), k/v: (B,S,KV,hd), mask: (T,S) bool — einsum, f32
+    softmax over ``-1e30``-masked logits (``layers.py:93-108``)."""
+    hd = q.shape[-1]
+    rep = cfg.num_heads // cfg.num_kv_heads
+    k = torch.repeat_interleave(k, rep, dim=2)
+    v = torch.repeat_interleave(v, rep, dim=2)
+    logits = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(hd)
+    logits = logits.to(torch.float32)
+    if mask is not None:
+        logits = torch.where(mask[None, None], logits,
+                             torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def causal_mask(T: int, S: int, window: int = 0, device=None):
+    """(T, S) bool; queries are the last T positions of the S keys."""
+    qpos = torch.arange(T, device=device)[:, None] + (S - T)
+    kpos = torch.arange(S, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m
+
+
+def attention(p, x, cfg: ModelConfig, *, window: int = 0):
+    """Training self-attention over the full sequence.  The reference
+    switches to a query-chunked scan above 1024 tokens to bound its
+    memory; the result is the same attention, so the port keeps one
+    path."""
+    B, T, D = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    positions = torch.arange(T, device=x.device)
+    cos, sin = rope_angles(positions, cfg.hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = _sdpa(q, k, v, causal_mask(T, T, window, device=x.device), cfg)
+    out = out.reshape(B, T, -1) @ p["wo"]
+    if cfg.use_bias:
+        out = out + p["bo"]
+    return out
+
+
+def mlp(p, x):
+    return (torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+            ) @ p["w_down"]

@@ -1,0 +1,158 @@
+"""Dense decoder LM: init, forward and loss (port of the dense path of
+``repro/models/model.py``, lines 39-212), plus the weight converter.
+
+Params keep the JAX package's tree leaf for leaf: ``embed``,
+``final_norm``, ``lm_head``, ``stack`` (one dict per position of the
+layer pattern, each leaf carrying a leading ``reps`` axis — the
+``lax.scan`` stacking) and ``tail``.  The selection of the compressed
+pipeline runs over whole leaves, so a per-layer split would change every
+``k``; the forward therefore ``unbind``s each stacked leaf once per step
+(one stacked gradient per leaf in the backward, no per-layer copies).
+
+No rematerialisation in this slice: llama3.2-1b's activations at batch
+8 × 128 tokens are a few GB beside ~36 GB of f32 state.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+from repro_torch.devices import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.slices import not_ported
+
+_BLOCKS = ("attn", "swa")
+_FFNS = ("mlp", "none")
+
+
+def require_dense(cfg: ModelConfig) -> ModelConfig:
+    """Raise for an architecture this slice does not build."""
+    kinds = set(cfg.block_pattern)
+    ffns = set(cfg.ffn_pattern)
+    if (cfg.frontend != "tokens" or not kinds <= set(_BLOCKS)
+            or not ffns <= set(_FFNS)):
+        raise not_ported(f"architecture {cfg.name!r} ({cfg.arch_type}: "
+                         f"blocks {sorted(kinds)}, ffn {sorted(ffns)}, "
+                         f"frontend {cfg.frontend})", "arch")
+    return cfg
+
+
+def _init_block(gen, cfg: ModelConfig, kind: str, ffn: str, dtype, lead,
+                device):
+    p: Dict[str, Any] = {"norm1": L.init_rmsnorm(cfg.d_model, dtype, lead,
+                                                 device)}
+    p["core"] = L.init_attention(gen, cfg, dtype, lead, device)
+    if ffn == "mlp":
+        p["norm2"] = L.init_rmsnorm(cfg.d_model, dtype, lead, device)
+        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead,
+                              device)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
+                ) -> Dict[str, Any]:
+    """Random params from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (the card unless told ``"cpu"``; raises without a GPU).
+    The draws differ from ``jax.random``'s (and between devices); use
+    :func:`from_jax_params` to start from the JAX init.  On the ``meta``
+    device it returns the shapes alone."""
+    require_dense(cfg.validate())
+    device = resolve_device(device)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+    dtype = getattr(torch, cfg.param_dtype)
+    period = cfg.pattern_period
+    reps, tail = divmod(cfg.num_layers, period)
+    params: Dict[str, Any] = {
+        "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
+                              fan_in=cfg.vocab_size, scale=1.0,
+                              device=device),
+        "final_norm": L.init_rmsnorm(cfg.d_model, dtype, device=device),
+        "lm_head": L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype,
+                                fan_in=cfg.d_model, device=device),
+    }
+    params["stack"] = [
+        _init_block(gen, cfg, *cfg.layer_sig(pos), dtype, (reps,), device)
+        for pos in range(period if reps else 0)]
+    params["tail"] = [
+        _init_block(gen, cfg, *cfg.layer_sig(reps * period + i), dtype, (),
+                    device)
+        for i in range(tail)]
+    return params
+
+
+def _apply_block(p, h, cfg: ModelConfig, kind: str, ffn: str):
+    normed = L.rmsnorm(p["norm1"], h)
+    window = cfg.sliding_window if kind == "swa" else 0
+    core_out = L.attention(p["core"], normed, cfg, window=window)
+    if cfg.parallel_block and ffn != "none":
+        return h + core_out + L.mlp(p["ffn"], normed)
+    h = h + core_out
+    if ffn == "mlp":
+        h = h + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], h))
+    return h
+
+
+def _unbind(stacked) -> list:
+    """A stacked layer dict as a list of per-rep dicts of views."""
+    leaves, td = tree.flatten(stacked)
+    parts = [x.unbind(0) for x in leaves]
+    reps = len(parts[0]) if parts else 0
+    return [tree.unflatten(td, [p[r] for p in parts]) for r in range(reps)]
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence forward -> f32 logits ``(B, T, vocab)``."""
+    require_dense(cfg)
+    adt = getattr(torch, cfg.activation_dtype)
+    h = params["embed"][tokens].to(adt)
+    period = cfg.pattern_period
+    reps = cfg.num_layers // period
+    per_pos = [_unbind(sp) for sp in params["stack"]]
+    for r in range(reps):
+        for pos in range(period):
+            kind, ffn = cfg.layer_sig(pos)
+            h = _apply_block(per_pos[pos][r], h, cfg, kind, ffn)
+    base = reps * period
+    for i, p in enumerate(params["tail"]):
+        h = _apply_block(p, h, cfg, *cfg.layer_sig(base + i))
+    h = L.rmsnorm(params["final_norm"], h)
+    return h @ params["lm_head"].to(adt)
+
+
+def loss_fn(params, cfg: ModelConfig, batch) -> tuple:
+    """Cross-entropy of ``batch = {"tokens", "labels"[, "loss_mask"]}``:
+    ``(loss, {"ce", "aux", "loss"})`` as in ``model.py:192-212``."""
+    logits = forward(params, cfg, batch["tokens"]).to(torch.float32)
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ll = picked - lse
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones_like(ll)
+    ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}
+
+
+def from_jax_params(np_tree, device="cuda") -> Dict[str, Any]:
+    """The JAX param tree as numpy arrays (``jax.tree.map(np.asarray,
+    params)``) -> the port's params on ``device``: same leaves, shapes,
+    names.  The card unless told ``"cpu"``; raises without a GPU."""
+    device = resolve_device(device)
+    return tree.tree_map(
+        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device),
+        np_tree)
+
+
+def to_numpy_tree(params) -> Dict[str, Any]:
+    """The port's params -> the same tree of numpy arrays."""
+    return tree.tree_map(lambda t: t.detach().cpu().numpy(), params)

@@ -1,0 +1,53 @@
+"""Which slice of the port carries what this slice does not.
+
+Single source for the ``NotImplementedError`` messages raised by the
+registry, the model builder, the aggregation layer and the CLI: each
+names the slice (and the ``ROADMAP.md`` queue item) that will port the
+missing piece.
+"""
+from __future__ import annotations
+
+LATER = {
+    # slice 2 — several cards
+    "mesh": "slice 2 (multi-GPU allgather over NCCL, ROADMAP Queue 1 item 8)",
+    "world": "slice 2 (multi-GPU allgather over NCCL, ROADMAP Queue 1 item 8)",
+    "gtopk": "slice 2 (gTop-k and the other wire strategies, ROADMAP Queue 1 "
+             "item 8)",
+    "hierarchical": "slice 2 (wire strategies, ROADMAP Queue 1 item 8)",
+    "hier_gtopk": "slice 2 (wire strategies, ROADMAP Queue 1 item 8)",
+    "perleaf": "slice 2 (the per-leaf aggregate_compressed, ROADMAP Queue 1 "
+               "item 8)",
+    "checkpoint": "slice 2 (checkpoint/npz.py, ROADMAP Queue 1 item 7b)",
+    "codec_dtype": "slice 2 (down-cast wire values, ROADMAP Queue 1 item 8)",
+    # slice 3 — adaptive density
+    "density_policy": "slice 3 (adaptive density, ROADMAP Queue 1 item 10)",
+    "global_k": "slice 3 (adaptive density, ROADMAP Queue 1 item 10)",
+    # slice 4 — key-sampled compressors
+    "randk": "slice 4 (key-sampled compressors + PRNG, ROADMAP Queue 1 "
+             "items 9 and 9a)",
+    "dgck": "slice 4 (key-sampled compressors + PRNG, ROADMAP Queue 1 "
+            "items 9 and 9a)",
+    "rtopk": "slice 4 (key-sampled compressors + PRNG, ROADMAP Queue 1 "
+             "items 9 and 9a)",
+    "momentum_correction": "slice 4 (momentum correction, ROADMAP Queue 1 "
+                           "item 9)",
+    # slice 5 — the remaining key-free compressors and kernels
+    "histk": "slice 5 (hist-k + the K4 kernels, ROADMAP Queue 2)",
+    "trimmedk": "slice 5 (remaining key-free compressors, ROADMAP Queue 1 "
+                "item 3b)",
+    "unfused": "slice 5 (the unfused K4 kernels, ROADMAP Queue 2)",
+    # slice 6+
+    "chunks": "slice 6 (chunked overlap, ROADMAP Queue 1 item 11)",
+    "publish": "slice 7 (serve + weight-delta streaming, ROADMAP Queue 1 "
+               "item 12)",
+    "arch": "slice 8 (MoE/SSM/xLSTM/embeds architectures, ROADMAP Queue 1 "
+            "item 13)",
+    "auto": "slice 9 (topology tuner, ROADMAP Queue 1 item 14)",
+}
+
+
+def not_ported(what: str, key: str) -> NotImplementedError:
+    """``NotImplementedError`` for ``what``, naming the slice that ports
+    ``key`` (a :data:`LATER` entry)."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet: it lands in {LATER[key]}")

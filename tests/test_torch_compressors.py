@@ -1,0 +1,108 @@
+"""The port's compressor registry, EF dispatch and compression config
+against ``repro.core``.
+
+* ``topk``: exact, bitwise, including lax.top_k's lower-index-first tie
+  order (``torch.topk`` alone breaks ties otherwise).
+* ``gaussiank``/``gaussiank2`` reference selection: threshold within
+  rtol 1e-5 (population std and ppf computed by different libraries);
+  the selected pair bitwise when the thresholds agree to the bit.
+* ``compress_with_ef`` conserves bitwise on both backends.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import compressors as jc
+from repro.core import error_feedback as jef
+from repro_torch.core import codec
+from repro_torch.core import compressors as tc
+from repro_torch.core.compression import CompressionConfig, as_config
+from repro_torch.core.error_feedback import compress_with_ef
+
+torch.set_num_threads(2)
+
+
+def test_topk_tie_order_matches_lax():
+    u = np.array([3, 1, 3, 2, 3], np.float32)
+    jv, ji = jc.topk_select(jnp.asarray(u), 2)
+    tv, ti = tc.topk_select(torch.from_numpy(u), 2)
+    assert ti.tolist() == np.asarray(ji).tolist() == [0, 2]
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+
+
+@pytest.mark.parametrize("d,k", [(10, 3), (1000, 10), (4097, 41)])
+def test_topk_matches(d, k):
+    rng = np.random.default_rng(d)
+    u = np.round(rng.standard_normal(d), 1).astype(np.float32)  # many ties
+    jv, ji = jc.topk_select(jnp.asarray(u), k)
+    tv, ti = tc.topk_select(torch.from_numpy(u), k)
+    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+
+
+@pytest.mark.parametrize("two_sided", [False, True])
+@pytest.mark.parametrize("d,k", [(100, 1), (5000, 50), (65537, 66)])
+def test_gaussiank_reference_matches(d, k, two_sided):
+    rng = np.random.default_rng(d + two_sided)
+    u = (rng.standard_normal(d) * 0.01 + 0.001).astype(np.float32)
+    jt = float(jc.gaussian_threshold(jnp.asarray(u), k, 4, two_sided))
+    tt = float(tc.gaussian_threshold(torch.from_numpy(u), k, 4, two_sided))
+    np.testing.assert_allclose(tt, jt, rtol=1e-5)
+    name = "gaussiank2" if two_sided else "gaussiank"
+    jv, ji = jc.get_compressor(name).select(jnp.asarray(u), k, None)
+    tv, ti = tc.get_compressor(name).select(torch.from_numpy(u), k, None)
+    assert ti.shape[0] == jc.gaussiank_cap(k, d) == tc.gaussiank_cap(k, d)
+    if tt == jt:
+        np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+        np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+
+
+@pytest.mark.parametrize("backend", ["fused", "reference"])
+@pytest.mark.parametrize("name", ["gaussiank", "gaussiank2", "topk"])
+def test_compress_with_ef_conserves(name, backend):
+    if backend == "fused" and name == "topk":
+        with pytest.raises(ValueError, match="no fused pipeline"):
+            compress_with_ef(torch.zeros(4), tc.get_compressor(name), 1,
+                             e=torch.zeros(4), backend=backend)
+        return
+    rng = np.random.default_rng(7)
+    g = torch.from_numpy(rng.standard_normal(3000).astype(np.float32))
+    e = torch.from_numpy(rng.standard_normal(3000).astype(np.float32))
+    v, i, r = compress_with_ef(g, tc.get_compressor(name), 30, e=e,
+                               backend=backend)
+    assert torch.equal(codec.decode(v, i, 3000) + r, g + e)
+    assert bool(jef.resolve_backend(backend, jc.get_compressor(name))) == \
+        (backend == "fused")
+
+
+@pytest.mark.parametrize("name,slice_no", [
+    ("randk", "slice 4"), ("dgck", "slice 4"), ("rtopk", "slice 4"),
+    ("histk", "slice 5"), ("trimmedk", "slice 5")])
+def test_later_compressors_name_their_slice(name, slice_no):
+    assert name in jc.available()
+    with pytest.raises(NotImplementedError, match=slice_no):
+        tc.get_compressor(name)
+
+
+def test_registry_and_unknown_name():
+    assert tc.available() == ["gaussiank", "gaussiank2", "topk"]
+    with pytest.raises(KeyError):
+        tc.get_compressor("nope")
+
+
+def test_compression_config_validation():
+    assert as_config(None) == CompressionConfig()
+    for bad in (dict(strategy="ring"), dict(backend="x"), dict(chunks=0),
+                dict(ratio=0.0), dict(momentum_correction=1.0),
+                dict(compressor="none", momentum_correction=0.5)):
+        with pytest.raises(ValueError):
+            CompressionConfig(**bad)
+    c = CompressionConfig(compressor=None)
+    assert c.dense and c.spec is None
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        CompressionConfig(strategy="gtopk").require_slice1()
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        CompressionConfig(chunks=2).require_slice1()
+    with pytest.raises(TypeError):
+        as_config("gaussiank")

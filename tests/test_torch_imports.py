@@ -1,0 +1,50 @@
+"""The PyTorch port imports neither jax nor the JAX package.
+
+Each check runs in a fresh interpreter with ``sys.modules["jax"]`` and
+``sys.modules["repro"]`` set to ``None``, so any ``import jax...`` or
+``import repro...`` anywhere in the imported code raises ImportError.
+"""
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PRELUDE = """
+import importlib, importlib.util, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+"""
+
+_PACKAGE = _PRELUDE + """
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                     "repro_torch."))
+for name in names:
+    importlib.import_module(name)
+bad = [m for m, mod in sys.modules.items() if mod is not None
+       and (m in ("jax", "repro") or m.startswith(("jax.", "repro.")))]
+assert not bad, bad
+assert len(names) >= 30, names
+print(len(names))
+"""
+
+_SMOKE = _PRELUDE + """
+spec = importlib.util.spec_from_file_location("chip_smoke", {path!r})
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+assert callable(mod.main)
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def test_port_imports_without_jax(target):
+    code = (_PACKAGE if target == "package" else
+            _SMOKE.format(path=os.path.join(ROOT, "chip_smoke.py")))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]

@@ -1,0 +1,124 @@
+"""K1/K2/K3 plain versions against the JAX package's Pallas kernels run
+in interpret mode on the same numpy inputs.
+
+Tolerances:
+* K1 ``s`` within ``1e-5 · Σ|u|`` — XLA and torch order the in-block
+  sum differently, and the sum of a near-zero-mean vector has no useful
+  relative error; ``sq`` within rtol 1e-5 (same reason, all terms
+  positive); ``absmax`` exact (max is order-free).
+* K2 counts, K3 staging values/offsets/counts and the residual ``e'``
+  exact: integer work, and values that are copies of ``u = g + e``.
+
+On CPU tensors the wrappers take the plain versions and never touch a
+launch counter.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ef_fused.compact_residual import \
+    compact_residual as j_compact
+from repro.kernels.ef_fused.fused_moments import fused_moments as j_moments
+from repro.kernels.ef_fused.tree_count import tree_count as j_tree_count
+from repro_torch.kernels.ef_fused import compact_residual as cr
+from repro_torch.kernels.ef_fused import fused_moments as fm
+from repro_torch.kernels.ef_fused import ops, tuning
+from repro_torch.kernels.ef_fused import tree_count as tc
+
+torch.set_num_threads(2)
+
+DS = [1, 33, 257, 5000, 65536]
+
+
+def _inputs(d, with_e, seed=0):
+    rng = np.random.default_rng(seed + d)
+    g = rng.standard_normal(d).astype(np.float32)
+    e = (0.3 * rng.standard_normal(d)).astype(np.float32) if with_e else None
+    return g, e
+
+
+def _pad2d(x, block):
+    if x is None:
+        return None
+    pad = (-x.shape[0]) % block
+    return jnp.asarray(np.pad(x, (0, pad)).reshape(-1, block))
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("with_e", [True, False])
+@pytest.mark.parametrize("d", DS)
+def test_fused_moments_plain_matches_pallas(d, with_e):
+    g, e = _inputs(d, with_e)
+    block = tuning.choose_stats_block(d, "torch")
+    js, jsq, jmx, _ = j_moments(_pad2d(g, block), _pad2d(e, block),
+                                block=block, backend="interpret",
+                                interpret=True)
+    ts, tsq, tmx = fm.fused_moments(_t(g), _t(e), block=block)
+    u = g if e is None else g + e
+    assert abs(float(ts) - float(js)) <= 1e-5 * float(np.abs(u).sum())
+    np.testing.assert_allclose(float(tsq), float(jsq), rtol=1e-5)
+    assert float(tmx) == float(jmx)
+    assert fm.fused_moments.launches == 0
+
+
+@pytest.mark.parametrize("with_e", [True, False])
+@pytest.mark.parametrize("d", DS)
+def test_tree_count_plain_matches_pallas(d, with_e):
+    g, e = _inputs(d, with_e)
+    block = tuning.choose_stats_block(d, "torch")
+    u = g if e is None else g + e
+    t0 = np.float32(np.quantile(np.abs(u), 0.9))
+    heap, n_t = ops._tree_thresholds(t0, 4)
+    jc = j_tree_count(_pad2d(g, block), _pad2d(e, block),
+                      jnp.asarray(heap[:n_t]), n_t=n_t, block=block,
+                      backend="interpret", interpret=True)
+    tcnt = tc.tree_count(_t(g), _t(e), torch.from_numpy(heap[:n_t]),
+                         block=block)
+    assert tcnt.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(jc), tcnt.numpy())
+    assert tc.tree_count.launches == 0
+
+
+def _compare_compact(g, e, thres, block, bcap, k_cap):
+    jv, jo, jn, je = j_compact(_pad2d(g, block), _pad2d(e, block),
+                               jnp.float32(thres), bcap=bcap, k_cap=k_cap,
+                               block=block, with_resid=True,
+                               backend="interpret", interpret=True)
+    tv, to, tn, te = cr.compact_residual(_t(g), _t(e), thres, block=block,
+                                         bcap=bcap, k_cap=k_cap)
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+    np.testing.assert_array_equal(np.asarray(jo), to.numpy())
+    np.testing.assert_array_equal(np.asarray(jn), tn.numpy())
+    d = g.shape[0]
+    np.testing.assert_array_equal(np.asarray(je).reshape(-1)[:d],
+                                  te.numpy())
+    assert cr.compact_stage.launches == 0
+    assert cr.compact_resid.launches == 0
+    return tn
+
+
+@pytest.mark.parametrize("with_e", [True, False])
+@pytest.mark.parametrize("d", DS)
+def test_compact_residual_plain_matches_pallas(d, with_e):
+    g, e = _inputs(d, with_e)
+    block = tuning.choose_block(d, "torch")
+    k = max(1, d // 100)
+    k_cap = -(-4 * k // 3)
+    bcap = ops.fused_default_bcap(k_cap, d, block)
+    u = g if e is None else g + e
+    thres = float(np.quantile(np.abs(u), 1 - k / d)) if d > 1 else 0.0
+    _compare_compact(g, e, thres, block, bcap, k_cap)
+
+
+def test_compact_residual_staging_overflow():
+    """Blocks select more than ``bcap`` (staging truncation) and the
+    running count passes ``k_cap`` (global truncation): both cuts are
+    bitwise the reference's, and the dropped mass stays in ``e'``."""
+    g, e = _inputs(5000, True, seed=7)
+    thres = float(np.quantile(np.abs(g + e), 0.9))   # ~200 per block
+    cnt = _compare_compact(g, e, thres, block=2048, bcap=8, k_cap=12)
+    assert int(cnt.max()) > 8

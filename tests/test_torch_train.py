@@ -1,0 +1,166 @@
+"""The slice as a whole: the port's train step against the JAX main path
+composed outside ``shard_map`` from public functions (world size 1):
+
+    jax.value_and_grad(loss_fn) -> pack_grads -> bucket_compress(fused)
+    -> codec.decode -> unpack_tree -> sgd_momentum(0.9).update
+
+and the port's training CLI on the CPU.
+
+Tolerances: losses within rtol 1e-4 and params within rtol 1e-4, atol
+1e-5 after 3 steps — the gradients differ from XLA's by f32 summation
+order (see test_torch_model.py), which moves the Gaussian threshold by
+ulps.  A selection flip at the threshold edge would move one element by
+up to ``lr·|g|``; none happens on these inputs (checked, not loosened).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import codec as jcodec
+from repro.core.compressors import get_compressor as j_get
+from repro.dist import aggregate as jagg
+from repro.dist import layout as jl
+from repro.models import init_params as j_init
+from repro.models import loss_fn as j_loss
+from repro.models.config import ModelConfig as JModelConfig
+from repro.optim import sgd_momentum as j_sgd
+from repro_torch import tree
+from repro_torch.core.compression import CompressionConfig
+from repro_torch.dist.layout import build_layout
+from repro_torch.launch import train as cli
+from repro_torch.models import ModelConfig, from_jax_params
+from repro_torch.optim import constant, sgd_momentum
+from repro_torch.train import init_train_state, make_train_step
+
+torch.set_num_threads(2)
+
+_CFG = dict(name="sys", arch_type="dense", num_layers=2, d_model=64,
+            num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=64)
+STEPS, LR = 3, 0.1
+
+
+def _batches(vocab):
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(STEPS):
+        toks = rng.integers(0, vocab, (4, 16)).astype(np.int32)
+        out.append({"tokens": toks, "labels": np.roll(toks, -1, axis=1)})
+    return out
+
+
+def _jax_reference(cfg, jparams, batches, compressor, ratio, backend):
+    opt = j_sgd(0.9)
+    state = opt.init(jparams)
+    p = jparams
+    layout = None
+    if compressor != "none":
+        spec = j_get(compressor)
+        layout = jl.build_layout(jparams, 1, ratio, spec)
+        D = layout.d_row_total
+        E = jnp.zeros((1, D), jnp.float32)
+        compress = jax.jit(lambda G, E: jagg.bucket_compress(
+            G, E, layout, spec, None, backend=backend))
+    grad_fn = jax.jit(jax.value_and_grad(
+        lambda q, b: j_loss(q, cfg, b, remat=False), has_aux=True))
+    losses = []
+    for b in batches:
+        (loss, _), g = grad_fn(p, {k: jnp.asarray(v) for k, v in b.items()})
+        if layout is not None:
+            G = jl.pack_grads(layout, g, jnp.float32)
+            v, i, E, _ = compress(G, E)
+            mean = jcodec.decode(v[0], i[0], D)[None] / 1
+            g = jl.unpack_tree(layout, mean, like=g)
+        p, state = opt.update(p, state, g, jnp.float32(LR))
+        losses.append(float(loss))
+    return losses, p
+
+
+@pytest.mark.parametrize("compressor,ratio,backend", [
+    ("gaussiank", 0.01, "fused"), ("gaussiank", 0.001, "fused"),
+    ("gaussiank2", 0.01, "fused"), ("topk", 0.01, "reference"),
+    ("none", 0.01, "auto")])
+def test_three_steps_match_composed_reference(compressor, ratio, backend):
+    jcfg = JModelConfig(**_CFG).validate()
+    tcfg = ModelConfig(**_CFG).validate()
+    jparams = j_init(jcfg, jax.random.PRNGKey(0))
+    batches = _batches(jcfg.vocab_size)
+    jlosses, jfinal = _jax_reference(jcfg, jparams, batches, compressor,
+                                     ratio, backend)
+
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), "cpu")
+    comp = CompressionConfig(compressor=compressor, ratio=ratio,
+                             backend=backend)
+    layout = None if comp.dense else build_layout(params, 1, comp)
+    opt = sgd_momentum(0.9)
+    state = init_train_state(params, opt, workers=1, model_size=1,
+                             compression=comp, layout=layout)
+    step = make_train_step(tcfg, (1, 1), opt, constant(LR),
+                           compression=comp, layout=layout)
+    tlosses = []
+    for b in batches:
+        state, m = step(state, {k: torch.from_numpy(v).long()
+                                for k, v in b.items()})
+        tlosses.append(float(m["loss"]))
+        if not comp.dense:
+            assert m["density"] <= m["density_cap"]
+            assert m["collectives_per_step"] == 1.0
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
+    for a, b in zip(jax.tree.leaves(jfinal), tree.leaves(state["params"])):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-4,
+                                   atol=1e-5)
+    assert state["step"] == STEPS
+
+
+def test_cli_smoke_on_cpu(capsys):
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
+            "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
+            "--log-every", "1"]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "step     1 loss=" in out and "coll=1" in out
+    recs = cli.run(argv)
+    assert len(recs) == 2
+    assert all(np.isfinite(r["loss"]) for r in recs)
+    assert all(r["density"] <= r["density_cap"] for r in recs)
+
+
+def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        cli.run(["--arch", "llama3.2-1b", "--smoke", "--density-policy",
+                 "none", "--steps", "1"])
+
+
+@pytest.mark.parametrize("extra,slice_no", [
+    (["--strategy", "gtopk"], "slice 2"),
+    (["--mesh", "2x1"], "slice 2"),
+    (["--pipeline", "perleaf"], "slice 2"),
+    (["--checkpoint", "ck.npz"], "slice 2"),
+    (["--density-policy", "variance"], "slice 3"),
+    (["--global-k-policy", "normdecay", "--density-policy", "none"],
+     "slice 3"),
+    (["--compressor", "randk"], "slice 4"),
+    (["--compressor", "histk"], "slice 5"),
+    (["--chunks", "2"], "slice 6"),
+    (["--publish-every", "2"], "slice 7"),
+    (["--host-devices", "8"], "slice 2"),
+    (["--topology", "topo.json"], "slice 9"),
+    (["--density-floor", "0.5"], "slice 3"),
+    (["--global-k-floor", "0.5"], "slice 3"),
+    (["--resync-every", "4"], "slice 7"),
+])
+def test_cli_names_the_slice_of_what_it_lacks(extra, slice_no):
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
+            "--device", "cpu", "--steps", "1"] + extra
+    with pytest.raises(NotImplementedError, match=slice_no):
+        cli.run(argv)
+
+
+def test_llama_default_density_policy_is_rejected():
+    """llama3.2-1b defaults to adaptive density; this slice needs
+    ``--density-policy none``."""
+    with pytest.raises(NotImplementedError, match="--density-policy none"):
+        cli.run(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+                 "--steps", "1"])
