@@ -9,18 +9,37 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
 1. environment: card name and power limit, torch/CUDA versions, the
    kernels built from this checkout's sources (``nvcc`` for the CUDA
    C++, Triton's JIT for the rest) and the build time;
-2. every kernel of the main path against its plain PyTorch version on
-   the card, at d in {2048, 1,000,003, 268,435,456} (the last is the
-   largest llama3.2-1b leaf, ``stack/0/ffn/w_gate``), timed with CUDA
-   events (median after warm-up), plus the whole fused Gaussian-k
-   pipeline beside exact top-k (``torch.topk``, the paper's yardstick);
-3. the main path at full width: ``repro_torch.launch.train.run`` on
-   llama3.2-1b (16 layers, d_model 2048, vocab 128256, random weights
-   from seed 0) for 3 steps of Gaussian-k at 0.001, fixed-k, bucketed,
-   allgather, world 1 — with every kernel's launch counter set to 0
-   just before and read just after;
+2. every kernel against its plain PyTorch version on the card, at d in
+   {2048, 1,000,003, 268,435,456} (the last is the largest llama3.2-1b
+   leaf, ``stack/0/ffn/w_gate``): K1 ``fused_moments`` with and without
+   its histogram, K2 ``tree_count``, the K3 stage and residual launches,
+   and the unfused pipeline's K4a ``moments``, K4b ``count_gt``, K4c
+   ``threshold_compact`` and K4d ``abs_histogram`` (integer outputs and
+   copies of ``u`` bitwise, moments within tolerance); the unfused
+   pipeline against the fused one, bitwise, for gaussiank, gaussiank2
+   and histk.  At the largest size each kernel is timed with CUDA events
+   (median after warm-up), and so are the whole pipelines beside exact
+   top-k (``torch.topk``, the paper's yardstick): fused Gaussian-k,
+   fused hist-k, unfused Gaussian-k, unfused hist-k and the registry's
+   ``histk_select_kernel`` — the paper's Fig. 4 comparison;
+3. the paths at full width, each with every kernel's launch counter set
+   to 0 just before it and read just after:
+   3.  ``repro_torch.launch.train.run`` on llama3.2-1b (16 layers,
+       d_model 2048, vocab 128256, random weights from seed 0) for 3
+       steps of Gaussian-k at 0.001, fixed-k, bucketed, allgather,
+       world 1 (K1, K2, K3);
+   3b. the same for 3 steps of hist-k on the fused backend (K1 with its
+       histogram, K3; no K2);
+   3c. the same for 2 steps of hist-k on the reference backend (K4d,
+       K4c), with its peak memory;
+   3d. ``unfused_compress_ef`` on the 268,435,456-element leaf for
+       gaussiank and histk (K4a, K4b ×4, K4c, K4d);
+   3e. the same for 2 steps of trimmed-k (plain torch: no kernel may
+       launch), with its peak memory;
 4. card against CPU on a small config (2 layers, d_model 64): 2 steps
-   on each from the same params and batches, losses within rtol 1e-4.
+   on each from the same params and batches, the CPU at the card's
+   block geometry, for gaussiank, histk (both backends) and trimmedk,
+   losses within rtol 1e-4.
 
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it the ``{"kernels": [...]}`` JSON; the last line is
@@ -79,9 +98,64 @@ def bound(nbytes: float, nops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def build(cuda_build, fm, tc, torch) -> float:
+KERNELS = {   # key: (name, route, source, replaces)
+    "fused_moments": ("fused_moments (K1)", "triton",
+                      "src/repro_torch/kernels/ef_fused/fused_moments.py",
+                      "src/repro/kernels/ef_fused/fused_moments.py:144"),
+    "fused_moments_hist": ("fused_moments with histogram (K1, hist-k)",
+                           "triton",
+                           "src/repro_torch/kernels/ef_fused/"
+                           "fused_moments.py",
+                           "src/repro/kernels/ef_fused/fused_moments.py:144"),
+    "tree_count": ("tree_count (K2)", "triton",
+                   "src/repro_torch/kernels/ef_fused/tree_count.py",
+                   "src/repro/kernels/ef_fused/tree_count.py:93"),
+    "compact_stage": ("compact_residual stage (K3)", "cuda",
+                      "src/repro_torch/csrc/compact_residual.cu",
+                      "src/repro/kernels/ef_fused/compact_residual.py:191"),
+    "compact_resid": ("compact_residual residual (K3)", "cuda",
+                      "src/repro_torch/csrc/compact_residual.cu",
+                      "src/repro/kernels/ef_fused/compact_residual.py:208"),
+    "moments": ("moments (K4a)", "triton",
+                "src/repro_torch/kernels/moments/moments.py",
+                "src/repro/kernels/moments/moments.py:48"),
+    "count_gt": ("count_gt (K4b)", "triton",
+                 "src/repro_torch/kernels/gaussian_topk/count_gt.py",
+                 "src/repro/kernels/gaussian_topk/count_gt.py:34"),
+    "threshold_compact": ("threshold_compact (K4c)", "cuda",
+                          "src/repro_torch/csrc/compact_residual.cu",
+                          "src/repro/kernels/gaussian_topk/"
+                          "threshold_compact.py:54"),
+    "abs_histogram": ("abs_histogram (K4d)", "triton",
+                      "src/repro_torch/kernels/histk/hist.py",
+                      "src/repro/kernels/histk/hist.py:62"),
+}
+
+
+def counters():
+    """Every kernel wrapper, by its ``KERNELS`` key."""
+    from repro_torch.kernels.ef_fused import compact_residual as cr
+    from repro_torch.kernels.ef_fused import fused_moments as fm
+    from repro_torch.kernels.ef_fused import tree_count as tc
+    from repro_torch.kernels.gaussian_topk import count_gt as cg
+    from repro_torch.kernels.gaussian_topk import threshold_compact as thc
+    from repro_torch.kernels.histk import hist
+    from repro_torch.kernels.moments import moments as mom
+    return {"fused_moments": fm.fused_moments,
+            "fused_moments_hist": fm.fused_moments_hist,
+            "tree_count": tc.tree_count,
+            "compact_stage": cr.compact_stage,
+            "compact_resid": cr.compact_resid,
+            "moments": mom.moments,
+            "count_gt": cg.count_gt,
+            "threshold_compact": thc.threshold_compact,
+            "abs_histogram": hist.abs_histogram}
+
+
+def build(cuda_build, torch) -> float:
     """Build the CUDA library (one nvcc per source, in a thread) while
-    Triton compiles K1/K2 on tiny inputs; returns the seconds taken."""
+    Triton compiles every specialisation of the Triton kernels on tiny
+    inputs; returns the seconds taken."""
     t0 = time.time()
     err, reports = [], {}
 
@@ -93,11 +167,16 @@ def build(cuda_build, fm, tc, torch) -> float:
 
     th = threading.Thread(target=nvcc)
     th.start()
+    k = counters()
     x = torch.ones(4096, device="cuda")
     for d in (4096, 4095):
-        fm.fused_moments(x[:d], x[:d], block=1024)
-        tc.tree_count(x[:d], x[:d], torch.ones(15, device="cuda"),
-                      block=1024)
+        k["fused_moments"](x[:d], x[:d], block=1024)
+        k["fused_moments_hist"](x[:d], x[:d], block=1024)
+        k["tree_count"](x[:d], x[:d], torch.ones(15, device="cuda"),
+                        block=1024)
+        k["moments"](x[:d], block=1024)
+        k["count_gt"](x[:d], 0.5, block=1024)
+        k["abs_histogram"](x[:d], block=1024)
     torch.cuda.synchronize()
     th.join()
     if err:
@@ -108,10 +187,35 @@ def build(cuda_build, fm, tc, torch) -> float:
     return time.time() - t0
 
 
+def check_moments(d, what, got, plain, sum_abs):
+    """K1/K4a moments against the plain version: ``s`` within
+    ``1e-5·Σ|u|``, ``sq`` within rtol 1e-5, absmax exact.  Returns the
+    larger error."""
+    (s, sq, mx), (ps, psq, pmx) = got, plain
+    err_s, err_sq = abs(float(s) - float(ps)), abs(float(sq) - float(psq))
+    assert err_s <= 1e-5 * sum_abs, (d, what, "s", float(s), float(ps))
+    assert err_sq <= 1e-5 * abs(float(psq)), (d, what, "sq", float(sq),
+                                              float(psq))
+    assert float(mx) == float(pmx), (d, what, "absmax", float(mx),
+                                     float(pmx))
+    return max(err_s, err_sq)
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality: same shape and dtype, f32 compared as int32."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
 def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     """Phase 2 at one size: each kernel against its plain version on the
-    card (K1 within tolerance, K2/K3 bitwise), pipeline conservation,
-    and (``timed``) the times that go into the kernels line."""
+    card (moments within tolerance, everything else bitwise), the
+    pipelines' conservation, unfused against fused bitwise, and
+    (``timed``) the times that go into the kernels line."""
     import torch
 
     from repro_torch.core import codec
@@ -120,6 +224,12 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     from repro_torch.kernels.ef_fused import fused_moments as fm
     from repro_torch.kernels.ef_fused import ops, tuning
     from repro_torch.kernels.ef_fused import tree_count as tc
+    from repro_torch.kernels.gaussian_topk import count_gt as cg
+    from repro_torch.kernels.gaussian_topk import ops as gops
+    from repro_torch.kernels.gaussian_topk import threshold_compact as thc
+    from repro_torch.kernels.histk import hist
+    from repro_torch.kernels.histk import ops as hops
+    from repro_torch.kernels.moments import moments as mom
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -130,18 +240,14 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     sb, block = cfg.stats_block, cfg.block
     k_cap = gaussiank_cap(k, d)
     bcap = ops.fused_default_bcap(k_cap, d, block, cfg.bcap_slack)
+    ubcap = gops.default_bcap(k_cap, d, block)
     nb, nbs = -(-d // block), -(-d // sb)
 
     # K1
     s, sq, mx = fm.fused_moments(g, e, block=sb)
     ps, psq, pmx = fm.fused_moments_plain(g, e, block=sb)
     sum_abs = float((g + e).abs().double().sum())
-    err_s, err_sq = abs(float(s) - float(ps)), abs(float(sq) - float(psq))
-    assert err_s <= 1e-5 * sum_abs, (d, "K1 s", float(s), float(ps))
-    assert err_sq <= 1e-5 * abs(float(psq)), (d, "K1 sq", float(sq),
-                                              float(psq))
-    assert float(mx) == float(pmx), (d, "K1 absmax", float(mx), float(pmx))
-    k1_err = max(err_s, err_sq)
+    k1_err = check_moments(d, "K1", (s, sq, mx), (ps, psq, pmx), sum_abs)
     # K2 at the refinement tree of the plain moments
     t0 = ops.gaussian_t0(ps, psq, d, k, False)
     heap, n_cnt = ops._tree_thresholds(t0, 4)
@@ -155,24 +261,78 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     vp, op, cp = cr.compact_stage_plain(g, e, thres, block=block, bcap=bcap)
     assert torch.equal(ck, cp), (d, "K3 counts")
     assert torch.equal(ok, op), (d, "K3 offsets")
-    assert torch.equal(vk.view(torch.int32), vp.view(torch.int32)), (
-        d, "K3 staged values")
+    assert same_bits(vk, vp), (d, "K3 staged values")
     enc = cr.exclusive_enc(cp, bcap)
     rk = cr.compact_resid(g, e, thres, enc, block=block, bcap=bcap,
                           k_cap=k_cap)
     rp = cr.compact_resid_plain(g, e, thres, enc, block=block, bcap=bcap,
                                 k_cap=k_cap)
-    assert torch.equal(rk.view(torch.int32), rp.view(torch.int32)), (
-        d, "K3 residual")
+    assert same_bits(rk, rp), (d, "K3 residual")
     # the pipeline: conservation decode(v, i) + e' == g + e, bitwise
     v, i, ne = ops.fused_compress_ef(g, e, "gaussiank", k)
     assert torch.equal(codec.decode(v, i, d) + ne, g + e), (d, "conserve")
     nnz = int(codec.nnz(i))
-    log(f"  d={d:>11,}: K1 |ds|={err_s:.3g} |dsq|={err_sq:.3g} absmax "
-        f"exact; K2 counts exact {cnt_k.tolist()[:3]}...; K3 staging + "
-        f"residual bitwise (block {block}, bcap {bcap}, {int(ck.sum())} "
-        f"over threshold {thres:.6g}); pipeline conserves bitwise, "
-        f"{nnz}/{k_cap} slots for k={k}")
+    log(f"  d={d:>11,}: K1 max error {k1_err:.3g}, absmax exact; K2 counts "
+        f"exact {cnt_k.tolist()[:3]}...; K3 staging + residual bitwise "
+        f"(block {block}, bcap {bcap}, {int(ck.sum())} over threshold "
+        f"{thres:.6g}); pipeline conserves bitwise, {nnz}/{k_cap} slots "
+        f"for k={k}")
+
+    # K1 with its histogram, and K4d on the materialised u
+    u = g + e
+    hs = fm.fused_moments_hist(g, e, block=sb)
+    hp = hist.abs_histogram_plain(u, block=sb)
+    assert torch.equal(hs[3], hp), (d, "K1 histogram")
+    assert int(hs[3].sum()) == d, (d, "K1 histogram total")
+    k1h_err = check_moments(d, "K1 hist", hs[:3], (ps, psq, pmx), sum_abs)
+    h4 = hist.abs_histogram(u, block=sb)
+    assert torch.equal(h4, hp), (d, "K4d histogram")
+    # K4a: the same per-block sums as K1, so bitwise K1's
+    m4 = mom.moments(u, block=sb)
+    k4a_err = check_moments(d, "K4a", m4, fm.moments_plain(u, sb), sum_abs)
+    assert same_bits(m4[0], s) and same_bits(m4[1], sq), (
+        d, "K4a vs K1", [float(x) for x in m4], float(s), float(sq))
+    # K4b at the tree's root (K2's first count) and the final threshold
+    for t in (float(heap[0]), thres):
+        c4 = cg.count_gt(u, t, block=sb)
+        assert torch.equal(c4, cg.count_gt_plain(u, t, block=sb)), (
+            d, "K4b", t)
+    assert int(cg.count_gt(u, float(heap[0]), block=sb)) == int(cnt_k[0])
+    # K4c at the final threshold and the unfused staging width
+    st4 = thc.threshold_compact(u, thres, block=block, bcap=ubcap)
+    stp = thc.threshold_compact_plain(u, thres, block=block, bcap=ubcap)
+    for a, b, what in zip(st4, stp, ("values", "offsets", "counts")):
+        assert same_bits(a, b), (d, "K4c", what)
+    if ubcap == bcap:
+        for a, b in zip(st4, (vk, ok, ck)):
+            assert same_bits(a, b), (d, "K4c vs K3 stage")
+    # the registry's hist-k geometry (block 2048 for both launches)
+    th = float(hops.histk_threshold(u, k, block=2048))
+    hb = gops.default_bcap(hops.histk_cap(k, d), d, 2048)
+    assert torch.equal(hist.abs_histogram(u, block=2048),
+                       hist.abs_histogram_plain(u, block=2048)), (
+        d, "K4d block 2048")
+    for a, b in zip(thc.threshold_compact(u, th, block=2048, bcap=hb),
+                    thc.threshold_compact_plain(u, th, block=2048,
+                                                bcap=hb)):
+        assert same_bits(a, b), (d, "K4c block 2048")
+    # unfused against fused, bitwise, and conservation.  Each pipeline
+    # takes its own default staging width (2x and 4x the expected
+    # per-block selection); at the card's block of 1024 both are 64 at
+    # these sizes, so they truncate alike.
+    assert ubcap == bcap, (d, "staging widths", bcap, ubcap)
+    for name in ("gaussiank", "gaussiank2", "histk"):
+        fv, fi, fne = ops.fused_compress_ef(g, e, name, k)
+        uv, ui, une = ops.unfused_compress_ef(g, e, name, k)
+        assert same_bits(fv, uv) and same_bits(fi, ui), (d, name, "wire")
+        assert same_bits(fne, une), (d, name, "residual")
+        assert torch.equal(codec.decode(fv, fi, d) + fne, u), (
+            d, name, "conserve")
+        del fv, fi, fne, uv, ui, une
+    log(f"  d={d:>11,}: K1 histogram and K4d bitwise the plain version "
+        f"(bins {int((hp > 0).sum())} occupied); K4a bitwise K1's sums; "
+        f"K4b, K4c (bcap {ubcap}) bitwise; K4c/K4d at block 2048 bitwise; "
+        f"unfused == fused bitwise for gaussiank, gaussiank2, histk")
     if not timed:
         return
 
@@ -189,55 +349,168 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
 
     it, pit = (20, 5) if d < BIG_LEAF else (10, 3)
     out = torch.empty_like(g)
-    u_abs = (g + e).abs()
     ms = {
-        "fused_moments": (time_ms(lambda: fm.fused_moments(g, e, block=sb),
-                                  it),
-                          time_ms(lambda: fm.fused_moments_plain(
-                              g, e, block=sb), pit)),
-        "tree_count": (time_ms(lambda: tc.tree_count(g, e, thr, block=sb),
-                               it),
-                       time_ms(lambda: tc.tree_count_plain(g, e, thr,
-                                                           block=sb), pit)),
-        "compact_stage": (time_ms(lambda: cr.compact_stage(
-            g, e, thres, block=block, bcap=bcap), it),
-            time_ms(lambda: cr.compact_stage_plain(
-                g, e, thres, block=block, bcap=bcap), pit)),
-        "compact_resid": (time_ms(lambda: cr.compact_resid(
-            g, e, thres, enc, block=block, bcap=bcap, k_cap=k_cap,
-            out=out), it),
-            time_ms(lambda: cr.compact_resid_plain(
-                g, e, thres, enc, block=block, bcap=bcap, k_cap=k_cap),
-                pit)),
+        "fused_moments": (lambda: fm.fused_moments(g, e, block=sb),
+                          lambda: fm.fused_moments_plain(g, e, block=sb)),
+        "fused_moments_hist": (
+            lambda: fm.fused_moments_hist(g, e, block=sb),
+            lambda: fm.fused_moments_hist_plain(g, e, block=sb)),
+        "tree_count": (lambda: tc.tree_count(g, e, thr, block=sb),
+                       lambda: tc.tree_count_plain(g, e, thr, block=sb)),
+        "compact_stage": (
+            lambda: cr.compact_stage(g, e, thres, block=block, bcap=bcap),
+            lambda: cr.compact_stage_plain(g, e, thres, block=block,
+                                           bcap=bcap)),
+        "compact_resid": (
+            lambda: cr.compact_resid(g, e, thres, enc, block=block,
+                                     bcap=bcap, k_cap=k_cap, out=out),
+            lambda: cr.compact_resid_plain(g, e, thres, enc, block=block,
+                                           bcap=bcap, k_cap=k_cap)),
+        "moments": (lambda: mom.moments(u, block=sb),
+                    lambda: fm.moments_plain(u, sb)),
+        "count_gt": (lambda: cg.count_gt(u, thres, block=sb),
+                     lambda: cg.count_gt_plain(u, thres, block=sb)),
+        "threshold_compact": (
+            lambda: thc.threshold_compact(u, thres, block=block, bcap=ubcap),
+            lambda: thc.threshold_compact_plain(u, thres, block=block,
+                                                bcap=ubcap)),
+        "abs_histogram": (lambda: hist.abs_histogram(u, block=sb),
+                          lambda: hist.abs_histogram_plain(u, block=sb)),
     }
-    pipe = (time_ms(lambda: ops.fused_compress_ef(g, e, "gaussiank", k), it),
-            time_ms(pipeline_plain, pit),
-            time_ms(lambda: torch.topk(u_abs, k), it))
-    del u_abs, out
-    nt = 16
-    work = {   # (bytes each input read once + each output written once, ops)
-        "fused_moments": (8 * d + 12 * nbs, 5 * d),
-        "tree_count": (8 * d + 4 * nt * nbs, 17 * d),
-        "compact_stage": (8 * d + 8 * nb * bcap + 4 * nb, 3 * d),
-        "compact_resid": (12 * d + 8 * nb, 3 * d),
+    ms = {n: (time_ms(a, it), time_ms(b, pit)) for n, (a, b) in ms.items()}
+    nt = thr.numel()
+    # (bytes: each input of the function read once and each of its
+    # outputs written once; ops; bytes of the per-program partial rows
+    # the no-atomics design writes and folds, an overhead of the design
+    # that the bound does not count)
+    work = {
+        "fused_moments": (8 * d + 12, 5 * d, 12 * nbs),
+        "fused_moments_hist": (8 * d + 12 + 4 * 128, 20 * d,
+                               (12 + 4 * 128) * nbs),
+        "tree_count": (8 * d + 8 * nt, 17 * d,
+                       4 * max(2, 1 << (nt - 1).bit_length()) * nbs),
+        "compact_stage": (8 * d + 8 * nb * bcap + 4 * nb, 3 * d, 0),
+        "compact_resid": (12 * d + 8 * nb, 3 * d, 0),
+        "moments": (4 * d + 12, 5 * d, 12 * nbs),
+        "count_gt": (4 * d + 8, 3 * d, 4 * 2 * nbs),
+        "threshold_compact": (4 * d + 8 * nb * ubcap + 4 * nb, 3 * d, 0),
+        "abs_histogram": (4 * d + 4 * 128, 15 * d, 4 * 128 * nbs),
     }
-    errs = {"fused_moments": k1_err, "tree_count": 0.0,
-            "compact_stage": 0.0, "compact_resid": 0.0}
+    errs = {"fused_moments": k1_err, "fused_moments_hist": k1h_err,
+            "moments": k4a_err}
     for name, (k_ms, p_ms) in ms.items():
-        b_ms, b_by = bound(*work[name])
+        fn_bytes, ops_n, rows_bytes = work[name]
+        b_ms, b_by = bound(fn_bytes, ops_n)
         rows[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                          bound_by=b_by, max_abs_err=errs[name], d=d)
-    b_ms, b_by = bound(12 * d + 8 * k_cap, 25 * d)
-    rows["pipeline"] = {
-        "name": "fused_compress_ef (gaussiank: K1+K2+K3 + glue)", "d": d,
-        "k": k, "ms": pipe[0], "plain_ms": pipe[1], "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": pipe[2],
-        "library": "torch.topk(|u|, k) on a precomputed |u|: exact top-k, "
-                   "the paper's yardstick"}
+                          bound_by=b_by, max_abs_err=errs.get(name, 0.0),
+                          d=d, partial_rows_bytes=rows_bytes)
     log(f"  times at d={d:,} (ms, median): " + ", ".join(
-        f"{n} {a:.4f} (plain {b:.3f})" for n, (a, b) in ms.items())
-        + f"; pipeline {pipe[0]:.3f} (plain {pipe[1]:.3f}, torch.topk "
-        f"{pipe[2]:.3f})")
+        f"{n} {a:.4f} (plain {b:.3f})" for n, (a, b) in ms.items()))
+
+    # the pipelines beside exact top-k: the paper's Fig. 4 on this card.
+    # bytes per element of each pipeline's own passes (a read or write
+    # of a leaf-sized f32 array is 4 bytes)
+    u_abs = u.abs()
+    ef, sel = 12 * d + 8 * k_cap, 4 * d + 8 * k_cap
+    pipes = {   # name: (call, bytes of the function's own inputs and
+        #               outputs, bytes per element of its passes)
+        "fused gaussiank (K1, K2, K3 stage, K3 residual)": (
+            lambda: ops.fused_compress_ef(g, e, "gaussiank", k), ef, 36),
+        "fused histk (K1 with histogram, K3 stage, K3 residual)": (
+            lambda: ops.fused_compress_ef(g, e, "histk", k), ef, 28),
+        "unfused gaussiank (add, K4a, K4b x4, K4c, decode, subtract)": (
+            lambda: ops.unfused_compress_ef(g, e, "gaussiank", k), ef, 52),
+        "unfused histk (add, K4d, K4c, decode, subtract)": (
+            lambda: ops.unfused_compress_ef(g, e, "histk", k), ef, 36),
+        "histk_select_kernel on u (K4d, K4c at block 2048)": (
+            lambda: hops.histk_select_kernel(u, k), sel, 8),
+        "torch.topk(|u|, k) on a precomputed |u|": (
+            lambda: torch.topk(u_abs, k), sel, 4),
+    }
+    prows = []
+    for name, (fn, fn_bytes, bpe) in pipes.items():
+        t = time_ms(fn, it)
+        b_ms, b_by = bound(fn_bytes, 3 * d)
+        prows.append({"name": name, "d": d, "k": k, "ms": t,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "passes_bound_ms": bpe * d / HBM_BYTES_PER_S * 1e3})
+    prows[0]["plain_ms"] = time_ms(pipeline_plain, pit)
+    rows["pipelines"] = prows
+    log("  pipelines at d={:,}, k={:,} (ms, median): ".format(d, k)
+        + "; ".join(f"{r['name']} {r['ms']:.3f} (bound "
+                    f"{r['bound_ms']:.3f}, passes {r['passes_bound_ms']:.3f})"
+                    for r in prows))
+    del u_abs, out
+
+
+# bytes per element of the leaf-sized arrays each kernel reads and writes
+# (staging rows and partial rows not counted): the per-step bound of a
+# path is these over all the step's elements at the memory rate
+LEAF_BYTES = {"fused_moments": 8, "fused_moments_hist": 8, "tree_count": 8,
+              "compact_stage": 8, "compact_resid": 12, "moments": 4,
+              "count_gt": 4, "threshold_compact": 4, "abs_histogram": 4}
+
+
+def drive(label, run, expect, steps):
+    """Run one path with every launch counter set to 0 just before and
+    read just after; check the counts against ``expect`` per step (a
+    kernel missing from ``expect`` must not launch)."""
+    funcs = counters()
+    for f in funcs.values():
+        f.launches = 0
+    out = run()
+    launches = {n: f.launches for n, f in funcs.items()}
+    want = {n: expect.get(n, 0) * steps for n in funcs}
+    assert launches == want, (label, "launches", launches, want)
+    for n, c in expect.items():
+        assert c > 0 and launches[n] > 0, (label, n)
+    return launches, out
+
+
+def train_path(label, argv, expect, steps, torch):
+    """One trainer path at full width: returns its launches, records,
+    peak memory and each launched kernel's bound per step (``LEAF_BYTES``
+    over the bucket's columns); checks the per-step launches, the first
+    step's bucket conservation, finite losses and density <= cap."""
+    from repro_torch.launch import train
+    funcs = counters()
+    seen, G_cols = [], []
+
+    def probe(G, values, indices, mean, new_E):
+        seen.append({n: f.launches for n, f in funcs.items()})
+        if len(seen) == 1:   # step 0: the residual was zero, u == G
+            G_cols.append(G.shape[1])
+            step = 1 << 28       # compare in 1 GiB slices, not one 6 GB sum
+            for a in range(0, G.shape[1], step):
+                cols = slice(a, a + step)
+                assert torch.equal(mean[:, cols] + new_E[:, cols],
+                                   G[:, cols]), (label, "conservation", a)
+
+    torch.cuda.reset_peak_memory_stats()
+    launches, records = drive(
+        label, lambda: train.run(argv + ["--steps", str(steps),
+                                         "--log-every", "1"], probe=probe),
+        expect, steps)
+    peak = torch.cuda.max_memory_allocated()
+    for s, snap in enumerate(seen):
+        for n, c in expect.items():
+            assert snap[n] == c * (s + 1), (label, "per-step", s, n, snap)
+    losses = [r["loss"] for r in records]
+    assert all(math.isfinite(x) for x in losses), (label, losses)
+    for r in records:
+        assert r["density"] <= r["density_cap"], (label, r)
+    step_ms = [r["ms"] for r in records]
+    cols = G_cols[0]
+    step_bound = {n: LEAF_BYTES[n] * cols / HBM_BYTES_PER_S * 1e3
+                  for n in expect}
+    log(f"  {label}: losses {losses}; step ms "
+        f"{[round(x, 1) for x in step_ms]}; peak memory "
+        f"{peak / 2**30:.2f} GiB; density "
+        f"{[round(r['density'], 6) for r in records]} (cap "
+        f"{records[0]['density_cap']:.6f}); launches {launches}; first "
+        f"step's bucket conserves bitwise; per-step bound ms over "
+        f"{cols:,} columns {step_bound}")
+    return launches, records, peak, step_bound
 
 
 def main(argv) -> int:
@@ -256,116 +529,122 @@ def main(argv) -> int:
 
     from repro_torch import tree
     from repro_torch.kernels import cuda_build
-    from repro_torch.kernels.ef_fused import compact_residual as cr
-    from repro_torch.kernels.ef_fused import fused_moments as fm
-    from repro_torch.kernels.ef_fused import tree_count as tc
 
     kernels_only = "--kernels-only" in argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
+    t_start = time.time()
 
     # -- phase 1: environment + build --
     log(f"gpu: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)}")
-    build_s = build(cuda_build, fm, tc, torch)
+    build_s = build(cuda_build, torch)
     log(f"kernels built in {build_s:.1f} s (nvcc -> "
         f"{cuda_build.build_dir()}, Triton JIT)")
 
     # -- phase 2: kernels against their plain versions --
-    rows = {
-        "fused_moments": {"name": "fused_moments (K1)", "route": "triton",
-                          "source": "src/repro_torch/kernels/ef_fused/"
-                                    "fused_moments.py",
-                          "replaces": "src/repro/kernels/ef_fused/"
-                                      "fused_moments.py:144"},
-        "tree_count": {"name": "tree_count (K2)", "route": "triton",
-                       "source": "src/repro_torch/kernels/ef_fused/"
-                                 "tree_count.py",
-                       "replaces": "src/repro/kernels/ef_fused/"
-                                   "tree_count.py:93"},
-        "compact_stage": {"name": "compact_residual stage (K3)",
-                          "route": "cuda",
-                          "source": "src/repro_torch/csrc/"
-                                    "compact_residual.cu",
-                          "replaces": "src/repro/kernels/ef_fused/"
-                                      "compact_residual.py:191"},
-        "compact_resid": {"name": "compact_residual residual (K3)",
-                          "route": "cuda",
-                          "source": "src/repro_torch/csrc/"
-                                    "compact_residual.cu",
-                          "replaces": "src/repro/kernels/ef_fused/"
-                                      "compact_residual.py:208"},
-    }
+    rows = {n: {"name": v[0], "route": v[1], "source": v[2],
+                "replaces": v[3], "library_ms": None}
+            for n, v in KERNELS.items()}
     sizes = (2048, 1_000_003) if kernels_only else (2048, 1_000_003,
                                                     BIG_LEAF)
     log("phase 2: kernels against their plain versions on the card")
     for n, d in enumerate(sizes):
         check_kernels(d, n, rows, timed=d == sizes[-1])
         torch.cuda.empty_cache()
+    pipelines = rows.pop("pipelines", None)
     if kernels_only:
-        log(json.dumps(rows))
+        log(json.dumps({"kernels": list(rows.values()),
+                        "pipelines": pipelines}))
         log("kernels-only run: phases 3-4 skipped")
         return 0
 
-    # -- phase 3: the main path at full width --
-    from repro_torch.launch import train
-    counters = {"fused_moments": fm.fused_moments,
-                "tree_count": tc.tree_count,
-                "compact_stage": cr.compact_stage,
-                "compact_resid": cr.compact_resid}
-    per_step = {"fused_moments": 12, "tree_count": 12, "compact_stage": 12,
-                "compact_resid": 12}
-    seen = []
-
-    def probe(G, values, indices, mean, new_E):
-        seen.append({n: f.launches for n, f in counters.items()})
-        if len(seen) == 1:   # step 0: the residual was zero, u == G
-            step = 1 << 28       # compare in 1 GiB slices, not one 6 GB sum
-            for a in range(0, G.shape[1], step):
-                cols = slice(a, a + step)
-                assert torch.equal(mean[:, cols] + new_E[:, cols],
-                                   G[:, cols]), ("bucket conservation", a)
-            log(f"  step 0 bucket conserves bitwise: decode(v, i) + e' == "
-                f"g over {G.numel():,} columns")
-
-    steps, batch, seq = 3, 8, 128
-    log("phase 3: llama3.2-1b at full width, 3 steps")
-    torch.cuda.reset_peak_memory_stats()
-    for f in counters.values():
-        f.launches = 0
-    records = train.run(["--arch", "llama3.2-1b", "--density-policy", "none",
-                         "--steps", str(steps), "--batch", str(batch),
-                         "--seq", str(seq), "--log-every", "1"],
-                        probe=probe)
-    launches = {n: f.launches for n, f in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-    for n, c in launches.items():
-        assert c == per_step[n] * steps and c > 0, (n, c)
-    for s, snap in enumerate(seen):
-        for n, c in snap.items():
-            assert c == per_step[n] * (s + 1), ("per-step launches", s, n, c)
-    losses = [r["loss"] for r in records]
-    assert all(math.isfinite(x) for x in losses), losses
-    for r in records:
-        assert r["density"] <= r["density_cap"], r
+    # -- phase 3: the paths at full width --
+    llama = ["--arch", "llama3.2-1b", "--density-policy", "none",
+             "--batch", "8", "--seq", "128"]
+    by_path = {}
+    log("phase 3: llama3.2-1b at full width, Gaussian-k (fused), 3 steps")
+    by_path["gaussiank fused"], records, peak, bnd = train_path(
+        "gaussiank fused", llama,
+        {"fused_moments": 12, "tree_count": 12, "compact_stage": 12,
+         "compact_resid": 12}, 3, torch)
     step_ms = [r["ms"] for r in records]
-    tok_s = batch * seq / (statistics.median(step_ms[1:]) / 1e3)
-    log(f"  losses {losses}; step ms {[round(x, 1) for x in step_ms]} "
-        f"(median of steps 1-2: {statistics.median(step_ms[1:]):.1f}); "
-        f"{tok_s:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB; "
-        f"launches {launches} = 12/12/12/12 per step")
-    for n in counters:
-        rows[n]["launches"] = launches[n]
-        rows[n]["library_ms"] = None
-    rows["pipeline"]["launches"] = None
-    main_path = {"arch": "llama3.2-1b", "steps": steps, "batch": batch,
-                 "seq": seq, "losses": losses, "step_ms": step_ms,
+    tok_s = 8 * 128 / (statistics.median(step_ms[1:]) / 1e3)
+    main_path = {"arch": "llama3.2-1b", "steps": 3, "batch": 8, "seq": 128,
+                 "losses": [r["loss"] for r in records], "step_ms": step_ms,
                  "tokens_per_s": tok_s, "peak_mem_gib": peak / 2**30,
                  "density": [r["density"] for r in records],
-                 "density_cap": records[0]["density_cap"]}
+                 "density_cap": records[0]["density_cap"],
+                 "step_bound_ms": bnd}
+    log(f"  {tok_s:.0f} tokens/s (median of steps 1-2)")
+    del records
+    torch.cuda.empty_cache()
+
+    log("phase 3b: path A, hist-k on the fused backend, 3 steps")
+    by_path["histk fused"], records, peak, bnd = train_path(
+        "histk fused", llama + ["--compressor", "histk"],
+        {"fused_moments_hist": 12, "compact_stage": 12,
+         "compact_resid": 12}, 3, torch)
+    path_a = {"losses": [r["loss"] for r in records],
+              "step_ms": [r["ms"] for r in records],
+              "peak_mem_gib": peak / 2**30,
+              "density": [r["density"] for r in records],
+              "step_bound_ms": bnd}
+    del records
+    torch.cuda.empty_cache()
+
+    log("phase 3c: path B, hist-k on the reference backend, 2 steps")
+    by_path["histk reference"], records, peak, bnd = train_path(
+        "histk reference",
+        llama + ["--compressor", "histk", "--backend", "reference"],
+        {"abs_histogram": 12, "threshold_compact": 12}, 2, torch)
+    path_b = {"losses": [r["loss"] for r in records],
+              "step_ms": [r["ms"] for r in records],
+              "peak_mem_gib": peak / 2**30,
+              "density": [r["density"] for r in records],
+              "step_bound_ms": bnd}
+    assert peak < 80e9, ("path B peak memory", peak)
+    del records
+    torch.cuda.empty_cache()
+
+    log("phase 3d: path C, unfused_compress_ef on the 268,435,456-element "
+        "leaf (gaussiank, histk)")
+    from repro_torch.core import codec
+    from repro_torch.kernels.ef_fused import unfused_compress_ef
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    g = torch.randn(BIG_LEAF, generator=gen, device="cuda").mul_(1e-3)
+    e = torch.randn(BIG_LEAF, generator=gen, device="cuda").mul_(5e-4)
+    kk = math.ceil(RATIO * BIG_LEAF)
+
+    def path_c():
+        out = []
+        for name in ("gaussiank", "histk"):
+            v, i, ne = unfused_compress_ef(g, e, name, kk)
+            assert torch.equal(codec.decode(v, i, BIG_LEAF) + ne, g + e), (
+                "path C conservation", name)
+            out.append(int(codec.nnz(i)))
+        return out
+
+    by_path["unfused"], nnzs = drive(
+        "unfused", path_c, {"moments": 1, "count_gt": 4,
+                            "threshold_compact": 2, "abs_histogram": 1}, 1)
+    log(f"  unfused gaussiank and histk conserve bitwise; nnz {nnzs}; "
+        f"launches {by_path['unfused']}")
+    del g, e
+    torch.cuda.empty_cache()
+
+    log("phase 3e: path D, trimmed-k (plain torch), 2 steps")
+    by_path["trimmedk"], records, peak, bnd = train_path(
+        "trimmedk", llama + ["--compressor", "trimmedk"], {}, 2, torch)
+    path_d = {"losses": [r["loss"] for r in records],
+              "step_ms": [r["ms"] for r in records],
+              "peak_mem_gib": peak / 2**30,
+              "density": [r["density"] for r in records]}
+    assert peak < 80e9, ("path D peak memory", peak)
     del records
     torch.cuda.empty_cache()
 
@@ -377,33 +656,52 @@ def main(argv) -> int:
     from repro_torch.optim import constant, sgd_momentum
     from repro_torch.train import init_train_state, make_train_step
 
+    from repro_torch.kernels.ef_fused import tuning
     cfg = ModelConfig(name="sys", arch_type="dense", num_layers=2,
                       d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
                       vocab_size=64).validate()
-    comp = CompressionConfig(compressor="gaussiank", ratio=0.01)
     base = init_params(cfg, 0, "cpu")
-    out = {}
-    for dev in ("cuda", "cpu"):
-        params = tree.tree_map(lambda x: x.clone().to(dev), base)
-        layout = build_layout(params, 1, comp)
-        opt = sgd_momentum(0.9)
-        state = init_train_state(params, opt, workers=1, model_size=1,
-                                 compression=comp, layout=layout)
-        step = make_train_step(cfg, (1, 1), opt, constant(0.1),
-                               compression=comp, layout=layout)
-        ls = []
-        for i in range(2):
-            b = lm_batch(i, global_batch=4, seq_len=16,
-                         vocab=cfg.vocab_size, device=dev)
-            state, m = step(state, b)
-            ls.append(float(m["loss"]))
-        out[dev] = ls
-    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
-    log(f"phase 4: card {out['cuda']} vs CPU {out['cpu']} within rtol 1e-4")
+    small = {}
+    for name, backend in (("gaussiank", "auto"), ("histk", "fused"),
+                          ("histk", "reference"),
+                          ("trimmedk", "reference")):
+        comp = CompressionConfig(compressor=name, ratio=0.01,
+                                 backend=backend)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = tree.tree_map(lambda x: x.clone().to(dev), base)
+            layout = build_layout(params, 1, comp)
+            opt = sgd_momentum(0.9)
+            state = init_train_state(params, opt, workers=1, model_size=1,
+                                     compression=comp, layout=layout)
+            step = make_train_step(cfg, (1, 1), opt, constant(0.1),
+                                   compression=comp, layout=layout)
+            ls = []
+            # the CPU run takes the card's block geometry, so both stage
+            # (and truncate) alike
+            with tuning.geometry_of("cuda"):
+                for i in range(2):
+                    b = lm_batch(i, global_batch=4, seq_len=16,
+                                 vocab=cfg.vocab_size, device=dev)
+                    state, m = step(state, b)
+                    ls.append(float(m["loss"]))
+            out[dev] = ls
+        np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+        small[f"{name} {backend}"] = out
+        log(f"phase 4: {name} ({backend}): card {out['cuda']} vs CPU "
+            f"{out['cpu']} within rtol 1e-4")
 
-    log(json.dumps({"pipeline": rows["pipeline"], "main_path": main_path,
-                    "build_s": build_s}))
-    log(json.dumps({"kernels": [rows[n] for n in counters]}))
+    for n, row in rows.items():
+        row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
+                                   if c[n]}
+        row["launches"] = sum(row["launches_by_path"].values())
+        assert row["launches"] > 0, (n, "never launched on a path")
+    log(json.dumps({"pipelines": pipelines, "main_path": main_path,
+                    "path_a": path_a, "path_b": path_b, "path_d": path_d,
+                    "small": small,
+                    "build_s": build_s,
+                    "total_s": time.time() - t_start}))
+    log(json.dumps({"kernels": list(rows.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

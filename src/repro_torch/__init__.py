@@ -1,17 +1,21 @@
 """PyTorch + CUDA port of ``repro`` for NVIDIA Hopper (H100).
 
-Slice 1 of the port: Gaussian-k TopK-SGD training of the dense decoder
-LMs on one card — fixed-k, the ``bucketed`` pipeline and the
-``allgather`` wire at world size 1.  The three fused error-feedback
-kernels of that path are hand-written for ``sm_90a``:
+Slices 1 and 5 of the port: TopK-SGD training of the dense decoder LMs
+on one card with Gaussian-k, hist-k or trimmed-k — fixed-k, the
+``bucketed`` pipeline and the ``allgather`` wire at world size 1 — and
+the unfused pipeline of the paper's Algorithm 1.  Every TPU kernel of
+the reference is hand-written for ``sm_90a``:
 
 * ``kernels/ef_fused/fused_moments.py``  K1, Triton: sum, sum of squares
-  and abs-max of ``u = g + e``;
+  and abs-max of ``u = g + e`` and, for hist-k, its ``|u|`` histogram;
 * ``kernels/ef_fused/tree_count.py``     K2, Triton: counts of
   ``|u| > t_j`` over the refinement tree's thresholds;
 * ``kernels/ef_fused/compact_residual.py`` + ``csrc/compact_residual.cu``
   K3, CUDA C++: threshold compaction into per-block staging rows, then
-  the residual write.
+  the residual write;
+* ``kernels/moments``, ``kernels/gaussian_topk/{count_gt,
+  threshold_compact}.py``, ``kernels/histk/hist.py``: the unfused
+  pipeline's K4a-d, specialisations of the K1-K3 kernels.
 
 Params are stored leaf for leaf the way the JAX package stores them
 (``x @ W`` with ``W`` shaped ``(in, out)``, scan-stacked layers as one

@@ -1,8 +1,8 @@
 """Sparsification operators (port of ``repro.core.compressors``).
 
 Every compressor maps a flat vector ``u = g + e`` to a fixed-capacity
-``(values, indices)`` pair (``codec.py``).  This slice ports the
-key-free operators of the main path:
+``(values, indices)`` pair (``codec.py``).  The port carries the
+key-free operators:
 
 =============  ==========================================  ==========
 name           selection rule                              k_cap
@@ -12,10 +12,14 @@ name           selection rule                              k_cap
 ``gaussiank``  paper Algorithm 1: Gaussian-ppf threshold   ceil(4k/3)
                + ≤4 refinement steps (band [2k/3, 4k/3])
 ``gaussiank2`` the same with ``p = 1 - k/(2d)``            ceil(4k/3)
+``trimmedk``   RedSync: 16 bisection steps of a threshold  2k
+               between mean(|u|) and max(|u|)
+``histk``      quarter-octave histogram threshold (K4d)    ceil(4k/3)
+               + block compaction (K4c)
 =============  ==========================================  ==========
 
-The other registered names raise ``NotImplementedError`` naming the
-slice that ports them.
+The key-sampled names (``randk``, ``dgck``, ``rtopk``) raise
+``NotImplementedError`` naming the slice that ports them.
 """
 from __future__ import annotations
 
@@ -83,15 +87,56 @@ def gaussiank_cap(k: int, d: int) -> int:
     return min(d, int(math.ceil(4.0 * k / 3.0)))
 
 
+def trimmed_threshold(u: torch.Tensor, k: int, iters: int = 16
+                      ) -> torch.Tensor:
+    """RedSync's threshold: bisect between ``mean(|u|)`` and ``max(|u|)``
+    — raise it while more than ``1.25k`` elements exceed the midpoint,
+    lower it while fewer than ``k`` do — and return the lower end.  All
+    in f32 torch ops on ``u``'s device, with no host sync."""
+    abs_u = torch.abs(u)
+    lo = torch.mean(abs_u)
+    hi = torch.max(abs_u)
+    k_f = torch.tensor(float(k), dtype=u.dtype, device=u.device)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        est = torch.sum(abs_u > mid).to(u.dtype)
+        # too many selected -> raise the threshold; too few -> lower it
+        lo = torch.where(est > 1.25 * k_f, mid, lo)
+        hi = torch.where(est < k_f, mid, hi)
+    return lo
+
+
+def trimmedk_select(u: torch.Tensor, k: int, key=None, iters: int = 16):
+    """``Trimmed_k`` (RedSync, Fang et al. 2019): compact ``|u| >``
+    :func:`trimmed_threshold` with a cap of ``2k`` (RedSync accepts
+    thresholds that over-select).  Plain torch, as the reference is plain
+    jnp: no kernel."""
+    thres = trimmed_threshold(u, k, iters)
+    return codec.compact_by_mask(u, torch.abs(u) > thres,
+                                 min(u.shape[0], 2 * k))
+
+
+def histk_select(u: torch.Tensor, k: int, key=None):
+    """``Hist_k``: one-pass magnitude-histogram threshold + blocked
+    compaction, through the K4d and K4c kernels (their plain versions on
+    the CPU) at the reference's block of 2048."""
+    # imported here: the kernels package builds on this module
+    from repro_torch.kernels.histk import histk_select_kernel
+    return histk_select_kernel(u, k)
+
+
 _REGISTRY = {
     "topk": CompressorSpec("topk", topk_select, lambda k, d: k),
     "gaussiank": CompressorSpec("gaussiank", gaussiank_select, gaussiank_cap),
     "gaussiank2": CompressorSpec(
         "gaussiank2", partial(gaussiank_select, two_sided=True),
         gaussiank_cap),
+    "trimmedk": CompressorSpec("trimmedk", trimmedk_select,
+                               lambda k, d: min(d, 2 * k)),
+    "histk": CompressorSpec("histk", histk_select, gaussiank_cap),
 }
 # registered in the reference, ported by a later slice
-_LATER = ("randk", "dgck", "trimmedk", "histk", "rtopk")
+_LATER = ("randk", "dgck", "rtopk")
 
 
 def get_compressor(name: str) -> CompressorSpec:

@@ -1,9 +1,15 @@
 // K3 — pass B of the fused EF pipeline on Hopper: threshold compaction
-// into per-block staging rows, then the residual write.
+// into per-block staging rows, then the residual write.  The stage
+// kernel with HAS_E = false is also K4c, the unfused pipeline's
+// threshold compaction of a materialised u.
 //
-// Replaces the TPU kernel repro/kernels/ef_fused/compact_residual.py:
+// Replaces the TPU kernels repro/kernels/ef_fused/compact_residual.py:
 // compact_residual (pallas_call sites at lines 191 (stage), 208
-// (residual) and 237 (sequential one-sweep: _kernel)).
+// (residual) and 237 (sequential one-sweep: _kernel)) and
+// repro/kernels/gaussian_topk/threshold_compact.py:threshold_compact
+// (pallas_call at line 54: the stage rows with no e; the TPU built them
+// with a one-hot MXU matmul, here they come from the ballot scan below,
+// whose offsets are exact integers).
 //
 // What it computes, per block of `block` elements of u = g + e:
 //   mask = |u| > thres, pos = in-block exclusive prefix count of mask,
@@ -56,12 +62,13 @@
 #define STAGE_TILES 4
 #define RESID_TILES 1
 
+template <bool HAS_E>
 __device__ __forceinline__ float load_u(const float* __restrict__ g,
                                         const float* __restrict__ e,
                                         long long i, long long d) {
   if (i >= d) return 0.0f;  // the reference's zero padding
   float x = g[i];
-  if (e != nullptr) x = x + e[i];
+  if (HAS_E) x = x + e[i];
   return x;
 }
 
@@ -105,7 +112,7 @@ __device__ __forceinline__ void chunk_scan(const bool (&m)[TILES],
 }
 
 // The chunk's TILES elements of this thread: u and its mask.
-template <int TILES>
+template <int TILES, bool HAS_E>
 __device__ __forceinline__ void load_chunk(const float* __restrict__ g,
                                            const float* e, long long base,
                                            long long d, int c0, int block,
@@ -114,12 +121,12 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ g,
 #pragma unroll
   for (int i = 0; i < TILES; ++i) {
     const int j = c0 + i * THREADS + threadIdx.x;
-    x[i] = j < block ? load_u(g, e, base + j, d) : 0.0f;
+    x[i] = j < block ? load_u<HAS_E>(g, e, base + j, d) : 0.0f;
     m[i] = j < block && fabsf(x[i]) > thres;
   }
 }
 
-template <int TILES>
+template <int TILES, bool HAS_E>
 __global__ void __launch_bounds__(THREADS)
 stage_kernel(const float* __restrict__ g, const float* __restrict__ e,
              long long d, float thres, int block, int bcap,
@@ -135,7 +142,7 @@ stage_kernel(const float* __restrict__ g, const float* __restrict__ e,
     float x[TILES];
     bool m[TILES];
     int pos[TILES], total;
-    load_chunk(g, e, base, d, c0, block, thres, x, m);
+    load_chunk<TILES, HAS_E>(g, e, base, d, c0, block, thres, x, m);
     chunk_scan(m, warp_tot, pos, &total);
 #pragma unroll
     for (int i = 0; i < TILES; ++i) {
@@ -155,7 +162,7 @@ stage_kernel(const float* __restrict__ g, const float* __restrict__ e,
   if (threadIdx.x == 0) cnt[b] = run;
 }
 
-template <int TILES>
+template <int TILES, bool HAS_E>
 __global__ void __launch_bounds__(THREADS)
 resid_kernel(const float* __restrict__ g, const float* e, long long d,
              float thres, int block, int bcap, long long k_cap,
@@ -169,7 +176,7 @@ resid_kernel(const float* __restrict__ g, const float* e, long long d,
     float x[TILES];
     bool m[TILES];
     int pos[TILES], total;
-    load_chunk(g, e, base, d, c0, block, thres, x, m);
+    load_chunk<TILES, HAS_E>(g, e, base, d, c0, block, thres, x, m);
     chunk_scan(m, warp_tot, pos, &total);
 #pragma unroll
     for (int i = 0; i < TILES; ++i) {
@@ -182,15 +189,27 @@ resid_kernel(const float* __restrict__ g, const float* e, long long d,
   }
 }
 
-extern "C" int compact_stage_f32(const void* g, const void* e, long long d,
-                                 float thres, int block, int bcap,
-                                 long long nblocks, void* vals, void* offs,
-                                 void* cnt, void* stream) {
-  stage_kernel<STAGE_TILES>
+template <bool HAS_E>
+static int launch_stage(const void* g, const void* e, long long d,
+                        float thres, int block, int bcap, long long nblocks,
+                        void* vals, void* offs, void* cnt, void* stream) {
+  stage_kernel<STAGE_TILES, HAS_E>
       <<<(unsigned)nblocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)g, (const float*)e, d, thres, block, bcap,
       (float*)vals, (int*)offs, (int*)cnt);
   return (int)cudaGetLastError();
+}
+
+// e may be null (u = g)
+extern "C" int compact_stage_f32(const void* g, const void* e, long long d,
+                                 float thres, int block, int bcap,
+                                 long long nblocks, void* vals, void* offs,
+                                 void* cnt, void* stream) {
+  return e != nullptr
+             ? launch_stage<true>(g, e, d, thres, block, bcap, nblocks, vals,
+                                  offs, cnt, stream)
+             : launch_stage<false>(g, e, d, thres, block, bcap, nblocks,
+                                   vals, offs, cnt, stream);
 }
 
 extern "C" int compact_resid_f32(const void* g, const void* e, long long d,
@@ -198,9 +217,15 @@ extern "C" int compact_resid_f32(const void* g, const void* e, long long d,
                                  long long k_cap, long long nblocks,
                                  const void* enc_before, void* out,
                                  void* stream) {
-  resid_kernel<RESID_TILES>
-      <<<(unsigned)nblocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)g, (const float*)e, d, thres, block, bcap, k_cap,
-      (const long long*)enc_before, (float*)out);
+  if (e != nullptr)
+    resid_kernel<RESID_TILES, true>
+        <<<(unsigned)nblocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)g, (const float*)e, d, thres, block, bcap, k_cap,
+        (const long long*)enc_before, (float*)out);
+  else
+    resid_kernel<RESID_TILES, false>
+        <<<(unsigned)nblocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)g, (const float*)e, d, thres, block, bcap, k_cap,
+        (const long long*)enc_before, (float*)out);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,14 @@
 """Fused error-feedback compression pipeline (port of
-``repro.kernels.ef_fused``): K1 ``fused_moments`` and K2 ``tree_count``
-in Triton, K3 ``compact_residual`` in CUDA C++, the threshold glue and
-the segmented bucket walk in torch."""
+``repro.kernels.ef_fused``): K1 ``fused_moments`` (with the hist-k
+histogram) and K2 ``tree_count`` in Triton, K3 ``compact_residual`` in
+CUDA C++, the threshold glue and the segmented bucket walk in torch;
+and the unfused pipeline over the K4 kernels."""
 from repro_torch.kernels.ef_fused.ops import (FUSED_COMPRESSORS,
                                               compress_at_threshold,
                                               fused_compress_ef,
                                               fused_default_bcap,
-                                              supports_fused)
+                                              supports_fused,
+                                              unfused_compress_ef)
 from repro_torch.kernels.ef_fused.passes import count_passes
 from repro_torch.kernels.ef_fused.segmented import (rows_compress_ef,
                                                     segmented_compress_ef)
@@ -15,6 +17,7 @@ from repro_torch.kernels.ef_fused.tuning import (BACKENDS, KernelConfig,
                                                  resolve_config)
 
 __all__ = ["FUSED_COMPRESSORS", "compress_at_threshold", "fused_compress_ef",
-           "fused_default_bcap", "supports_fused", "count_passes",
+           "fused_default_bcap", "supports_fused", "unfused_compress_ef",
+           "count_passes",
            "rows_compress_ef", "segmented_compress_ef", "BACKENDS",
            "KernelConfig", "resolve_backend", "resolve_config"]

@@ -1,16 +1,23 @@
 """K1 — pass A of the fused EF pipeline: sum, sum of squares and abs-max
-of ``u = g + e``, one read of the operands, ``u`` never written.
+of ``u = g + e`` and, for hist-k, the 128-bin ``|u|`` histogram; one read
+of the operands, ``u`` never written.
 
 Replaces the TPU kernel ``repro/kernels/ef_fused/fused_moments.py:
 fused_moments`` (``pallas_call`` at line 144; ``_kernel`` /
-``_partials_kernel``).  The hist-k histogram (``with_hist``) lands with
-the hist-k slice.
+``_partials_kernel``), its ``with_hist`` branch included
+(:func:`fused_moments_hist`).  The same Triton kernel, specialised by
+its ``constexpr`` switches, is also the unfused pipeline's K4a
+``moments`` (``HAS_E=False``) and K4d ``abs_histogram`` (``HAS_E=False,
+WITH_MOMENTS=False``); their wrappers live at the reference's paths
+(``kernels/moments``, ``kernels/histk``).
 
 What bounds it on the card: bytes.  It reads 8 bytes per element
-(``g`` and ``e`` in f32) and does ~5 flops on them, far below the H100's
-~20 flops per byte of f32 balance, so the floor is ``8·d`` bytes over
-the memory rate (0.64 ms for the 268,435,456-element leaf at
-3.35 TB/s).
+(``g`` and ``e`` in f32) and does ~5 flops on them (~15 integer
+operations more with the histogram), far below the H100's ~20 flops per
+byte of f32 balance, so the floor is ``8·d`` bytes over the memory rate
+(0.64 ms for the 268,435,456-element leaf at 3.35 TB/s).  The histogram
+adds one 512-byte row of partial counts per program: 33.5 MB at that
+leaf with 4096-element blocks, 2% of the bytes read.
 
 Design: a Triton streaming reduction.  Each program loads one
 ``stats_block`` of ``g`` and ``e`` with masked 16-byte vector loads
@@ -23,8 +30,15 @@ the same threshold.  Bit-equality with JAX is not a goal: XLA orders
 the in-block sum its own way, so ``s``/``sq`` are held within a stated
 tolerance (``tests/test_torch_kernels.py``).
 
-The plain version, :func:`fused_moments_plain`, runs the same blocks
-with torch ops; the wrapper takes it for CPU tensors only.
+With ``WITH_HIST`` each program bins its elements with the integer bin
+function of ``kernels/histk/hist.py`` (exponent and mantissa bits of
+``|u|`` against the f32 bin edges; no ``log2``, so the card and the CPU
+bin every element alike) and reduces them with ``tl.histogram`` into one
+int32 row of 128 counts.  The wrapper sums the rows in int64 (exact in
+any order) and takes the padding zeros, which land in bin 0, back out.
+
+The plain versions (``*_plain``) run the same blocks with torch ops; the
+wrappers take them for CPU tensors only.
 """
 from __future__ import annotations
 
@@ -32,23 +46,38 @@ import torch
 
 tl = None      # triton.language, bound at the first launch
 _KERNEL = []   # the jitted kernel, built once at the first launch
+BINS = 128     # hist-k bins (kernels/histk/hist.py)
 
 
-def _moments_kernel(g_ptr, e_ptr, part_ptr, d, HAS_E: "tl.constexpr",
-                    BLOCK: "tl.constexpr"):
+def _moments_kernel(g_ptr, e_ptr, part_ptr, hist_ptr, d,
+                    HAS_E: "tl.constexpr", WITH_MOMENTS: "tl.constexpr",
+                    WITH_HIST: "tl.constexpr", BLOCK: "tl.constexpr"):
     pid = tl.program_id(0)
     offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     m = offs < d
     x = tl.load(g_ptr + offs, mask=m, other=0.0)
     if HAS_E:
         x = x + tl.load(e_ptr + offs, mask=m, other=0.0)
-    s = tl.sum(x, axis=0)
-    sq = tl.sum(x * x, axis=0)
-    mx = tl.max(tl.abs(x), axis=0)
-    row = part_ptr + pid.to(tl.int64) * 3
-    tl.store(row, s)
-    tl.store(row + 1, sq)
-    tl.store(row + 2, mx)
+    if WITH_MOMENTS:
+        s = tl.sum(x, axis=0)
+        sq = tl.sum(x * x, axis=0)
+        mx = tl.max(tl.abs(x), axis=0)
+        row = part_ptr + pid.to(tl.int64) * 3
+        tl.store(row, s)
+        tl.store(row + 1, sq)
+        tl.store(row + 2, mx)
+    if WITH_HIST:
+        # histk/hist.py:bin_of — 4·(biased exponent − 111) plus the
+        # number of the f32 edge mantissas of 2^(1/4), 2^(1/2), 2^(3/4)
+        # at or below the mantissa, clamped to [0, 127]
+        bits = tl.abs(x).to(tl.int32, bitcast=True)
+        man = bits & 0x7FFFFF
+        q = ((man >= 0x1837F0).to(tl.int32) + (man >= 0x3504F3).to(tl.int32)
+             + (man >= 0x5744FD).to(tl.int32))
+        b = (bits >> 23) * 4 - 444 + q
+        b = tl.minimum(tl.maximum(b, 0), 127)
+        h = tl.histogram(b, 128)
+        tl.store(hist_ptr + pid.to(tl.int64) * 128 + tl.arange(0, 128), h)
 
 
 def _kernel():
@@ -85,20 +114,60 @@ def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, nb * block - d)).view(nb, block)
 
 
-def fused_moments_plain(g: torch.Tensor, e=None, *, block: int):
-    """Plain PyTorch version of K1: per-block ``(s, sq, mx)`` rows of
-    ``u = g + e`` folded in block order.  Returns three 0-d f32 tensors."""
-    u = g.to(torch.float32)
-    if e is not None:
-        u = u + e.to(torch.float32)
-    x = _blocks(u, block)
-    s_rows = x.sum(dim=1)
-    sq_rows = (x * x).sum(dim=1)
-    mx_rows = x.abs().amax(dim=1)
+def launch_stats(name: str, g: torch.Tensor, e, *, block: int,
+                 moments: bool, hist: bool):
+    """Launch the statistics kernel on CUDA ``g`` (and ``e``): returns
+    the folded ``(s, sq, mx)`` (or ``None``) and the int64 ``(BINS,)``
+    histogram of the ``d`` real elements (or ``None``).  The wrapper that
+    calls this counts the launch."""
+    _check_cuda_f32(name, g, e)
+    if block < 16 or block & (block - 1):
+        raise ValueError(f"stats block must be a power of two >= 16, got "
+                         f"{block}")
+    d = g.shape[0]
+    nb = max(1, -(-d // block))
+    parts = (torch.empty((nb, 3), dtype=torch.float32, device=g.device)
+             if moments else g)
+    hparts = (torch.empty((nb, BINS), dtype=torch.int32, device=g.device)
+              if hist else g)
+    kern = _kernel()
+    with torch.cuda.device(g.device):
+        kern[(nb,)](g, g if e is None else e, parts, hparts, d,
+                    HAS_E=e is not None, WITH_MOMENTS=moments,
+                    WITH_HIST=hist, BLOCK=block, num_warps=4)
+    # deterministic folds of the per-block rows (no float atomics)
+    stats = ((parts[:, 0].sum(), parts[:, 1].sum(), parts[:, 2].amax())
+             if moments else None)
+    h = None
+    if hist:
+        h = hparts.sum(dim=0, dtype=torch.int64)
+        h[0] -= nb * block - d        # the padding zeros landed in bin 0
+    return stats, h
+
+
+def moments_plain(x: torch.Tensor, block: int):
+    """Per-block ``(s, sq, mx)`` rows of ``x`` folded in block order: the
+    plain version of the kernel's moments.  Returns three 0-d f32
+    tensors."""
+    xb = _blocks(x.to(torch.float32), block)
+    s_rows = xb.sum(dim=1)
+    sq_rows = (xb * xb).sum(dim=1)
+    mx_rows = xb.abs().amax(dim=1)
     # cumsum folds left to right on the CPU — the reference's own
     # sequential-grid accumulation order
     return (torch.cumsum(s_rows, 0)[-1], torch.cumsum(sq_rows, 0)[-1],
             mx_rows.amax())
+
+
+def _u(g, e):
+    u = g.to(torch.float32)
+    return u if e is None else u + e.to(torch.float32)
+
+
+def fused_moments_plain(g: torch.Tensor, e=None, *, block: int):
+    """Plain PyTorch version of K1: per-block ``(s, sq, mx)`` rows of
+    ``u = g + e`` folded in block order.  Returns three 0-d f32 tensors."""
+    return moments_plain(_u(g, e), block)
 
 
 def fused_moments(g: torch.Tensor, e=None, *, block: int):
@@ -108,20 +177,36 @@ def fused_moments(g: torch.Tensor, e=None, *, block: int):
     _check(g, e)
     if g.device.type != "cuda":
         return fused_moments_plain(g, e, block=block)
-    _check_cuda_f32("fused_moments", g, e)
-    if block < 16 or block & (block - 1):
-        raise ValueError(f"stats block must be a power of two >= 16, got "
-                         f"{block}")
-    d = g.shape[0]
-    nb = max(1, -(-d // block))
-    parts = torch.empty((nb, 3), dtype=torch.float32, device=g.device)
-    kern = _kernel()
-    with torch.cuda.device(g.device):
-        kern[(nb,)](g, g if e is None else e, parts, d, HAS_E=e is not None,
-                    BLOCK=block, num_warps=4)
+    stats, _ = launch_stats("fused_moments", g, e, block=block,
+                            moments=True, hist=False)
     fused_moments.launches += 1
-    # deterministic fold of the per-block rows (no float atomics)
-    return parts[:, 0].sum(), parts[:, 1].sum(), parts[:, 2].amax()
+    return stats
+
+
+def fused_moments_hist_plain(g: torch.Tensor, e=None, *, block: int):
+    """Plain PyTorch version of K1 with the histogram: ``(s, sq, mx,
+    hist)``, ``hist`` the int64 ``(BINS,)`` counts of the ``d`` real
+    elements of ``|u|``."""
+    # imported here: the histk package builds on this module's kernel
+    from repro_torch.kernels.histk.hist import abs_histogram_plain
+    u = _u(g, e)
+    return (*moments_plain(u, block), abs_histogram_plain(u, block=block))
+
+
+def fused_moments_hist(g: torch.Tensor, e=None, *, block: int):
+    """``(sum, sumsq, absmax, hist)`` of ``u = g + e`` in one pass:
+    the reference's ``fused_moments(..., with_hist=True)``.  ``hist`` is
+    the int64 ``(BINS,)`` histogram of the ``d`` real elements (padding
+    already taken out of bin 0).  CUDA tensors launch the Triton kernel;
+    CPU tensors take the plain version."""
+    _check(g, e)
+    if g.device.type != "cuda":
+        return fused_moments_hist_plain(g, e, block=block)
+    stats, h = launch_stats("fused_moments_hist", g, e, block=block,
+                            moments=True, hist=True)
+    fused_moments_hist.launches += 1
+    return (*stats, h)
 
 
 fused_moments.launches = 0
+fused_moments_hist.launches = 0

@@ -1,9 +1,10 @@
-"""Fused error-feedback compression pipeline (port of
+"""Fused and unfused error-feedback compression pipelines (port of
 ``repro/kernels/ef_fused/ops.py``: ``fused_default_bcap``,
 ``_tree_thresholds``, ``_replay_refinement``,
-``_gaussian_threshold_fused``, ``_resolve``, ``fused_compress_ef``).
+``_gaussian_threshold_fused``, ``_hist_threshold_fused``, ``_resolve``,
+``fused_compress_ef``, ``unfused_compress_ef``).
 
-Per leaf, four launches on the card:
+Fused, per leaf, four launches on the card for Gaussian-k:
 
   K1 ``fused_moments``  → ``(s, sq)`` → Gaussian ppf threshold ``t0``
   K2 ``tree_count``     → counts at the 15 thresholds the refinement
@@ -11,10 +12,21 @@ Per leaf, four launches on the card:
   K3 ``compact_stage``  → per-block staging rows
   K3 ``compact_resid``  → the new residual ``e'``
 
-then the staging assembly into the ``(k_cap,)`` codec pair.  The
-threshold glue between the launches (ppf, tree, replay) runs in f32 on
-the host on a handful of scalars, so the card and the CPU path derive
-the same threshold from the same ``(s, sq)`` and counts.
+and three for hist-k, where K1 with its histogram
+(``fused_moments_hist``) gives the threshold and K2 is not run.  Then
+the staging assembly into the ``(k_cap,)`` codec pair.  The threshold
+glue between the launches (ppf, tree, replay, the histogram read-off)
+runs on the host on a handful of scalars, so the card and the CPU path
+derive the same threshold from the same statistics.
+
+Unfused (:func:`unfused_compress_ef`, Algorithm 1 as the paper wrote
+it): ``u = g + e`` written out, K4a ``moments`` and four K4b
+``count_gt`` launches (or K4d ``abs_histogram`` for hist-k), K4c
+``threshold_compact``, the assembly, a dense decode and ``e' = u −
+decode``.  Same block policy, same threshold, same staging rows; for
+f32 operands both pipelines return the same pair and residual bit for
+bit wherever their staging widths (2× and 4× the expected per-block
+selection) truncate nothing.
 
 Conservation ``decode(values, indices, d) + e' == g + e`` holds bit for
 bit: every element is either on the wire (``e' = 0``, its value a copy
@@ -28,13 +40,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import codec
 from repro_torch.core.compressors import gaussiank_cap
 from repro_torch.kernels.ef_fused import passes, tuning
 from repro_torch.kernels.ef_fused.compact_residual import (
     assemble_staging, compact_residual)
-from repro_torch.kernels.ef_fused.fused_moments import fused_moments
+from repro_torch.kernels.ef_fused.fused_moments import (fused_moments,
+                                                        fused_moments_hist)
 from repro_torch.kernels.ef_fused.tree_count import tree_count
-from repro_torch.slices import not_ported
 
 # compressor names whose selection the fused pipeline implements here
 FUSED_COMPRESSORS = ("gaussiank", "gaussiank2", "histk")
@@ -42,6 +55,11 @@ FUSED_COMPRESSORS = ("gaussiank", "gaussiank2", "histk")
 
 def supports_fused(name: str) -> bool:
     return name in FUSED_COMPRESSORS
+
+
+# staging slack of the unfused pipeline (the fused one takes
+# KernelConfig.bcap_slack, 2×)
+UNFUSED_BCAP_SLACK = 4.0
 
 
 def fused_default_bcap(k_cap: int, d: int, block: int,
@@ -113,12 +131,21 @@ def _gaussian_threshold_fused(g, e, d: int, k, *, stats_block: int,
     return _replay_refinement(heap, counts.cpu().numpy(), k, refine_iters)
 
 
-def _resolve(g, e, name, k, k_cap, block, stats_block, bcap):
+def _hist_threshold_fused(g, e, d: int, k, *, stats_block: int
+                          ) -> np.float32:
+    # the histogram K1 returns already counts only the d real elements
+    from repro_torch.kernels.histk.ops import threshold_from_histogram
+    _, _, _, hist = fused_moments_hist(g, e, block=stats_block)
+    passes.record("moments+hist", 1)
+    return threshold_from_histogram(hist, k)
+
+
+def _resolve(g, e, name, k, k_cap, block, stats_block, bcap,
+             slack: Optional[float] = None):
     """Backend + geometry: explicit ``block``/``stats_block``/``bcap``
-    win, the heuristic of ``tuning`` fills the rest.  Returns ``(d,
-    k_cap, block, stats_block, bcap)``."""
-    if name == "histk":
-        raise not_ported("the fused hist-k pipeline", "histk")
+    win, the heuristic of ``tuning`` fills the rest; the default staging
+    width takes ``slack`` (``None``: the config's).  Returns ``(d, k_cap,
+    block, stats_block, bcap)``."""
     if not supports_fused(name):
         raise ValueError(f"compressor {name!r} has no fused pipeline; "
                          f"supported: {FUSED_COMPRESSORS}")
@@ -133,7 +160,8 @@ def _resolve(g, e, name, k, k_cap, block, stats_block, bcap):
     stats_block = cfg.stats_block if stats_block is None else stats_block
     k_cap = gaussiank_cap(k, d) if k_cap is None else k_cap
     if bcap is None:
-        bcap = fused_default_bcap(k_cap, d, block, cfg.bcap_slack)
+        bcap = fused_default_bcap(k_cap, d, block,
+                                  cfg.bcap_slack if slack is None else slack)
     return d, k_cap, block, stats_block, bcap
 
 
@@ -168,8 +196,57 @@ def fused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor], name: str,
     writes it)."""
     d, k_cap, block, stats_block, bcap = _resolve(
         g, e, name, k, k_cap, block, stats_block, bcap)
-    thres = _gaussian_threshold_fused(
-        g, e, d, k, stats_block=stats_block, refine_iters=refine_iters,
-        two_sided=(name == "gaussiank2"))
+    if name == "histk":
+        thres = _hist_threshold_fused(g, e, d, k, stats_block=stats_block)
+    else:
+        thres = _gaussian_threshold_fused(
+            g, e, d, k, stats_block=stats_block, refine_iters=refine_iters,
+            two_sided=(name == "gaussiank2"))
     return compress_at_threshold(g, e, thres, k_cap=k_cap, block=block,
                                  bcap=bcap, out=out)
+
+
+def unfused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor],
+                        name: str, k, *, k_cap: Optional[int] = None,
+                        block: Optional[int] = None,
+                        stats_block: Optional[int] = None,
+                        refine_iters: int = 4, bcap: Optional[int] = None):
+    """The pre-fusion pipeline over the K4 kernels: the fused pipeline's
+    baseline and bit-exactness oracle.
+
+    Writes ``u = g + e``, runs the unfused threshold (K4a moments and
+    ``refine_iters`` sequential K4b counts, or the K4d histogram for
+    ``histk``), K4c block compaction, then pays the dense ``decode`` and
+    the ``u − decode`` subtract for the residual: ~8 leaf-sized passes
+    where the fused pipeline makes 3-4.  Same block policy as
+    :func:`fused_compress_ef`; the staging width defaults to the unfused
+    4× slack (``gaussian_topk.ops.default_bcap``), so the comparison
+    measures both pipelines as shipped.  Returns ``(values, indices,
+    new_e)`` like :func:`fused_compress_ef`."""
+    # the K4 modules build on this package's kernels: imported at the call
+    from repro_torch.kernels.gaussian_topk.ops import (
+        gaussian_threshold_kernel, select_by_threshold)
+    from repro_torch.kernels.histk.ops import histk_threshold
+    d, k_cap, block, stats_block, bcap = _resolve(
+        g, e, name, k, k_cap, block, stats_block, bcap, UNFUSED_BCAP_SLACK)
+    u = g.to(torch.float32)
+    if e is not None:
+        u = u + e.to(torch.float32)
+        passes.record("residual_add", 1)
+    if name == "histk":
+        thres = histk_threshold(u, k, block=stats_block)
+        passes.record("hist", 1)
+    else:
+        thres = gaussian_threshold_kernel(
+            u, k, block=stats_block, refine_iters=refine_iters,
+            two_sided=(name == "gaussiank2"))
+        passes.record("moments", 1)
+        passes.record("count_gt", refine_iters)
+    values, indices = select_by_threshold(u, thres, k_cap, block=block,
+                                          bcap=bcap)
+    passes.record("compact", 1)
+    dec = codec.decode(values, indices, d)
+    passes.record("dense_decode", 1)
+    new_e = u - dec
+    passes.record("residual_subtract", 1)
+    return values, indices, new_e

@@ -5,7 +5,9 @@ Replaces the TPU kernel ``repro/kernels/ef_fused/tree_count.py:
 tree_count`` (``pallas_call`` at line 93).  With ``refine_iters = 4``
 the tree has ``n_t = 2^4 - 1 = 15`` internal nodes; the counts let
 ``ops._replay_refinement`` replay the sequential loop's decisions
-exactly without touching device memory again.
+exactly without touching device memory again.  The same kernel with one
+threshold is the unfused pipeline's K4b ``count_gt``
+(``kernels/gaussian_topk/count_gt.py``).
 
 What bounds it on the card: bytes.  Each element is read once
 (``8·d`` bytes of f32 ``g`` and ``e``) and compared with 15 thresholds —
@@ -82,19 +84,13 @@ def tree_count_plain(g: torch.Tensor, e, thresholds: torch.Tensor, *,
     return torch.stack(counts).to(torch.int32)
 
 
-def tree_count(g: torch.Tensor, e, thresholds: torch.Tensor, *,
-               block: int) -> torch.Tensor:
-    """Counts of ``|g + e| > thresholds[j]``, an ``(n_t,)`` int32 tensor on
-    ``g``'s device.  CUDA tensors launch the Triton kernel with 8 warps
-    for blocks of 4096 and more, else 4 (the faster of the two on an
-    H100 for each); CPU tensors take the plain version."""
-    _check(g, e)
+def launch_counts(name: str, g: torch.Tensor, e, thresholds: torch.Tensor,
+                  *, block: int) -> torch.Tensor:
+    """Launch the count kernel on CUDA ``g`` (and ``e``) for 1..128
+    thresholds: the ``(n_t,)`` int32 counts, summed over the blocks.  The
+    wrapper that calls this counts the launch."""
+    _check_cuda_f32(name, g, e)
     n_t = int(thresholds.shape[0])
-    if not 0 < n_t <= 128:
-        raise ValueError(f"need 1..128 thresholds, got {n_t}")
-    if g.device.type != "cuda":
-        return tree_count_plain(g, e, thresholds, block=block)
-    _check_cuda_f32("tree_count", g, e)
     nt = max(2, 1 << (n_t - 1).bit_length())
     tile = min(TILE, 8192 // nt)     # accumulator: <= 8192 int32 a program
     if block < tile or block & (block - 1):
@@ -110,8 +106,24 @@ def tree_count(g: torch.Tensor, e, thresholds: torch.Tensor, *,
         kern[(nb,)](g, g if e is None else e, t, parts, d,
                     HAS_E=e is not None, BLOCK=block, TILE=tile, NT=nt,
                     num_warps=8 if block >= 4096 else 4)
-    tree_count.launches += 1
     return parts[:, :n_t].sum(dim=0).to(torch.int32)
+
+
+def tree_count(g: torch.Tensor, e, thresholds: torch.Tensor, *,
+               block: int) -> torch.Tensor:
+    """Counts of ``|g + e| > thresholds[j]``, an ``(n_t,)`` int32 tensor on
+    ``g``'s device.  CUDA tensors launch the Triton kernel with 8 warps
+    for blocks of 4096 and more, else 4 (the faster of the two on an
+    H100 for each); CPU tensors take the plain version."""
+    _check(g, e)
+    n_t = int(thresholds.shape[0])
+    if not 0 < n_t <= 128:
+        raise ValueError(f"need 1..128 thresholds, got {n_t}")
+    if g.device.type != "cuda":
+        return tree_count_plain(g, e, thresholds, block=block)
+    counts = launch_counts("tree_count", g, e, thresholds, block=block)
+    tree_count.launches += 1
+    return counts
 
 
 tree_count.launches = 0

@@ -12,6 +12,13 @@ Two backends, resolved from the DEVICE OF THE TENSOR and nothing else:
 There is no fallback from one to the other: a CUDA tensor launches its
 kernel or raises.
 
+The geometry follows the backend, so a CPU run and a card run of the
+same call may stage differently: where a block selects more than its
+staging width, the two keep different elements.  :func:`geometry_of`
+makes a CPU run take the card's geometry, for a like-for-like
+comparison of the two.  It exists for that check alone (the card-vs-CPU
+phase of ``chip_smoke.py`` and its test); training never sets it.
+
 Block heuristics (no measured autotune and no table files in this slice):
 
 * ``cuda``: ``block = 1024`` (the f32 Triton minimum of the reference,
@@ -25,6 +32,7 @@ Block heuristics (no measured autotune and no table files in this slice):
 from __future__ import annotations
 
 import dataclasses
+from contextlib import contextmanager
 
 import torch
 
@@ -96,7 +104,29 @@ def _check(backend: str) -> None:
                          f"have {BACKENDS}")
 
 
+_GEOMETRY: list = []   # backends whose geometry geometry_of() imposes
+
+
+@contextmanager
+def geometry_of(backend: str):
+    """Inside the block, :func:`resolve_config` gives ``backend``'s
+    geometry whatever device the tensors are on (the kernels still run
+    by device: CPU tensors take the plain versions).
+
+    For the card-vs-CPU comparison only.  The override is one
+    process-wide stack, not per thread: it is not thread-safe, and
+    every caller in the process sees it while the block is open."""
+    _check(backend)
+    _GEOMETRY.append(backend)
+    try:
+        yield
+    finally:
+        _GEOMETRY.pop()
+
+
 def resolve_config(d: int, backend: str) -> KernelConfig:
-    """The heuristic :class:`KernelConfig` of a ``d``-element leaf."""
+    """The heuristic :class:`KernelConfig` of a ``d``-element leaf (the
+    innermost :func:`geometry_of` backend's, when one is active)."""
+    backend = _GEOMETRY[-1] if _GEOMETRY else backend
     return KernelConfig(backend=backend, block=choose_block(d, backend),
                         stats_block=choose_stats_block(d, backend))

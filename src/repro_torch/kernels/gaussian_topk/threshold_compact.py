@@ -1,0 +1,69 @@
+"""K4c — threshold compaction of a materialised vector into per-block
+staging rows: the compaction pass of the unfused pipeline.
+
+Replaces the TPU kernel ``repro/kernels/gaussian_topk/
+threshold_compact.py:threshold_compact`` (``pallas_call`` at line 54).
+For each ``block``-element block it writes the elements with ``|x| >
+thres`` in index order into a ``bcap``-wide row of values and in-block
+offsets (the rest padded with 0 / ``SENTINEL``) and the uncapped count.
+
+The TPU built each row with a one-hot ``(bcap, block)`` MXU matmul.  The
+card has no reason to: the kernel is K3's CUDA ``stage_kernel``
+(``csrc/compact_residual.cu``) instantiated with ``HAS_E = false`` — one
+CTA per block, in-block positions from warp ballots and popcounts, exact
+integer offsets.  Bound: bytes, one read of ``x`` (4 bytes per element)
+plus the staging rows (8 bytes per slot) and counts: 0.36 ms for the
+268,435,456-element leaf with ``bcap`` 64 at 3.35 TB/s.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cuda_build
+from repro_torch.kernels.ef_fused.compact_residual import (
+    _geometry, _lib, _stream, compact_stage_plain)
+from repro_torch.kernels.ef_fused.fused_moments import (_check,
+                                                        _check_cuda_f32)
+
+__all__ = ["threshold_compact", "threshold_compact_plain"]
+
+
+def _check_bcap(bcap: int) -> None:
+    if bcap % 8:
+        raise ValueError(f"bcap must be a multiple of 8, got {bcap}")
+
+
+def threshold_compact_plain(x: torch.Tensor, thres: float, *, block: int,
+                            bcap: int):
+    """Plain PyTorch version of K4c: ``(vals (nb, bcap) f32, offs (nb,
+    bcap) int32, cnt (nb,) int32)`` over the zero-padded ``(nblocks,
+    block)`` view of ``x``."""
+    _check_bcap(bcap)
+    return compact_stage_plain(x, None, thres, block=block, bcap=bcap)
+
+
+def threshold_compact(x: torch.Tensor, thres: float, *, block: int = 2048,
+                      bcap: int):
+    """Per-block staging rows of ``|x| > thres`` for flat ``x``.  CUDA
+    tensors launch the CUDA kernel (f32 only); CPU tensors take the
+    plain version."""
+    _check(x, None)
+    if x.device.type != "cuda":
+        return threshold_compact_plain(x, thres, block=block, bcap=bcap)
+    _check_cuda_f32("threshold_compact", x)
+    _check_bcap(bcap)
+    nb = _geometry(x, block, bcap)
+    vals = torch.empty((nb, bcap), dtype=torch.float32, device=x.device)
+    offs = torch.empty((nb, bcap), dtype=torch.int32, device=x.device)
+    cnt = torch.empty((nb,), dtype=torch.int32, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        rc = lib.compact_stage_f32(
+            x.data_ptr(), None, x.shape[0], float(thres), block, bcap, nb,
+            vals.data_ptr(), offs.data_ptr(), cnt.data_ptr(), _stream(x))
+    cuda_build.check(rc, "threshold_compact")
+    threshold_compact.launches += 1
+    return vals, offs, cnt
+
+
+threshold_compact.launches = 0

@@ -6,16 +6,19 @@
 Same flags as the JAX trainer, plus ``--device {cuda,cpu}`` (default
 ``cuda``).  Without a GPU the trainer exits with an error unless
 ``--device cpu`` is given; it never drops to the CPU by itself.  The
-mesh defaults to ``1x1``.  This slice trains fixed-k with the
-``bucketed`` pipeline and the ``allgather`` wire on one card; every flag
-value it does not carry (other meshes or strategies, the key-sampled
-compressors, ``histk``/``trimmedk``, an adaptive ``--density-policy`` —
-llama3.2-1b's config defaults to ``variance``, so pass ``none`` —
+mesh defaults to ``1x1``.  The port trains fixed-k with the
+``bucketed`` pipeline and the ``allgather`` wire on one card, with
+``--compressor`` ``topk``, ``gaussiank``, ``gaussiank2``, ``histk``
+(``--backend fused``: K1 with its histogram and K3; ``reference``: the
+K4d histogram and K4c compaction) or ``trimmedk`` (plain torch, the
+reference backend).  Every flag value it does not carry raises an error
+naming the slice that ports it: other meshes or strategies, the
+key-sampled compressors, an adaptive ``--density-policy`` (llama3.2-1b's
+config defaults to ``variance``, so pass ``none``),
 ``--global-k-policy``, ``--chunks > 1``, ``--publish-every``,
 ``--checkpoint``/``--resume``, ``--pipeline perleaf``, and any value but
 the default of the flags only those features read, such as
-``--density-floor``, ``--host-devices`` or ``--topology``) raises an
-error naming the slice that ports it.
+``--density-floor``, ``--host-devices`` or ``--topology``.
 """
 from __future__ import annotations
 
@@ -31,8 +34,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke variant of the arch")
     ap.add_argument("--compressor", default="gaussiank",
-                    help="none|topk|gaussiank|gaussiank2 (randk|dgck|"
-                         "rtopk|trimmedk|histk: later slices)")
+                    help="none|topk|gaussiank|gaussiank2|histk|trimmedk "
+                         "(randk|dgck|rtopk: a later slice)")
     ap.add_argument("--ratio", type=float, default=0.001)
     ap.add_argument("--strategy", default="allgather",
                     choices=["allgather", "gtopk", "hierarchical",

@@ -31,11 +31,6 @@ LATER = {
              "items 9 and 9a)",
     "momentum_correction": "slice 4 (momentum correction, ROADMAP Queue 1 "
                            "item 9)",
-    # slice 5 — the remaining key-free compressors and kernels
-    "histk": "slice 5 (hist-k + the K4 kernels, ROADMAP Queue 2)",
-    "trimmedk": "slice 5 (remaining key-free compressors, ROADMAP Queue 1 "
-                "item 3b)",
-    "unfused": "slice 5 (the unfused K4 kernels, ROADMAP Queue 2)",
     # slice 6+
     "chunks": "slice 6 (chunked overlap, ROADMAP Queue 1 item 11)",
     "publish": "slice 7 (serve + weight-delta streaming, ROADMAP Queue 1 "

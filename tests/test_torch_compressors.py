@@ -6,6 +6,10 @@ against ``repro.core``.
 * ``gaussiank``/``gaussiank2`` reference selection: threshold within
   rtol 1e-5 (population std and ppf computed by different libraries);
   the selected pair bitwise when the thresholds agree to the bit.
+* ``trimmedk``: threshold within rtol 1e-6 (``mean(|u|)`` is summed in
+  another order), and the test checks that no element lies within that
+  tolerance of it, so the selections are equal; ``histk`` through the
+  registry bitwise (its kernels are held in ``test_torch_histk.py``).
 * ``compress_with_ef`` conserves bitwise on both backends.
 """
 import jax.numpy as jnp
@@ -59,9 +63,10 @@ def test_gaussiank_reference_matches(d, k, two_sided):
 
 
 @pytest.mark.parametrize("backend", ["fused", "reference"])
-@pytest.mark.parametrize("name", ["gaussiank", "gaussiank2", "topk"])
+@pytest.mark.parametrize("name", ["gaussiank", "gaussiank2", "topk",
+                                  "histk", "trimmedk"])
 def test_compress_with_ef_conserves(name, backend):
-    if backend == "fused" and name == "topk":
+    if backend == "fused" and name in ("topk", "trimmedk"):
         with pytest.raises(ValueError, match="no fused pipeline"):
             compress_with_ef(torch.zeros(4), tc.get_compressor(name), 1,
                              e=torch.zeros(4), backend=backend)
@@ -77,18 +82,68 @@ def test_compress_with_ef_conserves(name, backend):
 
 
 @pytest.mark.parametrize("name,slice_no", [
-    ("randk", "slice 4"), ("dgck", "slice 4"), ("rtopk", "slice 4"),
-    ("histk", "slice 5"), ("trimmedk", "slice 5")])
+    ("randk", "slice 4"), ("dgck", "slice 4"), ("rtopk", "slice 4")])
 def test_later_compressors_name_their_slice(name, slice_no):
     assert name in jc.available()
     with pytest.raises(NotImplementedError, match=slice_no):
         tc.get_compressor(name)
 
 
+@pytest.mark.parametrize("name", ["randk", "dgck", "rtopk"])
+def test_config_names_the_slice_of_later_compressors(name):
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        CompressionConfig(compressor=name)
+
+
 def test_registry_and_unknown_name():
-    assert tc.available() == ["gaussiank", "gaussiank2", "topk"]
+    assert tc.available() == ["gaussiank", "gaussiank2", "histk", "topk",
+                              "trimmedk"]
+    assert set(tc.available()) | {"randk", "dgck", "rtopk"} == \
+        set(jc.available())
     with pytest.raises(KeyError):
         tc.get_compressor("nope")
+
+
+@pytest.mark.parametrize("d,k", [(10, 3), (1000, 10), (5001, 50),
+                                 (65537, 66)])
+def test_trimmedk_matches(d, k):
+    """Threshold within rtol 1e-6 (``mean(|u|)`` sums in another order);
+    no element lies within that tolerance of it, so the selections are
+    equal."""
+    rng = np.random.default_rng(d + 1)
+    u = (rng.standard_normal(d) * 0.01 + 0.001).astype(np.float32)
+    abs_u = np.abs(u)
+    # the reference's bisection, replayed in numpy f32 to read its threshold
+    lo, hi = np.float32(np.asarray(jnp.mean(jnp.asarray(abs_u)))), \
+        abs_u.max()
+    k_f = np.float32(k)
+    for _ in range(16):
+        mid = np.float32(0.5) * (lo + hi)
+        est = np.float32((abs_u > mid).sum())
+        lo = mid if est > np.float32(1.25) * k_f else lo
+        hi = mid if est < k_f else hi
+    t_port = tc.trimmed_threshold(torch.from_numpy(u), k)
+    assert t_port.dtype == torch.float32
+    np.testing.assert_allclose(float(t_port), float(lo), rtol=1e-6)
+    assert not np.any(np.abs(abs_u - lo) <= 1e-6 * abs(float(lo)))
+    jv, ji = jc.get_compressor("trimmedk").select(jnp.asarray(u), k, None)
+    tv, ti = tc.get_compressor("trimmedk").select(torch.from_numpy(u), k,
+                                                  None)
+    assert ti.shape[0] == min(d, 2 * k) == \
+        tc.get_compressor("trimmedk").k_cap(k, d)
+    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+
+
+@pytest.mark.parametrize("d,k", [(100, 1), (5001, 50), (70001, 70)])
+def test_histk_registry_matches(d, k):
+    rng = np.random.default_rng(d + 2)
+    u = (rng.standard_normal(d) * 0.01 + 0.001).astype(np.float32)
+    jv, ji = jc.get_compressor("histk").select(jnp.asarray(u), k, None)
+    tv, ti = tc.get_compressor("histk").select(torch.from_numpy(u), k, None)
+    assert ti.shape[0] == tc.get_compressor("histk").k_cap(k, d)
+    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
 
 
 def test_compression_config_validation():

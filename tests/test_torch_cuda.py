@@ -7,9 +7,11 @@ machine run them with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The file imports no JAX: the card's machine has none.  Tolerances: K1
-``s`` within ``1e-5·Σ|u|``, ``sq`` within rtol 1e-5, absmax exact (the
-Triton and torch reductions sum in other orders); K2 counts and K3
-staging/residual exact (integer work and copies of ``u``).
+and K4a ``s`` within ``1e-5·Σ|u|``, ``sq`` within rtol 1e-5, absmax
+exact (the Triton and torch reductions sum in other orders); K2 and K4b
+counts, the K1 and K4d histograms, K3 and K4c staging and the residual
+exact (integer work and copies of ``u``); the unfused pipeline bitwise
+the fused one.
 """
 import math
 
@@ -22,6 +24,11 @@ from repro_torch.kernels.ef_fused import compact_residual as cr
 from repro_torch.kernels.ef_fused import fused_moments as fm
 from repro_torch.kernels.ef_fused import ops, tuning
 from repro_torch.kernels.ef_fused import tree_count as tc
+from repro_torch.kernels.gaussian_topk import count_gt as cg
+from repro_torch.kernels.gaussian_topk import ops as gops
+from repro_torch.kernels.gaussian_topk import threshold_compact as thc
+from repro_torch.kernels.histk import hist
+from repro_torch.kernels.moments import moments as mom
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +93,50 @@ def test_pipeline_conserves_in_place(dev, d):
     torch.cuda.synchronize()
     assert ne.data_ptr() == e.data_ptr()
     assert torch.equal(codec.decode(v, i, d) + e, u)
+
+
+@pytest.mark.parametrize("d", DS)
+def test_k4_kernels_match_plain_versions(dev, d):
+    g, e = _inputs(d, dev, seed=2)
+    u = g + e
+    cfg = tuning.resolve_config(d, "cuda")
+    sb, block = cfg.stats_block, cfg.block
+    wrappers = (fm.fused_moments_hist, mom.moments, cg.count_gt,
+                thc.threshold_compact, hist.abs_histogram)
+    n0 = [f.launches for f in wrappers]
+    s, sq, mx, h = fm.fused_moments_hist(g, e, block=sb)
+    hp = hist.abs_histogram_plain(u, block=sb)
+    assert torch.equal(h, hp) and int(h.sum()) == d
+    ps, psq, pmx = fm.moments_plain(u, sb)
+    for got in ((s, sq, mx), mom.moments(u, block=sb)):
+        assert abs(float(got[0]) - float(ps)) <= 1e-5 * float(
+            u.abs().sum())
+        assert math.isclose(float(got[1]), float(psq), rel_tol=1e-5)
+        assert float(got[2]) == float(pmx)
+    t = float(u.abs().kthvalue(max(1, d - max(1, d // 1000))).values)
+    assert torch.equal(cg.count_gt(u, t, block=sb),
+                       cg.count_gt_plain(u, t, block=sb))
+    bcap = gops.default_bcap(gaussiank_cap(max(1, d // 1000), d), d, block)
+    for a, b in zip(thc.threshold_compact(u, t, block=block, bcap=bcap),
+                    thc.threshold_compact_plain(u, t, block=block,
+                                                bcap=bcap)):
+        assert torch.equal(a, b)
+    assert torch.equal(hist.abs_histogram(u, block=sb), hp)
+    n1 = [f.launches for f in wrappers]
+    assert [b - a for a, b in zip(n0, n1)] == [1, 1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("name", ["gaussiank", "gaussiank2", "histk"])
+@pytest.mark.parametrize("d", DS)
+def test_unfused_equals_fused(dev, d, name):
+    g, e = _inputs(d, dev, seed=3)
+    k = max(1, d // 1000)
+    f = ops.fused_compress_ef(g, e, name, k)
+    u = ops.unfused_compress_ef(g, e, name, k)
+    torch.cuda.synchronize()
+    for a, b in zip(f, u):
+        assert torch.equal(a, b)
+    assert torch.equal(codec.decode(f[0], f[1], d) + f[2], g + e)
 
 
 def test_cuda_kernels_take_float32_only(dev):

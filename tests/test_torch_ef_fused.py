@@ -3,7 +3,9 @@ on the CPU).
 
 * The Gaussian threshold is held within rtol 1e-5: ``jax.scipy``'s
   ``norm.ppf`` and ``torch.special.ndtri`` may differ by an ulp, and so
-  may the block sums feeding them.
+  may the block sums feeding them.  The hist-k threshold is equal: the
+  histograms may differ only on elements within ulps of a bin edge, and
+  none of these inputs has one across an edge that decides it.
 * Given the JAX threshold the wire pair and the new residual are
   bitwise the reference's (same block, bcap and k_cap).
 * Conservation ``decode(v, i) + e' == g + e`` is bitwise.
@@ -29,10 +31,27 @@ def _jax_threshold(u, d, k, name, sb):
     a_s = jnp.asarray(np.pad(u, (0, pad)).reshape(-1, sb))
     kcfg = jtuning.KernelConfig(backend="interpret", block=sb,
                                 stats_block=sb)
-    t = jops._gaussian_threshold_fused(
-        a_s, None, d, k, block=sb, refine_iters=4,
-        two_sided=name == "gaussiank2", kcfg=kcfg, interpret=True)
+    if name == "histk":
+        t = jops._hist_threshold_fused(a_s, None, d, k, pad, block=sb,
+                                       kcfg=kcfg, interpret=True)
+    else:
+        t = jops._gaussian_threshold_fused(
+            a_s, None, d, k, block=sb, refine_iters=4,
+            two_sided=name == "gaussiank2", kcfg=kcfg, interpret=True)
     return np.float32(max(float(t), 0.0))
+
+
+def _port_threshold(g, e, d, k, name, sb):
+    if name == "histk":
+        return ops._hist_threshold_fused(g, e, d, k, stats_block=sb)
+    return ops._gaussian_threshold_fused(
+        g, e, d, k, stats_block=sb, refine_iters=4,
+        two_sided=name == "gaussiank2")
+
+
+PASSES = {"gaussiank": {"moments": 1, "tree_count": 1, "compact": 1,
+                        "residual_write": 1},
+          "histk": {"moments+hist": 1, "compact": 1, "residual_write": 1}}
 
 
 CASES = [  # (d, k, scale, bcap)
@@ -42,7 +61,7 @@ CASES = [  # (d, k, scale, bcap)
 ]
 
 
-@pytest.mark.parametrize("name", ["gaussiank", "gaussiank2"])
+@pytest.mark.parametrize("name", ["gaussiank", "gaussiank2", "histk"])
 @pytest.mark.parametrize("d,k,scale,bcap", CASES)
 def test_fused_compress_ef_matches_reference(d, k, scale, bcap, name):
     rng = np.random.default_rng(d + k)
@@ -56,16 +75,16 @@ def test_fused_compress_ef_matches_reference(d, k, scale, bcap, name):
     tg, te = torch.from_numpy(g), torch.from_numpy(e)
     with passes.count_passes() as log:
         tv, ti, tne = ops.fused_compress_ef(tg, te, name, k, bcap=bcap)
-    assert log.by_label() == {"moments": 1, "tree_count": 1, "compact": 1,
-                              "residual_write": 1}
+    assert log.by_label() == PASSES["histk" if name == "histk"
+                                    else "gaussiank"]
     # conservation, bitwise
     assert torch.equal(codec.decode(tv, ti, d) + tne, tg + te)
     # threshold within tolerance
-    t_port = ops._gaussian_threshold_fused(
-        tg, te, d, k, stats_block=sb, refine_iters=4,
-        two_sided=name == "gaussiank2")
+    t_port = _port_threshold(tg, te, d, k, name, sb)
     t_jax = _jax_threshold(g + e, d, k, name, sb)
     np.testing.assert_allclose(t_port, t_jax, rtol=1e-5, atol=0)
+    if name == "histk":
+        assert t_port == t_jax
     # the wire, bitwise, given the JAX threshold
     k_cap = -(-4 * k // 3)
     bc = bcap or ops.fused_default_bcap(k_cap, d, block)
@@ -89,7 +108,36 @@ def test_fused_in_place_residual():
     assert torch.equal(codec.decode(v, i, 9000) + e, u)
 
 
-def test_histk_names_its_slice():
-    g = torch.zeros(10)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ops.fused_compress_ef(g, None, "histk", 1)
+def test_histk_runs_and_conserves():
+    """The fused hist-k pipeline: one K1-with-histogram pass, no K2, and
+    ``decode(v, i) + e' == g + e`` bitwise, also in place."""
+    rng = np.random.default_rng(3)
+    g = torch.from_numpy(rng.standard_normal(9000).astype(np.float32))
+    e = torch.from_numpy(rng.standard_normal(9000).astype(np.float32))
+    u = g + e
+    with passes.count_passes() as log:
+        v, i, ne = ops.fused_compress_ef(g, e, "histk", 90, out=e)
+    assert log.by_label() == PASSES["histk"]
+    assert ne.data_ptr() == e.data_ptr()
+    assert torch.equal(codec.decode(v, i, 9000) + e, u)
+    assert 0 < int(codec.nnz(i)) <= v.shape[0]
+
+
+def test_geometry_of_gives_the_cards_geometry_on_the_cpu():
+    """Under ``geometry_of("cuda")`` a CPU call stages with the card's
+    block and bcap: bitwise the same call with that geometry spelled
+    out."""
+    rng = np.random.default_rng(4)
+    d, k = 70001, 700
+    g = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    e = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    cfg = tuning.resolve_config(d, "cuda")
+    assert tuning.resolve_config(d, "torch") != cfg
+    with tuning.geometry_of("cuda"):
+        assert tuning.resolve_config(d, "torch").block == cfg.block
+        got = ops.fused_compress_ef(g, e, "histk", k)
+    assert tuning.resolve_config(d, "torch").block != cfg.block
+    want = ops.fused_compress_ef(g, e, "histk", k, block=cfg.block,
+                                 stats_block=cfg.stats_block)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -80,7 +80,8 @@ def _jax_reference(cfg, jparams, batches, compressor, ratio, backend):
 @pytest.mark.parametrize("compressor,ratio,backend", [
     ("gaussiank", 0.01, "fused"), ("gaussiank", 0.001, "fused"),
     ("gaussiank2", 0.01, "fused"), ("topk", 0.01, "reference"),
-    ("none", 0.01, "auto")])
+    ("histk", 0.01, "fused"), ("histk", 0.01, "reference"),
+    ("trimmedk", 0.01, "reference"), ("none", 0.01, "auto")])
 def test_three_steps_match_composed_reference(compressor, ratio, backend):
     jcfg = JModelConfig(**_CFG).validate()
     tcfg = ModelConfig(**_CFG).validate()
@@ -126,6 +127,19 @@ def test_cli_smoke_on_cpu(capsys):
     assert all(r["density"] <= r["density_cap"] for r in recs)
 
 
+@pytest.mark.parametrize("extra", [
+    ["--compressor", "histk"],
+    ["--compressor", "histk", "--backend", "reference"],
+    ["--compressor", "trimmedk"]])
+def test_cli_smoke_slice5_compressors_on_cpu(extra):
+    recs = cli.run(["--arch", "llama3.2-1b", "--smoke", "--density-policy",
+                    "none", "--device", "cpu", "--steps", "2", "--batch",
+                    "2", "--seq", "16", "--log-every", "1"] + extra)
+    assert len(recs) == 2
+    assert all(np.isfinite(r["loss"]) for r in recs)
+    assert all(0 < r["density"] <= r["density_cap"] for r in recs)
+
+
 def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
@@ -142,7 +156,7 @@ def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
     (["--global-k-policy", "normdecay", "--density-policy", "none"],
      "slice 3"),
     (["--compressor", "randk"], "slice 4"),
-    (["--compressor", "histk"], "slice 5"),
+    (["--compressor", "dgck"], "slice 4"),
     (["--chunks", "2"], "slice 6"),
     (["--publish-every", "2"], "slice 7"),
     (["--host-devices", "8"], "slice 2"),
