@@ -17,11 +17,16 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    ``threshold_compact`` and K4d ``abs_histogram`` (integer outputs and
    copies of ``u`` bitwise, moments within tolerance); the unfused
    pipeline against the fused one, bitwise, for gaussiank, gaussiank2
-   and histk.  At the largest size each kernel is timed with CUDA events
-   (median after warm-up), and so are the whole pipelines beside exact
-   top-k (``torch.topk``, the paper's yardstick): fused Gaussian-k,
-   fused hist-k, unfused Gaussian-k, unfused hist-k and the registry's
-   ``histk_select_kernel`` — the paper's Fig. 4 comparison;
+   and histk; the K3 stage, K4c and K4d bitwise on views at storage
+   offsets 1 and 3 (the scalar-load path), blocks 1024/2048/4096/1001,
+   thresholds 0 (blocks overflow) and above ``max|u|`` (nothing
+   selected), and K4d on one-bin, all-zero and zero/subnormal/inf/
+   ``>= edge[127]`` inputs.  At the largest size each kernel is timed
+   with CUDA events (median after warm-up), K4c at block 2048 too, and
+   so are the whole pipelines beside exact top-k (``torch.topk``, the
+   paper's yardstick): fused Gaussian-k, fused hist-k, unfused
+   Gaussian-k, unfused hist-k and the registry's ``histk_select_kernel``
+   — the paper's Fig. 4 comparison;
 3. the paths at full width, each with every kernel's launch counter set
    to 0 just before it and read just after:
    3.  ``repro_torch.launch.train.run`` on llama3.2-1b (16 layers,
@@ -126,8 +131,8 @@ KERNELS = {   # key: (name, route, source, replaces)
                           "src/repro_torch/csrc/compact_residual.cu",
                           "src/repro/kernels/gaussian_topk/"
                           "threshold_compact.py:54"),
-    "abs_histogram": ("abs_histogram (K4d)", "triton",
-                      "src/repro_torch/kernels/histk/hist.py",
+    "abs_histogram": ("abs_histogram (K4d)", "cuda",
+                      "src/repro_torch/csrc/abs_histogram.cu",
                       "src/repro/kernels/histk/hist.py:62"),
 }
 
@@ -153,9 +158,9 @@ def counters():
 
 
 def build(cuda_build, torch) -> float:
-    """Build the CUDA library (one nvcc per source, in a thread) while
-    Triton compiles every specialisation of the Triton kernels on tiny
-    inputs; returns the seconds taken."""
+    """Build the CUDA libraries (one nvcc per source, all started
+    together, from a thread) while Triton compiles every specialisation
+    of the Triton kernels on tiny inputs; returns the seconds taken."""
     t0 = time.time()
     err, reports = [], {}
 
@@ -176,7 +181,6 @@ def build(cuda_build, torch) -> float:
                         block=1024)
         k["moments"](x[:d], block=1024)
         k["count_gt"](x[:d], 0.5, block=1024)
-        k["abs_histogram"](x[:d], block=1024)
     torch.cuda.synchronize()
     th.join()
     if err:
@@ -209,6 +213,73 @@ def same_bits(a, b) -> bool:
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return torch.equal(a, b)
+
+
+def check_edge_cases(d, g, e, u, thres, bcap, ubcap) -> str:
+    """K3 stage, K4c and K4d against their plain versions, bitwise, on
+    the cases the kernels treat apart: contiguous views at storage
+    offsets 0, 1 and 3 (1 and 3 take the scalar-load path), blocks 1024,
+    2048, 4096 and 1001 (not a multiple of 4), at the final threshold,
+    at 0 (every non-zero element is counted; nearly every block
+    overflows its staging width) and just above ``max|u|`` (nothing
+    selected); K4d also on one magnitude (one bin), all zeros, and
+    zeros, subnormals, infinities and values at or above ``edge[127]``.
+    Returns a summary."""
+    import torch
+
+    from repro_torch.kernels.ef_fused import compact_residual as cr
+    from repro_torch.kernels.ef_fused.fused_moments import _blocks
+    from repro_torch.kernels.gaussian_topk import threshold_compact as thc
+    from repro_torch.kernels.histk import hist
+
+    top = u.abs().max()
+    above = float(torch.nextafter(top, torch.full_like(top, math.inf)))
+    full = 0
+    for off in (0, 1, 3):
+        gv, ev, uv = g[off:], e[off:], u[off:]
+        assert uv.storage_offset() == off and uv.is_contiguous()
+        for block in (1024, 2048, 4096, 1001):
+            for t in (thres, 0.0, above):
+                got = cr.compact_stage(gv, ev, t, block=block, bcap=bcap)
+                want = cr.compact_stage_plain(gv, ev, t, block=block,
+                                              bcap=bcap)
+                for a, b, what in zip(got, want, ("values", "offsets",
+                                                  "counts")):
+                    assert same_bits(a, b), (d, "K3 stage", off, block, t,
+                                             what)
+                got = thc.threshold_compact(uv, t, block=block, bcap=ubcap)
+                want = thc.threshold_compact_plain(uv, t, block=block,
+                                                   bcap=ubcap)
+                for a, b, what in zip(got, want, ("values", "offsets",
+                                                  "counts")):
+                    assert same_bits(a, b), (d, "K4c", off, block, t, what)
+                cnt = want[2]
+                if t == 0.0:   # every non-zero element is counted
+                    nonzero = (_blocks(uv, block) != 0).sum(dim=1)
+                    assert torch.equal(cnt.long(), nonzero), (d, "at 0")
+                    full += int((cnt > ubcap).sum())
+                elif t == above:
+                    assert int(cnt.max()) == 0, (d, "nothing above max")
+    mixed = u.clone()
+    mixed[0::6] = 0.0
+    mixed[1::6] = -1e-40                       # subnormal
+    mixed[2::6] = float(hist.EDGES[127])
+    mixed[3::6] = -3e38
+    mixed[4::12] = math.inf
+    inputs = {"u": u, "one magnitude": torch.full_like(u, 0.37),
+              "zeros": torch.zeros_like(u), "mixed": mixed}
+    for name, x in inputs.items():
+        for off in (0, 1, 3):
+            h = hist.abs_histogram(x[off:])
+            assert torch.equal(h, hist.abs_histogram_plain(x[off:],
+                                                           block=4096)), (
+                d, "K4d", name, off)
+            assert int(h.sum()) == d - off, (d, "K4d total", name, off)
+    del mixed, inputs
+    return (f"K3 stage, K4c and K4d bitwise at storage offsets 0/1/3, "
+            f"blocks 1024/2048/4096/1001, thresholds final/0/above max "
+            f"({full} overflowing rows at threshold 0); K4d on one "
+            f"magnitude, zeros, and zeros/subnormals/inf/>= edge[127]")
 
 
 def check_kernels(d: int, seed: int, rows: dict, timed: bool):
@@ -316,6 +387,7 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
                     thc.threshold_compact_plain(u, th, block=2048,
                                                 bcap=hb)):
         assert same_bits(a, b), (d, "K4c block 2048")
+    edge_summary = check_edge_cases(d, g, e, u, thres, bcap, ubcap)
     # unfused against fused, bitwise, and conservation.  Each pipeline
     # takes its own default staging width (2x and 4x the expected
     # per-block selection); at the card's block of 1024 both are 64 at
@@ -333,6 +405,7 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
         f"(bins {int((hp > 0).sum())} occupied); K4a bitwise K1's sums; "
         f"K4b, K4c (bcap {ubcap}) bitwise; K4c/K4d at block 2048 bitwise; "
         f"unfused == fused bitwise for gaussiank, gaussiank2, histk")
+    log(f"  d={d:>11,}: {edge_summary}")
     if not timed:
         return
 
@@ -381,11 +454,13 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     nt = thr.numel()
     # (bytes: each input of the function read once and each of its
     # outputs written once; ops; bytes of the per-program partial rows
-    # the no-atomics design writes and folds, an overhead of the design
-    # that the bound does not count)
+    # the design writes and folds — for K4d the 1 KB of integer atomic
+    # adds each of its CTAs, at most one per SM, makes into the output —
+    # an overhead of the design that the bound does not count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     work = {
         "fused_moments": (8 * d + 12, 5 * d, 12 * nbs),
-        "fused_moments_hist": (8 * d + 12 + 4 * 128, 20 * d,
+        "fused_moments_hist": (8 * d + 12 + 8 * 128, 20 * d,
                                (12 + 4 * 128) * nbs),
         "tree_count": (8 * d + 8 * nt, 17 * d,
                        4 * max(2, 1 << (nt - 1).bit_length()) * nbs),
@@ -394,7 +469,7 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
         "moments": (4 * d + 12, 5 * d, 12 * nbs),
         "count_gt": (4 * d + 8, 3 * d, 4 * 2 * nbs),
         "threshold_compact": (4 * d + 8 * nb * ubcap + 4 * nb, 3 * d, 0),
-        "abs_histogram": (4 * d + 4 * 128, 15 * d, 4 * 128 * nbs),
+        "abs_histogram": (4 * d + 8 * 128, 15 * d, 8 * 128 * sms),
     }
     errs = {"fused_moments": k1_err, "fused_moments_hist": k1h_err,
             "moments": k4a_err}
@@ -406,6 +481,16 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
                           d=d, partial_rows_bytes=rows_bytes)
     log(f"  times at d={d:,} (ms, median): " + ", ".join(
         f"{n} {a:.4f} (plain {b:.3f})" for n, (a, b) in ms.items()))
+    # K4c at the registry's hist-k block (path B's geometry) as well
+    nb2, bcap2 = -(-d // 2048), gops.default_bcap(k_cap, d, 2048)
+    rows["threshold_compact"].update(
+        ms_block_2048=time_ms(lambda: thc.threshold_compact(
+            u, thres, block=2048, bcap=bcap2), it),
+        bound_ms_block_2048=bound(4 * d + 8 * nb2 * bcap2 + 4 * nb2,
+                                  3 * d)[0], bcap_block_2048=bcap2)
+    log("  K4c at block 2048, bcap {}: {:.4f} ms (bound {:.4f})".format(
+        bcap2, rows["threshold_compact"]["ms_block_2048"],
+        rows["threshold_compact"]["bound_ms_block_2048"]))
 
     # the pipelines beside exact top-k: the paper's Fig. 4 on this card.
     # bytes per element of each pipeline's own passes (a read or write

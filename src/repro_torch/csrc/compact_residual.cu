@@ -24,23 +24,42 @@
 // What bounds it on the card: bytes.  Stage reads g and e (8 B/element)
 // and writes only the staging rows; residual reads them again and writes
 // e' (12 B/element in all).  The work per element is a compare, a ballot
-// and a popcount, far below the compute roof.
+// and a popcount, far below the compute roof.  At the 268,435,456-element
+// leaf (block 1024, bcap 64) the stage launch's bound is 0.681 ms and
+// K4c's (no e) 0.361 ms at 3.35 TB/s.
 //
 // What the design does about it:
-//   * one CTA of 256 threads per block; neighbouring threads read
-//     neighbouring elements (coalesced 128-byte warp transactions); the
-//     stage launch issues the loads of 4 tiles (1024 elements, the whole
-//     block on the main path) before it scans any, to keep more bytes
-//     in flight;
-//   * the prefix count is a warp __ballot_sync + __popc of the lanes
-//     below, plus the totals of the tiles and warps before it (in
-//     shared memory) — no block-wide scan tree, two __syncthreads per
-//     chunk;
-//   * the staging write is a scatter of the few kept elements (~1 in
-//     1000 at the paper's density) into a row that stays in L2;
+//   * stage (redesigned for Hopper): one WARP per block, 8 blocks per CTA
+//     of 256 threads.  The first design (one CTA of 256 threads per block,
+//     a ballot scan with two __syncthreads per chunk) reached only 42% of
+//     K4c's bound (0.852 ms on an NVIDIA H100 80GB HBM3 at 700 W): halving
+//     the bytes read made it only 15% faster, so short CTAs, barriers and
+//     too few bytes in flight bound it, not the bytes.  Now each lane
+//     issues 8 float4 loads (16 bytes each; 4 KB a warp, 8 KB with e)
+//     before it scans, the in-order position comes from four warp ballots
+//     per float4 and popcounts under the lane's mask, and the warp writes
+//     its own padding and count — no shared memory, no barrier.  Views
+//     that are not 16-byte aligned (a storage offset of 1-3 elements, a
+//     block not a multiple of 4) take the scalar-load instantiation of the
+//     same kernel.  Measured by chip_smoke.py at that leaf on an NVIDIA
+//     H100 80GB HBM3 at 700 W: K3 stage 0.773 ms (bound 0.681), K4c 0.441
+//     ms (bound 0.361) and 0.404 ms at block 2048 (bound 0.341), against
+//     0.984 and 0.840 ms for the first design in the same run.  Of the
+//     variants that launch/tune_kernels.py times, 4 or 16 blocks a CTA
+//     and 4 float4 a lane are within 3%; 16 float4 a lane is 46% slower
+//     at block 1024, where its 2048-element chunk is never full and every
+//     load takes the guarded scalar path;
+//   * residual: one CTA of 256 threads per block; neighbouring threads
+//     read neighbouring elements (coalesced 128-byte warp transactions);
+//     the prefix count is a warp __ballot_sync + __popc of the lanes
+//     below, plus the totals of the warps before it (in shared memory);
+//   * the staging write is a scatter of the kept elements into a row that
+//     stays in L2;
 //   * the two launches are the race-free shape of the reference's GPU
 //     lowering (compact_residual.py:180-218): blocks run in parallel in
-//     no order, so enc_before cannot be carried from block to block;
+//     no order, so enc_before cannot be carried from block to block.  The
+//     in-block position is an exact integer, so the residual launch's
+//     scan and the stage launch's give every element the same position;
 //   * nothing goes through a tensor-core dot: offsets up to 8191 are not
 //     exact in TF32 (compact_residual.py:30-33); integers stay integers;
 //   * the residual may be written in place over e: each thread reads its
@@ -49,18 +68,137 @@
 // Bit-exactness: u = g + e is one f32 add, as in the reference; the
 // staged values are copies of u; pos, offs and counts are integer; so
 // the staging rows and e' are bitwise those of the reference at the same
-// threshold and geometry.
+// threshold and geometry.  Where a block selects more than bcap, its row
+// keeps the lowest in-block indices.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define THREADS 256
 #define WARPS (THREADS / 32)
 #define SENTINEL (-1)
-// tiles of THREADS elements each thread loads before it scans: measured
-// on an H100 at the 268M-element leaf, the stage launch is ~10% faster
-// with 4 than with 1, the residual launch ~5% faster with 1 than with 4
-#define STAGE_TILES 4
+// stage: blocks per CTA (one warp each) and float4 groups per lane per
+// chunk (STAGE_VPL * 128 = 1024 elements, a whole block on the main path)
+#define STAGE_WARPS 8
+#define STAGE_VPL 8
+// tiles of THREADS elements each residual thread loads before it scans:
+// measured on an H100 at the 268M-element leaf, ~5% faster with 1 than 4
 #define RESID_TILES 1
+
+// ---- stage: one warp per selection block -------------------------------
+//
+// Lane l owns the 4-element groups c0 + j*128 + 4l (j < STAGE_VPL) of each
+// chunk of STAGE_VPL*128 elements; all of a chunk's loads are issued
+// before its scan.  Elements in index order are chunk by chunk, j by j,
+// lane by lane, then the 4 elements of a group, so an element's in-block
+// position is
+//   run (the chunks and groups before)
+//   + the masked elements of lanes below in the same j (four ballots,
+//     popcounts under the lane's lanemask_lt)
+//   + the masked elements before it in its own group.
+// No shared memory and no barrier: the warp owns its block.
+
+// The chunk's groups of this lane, u = g (+ e), with the elements at or
+// past the block's real end (min(block, d - base)) read as 0 — the
+// reference's zero padding.  VEC: g (and e) are 16-byte aligned and
+// block % 4 == 0, so every group of a full chunk is one float4 load.
+template <bool HAS_E, bool VEC>
+__device__ __forceinline__ void stage_load(const float* __restrict__ g,
+                                           const float* __restrict__ e,
+                                           long long lim, int c0,
+                                           float (&x)[STAGE_VPL][4]) {
+  const int l4 = 4 * (threadIdx.x & 31);
+  if (c0 + 128 * STAGE_VPL <= lim) {  // a full chunk: no guards
+    if (VEC) {
+      float4 a[STAGE_VPL], b[STAGE_VPL];
+#pragma unroll
+      for (int j = 0; j < STAGE_VPL; ++j)
+        a[j] = *reinterpret_cast<const float4*>(g + c0 + j * 128 + l4);
+      if (HAS_E) {
+#pragma unroll
+        for (int j = 0; j < STAGE_VPL; ++j)
+          b[j] = *reinterpret_cast<const float4*>(e + c0 + j * 128 + l4);
+      }
+#pragma unroll
+      for (int j = 0; j < STAGE_VPL; ++j) {
+        x[j][0] = HAS_E ? a[j].x + b[j].x : a[j].x;
+        x[j][1] = HAS_E ? a[j].y + b[j].y : a[j].y;
+        x[j][2] = HAS_E ? a[j].z + b[j].z : a[j].z;
+        x[j][3] = HAS_E ? a[j].w + b[j].w : a[j].w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < STAGE_VPL; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = c0 + j * 128 + l4 + c;
+          x[j][c] = HAS_E ? g[i] + e[i] : g[i];
+        }
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < STAGE_VPL; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = c0 + j * 128 + l4 + c;
+      x[j][c] = i < lim ? (HAS_E ? g[i] + e[i] : g[i]) : 0.0f;
+    }
+}
+
+template <bool HAS_E, bool VEC>
+__global__ void __launch_bounds__(STAGE_WARPS * 32)
+stage_kernel(const float* __restrict__ g, const float* __restrict__ e,
+             long long d, float thres, int block, int bcap,
+             long long nblocks, float* __restrict__ vals,
+             int* __restrict__ offs, int* __restrict__ cnt) {
+  const int lane = threadIdx.x & 31;
+  const long long b = (long long)blockIdx.x * STAGE_WARPS + (threadIdx.x >> 5);
+  if (b >= nblocks) return;  // the whole warp: b is uniform across it
+  const long long base = b * (long long)block;
+  const long long lim = d - base < block ? d - base : block;
+  const float* gb = g + base;
+  const float* eb = HAS_E ? e + base : nullptr;
+  float* vrow = vals + b * bcap;
+  int* orow = offs + b * bcap;
+  const unsigned below = (1u << lane) - 1u;
+  int run = 0;  // masked elements before the current group, in the block
+  for (int c0 = 0; c0 < block; c0 += 128 * STAGE_VPL) {
+    float x[STAGE_VPL][4];
+    stage_load<HAS_E, VEC>(gb, eb, lim, c0, x);
+#pragma unroll
+    for (int j = 0; j < STAGE_VPL; ++j) {
+      bool m[4];
+      int p = run, tot = 0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        m[c] = fabsf(x[j][c]) > thres;
+        const unsigned bal = __ballot_sync(0xffffffffu, m[c]);
+        p += __popc(bal & below);
+        tot += __popc(bal);
+      }
+      const int off = c0 + j * 128 + 4 * lane;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (m[c]) {
+          if (p < bcap) {
+            vrow[p] = x[j][c];
+            orow[p] = off + c;
+          }
+          ++p;
+        }
+      }
+      run += tot;
+    }
+  }
+  const int enc = run < bcap ? run : bcap;
+  for (int s = enc + lane; s < bcap; s += 32) {
+    vrow[s] = 0.0f;
+    orow[s] = SENTINEL;
+  }
+  if (lane == 0) cnt[b] = run;
+}
+
+// ---- residual: one CTA of THREADS per block ------------------------------
 
 template <bool HAS_E>
 __device__ __forceinline__ float load_u(const float* __restrict__ g,
@@ -128,42 +266,6 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ g,
 
 template <int TILES, bool HAS_E>
 __global__ void __launch_bounds__(THREADS)
-stage_kernel(const float* __restrict__ g, const float* __restrict__ e,
-             long long d, float thres, int block, int bcap,
-             float* __restrict__ vals, int* __restrict__ offs,
-             int* __restrict__ cnt) {
-  __shared__ int warp_tot[TILES][WARPS];
-  const long long b = blockIdx.x;
-  const long long base = b * (long long)block;
-  float* vrow = vals + b * bcap;
-  int* orow = offs + b * bcap;
-  int run = 0;  // masked elements in the chunks before this one
-  for (int c0 = 0; c0 < block; c0 += THREADS * TILES) {
-    float x[TILES];
-    bool m[TILES];
-    int pos[TILES], total;
-    load_chunk<TILES, HAS_E>(g, e, base, d, c0, block, thres, x, m);
-    chunk_scan(m, warp_tot, pos, &total);
-#pragma unroll
-    for (int i = 0; i < TILES; ++i) {
-      const int p = run + pos[i];
-      if (m[i] && p < bcap) {
-        vrow[p] = x[i];
-        orow[p] = c0 + i * THREADS + threadIdx.x;
-      }
-    }
-    run += total;
-  }
-  const int enc = run < bcap ? run : bcap;
-  for (int s = enc + threadIdx.x; s < bcap; s += THREADS) {
-    vrow[s] = 0.0f;
-    orow[s] = SENTINEL;
-  }
-  if (threadIdx.x == 0) cnt[b] = run;
-}
-
-template <int TILES, bool HAS_E>
-__global__ void __launch_bounds__(THREADS)
 resid_kernel(const float* __restrict__ g, const float* e, long long d,
              float thres, int block, int bcap, long long k_cap,
              const long long* __restrict__ enc_before, float* out) {
@@ -189,27 +291,37 @@ resid_kernel(const float* __restrict__ g, const float* e, long long d,
   }
 }
 
-template <bool HAS_E>
+template <bool HAS_E, bool VEC>
 static int launch_stage(const void* g, const void* e, long long d,
                         float thres, int block, int bcap, long long nblocks,
                         void* vals, void* offs, void* cnt, void* stream) {
-  stage_kernel<STAGE_TILES, HAS_E>
-      <<<(unsigned)nblocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)g, (const float*)e, d, thres, block, bcap,
+  const long long ctas = (nblocks + STAGE_WARPS - 1) / STAGE_WARPS;
+  stage_kernel<HAS_E, VEC>
+      <<<(unsigned)ctas, STAGE_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const float*)g, (const float*)e, d, thres, block, bcap, nblocks,
       (float*)vals, (int*)offs, (int*)cnt);
   return (int)cudaGetLastError();
 }
 
-// e may be null (u = g)
+// e may be null (u = g).  The float4 instantiation needs every block to
+// start on a 16-byte boundary of g and e; any other view (a storage
+// offset of 1-3 elements, a block not a multiple of 4) takes the
+// scalar-load instantiation of the same kernel: the same rows.
 extern "C" int compact_stage_f32(const void* g, const void* e, long long d,
                                  float thres, int block, int bcap,
                                  long long nblocks, void* vals, void* offs,
                                  void* cnt, void* stream) {
-  return e != nullptr
-             ? launch_stage<true>(g, e, d, thres, block, bcap, nblocks, vals,
-                                  offs, cnt, stream)
-             : launch_stage<false>(g, e, d, thres, block, bcap, nblocks,
-                                   vals, offs, cnt, stream);
+  const bool vec = block % 4 == 0 && (uintptr_t)g % 16 == 0 &&
+                   (e == nullptr || (uintptr_t)e % 16 == 0);
+  if (e != nullptr)
+    return vec ? launch_stage<true, true>(g, e, d, thres, block, bcap,
+                                          nblocks, vals, offs, cnt, stream)
+               : launch_stage<true, false>(g, e, d, thres, block, bcap,
+                                           nblocks, vals, offs, cnt, stream);
+  return vec ? launch_stage<false, true>(g, e, d, thres, block, bcap, nblocks,
+                                         vals, offs, cnt, stream)
+             : launch_stage<false, false>(g, e, d, thres, block, bcap,
+                                          nblocks, vals, offs, cnt, stream);
 }
 
 extern "C" int compact_resid_f32(const void* g, const void* e, long long d,

@@ -7,9 +7,11 @@ fused_moments`` (``pallas_call`` at line 144; ``_kernel`` /
 ``_partials_kernel``), its ``with_hist`` branch included
 (:func:`fused_moments_hist`).  The same Triton kernel, specialised by
 its ``constexpr`` switches, is also the unfused pipeline's K4a
-``moments`` (``HAS_E=False``) and K4d ``abs_histogram`` (``HAS_E=False,
-WITH_MOMENTS=False``); their wrappers live at the reference's paths
-(``kernels/moments``, ``kernels/histk``).
+``moments`` (``HAS_E=False``), whose wrapper lives at the reference's
+path (``kernels/moments``).  K4d ``abs_histogram``, the histogram of a
+materialised ``u``, was this kernel too in the first port; it is now a CUDA
+C++ kernel of its own (``csrc/abs_histogram.cu``, wrapped in
+``kernels/histk/hist.py``), and K1 keeps its Triton histogram.
 
 What bounds it on the card: bytes.  It reads 8 bytes per element
 (``g`` and ``e`` in f32) and does ~5 flops on them (~15 integer
@@ -50,22 +52,21 @@ BINS = 128     # hist-k bins (kernels/histk/hist.py)
 
 
 def _moments_kernel(g_ptr, e_ptr, part_ptr, hist_ptr, d,
-                    HAS_E: "tl.constexpr", WITH_MOMENTS: "tl.constexpr",
-                    WITH_HIST: "tl.constexpr", BLOCK: "tl.constexpr"):
+                    HAS_E: "tl.constexpr", WITH_HIST: "tl.constexpr",
+                    BLOCK: "tl.constexpr"):
     pid = tl.program_id(0)
     offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     m = offs < d
     x = tl.load(g_ptr + offs, mask=m, other=0.0)
     if HAS_E:
         x = x + tl.load(e_ptr + offs, mask=m, other=0.0)
-    if WITH_MOMENTS:
-        s = tl.sum(x, axis=0)
-        sq = tl.sum(x * x, axis=0)
-        mx = tl.max(tl.abs(x), axis=0)
-        row = part_ptr + pid.to(tl.int64) * 3
-        tl.store(row, s)
-        tl.store(row + 1, sq)
-        tl.store(row + 2, mx)
+    s = tl.sum(x, axis=0)
+    sq = tl.sum(x * x, axis=0)
+    mx = tl.max(tl.abs(x), axis=0)
+    row = part_ptr + pid.to(tl.int64) * 3
+    tl.store(row, s)
+    tl.store(row + 1, sq)
+    tl.store(row + 2, mx)
     if WITH_HIST:
         # histk/hist.py:bin_of — 4·(biased exponent − 111) plus the
         # number of the f32 edge mantissas of 2^(1/4), 2^(1/2), 2^(3/4)
@@ -114,30 +115,27 @@ def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, nb * block - d)).view(nb, block)
 
 
-def launch_stats(name: str, g: torch.Tensor, e, *, block: int,
-                 moments: bool, hist: bool):
+def launch_stats(name: str, g: torch.Tensor, e, *, block: int, hist: bool):
     """Launch the statistics kernel on CUDA ``g`` (and ``e``): returns
-    the folded ``(s, sq, mx)`` (or ``None``) and the int64 ``(BINS,)``
-    histogram of the ``d`` real elements (or ``None``).  The wrapper that
-    calls this counts the launch."""
+    the folded ``(s, sq, mx)`` and the int64 ``(BINS,)`` histogram of the
+    ``d`` real elements (or ``None``).  The wrapper that calls this
+    counts the launch."""
     _check_cuda_f32(name, g, e)
     if block < 16 or block & (block - 1):
         raise ValueError(f"stats block must be a power of two >= 16, got "
                          f"{block}")
     d = g.shape[0]
     nb = max(1, -(-d // block))
-    parts = (torch.empty((nb, 3), dtype=torch.float32, device=g.device)
-             if moments else g)
+    parts = torch.empty((nb, 3), dtype=torch.float32, device=g.device)
     hparts = (torch.empty((nb, BINS), dtype=torch.int32, device=g.device)
               if hist else g)
     kern = _kernel()
     with torch.cuda.device(g.device):
         kern[(nb,)](g, g if e is None else e, parts, hparts, d,
-                    HAS_E=e is not None, WITH_MOMENTS=moments,
-                    WITH_HIST=hist, BLOCK=block, num_warps=4)
+                    HAS_E=e is not None, WITH_HIST=hist, BLOCK=block,
+                    num_warps=4)
     # deterministic folds of the per-block rows (no float atomics)
-    stats = ((parts[:, 0].sum(), parts[:, 1].sum(), parts[:, 2].amax())
-             if moments else None)
+    stats = parts[:, 0].sum(), parts[:, 1].sum(), parts[:, 2].amax()
     h = None
     if hist:
         h = hparts.sum(dim=0, dtype=torch.int64)
@@ -177,8 +175,7 @@ def fused_moments(g: torch.Tensor, e=None, *, block: int):
     _check(g, e)
     if g.device.type != "cuda":
         return fused_moments_plain(g, e, block=block)
-    stats, _ = launch_stats("fused_moments", g, e, block=block,
-                            moments=True, hist=False)
+    stats, _ = launch_stats("fused_moments", g, e, block=block, hist=False)
     fused_moments.launches += 1
     return stats
 
@@ -203,7 +200,7 @@ def fused_moments_hist(g: torch.Tensor, e=None, *, block: int):
     if g.device.type != "cuda":
         return fused_moments_hist_plain(g, e, block=block)
     stats, h = launch_stats("fused_moments_hist", g, e, block=block,
-                            moments=True, hist=True)
+                            hist=True)
     fused_moments_hist.launches += 1
     return (*stats, h)
 

@@ -9,11 +9,24 @@ offsets (the rest padded with 0 / ``SENTINEL``) and the uncapped count.
 
 The TPU built each row with a one-hot ``(bcap, block)`` MXU matmul.  The
 card has no reason to: the kernel is K3's CUDA ``stage_kernel``
-(``csrc/compact_residual.cu``) instantiated with ``HAS_E = false`` — one
-CTA per block, in-block positions from warp ballots and popcounts, exact
-integer offsets.  Bound: bytes, one read of ``x`` (4 bytes per element)
-plus the staging rows (8 bytes per slot) and counts: 0.36 ms for the
-268,435,456-element leaf with ``bcap`` 64 at 3.35 TB/s.
+(``csrc/compact_residual.cu``, which also replaces the K3 stage launch
+``ef_fused/compact_residual.py:191``) instantiated with ``HAS_E =
+false``, with exact integer offsets.  Bound: bytes, one read of ``x`` (4
+bytes per element) plus the staging rows (8 bytes per slot) and counts:
+0.361 ms for the 268,435,456-element leaf with block 1024 and ``bcap``
+64 at 3.35 TB/s.  The first port (one CTA of 256 threads per block, a
+ballot scan with two barriers per chunk) ran at 0.852 ms, 42% of it
+(NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py``): reading half the
+bytes of the K3 stage launch made it only 15% faster, so short CTAs,
+barriers and too few bytes in flight bound it.  The kernel now runs
+one warp per block, 8 blocks a CTA, 16-byte loads all issued
+before the scan, in-order positions from warp ballots, no shared memory
+and no barrier; a view that is not 16-byte aligned takes the scalar-load
+instantiation of the same kernel.  It runs at 0.441 ms beside the 0.361
+ms bound, 0.404 ms at block 2048 beside 0.341 (same card,
+``chip_smoke.py``; the first design 0.840 ms in the same run).  Where a
+block selects more than ``bcap`` elements its row keeps the lowest
+in-block indices.
 """
 from __future__ import annotations
 

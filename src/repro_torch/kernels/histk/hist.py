@@ -18,24 +18,44 @@ count ``q`` of the three f32 edge mantissas (of 2^(1/4), 2^(1/2),
 to [0, 127] — the exact position of ``|x|`` among the f32 edges, the
 same on the card and on the CPU.
 
-The kernel is K1's Triton statistics kernel (``kernels/ef_fused/
-fused_moments.py``) with ``HAS_E=False, WITH_MOMENTS=False,
-WITH_HIST=True``: one read of ``x`` (4 bytes per element, 0.32 ms for the
-268,435,456-element leaf at 3.35 TB/s) plus one 512-byte row of partial
-counts per block.  The rows are summed in int64 — the reference sums
-them in f32, which stops being exact above 2^24 counts in a bin.
+The kernel is CUDA C++, ``repro_torch/csrc/abs_histogram.cu`` (its
+header has the design in full).  Bound: bytes, one read of ``x`` (4
+bytes per element, 0.321 ms for the 268,435,456-element leaf at 3.35
+TB/s).  The first port of K4d was K1's Triton statistics kernel with the
+histogram switched on: one ``tl.histogram`` into a 512-byte int32 row
+per block, the rows summed by torch.  It ran at 0.886 ms, 36% of the
+bound (NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py``): the per-element
+votes and the 33-67 MB of rows, not the read of ``x``, set its time.
+The CUDA kernel walks ``x`` with a persistent grid of float4 loads,
+counts into per-lane uint32 sub-histograms in shared memory (no address
+or bank conflict however crowded the bins) and adds each CTA's 128 sums
+into the int64 output with integer ``atomicAdd``: no per-block rows, no
+fold launch.  It runs at 0.380 ms beside the 0.321 ms bound (same card,
+``chip_smoke.py``; the Triton design 0.879 ms in the same run).  The
+reference sums f32 rows, which stops being exact above 2^24 counts in a
+bin; the port counts in integers.
 
-Counts are of the ``d`` real elements: the padding zeros of the last
-block are taken out of bin 0 here (the reference leaves them in and
-subtracts them in ``threshold_from_histogram``).
+Counts are of the ``d`` real elements.  The kernel's geometry does not
+depend on ``block``: integer counts are the same in any order, so the
+kernel equals :func:`abs_histogram_plain` at every ``block``.  The plain
+version keeps the reference's blocking and takes the padding zeros of
+the last block out of bin 0 (the reference leaves them in and subtracts
+them in ``threshold_from_histogram``).
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import cuda_build
 from repro_torch.kernels.ef_fused.fused_moments import (BINS, _blocks,
-                                                        _check, launch_stats)
+                                                        _check,
+                                                        _check_cuda_f32)
+
+SOURCE = "abs_histogram.cu"
+_SIGS = []
 
 _LO_EXP = -16
 _SCALE = 4            # bins per octave
@@ -73,16 +93,32 @@ def abs_histogram_plain(x: torch.Tensor, *, block: int) -> torch.Tensor:
     return h
 
 
+def _lib():
+    lib = cuda_build.load(SOURCE)
+    if not _SIGS:
+        p = ctypes.c_void_p
+        lib.abs_histogram_f32.argtypes = [p, ctypes.c_longlong, p, p]
+        lib.abs_histogram_f32.restype = ctypes.c_int
+        _SIGS.append(True)
+    return lib
+
+
 def abs_histogram(x: torch.Tensor, *, block: int = 2048) -> torch.Tensor:
     """``(BINS,)`` int64 histogram of ``|x|`` over the ``d`` elements of
-    flat ``x``, blocked by ``block``.  CUDA tensors launch the Triton
-    kernel (f32 only, ``block`` a power of two); CPU tensors take the
-    plain version."""
+    flat ``x``.  CUDA tensors launch the CUDA kernel (f32 only; its
+    geometry does not depend on ``block``); CPU tensors take the plain
+    version, blocked by ``block``."""
     _check(x, None)
     if x.device.type != "cuda":
         return abs_histogram_plain(x, block=block)
-    _, h = launch_stats("abs_histogram", x, None, block=block,
-                        moments=False, hist=True)
+    _check_cuda_f32("abs_histogram", x)
+    h = torch.zeros(BINS, dtype=torch.int64, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        rc = lib.abs_histogram_f32(
+            x.data_ptr(), x.shape[0], h.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(rc, "abs_histogram")
     abs_histogram.launches += 1
     return h
 

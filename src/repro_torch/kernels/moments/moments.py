@@ -30,8 +30,7 @@ def moments(x: torch.Tensor, *, block: int = 2048):
     _check(x, None)
     if x.device.type != "cuda":
         return moments_plain(x, block)
-    stats, _ = launch_stats("moments", x, None, block=block, moments=True,
-                            hist=False)
+    stats, _ = launch_stats("moments", x, None, block=block, hist=False)
     moments.launches += 1
     return stats
 

@@ -11,7 +11,10 @@ and K4a ``s`` within ``1e-5·Σ|u|``, ``sq`` within rtol 1e-5, absmax
 exact (the Triton and torch reductions sum in other orders); K2 and K4b
 counts, the K1 and K4d histograms, K3 and K4c staging and the residual
 exact (integer work and copies of ``u``); the unfused pipeline bitwise
-the fused one.
+the fused one.  The K3 stage, K4c and K4d are also held bitwise on
+views at storage offsets 1 and 3 (their scalar-load paths), blocks that
+are not multiples of 4, thresholds of 0 and above ``max|u|``, and
+one-bin, all-zero and zero/subnormal/inf/``>= edge[127]`` inputs.
 """
 import math
 
@@ -139,9 +142,79 @@ def test_unfused_equals_fused(dev, d, name):
     assert torch.equal(codec.decode(f[0], f[1], d) + f[2], g + e)
 
 
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("off", [0, 1, 3])
+@pytest.mark.parametrize("block", [1024, 2048, 4096, 1001])
+@pytest.mark.parametrize("d", [33, 4097, 1_000_003])
+def test_stage_kernels_edge_cases(dev, d, block, off):
+    """The K3 stage and K4c, bitwise their plain versions, on views at
+    storage offsets 1 and 3 (the scalar-load path), at blocks that are
+    and are not multiples of 4, at a mid threshold, at 0 (every full
+    block overflows bcap) and just above ``max|u|`` (nothing staged)."""
+    g, e = _inputs(d + off, dev, seed=4)
+    gv, ev = g[off:], e[off:]
+    uv = gv + ev
+    top = uv.abs().max()
+    above = float(torch.nextafter(top, torch.full_like(top, math.inf)))
+    mid = float(uv.abs().kthvalue(max(1, d * 9 // 10)).values)
+    n0 = (cr.compact_stage.launches, thc.threshold_compact.launches)
+    for t in (mid, 0.0, above):
+        for a, b in zip(cr.compact_stage(gv, ev, t, block=block, bcap=64),
+                        cr.compact_stage_plain(gv, ev, t, block=block,
+                                               bcap=64)):
+            assert _same_bits(a, b), (t, "K3 stage")
+        for a, b in zip(thc.threshold_compact(uv, t, block=block, bcap=64),
+                        thc.threshold_compact_plain(uv, t, block=block,
+                                                    bcap=64)):
+            assert _same_bits(a, b), (t, "K4c")
+    n1 = (cr.compact_stage.launches, thc.threshold_compact.launches)
+    assert [b - a for a, b in zip(n0, n1)] == [3, 3]
+
+
+def _hist_input(kind, n, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    x = torch.randn(n, generator=gen, device=dev).mul_(1e-3)
+    if kind == "one magnitude":
+        x.fill_(0.37)
+    elif kind == "zeros":
+        x.zero_()
+    elif kind == "mixed":
+        x[0::6] = 0.0
+        x[1::6] = -1e-40
+        x[2::6] = float(hist.EDGES[127])
+        x[3::6] = -3e38
+        x[4::12] = math.inf
+    return x
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "one magnitude", "zeros",
+                                  "mixed"])
+@pytest.mark.parametrize("off", [0, 1, 3])
+@pytest.mark.parametrize("d", [1, 33, 4097, 1_000_003])
+def test_abs_histogram_edge_cases(dev, d, off, kind):
+    """K4d bitwise its plain version at any block, on views at storage
+    offsets 1 and 3 (the scalar head), on one bin, all zeros, and zeros,
+    subnormals, infinities and values at or above ``edge[127]``."""
+    x = _hist_input(kind, d + off, dev)[off:]
+    n0 = hist.abs_histogram.launches
+    h = hist.abs_histogram(x)
+    assert hist.abs_histogram.launches - n0 == 1
+    for block in (16, 2048, 4096):
+        assert torch.equal(h, hist.abs_histogram_plain(x, block=block))
+    assert int(h.sum()) == d
+
+
 def test_cuda_kernels_take_float32_only(dev):
     g = torch.zeros(64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
         fm.fused_moments(g, None, block=1024)
     with pytest.raises(TypeError, match="float32"):
         cr.compact_stage(g, None, 0.0, block=1024, bcap=64)
+    with pytest.raises(TypeError, match="float32"):
+        hist.abs_histogram(g)

@@ -18,7 +18,10 @@ import torch
 
 from repro.kernels.ef_fused import ops as jops
 from repro.kernels.ef_fused import tuning as jtuning
+from repro.kernels.ef_fused.compact_residual import \
+    compact_residual as j_compact
 from repro_torch.core import codec
+from repro_torch.kernels.ef_fused import compact_residual as cr
 from repro_torch.kernels.ef_fused import ops, passes, tuning
 
 torch.set_num_threads(2)
@@ -141,3 +144,53 @@ def test_geometry_of_gives_the_cards_geometry_on_the_cpu():
                                  stats_block=cfg.stats_block)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _pad2d(x, block):
+    pad = (-x.shape[0]) % block
+    return jnp.asarray(np.pad(x, (0, pad)).reshape(-1, block))
+
+
+@pytest.mark.parametrize("off", [0, 1, 3])
+@pytest.mark.parametrize("block", [1001, 2048])
+@pytest.mark.parametrize("case", ["zero", "above max"])
+@pytest.mark.parametrize("d", [33, 5001])
+def test_compact_stage_plain_edge_cases(d, case, block, off):
+    """The K3 stage and residual at threshold 0 (``u = g + e`` has no
+    zeros: every full block overflows ``bcap`` and keeps its lowest
+    indices) and above ``max|u|`` (nothing staged, ``e' = u``), on ``d``
+    not a multiple of ``block`` and on views at storage offset ``off``:
+    bitwise the reference in interpret mode."""
+    rng = np.random.default_rng(d + off)
+    gb = rng.standard_normal(d + off).astype(np.float32)
+    eb = (0.5 * rng.standard_normal(d + off)).astype(np.float32)
+    g, e = gb[off:], eb[off:]
+    u = g + e
+    assert np.all(u != 0)
+    t = np.float32(0.0) if case == "zero" else np.nextafter(
+        np.abs(u).max(), np.float32(np.inf))
+    bcap, k_cap = 64, 100
+    jv, jo, jn, je = j_compact(_pad2d(g, block), _pad2d(e, block), t,
+                               bcap=bcap, k_cap=k_cap, block=block,
+                               with_resid=True, backend="interpret",
+                               interpret=True)
+    tg, te = torch.from_numpy(gb)[off:], torch.from_numpy(eb)[off:]
+    assert tg.storage_offset() == te.storage_offset() == off
+    tv, to, tn = cr.compact_stage(tg, te, float(t), block=block, bcap=bcap)
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+    np.testing.assert_array_equal(np.asarray(jo), to.numpy())
+    np.testing.assert_array_equal(np.asarray(jn), tn.numpy())
+    ne = cr.compact_resid(tg, te, float(t), cr.exclusive_enc(tn, bcap),
+                          block=block, bcap=bcap, k_cap=k_cap)
+    np.testing.assert_array_equal(np.asarray(je).reshape(-1)[:d],
+                                  ne.numpy())
+    real = np.minimum(d - block * np.arange(tn.shape[0]), block)
+    if case == "zero":
+        np.testing.assert_array_equal(tn.numpy(), real)
+        full = real >= bcap
+        np.testing.assert_array_equal(to.numpy()[full],
+                                      np.tile(np.arange(bcap), (full.sum(),
+                                                                1)))
+    else:
+        assert int(tn.max()) == 0 and torch.equal(ne, tg + te)
+    assert cr.compact_stage.launches == 0

@@ -110,6 +110,45 @@ def test_abs_histogram_plain_matches_pallas(d, block):
     assert hist.abs_histogram.launches == 0
 
 
+def _kind(kind, d, seed=0):
+    """Histogram inputs: Gaussian magnitudes; one magnitude (one bin);
+    zeros, subnormals, ``edge[127]`` and larger magnitudes, infinities,
+    between Gaussian values."""
+    x = _u(d, seed)
+    if kind == "one magnitude":
+        x = np.full(d, 0.37, np.float32)
+    elif kind == "mixed":
+        x[0::6] = 0.0
+        x[1::6] = -1e-40
+        x[2::6] = hist.EDGES[127]
+        x[3::6] = -3e38
+        x[4::12] = np.inf
+    return x
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "one magnitude", "mixed"])
+@pytest.mark.parametrize("d", [1, 33, 5001, 70001])
+def test_abs_histogram_plain_is_block_independent(d, kind):
+    """The counts do not depend on ``block`` (what the card's kernel, whose
+    geometry ignores ``block``, relies on): equal for blocks 16, 2048 and
+    4096, and to one ``bincount`` of the bins; within ``2·disagreements``
+    of the reference run in interpret mode."""
+    x = _kind(kind, d)
+    tx = torch.from_numpy(x)
+    want = torch.bincount(hist.bin_of(tx), minlength=hist.BINS)
+    for block in (16, 2048, 4096):
+        assert torch.equal(hist.abs_histogram_plain(tx, block=block), want)
+    if kind == "one magnitude":
+        assert int(want[hist.bin_of(tx[:1])]) == d
+    x2d, pad = _pad2d(x, 2048)
+    jh = np.asarray(jhist.abs_histogram(x2d, block=2048, interpret=True))
+    jh = jh.astype(np.int64)
+    jh[0] -= pad
+    dis = int((np.asarray(jhist._bin_of(jnp.abs(jnp.asarray(x))))
+               != hist.bin_of(tx).numpy()).sum())
+    assert np.abs(jh - want.numpy()).sum() <= 2 * dis
+
+
 @pytest.mark.parametrize("with_e", [True, False])
 @pytest.mark.parametrize("d", [33, 5001, 70001])
 def test_fused_moments_hist_plain_matches_pallas(d, with_e):

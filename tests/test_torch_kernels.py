@@ -122,3 +122,28 @@ def test_compact_residual_staging_overflow():
     thres = float(np.quantile(np.abs(g + e), 0.9))   # ~200 per block
     cnt = _compare_compact(g, e, thres, block=2048, bcap=8, k_cap=12)
     assert int(cnt.max()) > 8
+
+
+@pytest.mark.parametrize("kernel,i", [("stage", i) for i in range(5)]
+                         + [("hist", i) for i in range(5)])
+def test_tune_kernels_variants_apply(kernel, i):
+    """Each variant that ``launch/tune_kernels.py`` builds on the card is
+    the kernel's source with exactly its own change: the ``#define``
+    values it names, or the one replaced ``count`` function."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.launch import tune_kernels as tk
+    source = "compact_residual.cu" if kernel == "stage" else \
+        "abs_histogram.cu"
+    label, defines, *count = (tk.STAGE if kernel == "stage" else tk.HIST)[i]
+    count = count[0] if count else None
+    with open(f"{cuda_build.CSRC}/{source}") as f:
+        base = f.read()
+    text = tk._variant(source, defines, count)
+    for name, value in defines.items():
+        assert f"\n#define {name} {value}" in text
+    if count is not None:
+        assert count in text and count not in base
+    if not defines and count is None:
+        assert text == base, label
+    else:
+        assert text != base, label

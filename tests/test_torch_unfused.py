@@ -104,6 +104,41 @@ def test_threshold_compact_plain_matches_pallas(d, bcap):
     assert thc.threshold_compact.launches == 0
 
 
+@pytest.mark.parametrize("off", [0, 1, 3])
+@pytest.mark.parametrize("block", [1001, 2048])
+@pytest.mark.parametrize("case", ["zero", "above max"])
+@pytest.mark.parametrize("d", [33, 5001])
+def test_threshold_compact_plain_edge_cases(d, case, block, off):
+    """Threshold 0 on a ``u`` with no zeros (every full block overflows
+    ``bcap`` and keeps its lowest indices) and a threshold above
+    ``max|u|`` (nothing selected), on ``d`` not a multiple of ``block``
+    and on a view at storage offset ``off``: bitwise the reference."""
+    base = _u(d + off, seed=9)
+    u = base[off:]
+    assert np.all(u != 0)
+    t = np.float32(0.0) if case == "zero" else np.nextafter(
+        np.abs(u).max(), np.float32(np.inf))
+    bcap = 64
+    jv, jo, jc = j_compact(_pad2d(u, block), t, bcap=bcap, block=block,
+                           interpret=True)
+    tu = torch.from_numpy(base)[off:]
+    assert tu.storage_offset() == off
+    tv, to, tc = thc.threshold_compact(tu, float(t), block=block, bcap=bcap)
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+    np.testing.assert_array_equal(np.asarray(jo), to.numpy())
+    np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+    real = np.minimum(d - block * np.arange(tc.shape[0]), block)
+    if case == "zero":
+        np.testing.assert_array_equal(tc.numpy(), real)
+        full = real >= bcap
+        np.testing.assert_array_equal(to.numpy()[full],
+                                      np.tile(np.arange(bcap), (full.sum(),
+                                                                1)))
+    else:
+        assert int(tc.max()) == 0 and bool((to == -1).all())
+    assert thc.threshold_compact.launches == 0
+
+
 def test_threshold_compact_takes_multiples_of_8():
     with pytest.raises(ValueError, match="multiple of 8"):
         thc.threshold_compact(torch.zeros(64), 0.0, block=64, bcap=12)
