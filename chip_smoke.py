@@ -44,7 +44,27 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
 4. card against CPU on a small config (2 layers, d_model 64): 2 steps
    on each from the same params and batches, the CPU at the card's
    block geometry, for gaussiank, histk (both backends) and trimmedk,
-   losses within rtol 1e-4.
+   losses within rtol 1e-4;
+5. the data-parallel wire, each path with the launch counters set to 0
+   just before it and read just after:
+   5a. ``train.run`` with ``--host-devices 4 --mesh 4x1 --strategy
+       allgather`` at full llama3.2-1b width and depth, 3 steps (48
+       launches a step of K1, K2, the K3 stage and the K3 residual;
+       every worker's step-0 bucket conserves bitwise; peak memory, step
+       ms and the wire's ms by CUDA events);
+   5b. ``gtopk`` (``--mesh 4x1``), ``hierarchical`` and ``hier_gtopk``
+       (``--mesh 2x2x1``) at full width with ``num_layers`` cut to 4 (the
+       per-worker gTop-k buffers of 16 layers exceed the card), 2 steps
+       each: 48 or 96 launches a step; gTop-k's step-0 conservation
+       ``sum_w e'_w + W*mean == sum_w G_w`` within ``2**-19 *
+       sum_w |G_w|`` per element; the wire accounting equal the layout's;
+   5c. two processes over ``torch.distributed`` (NCCL with a card each
+       when two cards are visible, else gloo staged through host memory
+       on the one card), 2 steps of allgather and of gtopk at full width
+       with 2 layers: params, momentum and residuals (sha256) and losses
+       equal ``LocalWire``'s; the line names the backend;
+   5d. each strategy with 4 workers on the small config, card against
+       CPU at the card's block geometry, losses within rtol 1e-4.
 
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it the ``{"kernels": [...]}`` JSON; the last line is
@@ -135,6 +155,11 @@ KERNELS = {   # key: (name, route, source, replaces)
                       "src/repro_torch/csrc/abs_histogram.cu",
                       "src/repro/kernels/histk/hist.py:62"),
 }
+
+
+# the kernels of the Gaussian-k fused path, one launch per leaf each
+MAIN_KERNELS = ("fused_moments", "tree_count", "compact_stage",
+                "compact_resid")
 
 
 def counters():
@@ -552,50 +577,300 @@ def drive(label, run, expect, steps):
     return launches, out
 
 
-def train_path(label, argv, expect, steps, torch):
-    """One trainer path at full width: returns its launches, records,
-    peak memory and each launched kernel's bound per step (``LEAF_BYTES``
-    over the bucket's columns); checks the per-step launches, the first
-    step's bucket conservation, finite losses and density <= cap."""
+def conserves(G, values, indices, new_E, label, torch) -> None:
+    """``decode(values, indices) + new_E == G`` bitwise, one 1 GiB column
+    slice at a time (not one 6 GB decode)."""
+    step = 1 << 28
+    D = G.shape[1]
+    for m in range(G.shape[0]):
+        v, i = values[m].float(), indices[m].long()
+        for a in range(0, D, step):
+            b = min(a + step, D)
+            sel = (i >= a) & (i < b)
+            dec = torch.zeros(b - a, device=G.device)
+            dec.index_add_(0, i[sel] - a, v[sel])
+            assert torch.equal(dec + new_E[m, a:b], G[m, a:b]), (
+                label, "conservation", m, a)
+
+
+def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
+               global_check=False, levels=1):
+    """One trainer path at full width (``workers`` of them in this
+    process): returns its launches, records, peak memory, each launched
+    kernel's bound per step (``LEAF_BYTES`` over the bucket's columns
+    and the workers) and the wire's ms per step; checks the per-step
+    launches, each worker's bucket conservation at step 0, finite
+    losses and density <= cap.  ``global_check`` also holds gTop-k's
+    conservation across the workers at step 0:
+    ``sum_w e'_w + W * mean == sum_w G_w`` within ``2**-19 *
+    sum_w |G_w|`` per element (f32 rounding of the sums); returns the
+    largest difference seen and the bound's largest value."""
     from repro_torch.launch import train
     funcs = counters()
-    seen, G_cols = [], []
+    seen, G_cols, wire_ev, last = [], [], [], [None]
+    acc = {}
 
-    def probe(G, values, indices, mean, new_E):
-        seen.append({n: f.launches for n, f in funcs.items()})
-        if len(seen) == 1:   # step 0: the residual was zero, u == G
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def probe(rank, G=None, values=None, indices=None, new_E=None,
+              mean=None, resid=None, resid2=None):
+        if rank is None:
+            seen.append({n: f.launches for n, f in funcs.items()})
+            wire_ev.append((last[0], event()))
+            if global_check and len(seen) == 1:
+                E = resid.view(workers, *mean.shape)
+                lhs = E.sum(dim=0) + workers * mean
+                diff = (lhs - acc["G"]).abs()
+                acc["err"] = float(diff.max())
+                acc["tol"] = float(acc["absG"].max()) * 2.0 ** -19
+                assert bool((diff <= 2.0 ** -19 * acc["absG"]).all()), (
+                    label, "gTop-k conservation", acc["err"], acc["tol"])
+                del acc["G"], acc["absG"], lhs, diff
+            return
+        if not seen:   # step 0: the residual was zero, u == G
             G_cols.append(G.shape[1])
-            step = 1 << 28       # compare in 1 GiB slices, not one 6 GB sum
-            for a in range(0, G.shape[1], step):
-                cols = slice(a, a + step)
-                assert torch.equal(mean[:, cols] + new_E[:, cols],
-                                   G[:, cols]), (label, "conservation", a)
+            conserves(G, values, indices, new_E, label, torch)
+            if global_check:
+                if "G" in acc:
+                    acc["G"] += G
+                    acc["absG"] += G.abs()
+                else:
+                    acc["G"], acc["absG"] = G.clone(), G.abs()
+        last[0] = event()
 
     torch.cuda.reset_peak_memory_stats()
     launches, records = drive(
         label, lambda: train.run(argv + ["--steps", str(steps),
-                                         "--log-every", "1"], probe=probe),
+                                         "--log-every", "1"], probe=probe,
+                                 cfg=cfg),
         expect, steps)
     peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    wire_ms = [a.elapsed_time(b) for a, b in wire_ev]
     for s, snap in enumerate(seen):
         for n, c in expect.items():
             assert snap[n] == c * (s + 1), (label, "per-step", s, n, snap)
     losses = [r["loss"] for r in records]
     assert all(math.isfinite(x) for x in losses), (label, losses)
     for r in records:
-        assert r["density"] <= r["density_cap"], (label, r)
+        assert r["density"] <= levels * r["density_cap"], (label, r)
     step_ms = [r["ms"] for r in records]
     cols = G_cols[0]
-    step_bound = {n: LEAF_BYTES[n] * cols / HBM_BYTES_PER_S * 1e3
-                  for n in expect}
+    # each of the 12 leaves' launches reads and writes its columns once
+    step_bound = {n: LEAF_BYTES[n] * cols * (c // 12) / HBM_BYTES_PER_S
+                  * 1e3 for n, c in expect.items()}
     log(f"  {label}: losses {losses}; step ms "
-        f"{[round(x, 1) for x in step_ms]}; peak memory "
+        f"{[round(x, 1) for x in step_ms]}; wire ms "
+        f"{[round(x, 2) for x in wire_ms]}; peak memory "
         f"{peak / 2**30:.2f} GiB; density "
         f"{[round(r['density'], 6) for r in records]} (cap "
-        f"{records[0]['density_cap']:.6f}); launches {launches}; first "
-        f"step's bucket conserves bitwise; per-step bound ms over "
+        f"{records[0]['density_cap']:.6f}); launches {launches}; every "
+        f"worker's step-0 bucket conserves bitwise; per-step bound ms over "
         f"{cols:,} columns {step_bound}")
-    return launches, records, peak, step_bound
+    if global_check:
+        log(f"  {label}: step 0 sum_w e'_w + W*mean == sum_w G_w, largest "
+            f"difference {acc['err']:.3g} (bound 2**-19 * sum_w |G_w|, "
+            f"largest {acc['tol']:.3g})")
+    extra = {"wire_ms": wire_ms, "conservation": dict(
+        (k, acc[k]) for k in ("err", "tol") if k in acc)}
+    return launches, records, peak, step_bound, extra
+
+
+PG_STRATEGIES = ("allgather", "gtopk")
+
+
+def train_lib(cfg, mesh, strategy, steps, batch, seq, wire, device):
+    """Train ``steps`` steps of Gaussian-k at ``RATIO`` through the
+    library entry points (``init_train_state``, ``make_train_step``) on
+    ``wire``; returns the losses and the final state."""
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data import batch_for
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.models import init_params
+    from repro_torch.optim import constant, sgd_momentum
+    from repro_torch.train import init_train_state, make_train_step
+    params = init_params(cfg, 0, device)
+    comp = CompressionConfig(ratio=RATIO, strategy=strategy)
+    layout = build_layout(params, 1, comp)
+    opt = sgd_momentum(0.9)
+    state = init_train_state(params, opt, workers=wire.local_workers,
+                             model_size=1, compression=comp, layout=layout)
+    step = make_train_step(cfg, mesh, opt, constant(0.1), compression=comp,
+                           layout=layout, wire=wire)
+    losses = []
+    for i in range(steps):
+        b = batch_for(cfg, i, global_batch=batch, seq_len=seq, device=device)
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    return losses, state
+
+
+def digests(state, ranks) -> dict:
+    """sha256 of the params, of the optimizer state and of each residual
+    row (row ``j`` of the state is worker ``ranks[j]``'s)."""
+    import hashlib
+
+    from repro_torch import tree
+    out = {}
+    for key in ("params", "opt"):
+        h = hashlib.sha256()
+        for leaf in tree.leaves(state[key]):
+            h.update(leaf.detach().cpu().numpy())
+        out[key] = h.hexdigest()
+    for j, rank in enumerate(ranks):
+        out[f"resid/{rank}"] = hashlib.sha256(
+            state["resid"][j].cpu().numpy()).hexdigest()
+    return out
+
+
+def llama_layers(n):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3.2-1b"),
+                               num_layers=n).validate()
+
+
+def pg_child(rank, world, backend, port, cfg, steps, batch, seq, queue):
+    """Phase 5c, one rank: ``ProcessGroupWire`` over ``backend``, each of
+    ``PG_STRATEGIES`` trained ``steps`` steps; puts ``(rank, results)``
+    on ``queue``."""
+    import traceback
+    try:
+        sys.path.insert(0, os.path.join(HERE, "src"))
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.dist.wire import (ProcessGroupWire,
+                                           init_process_group)
+        from repro_torch.launch.mesh import parse_mesh
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        nccl = backend == "nccl"
+        init_process_group(backend, rank=rank, world_size=world,
+                           local_rank=rank if nccl else 0,
+                           local_world_size=world,
+                           init_method=f"tcp://127.0.0.1:{port}")
+        device = torch.device("cuda", rank if nccl else 0)
+        mesh = parse_mesh(f"{world}x1")
+        wire = ProcessGroupWire(mesh)
+        funcs = counters()
+        out = {}
+        for strategy in PG_STRATEGIES:
+            for f in funcs.values():
+                f.launches = 0
+            losses, state = train_lib(cfg, mesh, strategy, steps, batch,
+                                      seq, wire, device)
+            out[strategy] = {"losses": losses,
+                             "digests": digests(state, [rank]),
+                             "launches": {n: f.launches
+                                          for n, f in funcs.items()},
+                             "backend": wire.backend}
+            del state
+            torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        queue.put((rank, out))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase5c(torch, by_path, cfg) -> dict:
+    """The process-group wire on the card against ``LocalWire``: 2 ranks
+    (NCCL with a card each when there are two cards, else gloo staged
+    through host memory on the one card), 2 steps of each of
+    ``PG_STRATEGIES`` of ``cfg``; params,
+    optimizer state, residuals (sha256) and losses must be equal."""
+    import multiprocessing as mp
+
+    from repro_torch.dist.wire import LocalWire
+    from repro_torch.launch.mesh import parse_mesh
+    steps, batch, seq = 2, 4, 128
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    mesh = parse_mesh("2x1")
+    funcs = counters()
+    ref = {}
+    for strategy in PG_STRATEGIES:
+        for f in funcs.values():
+            f.launches = 0
+        losses, state = train_lib(cfg, mesh, strategy, steps, batch, seq,
+                                  LocalWire(mesh), torch.device("cuda"))
+        ref[strategy] = {"losses": losses, "digests": digests(state, [0, 1]),
+                         "launches": {n: f.launches
+                                      for n, f in funcs.items()}}
+        del state
+        torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=pg_child,
+                         args=(r, 2, backend, port, cfg, steps, batch,
+                               seq, queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    import queue as queue_mod
+    got, deadline = {}, time.time() + 600
+    try:
+        while len(got) < len(procs):
+            try:
+                rank, out = queue.get(timeout=5)
+                got[rank] = out
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs
+                        if not p.is_alive() and p.exitcode != 0]
+                assert not dead and time.time() < deadline, (
+                    "5c ranks ended without a result", dead)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    for rank, out in got.items():
+        assert "error" not in out, (rank, out.get("error"))
+    for p in procs:
+        assert p.exitcode == 0, ("5c rank exit code", p.exitcode)
+    pg_launches = {n: 0 for n in funcs}
+    for strategy in PG_STRATEGIES:
+        want = ref[strategy]
+        for rank in range(2):
+            res = got[rank][strategy]
+            assert res["backend"] == backend, res["backend"]
+            assert res["losses"] == want["losses"], (
+                strategy, rank, res["losses"], want["losses"])
+            for key in ("params", "opt", f"resid/{rank}"):
+                assert res["digests"][key] == want["digests"][key], (
+                    strategy, rank, key)
+            for n, c in res["launches"].items():
+                assert c == (12 * steps if n in MAIN_KERNELS else 0), (
+                    strategy, rank, n, c)
+                pg_launches[n] += c
+        for n, c in want["launches"].items():
+            assert c == (2 * 12 * steps if n in MAIN_KERNELS else 0), (
+                strategy, "local", n, c)
+    by_path["5c process group, 2 ranks"] = pg_launches
+    by_path["5c LocalWire W=2"] = {n: sum(ref[s]["launches"][n]
+                                          for s in PG_STRATEGIES)
+                                   for n in funcs}
+    where = ("one card per rank" if backend == "nccl" else
+             "both ranks on cuda:0, collectives staged through host memory")
+    log(f"  5c: backend {backend} ({cards} card(s) visible; {where}"
+        f"): params, momentum, each rank's residual (sha256) and losses "
+        f"equal LocalWire's for {', '.join(PG_STRATEGIES)}; losses "
+        f"{ {s: ref[s]['losses'] for s in PG_STRATEGIES} }")
+    return {"backend": backend, "cards": cards, "layers": cfg.num_layers,
+            "losses": {s: ref[s]["losses"] for s in PG_STRATEGIES}}
 
 
 def main(argv) -> int:
@@ -652,7 +927,7 @@ def main(argv) -> int:
              "--batch", "8", "--seq", "128"]
     by_path = {}
     log("phase 3: llama3.2-1b at full width, Gaussian-k (fused), 3 steps")
-    by_path["gaussiank fused"], records, peak, bnd = train_path(
+    by_path["gaussiank fused"], records, peak, bnd, _ = train_path(
         "gaussiank fused", llama,
         {"fused_moments": 12, "tree_count": 12, "compact_stage": 12,
          "compact_resid": 12}, 3, torch)
@@ -669,7 +944,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     log("phase 3b: path A, hist-k on the fused backend, 3 steps")
-    by_path["histk fused"], records, peak, bnd = train_path(
+    by_path["histk fused"], records, peak, bnd, _ = train_path(
         "histk fused", llama + ["--compressor", "histk"],
         {"fused_moments_hist": 12, "compact_stage": 12,
          "compact_resid": 12}, 3, torch)
@@ -682,7 +957,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     log("phase 3c: path B, hist-k on the reference backend, 2 steps")
-    by_path["histk reference"], records, peak, bnd = train_path(
+    by_path["histk reference"], records, peak, bnd, _ = train_path(
         "histk reference",
         llama + ["--compressor", "histk", "--backend", "reference"],
         {"abs_histogram": 12, "threshold_compact": 12}, 2, torch)
@@ -723,7 +998,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     log("phase 3e: path D, trimmed-k (plain torch), 2 steps")
-    by_path["trimmedk"], records, peak, bnd = train_path(
+    by_path["trimmedk"], records, peak, bnd, _ = train_path(
         "trimmedk", llama + ["--compressor", "trimmedk"], {}, 2, torch)
     path_d = {"losses": [r["loss"] for r in records],
               "step_ms": [r["ms"] for r in records],
@@ -776,6 +1051,95 @@ def main(argv) -> int:
         log(f"phase 4: {name} ({backend}): card {out['cuda']} vs CPU "
             f"{out['cpu']} within rtol 1e-4")
 
+    # -- phase 5: the data-parallel wire --
+    phase5 = {}
+    per4 = {n: 48 for n in MAIN_KERNELS}     # 12 leaves x 4 workers
+    log("phase 5a: llama3.2-1b at full width and depth, 4 workers in this "
+        "process (--host-devices 4 --mesh 4x1), allgather, 3 steps")
+    by_path["5a allgather W=4"], records, peak, bnd, extra = train_path(
+        "allgather W=4", llama + ["--host-devices", "4", "--mesh", "4x1",
+                                  "--strategy", "allgather"],
+        per4, 3, torch, workers=4)
+    phase5["5a"] = {"losses": [r["loss"] for r in records],
+                    "step_ms": [r["ms"] for r in records],
+                    "wire_ms": extra["wire_ms"],
+                    "peak_mem_gib": peak / 2**30,
+                    "density": [r["density"] for r in records],
+                    "comm_bits_sparse": records[0]["comm_bits_sparse"],
+                    "step_bound_ms": bnd}
+    assert peak < 80e9, ("5a peak memory", peak)
+    del records
+    torch.cuda.empty_cache()
+
+    from repro_torch.core.compressors import get_compressor
+    from repro_torch.models import init_params as _init
+    cfg4 = llama_layers(4)
+    lay4 = build_layout(_init(cfg4, 0, "meta"), 1, RATIO,
+                        get_compressor("gaussiank"))
+    for strategy, mesh_s, n_pods in (("gtopk", "4x1", 1),
+                                     ("hierarchical", "2x2x1", 2),
+                                     ("hier_gtopk", "2x2x1", 2)):
+        levels = 2 if n_pods > 1 else 1
+        log(f"phase 5b: {strategy}, --mesh {mesh_s}, full width with 4 "
+            "layers, 2 steps")
+        label = f"5b {strategy} W=4"
+        by_path[label], records, peak, bnd, extra = train_path(
+            label, llama + ["--host-devices", "4", "--mesh", mesh_s,
+                            "--strategy", strategy],
+            {n: 48 * levels for n in MAIN_KERNELS}, 2, torch, workers=4,
+            cfg=cfg4, global_check=strategy == "gtopk", levels=levels)
+        bits = lay4.comm_bits_sparse(strategy, 4, n_pods)
+        coll = lay4.collectives(strategy, 4, n_pods)
+        for r in records:
+            assert r["comm_bits_sparse"] == bits, (label, r, bits)
+            assert r["collectives_per_step"] == coll, (label, r, coll)
+        log(f"  {label}: comm_bits_sparse {bits:.0f} and "
+            f"collectives_per_step {coll} equal the layout's accounting")
+        phase5[label] = {"losses": [r["loss"] for r in records],
+                         "step_ms": [r["ms"] for r in records],
+                         "wire_ms": extra["wire_ms"],
+                         "peak_mem_gib": peak / 2**30,
+                         "comm_bits_sparse": bits,
+                         "collectives_per_step": coll,
+                         "conservation": extra["conservation"],
+                         "step_bound_ms": bnd}
+        assert peak < 80e9, (label, "peak memory", peak)
+        del records
+        torch.cuda.empty_cache()
+
+    log("phase 5c: the process-group wire on the card, 2 ranks, full width "
+        "with 2 layers, 2 steps of allgather and of gtopk")
+    phase5["5c"] = phase5c(torch, by_path, llama_layers(2))
+
+    from repro_torch.dist.wire import LocalWire
+    from repro_torch.launch.mesh import parse_mesh
+    for strategy, mesh_s in (("allgather", "4x1"), ("gtopk", "4x1"),
+                             ("hierarchical", "2x2x1"),
+                             ("hier_gtopk", "2x2x1")):
+        comp = CompressionConfig(ratio=0.01, strategy=strategy)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = tree.tree_map(lambda x: x.clone().to(dev), base)
+            layout = build_layout(params, 1, comp)
+            opt = sgd_momentum(0.9)
+            state = init_train_state(params, opt, workers=4, model_size=1,
+                                     compression=comp, layout=layout)
+            step = make_train_step(cfg, mesh_s, opt, constant(0.1),
+                                   compression=comp, layout=layout,
+                                   wire=LocalWire(parse_mesh(mesh_s)))
+            ls = []
+            with tuning.geometry_of("cuda"):
+                for i in range(2):
+                    b = lm_batch(i, global_batch=8, seq_len=16,
+                                 vocab=cfg.vocab_size, device=dev)
+                    state, m = step(state, b)
+                    ls.append(float(m["loss"]))
+            out[dev] = ls
+        np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+        small[f"W=4 {strategy}"] = out
+        log(f"phase 5d: {strategy} ({mesh_s}, W=4): card {out['cuda']} vs "
+            f"CPU {out['cpu']} within rtol 1e-4")
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -783,7 +1147,7 @@ def main(argv) -> int:
         assert row["launches"] > 0, (n, "never launched on a path")
     log(json.dumps({"pipelines": pipelines, "main_path": main_path,
                     "path_a": path_a, "path_b": path_b, "path_d": path_d,
-                    "small": small,
+                    "small": small, "phase5": phase5,
                     "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(json.dumps({"kernels": list(rows.values())}))

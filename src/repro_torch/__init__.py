@@ -1,8 +1,10 @@
 """PyTorch + CUDA port of ``repro`` for NVIDIA Hopper (H100).
 
-Slices 1 and 5 of the port: TopK-SGD training of the dense decoder LMs
-on one card with Gaussian-k, hist-k or trimmed-k — fixed-k, the
-``bucketed`` pipeline and the ``allgather`` wire at world size 1 — and
+Slices 1, 5 and 2 of the port: data-parallel TopK-SGD training of the
+dense decoder LMs with Gaussian-k, hist-k or trimmed-k — fixed-k, the
+``bucketed`` pipeline, the ``allgather``, ``gtopk``, ``hierarchical``
+and ``hier_gtopk`` wires over W workers (all in one process on one
+card, or one per process over ``torch.distributed``), checkpoints — and
 the unfused pipeline of the paper's Algorithm 1.  Every TPU kernel of
 the reference is hand-written for ``sm_90a``:
 

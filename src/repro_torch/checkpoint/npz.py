@@ -1,0 +1,79 @@
+"""Flat-key npz checkpoints of a train state (port of
+``repro/checkpoint/npz.py``: ``save_state``, ``load_state``).
+
+The keys are the reference's: each leaf's path from the state's root,
+dict keys in sorted order joined with ``/`` (``params/embed``,
+``opt/m/stack/0/ffn/w_up``, ``step``, ``resid``, ``resid2``).  Tensors
+are stored as numpy arrays and Python integers (the step counter,
+AdamW's ``t``) as int32 scalars, so a state saved by the JAX package
+loads into the port with numpy alone, and the other way round.  The
+flat residuals are the ``(workers, model_size * d_row_total)`` buckets.
+(The reference's migration of per-leaf residual checkpoints comes with
+the per-leaf pipeline.)
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+
+_SEP = "/"
+
+
+def _key(path) -> str:
+    return _SEP.join(str(p) for p in path)
+
+
+def _to_numpy(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    if isinstance(leaf, (bool, int)):
+        return np.asarray(leaf, np.int32)
+    return np.asarray(leaf)
+
+
+def save_state(path: str, state: Any) -> None:
+    """Write ``state`` to ``path`` (npz), atomically."""
+    flat = {_key(p): _to_numpy(leaf)
+            for p, leaf in tree.flatten_with_path(state)[0]}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+
+
+def load_state(path: str, like: Any, *,
+               worker_rows: Optional[Sequence[int]] = None) -> Any:
+    """Restore into the structure of ``like``: each tensor leaf is
+    overwritten in place (shape checked, cast to its dtype), each integer
+    leaf replaced.  ``worker_rows`` picks rows of the checkpoint's worker
+    axis for ``resid``/``resid2`` — a process that runs one worker of a
+    W-worker checkpoint passes its rank."""
+    with np.load(path) as data:
+        flat = dict(data)
+    pairs, td = tree.flatten_with_path(like)
+    out = []
+    for p, leaf in pairs:
+        key = _key(p)
+        if key not in flat:
+            raise KeyError(f"checkpoint {path!r} has no entry {key!r}")
+        arr = flat[key]
+        if worker_rows is not None and key in ("resid", "resid2"):
+            arr = arr[list(worker_rows)]
+        if isinstance(leaf, torch.Tensor):
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
+                                 f"state shape {tuple(leaf.shape)}")
+            with torch.no_grad():
+                leaf.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            out.append(leaf)
+        else:
+            if arr.shape != ():
+                raise ValueError(f"{key}: expected a scalar, got shape "
+                                 f"{arr.shape}")
+            out.append(type(leaf)(arr))
+    return tree.unflatten(td, out)

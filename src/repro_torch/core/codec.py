@@ -17,12 +17,13 @@ the JAX package's:
 Determinism: on the CPU ``index_add_`` accumulates in slot order, like
 the JAX scatter-add, so decode is bit-equal to the reference even with
 duplicates.  On CUDA ``index_add_`` adds with atomics: the result is
-deterministic only when no index repeats.  Slice 1's wire is
-duplicate-free (each segment's indices strictly increase and segments
-occupy disjoint column ranges), so its decode is deterministic on the
-card.  Merged gTop-k pairs carry duplicates, so before gTop-k lands
-(slice 2) the CUDA decode must become a deterministic duplicate-aware
-scatter (sort by index, segmented sum in slot order).
+deterministic only when no index repeats within one call.  Every pair
+the port produces is duplicate-free within itself (each segment's
+indices are distinct and segments occupy disjoint column ranges; a
+gTop-k re-encode is a top-k).  Indices repeat only ACROSS workers, so
+the gathered block is decoded by :func:`decode_sum`: one duplicate-free
+scatter per rank, in rank order — the same bits on the card and on the
+CPU.
 """
 from __future__ import annotations
 
@@ -76,6 +77,22 @@ def decode_add(dense: torch.Tensor, values: torch.Tensor,
     out = torch.cat([dense, dense.new_zeros(1)])
     out.index_add_(0, safe, vals)
     return out[:d]
+
+
+def decode_sum(values: torch.Tensor, indices: torch.Tensor, d: int,
+               dtype=torch.float32) -> torch.Tensor:
+    """Sum of the decoded pairs of ``n`` ranks: ``(n, M, k)`` values and
+    indices -> ``(M, d)``, in ``dtype``.  Rank ``r``'s pairs are added
+    into one dense bucket with one scatter per row after ranks ``0..r-1``
+    (each rank's indices are duplicate-free, so each scatter is
+    deterministic on CUDA), never as an ``(n, M, d)`` stack."""
+    n, rows, _ = values.shape
+    out = torch.zeros((rows, d + 1), dtype=dtype, device=values.device)
+    for r in range(n):
+        for m in range(rows):
+            safe, vals = _safe(values[r, m].to(dtype), indices[r, m], d)
+            out[m].index_add_(0, safe, vals)
+    return out[:, :d]
 
 
 def offset_indices(indices: torch.Tensor, offset: int) -> torch.Tensor:

@@ -2,17 +2,18 @@
 ``repro.core.compression``).
 
 :class:`CompressionConfig` carries what to compress with and how to move
-it; construction validates it as the reference does.  Values this slice
-does not carry (adaptive density, momentum correction, chunking, the
-other wire strategies, a down-cast wire dtype) are accepted by the
-vocabulary checks and then rejected by
-:meth:`CompressionConfig.require_slice1` with an error naming the slice
+it; construction validates it as the reference does.  Values the port
+does not carry yet (adaptive density, momentum correction, chunking)
+are accepted by the vocabulary checks and then rejected by
+:meth:`CompressionConfig.require_ported` with an error naming the slice
 that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+import torch
 
 from repro_torch.core.compressors import CompressorSpec, get_compressor
 from repro_torch.core.error_feedback import BACKENDS
@@ -28,9 +29,10 @@ DENSE = "none"
 class CompressionConfig:
     """``compressor`` registry name or ``"none"``; ``ratio`` density k/d
     per leaf; ``strategy`` wire pattern; ``codec_dtype`` wire dtype of
-    the values (None = f32, the only one this slice sends); ``momentum_correction`` DGC factor;
-    ``backend`` auto | fused | reference; ``density_policy`` adaptive
-    density (None = fixed k); ``chunks`` wire chunk count."""
+    the values (None = f32; a torch float dtype or its name, such as
+    ``torch.bfloat16`` or ``"float16"``); ``momentum_correction`` DGC
+    factor; ``backend`` auto | fused | reference; ``density_policy``
+    adaptive density (None = fixed k); ``chunks`` wire chunk count."""
 
     compressor: str = "gaussiank"
     ratio: float = 0.001
@@ -44,6 +46,14 @@ class CompressionConfig:
     def __post_init__(self):
         if self.compressor is None:
             object.__setattr__(self, "compressor", DENSE)
+        if isinstance(self.codec_dtype, str):
+            object.__setattr__(self, "codec_dtype",
+                               getattr(torch, self.codec_dtype, None))
+        if self.codec_dtype is not None and not (
+                isinstance(self.codec_dtype, torch.dtype)
+                and self.codec_dtype.is_floating_point):
+            raise ValueError("codec_dtype must be a torch float dtype, got "
+                             f"{self.codec_dtype!r}")
         if self.strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {self.strategy!r}; "
                              f"have {STRATEGIES}")
@@ -82,19 +92,14 @@ class CompressionConfig:
     def replace(self, **changes) -> "CompressionConfig":
         return dataclasses.replace(self, **changes)
 
-    def require_slice1(self) -> "CompressionConfig":
-        """Raise for every field value this slice does not run."""
-        if self.strategy != "allgather":
-            raise not_ported(f"strategy {self.strategy!r}", self.strategy)
+    def require_ported(self) -> "CompressionConfig":
+        """Raise for every field value the port does not run yet."""
         if self.density_policy is not None:
             raise not_ported("adaptive density", "density_policy")
         if self.momentum_correction:
             raise not_ported("momentum correction", "momentum_correction")
         if self.chunks != 1:
             raise not_ported("chunks > 1", "chunks")
-        if self.codec_dtype is not None:
-            raise not_ported(f"codec_dtype {self.codec_dtype}",
-                             "codec_dtype")
         return self
 
 

@@ -1,6 +1,7 @@
-"""Distributed layer (port of ``repro.dist``): the static bucket layout
-and the Eq.-2 aggregation over it.  This slice runs one card (world
-size 1); the NCCL wire lands with the multi-GPU slice."""
+"""Distributed layer (port of ``repro.dist``): the static bucket layout,
+the Eq.-2 aggregation over it for the four wire strategies, and the wire
+itself (``wire.py``: W workers in one process, or one per process over
+``torch.distributed``)."""
 from repro_torch.dist import aggregate, layout
 from repro_torch.dist.aggregate import (AggregateResult, aggregate_bucketed,
                                         aggregate_dense, bucket_compress)

@@ -1,36 +1,62 @@
-"""Eq. (2) sparse aggregation over the flat bucket (port of
-``repro/dist/aggregate.py``: ``AggregateResult``, ``bucket_compress``
-fixed-k with its fused and reference branches, ``_gather_mean``,
-``aggregate_dense``, ``aggregate_bucketed`` for ``allgather``).
+"""Eq. (2) sparse aggregation over the flat bucket, on W data-parallel
+workers (port of ``repro/dist/aggregate.py``: ``AggregateResult``,
+``bucket_compress`` fixed-k with its fused and reference branches and
+``_wire_cast_fixup``, the gTop-k pieces ``encode_rows_topk`` /
+``encode_bucket_topk`` / ``gtopk_round_plan`` / ``_gtopk_reduce_rounds``
+/ ``_gtopk_reduce_bucket`` / ``gtopk_simulate``, ``_gather_mean``,
+``aggregate_dense``, ``_wire_config`` and ``aggregate_bucketed`` for the
+four wire strategies).
 
-This slice runs at world size 1: the all-gather of the one wire block
-is the identity and ``_gather_mean`` decodes the local pair and divides
-by 1.  Its signature already takes the world size and the wire block, so
-the multi-GPU slice plugs an NCCL ``all_gather_into_tensor`` in front of
-the decode.
+Per step and per worker: pack the worker's gradients into the
+``(model_size, d_row_total)`` bucket and compress it against the
+worker's residual (the fused kernels, one segment at a time).  Then the
+wire, over the data axes of the mesh (``dist/wire.py``):
 
-Memory: the new residual overwrites the residual bucket in place — the
-reference's ``new_E`` without a second 6 GB buffer on llama3.2-1b.
+``allgather``     all-gather every worker's pair, decode the gathered
+                  block rank by rank into one dense bucket, divide by W;
+``gtopk``         ``log2(W)`` rounds of XOR-partner exchanges of one
+                  pair each, decode-add, re-select top-``k_cap`` per
+                  segment; each round's re-selection drop, divided by
+                  the number of workers that made the same merge, goes
+                  back into the worker's residual;
+``hierarchical``  gather within the pod (the inner data axes), compress
+                  the pod mean again against the second residual
+                  ``resid2``, gather that across pods;
+``hier_gtopk``    the same pod level, then gTop-k across the pods, its
+                  drops credited into ``resid2`` undivided.
+
+The code is written per worker: every per-worker value is a list with
+one entry per worker this process runs (all W under ``LocalWire``, one
+under ``ProcessGroupWire``).  The residual buckets are updated in place.
+A worker's gradients are packed and compressed as soon as they exist
+and dropped after, so one process holding W workers keeps one worker's
+gradients at a time; the gathered block is decoded into ONE dense
+bucket, never into a ``(W, M, D)`` stack.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
 
+from repro_torch import tree
 from repro_torch.core import codec
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.compressors import CompressorSpec
 from repro_torch.core.error_feedback import resolve_backend
-from repro_torch.dist.layout import BucketLayout, pack_grads, unpack_tree
+from repro_torch.dist.layout import (STRATEGIES, BucketLayout, _log2_exact,
+                                     pack_grads, unpack_tree)
+from repro_torch.dist.wire import LocalWire
 from repro_torch.kernels.ef_fused.segmented import segmented_compress_ef
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.slices import not_ported
 
 
 class AggregateResult(NamedTuple):
-    """``agg`` averaged gradient tree; ``resid`` new flat residual;
-    ``resid2`` second-level residual (None in this slice);
-    ``adapt_state`` adaptive controller state (None); ``metrics``."""
+    """``agg`` averaged gradient tree (the same on every worker);
+    ``resid`` new flat residual(s); ``resid2`` second-level residual(s)
+    (None unless hierarchical); ``adapt_state`` adaptive controller state
+    (None); ``metrics``."""
     agg: Any
     resid: Any
     resid2: Any
@@ -38,38 +64,74 @@ class AggregateResult(NamedTuple):
     metrics: dict
 
 
-def aggregate_dense(grads, world: int = 1):
-    """Dense-SGD baseline: the mean over the workers (world 1: identity)."""
-    if world != 1:
-        raise not_ported("dense all-reduce over several cards", "world")
-    return grads
+def _one_data_axis_wire(workers: int) -> LocalWire:
+    return LocalWire(make_mesh((workers, 1), ("data", "model")))
+
+
+def aggregate_dense(grads, wire):
+    """Dense-SGD baseline: the mean over the data axes.  ``grads`` holds
+    one gradient tree per local worker of ``wire``; returns the mean tree
+    (the same on every worker; at world 1 the worker's own tree)."""
+    if wire.world == 1:
+        return grads[0]
+    per_worker = [tree.flatten(g) for g in grads]
+    td = per_worker[0][1]
+    out = [wire.pmean([leaves[i] for leaves, _ in per_worker],
+                      wire.data_axes)[0]
+           for i in range(len(per_worker[0][0]))]
+    return tree.unflatten(td, out)
+
+
+# ---------------------------------------------------------------------------
+# worker-local compression
+# ---------------------------------------------------------------------------
 
 
 def _compress_rows_reference(g_rows, e_rows, spec: CompressorSpec,
-                             k_row: int):
-    """Reference branch: ``u = e + g``, the registry select per row,
-    ``e' = u - decode``."""
+                             k_row: int, codec_dtype=None):
+    """Reference branch: ``u = e + g``, the registry select per row, the
+    wire cast, ``e' = u - decode(cast values)``."""
     u_rows = e_rows + g_rows
     d_row = u_rows.shape[1]
     pairs = [spec.select(u_rows[r], k_row, None)
              for r in range(u_rows.shape[0])]
     values = torch.stack([p[0] for p in pairs])
     indices = torch.stack([p[1] for p in pairs])
-    decoded = torch.stack([codec.decode(values[r], indices[r], d_row)
+    if codec_dtype is not None:
+        values = values.to(codec_dtype)
+    decoded = torch.stack([codec.decode(values[r].to(u_rows.dtype),
+                                        indices[r], d_row)
                            for r in range(u_rows.shape[0])])
     return values, indices, u_rows - decoded
 
 
+def _wire_cast_fixup(values, indices, new_e_rows, codec_dtype):
+    """Down-cast the wire values and add the cast error into the new
+    residual rows in place, with a k-sized scatter
+    (``e' += decode(values − cast(values))``).  Returns ``(wire values,
+    indices, new_e_rows)``."""
+    if codec_dtype is None:
+        return values, indices, new_e_rows
+    wire = values.to(codec_dtype)
+    diff = values - wire.to(values.dtype)
+    for r in range(values.shape[0]):
+        real = indices[r] != codec.SENTINEL
+        new_e_rows[r].index_add_(0, indices[r][real].long(), diff[r][real])
+    return wire, indices, new_e_rows
+
+
 def bucket_compress(G: torch.Tensor, E: torch.Tensor, layout: BucketLayout,
-                    spec: CompressorSpec, *, backend: str = "auto"):
+                    spec: CompressorSpec, *, backend: str = "auto",
+                    codec_dtype=None):
     """Worker-local EF compression of the packed bucket, fixed-k.
 
     ``G``/``E`` are ``(model_size, d_row_total)`` buckets; returns
     ``(values, indices, new_E)`` with ONE ``(model_size, k_cap_total)``
-    codec pair whose indices are bucket-global.  Selection runs per leaf
-    segment with the segment's own plan.  ``new_E`` IS ``E``, overwritten
-    in place.  (The reference's key, momentum-correction and dynamic-k
-    arguments arrive with the slices that port them.)"""
+    codec pair whose indices are bucket-global and whose values are
+    ``codec_dtype`` (f32 when None).  Selection runs per leaf segment
+    with the segment's own plan.  ``new_E`` IS ``E``, overwritten in
+    place; ``G`` is only read.  (The reference's key, momentum-correction
+    and dynamic-k arguments arrive with the slices that port them.)"""
     segs = layout.segments
     vals, idcs, new_e_blocks = [], [], []
     if resolve_backend(backend, spec):
@@ -77,6 +139,7 @@ def bucket_compress(G: torch.Tensor, E: torch.Tensor, layout: BucketLayout,
             G, E, [(s.row_off, s.d_row) for s in segs], spec.name,
             [s.k_row for s in segs], [s.k_cap for s in segs])
         for s, (v, i, ne) in zip(segs, triples):
+            v, i, ne = _wire_cast_fixup(v, i, ne, codec_dtype)
             vals.append(v)
             idcs.append(codec.offset_indices(i, s.row_off))
             new_e_blocks.append(ne)
@@ -84,7 +147,7 @@ def bucket_compress(G: torch.Tensor, E: torch.Tensor, layout: BucketLayout,
         for s in segs:
             cols = slice(s.row_off, s.row_off + s.d_row)
             v, i, ne = _compress_rows_reference(G[:, cols], E[:, cols], spec,
-                                                s.k_row)
+                                                s.k_row, codec_dtype)
             vals.append(v)
             idcs.append(codec.offset_indices(i, s.row_off))
             new_e_blocks.append(ne)
@@ -97,57 +160,387 @@ def bucket_compress(G: torch.Tensor, E: torch.Tensor, layout: BucketLayout,
     return values, indices, E
 
 
-def _gather_mean(values: torch.Tensor, indices: torch.Tensor, world: int,
-                 d_row: int, dtype=torch.float32) -> torch.Tensor:
-    """All-gather the ``(model_size, k_cap_total)`` pairs of ``world``
-    workers and decode-average them into ``(model_size, d_row)``.  At
-    world 1 the gather is the identity and the mean is the decoded local
-    pair: dividing by 1 is exact, so that 6 GB pass is not made."""
-    if world != 1:
-        raise not_ported("the sparse all-gather over several cards",
-                         "world")
-    rows = [codec.decode(values[r].to(dtype), indices[r], d_row)
-            for r in range(values.shape[0])]
-    return torch.stack(rows) if len(rows) > 1 else rows[0][None]
+# ---------------------------------------------------------------------------
+# gTop-k recursive doubling
+# ---------------------------------------------------------------------------
+
+
+def _topk_lax(row: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices ``lax.top_k(|row|, k)`` returns: the ``k`` largest
+    magnitudes, ties at the k-th magnitude to the lower indices, ordered
+    by descending magnitude then ascending index (``torch.topk`` breaks
+    ties otherwise)."""
+    mag = row.abs()
+    kth = torch.topk(mag, k, sorted=False).values.min()
+    above = torch.nonzero(mag > kth).flatten()
+    need, ties, start, step = k - above.numel(), [], 0, 1 << 24
+    while need > 0 and start < mag.numel():
+        # the first `need` positions at the k-th magnitude
+        hit = torch.nonzero(mag[start:start + step] == kth).flatten()[:need]
+        ties.append(hit + start)
+        need -= hit.numel()
+        start += step
+    if need > 0:    # only a NaN compares unequal to itself
+        raise ValueError("gTop-k re-selection over a non-finite partial")
+    idx, _ = torch.sort(torch.cat([above] + ties))
+    order = torch.sort(mag[idx], descending=True, stable=True).indices
+    return idx[order]
+
+
+def encode_rows_topk(dense_rows: torch.Tensor, k_cap: int, codec_dtype=None):
+    """Re-encode a dense ``(model_size, d_row)`` partial as fixed-capacity
+    ``(model_size, k_cap)`` pairs — the gTop-k merge re-selection: per
+    row the exact top-``k_cap`` by magnitude in ``lax.top_k``'s order.
+    Where a row holds fewer than ``k_cap`` non-zeros the surplus slots
+    carry real indices with value 0.  ``codec_dtype`` down-casts the
+    values."""
+    vals, idcs = [], []
+    for row in dense_rows:
+        idx = _topk_lax(row, k_cap)
+        vals.append(row[idx])
+        idcs.append(idx.to(torch.int32))
+    values = torch.stack(vals)
+    if codec_dtype is not None:
+        values = values.to(codec_dtype)
+    return values, torch.stack(idcs)
+
+
+def encode_bucket_topk(dense_bucket: torch.Tensor, layout: BucketLayout,
+                       codec_dtype=None):
+    """Per-segment gTop-k re-selection over the packed bucket, merged into
+    ONE ``(model_size, k_cap_total)`` wire block with bucket-global
+    indices."""
+    vs, is_ = [], []
+    for s in layout.segments:
+        v, i = encode_rows_topk(
+            dense_bucket[:, s.row_off:s.row_off + s.d_row], s.k_cap,
+            codec_dtype)
+        vs.append(v)
+        is_.append(codec.offset_indices(i, s.row_off))
+    return torch.cat(vs, dim=1), torch.cat(is_, dim=1)
+
+
+def gtopk_round_plan(axis_sizes):
+    """Static recursive-doubling schedule over the joint data world:
+    ``[(axis_pos, xor_mask, group_size), ...]``, one entry per round.
+    The joint rank is row-major, so halving walks the axes from last to
+    first; ``group_size = 2**round`` workers already share the partial
+    when the round starts.  Every axis size must be a power of two."""
+    plan = []
+    group = 1
+    for pos in range(len(axis_sizes) - 1, -1, -1):
+        n = axis_sizes[pos]
+        _log2_exact(n, f"data axis size (axis {pos})")
+        mask = 1
+        while mask < n:
+            plan.append((pos, mask, group))
+            group *= 2
+            mask *= 2
+    return plan
+
+
+def _scatter_add(buf: torch.Tensor, values, indices) -> None:
+    """``buf[m, indices[m]] += values[m]`` per row, in place, into a
+    ``(M, d + 1)`` buffer whose last column takes the sentinel slots;
+    each row's indices are distinct."""
+    d = buf.shape[1] - 1
+    for m in range(buf.shape[0]):
+        safe, vals = codec._safe(values[m].to(buf.dtype), indices[m], d)
+        buf[m].index_add_(0, safe, vals)
+
+
+def _decoded(values, indices, d: int, dtype) -> torch.Tensor:
+    """A pair decoded into a new ``(M, d + 1)`` buffer (see
+    :func:`_scatter_add`); ``[:, :d]`` is the dense rows."""
+    buf = torch.zeros((values.shape[0], d + 1), dtype=dtype,
+                      device=values.device)
+    _scatter_add(buf, values, indices)
+    return buf
+
+
+def _gtopk_reduce_rounds(values, indices, axes, d_row: int, encode, wire,
+                         dtype=torch.float32):
+    """The recursive-doubling XOR-merge loop over the workers' pairs
+    (lists, one entry per local worker).  Returns ``(dense_sums, drops)``
+    as ``(M, d_row)`` views: the pruned sum every worker converges to,
+    and each worker's residual credit (None when no round re-selected).
+
+    Round 0 sends the worker's own pair as it is (it already is the
+    top-``k_cap`` encoding of its partial).  A later round re-encodes the
+    partial, credits ``(dense − sent) / group`` and keeps ``sent``; the
+    partner's pair is then added in.  The same operations as the
+    reference's, done in place: ``dense − sent`` is ``dense[i] += −v``
+    at the sent slots, and ``sent + decode(received)`` is a scatter-add
+    into ``sent``."""
+    sizes = [wire.axis_size(a) for a in axes]
+    plan = gtopk_round_plan(sizes)
+    n = len(values)
+    dense = [_decoded(values[w], indices[w], d_row, dtype) for w in range(n)]
+    drop: List[Optional[torch.Tensor]] = [None] * n
+    cur = list(zip(values, indices))
+    for r, (pos, mask, group) in enumerate(plan):
+        if r > 0:
+            for w in range(n):
+                v, i = encode(dense[w][:, :d_row])
+                diff = dense[w]
+                _scatter_add(diff, -v.to(dtype), i)
+                diff.div_(group)
+                if drop[w] is None:
+                    drop[w] = diff
+                else:
+                    drop[w].add_(diff)
+                del diff
+                dense[w] = _decoded(v, i, d_row, dtype)
+                cur[w] = (v, i)
+        perm = [(j, j ^ mask) for j in range(sizes[pos])]
+        got = wire.ppermute(cur, axes[pos], perm)
+        for w in range(n):
+            _scatter_add(dense[w], got[w][0], got[w][1])
+    return ([x[:, :d_row] for x in dense],
+            [None if x is None else x[:, :d_row] for x in drop])
+
+
+def _gtopk_reduce_bucket(values, indices, axes, layout: BucketLayout, wire,
+                         codec_dtype=None, dtype=torch.float32):
+    """Bucketed recursive doubling: every round exchanges ONE merged
+    ``(model_size, k_cap_total)`` wire block; re-selection stays per
+    segment (:func:`encode_bucket_topk`)."""
+    return _gtopk_reduce_rounds(
+        values, indices, axes, layout.d_row_total,
+        lambda dense: encode_bucket_topk(dense, layout, codec_dtype), wire,
+        dtype)
+
+
+def gtopk_simulate(partials, k_cap: int, codec_dtype=None):
+    """Single-process reference of the gTop-k reduction: the same
+    XOR-partner merge tree over a list of ``(model_size, d_row)`` dense
+    partials, one per worker, written out densely as the reference's
+    ``gtopk_simulate``.  Returns ``(final, drops)``."""
+    W = len(partials)
+    _log2_exact(W)
+    d_row = partials[0].shape[-1]
+    dtype = partials[0].dtype
+    partials = list(partials)
+    drops = [torch.zeros_like(partials[0]) for _ in range(W)]
+    mask, group = 1, 1
+    while mask < W:
+        sent = []
+        for w in range(W):
+            v, i = encode_rows_topk(partials[w], k_cap, codec_dtype)
+            sent.append(_decoded(v, i, d_row, dtype)[:, :d_row])
+            drops[w] = drops[w] + (partials[w] - sent[w]) / group
+        partials = [sent[w] + sent[w ^ mask] for w in range(W)]
+        mask *= 2
+        group *= 2
+    return partials[0], drops
+
+
+# ---------------------------------------------------------------------------
+# the wire
+# ---------------------------------------------------------------------------
+
+
+def _gather_mean(values, indices, axis, n: int, d_row: int, wire,
+                 dtype=torch.float32) -> list:
+    """All-gather the workers' pairs over ``axis`` and decode-average:
+    one ``(model_size, d_row)`` mean per local worker (workers of one
+    group share it).  The gathered block is decoded rank by rank into
+    one bucket and divided by ``n`` (at ``n == 1`` the division is the
+    identity and is skipped)."""
+    gathered = wire.all_gather(list(zip(values, indices)), axis)
+    means = {}
+    for v_all, i_all in gathered:
+        key = (id(v_all), id(i_all))
+        if key not in means:
+            total = codec.decode_sum(v_all, i_all, d_row, dtype)
+            means[key] = total if n == 1 else total.div_(n)
+    return [means[(id(v), id(i))] for v, i in gathered]
+
+
+def _wire_config(strategy: str, wire, with_resid2: bool):
+    """Validate the wire configuration.  Returns ``(strategy, hier,
+    gtopk, outer_gtopk, outer_axis, inner_axes, n_pods, n_inner,
+    world)``; the world is the wire's (the bound axes'), and the
+    two-level strategies fall back to ``allgather`` on a mesh with one
+    data axis or without ``resid2``."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}; have {STRATEGIES}")
+    axes = wire.data_axes
+    hier = (strategy in ("hierarchical", "hier_gtopk") and len(axes) > 1
+            and with_resid2)
+    if strategy in ("hierarchical", "hier_gtopk") and not hier:
+        strategy = "allgather"
+    outer_gtopk = strategy == "hier_gtopk"
+    gtopk = strategy == "gtopk"
+    world = wire.axis_size(axes)
+    if gtopk:
+        _log2_exact(world)
+    if hier:
+        outer_axis, inner_axes = axes[0], axes[1:]
+        n_pods = wire.axis_size(outer_axis)
+        n_inner = max(1, world // n_pods)
+        if outer_gtopk:
+            _log2_exact(n_pods, "pod-axis size")
+    else:
+        outer_axis, inner_axes = None, axes
+        n_pods, n_inner = 1, world
+    return strategy, hier, gtopk, outer_gtopk, outer_axis, inner_axes, \
+        n_pods, n_inner, world
+
+
+def _rows(resid: torch.Tensor, layout: BucketLayout, workers: int):
+    """``(workers, M, D)`` view of a ``(workers, flat)`` or, for one
+    worker, ``(flat,)`` residual."""
+    M, D = layout.model_size, layout.d_row_total
+    if resid.dim() == 1:
+        if workers != 1:
+            raise ValueError(f"a (flat,) residual holds one worker, the "
+                             f"wire runs {workers} here")
+        return resid.view(1, M, D)
+    if resid.shape[0] != workers:
+        raise ValueError(f"residual has {resid.shape[0]} worker rows, the "
+                         f"wire runs {workers} workers here")
+    return resid.view(workers, M, D)
+
+
+def _compress_workers(grads, E_rows, layout: BucketLayout,
+                      config: CompressionConfig, wire, probe):
+    """Pack and compress each local worker's gradients against its
+    residual rows ``E_rows[w]`` (updated in place).  ``grads`` holds one
+    entry per local worker: a gradient tree, or a callable returning it
+    (called in worker order, so only one worker's gradients are alive at
+    a time).  Returns per-worker lists of the wire pairs and of their
+    real-slot counts, the dense baseline's bits, and an empty tree of
+    the gradients' structure and dtypes (for ``unpack_tree``)."""
+    values, indices, nnz = [], [], []
+    bits_dense = like = None
+    for w, entry in enumerate(grads):
+        g = entry() if callable(entry) else entry
+        if like is None:
+            leaves, td = tree.flatten(g)
+            # the dense baseline is sized from the RUNTIME grad dtypes
+            bits_dense = float(sum(2 * x.numel() * x.element_size() * 8
+                                   for x in leaves))
+            like = tree.unflatten(td, [torch.empty(0, dtype=x.dtype)
+                                       for x in leaves])
+            del leaves
+        G = pack_grads(layout, g, E_rows.dtype)
+        del g
+        v, i, new_E = bucket_compress(G, E_rows[w], layout, config.spec,
+                                      backend=config.backend,
+                                      codec_dtype=config.codec_dtype)
+        if probe is not None:
+            probe(wire.ranks[w], G=G, values=v, indices=i, new_E=new_E)
+        del G
+        values.append(v)
+        indices.append(i)
+        nnz.append(codec.nnz(i).to(torch.float32))
+    return values, indices, nnz, bits_dense, like
 
 
 def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
-                       config: CompressionConfig, *, world: int = 1,
+                       config: CompressionConfig, *, wire=None,
+                       resid2: Optional[torch.Tensor] = None,
                        probe: Optional[Callable] = None) -> AggregateResult:
     """Eq. (2) sparse aggregation over the bucketed pipeline.
 
-    ``resid`` is the flat ``(model_size * d_row_total,)`` residual;
-    returns an :class:`AggregateResult` whose ``agg`` leaves are views
-    into the decoded mean bucket (model_size 1).  The new residual
-    overwrites ``resid`` in place.  ``probe``, when given, is called
-    as ``probe(G, values, indices, mean, new_E)`` before returning — a
-    hook for checks such as bucket conservation."""
-    config.require_slice1()
+    ``grads`` holds one entry per local worker of ``wire`` (a gradient
+    tree or a callable returning one, called in worker order so that one
+    worker's gradients are alive at a time); a
+    bare tree is the one worker's.  ``resid`` (and ``resid2``) are the
+    ``(workers, model_size * d_row_total)`` residuals of those workers,
+    or ``(flat,)`` for one, updated in place.  ``wire`` defaults to one
+    data axis of that many workers in this process.
+
+    Returns an :class:`AggregateResult` whose ``agg`` leaves are views
+    into the decoded mean bucket (model_size 1), the same on every
+    worker.  ``probe``, when given, is called as ``probe(rank, G=,
+    values=, indices=, new_E=)`` right after each local worker's
+    compression, and as ``probe(None, mean=, resid=, resid2=)`` once the
+    wire has run — hooks for checks such as conservation."""
+    config.require_ported()
     spec = config.spec
     if layout.spec_name != spec.name:
         raise ValueError(f"layout was built for compressor "
                          f"{layout.spec_name!r}, got {spec.name!r}")
     if layout.adaptive:
         raise not_ported("an adaptive-density layout", "density_policy")
-    M, D = layout.model_size, layout.d_row_total
-    G = pack_grads(layout, grads, resid.dtype)
-    E = resid.view(M, D)
-    values, indices, new_E = bucket_compress(
-        G, E, layout, spec, backend=config.backend)
-    nnz_local = codec.nnz(indices).to(torch.float32)
-    mean = _gather_mean(values, indices, world, D, torch.float32)
+    if isinstance(grads, dict):
+        grads = [grads]
+    workers = len(grads)
+    if wire is None:
+        wire = _one_data_axis_wire(workers)
+    if workers != wire.local_workers:
+        raise ValueError(f"got gradients of {workers} workers, the wire "
+                         f"runs {wire.local_workers} here")
+    E_rows = _rows(resid, layout, workers)
+    R2_rows = None if resid2 is None else _rows(resid2, layout, workers)
+    strategy, hier, gtopk, outer_gtopk, outer_axis, inner_axes, n_pods, \
+        n_inner, world = _wire_config(config.strategy, wire,
+                                      resid2 is not None)
+    D = layout.d_row_total
+    codec_dtype = config.codec_dtype
+
+    values, indices, nnz, bits_dense, like = _compress_workers(
+        grads, E_rows, layout, config, wire, probe)
+
+    if gtopk:
+        sums, drops = _gtopk_reduce_bucket(values, indices, wire.data_axes,
+                                           layout, wire, codec_dtype)
+        mean = sums[0].div_(world)
+        del sums
+        for w, drop in enumerate(drops):
+            if drop is not None:
+                E_rows[w].add_(drop)
+        del drops
+    else:
+        means = _gather_mean(values, indices, inner_axes, n_inner, D, wire)
+        mean = means[0]
+    del values, indices
+
+    if hier:
+        # second level: compress the pod mean against resid2, then one
+        # more gather (or gTop-k) across the pods
+        v2s, i2s = [], []
+        for w in range(workers):
+            v2, i2, _ = bucket_compress(means[w], R2_rows[w], layout, spec,
+                                        backend=config.backend,
+                                        codec_dtype=codec_dtype)
+            v2s.append(v2)
+            i2s.append(i2)
+            nnz[w] = nnz[w] + codec.nnz(i2).to(torch.float32)
+        del means, mean
+        if outer_gtopk:
+            sums, drops = _gtopk_reduce_bucket(v2s, i2s, (outer_axis,),
+                                               layout, wire, codec_dtype)
+            mean = sums[0].div_(n_pods)
+            del sums
+            for w, drop in enumerate(drops):
+                if drop is not None:
+                    R2_rows[w].add_(drop)
+            del drops
+        else:
+            mean = _gather_mean(v2s, i2s, outer_axis, n_pods, D, wire)[0]
+        del v2s, i2s
+    elif not gtopk:
+        del means
+
+    new_resid = E_rows.reshape(resid.shape)
+    new_resid2 = None if resid2 is None else R2_rows.reshape(resid2.shape)
     if probe is not None:
-        probe(G, values, indices, mean, new_E)
-    del G
-    agg = unpack_tree(layout, mean, like=grads)
-    sparse_bits = layout.comm_bits_sparse(config.strategy, world)
+        probe(None, mean=mean, resid=new_resid, resid2=new_resid2)
+    agg = unpack_tree(layout, mean, like=like)
+    M = layout.model_size
+    sparse_bits = layout.comm_bits_sparse(strategy, world, n_pods,
+                                          codec_dtype)
     metrics = {
-        "density": nnz_local / layout.d_total,
+        "density": wire.pmean([x / layout.d_total for x in nnz],
+                              wire.data_axes)[0],
         "density_cap": M * layout.k_cap_total / layout.d_total,
         "comm_bits_sparse": sparse_bits,
-        "comm_bits_dense": layout.comm_bits_dense(),
+        "comm_bits_dense": bits_dense,
         "wire_bytes": sparse_bits / 8.0,
-        "collectives_per_step": float(layout.collectives(config.strategy,
-                                                         world)),
+        "collectives_per_step": float(layout.collectives(strategy, world,
+                                                         n_pods)),
     }
-    return AggregateResult(agg, new_E.reshape(-1), None, None, metrics)
+    return AggregateResult(agg, new_resid, new_resid2, None, metrics)

@@ -1,7 +1,10 @@
 """Flat bucketed gradient layout — one wire message per step (port of
 ``repro/dist/layout.py``: ``build_layout`` fixed-k, ``LeafSegment``,
-``BucketLayout`` and its accounting, ``pack_grads``, ``unpack_tree``,
-``init_flat_residual``, ``leaf_key_salt``).
+``BucketLayout`` and its accounting, the wire model
+``strategy_wire_pairs`` / ``collective_count`` / ``resolve_strategy``,
+``pack_grads``, ``unpack_tree``, ``init_flat_residual``,
+``pack_residual_arrays`` / ``unpack_residual_arrays``,
+``leaf_key_salt``).
 
 Every leaf's zero-padded ``(model_size, d_row)`` rows occupy a static
 column range ``[row_off, row_off + d_row)`` of one ``(model_size,
@@ -19,12 +22,12 @@ from __future__ import annotations
 
 import hashlib
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import tree
-from repro_torch.core.compression import CompressionConfig, STRATEGIES
+from repro_torch.core.compression import STRATEGIES, CompressionConfig
 from repro_torch.core.compressors import CompressorSpec
 from repro_torch.devices import resolve_device
 from repro_torch.slices import not_ported
@@ -41,25 +44,61 @@ def _itemsize(name: str) -> int:
         torch, name)).element_size())
 
 
-def _allgather_only(strategy: str) -> None:
+def _log2_exact(n: int, what: str = "world size") -> int:
+    """log2 of a power of two; raises for anything else (the XOR pairing
+    of the recursive-doubling tree needs exact halving at every round)."""
+    if n < 1 or n & (n - 1):
+        raise ValueError(
+            f"gtopk strategy needs a power-of-two {what}, got {n}; "
+            "use strategy='allgather' on ragged meshes")
+    return n.bit_length() - 1
+
+
+def resolve_strategy(strategy: str, hierarchical: bool = False) -> str:
+    """Fold the ``--hierarchical`` flag into the strategy vocabulary: it
+    promotes the default ``"allgather"`` only — an explicitly chosen
+    strategy wins.  Raises on unknown strategies."""
+    if hierarchical and strategy == "allgather":
+        strategy = "hierarchical"
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; have {STRATEGIES}")
-    if strategy != "allgather":
-        raise not_ported(f"the wire accounting of {strategy!r}", strategy)
+    return strategy
 
 
-def strategy_wire_pairs(strategy: str, world: int) -> int:
+def strategy_wire_pairs(strategy: str, world: int, n_pods: int = 1) -> int:
     """Number of ``(k_cap,)`` codec pairs a worker moves per wire row:
-    one per worker under ``allgather``."""
-    _allgather_only(strategy)
-    return world
+
+      allgather     ``W``
+      hierarchical  ``W_inner + P_pod`` (pod gather + pod-mean gather)
+      gtopk         ``log2(W)``         (one pair sent per round)
+      hier_gtopk    ``W_inner + log2(P_pod)``
+    """
+    if strategy == "gtopk":
+        return _log2_exact(world)
+    if strategy == "hierarchical":
+        return max(1, world // n_pods) + n_pods
+    if strategy == "hier_gtopk":
+        return max(1, world // n_pods) + _log2_exact(n_pods,
+                                                     "pod-axis size")
+    if strategy == "allgather":
+        return world
+    raise ValueError(f"unknown strategy {strategy!r}; have {STRATEGIES}")
 
 
-def collective_count(strategy: str, world: int) -> int:
-    """Codec-pair collectives the bucketed pipeline dispatches per step:
-    one all-gather."""
-    _allgather_only(strategy)
-    return 1
+def collective_count(strategy: str, world: int, n_pods: int = 1,
+                     leaves: int = 1) -> int:
+    """Codec-pair collectives per step: one per wire level for the
+    gathers, one per round for gTop-k; ``leaves`` models the per-leaf
+    loop (the bucketed pipeline is ``leaves=1``)."""
+    if strategy == "gtopk":
+        return leaves * _log2_exact(world)
+    if strategy == "hierarchical":
+        return leaves * 2
+    if strategy == "hier_gtopk":
+        return leaves * (1 + _log2_exact(n_pods, "pod-axis size"))
+    if strategy == "allgather":
+        return leaves
+    raise ValueError(f"unknown strategy {strategy!r}; have {STRATEGIES}")
 
 
 def flat_dims(size: int, model_size: int) -> Tuple[int, int]:
@@ -128,20 +167,26 @@ class BucketLayout(NamedTuple):
     def flat_size(self) -> int:
         return self.model_size * self.d_row_total
 
-    def pair_bits(self) -> int:
-        """Bits of one wire pair block: f32 values + int32 indices."""
-        return self.model_size * self.k_cap_total * (32 + 32)
+    def pair_bits(self, codec_dtype=None) -> int:
+        """Wire bits of ONE bucketed codec pair (all leaves, all rows):
+        ``codec_dtype`` values (f32 by default) + int32 indices."""
+        val_bits = (_itemsize(_dtype_name(codec_dtype)) * 8 if codec_dtype
+                    else 32)
+        return self.model_size * self.k_cap_total * (val_bits + 32)
 
-    def comm_bits_sparse(self, strategy: str, world: int) -> float:
-        levels = strategy_wire_pairs(strategy, world)
-        return float(levels * self.pair_bits())
+    def comm_bits_sparse(self, strategy: str, world: int, n_pods: int = 1,
+                         codec_dtype=None) -> float:
+        levels = strategy_wire_pairs(strategy, world, n_pods)
+        return float(levels * self.pair_bits(codec_dtype))
 
     def comm_bits_dense(self) -> float:
+        """Dense ring-all-reduce baseline (2·d per worker) in bits, from
+        the dtypes frozen into the layout."""
         return float(sum(2 * s.size * _itemsize(s.dtype) * 8
                          for s in self.segments))
 
-    def collectives(self, strategy: str, world: int) -> int:
-        return collective_count(strategy, world)
+    def collectives(self, strategy: str, world: int, n_pods: int = 1) -> int:
+        return collective_count(strategy, world, n_pods, leaves=1)
 
 
 def build_layout(params, model_size: int, ratio,
@@ -236,8 +281,52 @@ def unpack_tree(layout: BucketLayout, bucket: torch.Tensor, *, like):
 
 
 def init_flat_residual(layout: BucketLayout, dtype=torch.float32,
-                       device="cuda") -> torch.Tensor:
-    """Zero flat residual bucket, ``(model_size * d_row_total,)``, on
+                       device="cuda", workers: Optional[int] = None
+                       ) -> torch.Tensor:
+    """Zero flat residual bucket, ``(model_size * d_row_total,)`` — or
+    ``(workers, model_size * d_row_total)``, one row per worker — on
     ``device`` (the card unless told ``"cpu"``; raises without a GPU)."""
-    return torch.zeros((layout.flat_size,), dtype=dtype,
-                       device=resolve_device(device))
+    shape = ((layout.flat_size,) if workers is None
+             else (workers, layout.flat_size))
+    return torch.zeros(shape, dtype=dtype, device=resolve_device(device))
+
+
+def pack_residual_arrays(layout: BucketLayout, arrays: Sequence):
+    """Pack per-leaf flat-padded residual arrays (numpy, each ``(...,
+    d_pad)``, segment order, any leading dims such as the worker axis)
+    into the flat bucket ``(..., model_size * d_row_total)``.  Raises on
+    count or shape mismatches."""
+    import numpy as np
+    if len(arrays) != len(layout.segments):
+        raise ValueError(f"got {len(arrays)} residual arrays for "
+                         f"{len(layout.segments)} layout segments")
+    blocks, lead = [], None
+    for seg, a in zip(layout.segments, arrays):
+        a = np.asarray(a)
+        if a.ndim < 1 or a.shape[-1] != seg.d_pad:
+            raise ValueError(
+                f"segment {seg.name!r}: residual shape {a.shape} does not "
+                f"end in d_pad={seg.d_pad}")
+        if lead is None:
+            lead = a.shape[:-1]
+        elif a.shape[:-1] != lead:
+            raise ValueError(
+                f"segment {seg.name!r}: leading dims {a.shape[:-1]} != "
+                f"{lead} of earlier segments")
+        blocks.append(a.reshape(lead + (layout.model_size, seg.d_row)))
+    packed = np.concatenate(blocks, axis=-1)
+    return packed.reshape(lead + (layout.flat_size,))
+
+
+def unpack_residual_arrays(layout: BucketLayout, flat):
+    """Inverse of :func:`pack_residual_arrays`: the flat bucket back into
+    per-leaf ``(..., d_pad)`` numpy arrays in segment order."""
+    import numpy as np
+    flat = np.asarray(flat)
+    if flat.shape[-1] != layout.flat_size:
+        raise ValueError(f"flat residual has trailing dim {flat.shape[-1]}, "
+                         f"layout expects {layout.flat_size}")
+    lead = flat.shape[:-1]
+    rows = flat.reshape(lead + (layout.model_size, layout.d_row_total))
+    return [rows[..., seg.row_off:seg.row_off + seg.d_row].reshape(
+        lead + (seg.d_pad,)) for seg in layout.segments]

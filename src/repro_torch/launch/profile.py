@@ -1,15 +1,24 @@
 """Where one training step's time goes on the card.
 
     python -m repro_torch.launch.profile --arch llama3.2-1b \\
-        --density-policy none --steps 3 --batch 8 --seq 128
+        --density-policy none --steps 3 --batch 8 --seq 128 \\
+        [--mesh 4x1 --strategy gtopk]
 
-Runs the train step's three phases — loss + gradients by autograd,
-``aggregate_bucketed`` (pack, fused EF compression, decode), the
-optimizer — with CUDA events between them, for ``--steps`` steps after
-one warm-up step, and prints each phase's median ms.  Then it traces one
-more step with ``torch.profiler`` and prints the device time by kernel
-name, the kernel count, and the device's idle share of that step's wall
-time.  The last line is one JSON object with all of it.  Needs a GPU.
+    # one worker per card over NCCL
+    torchrun --nproc-per-node 4 -m repro_torch.launch.profile ... --mesh 4x1
+
+Runs the train step's phases with CUDA events between them, for
+``--steps`` steps after one warm-up step, and prints each phase's median
+ms: per worker this process runs (all W of the mesh, ``LocalWire``; or
+its own one under ``torchrun``, ``ProcessGroupWire``, where rank 0
+prints) its forward + backward and its compression (pack, the EF
+kernels, the staging assembly); then the wire (the gather or the gTop-k
+rounds and the decode, and for the two-level strategies the pod mean's
+second compression and the second level); the unpack and metrics; the
+optimizer.  Then it traces one more step with ``torch.profiler`` and
+prints the device time by kernel name, the kernel count, and the
+device's idle share of that step's wall time.  The last line is one
+JSON object with all of it.  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -22,17 +31,9 @@ import time
 def main(argv=None) -> int:
     import torch
 
-    from repro_torch import tree
     from repro_torch.configs import get_config
-    from repro_torch.core.compression import CompressionConfig
-    from repro_torch.core.compressors import get_compressor
-    from repro_torch.data import batch_for
-    from repro_torch.dist import aggregate
-    from repro_torch.dist.layout import build_layout
-    from repro_torch.launch.train import _require_slice1, parse_args
-    from repro_torch.models import init_params, loss_fn
-    from repro_torch.optim import adamw, sgd_momentum
-    from repro_torch.train import init_train_state
+    from repro_torch.dist.wire import LocalWire, torchrun_env
+    from repro_torch.launch.train import make_wire, parse_args, require_ported
 
     args = parse_args(argv)
     if not torch.cuda.is_available():
@@ -40,53 +41,111 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    _require_slice1(args, cfg)
-    dev = torch.device("cuda")
+    mesh, strategy = require_ported(args, cfg)
+    if torchrun_env() is None:
+        wire, dev, started = LocalWire(mesh), torch.device(args.device), False
+    else:
+        wire, dev, started = make_wire(args, mesh)
+    try:
+        return _profile(args, cfg, strategy, wire, dev)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _profile(args, cfg, strategy, wire, dev) -> int:
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data import batch_for
+    from repro_torch.dist import aggregate
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import adamw, sgd_momentum
+    from repro_torch.train import init_train_state
+
+    W, L = wire.world, wire.local_workers
+    say = print if wire.ranks[0] == 0 else (lambda *a, **k: None)
     params = init_params(cfg, args.seed, dev)
     comp = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
-                             backend=args.backend)
-    layout = build_layout(params, 1, args.ratio,
-                          get_compressor(args.compressor))
+                             strategy=strategy, backend=args.backend)
+    layout = build_layout(params, 1, comp)
     opt = sgd_momentum(0.9) if args.optimizer == "sgd" else adamw()
-    state = init_train_state(params, opt, workers=1, model_size=1,
+    state = init_train_state(params, opt, workers=L, model_size=1,
                              compression=comp, layout=layout)
     leaves, td = tree.flatten(params)
+    per = args.batch // W
 
-    def step(i, ev):
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def step(i):
+        """One step; returns its events by phase."""
         batch = batch_for(cfg, i, global_batch=args.batch, seq_len=args.seq,
                           seed=args.seed, device=dev)
-        ev[0].record()
-        ps = [p.detach().requires_grad_(True) for p in leaves]
-        loss, _ = loss_fn(tree.unflatten(td, ps), cfg, batch)
-        grads = tree.unflatten(td, list(torch.autograd.grad(loss, ps)))
-        ev[1].record()
-        res = aggregate.aggregate_bucketed(grads, state["resid"][0], layout,
-                                           comp)
-        ev[2].record()
-        opt.update(params, state["opt"], res.agg, args.lr)
-        ev[3].record()
+        ev = {"start": event(), "fb": [], "comp": []}
 
-    phases = ("forward_backward", "aggregate", "optimizer", "step")
-    times = {p: [] for p in phases}
+        def grads_of(w):
+            rank = wire.ranks[w]
+            rows = slice(rank * per, (rank + 1) * per)
+            local = {k: v[rows] for k, v in batch.items()}
+            ps = [p.detach().requires_grad_(True) for p in leaves]
+            loss, _ = loss_fn(tree.unflatten(td, ps), cfg, local)
+            grads = tree.unflatten(td, list(torch.autograd.grad(loss, ps)))
+            ev["fb"].append(event())
+            return grads
+
+        def probe(rank, **_):
+            if rank is None:
+                ev["wire"] = event()
+            else:
+                ev["comp"].append(event())
+
+        res = aggregate.aggregate_bucketed(
+            [lambda w=w: grads_of(w) for w in range(L)], state["resid"],
+            layout, comp, wire=wire, resid2=state.get("resid2"),
+            probe=probe)
+        ev["agg"] = event()
+        opt.update(params, state["opt"], res.agg, args.lr)
+        ev["opt"] = event()
+        return ev
+
+    def phases(ev) -> dict:
+        fb = comp = 0.0
+        prev = ev["start"]
+        for a, b in zip(ev["fb"], ev["comp"]):
+            fb += prev.elapsed_time(a)
+            comp += a.elapsed_time(b)
+            prev = b
+        return {"forward_backward": fb, "compress": comp,
+                "wire": ev["comp"][-1].elapsed_time(ev["wire"]),
+                "unpack_metrics": ev["wire"].elapsed_time(ev["agg"]),
+                "optimizer": ev["agg"].elapsed_time(ev["opt"]),
+                "step": ev["start"].elapsed_time(ev["opt"])}
+
+    times = {}
     for i in range(args.steps + 1):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        step(i, ev)
+        ev = step(i)
         torch.cuda.synchronize()
         if i == 0:
             continue            # warm-up: Triton JIT, cuBLAS handles
-        for j, p in enumerate(phases[:3]):
-            times[p].append(ev[j].elapsed_time(ev[j + 1]))
-        times["step"].append(ev[0].elapsed_time(ev[3]))
+        for p, v in phases(ev).items():
+            times.setdefault(p, []).append(v)
     med = {p: statistics.median(v) for p, v in times.items()}
-    print("phase medians (ms): " + ", ".join(f"{p} {v:.2f}"
-                                              for p, v in med.items()))
+    say(f"mesh {args.mesh} ({W} workers, {L} in this process, wire "
+        f"{wire.name}, {wire.backend}), strategy {strategy}; phase medians "
+        "(ms, summed over this process's workers): "
+        + ", ".join(f"{p} {v:.2f}" for p, v in med.items()))
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(args.steps + 1, ev)
+        step(args.steps + 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
@@ -100,16 +159,20 @@ def main(argv=None) -> int:
             kernels.append((e.key, dt / 1e3, e.count))
     kernels.sort(key=lambda x: -x[1])
     busy = sum(k[1] for k in kernels)
-    print(f"profiled step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-          f"(idle share {1 - busy / wall_ms:.3f}), {len(kernels)} kernel "
-          "names")
+    say(f"profiled step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+        f"(idle share {1 - busy / wall_ms:.3f}), {len(kernels)} kernel "
+        "names")
     for name, ms, n in kernels[:25]:
-        print(f"  {ms:9.3f} ms  x{n:<5d} {name[:100]}")
-    print(json.dumps({"arch": cfg.name, "batch": args.batch,
-                      "seq": args.seq, "phase_ms": med,
-                      "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
-                      "top_kernels": kernels[:25],
-                      "device": torch.cuda.get_device_name(0)}))
+        say(f"  {ms:9.3f} ms  x{n:<5d} {name[:100]}")
+    say(json.dumps({"arch": cfg.name, "batch": args.batch,
+                    "seq": args.seq, "mesh": args.mesh, "workers": W,
+                    "wire": wire.name, "dist_backend": wire.backend,
+                    "strategy": strategy, "phase_ms": med,
+                    "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated()
+                    / 2 ** 30,
+                    "top_kernels": kernels[:25],
+                    "device": torch.cuda.get_device_name(0)}))
     return 0
 
 

@@ -2,23 +2,42 @@
 
   python -m repro_torch.launch.train --arch llama3.2-1b \\
       --density-policy none --steps 3 --batch 8 --seq 128
+  # four data-parallel workers in this process, on one card
+  python -m repro_torch.launch.train ... --host-devices 4 --mesh 4x1 \\
+      --strategy gtopk
+  # one worker per process
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train ... --mesh 2x1
 
 Same flags as the JAX trainer, plus ``--device {cuda,cpu}`` (default
-``cuda``).  Without a GPU the trainer exits with an error unless
-``--device cpu`` is given; it never drops to the CPU by itself.  The
-mesh defaults to ``1x1``.  The port trains fixed-k with the
-``bucketed`` pipeline and the ``allgather`` wire on one card, with
+``cuda``) and ``--dist-backend`` (the process group's backend under
+``torchrun``: ``nccl`` by default on ``--device cuda``, which needs one
+card per process, ``gloo`` on ``--device cpu``).  Without a GPU the
+trainer exits with an error unless ``--device cpu`` is given; it never
+drops to the CPU by itself.  The mesh defaults to ``1x1``.
+
+A mesh ``DxM`` or ``PxDxM`` has ``W = D`` (``P·D``) data-parallel
+workers; the model axis ``M`` must be 1.  They run either all in this
+process (``--host-devices N`` with ``N >= W``, the counterpart of the
+JAX flag: ``LocalWire``) or one per process under ``torchrun`` with
+``WORLD_SIZE = W`` (``ProcessGroupWire``).  With neither, a mesh of
+``W > 1`` raises naming both.  The startup line prints the mesh, W, the
+wire and its backend.
+
+The port trains fixed-k with the ``bucketed`` pipeline, the four wire
+strategies (``--strategy allgather|gtopk|hierarchical|hier_gtopk``;
+``--hierarchical`` is the old spelling of the third) and
 ``--compressor`` ``topk``, ``gaussiank``, ``gaussiank2``, ``histk``
 (``--backend fused``: K1 with its histogram and K3; ``reference``: the
 K4d histogram and K4c compaction) or ``trimmedk`` (plain torch, the
-reference backend).  Every flag value it does not carry raises an error
-naming the slice that ports it: other meshes or strategies, the
-key-sampled compressors, an adaptive ``--density-policy`` (llama3.2-1b's
-config defaults to ``variance``, so pass ``none``),
+reference backend); ``--checkpoint`` saves the final state and
+``--resume`` starts from one (``checkpoint/npz.py``, the JAX package's
+keys).  Every flag value it does not carry raises an error naming the
+slice that ports it: a model axis above 1, ``--strategy auto``, the
+key-sampled compressors, an adaptive ``--density-policy``
+(llama3.2-1b's config defaults to ``variance``, so pass ``none``),
 ``--global-k-policy``, ``--chunks > 1``, ``--publish-every``,
-``--checkpoint``/``--resume``, ``--pipeline perleaf``, and any value but
-the default of the flags only those features read, such as
-``--density-floor``, ``--host-devices`` or ``--topology``.
+``--pipeline perleaf``, and any value but the default of the flags only
+those features read, such as ``--density-floor`` or ``--topology``.
 """
 from __future__ import annotations
 
@@ -82,6 +101,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", default="")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to train; cuda needs a GPU")
+    ap.add_argument("--dist-backend", default="", choices=["", "nccl",
+                                                           "gloo"],
+                    help="process-group backend under torchrun (default: "
+                         "nccl on --device cuda, gloo on cpu)")
     return ap
 
 
@@ -96,7 +119,7 @@ _DYNAMIC = ("topk", "gaussiank", "gaussiank2", "histk", "trimmedk", "rtopk")
 # flags that only a later slice reads -> the LATER key of that slice; any
 # value but the default raises rather than being ignored
 _LATER_FLAGS = {
-    "host_devices": "mesh", "topology": "auto",
+    "topology": "auto",
     "density_floor": "density_policy", "density_ceil": "density_policy",
     "density_ema": "density_policy", "density_warmup": "density_policy",
     "density_warmup_mult": "density_policy",
@@ -105,16 +128,18 @@ _LATER_FLAGS = {
 }
 
 
-def _require_slice1(args, cfg) -> None:
-    """Raise for every flag value this slice does not carry."""
+def require_ported(args, cfg):
+    """Raise for every flag value the port does not carry; returns the
+    mesh and the strategy."""
     from repro_torch.core.compressors import get_compressor
+    from repro_torch.dist.layout import resolve_strategy
     from repro_torch.slices import not_ported
-    from repro_torch.train.step import mesh_sizes
+    from repro_torch.train.step import require_data_parallel
 
-    mesh_sizes(tuple(int(x) for x in args.mesh.split("x")))
-    strategy = "hierarchical" if args.hierarchical else args.strategy
-    if strategy != "allgather":
-        raise not_ported(f"--strategy {strategy}", strategy)
+    mesh = require_data_parallel(args.mesh)
+    if args.strategy == "auto":
+        raise not_ported("--strategy auto", "auto")
+    strategy = resolve_strategy(args.strategy, args.hierarchical)
     if args.compressor != "none":
         get_compressor(args.compressor)
     pol = args.density_policy
@@ -131,44 +156,94 @@ def _require_slice1(args, cfg) -> None:
         raise not_ported("--chunks > 1", "chunks")
     if args.publish_every:
         raise not_ported("--publish-every", "publish")
-    if args.checkpoint or args.resume:
-        raise not_ported("--checkpoint/--resume", "checkpoint")
     if args.pipeline != "bucketed":
         raise not_ported("--pipeline perleaf", "perleaf")
     defaults = _parser()
     for dest, key in _LATER_FLAGS.items():
         if getattr(args, dest) != defaults.get_default(dest):
             raise not_ported(f"--{dest.replace('_', '-')}", key)
+    return mesh, strategy
 
 
-def run(argv=None, *, probe: Optional[Callable] = None) -> list:
+def make_wire(args, mesh):
+    """The wire of this launch and this process's device: under
+    ``torchrun`` a ``ProcessGroupWire`` (the process group initialised
+    here; the caller destroys it), else a ``LocalWire`` when
+    ``--host-devices`` covers the mesh's data world.  Returns ``(wire,
+    device, started)``, ``started`` true under ``torchrun``."""
+    import torch
+
+    from repro_torch.dist.wire import (LocalWire, ProcessGroupWire,
+                                       init_process_group, torchrun_env)
+    from repro_torch.launch.mesh import data_world_size
+
+    W = data_world_size(mesh)
+    env = torchrun_env()
+    if env is None:
+        if W > max(args.host_devices, 1):
+            raise SystemExit(
+                f"--mesh {args.mesh} has {W} data-parallel workers: run "
+                f"them in this process with --host-devices {W}, or one per "
+                f"process with torchrun --nproc-per-node {W}")
+        return LocalWire(mesh), torch.device(args.device), False
+    rank, world, local_rank, local_world = env
+    if world != W:
+        raise SystemExit(f"torchrun started {world} processes; --mesh "
+                         f"{args.mesh} has {W} data-parallel workers")
+    backend = args.dist_backend or ("nccl" if args.device == "cuda"
+                                    else "gloo")
+    init_process_group(backend, rank=rank, world_size=world,
+                       local_rank=local_rank, local_world_size=local_world)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", local_rank % torch.cuda.device_count())
+    return ProcessGroupWire(mesh), device, True
+
+
+def run(argv=None, *, probe: Optional[Callable] = None,
+        cfg=None) -> list:
     """Parse ``argv``, train, print one line per logged step and return
     the per-step records ``[{"step", "loss", "ms", ...metrics}]``.
-    ``probe`` reaches ``dist.aggregate.aggregate_bucketed``."""
+    ``probe`` reaches ``dist.aggregate.aggregate_bucketed``; ``cfg``, a
+    ModelConfig, replaces ``--arch``'s (a depth-cut copy, say).  Under
+    ``torchrun`` only rank 0 prints, and the process group this call
+    starts is destroyed before it returns."""
     args = parse_args(argv)
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.models.model import require_dense
+
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.smoke:
+            cfg = cfg.reduced()
+    require_dense(cfg)
+    mesh, strategy = require_ported(args, cfg)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no GPU is visible; pass --device "
+                         "cpu to train on the CPU")
+    wire, device, started = make_wire(args, mesh)
+    try:
+        return _train(args, cfg, mesh, strategy, wire, device, probe)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, mesh, strategy, wire, device, probe) -> list:
+    import torch
+
+    from repro_torch.checkpoint import load_state, save_state
     from repro_torch.core.compression import CompressionConfig
     from repro_torch.core.compressors import get_compressor
     from repro_torch.data import batch_for
     from repro_torch.dist.layout import build_layout
     from repro_torch.models import init_params
-    from repro_torch.models.model import require_dense
     from repro_torch.optim import (adamw, constant, cosine, sgd_momentum,
                                    step_decay)
     from repro_torch.train import init_train_state, make_train_step
-
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = cfg.reduced()
-    require_dense(cfg)
-    _require_slice1(args, cfg)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no GPU is visible; pass --device "
-                         "cpu to train on the CPU")
-    device = torch.device(args.device)
-    mesh = tuple(int(x) for x in args.mesh.split("x"))
 
     opt = sgd_momentum(0.9) if args.optimizer == "sgd" else adamw()
     lr_fn = {"constant": lambda: constant(args.lr),
@@ -182,18 +257,26 @@ def run(argv=None, *, probe: Optional[Callable] = None) -> list:
         layout = build_layout(params, 1, args.ratio,
                               get_compressor(args.compressor))
     config = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
-                               backend=args.backend)
-    state = init_train_state(params, opt, workers=1, model_size=1,
-                             compression=config, layout=layout)
+                               strategy=strategy, backend=args.backend)
+    state = init_train_state(params, opt, workers=wire.local_workers,
+                             model_size=1, compression=config,
+                             layout=layout)
+    if args.resume:
+        state = load_state(args.resume, state, worker_rows=wire.ranks)
     step = make_train_step(cfg, mesh, opt, lr_fn, compression=config,
-                           layout=layout, probe=probe)
-    print(f"arch={cfg.name} compressor={args.compressor} ratio={args.ratio} "
-          f"strategy=allgather backend={args.backend} mesh={args.mesh} "
-          f"pipeline={args.pipeline} chunks=1 density_policy=fixed-k "
-          f"device={device} steps={args.steps}", flush=True)
+                           layout=layout, probe=probe, wire=wire)
+    lead = wire.ranks[0] == 0
+    say = print if lead else (lambda *a, **k: None)
+    say(f"arch={cfg.name} compressor={args.compressor} ratio={args.ratio} "
+        f"strategy={strategy} backend={args.backend} mesh={args.mesh} "
+        f"workers={wire.world} wire={wire.name} "
+        f"dist_backend={wire.backend} pipeline={args.pipeline} chunks=1 "
+        f"density_policy=fixed-k device={device} steps={args.steps}",
+        flush=True)
     records = []
     t0 = time.time()
-    for i in range(args.steps):
+    first = state["step"]
+    for i in range(first, first + args.steps):
         batch = batch_for(cfg, i, global_batch=args.batch, seq_len=args.seq,
                           seed=args.seed, device=device)
         ts = time.perf_counter()
@@ -204,16 +287,28 @@ def run(argv=None, *, probe: Optional[Callable] = None) -> list:
         rec = {"step": i, "ms": ms}
         rec.update({k: float(v) for k, v in m.items()})
         records.append(rec)
-        if i % args.log_every == 0 or i == args.steps - 1:
+        if i % args.log_every == 0 or i == first + args.steps - 1:
             comm = ""
             if "comm_bits_sparse" in m:
                 r = rec["comm_bits_sparse"] / rec["comm_bits_dense"]
                 comm = (f" comm_frac={r:.4f} coll="
                         f"{int(rec['collectives_per_step'])}"
                         f" density={rec['density']:.6f}")
-            print(f"step {i:5d} loss={rec['loss']:.4f} lr={rec['lr']:.4g}"
-                  f"{comm} step_ms={ms:.1f} ({time.time() - t0:.1f}s)",
-                  flush=True)
+            say(f"step {i:5d} loss={rec['loss']:.4f} lr={rec['lr']:.4g}"
+                f"{comm} step_ms={ms:.1f} ({time.time() - t0:.1f}s)",
+                flush=True)
+    if args.checkpoint:
+        out = state
+        if wire.local_workers != wire.world:
+            # every worker's residual rows, gathered in rank order
+            out = dict(state)
+            for key in ("resid", "resid2"):
+                if key in state:
+                    out[key] = wire.all_gather([state[key][0]],
+                                               wire.data_axes)[0]
+        if lead:
+            save_state(args.checkpoint, out)
+            say(f"saved -> {args.checkpoint}")
     return records
 
 

@@ -111,7 +111,11 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward -> f32 logits ``(B, T, vocab)``."""
     require_dense(cfg)
     adt = getattr(torch, cfg.activation_dtype)
-    h = params["embed"][tokens].to(adt)
+    # F.embedding, not params["embed"][tokens]: the indexing's backward
+    # (index_put_ with accumulate) adds repeated tokens' rows in a
+    # thread-dependent order on the CPU; embedding's backward is
+    # deterministic on the CPU and on the card
+    h = torch.nn.functional.embedding(tokens, params["embed"]).to(adt)
     period = cfg.pattern_period
     reps = cfg.num_layers // period
     per_pos = [_unbind(sp) for sp in params["stack"]]

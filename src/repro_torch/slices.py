@@ -8,17 +8,11 @@ missing piece.
 from __future__ import annotations
 
 LATER = {
-    # slice 2 — several cards
-    "mesh": "slice 2 (multi-GPU allgather over NCCL, ROADMAP Queue 1 item 8)",
-    "world": "slice 2 (multi-GPU allgather over NCCL, ROADMAP Queue 1 item 8)",
-    "gtopk": "slice 2 (gTop-k and the other wire strategies, ROADMAP Queue 1 "
-             "item 8)",
-    "hierarchical": "slice 2 (wire strategies, ROADMAP Queue 1 item 8)",
-    "hier_gtopk": "slice 2 (wire strategies, ROADMAP Queue 1 item 8)",
-    "perleaf": "slice 2 (the per-leaf aggregate_compressed, ROADMAP Queue 1 "
-               "item 8)",
-    "checkpoint": "slice 2 (checkpoint/npz.py, ROADMAP Queue 1 item 7b)",
-    "codec_dtype": "slice 2 (down-cast wire values, ROADMAP Queue 1 item 8)",
+    # slice 2 leftovers — each its own ROADMAP item
+    "perleaf": "slice 2b (the per-leaf aggregate_compressed, ROADMAP Queue "
+               "1 item 8a)",
+    "model_axis": "slice 2c (tensor parallelism over the model axis, "
+                  "ROADMAP Queue 1 item 8b)",
     # slice 3 — adaptive density
     "density_policy": "slice 3 (adaptive density, ROADMAP Queue 1 item 10)",
     "global_k": "slice 3 (adaptive density, ROADMAP Queue 1 item 10)",

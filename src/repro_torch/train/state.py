@@ -1,7 +1,16 @@
 """Train state (port of ``repro/train/state.py``, lines 54-127): params,
 optimizer state, step counter and the per-worker error-feedback
-residual stored as ONE flat bucket of shape ``(workers, model_size *
-d_row_total)`` (``dist/layout.py``).  A plain dict of tensors."""
+residuals, each stored as ONE flat bucket per worker of shape
+``(workers, model_size * d_row_total)`` (``dist/layout.py``).  A plain
+dict of tensors.
+
+``workers`` is the number of data-parallel workers whose residuals this
+state holds: all W of the mesh when they run in this process
+(``LocalWire``), 1 per process under ``ProcessGroupWire``.  The workers
+of one process share ONE copy of the params and the optimizer state:
+the reference replicates them, and every worker computes the identical
+update.
+"""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -18,16 +27,19 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
                      compression: Optional[CompressionConfig] = None,
                      layout: Optional[BucketLayout] = None
                      ) -> Dict[str, Any]:
-    """``{"params", "opt", "step"[, "resid"]}``.  A sparse compressor
-    with ``layout`` allocates the zero flat residual ``resid`` on the
-    params' device; Dense-SGD allocates none."""
+    """``{"params", "opt", "step"[, "resid"[, "resid2"]]}``.  A sparse
+    compressor with ``layout`` allocates the zero residuals ``resid`` on
+    the params' device, and ``resid2`` too for the two-level strategies
+    (``hierarchical``, ``hier_gtopk``); Dense-SGD allocates none."""
     compression = as_config(compression)
-    if workers != 1:
-        raise not_ported(f"{workers} data-parallel workers", "world")
+    if workers < 1:
+        raise ValueError(f"workers must be >= 1, got {workers}")
+    if model_size != 1:
+        raise not_ported(f"model axis of size {model_size}", "model_axis")
     state: Dict[str, Any] = {"params": params,
                              "opt": optimizer.init(params), "step": 0}
     if not compression.dense:
-        compression.require_slice1()
+        compression.require_ported()
         if layout is None:
             raise not_ported("the per-leaf residual tree", "perleaf")
         if layout.model_size != model_size:
@@ -40,6 +52,10 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
                 f"layout has {len(layout.segments)} segments for a "
                 f"{len(leaves)}-leaf param tree; rebuild it from these "
                 "params")
-        state["resid"] = init_flat_residual(layout,
-                                            device=leaves[0].device)[None]
+
+        state["resid"] = init_flat_residual(layout, workers=workers,
+                                            device=leaves[0].device)
+        if compression.strategy in ("hierarchical", "hier_gtopk"):
+            state["resid2"] = init_flat_residual(layout, workers=workers,
+                                                 device=leaves[0].device)
     return state

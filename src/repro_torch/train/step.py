@@ -1,15 +1,23 @@
 """Train-step factory (port of ``repro/train/step.py``, lines 124-287):
 the model loss, the compressed gradient aggregation (paper Eq. 2) and
-the optimizer in one step, on one card.
+the optimizer in one step, for the W data-parallel workers of a mesh.
 
-  grads by autograd -> aggregate_bucketed (or the dense mean) ->
-  optimizer.update
+  per local worker: its rows of the global batch -> grads by autograd
+      -> pack + compress against its residual
+  the wire over the data axes (aggregate_bucketed, or the dense mean)
+  optimizer.update, once: the workers of one process share the params
 
-There is no ``shard_map``: this slice runs one worker (``mesh = (1,
-1)``).  The residual bucket and the params are updated in place.
+There is no ``shard_map``: the wire (``dist/wire.py``) runs either all W
+workers in this process (``LocalWire``, the default) or this process's
+one worker over ``torch.distributed`` (``ProcessGroupWire``).  Worker
+``w`` (its joint rank over the data axes, row-major) takes rows ``[w·B/W,
+(w+1)·B/W)`` of the global batch, as ``batch_specs`` shards the leading
+dim over the joint data axes.  The model axis stays 1.  The residual
+buckets and the params are updated in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -17,66 +25,100 @@ import torch
 from repro_torch import tree
 from repro_torch.core.compression import CompressionConfig, as_config
 from repro_torch.dist import aggregate
+from repro_torch.dist.wire import LocalWire
+from repro_torch.launch.mesh import (data_world_size, model_axis_size,
+                                     parse_mesh)
 from repro_torch.models import loss_fn
 from repro_torch.optim import Optimizer
 from repro_torch.slices import not_ported
 
 
-def mesh_sizes(mesh) -> tuple:
-    """``(data world, model size)`` of a mesh given as dims (``(D, M)`` or
-    ``(P, D, M)``); this slice takes ``(1, 1)`` only."""
-    dims = tuple(int(x) for x in mesh)
-    if len(dims) not in (2, 3) or any(x != 1 for x in dims):
-        raise not_ported(f"mesh {'x'.join(map(str, dims))}", "mesh")
-    return 1, 1
+def require_data_parallel(mesh):
+    """The mesh as a :class:`~repro_torch.launch.mesh.Mesh`; raises for a
+    model axis above 1 (tensor parallelism is not ported)."""
+    mesh = parse_mesh(mesh)
+    if model_axis_size(mesh) != 1:
+        raise not_ported(
+            f"mesh {'x'.join(map(str, mesh.shape))} (model axis of size "
+            f"{model_axis_size(mesh)})", "model_axis")
+    return mesh
 
 
 def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
                     compression: Optional[CompressionConfig] = None,
-                    layout=None, probe: Optional[Callable] = None):
+                    layout=None, probe: Optional[Callable] = None,
+                    wire=None):
     """Returns ``step_fn(state, batch) -> (state, metrics)``.
 
-    ``compression`` names the compressor (``"none"`` = Dense-SGD),
-    ratio and backend; ``layout`` (built from the same params and
-    config) routes the aggregation through the flat bucket.  ``probe``
-    is handed to :func:`~repro_torch.dist.aggregate.aggregate_bucketed`."""
+    ``mesh`` is a Mesh, ``"DxM"``/``"PxDxM"`` or a tuple of sizes;
+    ``wire`` (default: a ``LocalWire`` over it) decides which of its
+    workers this process runs, and ``state`` holds their residuals
+    (``init_train_state(workers=wire.local_workers)``).  ``batch`` is the
+    GLOBAL batch.  ``compression`` names the compressor (``"none"`` =
+    Dense-SGD), ratio, strategy, wire dtype and backend; ``layout``
+    (built from the same params and config) routes the aggregation
+    through the flat bucket.  ``probe`` is handed to
+    :func:`~repro_torch.dist.aggregate.aggregate_bucketed`.  Loss metrics
+    are the mean over the workers."""
     compression = as_config(compression)
-    world, msize = mesh_sizes(mesh)
+    mesh = require_data_parallel(mesh)
+    wire = LocalWire(mesh) if wire is None else wire
+    if wire.mesh != mesh:
+        raise ValueError(f"wire was built for {wire.mesh}, not {mesh}")
+    world = data_world_size(mesh)
     dense = compression.dense
     if not dense:
-        compression.require_slice1()
+        compression.require_ported()
         if layout is None:
             raise not_ported("the per-leaf aggregation", "perleaf")
-        if layout.model_size != msize:
+        if layout.model_size != 1:
             raise ValueError(f"layout model_size={layout.model_size} != "
-                             f"mesh model axis {msize}")
+                             "mesh model axis 1")
         if layout.spec_name != compression.spec.name:
             raise ValueError(f"layout compressor {layout.spec_name!r} != "
                              f"{compression.spec.name!r}")
         if abs(layout.ratio - float(compression.ratio)) > 1e-12:
             raise ValueError(
                 f"layout ratio {layout.ratio} != {compression.ratio}")
+
     def step_fn(state, batch):
         params = state["params"]
         leaves, td = tree.flatten(params)
-        ps = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            l, metrics = loss_fn(tree.unflatten(td, ps), cfg, batch)
-            grads = torch.autograd.grad(l, ps, allow_unused=True)
-        # a leaf the loss does not reach (norm2 of a parallel block) has
-        # a zero gradient, as under jax.grad
-        grads = tree.unflatten(td, [torch.zeros_like(p) if g is None else g
-                                    for p, g in zip(ps, grads)])
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        B = int(next(iter(batch.values())).shape[0])
+        if B % world:
+            raise ValueError(f"global batch {B} does not split over "
+                             f"{world} workers")
+        per = B // world
+        worker_metrics = []
+
+        def grads_of(w):
+            rank = wire.ranks[w]
+            rows = slice(rank * per, (rank + 1) * per)
+            local = {k: v[rows] for k, v in batch.items()}
+            ps = [p.detach().requires_grad_(True) for p in leaves]
+            with torch.enable_grad():
+                l, metrics = loss_fn(tree.unflatten(td, ps), cfg, local)
+                grads = torch.autograd.grad(l, ps, allow_unused=True)
+            worker_metrics.append({k: v.detach() for k, v in metrics.items()})
+            # a leaf the loss does not reach (norm2 of a parallel block)
+            # has a zero gradient, as under jax.grad
+            return tree.unflatten(td, [torch.zeros_like(p) if g is None
+                                       else g for p, g in zip(ps, grads)])
+
+        workers = range(wire.local_workers)
         if dense:
-            agg = aggregate.aggregate_dense(grads, world)
+            agg = aggregate.aggregate_dense([grads_of(w) for w in workers],
+                                            wire)
             agg_metrics = {}
         else:
             res = aggregate.aggregate_bucketed(
-                grads, state["resid"][0], layout, compression, world=world,
-                probe=probe)
+                [functools.partial(grads_of, w) for w in workers],
+                state["resid"], layout, compression, wire=wire,
+                resid2=state.get("resid2"), probe=probe)
             agg, agg_metrics = res.agg, res.metrics
-        del grads
+        metrics = {k: wire.pmean([m[k] for m in worker_metrics],
+                                 wire.data_axes)[0]
+                   for k in worker_metrics[0]}
         lr = lr_fn(state["step"])
         optimizer.update(params, state["opt"], agg, lr)
         state["step"] += 1

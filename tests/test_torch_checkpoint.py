@@ -1,0 +1,154 @@
+"""Checkpoints: the port's ``checkpoint/npz.py`` against the JAX
+package's, both ways, on a 4-worker state with both residual levels; and
+a resumed run against a straight one, bitwise."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import load_state as j_load
+from repro.checkpoint import save_state as j_save
+from repro.core.compression import CompressionConfig as JCompression
+from repro.core.compressors import get_compressor as j_get
+from repro.dist.layout import build_layout as j_build_layout
+from repro.models import ModelConfig as JModelConfig
+from repro.models import init_params as j_init
+from repro.optim import adamw as j_adamw
+from repro.optim import sgd_momentum as j_sgd
+from repro.train import init_train_state as j_state
+from repro_torch import tree
+from repro_torch.checkpoint import load_state, save_state
+from repro_torch.core.compression import CompressionConfig
+from repro_torch.dist.layout import build_layout
+from repro_torch.models import ModelConfig, from_jax_params, init_params
+from repro_torch.optim import adamw, constant, sgd_momentum
+from repro_torch.train import init_train_state, make_train_step
+
+torch.set_num_threads(2)
+
+_CFG = dict(name="t", arch_type="dense", num_layers=2, d_model=64,
+            num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=64)
+
+
+def _states(opt_name):
+    """The same 4-worker hierarchical state in both packages (random
+    residuals, params and optimizer state, step 5)."""
+    jparams = j_init(JModelConfig(**_CFG).validate(), jax.random.PRNGKey(0))
+    jopt = j_sgd(0.9) if opt_name == "sgd" else j_adamw()
+    jcomp = JCompression(strategy="hierarchical")
+    jlay = j_build_layout(jparams, 1, 0.001, j_get("gaussiank"))
+    js = j_state(jparams, jopt, workers=4, model_size=1, compression=jcomp,
+                 layout=jlay)
+    rng = np.random.default_rng(0)
+    js = jax.tree.map(lambda x: jnp.asarray(
+        rng.standard_normal(x.shape).astype(np.float32))
+        if x.dtype == jnp.float32 else x, js)
+    js["step"] = jnp.int32(5)
+    if opt_name == "adamw":
+        js["opt"]["t"] = jnp.int32(5)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), "cpu")
+    topt = sgd_momentum(0.9) if opt_name == "sgd" else adamw()
+    comp = CompressionConfig(strategy="hierarchical")
+    ts = init_train_state(params, topt, workers=4, model_size=1,
+                          compression=comp,
+                          layout=build_layout(params, 1, comp))
+    return js, ts
+
+
+def _same(js, ts):
+    jpairs = jax.tree_util.tree_flatten_with_path(js)[0]
+    tpairs = tree.flatten_with_path(ts)[0]
+    assert len(jpairs) == len(tpairs)
+    for (jp, a), (tp, b) in zip(jpairs, tpairs):
+        assert "/".join(str(getattr(e, "key", getattr(e, "idx", e)))
+                        for e in jp) == "/".join(map(str, tp))
+        b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+        np.testing.assert_array_equal(np.asarray(a), b)
+
+
+@pytest.mark.parametrize("opt_name", ["sgd", "adamw"])
+def test_jax_checkpoint_loads_into_the_port(tmp_path, opt_name):
+    js, ts = _states(opt_name)
+    path = str(tmp_path / "jax.npz")
+    j_save(path, js)
+    loaded = load_state(path, ts)
+    assert loaded["resid"].shape == (4, js["resid"].shape[1])
+    assert loaded["step"] == 5
+    _same(js, loaded)
+
+
+@pytest.mark.parametrize("opt_name", ["sgd", "adamw"])
+def test_port_checkpoint_loads_into_jax(tmp_path, opt_name):
+    js, ts = _states(opt_name)
+    rng = np.random.default_rng(1)
+    for leaf in tree.leaves(ts):
+        if isinstance(leaf, torch.Tensor):
+            leaf.copy_(torch.from_numpy(
+                rng.standard_normal(tuple(leaf.shape)).astype(np.float32)))
+    ts["step"] = 7
+    if opt_name == "adamw":
+        ts["opt"]["t"] = 7
+    path = str(tmp_path / "port.npz")
+    save_state(path, ts)
+    loaded = j_load(path, js)
+    assert int(loaded["step"]) == 7
+    _same(loaded, ts)
+
+
+def test_load_picks_worker_rows_and_checks_shapes(tmp_path):
+    js, ts = _states("sgd")
+    path = str(tmp_path / "jax.npz")
+    j_save(path, js)
+    params = tree.tree_map(torch.clone, ts["params"])
+    comp = CompressionConfig(strategy="hierarchical")
+    one = init_train_state(params, sgd_momentum(0.9), workers=1,
+                           model_size=1, compression=comp,
+                           layout=build_layout(params, 1, comp))
+    got = load_state(path, one, worker_rows=[2])
+    np.testing.assert_array_equal(got["resid"].numpy(),
+                                  np.asarray(js["resid"])[2:3])
+    np.testing.assert_array_equal(got["resid2"].numpy(),
+                                  np.asarray(js["resid2"])[2:3])
+    with pytest.raises(ValueError, match="resid"):
+        load_state(path, one)
+
+
+@pytest.mark.parametrize("strategy,mesh", [("gtopk", "4x1"),
+                                           ("hier_gtopk", "2x2x1")])
+def test_resume_equals_straight_run(tmp_path, strategy, mesh):
+    """2 steps, save, load into a fresh state, 1 step == 3 steps
+    straight, bitwise (params, momentum, residuals, losses)."""
+    cfg = ModelConfig(**_CFG).validate()
+    comp = CompressionConfig(ratio=0.01, strategy=strategy)
+    rng = np.random.default_rng(2)
+    batches = []
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, 64, (8, 16)))
+        batches.append({"tokens": toks, "labels": torch.roll(toks, -1, 1)})
+
+    def fresh():
+        params = init_params(cfg, 0, "cpu")
+        layout = build_layout(params, 1, comp)
+        opt = sgd_momentum(0.9)
+        state = init_train_state(params, opt, workers=4, model_size=1,
+                                 compression=comp, layout=layout)
+        return state, make_train_step(cfg, mesh, opt, constant(0.1),
+                                      compression=comp, layout=layout)
+
+    straight, step = fresh()
+    losses = [float(step(straight, b)[1]["loss"]) for b in batches]
+    first, step = fresh()
+    for b in batches[:2]:
+        step(first, b)
+    save_state(str(tmp_path / "ck.npz"), first)
+    resumed, step = fresh()
+    resumed = load_state(str(tmp_path / "ck.npz"), resumed)
+    assert resumed["step"] == 2
+    last = float(step(resumed, batches[2])[1]["loss"])
+    assert last == losses[2]
+    for a, b in zip(tree.leaves(resumed), tree.leaves(straight)):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        else:
+            assert a == b

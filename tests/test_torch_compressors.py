@@ -155,9 +155,19 @@ def test_compression_config_validation():
             CompressionConfig(**bad)
     c = CompressionConfig(compressor=None)
     assert c.dense and c.spec is None
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        CompressionConfig(strategy="gtopk").require_slice1()
+    for strategy in ("allgather", "gtopk", "hierarchical", "hier_gtopk"):
+        c = CompressionConfig(strategy=strategy)
+        assert c.require_ported() is c
+    assert CompressionConfig(codec_dtype="bfloat16").codec_dtype == \
+        torch.bfloat16
+    assert CompressionConfig(
+        codec_dtype=torch.float16).require_ported().codec_dtype == \
+        torch.float16
+    with pytest.raises(ValueError, match="codec_dtype"):
+        CompressionConfig(codec_dtype="int8")
     with pytest.raises(NotImplementedError, match="slice 6"):
-        CompressionConfig(chunks=2).require_slice1()
+        CompressionConfig(chunks=2).require_ported()
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        CompressionConfig(density_policy="variance").require_ported()
     with pytest.raises(TypeError):
         as_config("gaussiank")

@@ -15,12 +15,16 @@ the fused one.  The K3 stage, K4c and K4d are also held bitwise on
 views at storage offsets 1 and 3 (their scalar-load paths), blocks that
 are not multiples of 4, thresholds of 0 and above ``max|u|``, and
 one-bin, all-zero and zero/subnormal/inf/``>= edge[127]`` inputs.
+The data-parallel wire on the card: the rank-order decode of gathered
+pairs and the gTop-k re-encode bitwise the CPU's, and four workers in
+one process deterministic, with losses within rtol 1e-4 of the CPU's.
 """
 import math
 
 import pytest
 import torch
 
+from repro_torch import tree
 from repro_torch.core import codec
 from repro_torch.core.compressors import gaussiank_cap
 from repro_torch.kernels.ef_fused import compact_residual as cr
@@ -218,3 +222,138 @@ def test_cuda_kernels_take_float32_only(dev):
         cr.compact_stage(g, None, 0.0, block=1024, bcap=64)
     with pytest.raises(TypeError, match="float32"):
         hist.abs_histogram(g)
+
+
+def test_decode_sum_deterministic_on_card(dev):
+    """The rank-order decode of gathered pairs that repeat indices across
+    ranks: two runs on the card, and the card against the CPU, bitwise."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(5)
+    n, k, d = 8, 20_000, 1_000_003
+    idx = torch.stack([torch.randperm(d, generator=gen)[:k]
+                       for _ in range(n)]).to(torch.int32)[:, None]
+    idx[:, :, -100:] = codec.SENTINEL
+    vals = torch.randn((n, 1, k), generator=gen)
+    vals[:, :, -100:] = 0.0
+    assert torch.unique(idx).numel() < n * k   # duplicates across ranks
+    a = codec.decode_sum(vals.to(dev), idx.to(dev), d)
+    b = codec.decode_sum(vals.to(dev), idx.to(dev), d)
+    c = codec.decode_sum(vals, idx, d)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(a.cpu().view(torch.int32), c.view(torch.int32))
+
+
+def test_gtopk_encode_on_card_matches_cpu(dev):
+    from repro_torch.dist import aggregate as agg
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(6)
+    rows = torch.zeros((2, 100_000))
+    rows[0, torch.randperm(100_000, generator=gen)[:3000]] = 1.0  # ties
+    rows[1] = torch.randn(100_000, generator=gen)
+    rows[1, ::7] = 0.0
+    for k_cap in (2000, 5000):
+        v, i = agg.encode_rows_topk(rows.to(dev), k_cap)
+        cv, ci = agg.encode_rows_topk(rows, k_cap)
+        assert torch.equal(i.cpu(), ci) and torch.equal(v.cpu(), cv)
+
+
+@pytest.mark.parametrize("strategy,mesh", [
+    ("allgather", "4x1"), ("gtopk", "4x1"), ("hierarchical", "2x2x1"),
+    ("hier_gtopk", "2x2x1")])
+def test_local_wire_on_card(dev, strategy, mesh):
+    """Four workers in one process on the card (fused kernels): two runs
+    bitwise equal; the card against the CPU at the card's block
+    geometry within rtol 1e-4 (losses) — the f32 GEMMs sum in other
+    orders."""
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data import lm_batch
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.optim import constant, sgd_momentum
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = ModelConfig(name="sys", arch_type="dense", num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                      vocab_size=64).validate()
+    comp = CompressionConfig(ratio=0.01, strategy=strategy)
+    base = init_params(cfg, 0, "cpu")
+
+    def run(device):
+        params = tree.tree_map(lambda x: x.clone().to(device), base)
+        layout = build_layout(params, 1, comp)
+        opt = sgd_momentum(0.9)
+        state = init_train_state(params, opt, workers=4, model_size=1,
+                                 compression=comp, layout=layout)
+        step = make_train_step(cfg, mesh, opt, constant(0.1),
+                               compression=comp, layout=layout)
+        losses = []
+        with tuning.geometry_of("cuda"):
+            for i in range(2):
+                b = lm_batch(i, global_batch=8, seq_len=16,
+                             vocab=cfg.vocab_size, device=device)
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+        return losses, state
+
+    l1, s1 = run(dev)
+    l2, s2 = run(dev)
+    lc, _ = run("cpu")
+    assert l1 == l2
+    assert torch.equal(s1["resid"].view(torch.int32),
+                       s2["resid"].view(torch.int32))
+    assert torch.allclose(torch.tensor(l1), torch.tensor(lc), rtol=1e-4)
+
+
+def test_process_group_wire_nccl_bitwise_local(dev, tmp_path):
+    """One worker per card over NCCL (2 or 4 cards, the trainer under a
+    ``torchrun``-style environment, ``tests/_torch_dist_pg.py``) against
+    the same workers in one process on card 0: checkpoints (params,
+    momentum, every worker's residuals) and losses bitwise equal."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from repro_torch.launch import train as cli
+    W = min(4, torch.cuda.device_count())
+    if W < 2:
+        pytest.skip("needs two CUDA devices")
+    meshes = {"allgather": f"{W}x1", "gtopk": f"{W}x1",
+              "hierarchical": f"2x{W // 2}x1", "hier_gtopk": f"2x{W // 2}x1"}
+    tests = os.path.dirname(os.path.abspath(__file__))
+    cases = []
+    for s, m in meshes.items():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            cases.append(f"{s}:{m}:{sock.getsockname()[1]}")
+    procs = []
+    for r in range(W):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(W),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(W),
+                   MASTER_ADDR="127.0.0.1",
+                   PYTHONPATH=os.path.join(os.path.dirname(tests), "src"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(tests, "_torch_dist_pg.py"),
+             str(tmp_path), "cuda"] + cases, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=900)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    assert "wire=process_group dist_backend=nccl" in logs[0]
+    for strategy, mesh in meshes.items():
+        name = f"{strategy}-{mesh}"
+        local = tmp_path / f"local-{name}.npz"
+        recs = cli.run(["--arch", "llama3.2-1b", "--smoke",
+                        "--density-policy", "none", "--steps", "2",
+                        "--batch", "4", "--seq", "16", "--mesh", mesh,
+                        "--strategy", strategy, "--host-devices", str(W),
+                        "--checkpoint", str(local)])
+        with np.load(local) as a, np.load(tmp_path / f"{name}.npz") as b:
+            assert sorted(a.files) == sorted(b.files)
+            for key in a.files:
+                assert a[key].tobytes() == b[key].tobytes(), (name, key)
+        with open(tmp_path / f"{name}.json") as f:
+            pg = json.load(f)
+        assert [r["loss"] for r in recs] == [r["loss"] for r in pg]

@@ -28,6 +28,8 @@ bad = [m for m, mod in sys.modules.items() if mod is not None
        and (m in ("jax", "repro") or m.startswith(("jax.", "repro.")))]
 assert not bad, bad
 assert len(names) >= 30, names
+assert {"repro_torch.dist.wire", "repro_torch.launch.mesh",
+        "repro_torch.checkpoint.npz"} <= set(names), names
 print(len(names))
 """
 

@@ -1,5 +1,6 @@
 """The port's bucket layout against ``repro.dist.layout``: field for
-field on llama3.2-1b ``reduced()``, pack/unpack bitwise, unpack as
+field on llama3.2-1b ``reduced()``, the wire accounting of every
+strategy, pack/unpack of grads and of residual arrays bitwise, unpack as
 views, and the full llama3.2-1b bucket inside the int32 index range."""
 import jax
 import jax.numpy as jnp
@@ -72,14 +73,50 @@ def test_build_layout_config_spelling(reduced):
 
 @pytest.mark.parametrize("strategy", ["gtopk", "hierarchical",
                                       "hier_gtopk"])
-def test_wire_accounting_names_the_slice_of_other_strategies(reduced,
-                                                             strategy):
-    _, tparams = reduced
+def test_wire_accounting_matches_reference(reduced, strategy):
+    """Wire pairs, bits (f32, bf16 and fp16 values) and collectives of
+    each strategy equal ``repro.dist.layout``'s, over worlds and pod
+    counts; non-powers of two raise alike for the gTop-k strategies."""
+    jparams, tparams = reduced
+    jlay = jl.build_layout(jparams, 1, 0.01, j_get("gaussiank"))
     lay = tl.build_layout(tparams, 1, 0.01, get_compressor("gaussiank"))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        lay.comm_bits_sparse(strategy, 4)
+    for world, n_pods in [(1, 1), (2, 1), (4, 1), (4, 2), (8, 2), (8, 4),
+                          (16, 4)]:
+        assert tl.strategy_wire_pairs(strategy, world, n_pods) == \
+            jl.strategy_wire_pairs(strategy, world, n_pods)
+        assert lay.collectives(strategy, world, n_pods) == \
+            jlay.collectives(strategy, world, n_pods)
+        for t, j in [(None, None), (torch.bfloat16, jnp.bfloat16),
+                     (torch.float16, jnp.float16)]:
+            assert lay.comm_bits_sparse(strategy, world, n_pods, t) == \
+                jlay.comm_bits_sparse(strategy, world, n_pods, j)
+    bad = (3, 1) if strategy == "gtopk" else (6, 3)
+    if strategy != "hierarchical":
+        with pytest.raises(ValueError, match="power-of-two"):
+            lay.comm_bits_sparse(strategy, *bad)
+        with pytest.raises(ValueError, match="power-of-two"):
+            jlay.comm_bits_sparse(strategy, *bad)
     with pytest.raises(ValueError, match="unknown strategy"):
         lay.collectives("ring", 4)
+    assert tl.resolve_strategy("allgather", True) == "hierarchical"
+    assert tl.resolve_strategy(strategy, True) == strategy
+
+
+def test_pack_unpack_residual_arrays_match_reference(reduced):
+    jparams, tparams = reduced
+    jlay = jl.build_layout(jparams, 2, 0.01, j_get("gaussiank"))
+    lay = tl.build_layout(tparams, 2, 0.01, get_compressor("gaussiank"))
+    rng = np.random.default_rng(4)
+    arrays = [rng.standard_normal((3, s.d_pad)).astype(np.float32)
+              for s in lay.segments]
+    flat = tl.pack_residual_arrays(lay, arrays)
+    np.testing.assert_array_equal(flat,
+                                  jl.pack_residual_arrays(jlay, arrays))
+    assert flat.shape == (3, lay.flat_size)
+    for a, b in zip(tl.unpack_residual_arrays(lay, flat), arrays):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="d_pad"):
+        tl.pack_residual_arrays(lay, [a[:, 1:] for a in arrays])
 
 
 @pytest.mark.parametrize("model_size", [1, 2])

@@ -4,7 +4,10 @@ composed outside ``shard_map`` from public functions (world size 1):
     jax.value_and_grad(loss_fn) -> pack_grads -> bucket_compress(fused)
     -> codec.decode -> unpack_tree -> sgd_momentum(0.9).update
 
-and the port's training CLI on the CPU.
+and the port's training CLI on the CPU: world size 1, the four wire
+strategies on several workers in this process (``--host-devices``),
+checkpoints, and the flags it does not carry yet.  (The multi-worker
+step against the JAX mesh run is in ``test_torch_dist.py``.)
 
 Tolerances: losses within rtol 1e-4 and params within rtol 1e-4, atol
 1e-5 after 3 steps — the gradients differ from XLA's by f32 summation
@@ -148,10 +151,8 @@ def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,slice_no", [
-    (["--strategy", "gtopk"], "slice 2"),
-    (["--mesh", "2x1"], "slice 2"),
-    (["--pipeline", "perleaf"], "slice 2"),
-    (["--checkpoint", "ck.npz"], "slice 2"),
+    (["--pipeline", "perleaf"], "slice 2b"),
+    (["--mesh", "2x2", "--host-devices", "4"], "slice 2c"),
     (["--density-policy", "variance"], "slice 3"),
     (["--global-k-policy", "normdecay", "--density-policy", "none"],
      "slice 3"),
@@ -159,7 +160,7 @@ def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
     (["--compressor", "dgck"], "slice 4"),
     (["--chunks", "2"], "slice 6"),
     (["--publish-every", "2"], "slice 7"),
-    (["--host-devices", "8"], "slice 2"),
+    (["--strategy", "auto"], "slice 9"),
     (["--topology", "topo.json"], "slice 9"),
     (["--density-floor", "0.5"], "slice 3"),
     (["--global-k-floor", "0.5"], "slice 3"),
@@ -170,6 +171,69 @@ def test_cli_names_the_slice_of_what_it_lacks(extra, slice_no):
             "--device", "cpu", "--steps", "1"] + extra
     with pytest.raises(NotImplementedError, match=slice_no):
         cli.run(argv)
+
+
+_SMOKE = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
+          "--device", "cpu", "--steps", "2", "--batch", "4", "--seq", "16",
+          "--log-every", "1"]
+
+
+@pytest.mark.parametrize("extra,workers,coll", [
+    (["--strategy", "gtopk", "--mesh", "2x1", "--host-devices", "2"], 2, 1),
+    (["--mesh", "2x1", "--host-devices", "2"], 2, 1),
+    (["--host-devices", "8"], 1, 1),
+    (["--host-devices", "4", "--mesh", "4x1", "--strategy", "allgather"],
+     4, 1),
+    (["--host-devices", "4", "--mesh", "4x1", "--strategy", "gtopk"], 4, 2),
+    (["--host-devices", "4", "--mesh", "2x2x1", "--strategy",
+      "hierarchical"], 4, 2),
+    (["--host-devices", "4", "--mesh", "2x2x1", "--strategy",
+      "hier_gtopk"], 4, 2),
+    (["--host-devices", "4", "--mesh", "2x2x1", "--hierarchical"], 4, 2),
+])
+def test_cli_runs_the_wire_strategies_on_cpu(capsys, extra, workers, coll):
+    """Several workers in this process (``--host-devices``, the JAX
+    flag's counterpart: N device slots, the mesh uses W of them).  The
+    two-level strategies send a second pair a step, so their density
+    (both levels' slots, as the reference counts it) may reach twice
+    the one-level cap."""
+    recs = cli.run(_SMOKE + extra)
+    out = capsys.readouterr().out
+    assert f"workers={workers} wire=local dist_backend=none" in out
+    levels = 2 if "2x2x1" in extra else 1
+    assert len(recs) == 2
+    for r in recs:
+        assert np.isfinite(r["loss"])
+        assert 0 < r["density"] <= levels * r["density_cap"]
+        assert r["collectives_per_step"] == coll
+
+
+@pytest.mark.parametrize("extra", [["--mesh", "4x1"],
+                                   ["--mesh", "2x2x1", "--host-devices", "2"]])
+def test_cli_mesh_needs_its_workers(extra):
+    """A mesh of W > 1 workers runs W workers or none: it names both ways
+    to get them."""
+    with pytest.raises(SystemExit, match="--host-devices 4.*torchrun "
+                                         "--nproc-per-node 4"):
+        cli.run(_SMOKE + extra)
+
+
+def test_cli_checkpoint_and_resume(tmp_path):
+    """2 steps, saved, resumed for 1 step: the same as 3 steps straight,
+    bitwise (4 workers, gtopk)."""
+    base = [a for a in _SMOKE if a not in ("--steps", "2")] + [
+        "--host-devices", "4", "--mesh", "4x1", "--strategy", "gtopk"]
+    a, b, c = (str(tmp_path / n) for n in ("a.npz", "b.npz", "c.npz"))
+    cli.run(base + ["--steps", "2", "--checkpoint", a])
+    recs = cli.run(base + ["--steps", "1", "--resume", a, "--checkpoint",
+                           b])
+    assert [r["step"] for r in recs] == [2]
+    cli.run(base + ["--steps", "3", "--checkpoint", c])
+    with np.load(b) as x, np.load(c) as y:
+        assert sorted(x.files) == sorted(y.files)
+        assert int(x["step"]) == 3 and x["resid"].shape[0] == 4
+        for k in x.files:
+            assert x[k].tobytes() == y[k].tobytes(), k
 
 
 def test_llama_default_density_policy_is_rejected():
