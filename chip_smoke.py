@@ -64,7 +64,18 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
        with 2 layers: params, momentum and residuals (sha256) and losses
        equal ``LocalWire``'s; the line names the backend;
    5d. each strategy with 4 workers on the small config, card against
-       CPU at the card's block geometry, losses within rtol 1e-4.
+       CPU at the card's block geometry, losses within rtol 1e-4;
+6. adaptive layer-wise density (slice 3), each path with the launch
+   counters set to 0 just before it and read just after
+   (``phase6_adaptive``): 6a llama3.2-1b's own default (no
+   ``--density-policy``: ``variance``) at full width and depth, 3 steps,
+   K1 (pass A, once a segment row: no second K1 in the compression), K2
+   and the K3 launches 12 a step each, ``k_total`` the host's budget,
+   ``sum(k) == K_eff``, every worker's ``u`` conserving bitwise at step
+   0; 6b hist-k ``absmax`` with EMA; 6c ``uniform`` with the DGC warmup
+   and the norm-decay global-k controller; 6d four workers on the card,
+   allgather at full depth and hierarchical at 4 layers; 6e card against
+   CPU on the small config for each policy, allocations equal.
 
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it the ``{"kernels": [...]}`` JSON; the last line is
@@ -559,6 +570,10 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
 LEAF_BYTES = {"fused_moments": 8, "fused_moments_hist": 8, "tree_count": 8,
               "compact_stage": 8, "compact_resid": 12, "moments": 4,
               "count_gt": 4, "threshold_compact": 4, "abs_histogram": 4}
+# adaptive density compresses u = G + E in place: the kernels read u alone
+ADAPTIVE_LEAF_BYTES = {"fused_moments": 4, "fused_moments_hist": 4,
+                       "tree_count": 4, "compact_stage": 4,
+                       "compact_resid": 8}
 
 
 def drive(label, run, expect, steps):
@@ -579,36 +594,47 @@ def drive(label, run, expect, steps):
 
 def conserves(G, values, indices, new_E, label, torch) -> None:
     """``decode(values, indices) + new_E == G`` bitwise, one 1 GiB column
-    slice at a time (not one 6 GB decode)."""
+    slice at a time (not one 6 GB decode); ``G`` may be a host copy."""
     step = 1 << 28
     D = G.shape[1]
+    dev = new_E.device
     for m in range(G.shape[0]):
         v, i = values[m].float(), indices[m].long()
         for a in range(0, D, step):
             b = min(a + step, D)
             sel = (i >= a) & (i < b)
-            dec = torch.zeros(b - a, device=G.device)
+            dec = torch.zeros(b - a, device=dev)
             dec.index_add_(0, i[sel] - a, v[sel])
-            assert torch.equal(dec + new_E[m, a:b], G[m, a:b]), (
+            assert torch.equal(dec + new_E[m, a:b], G[m, a:b].to(dev)), (
                 label, "conservation", m, a)
 
 
 def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
-               global_check=False, levels=1):
+               global_check=False, levels=1, leaf_bytes=None, bounds=None):
     """One trainer path at full width (``workers`` of them in this
     process): returns its launches, records, peak memory, each launched
-    kernel's bound per step (``LEAF_BYTES`` over the bucket's columns
-    and the workers) and the wire's ms per step; checks the per-step
-    launches, each worker's bucket conservation at step 0, finite
-    losses and density <= cap.  ``global_check`` also holds gTop-k's
-    conservation across the workers at step 0:
-    ``sum_w e'_w + W * mean == sum_w G_w`` within ``2**-19 *
+    kernel's bound per step (``leaf_bytes``, default ``LEAF_BYTES``,
+    over the bucket's columns and the workers) and the wire's ms per
+    step; checks the per-step launches, each worker's bucket
+    conservation at step 0, finite losses and density <= cap.
+    ``global_check`` also holds gTop-k's conservation across the workers
+    at step 0: ``sum_w e'_w + W * mean == sum_w G_w`` within ``2**-19 *
     sum_w |G_w|`` per element (f32 rounding of the sums); returns the
-    largest difference seen and the bound's largest value."""
+    largest difference seen and the bound's largest value.
+
+    Under adaptive density (``bounds``: the layout's per-segment
+    ``(k_lo, k_hi)``) the step-0 check holds each worker's ``u`` (copied
+    to the host after its pass A, before it is compressed in place), and
+    every step's allocation is checked: ``sum(k) == K_eff``, ``k_lo <= k
+    <= k_hi``; the allocations come back in ``extra["allocs"]``, and the
+    peak memory of the steps after step 0 (the host copies are not on
+    the card) as ``extra["peak_after0"]``."""
+    import numpy as np
+
     from repro_torch.launch import train
     funcs = counters()
-    seen, G_cols, wire_ev, last = [], [], [], [None]
-    acc = {}
+    seen, G_cols, wire_ev, last, allocs = [], [], [], [None], []
+    acc, u_host, peaks = {}, {}, {}
 
     def event():
         ev = torch.cuda.Event(enable_timing=True)
@@ -616,10 +642,22 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
         return ev
 
     def probe(rank, G=None, values=None, indices=None, new_E=None,
-              mean=None, resid=None, resid2=None):
+              mean=None, resid=None, resid2=None, u=None, k_alloc=None,
+              K_eff=None):
+        if rank is None and k_alloc is not None:
+            k = np.asarray(k_alloc)
+            lo, hi = (np.asarray(b) for b in bounds)
+            assert int(k.sum()) == int(K_eff), (label, "sum(k)", K_eff)
+            assert np.all(lo <= k) and np.all(k <= hi), (label, "bounds")
+            allocs.append((k.copy(), int(K_eff)))
+            return
         if rank is None:
             seen.append({n: f.launches for n, f in funcs.items()})
             wire_ev.append((last[0], event()))
+            if len(seen) == 1:
+                # step 0's peak (its checks included), then the rest's
+                peaks["step0"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
             if global_check and len(seen) == 1:
                 E = resid.view(workers, *mean.shape)
                 lhs = E.sum(dim=0) + workers * mean
@@ -630,8 +668,14 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
                     label, "gTop-k conservation", acc["err"], acc["tol"])
                 del acc["G"], acc["absG"], lhs, diff
             return
+        if u is not None:   # adaptive: u = G + E after this worker's pass A
+            if not seen:
+                u_host[rank] = u.to("cpu", copy=True)
+            return
         if not seen:   # step 0: the residual was zero, u == G
-            G_cols.append(G.shape[1])
+            G_cols.append(new_E.shape[1])
+            if G is None:
+                G = u_host.pop(rank)
             conserves(G, values, indices, new_E, label, torch)
             if global_check:
                 if "G" in acc:
@@ -647,7 +691,7 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
                                          "--log-every", "1"], probe=probe,
                                  cfg=cfg),
         expect, steps)
-    peak = torch.cuda.max_memory_allocated()
+    peaks["after0"] = torch.cuda.max_memory_allocated()
     torch.cuda.synchronize()
     wire_ms = [a.elapsed_time(b) for a, b in wire_ev]
     for s, snap in enumerate(seen):
@@ -657,15 +701,21 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
     assert all(math.isfinite(x) for x in losses), (label, losses)
     for r in records:
         assert r["density"] <= levels * r["density_cap"], (label, r)
+    if bounds is not None:
+        assert len(allocs) == steps, (label, "allocations", len(allocs))
+        for r, (k, K_eff) in zip(records, allocs):
+            assert r["k_total"] == K_eff, (label, r["k_total"], K_eff)
     step_ms = [r["ms"] for r in records]
     cols = G_cols[0]
     # each of the 12 leaves' launches reads and writes its columns once
-    step_bound = {n: LEAF_BYTES[n] * cols * (c // 12) / HBM_BYTES_PER_S
-                  * 1e3 for n, c in expect.items()}
+    step_bound = {n: (leaf_bytes or LEAF_BYTES)[n] * cols * (c // 12)
+                  / HBM_BYTES_PER_S * 1e3 for n, c in expect.items()}
+    peak = max(peaks["after0"], peaks["step0"])
     log(f"  {label}: losses {losses}; step ms "
         f"{[round(x, 1) for x in step_ms]}; wire ms "
         f"{[round(x, 2) for x in wire_ms]}; peak memory "
-        f"{peak / 2**30:.2f} GiB; density "
+        f"{peak / 2**30:.2f} GiB (steps 1-: "
+        f"{peaks['after0'] / 2**30:.2f} GiB); density "
         f"{[round(r['density'], 6) for r in records]} (cap "
         f"{records[0]['density_cap']:.6f}); launches {launches}; every "
         f"worker's step-0 bucket conserves bitwise; per-step bound ms over "
@@ -675,7 +725,8 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
             f"difference {acc['err']:.3g} (bound 2**-19 * sum_w |G_w|, "
             f"largest {acc['tol']:.3g})")
     extra = {"wire_ms": wire_ms, "conservation": dict(
-        (k, acc[k]) for k in ("err", "tol") if k in acc)}
+        (k, acc[k]) for k in ("err", "tol") if k in acc),
+        "allocs": allocs, "peak_after0": peaks["after0"]}
     return launches, records, peak, step_bound, extra
 
 
@@ -871,6 +922,195 @@ def phase5c(torch, by_path, cfg) -> dict:
         f"{ {s: ref[s]['losses'] for s in PG_STRATEGIES} }")
     return {"backend": backend, "cards": cards, "layers": cfg.num_layers,
             "losses": {s: ref[s]["losses"] for s in PG_STRATEGIES}}
+
+
+def adaptive_layout(cfg, compressor, policy):
+    """The adaptive layout of ``cfg`` (built on the meta device: no
+    memory), for the host-side budget and the allocator's bounds."""
+    from repro_torch.core.compressors import get_compressor
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.models import init_params
+    return build_layout(init_params(cfg, 0, "meta"), 1, RATIO,
+                        get_compressor(compressor), density_policy=policy)
+
+
+def phase6_adaptive(torch, by_path, llama_adaptive, fixed_step_ms,
+                    fixed_peak, base, cfg) -> dict:
+    """Phase 6, adaptive layer-wise density (slice 3), each path with the
+    launch counters set to 0 just before it and read just after:
+
+    6a. llama3.2-1b's own default (no ``--density-policy``: ``variance``)
+        at full width and depth, Gaussian-k fused, 3 steps: K1 (pass A,
+        once a segment), K2 and the K3 launches 12 a step each; every
+        step's ``k_total`` the budget reckoned on the host, ``sum(k) ==
+        K_eff``, ``k`` within the bounds; step-0 conservation bitwise;
+    6b. hist-k fused, ``absmax`` with EMA 0.5: K1 with histogram and K3,
+        12 a step, no K2;
+    6c. ``uniform`` with the DGC warmup (2 steps from 16x) and the
+        norm-decay global-k controller: ``k_total`` the f32 warmup budget
+        at step 0, then at most the budget and at least its floor share;
+    6d. four workers on the card, ``variance``: allgather at full depth
+        (48 launches a step), hierarchical at 4 layers (96); step-0
+        conservation of every worker bitwise;
+    6e. card against CPU on the small config, the CPU at the card's block
+        geometry, for each policy with gaussiank and histk fused and topk
+        on the reference backend: losses within rtol 1e-4, the
+        allocations equal as integers."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import adaptk
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data import lm_batch
+    from repro_torch import tree
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.kernels.ef_fused import tuning
+    from repro_torch.optim import constant, sgd_momentum
+    from repro_torch.train import init_train_state, make_train_step
+
+    out = {}
+    llama = get_config("llama3.2-1b")
+
+    def bounds_of(lay):
+        return ([s.k_lo for s in lay.segments],
+                [s.k_hi for s in lay.segments])
+
+    def summary(records, peak, extra, bnd):
+        return {"losses": [r["loss"] for r in records],
+                "step_ms": [r["ms"] for r in records],
+                "wire_ms": extra["wire_ms"],
+                "peak_mem_gib": peak / 2**30,
+                "peak_mem_after_step0_gib": extra["peak_after0"] / 2**30,
+                "k_total": [r["k_total"] for r in records],
+                "density": [r["density"] for r in records],
+                "density_cap": records[0]["density_cap"],
+                "step_bound_ms": bnd}
+
+    log("phase 6a: llama3.2-1b at full width and depth with its default "
+        "density policy (variance), Gaussian-k fused, 3 steps")
+    pol = adaptk.make_policy("variance")
+    lay = adaptive_layout(llama, "gaussiank", pol)
+    K = int(adaptk.budget([s.size for s in lay.segments], RATIO, pol))
+    main4 = {n: 12 for n in MAIN_KERNELS}
+    by_path["6a adaptive variance"], records, peak, bnd, extra = train_path(
+        "6a adaptive variance", llama_adaptive, main4, 3, torch,
+        leaf_bytes=ADAPTIVE_LEAF_BYTES, bounds=bounds_of(lay))
+    assert [k for _, k in extra["allocs"]] == [K] * 3, (extra["allocs"], K)
+    out["6a"] = summary(records, peak, extra, bnd)
+    out["6a"]["budget"] = K
+    ad, fx = (statistics.median(x[1:]) for x in (out["6a"]["step_ms"],
+                                                  fixed_step_ms))
+    out["6a"]["step_over_fixed"] = ad / fx
+    log(f"  6a: k_total {K} every step (the host's budget); median step "
+        f"{ad:.1f} ms against fixed-k {fx:.1f} ms in this run "
+        f"({ad / fx:.3f}x); peak {peak / 2**30:.2f} GiB against fixed-k "
+        f"{fixed_peak:.2f}")
+    del records
+    torch.cuda.empty_cache()
+
+    log("phase 6b: hist-k fused, --density-policy absmax --density-ema "
+        "0.5, 3 steps")
+    pol = adaptk.make_policy("absmax", ema=0.5)
+    lay = adaptive_layout(llama, "histk", pol)
+    by_path["6b adaptive histk absmax"], records, peak, bnd, extra = \
+        train_path("6b adaptive histk absmax", llama_adaptive + [
+            "--compressor", "histk", "--density-policy", "absmax",
+            "--density-ema", "0.5"],
+            {"fused_moments_hist": 12, "compact_stage": 12,
+             "compact_resid": 12}, 3, torch,
+            leaf_bytes=ADAPTIVE_LEAF_BYTES, bounds=bounds_of(lay))
+    out["6b"] = summary(records, peak, extra, bnd)
+    del records
+    torch.cuda.empty_cache()
+
+    log("phase 6c: uniform, --density-warmup 2 --density-warmup-mult 16 "
+        "--global-k-policy normdecay, 3 steps")
+    pol = adaptk.make_policy("uniform", warmup_steps=2, warmup_mult=16.0,
+                             global_policy="normdecay")
+    lay = adaptive_layout(llama, "gaussiank", pol)
+    dims = [s.size for s in lay.segments]
+    by_path["6c adaptive warmup normdecay"], records, peak, bnd, extra = \
+        train_path("6c adaptive warmup normdecay", llama_adaptive + [
+            "--density-policy", "uniform", "--density-warmup", "2",
+            "--density-warmup-mult", "16", "--global-k-policy",
+            "normdecay"], main4, 3, torch,
+            leaf_bytes=ADAPTIVE_LEAF_BYTES, bounds=bounds_of(lay))
+    budgets = [int(adaptk.budget(dims, RATIO, pol, s)) for s in range(3)]
+    ks = [k for _, k in extra["allocs"]]
+    # step 0: the controller's first observation is its reference (scale
+    # 1); after it the scale lies in [global_floor, 1]
+    assert ks[0] == budgets[0], (ks, budgets)
+    for k, b in zip(ks, budgets):
+        assert math.floor(b * pol.global_floor) <= k <= b, (ks, budgets)
+    out["6c"] = summary(records, peak, extra, bnd)
+    out["6c"]["budgets"] = budgets
+    log(f"  6c: k_total {ks} against the f32 warmup budgets {budgets}")
+    del records
+    torch.cuda.empty_cache()
+
+    pol = adaptk.make_policy("variance")
+    for strategy, mesh_s, layers, per in (("allgather", "4x1", 16, 48),
+                                          ("hierarchical", "2x2x1", 4, 96)):
+        c = llama if layers == 16 else llama_layers(layers)
+        log(f"phase 6d: {strategy}, --mesh {mesh_s}, 4 workers, variance, "
+            f"full width with {layers} layers, 2 steps")
+        label = f"6d adaptive {strategy} W=4"
+        by_path[label], records, peak, bnd, extra = train_path(
+            label, llama_adaptive + ["--host-devices", "4", "--mesh",
+                                     mesh_s, "--strategy", strategy],
+            {n: per for n in MAIN_KERNELS}, 2, torch, workers=4,
+            cfg=None if layers == 16 else c,
+            levels=2 if strategy == "hierarchical" else 1,
+            leaf_bytes=ADAPTIVE_LEAF_BYTES,
+            bounds=bounds_of(adaptive_layout(c, "gaussiank", pol)))
+        out[label] = summary(records, peak, extra, bnd)
+        out[label]["layers"] = layers
+        assert peak < 80e9, (label, "peak memory", peak)
+        del records
+        torch.cuda.empty_cache()
+
+    small = {}
+    for name, backend in (("gaussiank", "fused"), ("histk", "fused"),
+                          ("topk", "reference")):
+        for policy in adaptk.POLICIES:
+            comp = CompressionConfig(compressor=name, ratio=0.01,
+                                     backend=backend,
+                                     density_policy=adaptk.make_policy(
+                                         policy))
+            got = {}
+            for dev in ("cuda", "cpu"):
+                params = tree.tree_map(lambda x: x.clone().to(dev), base)
+                layout = build_layout(params, 1, comp)
+                opt = sgd_momentum(0.9)
+                state = init_train_state(params, opt, workers=1,
+                                         model_size=1, compression=comp,
+                                         layout=layout)
+                ks = []
+                step = make_train_step(
+                    cfg, (1, 1), opt, constant(0.1), compression=comp,
+                    layout=layout,
+                    probe=lambda rank, **kw: ks.append(kw["k_alloc"])
+                    if "k_alloc" in kw else None)
+                ls = []
+                with tuning.geometry_of("cuda"):
+                    for i in range(2):
+                        b = lm_batch(i, global_batch=4, seq_len=16,
+                                     vocab=cfg.vocab_size, device=dev)
+                        state, m = step(state, b)
+                        ls.append(float(m["loss"]))
+                got[dev] = (ls, ks)
+            np.testing.assert_allclose(got["cuda"][0], got["cpu"][0],
+                                       rtol=1e-4)
+            for a, b in zip(got["cuda"][1], got["cpu"][1]):
+                np.testing.assert_array_equal(a, b)
+            small[f"{name} {backend} {policy}"] = {
+                "cuda": got["cuda"][0], "cpu": got["cpu"][0],
+                "k_total": [int(k.sum()) for k in got["cuda"][1]]}
+            log(f"phase 6e: {name} ({backend}), {policy}: card "
+                f"{got['cuda'][0]} vs CPU {got['cpu'][0]} within rtol "
+                "1e-4, allocations equal")
+    out["6e"] = small
+    return out
 
 
 def main(argv) -> int:
@@ -1140,6 +1380,12 @@ def main(argv) -> int:
         log(f"phase 5d: {strategy} ({mesh_s}, W=4): card {out['cuda']} vs "
             f"CPU {out['cpu']} within rtol 1e-4")
 
+    # -- phase 6: adaptive layer-wise density --
+    phase6 = phase6_adaptive(torch, by_path, llama_adaptive=[
+        "--arch", "llama3.2-1b", "--batch", "8", "--seq", "128"],
+        fixed_step_ms=main_path["step_ms"], fixed_peak=main_path[
+            "peak_mem_gib"], base=base, cfg=cfg)
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -1147,7 +1393,7 @@ def main(argv) -> int:
         assert row["launches"] > 0, (n, "never launched on a path")
     log(json.dumps({"pipelines": pipelines, "main_path": main_path,
                     "path_a": path_a, "path_b": path_b, "path_d": path_d,
-                    "small": small, "phase5": phase5,
+                    "small": small, "phase5": phase5, "phase6": phase6,
                     "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(json.dumps({"kernels": list(rows.values())}))

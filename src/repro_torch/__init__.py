@@ -1,11 +1,12 @@
 """PyTorch + CUDA port of ``repro`` for NVIDIA Hopper (H100).
 
-Slices 1, 5 and 2 of the port: data-parallel TopK-SGD training of the
-dense decoder LMs with Gaussian-k, hist-k or trimmed-k — fixed-k, the
-``bucketed`` pipeline, the ``allgather``, ``gtopk``, ``hierarchical``
-and ``hier_gtopk`` wires over W workers (all in one process on one
-card, or one per process over ``torch.distributed``), checkpoints — and
-the unfused pipeline of the paper's Algorithm 1.  Every TPU kernel of
+Slices 1, 5, 2 and 3 of the port: data-parallel TopK-SGD training of
+the dense decoder LMs with Gaussian-k, hist-k or trimmed-k — fixed-k or
+with adaptive layer-wise density (``core/adaptk.py``), the ``bucketed``
+pipeline, the ``allgather``, ``gtopk``, ``hierarchical`` and
+``hier_gtopk`` wires over W workers (all in one process on one card, or
+one per process over ``torch.distributed``), checkpoints — and the
+unfused pipeline of the paper's Algorithm 1.  Every TPU kernel of
 the reference is hand-written for ``sm_90a``:
 
 * ``kernels/ef_fused/fused_moments.py``  K1, Triton: sum, sum of squares

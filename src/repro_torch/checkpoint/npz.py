@@ -3,13 +3,14 @@
 
 The keys are the reference's: each leaf's path from the state's root,
 dict keys in sorted order joined with ``/`` (``params/embed``,
-``opt/m/stack/0/ffn/w_up``, ``step``, ``resid``, ``resid2``).  Tensors
-are stored as numpy arrays and Python integers (the step counter,
-AdamW's ``t``) as int32 scalars, so a state saved by the JAX package
-loads into the port with numpy alone, and the other way round.  The
-flat residuals are the ``(workers, model_size * d_row_total)`` buckets.
-(The reference's migration of per-leaf residual checkpoints comes with
-the per-leaf pipeline.)
+``opt/m/stack/0/ffn/w_up``, ``step``, ``resid``, ``resid2``,
+``adaptk/signal``, ``adaptk/count``, ``adaptk/gnorm``).  Tensors and the
+adaptive controller's numpy arrays are stored as numpy arrays and Python
+integers (the step counter, AdamW's ``t``) as int32 scalars, so a state
+saved by the JAX package loads into the port with numpy alone, and the
+other way round.  The flat residuals are the ``(workers, model_size *
+d_row_total)`` buckets.  (The reference's migration of per-leaf residual
+checkpoints comes with the per-leaf pipeline.)
 """
 from __future__ import annotations
 
@@ -22,6 +23,12 @@ import torch
 from repro_torch import tree
 
 _SEP = "/"
+
+# global-k controller scalars absent from checkpoints written before the
+# controller existed: zero-filled on load, as the reference does — they
+# self-seed from their first positive observation (core/adaptk.py
+# ``global_scale``), so the migrated state is exact
+_GLOBALK_KEYS = ("adaptk/gnorm", "adaptk/gnorm0")
 
 
 def _key(path) -> str:
@@ -49,19 +56,25 @@ def save_state(path: str, state: Any) -> None:
 def load_state(path: str, like: Any, *,
                worker_rows: Optional[Sequence[int]] = None) -> Any:
     """Restore into the structure of ``like``: each tensor leaf is
-    overwritten in place (shape checked, cast to its dtype), each integer
-    leaf replaced.  ``worker_rows`` picks rows of the checkpoint's worker
-    axis for ``resid``/``resid2`` — a process that runs one worker of a
-    W-worker checkpoint passes its rank."""
+    overwritten in place (shape checked, cast to its dtype), each numpy
+    or integer leaf replaced (numpy: shape checked, cast to its dtype).
+    ``worker_rows`` picks rows of the checkpoint's worker axis for
+    ``resid``/``resid2`` — a process that runs one worker of a W-worker
+    checkpoint passes its rank.  The global-k scalars ``adaptk/gnorm``
+    and ``adaptk/gnorm0`` are zero-filled when the checkpoint lacks
+    them."""
     with np.load(path) as data:
         flat = dict(data)
     pairs, td = tree.flatten_with_path(like)
     out = []
     for p, leaf in pairs:
         key = _key(p)
-        if key not in flat:
+        if key not in flat and key in _GLOBALK_KEYS:
+            arr = np.zeros(np.shape(leaf), np.float32)
+        elif key not in flat:
             raise KeyError(f"checkpoint {path!r} has no entry {key!r}")
-        arr = flat[key]
+        else:
+            arr = flat[key]
         if worker_rows is not None and key in ("resid", "resid2"):
             arr = arr[list(worker_rows)]
         if isinstance(leaf, torch.Tensor):
@@ -71,6 +84,11 @@ def load_state(path: str, like: Any, *,
             with torch.no_grad():
                 leaf.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
             out.append(leaf)
+        elif isinstance(leaf, np.ndarray):
+            if arr.shape != leaf.shape:
+                raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
+                                 f"state shape {leaf.shape}")
+            out.append(arr.astype(leaf.dtype))
         else:
             if arr.shape != ():
                 raise ValueError(f"{key}: expected a scalar, got shape "

@@ -6,8 +6,12 @@ A compressed gradient is a pair ``(values, indices)`` of static shape
 the JAX package's:
 
 * **Sentinels** — a slot with ``index == SENTINEL`` is padding and the
-  decoders skip it (they route it to a scratch slot ``d`` that is cut
-  off afterwards).
+  decoders skip it: slot ``j`` of a ``k``-slot pair goes to its own
+  scratch column ``d + j``, cut off afterwards.  Distinct scratch
+  columns keep the CUDA scatter free of contention: an adaptive-density
+  wire block is mostly sentinels (its capacity is sized from the
+  ceiling, 4× the budget), and one shared scratch column serialised
+  millions of atomic adds.
 * **Duplicates** — decoding scatter-*adds*, so a coordinate named by
   several slots accumulates.
 * **Overflow** — :func:`compact_by_mask` never emits more than ``k_cap``
@@ -52,8 +56,12 @@ def compact_by_mask(u: torch.Tensor, mask: torch.Tensor, k_cap: int):
 
 
 def _safe(values: torch.Tensor, indices: torch.Tensor, d: int):
+    """A 1-D pair's scatter targets in a ``(d + k,)`` buffer: real slots
+    their index, sentinel slot ``j`` the scratch column ``d + j`` (value
+    0)."""
     sent = indices == SENTINEL
-    safe = torch.where(sent, torch.full_like(indices, d), indices).long()
+    scratch = d + torch.arange(indices.shape[0], device=indices.device)
+    safe = torch.where(sent, scratch, indices.long())
     vals = torch.where(sent, torch.zeros_like(values), values)
     return safe, vals
 
@@ -63,7 +71,8 @@ def decode(values: torch.Tensor, indices: torch.Tensor, d: int
     """Scatter-add a pair back to a dense ``(d,)`` vector (sentinels
     skipped, duplicates accumulated in slot order on the CPU)."""
     safe, vals = _safe(values, indices, d)
-    out = torch.zeros(d + 1, dtype=values.dtype, device=values.device)
+    out = torch.zeros(d + indices.shape[0], dtype=values.dtype,
+                      device=values.device)
     out.index_add_(0, safe, vals)
     return out[:d]
 
@@ -74,7 +83,7 @@ def decode_add(dense: torch.Tensor, values: torch.Tensor,
     :func:`decode`; ``dense`` supplies the base and the length)."""
     d = dense.shape[0]
     safe, vals = _safe(values.to(dense.dtype), indices, d)
-    out = torch.cat([dense, dense.new_zeros(1)])
+    out = torch.cat([dense, dense.new_zeros(indices.shape[0])])
     out.index_add_(0, safe, vals)
     return out[:d]
 
@@ -86,8 +95,8 @@ def decode_sum(values: torch.Tensor, indices: torch.Tensor, d: int,
     into one dense bucket with one scatter per row after ranks ``0..r-1``
     (each rank's indices are duplicate-free, so each scatter is
     deterministic on CUDA), never as an ``(n, M, d)`` stack."""
-    n, rows, _ = values.shape
-    out = torch.zeros((rows, d + 1), dtype=dtype, device=values.device)
+    n, rows, k = values.shape
+    out = torch.zeros((rows, d + k), dtype=dtype, device=values.device)
     for r in range(n):
         for m in range(rows):
             safe, vals = _safe(values[r, m].to(dtype), indices[r, m], d)

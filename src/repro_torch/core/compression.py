@@ -3,8 +3,8 @@
 
 :class:`CompressionConfig` carries what to compress with and how to move
 it; construction validates it as the reference does.  Values the port
-does not carry yet (adaptive density, momentum correction, chunking)
-are accepted by the vocabulary checks and then rejected by
+does not carry yet (momentum correction, chunking) are accepted by the
+vocabulary checks and then rejected by
 :meth:`CompressionConfig.require_ported` with an error naming the slice
 that ports them.
 """
@@ -15,6 +15,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.core.adaptk import DensityPolicy
 from repro_torch.core.compressors import CompressorSpec, get_compressor
 from repro_torch.core.error_feedback import BACKENDS
 from repro_torch.slices import not_ported
@@ -32,7 +33,8 @@ class CompressionConfig:
     the values (None = f32; a torch float dtype or its name, such as
     ``torch.bfloat16`` or ``"float16"``); ``momentum_correction`` DGC
     factor; ``backend`` auto | fused | reference; ``density_policy``
-    adaptive density (None = fixed k); ``chunks`` wire chunk count."""
+    adaptive density, a :class:`~repro_torch.core.adaptk.DensityPolicy`
+    (None = fixed k); ``chunks`` wire chunk count."""
 
     compressor: str = "gaussiank"
     ratio: float = 0.001
@@ -40,7 +42,7 @@ class CompressionConfig:
     codec_dtype: Optional[Any] = None
     momentum_correction: float = 0.0
     backend: str = "auto"
-    density_policy: Optional[Any] = None
+    density_policy: Optional[DensityPolicy] = None
     chunks: int = 1
 
     def __post_init__(self):
@@ -76,6 +78,11 @@ class CompressionConfig:
             if self.momentum_correction:
                 raise ValueError("momentum_correction rides the sparse EF "
                                  "pipeline; meaningless for Dense-SGD")
+        if self.density_policy is not None \
+                and not isinstance(self.density_policy, DensityPolicy):
+            raise TypeError("density_policy must be a DensityPolicy "
+                            "(core.adaptk.make_policy), got "
+                            f"{type(self.density_policy).__name__}")
 
     @property
     def dense(self) -> bool:
@@ -94,8 +101,6 @@ class CompressionConfig:
 
     def require_ported(self) -> "CompressionConfig":
         """Raise for every field value the port does not run yet."""
-        if self.density_policy is not None:
-            raise not_ported("adaptive density", "density_policy")
         if self.momentum_correction:
             raise not_ported("momentum correction", "momentum_correction")
         if self.chunks != 1:

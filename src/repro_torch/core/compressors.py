@@ -27,6 +27,7 @@ import math
 from functools import partial
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import codec
@@ -49,18 +50,50 @@ def topk_select(u: torch.Tensor, k: int, key=None):
     return u[idx], idx.to(torch.int32)
 
 
-def gaussian_threshold(u: torch.Tensor, k: int, refine_iters: int = 4,
+def _traced(k) -> bool:
+    """Whether ``k`` is a per-step budget from the allocator
+    (``np.int32``, the reference's traced int32) rather than a static
+    Python int.  The reference's arithmetic on the two differs: on an
+    int the weakly typed floats compute in f64 and round once; on an
+    int32 array every operation is f32."""
+    return isinstance(k, (np.integer, np.ndarray))
+
+
+def gaussian_ppf_p(k, d: int, two_sided: bool) -> np.float32:
+    """The quantile ``p = 1 - k/d`` (``1 - k/(2d)`` two-sided) of
+    Algorithm 1's start threshold, as the reference computes it for a
+    static ``k`` (f64, rounded to f32) or a per-step one (f32:
+    ``1 - f32(k) / f32(d)``)."""
+    if _traced(k):
+        c = np.float32(2.0 * d) if two_sided else np.float32(d)
+        return np.float32(np.float32(1.0) - np.float32(k) / c)
+    return np.float32(1.0 - (k / (2.0 * d) if two_sided else k / d))
+
+
+def accept_band(k):
+    """Algorithm 1's accept band ``[2k/3, 4k/3]`` as f32 edges: one
+    rounding of the f64 value for a static ``k``, ``f32(2·k) / 3`` and
+    ``f32(4·k) / 3`` for a per-step one."""
+    if _traced(k):
+        kf, three = np.float32(k), np.float32(3.0)
+        return (np.float32(np.float32(2.0) * kf) / three,
+                np.float32(np.float32(4.0) * kf) / three)
+    return np.float32(2.0 * k / 3.0), np.float32(4.0 * k / 3.0)
+
+
+def gaussian_threshold(u: torch.Tensor, k, refine_iters: int = 4,
                        two_sided: bool = False) -> torch.Tensor:
     """The ``|u|`` threshold selecting ~k elements (Algorithm 1 lines
-    2-13), with the POPULATION std as in the reference."""
-    d = u.shape[0]
+    2-13), with the POPULATION std as in the reference.  ``k`` is a
+    static int or an allocator's ``np.int32`` (f32 threshold math)."""
     mu = torch.mean(u)
     sigma = torch.std(u, unbiased=False) + 1e-12
-    p = 1.0 - (k / (2.0 * d) if two_sided else k / d)
-    q = torch.special.ndtri(torch.tensor(p, dtype=u.dtype, device=u.device))
+    p = gaussian_ppf_p(k, u.shape[0], two_sided)
+    q = torch.special.ndtri(torch.tensor(float(p), dtype=u.dtype,
+                                         device=u.device))
     thres = torch.abs(q * sigma + mu)
-    lo = torch.tensor(2.0 * k / 3.0, dtype=u.dtype, device=u.device)
-    hi = torch.tensor(4.0 * k / 3.0, dtype=u.dtype, device=u.device)
+    lo, hi = (torch.tensor(float(x), dtype=u.dtype, device=u.device)
+              for x in accept_band(k))
     abs_u = torch.abs(u)
     done = torch.zeros((), dtype=torch.bool, device=u.device)
     for _ in range(refine_iters):

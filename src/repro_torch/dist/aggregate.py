@@ -1,7 +1,9 @@
 """Eq. (2) sparse aggregation over the flat bucket, on W data-parallel
 workers (port of ``repro/dist/aggregate.py``: ``AggregateResult``,
-``bucket_compress`` fixed-k with its fused and reference branches and
-``_wire_cast_fixup``, the gTop-k pieces ``encode_rows_topk`` /
+``bucket_compress`` fixed-k and dynamic-k with its fused and reference
+branches and ``_wire_cast_fixup``, the adaptive-density pieces
+``_stats_reduce`` / ``pass_a_stats_rows`` / ``_compress_rows_dynamic`` /
+``_adaptive_allocation``, the gTop-k pieces ``encode_rows_topk`` /
 ``encode_bucket_topk`` / ``gtopk_round_plan`` / ``_gtopk_reduce_rounds``
 / ``_gtopk_reduce_bucket`` / ``gtopk_simulate``, ``_gather_mean``,
 ``aggregate_dense``, ``_wire_config`` and ``aggregate_bucketed`` for the
@@ -32,31 +34,43 @@ A worker's gradients are packed and compressed as soon as they exist
 and dropped after, so one process holding W workers keeps one worker's
 gradients at a time; the gathered block is decoded into ONE dense
 bucket, never into a ``(W, M, D)`` stack.
+
+Adaptive density (``config.density_policy``) puts a barrier across the
+workers: every worker's pass-A statistics feed one allocation (the
+``pmean`` of the stacked per-leaf signals) before any worker compresses.
+So that W workers still hold one gradient bucket at a time, each
+worker's ``u = G + E`` is written into its residual rows as soon as its
+gradients exist, pass A (K1) runs on ``u`` alone, ``G`` is dropped, and
+``u`` is compressed in place after the allocation.  The kernels form
+``g + e`` in f32 before anything else, so this is bitwise the same as
+compressing ``(G, E)``.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import tree
-from repro_torch.core import codec
+from repro_torch.core import adaptk, codec
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.compressors import CompressorSpec
 from repro_torch.core.error_feedback import resolve_backend
 from repro_torch.dist.layout import (STRATEGIES, BucketLayout, _log2_exact,
                                      pack_grads, unpack_tree)
 from repro_torch.dist.wire import LocalWire
-from repro_torch.kernels.ef_fused.segmented import segmented_compress_ef
+from repro_torch.kernels.ef_fused.segmented import (segmented_compress_ef,
+                                                    segmented_pass_a,
+                                                    stats_to_host)
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.slices import not_ported
 
 
 class AggregateResult(NamedTuple):
     """``agg`` averaged gradient tree (the same on every worker);
     ``resid`` new flat residual(s); ``resid2`` second-level residual(s)
-    (None unless hierarchical); ``adapt_state`` adaptive controller state
-    (None); ``metrics``."""
+    (None unless hierarchical); ``adapt_state`` the adaptive controller
+    state (None unless adaptive with a state); ``metrics``."""
     agg: Any
     resid: Any
     resid2: Any
@@ -87,14 +101,12 @@ def aggregate_dense(grads, wire):
 # ---------------------------------------------------------------------------
 
 
-def _compress_rows_reference(g_rows, e_rows, spec: CompressorSpec,
-                             k_row: int, codec_dtype=None):
-    """Reference branch: ``u = e + g``, the registry select per row, the
-    wire cast, ``e' = u - decode(cast values)``."""
-    u_rows = e_rows + g_rows
+def _compress_rows_reference(u_rows, select, codec_dtype=None):
+    """Reference branch over the ``(M, d_row)`` rows of ``u = e + g``:
+    ``select(row)`` per row, the wire cast, ``e' = u - decode(cast
+    values)``."""
     d_row = u_rows.shape[1]
-    pairs = [spec.select(u_rows[r], k_row, None)
-             for r in range(u_rows.shape[0])]
+    pairs = [select(u_rows[r]) for r in range(u_rows.shape[0])]
     values = torch.stack([p[0] for p in pairs])
     indices = torch.stack([p[1] for p in pairs])
     if codec_dtype is not None:
@@ -103,6 +115,24 @@ def _compress_rows_reference(g_rows, e_rows, spec: CompressorSpec,
                                         indices[r], d_row)
                            for r in range(u_rows.shape[0])])
     return values, indices, u_rows - decoded
+
+
+def _row_budget(k, model_size: int, d_row: int) -> np.int32:
+    """A leaf's per-step budget split over the model shards, as the
+    reference's traced int32: ``clip(ceil(k / M), 1, d_row)``."""
+    return np.int32(min(max((int(k) + model_size - 1) // model_size, 1),
+                        d_row))
+
+
+def _compress_rows_dynamic(u_rows, spec: CompressorSpec, k, k_cap: int,
+                           codec_dtype=None):
+    """Reference branch with a per-step leaf budget ``k``: each row
+    selects ``adaptk.select_dynamic`` at ``k_row = ceil(k / M)`` into
+    the static capacity ``k_cap``."""
+    k_row = _row_budget(k, u_rows.shape[0], u_rows.shape[1])
+    return _compress_rows_reference(
+        u_rows, lambda r: adaptk.select_dynamic(spec, r, k_row, k_cap),
+        codec_dtype)
 
 
 def _wire_cast_fixup(values, indices, new_e_rows, codec_dtype):
@@ -120,34 +150,53 @@ def _wire_cast_fixup(values, indices, new_e_rows, codec_dtype):
     return wire, indices, new_e_rows
 
 
-def bucket_compress(G: torch.Tensor, E: torch.Tensor, layout: BucketLayout,
-                    spec: CompressorSpec, *, backend: str = "auto",
-                    codec_dtype=None):
-    """Worker-local EF compression of the packed bucket, fixed-k.
+def bucket_compress(G: Optional[torch.Tensor], E: torch.Tensor,
+                    layout: BucketLayout, spec: CompressorSpec, *,
+                    backend: str = "auto", codec_dtype=None, k_alloc=None,
+                    seg_stats=None):
+    """Worker-local EF compression of the packed bucket.
 
-    ``G``/``E`` are ``(model_size, d_row_total)`` buckets; returns
-    ``(values, indices, new_E)`` with ONE ``(model_size, k_cap_total)``
-    codec pair whose indices are bucket-global and whose values are
-    ``codec_dtype`` (f32 when None).  Selection runs per leaf segment
-    with the segment's own plan.  ``new_E`` IS ``E``, overwritten in
-    place; ``G`` is only read.  (The reference's key, momentum-correction
-    and dynamic-k arguments arrive with the slices that port them.)"""
+    ``G``/``E`` are ``(model_size, d_row_total)`` buckets; ``G=None``
+    means ``E`` already holds ``u = G + E``.  Returns ``(values, indices,
+    new_E)`` with ONE ``(model_size, k_cap_total)`` codec pair whose
+    indices are bucket-global and whose values are ``codec_dtype`` (f32
+    when None).  Selection runs per leaf segment with the segment's own
+    plan.  ``new_E`` IS ``E``, overwritten in place; ``G`` is only read.
+
+    ``k_alloc`` (the allocator's per-segment ``np.int32`` budgets)
+    switches to the dynamic-k path, ``k_row = ceil(k / M)`` per segment;
+    ``seg_stats`` hands the segments' pass-A statistics to the fused
+    branch (``segmented_pass_a`` of the same operands), which then
+    launches no K1.  (The reference's key and momentum-correction
+    arguments arrive with the slice that ports them.)"""
     segs = layout.segments
+    M = layout.model_size
+    adaptive = k_alloc is not None
     vals, idcs, new_e_blocks = [], [], []
     if resolve_backend(backend, spec):
+        ks = ([_row_budget(k_alloc[i], M, s.d_row)
+               for i, s in enumerate(segs)]
+              if adaptive else [s.k_row for s in segs])
         triples = segmented_compress_ef(
-            G, E, [(s.row_off, s.d_row) for s in segs], spec.name,
-            [s.k_row for s in segs], [s.k_cap for s in segs])
+            E if G is None else G, None if G is None else E,
+            [(s.row_off, s.d_row) for s in segs], spec.name, ks,
+            [s.k_cap for s in segs], stats=seg_stats, out2d=E)
         for s, (v, i, ne) in zip(segs, triples):
             v, i, ne = _wire_cast_fixup(v, i, ne, codec_dtype)
             vals.append(v)
             idcs.append(codec.offset_indices(i, s.row_off))
             new_e_blocks.append(ne)
     else:
-        for s in segs:
+        for si, s in enumerate(segs):
             cols = slice(s.row_off, s.row_off + s.d_row)
-            v, i, ne = _compress_rows_reference(G[:, cols], E[:, cols], spec,
-                                                s.k_row, codec_dtype)
+            u = E[:, cols] if G is None else E[:, cols] + G[:, cols]
+            if adaptive:
+                v, i, ne = _compress_rows_dynamic(u, spec, k_alloc[si],
+                                                  s.k_cap, codec_dtype)
+            else:
+                v, i, ne = _compress_rows_reference(
+                    u, lambda r, s=s: spec.select(r, s.k_row, None),
+                    codec_dtype)
             vals.append(v)
             idcs.append(codec.offset_indices(i, s.row_off))
             new_e_blocks.append(ne)
@@ -158,6 +207,80 @@ def bucket_compress(G: torch.Tensor, E: torch.Tensor, layout: BucketLayout,
         if blk.data_ptr() != E[:, cols].data_ptr():
             E[:, cols].copy_(blk)
     return values, indices, E
+
+
+# ---------------------------------------------------------------------------
+# adaptive density: pass A, the signal, the allocation
+# ---------------------------------------------------------------------------
+
+
+def _stats_reduce(row_stats):
+    """Leaf-level ``(s, sq, mx)`` (np.float32) of per-row pass-A tuples on
+    the host: the rows' sums added in row order, the max of the maxes."""
+    s = sq = np.float32(0.0)
+    for st in row_stats:
+        s = np.float32(s + np.float32(st[0]))
+        sq = np.float32(sq + np.float32(st[1]))
+    mx = max(np.float32(st[2]) for st in row_stats)
+    return s, sq, mx
+
+
+def pass_a_stats_rows(u_rows: torch.Tensor) -> tuple:
+    """The reference backend's pass A of one leaf's ``(M, d_row)`` rows
+    of ``u``: ``(sum(u), sum(u²), max|u|)`` as 0-d tensors on ``u``'s
+    device (zero padding adds nothing)."""
+    return (torch.sum(u_rows), torch.sum(u_rows * u_rows),
+            torch.amax(torch.abs(u_rows)))
+
+
+def _pass_a(u: torch.Tensor, layout: BucketLayout, spec: CompressorSpec,
+            fused: bool):
+    """Pass A of one worker over its bucket of ``u``: ``(seg_stats,
+    moments)`` with ``seg_stats`` the fused branch's per-segment row
+    statistics on the host (None on the reference branch) and
+    ``moments`` each segment's ``(s, sq, mx)``.  One device-to-host copy
+    of the statistics (two for hist-k's histograms)."""
+    segs = layout.segments
+    if fused:
+        seg_stats = stats_to_host(segmented_pass_a(
+            u, None, [(s.row_off, s.d_row) for s in segs], spec.name))
+        return seg_stats, [_stats_reduce(rows) for rows in seg_stats]
+    stacked = torch.stack([torch.stack(pass_a_stats_rows(
+        u[:, s.row_off:s.row_off + s.d_row])) for s in segs]).cpu().numpy()
+    return None, [tuple(np.float32(x) for x in row) for row in stacked]
+
+
+def _adaptive_allocation(adapt_state, sigs, sqs, dims, ratio, policy, step,
+                         lo, hi, wire):
+    """The allocation, once for all workers: the ``pmean`` over the data
+    axes of each worker's stacked per-leaf signal (plus its ``Σ u²``
+    lane under a global-k policy, in the same collective), the EMA
+    blend, the budget (× the warmup, × the global-k scale) and the
+    budget-exact split.  ``sigs``/``sqs`` hold one list per local
+    worker.  Returns ``(k_alloc, K_eff, new_adapt_state)``."""
+    globalk = policy.global_policy != "none"
+    stacks = []
+    for sig, sq in zip(sigs, sqs):
+        lane = np.asarray(sig, np.float32)
+        if globalk:
+            tot = np.float32(0.0)
+            for x in sq:
+                tot = np.float32(tot + x)
+            lane = np.concatenate([lane, [tot]]).astype(np.float32)
+        stacks.append(torch.from_numpy(lane))
+    red = wire.pmean(stacks, wire.data_axes)[0].numpy()
+    signal = red[:-1] if globalk else red
+    signal, new_adapt = adaptk.blend_signal(adapt_state, signal, policy.ema)
+    K = adaptk.budget(dims, ratio, policy, step)
+    if globalk:
+        scale, upd = adaptk.global_scale(
+            new_adapt if new_adapt is not None else adapt_state, red[-1],
+            policy)
+        K = adaptk.scale_budget(K, scale)
+        if new_adapt is not None:
+            new_adapt = {**new_adapt, **upd}
+    k_alloc, K_eff = adaptk.allocate(K, signal, lo, hi)
+    return k_alloc, K_eff, new_adapt
 
 
 # ---------------------------------------------------------------------------
@@ -241,18 +364,19 @@ def gtopk_round_plan(axis_sizes):
 
 def _scatter_add(buf: torch.Tensor, values, indices) -> None:
     """``buf[m, indices[m]] += values[m]`` per row, in place, into a
-    ``(M, d + 1)`` buffer whose last column takes the sentinel slots;
-    each row's indices are distinct."""
-    d = buf.shape[1] - 1
+    ``(M, d + k)`` buffer whose last ``k`` columns take the sentinel
+    slots of the ``k``-slot pair (``codec._safe``); each row's indices
+    are distinct."""
+    d = buf.shape[1] - values.shape[-1]
     for m in range(buf.shape[0]):
         safe, vals = codec._safe(values[m].to(buf.dtype), indices[m], d)
         buf[m].index_add_(0, safe, vals)
 
 
 def _decoded(values, indices, d: int, dtype) -> torch.Tensor:
-    """A pair decoded into a new ``(M, d + 1)`` buffer (see
+    """A pair decoded into a new ``(M, d + k)`` buffer (see
     :func:`_scatter_add`); ``[:, :d]`` is the dense rows."""
-    buf = torch.zeros((values.shape[0], d + 1), dtype=dtype,
+    buf = torch.zeros((values.shape[0], d + values.shape[-1]), dtype=dtype,
                       device=values.device)
     _scatter_add(buf, values, indices)
     return buf
@@ -357,14 +481,28 @@ def _gather_mean(values, indices, axis, n: int, d_row: int, wire,
     return [means[(id(v), id(i))] for v, i in gathered]
 
 
-def _wire_config(strategy: str, wire, with_resid2: bool):
+def _wire_config(strategy: str, wire, with_resid2: bool, mc: float,
+                 adaptive: bool, spec: CompressorSpec):
     """Validate the wire configuration.  Returns ``(strategy, hier,
     gtopk, outer_gtopk, outer_axis, inner_axes, n_pods, n_inner,
     world)``; the world is the wire's (the bound axes'), and the
     two-level strategies fall back to ``allgather`` on a mesh with one
-    data axis or without ``resid2``."""
+    data axis or without ``resid2``.  Adaptive density refuses momentum
+    correction ``mc`` and a compressor without a dynamic-k path, in the
+    reference's words."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; have {STRATEGIES}")
+    if adaptive and mc > 0.0:
+        raise ValueError("momentum_correction is fixed-k only (the DGC "
+                         "velocity update needs the static-k path); "
+                         "disable it or density_policy")
+    if adaptive and not adaptk.supports_dynamic(spec):
+        raise ValueError(
+            f"compressor {spec.name!r} bakes its per-step budget k into "
+            f"static sample/candidate shapes, so it has no dynamic-k path; "
+            f"adaptive density supports {adaptk.DYNAMIC_COMPRESSORS}.  Run "
+            f"{spec.name!r} fixed-k instead: drop --density-policy on the "
+            f"CLI (density_policy=None here)")
     axes = wire.data_axes
     hier = (strategy in ("hierarchical", "hier_gtopk") and len(axes) > 1
             and with_resid2)
@@ -403,27 +541,31 @@ def _rows(resid: torch.Tensor, layout: BucketLayout, workers: int):
     return resid.view(workers, M, D)
 
 
+def _worker_grads(entry, seen: dict):
+    """One worker's gradient tree (``entry`` or what it returns); the
+    first records the dense baseline's bits, from the RUNTIME grad
+    dtypes, and an empty tree of the gradients' structure and dtypes
+    (for ``unpack_tree``) into ``seen``."""
+    g = entry() if callable(entry) else entry
+    if "like" not in seen:
+        leaves, td = tree.flatten(g)
+        seen["bits_dense"] = float(sum(2 * x.numel() * x.element_size() * 8
+                                       for x in leaves))
+        seen["like"] = tree.unflatten(td, [torch.empty(0, dtype=x.dtype)
+                                           for x in leaves])
+    return g
+
+
 def _compress_workers(grads, E_rows, layout: BucketLayout,
-                      config: CompressionConfig, wire, probe):
-    """Pack and compress each local worker's gradients against its
-    residual rows ``E_rows[w]`` (updated in place).  ``grads`` holds one
-    entry per local worker: a gradient tree, or a callable returning it
-    (called in worker order, so only one worker's gradients are alive at
-    a time).  Returns per-worker lists of the wire pairs and of their
-    real-slot counts, the dense baseline's bits, and an empty tree of
-    the gradients' structure and dtypes (for ``unpack_tree``)."""
-    values, indices, nnz = [], [], []
-    bits_dense = like = None
+                      config: CompressionConfig, wire, probe, seen: dict):
+    """Fixed k: pack and compress each local worker's gradients against
+    its residual rows ``E_rows[w]`` (updated in place).  ``grads`` holds
+    one entry per local worker: a gradient tree, or a callable returning
+    it (called in worker order, so only one worker's gradients are alive
+    at a time).  Returns per-worker lists of the wire pairs."""
+    values, indices = [], []
     for w, entry in enumerate(grads):
-        g = entry() if callable(entry) else entry
-        if like is None:
-            leaves, td = tree.flatten(g)
-            # the dense baseline is sized from the RUNTIME grad dtypes
-            bits_dense = float(sum(2 * x.numel() * x.element_size() * 8
-                                   for x in leaves))
-            like = tree.unflatten(td, [torch.empty(0, dtype=x.dtype)
-                                       for x in leaves])
-            del leaves
+        g = _worker_grads(entry, seen)
         G = pack_grads(layout, g, E_rows.dtype)
         del g
         v, i, new_E = bucket_compress(G, E_rows[w], layout, config.spec,
@@ -434,14 +576,58 @@ def _compress_workers(grads, E_rows, layout: BucketLayout,
         del G
         values.append(v)
         indices.append(i)
-        nnz.append(codec.nnz(i).to(torch.float32))
-    return values, indices, nnz, bits_dense, like
+    return values, indices
+
+
+def _compress_workers_adaptive(grads, E_rows, layout: BucketLayout,
+                               config: CompressionConfig, wire, probe,
+                               seen: dict, adapt_state, step):
+    """Adaptive density: per local worker, in worker order, ``E_rows[w]
+    += G`` (``u`` in place), pass A on ``u``, ``G`` dropped; then the
+    allocation across all workers; then each worker's ``u`` compressed
+    with the allocated budgets and its pass-A statistics (no second K1).
+    Returns the wire pairs, ``k_alloc``, ``K_eff`` and the new
+    controller state."""
+    spec, policy = config.spec, config.density_policy
+    fused = resolve_backend(config.backend, spec)
+    segs = layout.segments
+    stats, sigs, sqs = [], [], []
+    for w, entry in enumerate(grads):
+        g = _worker_grads(entry, seen)
+        G = pack_grads(layout, g, E_rows.dtype)
+        del g
+        u = E_rows[w].add_(G)
+        del G
+        st, moments = _pass_a(u, layout, spec, fused)
+        stats.append(st)
+        sigs.append([adaptk.leaf_signal(policy.policy, s.size, *m)
+                     for s, m in zip(segs, moments)])
+        sqs.append([m[1] for m in moments])
+        if probe is not None:
+            probe(wire.ranks[w], u=u)
+    k_alloc, K_eff, new_adapt = _adaptive_allocation(
+        adapt_state, sigs, sqs, [s.size for s in segs], layout.ratio,
+        policy, step, [s.k_lo for s in segs], [s.k_hi for s in segs], wire)
+    if probe is not None:
+        probe(None, k_alloc=k_alloc, K_eff=K_eff)
+    values, indices = [], []
+    for w in range(len(grads)):
+        v, i, new_E = bucket_compress(None, E_rows[w], layout, spec,
+                                      backend=config.backend,
+                                      codec_dtype=config.codec_dtype,
+                                      k_alloc=k_alloc, seg_stats=stats[w])
+        if probe is not None:
+            probe(wire.ranks[w], G=None, values=v, indices=i, new_E=new_E)
+        values.append(v)
+        indices.append(i)
+    return values, indices, k_alloc, K_eff, new_adapt
 
 
 def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
                        config: CompressionConfig, *, wire=None,
                        resid2: Optional[torch.Tensor] = None,
-                       probe: Optional[Callable] = None) -> AggregateResult:
+                       probe: Optional[Callable] = None, adapt_state=None,
+                       step=None) -> AggregateResult:
     """Eq. (2) sparse aggregation over the bucketed pipeline.
 
     ``grads`` holds one entry per local worker of ``wire`` (a gradient
@@ -452,37 +638,62 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
     or ``(flat,)`` for one, updated in place.  ``wire`` defaults to one
     data axis of that many workers in this process.
 
+    ``config.density_policy`` switches to adaptive density (the layout
+    must be built with the same policy): ``adapt_state`` is the
+    controller state (``init_controller_state``; None runs stateless)
+    and ``step`` the step index the density warmup reads.  The metrics
+    then add ``k_total`` (the step's ``K_eff``) and ``density_budget``.
+
     Returns an :class:`AggregateResult` whose ``agg`` leaves are views
     into the decoded mean bucket (model_size 1), the same on every
     worker.  ``probe``, when given, is called as ``probe(rank, G=,
     values=, indices=, new_E=)`` right after each local worker's
-    compression, and as ``probe(None, mean=, resid=, resid2=)`` once the
-    wire has run — hooks for checks such as conservation."""
-    config.require_ported()
+    compression (under adaptive density with ``G=None``, after
+    ``probe(rank, u=)`` once its pass A has run on ``u`` and
+    ``probe(None, k_alloc=, K_eff=)`` once the allocation is made), and
+    as ``probe(None, mean=, resid=, resid2=)`` once the wire has run —
+    hooks for checks such as conservation."""
     spec = config.spec
-    if layout.spec_name != spec.name:
-        raise ValueError(f"layout was built for compressor "
-                         f"{layout.spec_name!r}, got {spec.name!r}")
-    if layout.adaptive:
-        raise not_ported("an adaptive-density layout", "density_policy")
+    policy = config.density_policy
+    adaptive = policy is not None
     if isinstance(grads, dict):
         grads = [grads]
     workers = len(grads)
     if wire is None:
         wire = _one_data_axis_wire(workers)
+    strategy, hier, gtopk, outer_gtopk, outer_axis, inner_axes, n_pods, \
+        n_inner, world = _wire_config(config.strategy, wire,
+                                      resid2 is not None,
+                                      config.momentum_correction, adaptive,
+                                      spec)
+    config.require_ported()
+    if layout.spec_name != spec.name:
+        raise ValueError(f"layout was built for compressor "
+                         f"{layout.spec_name!r}, got {spec.name!r}")
+    if layout.adaptive != adaptive:
+        raise ValueError(
+            f"layout adaptive={layout.adaptive} does not match "
+            f"density_policy={'set' if adaptive else 'None'}; rebuild the "
+            "layout with the matching density_policy")
     if workers != wire.local_workers:
         raise ValueError(f"got gradients of {workers} workers, the wire "
                          f"runs {wire.local_workers} here")
     E_rows = _rows(resid, layout, workers)
     R2_rows = None if resid2 is None else _rows(resid2, layout, workers)
-    strategy, hier, gtopk, outer_gtopk, outer_axis, inner_axes, n_pods, \
-        n_inner, world = _wire_config(config.strategy, wire,
-                                      resid2 is not None)
     D = layout.d_row_total
     codec_dtype = config.codec_dtype
 
-    values, indices, nnz, bits_dense, like = _compress_workers(
-        grads, E_rows, layout, config, wire, probe)
+    seen = {}
+    new_adapt = adapt_state
+    if adaptive:
+        values, indices, k_alloc, K_eff, new_adapt = \
+            _compress_workers_adaptive(grads, E_rows, layout, config, wire,
+                                       probe, seen, adapt_state, step)
+    else:
+        k_alloc = None
+        values, indices = _compress_workers(grads, E_rows, layout, config,
+                                            wire, probe, seen)
+    nnz = [codec.nnz(i).to(torch.float32) for i in indices]
 
     if gtopk:
         sums, drops = _gtopk_reduce_bucket(values, indices, wire.data_axes,
@@ -505,7 +716,8 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
         for w in range(workers):
             v2, i2, _ = bucket_compress(means[w], R2_rows[w], layout, spec,
                                         backend=config.backend,
-                                        codec_dtype=codec_dtype)
+                                        codec_dtype=codec_dtype,
+                                        k_alloc=k_alloc)
             v2s.append(v2)
             i2s.append(i2)
             nnz[w] = nnz[w] + codec.nnz(i2).to(torch.float32)
@@ -529,7 +741,7 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
     new_resid2 = None if resid2 is None else R2_rows.reshape(resid2.shape)
     if probe is not None:
         probe(None, mean=mean, resid=new_resid, resid2=new_resid2)
-    agg = unpack_tree(layout, mean, like=like)
+    agg = unpack_tree(layout, mean, like=seen["like"])
     M = layout.model_size
     sparse_bits = layout.comm_bits_sparse(strategy, world, n_pods,
                                           codec_dtype)
@@ -538,9 +750,14 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
                               wire.data_axes)[0],
         "density_cap": M * layout.k_cap_total / layout.d_total,
         "comm_bits_sparse": sparse_bits,
-        "comm_bits_dense": bits_dense,
+        "comm_bits_dense": seen["bits_dense"],
         "wire_bytes": sparse_bits / 8.0,
         "collectives_per_step": float(layout.collectives(strategy, world,
                                                          n_pods)),
     }
-    return AggregateResult(agg, new_resid, new_resid2, None, metrics)
+    if adaptive:
+        metrics["k_total"] = float(K_eff)
+        metrics["density_budget"] = float(np.float32(K_eff)
+                                          / np.float32(layout.d_total))
+    return AggregateResult(agg, new_resid, new_resid2,
+                           new_adapt if adaptive else None, metrics)

@@ -1,5 +1,6 @@
 """Flat bucketed gradient layout — one wire message per step (port of
-``repro/dist/layout.py``: ``build_layout`` fixed-k, ``LeafSegment``,
+``repro/dist/layout.py``: ``build_layout`` fixed-k and adaptive,
+``leaf_plan``, ``leaf_plan_adaptive``, ``LeafSegment``,
 ``BucketLayout`` and its accounting, the wire model
 ``strategy_wire_pairs`` / ``collective_count`` / ``resolve_strategy``,
 ``pack_grads``, ``unpack_tree``, ``init_flat_residual``,
@@ -27,10 +28,10 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.core import adaptk
 from repro_torch.core.compression import STRATEGIES, CompressionConfig
 from repro_torch.core.compressors import CompressorSpec
 from repro_torch.devices import resolve_device
-from repro_torch.slices import not_ported
 
 _ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2, "float64": 8}
 
@@ -122,6 +123,19 @@ def leaf_plan(size: int, model_size: int, ratio: float,
     return d_pad, d_row, k_row, k_cap
 
 
+def leaf_plan_adaptive(size: int, model_size: int, ratio: float,
+                       spec: CompressorSpec, policy: adaptk.DensityPolicy):
+    """(d_pad, d_row, k_lo, k_hi, k_cap_row) for one leaf under an
+    adaptive density policy: the allocator's leaf-level clamps and the
+    codec row capacity sized from the ceiling ``k_hi``, so the per-step
+    ``k`` moves anywhere inside the clamp with no shape change."""
+    d_pad, d_row = flat_dims(size, model_size)
+    k_lo, k_hi = adaptk.leaf_bounds(size, ratio, policy)
+    k_cap = min(d_row, spec.k_cap(row_budget(k_hi, model_size, d_row),
+                                  d_row))
+    return d_pad, d_row, k_lo, k_hi, k_cap
+
+
 def leaf_path_name(path) -> str:
     return tree.path_name(path)
 
@@ -192,11 +206,14 @@ class BucketLayout(NamedTuple):
 def build_layout(params, model_size: int, ratio,
                  spec: Optional[CompressorSpec] = None,
                  density_policy=None) -> BucketLayout:
-    """The static bucket geometry of a param/grad tree, fixed-k.
+    """The static bucket geometry of a param/grad tree.
 
     ``ratio`` is the density or a :class:`CompressionConfig` supplying
-    ratio, spec and density policy.  Raises on a salt collision and on a
-    bucket too wide for int32 indices."""
+    ratio, spec and density policy.  With a ``density_policy`` (a
+    :class:`~repro_torch.core.adaptk.DensityPolicy`) each segment's
+    ``k_lo``/``k_hi`` are the allocator's clamps and ``k_row``/``k_cap``
+    come from the ceiling; the layout is ``adaptive``.  Raises on a salt
+    collision and on a bucket too wide for int32 indices."""
     if isinstance(ratio, CompressionConfig):
         if spec is not None or density_policy is not None:
             raise TypeError("build_layout: pass EITHER a CompressionConfig "
@@ -209,8 +226,6 @@ def build_layout(params, model_size: int, ratio,
     elif spec is None:
         raise TypeError("build_layout needs a CompressorSpec when called "
                         "with a plain ratio")
-    if density_policy is not None:
-        raise not_ported("an adaptive-density layout", "density_policy")
     leaves, _ = tree.flatten_with_path(params)
     if not leaves:
         raise ValueError("cannot build a BucketLayout over an empty tree")
@@ -220,8 +235,14 @@ def build_layout(params, model_size: int, ratio,
     for path, leaf in leaves:
         name = leaf_path_name(path)
         size = int(leaf.numel())
-        d_pad, d_row, k_row, k_cap = leaf_plan(size, model_size, ratio, spec)
-        k_lo = k_hi = max(1, math.ceil(ratio * size))
+        if density_policy is not None:
+            d_pad, d_row, k_lo, k_hi, k_cap = leaf_plan_adaptive(
+                size, model_size, ratio, spec, density_policy)
+            k_row = row_budget(k_hi, model_size, d_row)
+        else:
+            d_pad, d_row, k_row, k_cap = leaf_plan(size, model_size, ratio,
+                                                   spec)
+            k_lo = k_hi = max(1, math.ceil(ratio * size))
         salt = leaf_key_salt(name)
         if salt in seen_salts:
             raise ValueError(
@@ -240,7 +261,8 @@ def build_layout(params, model_size: int, ratio,
                          "wire indices")
     return BucketLayout(segments=tuple(segments), model_size=model_size,
                         ratio=float(ratio), spec_name=spec.name,
-                        adaptive=False, d_row_total=row_off,
+                        adaptive=density_policy is not None,
+                        d_row_total=row_off,
                         k_cap_total=cap_off)
 
 

@@ -211,9 +211,13 @@ class ProcessGroupWire(_MeshWire):
             raise ValueError(f"no process group for axes {axes}")
         return self._groups[axes]
 
-    def _host(self, t: torch.Tensor) -> torch.Tensor:
-        # gloo gets host memory, explicitly
-        return t.cpu() if self.backend == "gloo" else t
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        # gloo gets host memory, NCCL this rank's card (a payload on the
+        # host, such as the allocator's signal, goes over and comes back)
+        if self.backend == "gloo":
+            return t.cpu()
+        return t if t.is_cuda else t.to(torch.device(
+            "cuda", torch.cuda.current_device()))
 
     def _pack(self, payload) -> Tuple[torch.Tensor, list]:
         parts = payload if isinstance(payload, tuple) else (payload,)
@@ -239,7 +243,7 @@ class ProcessGroupWire(_MeshWire):
         n = self.axis_size(axis)
         buf, meta = self._pack(x)
         dev = buf.device
-        src = self._host(buf)
+        src = self._staged(buf)
         out = torch.empty((n * src.numel(),), dtype=torch.uint8,
                           device=src.device)
         # all_gather_single is the newer name of all_gather_into_tensor
@@ -256,7 +260,7 @@ class ProcessGroupWire(_MeshWire):
         dst = [d for s, d in perm if s == me]
         buf, meta = self._pack(x)
         dev = buf.device
-        send = self._host(buf)
+        send = self._staged(buf)
         recv = torch.zeros_like(send)
         ops = [self.dist.P2POp(self.dist.isend, send,
                                self._peer(self.rank, axis, d)) for d in dst]

@@ -7,17 +7,21 @@ from repro_torch.kernels.ef_fused.ops import (FUSED_COMPRESSORS,
                                               compress_at_threshold,
                                               fused_compress_ef,
                                               fused_default_bcap,
-                                              supports_fused,
+                                              fused_pass_a, supports_fused,
                                               unfused_compress_ef)
 from repro_torch.kernels.ef_fused.passes import count_passes
 from repro_torch.kernels.ef_fused.segmented import (rows_compress_ef,
-                                                    segmented_compress_ef)
+                                                    rows_pass_a,
+                                                    segmented_compress_ef,
+                                                    segmented_pass_a,
+                                                    stats_to_host)
 from repro_torch.kernels.ef_fused.tuning import (BACKENDS, KernelConfig,
                                                  resolve_backend,
                                                  resolve_config)
 
 __all__ = ["FUSED_COMPRESSORS", "compress_at_threshold", "fused_compress_ef",
-           "fused_default_bcap", "supports_fused", "unfused_compress_ef",
-           "count_passes",
-           "rows_compress_ef", "segmented_compress_ef", "BACKENDS",
+           "fused_default_bcap", "fused_pass_a", "supports_fused",
+           "unfused_compress_ef", "count_passes", "rows_compress_ef",
+           "rows_pass_a", "segmented_compress_ef", "segmented_pass_a",
+           "stats_to_host", "BACKENDS",
            "KernelConfig", "resolve_backend", "resolve_config"]

@@ -2,7 +2,7 @@
 ``repro/kernels/ef_fused/ops.py``: ``fused_default_bcap``,
 ``_tree_thresholds``, ``_replay_refinement``,
 ``_gaussian_threshold_fused``, ``_hist_threshold_fused``, ``_resolve``,
-``fused_compress_ef``, ``unfused_compress_ef``).
+``fused_pass_a``, ``fused_compress_ef``, ``unfused_compress_ef``).
 
 Fused, per leaf, four launches on the card for Gaussian-k:
 
@@ -13,7 +13,10 @@ Fused, per leaf, four launches on the card for Gaussian-k:
   K3 ``compact_resid``  → the new residual ``e'``
 
 and three for hist-k, where K1 with its histogram
-(``fused_moments_hist``) gives the threshold and K2 is not run.  Then
+(``fused_moments_hist``) gives the threshold and K2 is not run.  Under
+adaptive density K1 runs before the rest, on its own
+(:func:`fused_pass_a`), and its statistics come back through
+``fused_compress_ef(..., stats=)``, which then skips its own K1.  Then
 the staging assembly into the ``(k_cap,)`` codec pair.  The threshold
 glue between the launches (ppf, tree, replay, the histogram read-off)
 runs on the host on a handful of scalars, so the card and the CPU path
@@ -41,7 +44,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import codec
-from repro_torch.core.compressors import gaussiank_cap
+from repro_torch.core.compressors import (accept_band, gaussian_ppf_p,
+                                          gaussiank_cap)
 from repro_torch.kernels.ef_fused import passes, tuning
 from repro_torch.kernels.ef_fused.compact_residual import (
     assemble_staging, compact_residual)
@@ -89,10 +93,10 @@ def _replay_refinement(heap: np.ndarray, counts: np.ndarray, k,
                        refine_iters: int) -> np.float32:
     """Replay Algorithm 1's decisions on the count table: move to the
     half / 1.5× child while the count is outside ``[2k/3, 4k/3]``, freeze
-    once inside.  The band edges compare in f32, like the reference's
-    weakly typed Python floats."""
-    lo = np.float32(2.0 * k / 3.0)
-    hi = np.float32(4.0 * k / 3.0)
+    once inside.  The band edges compare in f32, computed as the
+    reference computes them for a static or a per-step ``k``
+    (``compressors.accept_band``)."""
+    lo, hi = accept_band(k)
     idx, done = 0, False
     for _ in range(refine_iters):
         est = np.float32(counts[idx])
@@ -106,23 +110,27 @@ def _replay_refinement(heap: np.ndarray, counts: np.ndarray, k,
 def gaussian_t0(s, sq, d: int, k, two_sided: bool) -> np.float32:
     """The ppf start threshold ``|mean + (std + 1e-12)·ndtri(p)|``, f32,
     with the population std ``sqrt(max(sq/d - mean², 0))`` — the
-    reference's ``ops.py:154-158`` in the same operation order."""
+    reference's ``ops.py:154-158`` in the same operation order (``p``
+    from ``compressors.gaussian_ppf_p``: f32 for a per-step ``k``)."""
     s = torch.as_tensor(s, dtype=torch.float32).cpu()
     sq = torch.as_tensor(sq, dtype=torch.float32).cpu()
     mean = s / d
     var = torch.clamp(sq / d - mean * mean, min=0.0)
     std = torch.sqrt(var)
-    p = 1.0 - (k / (2.0 * d) if two_sided else k / d)
-    q = torch.special.ndtri(torch.tensor(p, dtype=torch.float32))
+    p = gaussian_ppf_p(k, d, two_sided)
+    q = torch.special.ndtri(torch.tensor(float(p), dtype=torch.float32))
     t0 = torch.abs(q * (std + 1e-12) + mean)
     return np.float32(max(float(t0), 0.0))
 
 
 def _gaussian_threshold_fused(g, e, d: int, k, *, stats_block: int,
-                              refine_iters: int, two_sided: bool
-                              ) -> np.float32:
-    s, sq, _ = fused_moments(g, e, block=stats_block)
-    passes.record("moments", 1)
+                              refine_iters: int, two_sided: bool,
+                              moments=None) -> np.float32:
+    if moments is None:
+        s, sq, _ = fused_moments(g, e, block=stats_block)
+        passes.record("moments", 1)
+    else:
+        s, sq = moments
     t0 = gaussian_t0(s, sq, d, k, two_sided)
     heap, n_cnt = _tree_thresholds(t0, refine_iters)
     counts = tree_count(g, e, torch.from_numpy(heap[:n_cnt]).to(g.device),
@@ -131,12 +139,13 @@ def _gaussian_threshold_fused(g, e, d: int, k, *, stats_block: int,
     return _replay_refinement(heap, counts.cpu().numpy(), k, refine_iters)
 
 
-def _hist_threshold_fused(g, e, d: int, k, *, stats_block: int
-                          ) -> np.float32:
+def _hist_threshold_fused(g, e, d: int, k, *, stats_block: int,
+                          hist=None) -> np.float32:
     # the histogram K1 returns already counts only the d real elements
     from repro_torch.kernels.histk.ops import threshold_from_histogram
-    _, _, _, hist = fused_moments_hist(g, e, block=stats_block)
-    passes.record("moments+hist", 1)
+    if hist is None:
+        _, _, _, hist = fused_moments_hist(g, e, block=stats_block)
+        passes.record("moments+hist", 1)
     return threshold_from_histogram(hist, k)
 
 
@@ -179,12 +188,31 @@ def compress_at_threshold(g, e, thres, *, k_cap: int, block: int, bcap: int,
     return values, indices, new_e
 
 
+def fused_pass_a(g: torch.Tensor, e: Optional[torch.Tensor], name: str):
+    """Pass A of the fused pipeline on its own: ``(sum, sumsq, absmax,
+    hist)`` of ``u = g + e`` (``hist`` is None except for ``histk``),
+    at the stats block :func:`fused_compress_ef` takes for this ``d``
+    on this device.  Hand the result back through its ``stats=`` and
+    that call launches no K1: K1 runs once per leaf.  The statistics
+    are on ``g``'s device (0-d tensors and an int64 ``(BINS,)``
+    histogram)."""
+    _, _, _, stats_block, _ = _resolve(g, e, name, 1, None, None, None,
+                                       None)
+    if name == "histk":
+        out = fused_moments_hist(g, e, block=stats_block)
+        passes.record("moments+hist", 1)
+        return out
+    s, sq, mx = fused_moments(g, e, block=stats_block)
+    passes.record("moments", 1)
+    return s, sq, mx, None
+
+
 def fused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor], name: str,
                       k, *, k_cap: Optional[int] = None,
                       block: Optional[int] = None,
                       stats_block: Optional[int] = None,
                       refine_iters: int = 4, bcap: Optional[int] = None,
-                      out: Optional[torch.Tensor] = None):
+                      out: Optional[torch.Tensor] = None, stats=None):
     """One EF compression step on ``u = g + e`` (``e=None``: ``u = g``).
 
     Returns ``(values, indices, new_e)``: a ``(k_cap,)`` f32/int32 codec
@@ -193,15 +221,24 @@ def fused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor], name: str,
     kernels (f32 only), CPU tensors their plain versions; the backend is
     the tensor's device.  ``out`` receives ``new_e`` — pass ``e`` to update the
     residual in place (the residual launch reads each element before it
-    writes it)."""
+    writes it), or ``g`` when ``e`` is None.
+
+    ``stats`` takes :func:`fused_pass_a`'s tuple for the same operands
+    (on the device or already on the host) and skips K1.  ``k`` is a
+    static int or the allocator's per-step ``np.int32``, for which the
+    threshold arithmetic is f32 as in the reference; ``k_cap`` sizes
+    the pair either way."""
     d, k_cap, block, stats_block, bcap = _resolve(
         g, e, name, k, k_cap, block, stats_block, bcap)
     if name == "histk":
-        thres = _hist_threshold_fused(g, e, d, k, stats_block=stats_block)
+        thres = _hist_threshold_fused(
+            g, e, d, k, stats_block=stats_block,
+            hist=None if stats is None else stats[3])
     else:
         thres = _gaussian_threshold_fused(
             g, e, d, k, stats_block=stats_block, refine_iters=refine_iters,
-            two_sided=(name == "gaussiank2"))
+            two_sided=(name == "gaussiank2"),
+            moments=None if stats is None else stats[:2])
     return compress_at_threshold(g, e, thres, k_cap=k_cap, block=block,
                                  bcap=bcap, out=out)
 

@@ -1,7 +1,7 @@
 """Where one training step's time goes on the card.
 
     python -m repro_torch.launch.profile --arch llama3.2-1b \\
-        --density-policy none --steps 3 --batch 8 --seq 128 \\
+        --steps 3 --batch 8 --seq 128 [--density-policy none] \\
         [--mesh 4x1 --strategy gtopk]
 
     # one worker per card over NCCL
@@ -12,12 +12,16 @@ Runs the train step's phases with CUDA events between them, for
 ms: per worker this process runs (all W of the mesh, ``LocalWire``; or
 its own one under ``torchrun``, ``ProcessGroupWire``, where rank 0
 prints) its forward + backward and its compression (pack, the EF
-kernels, the staging assembly); then the wire (the gather or the gTop-k
-rounds and the decode, and for the two-level strategies the pod mean's
-second compression and the second level); the unpack and metrics; the
+kernels, the staging assembly; under adaptive density, the arch default
+of llama3.2-1b, split into each worker's pack and pass A, the
+allocation, and the workers' threshold and compaction); then the
+wire (the gather or the gTop-k rounds and the decode, and for the
+two-level strategies the pod mean's second compression and the second
+level); the unpack and metrics; the
 optimizer.  Then it traces one more step with ``torch.profiler`` and
-prints the device time by kernel name, the kernel count, and the
-device's idle share of that step's wall time.  The last line is one
+prints the device time by kernel name, the kernel count, the host
+syncs (the CUDA runtime's synchronize calls) and the device's idle
+share of that step's wall time.  The last line is one
 JSON object with all of it.  Needs a GPU.
 """
 from __future__ import annotations
@@ -27,13 +31,18 @@ import statistics
 import sys
 import time
 
+# CUDA runtime calls that block the host until the card catches up
+_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+          "cudaEventSynchronize")
+
 
 def main(argv=None) -> int:
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.dist.wire import LocalWire, torchrun_env
-    from repro_torch.launch.train import make_wire, parse_args, require_ported
+    from repro_torch.launch.train import (density_policy_of, make_wire,
+                                          parse_args, require_ported)
 
     args = parse_args(argv)
     if not torch.cuda.is_available():
@@ -42,19 +51,20 @@ def main(argv=None) -> int:
     if args.smoke:
         cfg = cfg.reduced()
     mesh, strategy = require_ported(args, cfg)
+    policy, _ = density_policy_of(args, cfg)
     if torchrun_env() is None:
         wire, dev, started = LocalWire(mesh), torch.device(args.device), False
     else:
         wire, dev, started = make_wire(args, mesh)
     try:
-        return _profile(args, cfg, strategy, wire, dev)
+        return _profile(args, cfg, strategy, policy, wire, dev)
     finally:
         if started:
             import torch.distributed as dist
             dist.destroy_process_group()
 
 
-def _profile(args, cfg, strategy, wire, dev) -> int:
+def _profile(args, cfg, strategy, policy, wire, dev) -> int:
     import torch
 
     from repro_torch import tree
@@ -70,7 +80,8 @@ def _profile(args, cfg, strategy, wire, dev) -> int:
     say = print if wire.ranks[0] == 0 else (lambda *a, **k: None)
     params = init_params(cfg, args.seed, dev)
     comp = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
-                             strategy=strategy, backend=args.backend)
+                             strategy=strategy, backend=args.backend,
+                             density_policy=policy)
     layout = build_layout(params, 1, comp)
     opt = sgd_momentum(0.9) if args.optimizer == "sgd" else adamw()
     state = init_train_state(params, opt, workers=L, model_size=1,
@@ -87,7 +98,7 @@ def _profile(args, cfg, strategy, wire, dev) -> int:
         """One step; returns its events by phase."""
         batch = batch_for(cfg, i, global_batch=args.batch, seq_len=args.seq,
                           seed=args.seed, device=dev)
-        ev = {"start": event(), "fb": [], "comp": []}
+        ev = {"start": event(), "fb": [], "pass_a": [], "comp": []}
 
         def grads_of(w):
             rank = wire.ranks[w]
@@ -99,33 +110,50 @@ def _profile(args, cfg, strategy, wire, dev) -> int:
             ev["fb"].append(event())
             return grads
 
-        def probe(rank, **_):
+        def probe(rank, **kw):
             if rank is None:
-                ev["wire"] = event()
+                ev["alloc" if "k_alloc" in kw else "wire"] = event()
             else:
-                ev["comp"].append(event())
+                ev["pass_a" if "u" in kw else "comp"].append(event())
 
         res = aggregate.aggregate_bucketed(
             [lambda w=w: grads_of(w) for w in range(L)], state["resid"],
             layout, comp, wire=wire, resid2=state.get("resid2"),
-            probe=probe)
+            probe=probe, adapt_state=state.get("adaptk"), step=i)
+        if res.adapt_state is not None:
+            state["adaptk"] = res.adapt_state
         ev["agg"] = event()
         opt.update(params, state["opt"], res.agg, args.lr)
         ev["opt"] = event()
         return ev
 
     def phases(ev) -> dict:
-        fb = comp = 0.0
+        out = {"forward_backward": 0.0}
         prev = ev["start"]
-        for a, b in zip(ev["fb"], ev["comp"]):
-            fb += prev.elapsed_time(a)
-            comp += a.elapsed_time(b)
-            prev = b
-        return {"forward_backward": fb, "compress": comp,
-                "wire": ev["comp"][-1].elapsed_time(ev["wire"]),
-                "unpack_metrics": ev["wire"].elapsed_time(ev["agg"]),
-                "optimizer": ev["agg"].elapsed_time(ev["opt"]),
-                "step": ev["start"].elapsed_time(ev["opt"])}
+        if ev["pass_a"]:
+            # adaptive: fwd+bwd and pass A per worker, the allocation,
+            # then every worker's threshold + compaction
+            out["pass_a"] = 0.0
+            for a, b in zip(ev["fb"], ev["pass_a"]):
+                out["forward_backward"] += prev.elapsed_time(a)
+                out["pass_a"] += a.elapsed_time(b)
+                prev = b
+            out["allocation"] = prev.elapsed_time(ev["alloc"])
+            out["threshold_compaction"] = ev["alloc"].elapsed_time(
+                ev["comp"][-1])
+            out["compress"] = (out["pass_a"] + out["allocation"]
+                               + out["threshold_compaction"])
+        else:
+            out["compress"] = 0.0
+            for a, b in zip(ev["fb"], ev["comp"]):
+                out["forward_backward"] += prev.elapsed_time(a)
+                out["compress"] += a.elapsed_time(b)
+                prev = b
+        out.update({"wire": ev["comp"][-1].elapsed_time(ev["wire"]),
+                    "unpack_metrics": ev["wire"].elapsed_time(ev["agg"]),
+                    "optimizer": ev["agg"].elapsed_time(ev["opt"]),
+                    "step": ev["start"].elapsed_time(ev["opt"])})
+        return out
 
     times = {}
     for i in range(args.steps + 1):
@@ -149,7 +177,10 @@ def _profile(args, cfg, strategy, wire, dev) -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
+    syncs = 0
     for e in prof.key_averages():
+        if e.key in _SYNCS:
+            syncs += e.count
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue            # host-side ops; their kernels are listed
         dt = getattr(e, "self_device_time_total", None)
@@ -161,14 +192,17 @@ def _profile(args, cfg, strategy, wire, dev) -> int:
     busy = sum(k[1] for k in kernels)
     say(f"profiled step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
         f"(idle share {1 - busy / wall_ms:.3f}), {len(kernels)} kernel "
-        "names")
+        f"names, {syncs} host syncs (the step's closing one included)")
     for name, ms, n in kernels[:25]:
         say(f"  {ms:9.3f} ms  x{n:<5d} {name[:100]}")
     say(json.dumps({"arch": cfg.name, "batch": args.batch,
                     "seq": args.seq, "mesh": args.mesh, "workers": W,
+                    "compressor": args.compressor,
+                    "density_policy": policy.policy if policy else None,
                     "wire": wire.name, "dist_backend": wire.backend,
                     "strategy": strategy, "phase_ms": med,
                     "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+                    "host_syncs": syncs,
                     "peak_mem_gib": torch.cuda.max_memory_allocated()
                     / 2 ** 30,
                     "top_kernels": kernels[:25],

@@ -1,7 +1,7 @@
 """Training entry point of the port (port of ``repro/launch/train.py``).
 
   python -m repro_torch.launch.train --arch llama3.2-1b \\
-      --density-policy none --steps 3 --batch 8 --seq 128
+      --steps 3 --batch 8 --seq 128
   # four data-parallel workers in this process, on one card
   python -m repro_torch.launch.train ... --host-devices 4 --mesh 4x1 \\
       --strategy gtopk
@@ -23,21 +23,26 @@ JAX flag: ``LocalWire``) or one per process under ``torchrun`` with
 ``W > 1`` raises naming both.  The startup line prints the mesh, W, the
 wire and its backend.
 
-The port trains fixed-k with the ``bucketed`` pipeline, the four wire
+The port trains with the ``bucketed`` pipeline, the four wire
 strategies (``--strategy allgather|gtopk|hierarchical|hier_gtopk``;
 ``--hierarchical`` is the old spelling of the third) and
 ``--compressor`` ``topk``, ``gaussiank``, ``gaussiank2``, ``histk``
 (``--backend fused``: K1 with its histogram and K3; ``reference``: the
 K4d histogram and K4c compaction) or ``trimmedk`` (plain torch, the
-reference backend); ``--checkpoint`` saves the final state and
-``--resume`` starts from one (``checkpoint/npz.py``, the JAX package's
-keys).  Every flag value it does not carry raises an error naming the
-slice that ports it: a model axis above 1, ``--strategy auto``, the
-key-sampled compressors, an adaptive ``--density-policy``
-(llama3.2-1b's config defaults to ``variance``, so pass ``none``),
-``--global-k-policy``, ``--chunks > 1``, ``--publish-every``,
-``--pipeline perleaf``, and any value but the default of the flags only
-those features read, such as ``--density-floor`` or ``--topology``.
+reference backend); fixed-k, or with adaptive layer-wise density
+(``--density-policy uniform|variance|absmax``, ``--density-floor``,
+``--density-ceil``, ``--density-ema``, ``--density-warmup[-mult]``,
+``--global-k-policy normdecay`` with ``--global-k-ema`` and
+``--global-k-floor``).  As in the reference, a dynamic-k compressor
+takes the arch config's ``density_policy`` unless the flag is given
+(llama3.2-1b: ``variance``; ``--density-policy none`` trains fixed-k).
+``--checkpoint`` saves the final state and ``--resume`` starts from one
+(``checkpoint/npz.py``, the JAX package's keys).  Every flag value it
+does not carry raises an error naming the slice that ports it: a model
+axis above 1, ``--strategy auto``, the key-sampled compressors,
+``--chunks > 1``, ``--publish-every``, ``--pipeline perleaf``, and any
+value but the default of the flags only those features read, such as
+``--topology``.
 """
 from __future__ import annotations
 
@@ -112,18 +117,10 @@ def parse_args(argv=None):
     return _parser().parse_args(argv)
 
 
-# compressors whose default --density-policy comes from the arch config
-# (the reference's core.adaptk.DYNAMIC_COMPRESSORS)
-_DYNAMIC = ("topk", "gaussiank", "gaussiank2", "histk", "trimmedk", "rtopk")
-
 # flags that only a later slice reads -> the LATER key of that slice; any
 # value but the default raises rather than being ignored
 _LATER_FLAGS = {
     "topology": "auto",
-    "density_floor": "density_policy", "density_ceil": "density_policy",
-    "density_ema": "density_policy", "density_warmup": "density_policy",
-    "density_warmup_mult": "density_policy",
-    "global_k_ema": "global_k", "global_k_floor": "global_k",
     "publish_ratio": "publish", "resync_every": "publish",
 }
 
@@ -142,16 +139,6 @@ def require_ported(args, cfg):
     strategy = resolve_strategy(args.strategy, args.hierarchical)
     if args.compressor != "none":
         get_compressor(args.compressor)
-    pol = args.density_policy
-    if not pol and args.compressor in _DYNAMIC:
-        pol = cfg.density_policy
-    if pol and pol != "none" and args.compressor != "none":
-        raise not_ported(
-            f"adaptive --density-policy {pol} (the {cfg.name} default is "
-            f"{cfg.density_policy or 'fixed-k'}; pass --density-policy "
-            "none for fixed-k)", "density_policy")
-    if args.global_k_policy != "none":
-        raise not_ported("--global-k-policy", "global_k")
     if args.chunks != 1:
         raise not_ported("--chunks > 1", "chunks")
     if args.publish_every:
@@ -163,6 +150,35 @@ def require_ported(args, cfg):
         if getattr(args, dest) != defaults.get_default(dest):
             raise not_ported(f"--{dest.replace('_', '-')}", key)
     return mesh, strategy
+
+
+def density_policy_of(args, cfg):
+    """The adaptive density policy of this launch, as the reference's CLI
+    picks it: an explicit ``--density-policy`` wins; else a dynamic-k
+    compressor (``adaptk.DYNAMIC_COMPRESSORS``) takes the arch config's
+    default.  Returns ``(policy or None, name)``; ``--global-k-policy``
+    without an adaptive policy exits."""
+    from repro_torch.core.adaptk import DYNAMIC_COMPRESSORS, make_policy
+
+    name = args.density_policy
+    if not name and args.compressor in DYNAMIC_COMPRESSORS:
+        name = cfg.density_policy
+    if name and name != "none" and args.compressor != "none":
+        return make_policy(
+            name, floor_mult=args.density_floor,
+            ceil_mult=args.density_ceil, ema=args.density_ema,
+            warmup_steps=args.density_warmup,
+            warmup_mult=args.density_warmup_mult if args.density_warmup
+            else 1.0,
+            global_policy=args.global_k_policy,
+            global_ema=args.global_k_ema,
+            global_floor=args.global_k_floor), name
+    if args.global_k_policy != "none":
+        raise SystemExit(
+            "--global-k-policy scales the adaptive global budget, so it "
+            "needs an adaptive --density-policy (uniform|variance|absmax) "
+            "and a sparse dynamic-k compressor")
+    return None, name
 
 
 def make_wire(args, mesh):
@@ -220,19 +236,22 @@ def run(argv=None, *, probe: Optional[Callable] = None,
             cfg = cfg.reduced()
     require_dense(cfg)
     mesh, strategy = require_ported(args, cfg)
+    density = density_policy_of(args, cfg)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no GPU is visible; pass --device "
                          "cpu to train on the CPU")
     wire, device, started = make_wire(args, mesh)
     try:
-        return _train(args, cfg, mesh, strategy, wire, device, probe)
+        return _train(args, cfg, mesh, strategy, density, wire, device,
+                      probe)
     finally:
         if started:
             import torch.distributed as dist
             dist.destroy_process_group()
 
 
-def _train(args, cfg, mesh, strategy, wire, device, probe) -> list:
+def _train(args, cfg, mesh, strategy, density, wire, device, probe
+           ) -> list:
     import torch
 
     from repro_torch.checkpoint import load_state, save_state
@@ -251,13 +270,16 @@ def _train(args, cfg, mesh, strategy, wire, device, probe) -> list:
              "step": lambda: step_decay(args.lr, 0.1,
                                         max(args.steps // 2, 1))}[
         args.schedule]()
+    policy, pol_name = density
     params = init_params(cfg, args.seed, device)
     layout = None
     if args.compressor != "none":
         layout = build_layout(params, 1, args.ratio,
-                              get_compressor(args.compressor))
+                              get_compressor(args.compressor),
+                              density_policy=policy)
     config = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
-                               strategy=strategy, backend=args.backend)
+                               strategy=strategy, backend=args.backend,
+                               density_policy=policy)
     state = init_train_state(params, opt, workers=wire.local_workers,
                              model_size=1, compression=config,
                              layout=layout)
@@ -271,7 +293,9 @@ def _train(args, cfg, mesh, strategy, wire, device, probe) -> list:
         f"strategy={strategy} backend={args.backend} mesh={args.mesh} "
         f"workers={wire.world} wire={wire.name} "
         f"dist_backend={wire.backend} pipeline={args.pipeline} chunks=1 "
-        f"density_policy=fixed-k device={device} steps={args.steps}",
+        f"density_policy={pol_name or 'fixed-k'} "
+        f"global_k={args.global_k_policy} device={device} "
+        f"steps={args.steps}",
         flush=True)
     records = []
     t0 = time.time()
@@ -294,6 +318,8 @@ def _train(args, cfg, mesh, strategy, wire, device, probe) -> list:
                 comm = (f" comm_frac={r:.4f} coll="
                         f"{int(rec['collectives_per_step'])}"
                         f" density={rec['density']:.6f}")
+            if "k_total" in m:
+                comm += f" k_total={int(rec['k_total'])}"
             say(f"step {i:5d} loss={rec['loss']:.4f} lr={rec['lr']:.4g}"
                 f"{comm} step_ms={ms:.1f} ({time.time() - t0:.1f}s)",
                 flush=True)

@@ -13,9 +13,6 @@ LATER = {
                "1 item 8a)",
     "model_axis": "slice 2c (tensor parallelism over the model axis, "
                   "ROADMAP Queue 1 item 8b)",
-    # slice 3 — adaptive density
-    "density_policy": "slice 3 (adaptive density, ROADMAP Queue 1 item 10)",
-    "global_k": "slice 3 (adaptive density, ROADMAP Queue 1 item 10)",
     # slice 4 — key-sampled compressors
     "randk": "slice 4 (key-sampled compressors + PRNG, ROADMAP Queue 1 "
              "items 9 and 9a)",

@@ -1,8 +1,9 @@
 """Train state (port of ``repro/train/state.py``, lines 54-127): params,
-optimizer state, step counter and the per-worker error-feedback
+optimizer state, step counter, the per-worker error-feedback
 residuals, each stored as ONE flat bucket per worker of shape
-``(workers, model_size * d_row_total)`` (``dist/layout.py``).  A plain
-dict of tensors.
+``(workers, model_size * d_row_total)`` (``dist/layout.py``), and under
+adaptive density the controller state ``adaptk`` (numpy arrays on the
+host, where the allocation runs).  A plain dict.
 
 ``workers`` is the number of data-parallel workers whose residuals this
 state holds: all W of the mesh when they run in this process
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 from repro_torch import tree
+from repro_torch.core import adaptk
 from repro_torch.core.compression import CompressionConfig, as_config
 from repro_torch.dist.layout import BucketLayout, init_flat_residual
 from repro_torch.optim import Optimizer
@@ -27,10 +29,13 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
                      compression: Optional[CompressionConfig] = None,
                      layout: Optional[BucketLayout] = None
                      ) -> Dict[str, Any]:
-    """``{"params", "opt", "step"[, "resid"[, "resid2"]]}``.  A sparse
-    compressor with ``layout`` allocates the zero residuals ``resid`` on
-    the params' device, and ``resid2`` too for the two-level strategies
-    (``hierarchical``, ``hier_gtopk``); Dense-SGD allocates none."""
+    """``{"params", "opt", "step"[, "resid"[, "resid2"]][, "adaptk"]}``.
+    A sparse compressor with ``layout`` allocates the zero residuals
+    ``resid`` on the params' device, and ``resid2`` too for the two-level
+    strategies (``hierarchical``, ``hier_gtopk``); Dense-SGD allocates
+    none.  A ``density_policy`` adds the zero controller state
+    ``adaptk`` (``signal``, ``count``, and ``gnorm``/``gnorm0`` under a
+    global-k policy)."""
     compression = as_config(compression)
     if workers < 1:
         raise ValueError(f"workers must be >= 1, got {workers}")
@@ -58,4 +63,8 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
         if compression.strategy in ("hierarchical", "hier_gtopk"):
             state["resid2"] = init_flat_residual(layout, workers=workers,
                                                  device=leaves[0].device)
+        policy = compression.density_policy
+        if policy is not None:
+            state["adaptk"] = adaptk.init_controller_state(
+                len(leaves), global_k=policy.global_policy != "none")
     return state

@@ -3,7 +3,8 @@ the model loss, the compressed gradient aggregation (paper Eq. 2) and
 the optimizer in one step, for the W data-parallel workers of a mesh.
 
   per local worker: its rows of the global batch -> grads by autograd
-      -> pack + compress against its residual
+      -> pack + compress against its residual (under adaptive density:
+      pass A of every worker, one allocation, then the compressions)
   the wire over the data axes (aggregate_bucketed, or the dense mean)
   optimizer.update, once: the workers of one process share the params
 
@@ -80,8 +81,19 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
         if abs(layout.ratio - float(compression.ratio)) > 1e-12:
             raise ValueError(
                 f"layout ratio {layout.ratio} != {compression.ratio}")
+        if layout.adaptive != compression.adaptive:
+            raise ValueError("layout density mode does not match "
+                             "density_policy; rebuild the layout")
+    density_policy = compression.density_policy
 
     def step_fn(state, batch):
+        if (density_policy is not None and density_policy.ema > 0.0
+                and "adaptk" not in state):
+            raise ValueError(
+                "density_policy.ema > 0 needs the controller state; "
+                "allocate it via init_train_state(..., "
+                "density_policy=...) — without it the EMA would be "
+                "silently disabled")
         params = state["params"]
         leaves, td = tree.flatten(params)
         B = int(next(iter(batch.values())).shape[0])
@@ -114,8 +126,11 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
             res = aggregate.aggregate_bucketed(
                 [functools.partial(grads_of, w) for w in workers],
                 state["resid"], layout, compression, wire=wire,
-                resid2=state.get("resid2"), probe=probe)
+                resid2=state.get("resid2"), probe=probe,
+                adapt_state=state.get("adaptk"), step=state["step"])
             agg, agg_metrics = res.agg, res.metrics
+            if res.adapt_state is not None and "adaptk" in state:
+                state["adaptk"] = res.adapt_state
         metrics = {k: wire.pmean([m[k] for m in worker_metrics],
                                  wire.data_axes)[0]
                    for k in worker_metrics[0]}

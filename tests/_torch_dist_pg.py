@@ -6,10 +6,11 @@ come from the environment; each ``strategy:mesh:port`` argument trains
 2 steps on ``DEVICE`` (``cpu``: gloo; ``cuda``: NCCL, a card per rank)
 on that mesh with that ``MASTER_PORT``, checkpoints the final state to
 ``<out>/<strategy>-<mesh>.npz`` and, on rank 0, writes the step records
-to ``<out>/<strategy>-<mesh>.json``.
+to ``<out>/<strategy>-<mesh>.json``.  Arguments after ``--`` are added
+to every case's trainer flags (``--density-policy variance``, say).
 
     RANK=0 WORLD_SIZE=2 ... python tests/_torch_dist_pg.py OUT cpu \\
-        allgather:2x1:29500 gtopk:2x1:29501
+        allgather:2x1:29500 gtopk:2x1:29501 [-- --density-policy variance]
 """
 import json
 import os
@@ -25,6 +26,10 @@ COMMON = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
 
 def main(out, device, cases):
     torch.set_num_threads(1)
+    extra = []
+    if "--" in cases:
+        cases, extra = (cases[:cases.index("--")],
+                        cases[cases.index("--") + 1:])
     for case in cases:
         strategy, mesh, port = case.split(":")
         os.environ["MASTER_PORT"] = port
@@ -32,7 +37,8 @@ def main(out, device, cases):
         recs = cli.run(COMMON + ["--device", device, "--mesh", mesh,
                                  "--strategy", strategy,
                                  "--checkpoint",
-                                 os.path.join(out, name + ".npz")])
+                                 os.path.join(out, name + ".npz")]
+                      + extra)
         if os.environ["RANK"] == "0":
             with open(os.path.join(out, name + ".json"), "w") as f:
                 json.dump(recs, f)

@@ -80,3 +80,28 @@ def test_roundtrip_conserves():
     dec = tcodec.decode(v, i, 500)
     resid = torch.where(dec != 0, torch.zeros_like(u), u)
     assert torch.equal(dec + resid, u)
+
+
+def test_sentinel_slots_scatter_to_their_own_scratch_columns():
+    """Each sentinel slot of a pair scatters to a scratch column of its
+    own past ``d`` (a mostly-sentinel adaptive-density wire block must
+    not pile its atomics onto one address); the real slots keep their
+    indices and ``decode_sum`` of several ranks is unchanged: the
+    sequential sum of the ranks' decodes, bitwise."""
+    idx = torch.tensor([4, -1, 0, -1, -1, 9], dtype=torch.int32)
+    vals = torch.tensor([1.5, 0.0, -2.0, 0.0, 0.0, 3.0])
+    safe, v = tcodec._safe(vals, idx, 10)
+    assert safe.tolist() == [4, 11, 0, 13, 14, 9]
+    assert len(set(safe[idx == -1].tolist())) == 3
+    assert torch.equal(v, vals)
+    rng = np.random.default_rng(4)
+    n, k, d = 3, 6, 12
+    V = torch.from_numpy(rng.standard_normal((n, 1, k)).astype(np.float32))
+    I = torch.stack([torch.from_numpy(np.concatenate([
+        rng.choice(d, 4, replace=False), [-1, -1]]).astype(np.int32))[None]
+        for _ in range(n)])
+    V = torch.where(I == -1, torch.zeros_like(V), V)
+    want = torch.zeros(d)
+    for r in range(n):
+        want = want + tcodec.decode(V[r, 0], I[r, 0], d)
+    assert torch.equal(tcodec.decode_sum(V, I, d)[0], want)

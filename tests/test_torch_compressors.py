@@ -19,8 +19,10 @@ import torch
 
 from repro.core import compressors as jc
 from repro.core import error_feedback as jef
+from repro.core.compression import CompressionConfig as JCompressionConfig
 from repro_torch.core import codec
 from repro_torch.core import compressors as tc
+from repro_torch.core.adaptk import make_policy
 from repro_torch.core.compression import CompressionConfig, as_config
 from repro_torch.core.error_feedback import compress_with_ef
 
@@ -167,7 +169,16 @@ def test_compression_config_validation():
         CompressionConfig(codec_dtype="int8")
     with pytest.raises(NotImplementedError, match="slice 6"):
         CompressionConfig(chunks=2).require_ported()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        CompressionConfig(density_policy="variance").require_ported()
+    # adaptive density is ported: a DensityPolicy passes, a bare name
+    # is refused as the reference refuses it
+    pol = make_policy("variance")
+    assert CompressionConfig(density_policy=pol).require_ported().adaptive
+    with pytest.raises(TypeError, match="DensityPolicy"):
+        CompressionConfig(density_policy="variance")
+    with pytest.raises(TypeError) as jerr:
+        JCompressionConfig(density_policy="variance")
+    with pytest.raises(TypeError) as terr:
+        CompressionConfig(density_policy="variance")
+    assert str(terr.value) == str(jerr.value)
     with pytest.raises(TypeError):
         as_config("gaussiank")

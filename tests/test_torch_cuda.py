@@ -15,7 +15,10 @@ the fused one.  The K3 stage, K4c and K4d are also held bitwise on
 views at storage offsets 1 and 3 (their scalar-load paths), blocks that
 are not multiples of 4, thresholds of 0 and above ``max|u|``, and
 one-bin, all-zero and zero/subnormal/inf/``>= edge[127]`` inputs.
-The data-parallel wire on the card: the rank-order decode of gathered
+Adaptive density's pass A on the card: K1 on its own against its plain
+version, and a compression handed its statistics back launches no
+second K1 and is bitwise the one that runs its own.  The data-parallel
+wire on the card: the rank-order decode of gathered
 pairs and the gTop-k re-encode bitwise the CPU's, and four workers in
 one process deterministic, with losses within rtol 1e-4 of the CPU's.
 """
@@ -100,6 +103,50 @@ def test_pipeline_conserves_in_place(dev, d):
     torch.cuda.synchronize()
     assert ne.data_ptr() == e.data_ptr()
     assert torch.equal(codec.decode(v, i, d) + e, u)
+
+
+@pytest.mark.parametrize("name", ["gaussiank", "gaussiank2", "histk"])
+@pytest.mark.parametrize("d", DS)
+def test_pass_a_and_stats_match_plain_and_one_k1(dev, d, name):
+    """Adaptive density's pass A on the card: ``fused_pass_a`` (K1, with
+    its histogram for hist-k) against the plain version on the card;
+    then ``u`` compressed in place with those statistics handed back
+    (``stats=``, on the host) and a per-step ``np.int32`` k launches no
+    second K1 and is bitwise the pipeline that runs its own K1 on
+    ``(g, e)``."""
+    import numpy as np
+    g, e = _inputs(d, dev, seed=4)
+    u = g + e
+    sb = tuning.resolve_config(d, "cuda").stats_block
+    n0 = fm.fused_moments.launches + fm.fused_moments_hist.launches
+    st = ops.fused_pass_a(u, None, name)
+    assert fm.fused_moments.launches + fm.fused_moments_hist.launches \
+        == n0 + 1
+    ps, psq, pmx = fm.fused_moments_plain(u, None, block=sb)
+    assert abs(float(st[0]) - float(ps)) <= 1e-5 * float(u.abs().sum())
+    assert math.isclose(float(st[1]), float(psq), rel_tol=1e-5)
+    assert float(st[2]) == float(pmx)
+    if name == "histk":
+        assert torch.equal(st[3], fm.fused_moments_hist_plain(
+            u, None, block=sb)[3])
+    host = tuple(None if x is None else x.cpu() for x in st)
+    k = np.int32(max(1, d // 500))
+    k_cap = gaussiank_cap(4 * int(k), d)
+    want = ops.fused_compress_ef(g, e.clone(), name, k, k_cap=k_cap,
+                                 stats=None)
+    counts = (fm.fused_moments.launches, fm.fused_moments_hist.launches,
+              tc.tree_count.launches, cr.compact_stage.launches)
+    uu = u.clone()
+    v, i, ne = ops.fused_compress_ef(uu, None, name, k, k_cap=k_cap,
+                                     out=uu, stats=host)
+    after = (fm.fused_moments.launches, fm.fused_moments_hist.launches,
+             tc.tree_count.launches, cr.compact_stage.launches)
+    assert [b - a for a, b in zip(counts, after)] == [
+        0, 0, 0 if name == "histk" else 1, 1]
+    assert ne.data_ptr() == uu.data_ptr()
+    for a, b in zip((v, i, ne), want):
+        assert torch.equal(a, b)
+    assert torch.equal(codec.decode(v, i, d) + ne, u)
 
 
 @pytest.mark.parametrize("d", DS)

@@ -29,7 +29,8 @@ bad = [m for m, mod in sys.modules.items() if mod is not None
 assert not bad, bad
 assert len(names) >= 30, names
 assert {"repro_torch.dist.wire", "repro_torch.launch.mesh",
-        "repro_torch.checkpoint.npz"} <= set(names), names
+        "repro_torch.checkpoint.npz", "repro_torch.core.adaptk",
+        "repro_torch.f32"} <= set(names), names
 print(len(names))
 """
 

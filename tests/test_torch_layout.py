@@ -1,5 +1,6 @@
 """The port's bucket layout against ``repro.dist.layout``: field for
-field on llama3.2-1b ``reduced()``, the wire accounting of every
+field on llama3.2-1b ``reduced()``, fixed-k and adaptive, the wire
+accounting of every
 strategy, pack/unpack of grads and of residual arrays bitwise, unpack as
 views, and the full llama3.2-1b bucket inside the int32 index range."""
 import jax
@@ -9,11 +10,13 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
+from repro.core import adaptk as ja
 from repro.core.compressors import get_compressor as j_get
 from repro.dist import layout as jl
 from repro.models import init_params as j_init
 from repro_torch import tree
 from repro_torch.configs import get_config
+from repro_torch.core.adaptk import make_policy
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.compressors import get_compressor
 from repro_torch.dist import layout as tl
@@ -66,9 +69,48 @@ def test_build_layout_config_spelling(reduced):
     a = tl.build_layout(tparams, 1, CompressionConfig(ratio=0.01))
     b = tl.build_layout(tparams, 1, 0.01, get_compressor("gaussiank"))
     assert a == b
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tl.build_layout(tparams, 1, 0.01, get_compressor("gaussiank"),
-                        density_policy="variance")
+    # an adaptive-density layout (slice 3), both spellings alike
+    pol = make_policy("variance")
+    a = tl.build_layout(tparams, 1, CompressionConfig(ratio=0.01,
+                                                      density_policy=pol))
+    b = tl.build_layout(tparams, 1, 0.01, get_compressor("gaussiank"),
+                        density_policy=pol)
+    assert a == b and a.adaptive and a.k_cap_total > b.k_cap_total / 2
+    with pytest.raises(TypeError, match="not both"):
+        tl.build_layout(tparams, 1, CompressionConfig(ratio=0.01),
+                        density_policy=pol)
+
+
+@pytest.mark.parametrize("compressor,ratio,model_size,policy", [
+    ("gaussiank", 0.001, 1, dict()),
+    ("gaussiank", 0.01, 1, dict(floor_mult=0.5, ceil_mult=2.0)),
+    ("topk", 0.05, 1, dict(warmup_steps=5, warmup_mult=16.0)),
+    ("histk", 0.001, 4, dict(policy="absmax")),
+    ("gaussiank2", 0.3, 2, dict(floor_mult=1.0, ceil_mult=1.0))])
+def test_adaptive_layout_matches_reference(reduced, compressor, ratio,
+                                           model_size, policy):
+    """``build_layout(..., density_policy=)`` field for field the
+    reference's: every segment's ``k_lo``, ``k_hi`` and the
+    ceiling-sized ``k_row``/``k_cap``, and ``leaf_plan_adaptive``."""
+    jparams, tparams = reduced
+    jpol = ja.make_policy(**policy)
+    jlay = jl.build_layout(jparams, model_size, ratio, j_get(compressor),
+                           density_policy=jpol)
+    tlay = tl.build_layout(tparams, model_size, ratio,
+                           get_compressor(compressor),
+                           density_policy=make_policy(**policy))
+    for js, ts in zip(jlay.segments, tlay.segments):
+        assert js._asdict() == ts._asdict()
+        assert tl.leaf_plan_adaptive(ts.size, model_size, ratio,
+                                     get_compressor(compressor),
+                                     make_policy(**policy)) == \
+            jl.leaf_plan_adaptive(js.size, model_size, ratio,
+                                  j_get(compressor), jpol)
+    for f in ("model_size", "ratio", "spec_name", "adaptive", "d_row_total",
+              "k_cap_total"):
+        assert getattr(jlay, f) == getattr(tlay, f), f
+    assert tlay.adaptive
+    assert tlay.pair_bits() == jlay.pair_bits()
 
 
 @pytest.mark.parametrize("strategy", ["gtopk", "hierarchical",

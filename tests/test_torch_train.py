@@ -6,7 +6,9 @@ composed outside ``shard_map`` from public functions (world size 1):
 
 and the port's training CLI on the CPU: world size 1, the four wire
 strategies on several workers in this process (``--host-devices``),
-checkpoints, and the flags it does not carry yet.  (The multi-worker
+checkpoints, the density flags, and the flags it does not carry yet.
+(Adaptive density against the reference is in
+``test_torch_adaptive.py``.)  (The multi-worker
 step against the JAX mesh run is in ``test_torch_dist.py``.)
 
 Tolerances: losses within rtol 1e-4 and params within rtol 1e-4, atol
@@ -153,17 +155,12 @@ def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
 @pytest.mark.parametrize("extra,slice_no", [
     (["--pipeline", "perleaf"], "slice 2b"),
     (["--mesh", "2x2", "--host-devices", "4"], "slice 2c"),
-    (["--density-policy", "variance"], "slice 3"),
-    (["--global-k-policy", "normdecay", "--density-policy", "none"],
-     "slice 3"),
     (["--compressor", "randk"], "slice 4"),
     (["--compressor", "dgck"], "slice 4"),
     (["--chunks", "2"], "slice 6"),
     (["--publish-every", "2"], "slice 7"),
     (["--strategy", "auto"], "slice 9"),
     (["--topology", "topo.json"], "slice 9"),
-    (["--density-floor", "0.5"], "slice 3"),
-    (["--global-k-floor", "0.5"], "slice 3"),
     (["--resync-every", "4"], "slice 7"),
 ])
 def test_cli_names_the_slice_of_what_it_lacks(extra, slice_no):
@@ -171,6 +168,28 @@ def test_cli_names_the_slice_of_what_it_lacks(extra, slice_no):
             "--device", "cpu", "--steps", "1"] + extra
     with pytest.raises(NotImplementedError, match=slice_no):
         cli.run(argv)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--density-policy", "variance"],
+    ["--density-policy", "variance", "--density-floor", "0.5"],
+    ["--density-policy", "absmax", "--global-k-policy", "normdecay",
+     "--global-k-floor", "0.5"],
+    ["--global-k-policy", "normdecay", "--density-policy", "none"],
+])
+def test_cli_runs_the_density_flags(extra):
+    """Slice 3's flags, which slice 1 refused naming slice 3: an adaptive
+    policy, its floor and the global-k controller's floor train; the
+    global-k controller without an adaptive policy exits, as the
+    reference's CLI does."""
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+            "--steps", "1", "--batch", "2", "--seq", "16"] + extra
+    if "none" in extra:
+        with pytest.raises(SystemExit, match="needs an adaptive"):
+            cli.run(argv)
+        return
+    (rec,) = cli.run(argv)
+    assert np.isfinite(rec["loss"]) and rec["k_total"] > 0
 
 
 _SMOKE = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
@@ -236,9 +255,16 @@ def test_cli_checkpoint_and_resume(tmp_path):
             assert x[k].tobytes() == y[k].tobytes(), k
 
 
-def test_llama_default_density_policy_is_rejected():
-    """llama3.2-1b defaults to adaptive density; this slice needs
-    ``--density-policy none``."""
-    with pytest.raises(NotImplementedError, match="--density-policy none"):
-        cli.run(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
-                 "--steps", "1"])
+def test_llama_default_density_policy_is_rejected(capsys):
+    """(Named for slice 1, which refused it.)  llama3.2-1b defaults to
+    adaptive density: with no ``--density-policy`` the trainer runs
+    ``variance`` and reports ``k_total``; ``--density-policy none`` is
+    fixed-k."""
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+            "--steps", "1", "--batch", "2", "--seq", "16"]
+    (rec,) = cli.run(argv)
+    assert "density_policy=variance" in capsys.readouterr().out
+    assert rec["k_total"] > 0
+    (rec,) = cli.run(argv + ["--density-policy", "none"])
+    assert "density_policy=none" in capsys.readouterr().out
+    assert "k_total" not in rec
