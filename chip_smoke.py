@@ -75,7 +75,19 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    0; 6b hist-k ``absmax`` with EMA; 6c ``uniform`` with the DGC warmup
    and the norm-decay global-k controller; 6d four workers on the card,
    allgather at full depth and hierarchical at 4 layers; 6e card against
-   CPU on the small config for each policy, allocations equal.
+   CPU on the small config for each policy, allocations equal;
+7. slice 4, the PRNG, the key-sampled compressors and DGC momentum
+   correction (``phase7_keyed``): 7a the ``threefry_bits`` kernel
+   bitwise against its plain version (2^26 counters and counts off the
+   block; draws and rank keys) and jax.random's known
+   answers drawn on the card, then timed at 268,435,456 draws; 7b
+   llama3.2-1b at full width and depth, 4 steps each (1-3 steady) of
+   randk fixed-k and ``variance``, dgck, rtopk fixed-k and ``variance``,
+   and Gaussian-k and hist-k under momentum correction 0.9 (step and
+   compress ms, peak memory, step-0 conservation, ``v'`` and ``e'`` zero
+   at every sent index); 7c card against CPU on the small config; 7d
+   four workers on the card at 4 layers (randk over allgather, momentum
+   correction over gTop-k).
 
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it the ``{"kernels": [...]}`` JSON; the last line is
@@ -96,6 +108,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
+# 32-bit integer operations outside the tensor cores, at the SM's issue
+# limit: 4 schedulers x 32 lanes a clock (the 64 INT32 lanes plus integer
+# work the compiler moves to the FMA pipe; a 64-lane rate was beaten by
+# threefry_bits itself) x 132 SMs x 1.98 GHz boost
+INT32_OPS_PER_S = 128 * 132 * 1.98e9
+THREEFRY_OPS = 73             # 32-bit integer operations a draw
 BIG_LEAF = 268_435_456        # llama3.2-1b stack/0/ffn/w_gate (16x2048x8192)
 RATIO = 0.001
 
@@ -165,6 +183,11 @@ KERNELS = {   # key: (name, route, source, replaces)
     "abs_histogram": ("abs_histogram (K4d)", "cuda",
                       "src/repro_torch/csrc/abs_histogram.cu",
                       "src/repro/kernels/histk/hist.py:62"),
+    # port-only: the reference's draws are XLA's threefry (no pallas_call)
+    "threefry_bits": ("threefry_bits (PRNG, port-only)", "triton",
+                      "src/repro_torch/kernels/prng/threefry.py",
+                      "src/repro/core/compressors.py:64 (jax.random.uniform "
+                      "in randk_select: XLA's threefry, no pallas_call)"),
 }
 
 
@@ -182,6 +205,7 @@ def counters():
     from repro_torch.kernels.gaussian_topk import threshold_compact as thc
     from repro_torch.kernels.histk import hist
     from repro_torch.kernels.moments import moments as mom
+    from repro_torch.kernels.prng import threefry
     return {"fused_moments": fm.fused_moments,
             "fused_moments_hist": fm.fused_moments_hist,
             "tree_count": tc.tree_count,
@@ -190,7 +214,8 @@ def counters():
             "moments": mom.moments,
             "count_gt": cg.count_gt,
             "threshold_compact": thc.threshold_compact,
-            "abs_histogram": hist.abs_histogram}
+            "abs_histogram": hist.abs_histogram,
+            "threefry_bits": threefry.threefry_bits}
 
 
 def build(cuda_build, torch) -> float:
@@ -217,6 +242,9 @@ def build(cuda_build, torch) -> float:
                         block=1024)
         k["moments"](x[:d], block=1024)
         k["count_gt"](x[:d], 0.5, block=1024)
+        for dt in (torch.int32, torch.int64):
+            k["threefry_bits"]((1, 2), torch.empty(d, dtype=dt,
+                                                   device="cuda"))
     torch.cuda.synchronize()
     th.join()
     if err:
@@ -569,7 +597,8 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
 # path is these over all the step's elements at the memory rate
 LEAF_BYTES = {"fused_moments": 8, "fused_moments_hist": 8, "tree_count": 8,
               "compact_stage": 8, "compact_resid": 12, "moments": 4,
-              "count_gt": 4, "threshold_compact": 4, "abs_histogram": 4}
+              "count_gt": 4, "threshold_compact": 4, "abs_histogram": 4,
+              "threefry_bits": 8}
 # adaptive density compresses u = G + E in place: the kernels read u alone
 ADAPTIVE_LEAF_BYTES = {"fused_moments": 4, "fused_moments_hist": 4,
                        "tree_count": 4, "compact_stage": 4,
@@ -609,8 +638,43 @@ def conserves(G, values, indices, new_E, label, torch) -> None:
                 label, "conservation", m, a)
 
 
+class CompressTimer:
+    """Times every ``dist.aggregate.bucket_compress`` call between CUDA
+    events while active (the module attribute is swapped and restored);
+    ``per_step(steps)`` sums the calls of each step."""
+
+    def __init__(self, torch):
+        self.torch, self.events = torch, []
+
+    def __enter__(self):
+        from repro_torch.dist import aggregate
+        self.mod, self.orig = aggregate, aggregate.bucket_compress
+
+        def timed(*a, **k):
+            ev = [self.torch.cuda.Event(enable_timing=True)
+                  for _ in range(2)]
+            ev[0].record()
+            out = self.orig(*a, **k)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+
+        aggregate.bucket_compress = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.bucket_compress = self.orig
+
+    def per_step(self, steps):
+        self.torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        per = max(1, len(ms) // steps)
+        return [sum(ms[i:i + per]) for i in range(0, per * steps, per)]
+
+
 def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
-               global_check=False, levels=1, leaf_bytes=None, bounds=None):
+               global_check=False, levels=1, leaf_bytes=None, bounds=None,
+               runner=None, mc_check=""):
     """One trainer path at full width (``workers`` of them in this
     process): returns its launches, records, peak memory, each launched
     kernel's bound per step (``leaf_bytes``, default ``LEAF_BYTES``,
@@ -628,7 +692,15 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
     every step's allocation is checked: ``sum(k) == K_eff``, ``k_lo <= k
     <= k_hi``; the allocations come back in ``extra["allocs"]``, and the
     peak memory of the steps after step 0 (the host copies are not on
-    the card) as ``extra["peak_after0"]``."""
+    the card) as ``extra["peak_after0"]``.
+
+    ``runner(steps, probe)``, when given, trains instead of the CLI and
+    returns the records (momentum correction has no flag).  ``mc_check``
+    holds, at step 0, momentum correction's zeroing at every index a
+    worker sent: ``"v"`` of the velocities ``resid2``, ``"ev"`` of the
+    residual too (not under gTop-k, whose merge drops land in it).
+    The per-step ``bucket_compress`` ms (CUDA events) come back in
+    ``extra["compress_ms"]``."""
     import numpy as np
 
     from repro_torch.launch import train
@@ -652,6 +724,14 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
             allocs.append((k.copy(), int(K_eff)))
             return
         if rank is None:
+            if mc_check and not seen:
+                R2 = resid2.view(workers, -1)
+                E = resid.view(workers, -1)
+                for w, idx in acc.pop("sel").items():
+                    assert bool((R2[w, idx] == 0).all()), (label, "v'", w)
+                    if "e" in mc_check:
+                        assert bool((E[w, idx] == 0).all()), (label, "e'",
+                                                              w)
             seen.append({n: f.launches for n, f in funcs.items()})
             wire_ev.append((last[0], event()))
             if len(seen) == 1:
@@ -677,6 +757,9 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
             if G is None:
                 G = u_host.pop(rank)
             conserves(G, values, indices, new_E, label, torch)
+            if mc_check:
+                i = indices.reshape(-1).long()
+                acc.setdefault("sel", {})[rank] = i[i >= 0]
             if global_check:
                 if "G" in acc:
                     acc["G"] += G
@@ -686,11 +769,14 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
         last[0] = event()
 
     torch.cuda.reset_peak_memory_stats()
-    launches, records = drive(
-        label, lambda: train.run(argv + ["--steps", str(steps),
-                                         "--log-every", "1"], probe=probe,
-                                 cfg=cfg),
-        expect, steps)
+    timer = CompressTimer(torch)
+    with timer:
+        launches, records = drive(
+            label, (lambda: runner(steps, probe)) if runner else
+            (lambda: train.run(argv + ["--steps", str(steps),
+                                       "--log-every", "1"], probe=probe,
+                                   cfg=cfg)),
+            expect, steps)
     peaks["after0"] = torch.cuda.max_memory_allocated()
     torch.cuda.synchronize()
     wire_ms = [a.elapsed_time(b) for a, b in wire_ev]
@@ -700,7 +786,10 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
     losses = [r["loss"] for r in records]
     assert all(math.isfinite(x) for x in losses), (label, losses)
     for r in records:
-        assert r["density"] <= levels * r["density_cap"], (label, r)
+        # randk, dgck and rtopk send exactly their capacity: up to the
+        # f32 rounding of nnz / d, density is the cap
+        assert r["density"] <= levels * r["density_cap"] * (1 + 2**-22), (
+            label, r)
     if bounds is not None:
         assert len(allocs) == steps, (label, "allocations", len(allocs))
         for r, (k, K_eff) in zip(records, allocs):
@@ -724,7 +813,8 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
         log(f"  {label}: step 0 sum_w e'_w + W*mean == sum_w G_w, largest "
             f"difference {acc['err']:.3g} (bound 2**-19 * sum_w |G_w|, "
             f"largest {acc['tol']:.3g})")
-    extra = {"wire_ms": wire_ms, "conservation": dict(
+    extra = {"wire_ms": wire_ms, "compress_ms": timer.per_step(steps),
+             "conservation": dict(
         (k, acc[k]) for k in ("err", "tol") if k in acc),
         "allocs": allocs, "peak_after0": peaks["after0"]}
     return launches, records, peak, step_bound, extra
@@ -1113,6 +1203,356 @@ def phase6_adaptive(torch, by_path, llama_adaptive, fixed_step_ms,
     return out
 
 
+# jax.random's answers in its partitionable threefry scheme (jax >= 0.5's
+# default), hard-coded: the card's machine has no jax
+PRNG_KNOWN = {"split(PRNGKey(0), 3)[1]": (928981903, 3453687069),
+              "fold_in(PRNGKey(0), 5)": (1524306142, 1887795613),
+              "bits(PRNGKey(42), (4,))": [2098992034, 2919706841,
+                                          2646866425, 2409546199],
+              "randint(PRNGKey(7), (4,), 0, 262668288)": [
+                  10325791, 133713254, 116150652, 246431725],
+              "uniform(PRNGKey(0), (3,))": [0.9476670, 0.9785799,
+                                            0.3322915]}
+
+
+def phase7a_prng(torch, rows, timed) -> dict:
+    """The ``threefry_bits`` kernel bitwise against its plain version on
+    the card (draws and rank keys, 2^26 counters, counts that are not
+    multiples of the block, and the main path's two largest leaf rows:
+    embed's 262,668,288 and w_gate's 268,435,456), the PRNG's known
+    answers drawn on the card, and (``timed``) the kernel's ms at
+    268,435,456 draws beside its plain version's and its bound."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.kernels.prng import threefry
+    key = prng.fold_in(prng.PRNGKey(0), 7)
+    sizes = (1 << 26, (1 << 26) + 77, 1_000_003, 128256 * 2048, BIG_LEAF)
+    for n in sizes:
+        for dt in (torch.int32, torch.int64):
+            out = torch.empty(n, dtype=dt, device="cuda")
+            threefry.threefry_bits(key, out)
+            plain = threefry.threefry_bits_plain(
+                key, 0, n, rank=dt == torch.int64, device="cuda")
+            assert torch.equal(out, plain), ("threefry_bits", n, dt)
+            del out, plain
+    torch.cuda.empty_cache()
+    k0 = prng.PRNGKey(0)
+    got = {"split(PRNGKey(0), 3)[1]": prng.split(k0, 3)[1],
+           "fold_in(PRNGKey(0), 5)": prng.fold_in(k0, 5),
+           "bits(PRNGKey(42), (4,))": prng.bits(
+               prng.PRNGKey(42), (4,), device="cuda").tolist(),
+           "randint(PRNGKey(7), (4,), 0, 262668288)": prng.randint(
+               prng.PRNGKey(7), (4,), 0, 262668288, device="cuda").tolist()}
+    for name, want in got.items():
+        assert want == PRNG_KNOWN[name], (name, want)
+    u = prng.uniform(k0, (3,), device="cuda").cpu().numpy()
+    np.testing.assert_allclose(u, PRNG_KNOWN["uniform(PRNGKey(0), (3,))"],
+                               rtol=0, atol=5e-8)
+    log(f"phase 7a: threefry_bits bitwise its plain version at "
+        f"{list(sizes)} counters (int32 draws and int64 rank "
+        f"keys); the known answers of jax.random equal: {got}, uniform "
+        f"{u.tolist()}")
+    out = {"known_answers": got}
+    if not timed:
+        return out
+    n = BIG_LEAF
+    buf = torch.empty(n, dtype=torch.int32, device="cuda")
+    k_ms = time_ms(lambda: threefry.threefry_bits(key, buf), 20)
+    keys = torch.empty(n, dtype=torch.int64, device="cuda")
+    r_ms = time_ms(lambda: threefry.threefry_bits(key, keys), 20)
+    assert torch.equal(keys, threefry.threefry_bits_plain(
+        key, 0, n, rank=True, device="cuda")), ("threefry_bits timed", n)
+    del keys
+    torch.cuda.empty_cache()
+    p_ms = time_ms(lambda: threefry.threefry_bits_plain(key, 0, n,
+                                                        device="cuda"),
+                   3, warmup=1)
+    # the timed launches' draws, bitwise the plain version's
+    plain = threefry.threefry_bits_plain(key, 0, n, device="cuda")
+    assert torch.equal(buf, plain), ("threefry_bits timed", n)
+    err = float((plain.long() - buf.long()).abs().max())
+    del plain, buf
+    torch.cuda.empty_cache()
+    t_bytes = 4 * n / HBM_BYTES_PER_S * 1e3
+    t_ops = THREEFRY_OPS * n / INT32_OPS_PER_S * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                             "operations")
+    rows["threefry_bits"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                 bound_by=b_by, max_abs_err=err,
+                                 library_ms=None, ms_rank_keys=r_ms)
+    log(f"  threefry_bits at {n:,} draws: {k_ms:.3f} ms (rank keys "
+        f"{r_ms:.3f} ms), plain {p_ms:.1f} ms, bound {b_ms:.3f} ms "
+        f"({b_by}: {THREEFRY_OPS} INT32 operations a draw at "
+        f"{INT32_OPS_PER_S / 1e12:.1f} T/s; the 1 GiB of writes takes "
+        f"{t_bytes:.3f} ms)")
+    out.update(ms=k_ms, ms_rank_keys=r_ms, plain_ms=p_ms, bound_ms=b_ms)
+    return out
+
+
+def mc_runner(torch, cfg, compressor, mesh="1x1", workers=1):
+    """``runner`` for :func:`train_path`: DGC momentum correction 0.9
+    through the library entry points (``CompressionConfig``,
+    ``init_train_state``, ``make_train_step``), plain SGD on the server,
+    batch 8 x 128 from ``batch_for``."""
+    def run(steps, probe):
+        from repro_torch.core.compression import CompressionConfig
+        from repro_torch.data import batch_for
+        from repro_torch.dist.layout import build_layout
+        from repro_torch.dist.wire import LocalWire
+        from repro_torch.launch.mesh import parse_mesh
+        from repro_torch.models import init_params
+        from repro_torch.optim import constant, sgd_momentum
+        from repro_torch.train import init_train_state, make_train_step
+        strategy = "gtopk" if workers > 1 else "allgather"
+        comp = CompressionConfig(compressor=compressor, ratio=RATIO,
+                                 strategy=strategy, momentum_correction=0.9)
+        params = init_params(cfg, 0, "cuda")
+        layout = build_layout(params, 1, comp)
+        opt = sgd_momentum(0.0)
+        state = init_train_state(params, opt, workers=workers, model_size=1,
+                                 compression=comp, layout=layout)
+        step = make_train_step(cfg, mesh, opt, constant(0.1),
+                               compression=comp, layout=layout, probe=probe,
+                               wire=LocalWire(parse_mesh(mesh)))
+        records = []
+        for i in range(steps):
+            b = batch_for(cfg, i, global_batch=8, seq_len=128,
+                          device="cuda")
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            rec = {"step": i, "ms": (time.perf_counter() - t0) * 1e3}
+            rec.update({k: float(v) for k, v in m.items()})
+            records.append(rec)
+        return records
+    return run
+
+
+def phase7_keyed(torch, by_path, rows, base, cfg) -> dict:
+    """Phase 7, slice 4: the PRNG, the key-sampled compressors and DGC
+    momentum correction on the card.
+
+    7a. :func:`phase7a_prng`;
+    7b. llama3.2-1b at full width and depth, world 1, 4 steps each (step
+        0 warms up; 1-3 are the steady ones), with the launch counters set
+        to 0 just before each path and read just after: ``randk`` fixed-k
+        (12 ``threefry_bits`` a step: one per leaf row) and with the
+        arch's ``variance`` policy, ``dgck`` (fixed-k: no dynamic-k path),
+        ``rtopk`` fixed-k and ``variance`` (plain torch: no kernel),
+        Gaussian-k with momentum correction 0.9 (the reference branch,
+        plain torch) and hist-k with momentum correction 0.9 (12 K4d and
+        12 K4c a step); step-0 conservation bitwise, under momentum
+        correction ``v'`` and ``e'`` zero at every sent index, finite
+        losses; step ms, compress ms and peak memory;
+    7c. card against CPU on the small config (2 layers, d_model 64), 2
+        steps each, the CPU at the card's block geometry: losses within
+        rtol 1e-4, the allocations equal; ``randk``'s wire indices
+        bitwise every step (its draws do not depend on the values); and
+        for every path the card's step-0 compression input replayed
+        through ``bucket_compress`` on the CPU with the same key gives
+        the card's wire pair and new residual bitwise, under momentum
+        correction step 1's too (from the card's ``e`` and ``v`` after
+        step 0: the first step where ``mu * v`` is not 0), with ``v'``
+        (the gradients themselves differ in the last bits between the
+        two devices, which can move a value-dependent selection);
+    7d. four workers on the card (``LocalWire``) at full width with 4
+        layers, 2 steps: ``randk`` fixed-k over allgather (48
+        ``threefry_bits`` a step) and Gaussian-k with momentum correction
+        0.9 over gTop-k (``v'`` zero at every sent index, gTop-k's
+        conservation across the workers)."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import adaptk
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.compressors import get_compressor
+    from repro_torch.data import lm_batch
+    from repro_torch.dist import aggregate
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.kernels.ef_fused import tuning
+    from repro_torch.optim import constant, sgd_momentum
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import step_keys
+
+    out = {"7a": phase7a_prng(torch, rows, timed=True)}
+    llama = get_config("llama3.2-1b")
+    pol = adaptk.make_policy("variance")
+    base_argv = ["--arch", "llama3.2-1b", "--batch", "8", "--seq", "128"]
+    fixed = ["--density-policy", "none"]
+    draws = {"threefry_bits": 12}
+    paths = (   # label, argv or None (MC), expect, compressor, adaptive
+        ("7b randk fixed-k", fixed + ["--compressor", "randk"], draws,
+         "randk", False),
+        ("7b randk variance", ["--compressor", "randk"], draws, "randk",
+         True),
+        ("7b dgck", ["--compressor", "dgck"], {}, "dgck", False),
+        ("7b rtopk fixed-k", fixed + ["--compressor", "rtopk"], {}, "rtopk",
+         False),
+        ("7b rtopk variance", ["--compressor", "rtopk"], {}, "rtopk", True),
+        ("7b gaussiank MC 0.9", None, {}, "gaussiank", False),
+        ("7b histk MC 0.9", None, {"abs_histogram": 12,
+                                   "threshold_compact": 12}, "histk",
+         False))
+    for label, argv, expect, name, adaptive in paths:
+        log(f"phase {label}: llama3.2-1b at full width and depth, 4 steps")
+        bnds = None
+        if adaptive:
+            lay = adaptive_layout(llama, name, pol)
+            bnds = ([s.k_lo for s in lay.segments],
+                    [s.k_hi for s in lay.segments])
+        by_path[label], records, peak, _, extra = train_path(
+            label, base_argv + (argv or []), expect, 4, torch,
+            bounds=bnds, runner=None if argv else mc_runner(torch, llama,
+                                                            name),
+            mc_check="" if argv else "ev")
+        steady = [r["ms"] for r in records[1:]]
+        out[label] = {"losses": [r["loss"] for r in records],
+                      "step_ms": [r["ms"] for r in records],
+                      "compress_ms": extra["compress_ms"],
+                      "steady_step_ms": statistics.median(steady),
+                      "steady_compress_ms": statistics.median(
+                          extra["compress_ms"][1:]),
+                      "peak_mem_gib": peak / 2**30,
+                      "density": [r["density"] for r in records],
+                      "density_cap": records[0]["density_cap"]}
+        if adaptive:
+            out[label]["k_total"] = [r["k_total"] for r in records]
+        assert peak < 80e9, (label, "peak memory", peak)
+        log(f"  {label}: steady step {out[label]['steady_step_ms']:.1f} ms, "
+            f"compress {out[label]['steady_compress_ms']:.1f} ms (medians "
+            f"of steps 1-3), peak {peak / 2**30:.2f} GiB")
+        del records
+        torch.cuda.empty_cache()
+
+    small = {}
+    cases = (("randk", None, 0.0), ("randk", "variance", 0.0),
+             ("dgck", None, 0.0), ("rtopk", None, 0.0),
+             ("rtopk", "variance", 0.0), ("gaussiank", None, 0.9),
+             ("histk", None, 0.9))
+    for name, policy, mc in cases:
+        comp = CompressionConfig(
+            compressor=name, ratio=0.01, momentum_correction=mc,
+            density_policy=adaptk.make_policy(policy) if policy else None)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            params = tree.tree_map(lambda x: x.clone().to(dev), base)
+            layout = build_layout(params, 1, comp)
+            opt = sgd_momentum(0.0 if mc else 0.9)
+            state = init_train_state(params, opt, workers=1, model_size=1,
+                                     compression=comp, layout=layout)
+            # per step: the compression's input (G, or u under a policy),
+            # its wire pair and e', and the state's residuals after it
+            rec = {"idx": [], "alloc": [], "in": [], "out": [], "E": [],
+                   "V": []}
+
+            def probe(rank, G=None, u=None, values=None, indices=None,
+                      new_E=None, k_alloc=None, rec=rec, **_):
+                if k_alloc is not None:
+                    rec["alloc"].append(np.asarray(k_alloc).copy())
+                if u is not None:
+                    rec["in"].append(u.cpu().clone())
+                if indices is not None:
+                    if G is not None:
+                        rec["in"].append(G.cpu().clone())
+                    rec["out"].append([x.cpu().clone()
+                                       for x in (values, indices, new_E)])
+                    rec["idx"].append(indices.cpu().clone())
+
+            step = make_train_step(cfg, (1, 1), opt, constant(0.1),
+                                   compression=comp, layout=layout,
+                                   probe=probe)
+            ls = []
+            with tuning.geometry_of("cuda"):
+                for i in range(2):
+                    b = lm_batch(i, global_batch=4, seq_len=16,
+                                 vocab=cfg.vocab_size, device=dev)
+                    state, m = step(state, b)
+                    ls.append(float(m["loss"]))
+                    rec["E"].append(state["resid"].cpu().clone())
+                    if mc:
+                        rec["V"].append(state["resid2"].cpu().clone())
+            got[dev] = (ls, rec, layout)
+        label = f"{name} {policy or 'fixed-k'} mc={mc}"
+        (lc, rc, _), (lp, rp, lay_cpu) = got["cuda"], got["cpu"]
+        np.testing.assert_allclose(lc, lp, rtol=1e-4)
+        for a, b in zip(rc["alloc"], rp["alloc"]):
+            np.testing.assert_array_equal(a, b)
+        if name == "randk":
+            for a, b in zip(rc["idx"], rp["idx"]):
+                assert torch.equal(a, b), (label, "randk indices")
+        # the card's compression input through the CPU's bucket_compress
+        # with the same key: step 0, and under momentum correction step 1
+        # too, from the card's e and v after step 0 (v is 0 before step 0,
+        # so only step 1 exercises mu * v)
+        D = lay_cpu.d_row_total
+        zeros = torch.zeros((1, D))
+        for t in range(2 if mc else 1):
+            E = rc["E"][t - 1].view(1, D).clone() if t else zeros.clone()
+            V = (rc["V"][t - 1].view(1, D).clone() if t else zeros.clone()
+                 ) if mc else None
+            with tuning.geometry_of("cuda"):
+                if policy:
+                    v, i, ne = aggregate.bucket_compress(
+                        None, rc["in"][t].view(1, D).clone(), lay_cpu,
+                        get_compressor(name), step_keys(0, t, [0])[0],
+                        k_alloc=rc["alloc"][t])
+                else:
+                    v, i, ne = aggregate.bucket_compress(
+                        rc["in"][t].view(1, D), E, lay_cpu,
+                        get_compressor(name), step_keys(0, t, [0])[0],
+                        momentum=mc, V=V)
+            for a, b, what in zip((v, i, ne), rc["out"][t],
+                                  ("values", "indices", "e'")):
+                assert torch.equal(a, b.view(a.shape)), (label, "replay",
+                                                         t, what)
+            if mc:
+                assert torch.equal(V, rc["V"][t].view(1, D)), (
+                    label, "replay", t, "v'")
+        small[label] = {"cuda": lc, "cpu": lp}
+        log(f"phase 7c: {label}: card {lc} vs CPU {lp} within rtol 1e-4; "
+            f"the card's step-0 wire pair and e' bitwise the CPU's "
+            f"bucket_compress of the same input"
+            + (", and step 1's and v' from the card's e and v"
+               if mc else "")
+            + ("; indices bitwise every step" if name == "randk" else ""))
+    out["7c"] = small
+
+    cfg4 = llama_layers(4)
+    log("phase 7d: randk fixed-k, --host-devices 4 --mesh 4x1 --strategy "
+        "allgather, full width with 4 layers, 2 steps")
+    label = "7d randk allgather W=4"
+    by_path[label], records, peak, _, extra = train_path(
+        label, base_argv + fixed + ["--compressor", "randk",
+                                    "--host-devices", "4", "--mesh", "4x1",
+                                    "--strategy", "allgather"],
+        {"threefry_bits": 48}, 2, torch, workers=4, cfg=cfg4)
+    out[label] = {"losses": [r["loss"] for r in records],
+                  "step_ms": [r["ms"] for r in records],
+                  "compress_ms": extra["compress_ms"],
+                  "wire_ms": extra["wire_ms"],
+                  "peak_mem_gib": peak / 2**30}
+    del records
+    torch.cuda.empty_cache()
+    log("phase 7d: gaussiank with momentum correction 0.9, 4 workers, "
+        "gtopk, full width with 4 layers, 2 steps")
+    label = "7d gaussiank MC 0.9 gtopk W=4"
+    by_path[label], records, peak, _, extra = train_path(
+        label, [], {}, 2, torch, workers=4, global_check=True,
+        runner=mc_runner(torch, cfg4, "gaussiank", mesh="4x1", workers=4),
+        mc_check="v")
+    out[label] = {"losses": [r["loss"] for r in records],
+                  "step_ms": [r["ms"] for r in records],
+                  "compress_ms": extra["compress_ms"],
+                  "wire_ms": extra["wire_ms"],
+                  "peak_mem_gib": peak / 2**30,
+                  "conservation": extra["conservation"]}
+    del records
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1157,9 +1597,10 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
     pipelines = rows.pop("pipelines", None)
     if kernels_only:
+        phase7a_prng(torch, rows, timed=False)
         log(json.dumps({"kernels": list(rows.values()),
                         "pipelines": pipelines}))
-        log("kernels-only run: phases 3-4 skipped")
+        log("kernels-only run: phases 3-7 skipped (7a run untimed)")
         return 0
 
     # -- phase 3: the paths at full width --
@@ -1386,6 +1827,9 @@ def main(argv) -> int:
         fixed_step_ms=main_path["step_ms"], fixed_peak=main_path[
             "peak_mem_gib"], base=base, cfg=cfg)
 
+    # -- phase 7: the PRNG, the keyed compressors, momentum correction --
+    phase7 = phase7_keyed(torch, by_path, rows, base, cfg)
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -1394,6 +1838,7 @@ def main(argv) -> int:
     log(json.dumps({"pipelines": pipelines, "main_path": main_path,
                     "path_a": path_a, "path_b": path_b, "path_d": path_d,
                     "small": small, "phase5": phase5, "phase6": phase6,
+                    "phase7": phase7,
                     "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(json.dumps({"kernels": list(rows.values())}))

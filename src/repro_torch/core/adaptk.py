@@ -32,7 +32,6 @@ import torch
 
 from repro_torch.core import codec
 from repro_torch.core.compressors import CompressorSpec, gaussian_threshold
-from repro_torch.slices import not_ported
 
 F32 = np.float32
 
@@ -306,9 +305,10 @@ def select_dynamic(spec: CompressorSpec, u: torch.Tensor, k, k_cap: int,
     """Fixed-capacity selection with a per-step budget ``k`` (an int32
     scalar in ``[1, k_cap]``): sentinel-padded ``(values, indices)`` of
     shape ``(min(k_cap, d),)``.  Threshold compressors take ``k`` into
-    their f32 threshold math; ``topk`` ranks at the capacity and
-    sentinels out ranks ``>= k``.  Raises for compressors without a
-    dynamic path."""
+    their f32 threshold math; ``topk``, ``randk`` and ``rtopk`` (the
+    last two with the row's ``key``) rank at the capacity and sentinel
+    out ranks ``>= k``.  Raises for compressors without a dynamic
+    path."""
     name = spec.name
     if name not in DYNAMIC_COMPRESSORS:
         raise ValueError(
@@ -318,15 +318,15 @@ def select_dynamic(spec: CompressorSpec, u: torch.Tensor, k, k_cap: int,
             f"{DYNAMIC_COMPRESSORS}.  Run {name!r} fixed-k instead: drop "
             f"--density-policy on the CLI (density_policy=None in "
             f"aggregate_compressed / make_train_step).")
-    if name in ("randk", "rtopk"):
-        raise not_ported(f"the dynamic-k {name}", name)
     k = np.int32(k)
     d = u.shape[0]
     k_cap = min(k_cap, d)
-    if name == "topk":
-        idx = spec.select(u, k_cap)[1]
+    if name in ("topk", "randk", "rtopk"):
+        # rank at the capacity (rtopk: its sample sized from it too) and
+        # sentinel out ranks >= k
+        values, idx = spec.select(u, k_cap, key)
         keep = torch.arange(k_cap, device=u.device) < int(k)
-        values = torch.where(keep, u[idx.long()],
+        values = torch.where(keep, values,
                              torch.zeros((), dtype=u.dtype, device=u.device))
         indices = torch.where(keep, idx, codec.SENTINEL)
         return values, indices

@@ -77,6 +77,14 @@ def decode(values: torch.Tensor, indices: torch.Tensor, d: int
     return out[:d]
 
 
+def keep_mask(indices: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """DGC's rule for the coordinates a pair sent: ``1 − clip(decode(1,
+    indices), 0, 1)``, a dense ``(d,)`` mask of 0 at every sent index and
+    1 elsewhere (sentinels send nothing), as the reference writes it."""
+    ones = torch.ones(indices.shape, dtype=dtype, device=indices.device)
+    return 1.0 - torch.clamp(decode(ones, indices, d), 0.0, 1.0)
+
+
 def decode_add(dense: torch.Tensor, values: torch.Tensor,
                indices: torch.Tensor) -> torch.Tensor:
     """Scatter-add a pair into a copy of ``dense`` (same semantics as

@@ -3,8 +3,8 @@
 
 :class:`CompressionConfig` carries what to compress with and how to move
 it; construction validates it as the reference does.  Values the port
-does not carry yet (momentum correction, chunking) are accepted by the
-vocabulary checks and then rejected by
+does not carry yet (chunking) are accepted by the vocabulary checks and
+then rejected by
 :meth:`CompressionConfig.require_ported` with an error naming the slice
 that ports them.
 """
@@ -101,8 +101,6 @@ class CompressionConfig:
 
     def require_ported(self) -> "CompressionConfig":
         """Raise for every field value the port does not run yet."""
-        if self.momentum_correction:
-            raise not_ported("momentum correction", "momentum_correction")
         if self.chunks != 1:
             raise not_ported("chunks > 1", "chunks")
         return self

@@ -1,8 +1,10 @@
 """Sparsification operators (port of ``repro.core.compressors``).
 
 Every compressor maps a flat vector ``u = g + e`` to a fixed-capacity
-``(values, indices)`` pair (``codec.py``).  The port carries the
-key-free operators:
+``(values, indices)`` pair (``codec.py``).  The key-sampled operators
+(``needs_key``) take a ``repro_torch.prng`` key and draw exactly the
+reference's ``jax.random`` bits, so their selections are the
+reference's, index for index:
 
 =============  ==========================================  ==========
 name           selection rule                              k_cap
@@ -16,10 +18,16 @@ name           selection rule                              k_cap
                between mean(|u|) and max(|u|)
 ``histk``      quarter-octave histogram threshold (K4d)    ceil(4k/3)
                + block compaction (K4c)
+``randk``      k uniform indices without replacement: the  k
+               top-k of one uniform per coordinate
+``dgck``       DGC: threshold from a strided sample,       k
+               exact top-k among the candidates above it
+``rtopk``      rTop-k: exact top-k within a strided        k
+               sample of ``4k`` coordinates
 =============  ==========================================  ==========
 
-The key-sampled names (``randk``, ``dgck``, ``rtopk``) raise
-``NotImplementedError`` naming the slice that ports them.
+Every top-k here follows ``lax.top_k``'s order: descending, and of equal
+scores the lower index first.
 """
 from __future__ import annotations
 
@@ -30,8 +38,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import codec
-from repro_torch.slices import not_ported
 
 
 class CompressorSpec(NamedTuple):
@@ -158,6 +166,63 @@ def histk_select(u: torch.Tensor, k: int, key=None):
     return histk_select_kernel(u, k)
 
 
+def randk_select(u: torch.Tensor, k: int, key):
+    """``Rand_k``: k uniform indices without replacement, the top-k of
+    ``uniform(key, u.shape)`` in ``lax.top_k``'s order (one rank key per
+    coordinate from the ``threefry_bits`` kernel on the card)."""
+    idx = torch.topk(prng.rank_keys(key, u.shape[0], device=u.device),
+                     k).indices
+    return u[idx], idx.to(torch.int32)
+
+
+def _strided_sample(key, d: int, s: int, device) -> torch.Tensor:
+    """``s`` distinct indices in ``[0, d)``: a random-phase systematic
+    sample, stride ``d // s`` from a phase drawn on the host
+    (``randint(key, (), 0, d)``).  int64."""
+    stride = max(1, d // s)
+    offset = prng.randint_scalar(key, 0, d)
+    return (offset + stride * torch.arange(s, device=device)) % d
+
+
+def dgck_select(u: torch.Tensor, k: int, key, sample_ratio: float = 0.01):
+    """``DGC_k``: the threshold is the ``ks``-th largest ``|u|`` of a
+    strided sample; the candidates at or above it are compacted (capped
+    at 2k) and the exact top-k of the candidates is kept.  The sizes are
+    the reference's f64 arithmetic on Python ints."""
+    d = u.shape[0]
+    s = max(k, int(math.ceil(sample_ratio * d)))
+    s = min(s, d)
+    # bias the sampled threshold low (x1.5) so candidates over-cover k
+    ks = max(1, min(s, int(math.ceil(1.5 * k * s / d))))
+    samp = torch.abs(u[_strided_sample(key, d, s, u.device)])
+    thres = torch.topk(samp, ks).values[-1]
+    cand_cap = min(d, 2 * k)
+    cvals, cidx = codec.compact_by_mask(u, torch.abs(u) >= thres, cand_cap)
+    # exact top-k among the candidates (sentinel slots have value 0)
+    vals, sel = topk_select(cvals, k)
+    return vals, cidx[sel.long()]
+
+
+def rtopk_sample_size(k: int, d: int, sample_mult: float = 4.0) -> int:
+    """Static sample width ``r = clip(ceil(sample_mult·k), k, d)``."""
+    return max(k, min(d, int(math.ceil(sample_mult * k))))
+
+
+def rtopk_select(u: torch.Tensor, k: int, key, sample_mult: float = 4.0):
+    """``rTop_k`` (Barnes et al. 2020): exact top-k within a strided
+    sample of ``r`` coordinates — ``k`` distinct pairs, no sentinels."""
+    d = u.shape[0]
+    sidx = _strided_sample(key, d, rtopk_sample_size(k, d, sample_mult),
+                           u.device)
+    vals, sel = topk_select(u[sidx], k)
+    return vals, sidx[sel.long()].to(torch.int32)
+
+
+def rtopk_cap(k: int, d: int) -> int:
+    # the in-sample top-k returns exactly k duplicate-free pairs
+    return min(d, k)
+
+
 _REGISTRY = {
     "topk": CompressorSpec("topk", topk_select, lambda k, d: k),
     "gaussiank": CompressorSpec("gaussiank", gaussiank_select, gaussiank_cap),
@@ -167,21 +232,22 @@ _REGISTRY = {
     "trimmedk": CompressorSpec("trimmedk", trimmedk_select,
                                lambda k, d: min(d, 2 * k)),
     "histk": CompressorSpec("histk", histk_select, gaussiank_cap),
+    "randk": CompressorSpec("randk", randk_select, lambda k, d: k,
+                            needs_key=True),
+    "dgck": CompressorSpec("dgck", dgck_select, lambda k, d: k,
+                           needs_key=True),
+    "rtopk": CompressorSpec("rtopk", rtopk_select, rtopk_cap,
+                            needs_key=True),
 }
-# registered in the reference, ported by a later slice
-_LATER = ("randk", "dgck", "rtopk")
 
 
 def get_compressor(name: str) -> CompressorSpec:
-    if name in _LATER:
-        raise not_ported(f"compressor {name!r}", name)
     if name not in _REGISTRY:
         raise KeyError(f"unknown compressor {name!r}; have "
-                       f"{sorted(_REGISTRY) + sorted(_LATER)}")
+                       f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def available() -> list:
-    """The compressors this slice runs."""
     return sorted(_REGISTRY)
 

@@ -3,14 +3,14 @@
 
 ``lm_batch`` is the reference's seeded affine-recurrence token stream
 with sparse noise — next-token structure exists, so the loss falls —
-drawn from a ``torch.Generator`` seeded by ``(seed, step)``.  The bits
-differ from ``jax.random``'s; the recurrence is the same.  Tests that
-compare with the reference feed both packages the same numpy batch.
+drawn from the port's ``jax.random``-exact PRNG (``repro_torch.prng``):
+the same ``(seed, step)`` gives the reference's tokens, bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.devices import resolve_device
 
 
@@ -18,19 +18,20 @@ def lm_batch(step: int, *, global_batch: int, seq_len: int, vocab: int,
              seed: int = 0, device="cuda"):
     """``{"tokens", "labels"}`` int64 ``(B, S)`` on ``device`` (the card
     unless told ``"cpu"``; raises without a GPU); labels are the tokens
-    shifted by one."""
+    shifted by one.  The ``B·(S+1)`` draws and the recurrence run on the
+    host, as a data loader's would, and the batch is copied over."""
     device = resolve_device(device)
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed((int(seed) << 32) ^ (int(step) & 0xFFFFFFFF))
-    start = torch.randint(0, vocab, (global_batch,), generator=gen)
+    B, n = global_batch, seq_len + 1
+    key = prng.fold_in(prng.PRNGKey(seed), step)
+    k1, k2, k3 = prng.split(key, 3)
+    start = prng.randint(k1, (B, 1), 0, vocab, device="cpu")[:, 0]
     mult = 31 % vocab
     # affine recurrence with sparse noise: t_{i+1} = (a*t_i + 7 + eps) % V
-    bern = torch.rand((global_batch, seq_len + 1), generator=gen) < 0.1
-    noise = bern.long() * torch.randint(0, vocab, (global_batch, seq_len + 1),
-                                        generator=gen)
-    toks = torch.empty((global_batch, seq_len + 1), dtype=torch.int64)
+    noise = (prng.bernoulli(k2, 0.1, (B, n), device="cpu").long()
+             * prng.randint(k3, (B, n), 0, vocab, device="cpu"))
+    toks = torch.empty((B, n), dtype=torch.int64)
     t = start
-    for i in range(seq_len + 1):
+    for i in range(n):
         t = (t * mult + 7 + noise[:, i]) % vocab
         toks[:, i] = t
     return {"tokens": toks[:, :-1].to(device),

@@ -7,7 +7,8 @@ branches and ``_wire_cast_fixup``, the adaptive-density pieces
 ``encode_bucket_topk`` / ``gtopk_round_plan`` / ``_gtopk_reduce_rounds``
 / ``_gtopk_reduce_bucket`` / ``gtopk_simulate``, ``_gather_mean``,
 ``aggregate_dense``, ``_wire_config`` and ``aggregate_bucketed`` for the
-four wire strategies).
+four wire strategies, with the keyed compressors' per-segment keys and
+DGC momentum correction).
 
 Per step and per worker: pack the worker's gradients into the
 ``(model_size, d_row_total)`` bucket and compress it against the
@@ -35,6 +36,18 @@ and dropped after, so one process holding W workers keeps one worker's
 gradients at a time; the gathered block is decoded into ONE dense
 bucket, never into a ``(W, M, D)`` stack.
 
+The key-sampled compressors (``randk``, ``dgck``, ``rtopk``) are keyed
+as the reference keys them: a worker's step key, folded with each
+segment's stable salt (``layout.leaf_key_salt``) and, at the second
+level of the two-level strategies, with 1; the rows of a segment take
+``split(segment key, M)``, even at ``M = 1``.
+
+``momentum_correction > 0`` is DGC's client-side momentum (Lin et al.
+2018, §3.1): ``v = μ·v + g``, ``u = e + v``; the coordinates that reach
+the wire are zeroed in ``v``.  ``resid2`` holds ``v`` (so momentum
+correction excludes the two-level strategies), and the compression takes
+the reference branch, as in the reference.
+
 Adaptive density (``config.density_policy``) puts a barrier across the
 workers: every worker's pass-A statistics feed one allocation (the
 ``pmean`` of the stacked per-leaf signals) before any worker compresses.
@@ -52,7 +65,7 @@ from typing import Any, Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch import tree
+from repro_torch import prng, tree
 from repro_torch.core import adaptk, codec
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.compressors import CompressorSpec
@@ -69,8 +82,9 @@ from repro_torch.launch.mesh import make_mesh
 class AggregateResult(NamedTuple):
     """``agg`` averaged gradient tree (the same on every worker);
     ``resid`` new flat residual(s); ``resid2`` second-level residual(s)
-    (None unless hierarchical); ``adapt_state`` the adaptive controller
-    state (None unless adaptive with a state); ``metrics``."""
+    or, under momentum correction, the velocities (else None);
+    ``adapt_state`` the adaptive controller state (None unless adaptive
+    with a state); ``metrics``."""
     agg: Any
     resid: Any
     resid2: Any
@@ -101,12 +115,13 @@ def aggregate_dense(grads, wire):
 # ---------------------------------------------------------------------------
 
 
-def _compress_rows_reference(u_rows, select, codec_dtype=None):
+def _compress_rows_reference(u_rows, select, codec_dtype=None, keys=None):
     """Reference branch over the ``(M, d_row)`` rows of ``u = e + g``:
-    ``select(row)`` per row, the wire cast, ``e' = u - decode(cast
-    values)``."""
+    ``select(row, key)`` per row (``keys[r]``, or None), the wire cast,
+    ``e' = u - decode(cast values)``."""
     d_row = u_rows.shape[1]
-    pairs = [select(u_rows[r]) for r in range(u_rows.shape[0])]
+    pairs = [select(u_rows[r], None if keys is None else keys[r])
+             for r in range(u_rows.shape[0])]
     values = torch.stack([p[0] for p in pairs])
     indices = torch.stack([p[1] for p in pairs])
     if codec_dtype is not None:
@@ -125,14 +140,35 @@ def _row_budget(k, model_size: int, d_row: int) -> np.int32:
 
 
 def _compress_rows_dynamic(u_rows, spec: CompressorSpec, k, k_cap: int,
-                           codec_dtype=None):
+                           codec_dtype=None, keys=None):
     """Reference branch with a per-step leaf budget ``k``: each row
     selects ``adaptk.select_dynamic`` at ``k_row = ceil(k / M)`` into
-    the static capacity ``k_cap``."""
+    the static capacity ``k_cap`` (with its key from ``keys``)."""
     k_row = _row_budget(k, u_rows.shape[0], u_rows.shape[1])
     return _compress_rows_reference(
-        u_rows, lambda r: adaptk.select_dynamic(spec, r, k_row, k_cap),
-        codec_dtype)
+        u_rows, lambda r, key: adaptk.select_dynamic(spec, r, k_row, k_cap,
+                                                     key),
+        codec_dtype, keys)
+
+
+def _zero_velocity(V_rows: torch.Tensor, indices: torch.Tensor) -> None:
+    """``v' = v · codec.keep_mask(indices)`` in place, row by row: the
+    coordinates a row sent are multiplied by 0, the rest by 1.  Dense,
+    with no host sync."""
+    for r in range(V_rows.shape[0]):
+        V_rows[r].mul_(codec.keep_mask(indices[r], V_rows.shape[1],
+                                       V_rows.dtype))
+
+
+def _segment_keys(key, s, key_fold, M: int):
+    """The rows' keys of segment ``s``: ``split(fold_in(key, salt)[,
+    key_fold], M)``; None without a key."""
+    if key is None:
+        return None
+    seg = prng.fold_in(key, s.salt)
+    if key_fold is not None:
+        seg = prng.fold_in(seg, key_fold)
+    return prng.split(seg, M)
 
 
 def _wire_cast_fixup(values, indices, new_e_rows, codec_dtype):
@@ -151,9 +187,10 @@ def _wire_cast_fixup(values, indices, new_e_rows, codec_dtype):
 
 
 def bucket_compress(G: Optional[torch.Tensor], E: torch.Tensor,
-                    layout: BucketLayout, spec: CompressorSpec, *,
-                    backend: str = "auto", codec_dtype=None, k_alloc=None,
-                    seg_stats=None):
+                    layout: BucketLayout, spec: CompressorSpec, key=None, *,
+                    backend: str = "auto", codec_dtype=None,
+                    momentum: float = 0.0, V: Optional[torch.Tensor] = None,
+                    k_alloc=None, seg_stats=None, key_fold=None):
     """Worker-local EF compression of the packed bucket.
 
     ``G``/``E`` are ``(model_size, d_row_total)`` buckets; ``G=None``
@@ -163,17 +200,26 @@ def bucket_compress(G: Optional[torch.Tensor], E: torch.Tensor,
     when None).  Selection runs per leaf segment with the segment's own
     plan.  ``new_E`` IS ``E``, overwritten in place; ``G`` is only read.
 
+    ``key`` (a ``prng`` key, the worker's) keys the key-sampled
+    compressors: segment ``s`` folds in its salt, then ``key_fold`` when
+    given, and its rows take ``split(·, M)``.  ``momentum > 0`` is DGC
+    momentum correction against the velocity bucket ``V`` (``G`` given):
+    ``V = μ·V + G`` and ``u = E + V`` per segment, then the coordinates
+    sent are zeroed in ``V``, in place; it takes the reference branch.
+
     ``k_alloc`` (the allocator's per-segment ``np.int32`` budgets)
     switches to the dynamic-k path, ``k_row = ceil(k / M)`` per segment;
     ``seg_stats`` hands the segments' pass-A statistics to the fused
     branch (``segmented_pass_a`` of the same operands), which then
-    launches no K1.  (The reference's key and momentum-correction
-    arguments arrive with the slice that ports them.)"""
+    launches no K1."""
     segs = layout.segments
     M = layout.model_size
     adaptive = k_alloc is not None
+    if momentum > 0.0 and (G is None or V is None):
+        raise ValueError("momentum correction needs the gradients G and "
+                         "the velocity bucket V")
     vals, idcs, new_e_blocks = [], [], []
-    if resolve_backend(backend, spec):
+    if momentum == 0.0 and resolve_backend(backend, spec):
         ks = ([_row_budget(k_alloc[i], M, s.d_row)
                for i, s in enumerate(segs)]
               if adaptive else [s.k_row for s in segs])
@@ -189,14 +235,22 @@ def bucket_compress(G: Optional[torch.Tensor], E: torch.Tensor,
     else:
         for si, s in enumerate(segs):
             cols = slice(s.row_off, s.row_off + s.d_row)
-            u = E[:, cols] if G is None else E[:, cols] + G[:, cols]
+            keys = _segment_keys(key, s, key_fold, M)
+            if momentum > 0.0:
+                vel = V[:, cols].mul_(momentum).add_(G[:, cols])
+                u = E[:, cols] + vel
+            else:
+                u = E[:, cols] if G is None else E[:, cols] + G[:, cols]
             if adaptive:
                 v, i, ne = _compress_rows_dynamic(u, spec, k_alloc[si],
-                                                  s.k_cap, codec_dtype)
+                                                  s.k_cap, codec_dtype, keys)
             else:
                 v, i, ne = _compress_rows_reference(
-                    u, lambda r, s=s: spec.select(r, s.k_row, None),
-                    codec_dtype)
+                    u, lambda r, k, s=s: spec.select(r, s.k_row, k),
+                    codec_dtype, keys)
+            if momentum > 0.0:
+                # wire-exchanged coordinates stop accumulating velocity
+                _zero_velocity(vel, i)
             vals.append(v)
             idcs.append(codec.offset_indices(i, s.row_off))
             new_e_blocks.append(ne)
@@ -488,8 +542,9 @@ def _wire_config(strategy: str, wire, with_resid2: bool, mc: float,
     world)``; the world is the wire's (the bound axes'), and the
     two-level strategies fall back to ``allgather`` on a mesh with one
     data axis or without ``resid2``.  Adaptive density refuses momentum
-    correction ``mc`` and a compressor without a dynamic-k path, in the
-    reference's words."""
+    correction ``mc`` and a compressor without a dynamic-k path, and
+    momentum correction refuses the two-level strategies and a missing
+    ``resid2``, in the reference's words."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; have {STRATEGIES}")
     if adaptive and mc > 0.0:
@@ -522,6 +577,16 @@ def _wire_config(strategy: str, wire, with_resid2: bool, mc: float,
     else:
         outer_axis, inner_axes = None, axes
         n_pods, n_inner = 1, world
+    if mc > 0.0 and hier:
+        raise ValueError("momentum_correction reuses resid2 as the DGC "
+                         "velocity state; combine it with the flat or "
+                         "gtopk path, not hierarchical aggregation")
+    if mc > 0.0 and not with_resid2:
+        raise ValueError("momentum_correction needs a velocity state: "
+                         "init_train_state allocates resid2 whenever "
+                         "momentum_correction > 0 (or "
+                         "strategy='hierarchical') in its compression "
+                         "config")
     return strategy, hier, gtopk, outer_gtopk, outer_axis, inner_axes, \
         n_pods, n_inner, world
 
@@ -557,20 +622,26 @@ def _worker_grads(entry, seen: dict):
 
 
 def _compress_workers(grads, E_rows, layout: BucketLayout,
-                      config: CompressionConfig, wire, probe, seen: dict):
+                      config: CompressionConfig, wire, probe, seen: dict,
+                      keys, V_rows=None):
     """Fixed k: pack and compress each local worker's gradients against
-    its residual rows ``E_rows[w]`` (updated in place).  ``grads`` holds
-    one entry per local worker: a gradient tree, or a callable returning
-    it (called in worker order, so only one worker's gradients are alive
-    at a time).  Returns per-worker lists of the wire pairs."""
+    its residual rows ``E_rows[w]`` (updated in place), with its key
+    ``keys[w]`` and, under momentum correction, its velocity rows
+    ``V_rows[w]`` (updated in place).  ``grads`` holds one entry per
+    local worker: a gradient tree, or a callable returning it (called in
+    worker order, so only one worker's gradients are alive at a time).
+    Returns per-worker lists of the wire pairs."""
+    mc = config.momentum_correction
     values, indices = [], []
     for w, entry in enumerate(grads):
         g = _worker_grads(entry, seen)
         G = pack_grads(layout, g, E_rows.dtype)
         del g
         v, i, new_E = bucket_compress(G, E_rows[w], layout, config.spec,
-                                      backend=config.backend,
-                                      codec_dtype=config.codec_dtype)
+                                      keys[w], backend=config.backend,
+                                      codec_dtype=config.codec_dtype,
+                                      momentum=mc,
+                                      V=V_rows[w] if mc > 0.0 else None)
         if probe is not None:
             probe(wire.ranks[w], G=G, values=v, indices=i, new_E=new_E)
         del G
@@ -581,7 +652,7 @@ def _compress_workers(grads, E_rows, layout: BucketLayout,
 
 def _compress_workers_adaptive(grads, E_rows, layout: BucketLayout,
                                config: CompressionConfig, wire, probe,
-                               seen: dict, adapt_state, step):
+                               seen: dict, adapt_state, step, keys):
     """Adaptive density: per local worker, in worker order, ``E_rows[w]
     += G`` (``u`` in place), pass A on ``u``, ``G`` dropped; then the
     allocation across all workers; then each worker's ``u`` compressed
@@ -613,7 +684,7 @@ def _compress_workers_adaptive(grads, E_rows, layout: BucketLayout,
     values, indices = [], []
     for w in range(len(grads)):
         v, i, new_E = bucket_compress(None, E_rows[w], layout, spec,
-                                      backend=config.backend,
+                                      keys[w], backend=config.backend,
                                       codec_dtype=config.codec_dtype,
                                       k_alloc=k_alloc, seg_stats=stats[w])
         if probe is not None:
@@ -627,7 +698,7 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
                        config: CompressionConfig, *, wire=None,
                        resid2: Optional[torch.Tensor] = None,
                        probe: Optional[Callable] = None, adapt_state=None,
-                       step=None) -> AggregateResult:
+                       step=None, keys=None) -> AggregateResult:
     """Eq. (2) sparse aggregation over the bucketed pipeline.
 
     ``grads`` holds one entry per local worker of ``wire`` (a gradient
@@ -636,7 +707,10 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
     bare tree is the one worker's.  ``resid`` (and ``resid2``) are the
     ``(workers, model_size * d_row_total)`` residuals of those workers,
     or ``(flat,)`` for one, updated in place.  ``wire`` defaults to one
-    data axis of that many workers in this process.
+    data axis of that many workers in this process.  ``keys`` holds each
+    local worker's ``prng`` key (the reference's per-worker step key),
+    which the key-sampled compressors need; ``config.momentum_correction``
+    needs ``resid2``, which then holds the velocities.
 
     ``config.density_policy`` switches to adaptive density (the layout
     must be built with the same policy): ``adapt_state`` is the
@@ -678,6 +752,13 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
     if workers != wire.local_workers:
         raise ValueError(f"got gradients of {workers} workers, the wire "
                          f"runs {wire.local_workers} here")
+    if keys is None:
+        if spec.needs_key:
+            raise ValueError(f"compressor {spec.name!r} samples with a "
+                             "key: pass keys=, one prng key per worker")
+        keys = [None] * workers
+    elif len(keys) != workers:
+        raise ValueError(f"got {len(keys)} keys for {workers} workers")
     E_rows = _rows(resid, layout, workers)
     R2_rows = None if resid2 is None else _rows(resid2, layout, workers)
     D = layout.d_row_total
@@ -688,11 +769,11 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
     if adaptive:
         values, indices, k_alloc, K_eff, new_adapt = \
             _compress_workers_adaptive(grads, E_rows, layout, config, wire,
-                                       probe, seen, adapt_state, step)
+                                       probe, seen, adapt_state, step, keys)
     else:
         k_alloc = None
         values, indices = _compress_workers(grads, E_rows, layout, config,
-                                            wire, probe, seen)
+                                            wire, probe, seen, keys, R2_rows)
     nnz = [codec.nnz(i).to(torch.float32) for i in indices]
 
     if gtopk:
@@ -715,9 +796,9 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
         v2s, i2s = [], []
         for w in range(workers):
             v2, i2, _ = bucket_compress(means[w], R2_rows[w], layout, spec,
-                                        backend=config.backend,
+                                        keys[w], backend=config.backend,
                                         codec_dtype=codec_dtype,
-                                        k_alloc=k_alloc)
+                                        k_alloc=k_alloc, key_fold=1)
             v2s.append(v2)
             i2s.append(i2)
             nnz[w] = nnz[w] + codec.nnz(i2).to(torch.float32)

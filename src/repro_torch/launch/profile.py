@@ -75,6 +75,7 @@ def _profile(args, cfg, strategy, policy, wire, dev) -> int:
     from repro_torch.models import init_params, loss_fn
     from repro_torch.optim import adamw, sgd_momentum
     from repro_torch.train import init_train_state
+    from repro_torch.train.step import step_keys
 
     W, L = wire.world, wire.local_workers
     say = print if wire.ranks[0] == 0 else (lambda *a, **k: None)
@@ -119,7 +120,8 @@ def _profile(args, cfg, strategy, policy, wire, dev) -> int:
         res = aggregate.aggregate_bucketed(
             [lambda w=w: grads_of(w) for w in range(L)], state["resid"],
             layout, comp, wire=wire, resid2=state.get("resid2"),
-            probe=probe, adapt_state=state.get("adaptk"), step=i)
+            probe=probe, adapt_state=state.get("adaptk"), step=i,
+            keys=step_keys(args.seed, i, wire.ranks))
         if res.adapt_state is not None:
             state["adaptk"] = res.adapt_state
         ev["agg"] = event()

@@ -28,19 +28,25 @@ strategies (``--strategy allgather|gtopk|hierarchical|hier_gtopk``;
 ``--hierarchical`` is the old spelling of the third) and
 ``--compressor`` ``topk``, ``gaussiank``, ``gaussiank2``, ``histk``
 (``--backend fused``: K1 with its histogram and K3; ``reference``: the
-K4d histogram and K4c compaction) or ``trimmedk`` (plain torch, the
-reference backend); fixed-k, or with adaptive layer-wise density
+K4d histogram and K4c compaction), ``trimmedk`` (plain torch, the
+reference backend) or the key-sampled ``randk``, ``dgck`` and ``rtopk``
+(the reference backend, keyed from ``--seed`` as the reference keys
+them; ``randk`` draws through the ``threefry_bits`` kernel); fixed-k, or
+with adaptive layer-wise density
 (``--density-policy uniform|variance|absmax``, ``--density-floor``,
 ``--density-ceil``, ``--density-ema``, ``--density-warmup[-mult]``,
 ``--global-k-policy normdecay`` with ``--global-k-ema`` and
 ``--global-k-floor``).  As in the reference, a dynamic-k compressor
 takes the arch config's ``density_policy`` unless the flag is given
-(llama3.2-1b: ``variance``; ``--density-policy none`` trains fixed-k).
+(llama3.2-1b: ``variance``; ``--density-policy none`` trains fixed-k),
+so ``randk`` and ``rtopk`` train adaptive by default there while
+``dgck``, which has no dynamic-k path, trains fixed-k.  DGC momentum
+correction has no flag, as in the reference: it is
+``CompressionConfig(momentum_correction=...)``.
 ``--checkpoint`` saves the final state and ``--resume`` starts from one
 (``checkpoint/npz.py``, the JAX package's keys).  Every flag value it
 does not carry raises an error naming the slice that ports it: a model
-axis above 1, ``--strategy auto``, the key-sampled compressors,
-``--chunks > 1``, ``--publish-every``, ``--pipeline perleaf``, and any
+axis above 1, ``--strategy auto``, ``--chunks > 1``, ``--publish-every``, ``--pipeline perleaf``, and any
 value but the default of the flags only those features read, such as
 ``--topology``.
 """
@@ -58,8 +64,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke variant of the arch")
     ap.add_argument("--compressor", default="gaussiank",
-                    help="none|topk|gaussiank|gaussiank2|histk|trimmedk "
-                         "(randk|dgck|rtopk: a later slice)")
+                    help="none|topk|gaussiank|gaussiank2|histk|trimmedk|"
+                         "randk|dgck|rtopk")
     ap.add_argument("--ratio", type=float, default=0.001)
     ap.add_argument("--strategy", default="allgather",
                     choices=["allgather", "gtopk", "hierarchical",
@@ -286,7 +292,8 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
     if args.resume:
         state = load_state(args.resume, state, worker_rows=wire.ranks)
     step = make_train_step(cfg, mesh, opt, lr_fn, compression=config,
-                           layout=layout, probe=probe, wire=wire)
+                           layout=layout, probe=probe, wire=wire,
+                           seed=args.seed)
     lead = wire.ranks[0] == 0
     say = print if lead else (lambda *a, **k: None)
     say(f"arch={cfg.name} compressor={args.compressor} ratio={args.ratio} "

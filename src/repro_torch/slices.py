@@ -13,15 +13,6 @@ LATER = {
                "1 item 8a)",
     "model_axis": "slice 2c (tensor parallelism over the model axis, "
                   "ROADMAP Queue 1 item 8b)",
-    # slice 4 — key-sampled compressors
-    "randk": "slice 4 (key-sampled compressors + PRNG, ROADMAP Queue 1 "
-             "items 9 and 9a)",
-    "dgck": "slice 4 (key-sampled compressors + PRNG, ROADMAP Queue 1 "
-            "items 9 and 9a)",
-    "rtopk": "slice 4 (key-sampled compressors + PRNG, ROADMAP Queue 1 "
-             "items 9 and 9a)",
-    "momentum_correction": "slice 4 (momentum correction, ROADMAP Queue 1 "
-                           "item 9)",
     # slice 6+
     "chunks": "slice 6 (chunked overlap, ROADMAP Queue 1 item 11)",
     "publish": "slice 7 (serve + weight-delta streaming, ROADMAP Queue 1 "

@@ -32,8 +32,8 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
     """``{"params", "opt", "step"[, "resid"[, "resid2"]][, "adaptk"]}``.
     A sparse compressor with ``layout`` allocates the zero residuals
     ``resid`` on the params' device, and ``resid2`` too for the two-level
-    strategies (``hierarchical``, ``hier_gtopk``); Dense-SGD allocates
-    none.  A ``density_policy`` adds the zero controller state
+    strategies (``hierarchical``, ``hier_gtopk``) and for momentum
+    correction (the DGC velocities); Dense-SGD allocates none.  A ``density_policy`` adds the zero controller state
     ``adaptk`` (``signal``, ``count``, and ``gnorm``/``gnorm0`` under a
     global-k policy)."""
     compression = as_config(compression)
@@ -60,7 +60,8 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
 
         state["resid"] = init_flat_residual(layout, workers=workers,
                                             device=leaves[0].device)
-        if compression.strategy in ("hierarchical", "hier_gtopk"):
+        if (compression.strategy in ("hierarchical", "hier_gtopk")
+                or compression.momentum_correction > 0):
             state["resid2"] = init_flat_residual(layout, workers=workers,
                                                  device=leaves[0].device)
         policy = compression.density_policy

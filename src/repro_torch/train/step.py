@@ -15,6 +15,10 @@ one worker over ``torch.distributed`` (``ProcessGroupWire``).  Worker
 (w+1)·B/W)`` of the global batch, as ``batch_specs`` shards the leading
 dim over the joint data axes.  The model axis stays 1.  The residual
 buckets and the params are updated in place.
+
+The key-sampled compressors draw from the reference's keys: step ``t``
+of worker ``w`` uses ``fold_in(fold_in(PRNGKey(seed), t), w)``, derived
+on the host (``repro_torch.prng``).
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch import tree
+from repro_torch import prng, tree
 from repro_torch.core.compression import CompressionConfig, as_config
 from repro_torch.dist import aggregate
 from repro_torch.dist.wire import LocalWire
@@ -45,10 +49,18 @@ def require_data_parallel(mesh):
     return mesh
 
 
+def step_keys(seed: int, step: int, ranks) -> list:
+    """The key-sampled compressors' keys of ``step`` for the workers of
+    joint ranks ``ranks``: ``fold_in(fold_in(PRNGKey(seed), step),
+    rank)``, as the reference's train step keys its workers."""
+    key = prng.fold_in(prng.PRNGKey(seed), step)
+    return [prng.fold_in(key, rank) for rank in ranks]
+
+
 def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
                     compression: Optional[CompressionConfig] = None,
                     layout=None, probe: Optional[Callable] = None,
-                    wire=None):
+                    wire=None, seed: int = 0):
     """Returns ``step_fn(state, batch) -> (state, metrics)``.
 
     ``mesh`` is a Mesh, ``"DxM"``/``"PxDxM"`` or a tuple of sizes;
@@ -59,8 +71,9 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
     Dense-SGD), ratio, strategy, wire dtype and backend; ``layout``
     (built from the same params and config) routes the aggregation
     through the flat bucket.  ``probe`` is handed to
-    :func:`~repro_torch.dist.aggregate.aggregate_bucketed`.  Loss metrics
-    are the mean over the workers."""
+    :func:`~repro_torch.dist.aggregate.aggregate_bucketed`; ``seed`` roots
+    the key-sampled compressors' keys.  Loss metrics are the mean over
+    the workers."""
     compression = as_config(compression)
     mesh = require_data_parallel(mesh)
     wire = LocalWire(mesh) if wire is None else wire
@@ -127,7 +140,8 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
                 [functools.partial(grads_of, w) for w in workers],
                 state["resid"], layout, compression, wire=wire,
                 resid2=state.get("resid2"), probe=probe,
-                adapt_state=state.get("adaptk"), step=state["step"])
+                adapt_state=state.get("adaptk"), step=state["step"],
+                keys=step_keys(seed, state["step"], wire.ranks))
             agg, agg_metrics = res.agg, res.metrics
             if res.adapt_state is not None and "adaptk" in state:
                 state["adaptk"] = res.adapt_state

@@ -686,10 +686,14 @@ def test_cli_adaptive_with_a_fixed_k_compressor_fails_as_the_reference():
         cli.run(_SMOKE + ["--steps", "1", "--compressor", "trimmedk",
                           "--density-policy", "variance"])
     assert str(terr.value) == str(jerr.value)
-    # dgck is a later slice's compressor: the port refuses it first
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    # dgck has no dynamic-k path: the reference's words too
+    with pytest.raises(ValueError) as jerr:
+        jagg._wire_config("allgather", ("data",), None, 1, 0.0, True,
+                          j_get("dgck"))
+    with pytest.raises(ValueError) as terr:
         cli.run(_SMOKE + ["--steps", "1", "--compressor", "dgck",
                           "--density-policy", "variance"])
+    assert str(terr.value) == str(jerr.value)
     with pytest.raises(ValueError, match="fixed-k only"):
         tagg._wire_config("allgather", tagg._one_data_axis_wire(1), False,
                           0.5, True, get_compressor("gaussiank"))

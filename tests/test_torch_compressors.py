@@ -11,6 +11,9 @@ against ``repro.core``.
   tolerance of it, so the selections are equal; ``histk`` through the
   registry bitwise (its kernels are held in ``test_torch_histk.py``).
 * ``compress_with_ef`` conserves bitwise on both backends.
+* The key-sampled ``randk``, ``dgck`` and ``rtopk`` are registered with
+  the reference's caps (their selections are held in
+  ``test_torch_keyed.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -86,22 +89,30 @@ def test_compress_with_ef_conserves(name, backend):
 @pytest.mark.parametrize("name,slice_no", [
     ("randk", "slice 4"), ("dgck", "slice 4"), ("rtopk", "slice 4")])
 def test_later_compressors_name_their_slice(name, slice_no):
-    assert name in jc.available()
-    with pytest.raises(NotImplementedError, match=slice_no):
-        tc.get_compressor(name)
+    """Slice 4 has landed: the key-sampled compressors are registered as
+    the reference registers them (``needs_key``, the same caps), and no
+    later slice is named for them."""
+    from repro_torch.slices import LATER
+    j, t = jc.get_compressor(name), tc.get_compressor(name)
+    assert t.name == name and t.needs_key and j.needs_key
+    for k, d in ((1, 1), (3, 10), (10, 1000), (64, 64), (50, 20)):
+        assert t.k_cap(k, d) == j.k_cap(k, d)
+    assert name not in LATER
+    assert not any(slice_no in v and name in v for v in LATER.values())
 
 
 @pytest.mark.parametrize("name", ["randk", "dgck", "rtopk"])
 def test_config_names_the_slice_of_later_compressors(name):
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        CompressionConfig(compressor=name)
+    """A config of a key-sampled compressor now builds and passes
+    ``require_ported``; its spec is the registry's."""
+    cfg = CompressionConfig(compressor=name).require_ported()
+    assert cfg.spec is tc.get_compressor(name) and cfg.spec.needs_key
 
 
 def test_registry_and_unknown_name():
-    assert tc.available() == ["gaussiank", "gaussiank2", "histk", "topk",
-                              "trimmedk"]
-    assert set(tc.available()) | {"randk", "dgck", "rtopk"} == \
-        set(jc.available())
+    assert tc.available() == ["dgck", "gaussiank", "gaussiank2", "histk",
+                              "randk", "rtopk", "topk", "trimmedk"]
+    assert set(tc.available()) == set(jc.available())
     with pytest.raises(KeyError):
         tc.get_compressor("nope")
 

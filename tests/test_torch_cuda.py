@@ -21,6 +21,9 @@ second K1 and is bitwise the one that runs its own.  The data-parallel
 wire on the card: the rank-order decode of gathered
 pairs and the gTop-k re-encode bitwise the CPU's, and four workers in
 one process deterministic, with losses within rtol 1e-4 of the CPU's.
+Slice 4: the ``threefry_bits`` kernel bitwise its plain version, the
+PRNG's known answers drawn on the card, and the key-sampled selections
+on the card bitwise the CPU's.
 """
 import math
 
@@ -404,3 +407,49 @@ def test_process_group_wire_nccl_bitwise_local(dev, tmp_path):
         with open(tmp_path / f"{name}.json") as f:
             pg = json.load(f)
         assert [r["loss"] for r in recs] == [r["loss"] for r in pg]
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1025, 4_000_037])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_threefry_bits_matches_plain_version(dev, n, dtype):
+    """Slice 4's PRNG kernel: the draws (int32) and the rank keys (int64)
+    bitwise its plain version, at counts that are not multiples of the
+    block."""
+    from repro_torch.kernels.prng import threefry_bits, threefry_bits_plain
+    key = (0x9E3779B9, 0xFFFFFFFF)
+    out = torch.empty(n, dtype=dtype, device=dev)
+    before = threefry_bits.launches
+    threefry_bits(key, out)
+    assert threefry_bits.launches == before + 1
+    torch.cuda.synchronize()
+    want = threefry_bits_plain(key, 0, n, rank=dtype == torch.int64)
+    assert torch.equal(out.cpu(), want)
+
+
+def test_prng_known_answers_on_card(dev):
+    """jax.random's partitionable known answers, drawn on the card."""
+    from repro_torch import prng
+    assert prng.bits(prng.PRNGKey(42), (4,), device=dev).tolist() == [
+        2098992034, 2919706841, 2646866425, 2409546199]
+    assert prng.randint(prng.PRNGKey(7), (4,), 0, 262668288,
+                        device=dev).tolist() == [10325791, 133713254,
+                                                 116150652, 246431725]
+    u = prng.uniform(prng.PRNGKey(0), (3,), device=dev).cpu()
+    assert torch.equal(u, prng.uniform(prng.PRNGKey(0), (3,), device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["randk", "dgck", "rtopk"])
+@pytest.mark.parametrize("d,k", [(4097, 41), (1_000_003, 1000)])
+def test_keyed_compressors_on_card_match_cpu(dev, name, d, k):
+    """The key-sampled selections on the card bitwise the CPU's from the
+    same key (randk through the threefry_bits kernel)."""
+    from repro_torch import prng
+    from repro_torch.core.compressors import get_compressor
+    from repro_torch.kernels.prng import threefry_bits
+    g, _ = _inputs(d, dev, seed=5)
+    key = prng.fold_in(prng.PRNGKey(3), d)
+    before = threefry_bits.launches
+    v, i = get_compressor(name).select(g, k, key)
+    assert (threefry_bits.launches > before) == (name == "randk")
+    cv, ci = get_compressor(name).select(g.cpu(), k, key)
+    assert torch.equal(i.cpu(), ci) and torch.equal(v.cpu(), cv)

@@ -164,8 +164,16 @@ def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
     (["--resync-every", "4"], "slice 7"),
 ])
 def test_cli_names_the_slice_of_what_it_lacks(extra, slice_no):
+    """Each flag a later slice carries raises naming that slice.  Slice 4
+    has landed, so its cases (``--compressor randk``/``dgck``) now train
+    a step."""
     argv = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
             "--device", "cpu", "--steps", "1"] + extra
+    if slice_no == "slice 4":
+        recs = cli.run(argv + ["--batch", "2", "--seq", "16"])
+        assert len(recs) == 1 and np.isfinite(recs[0]["loss"])
+        assert 0 < recs[0]["density"] <= recs[0]["density_cap"] * (1 + 1e-6)
+        return
     with pytest.raises(NotImplementedError, match=slice_no):
         cli.run(argv)
 
