@@ -87,7 +87,18 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    compress ms, peak memory, step-0 conservation, ``v'`` and ``e'`` zero
    at every sent index); 7c card against CPU on the small config; 7d
    four workers on the card at 4 layers (randk over allgather, momentum
-   correction over gTop-k).
+   correction over gTop-k);
+8. slice 4b, the paper's experiments (``phase8_paper``): 8a FNN-3's
+   ``simulate_sparsified_sgd`` card against CPU (W = 4, 5 steps; losses
+   within rtol 1e-4, the wire equal or within 1% a step for Gaussian-k)
+   and the card's step ms and idle share at W = 16; 8b each simulation
+   benchmark's ``run(smoke=True)`` with its program invariants; 8c the fig4
+   benchmark at its smoke shapes, every K1-K4d launched and the pass
+   counts against the JAX package's baseline.
+
+Every trainer path draws its params on the card (``init_params``: one
+``threefry_bits`` launch a weight matrix), counted once a path beside the
+per-step launches.
 
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it the ``{"kernels": [...]}`` JSON; the last line is
@@ -605,16 +616,32 @@ ADAPTIVE_LEAF_BYTES = {"fused_moments": 4, "fused_moments_hist": 4,
                        "compact_resid": 8}
 
 
-def drive(label, run, expect, steps):
-    """Run one path with every launch counter set to 0 just before and
-    read just after; check the counts against ``expect`` per step (a
-    kernel missing from ``expect`` must not launch)."""
+def init_draws(cfg) -> int:
+    """``threefry_bits`` launches of ``init_params(cfg, seed)`` on the
+    card: one a weight matrix (the embedding, the head, and a layer's
+    four attention and three MLP matrices)."""
+    return 2 + sum(4 + 3 * (cfg.layer_sig(i)[1] == "mlp")
+                   for i in range(cfg.num_layers))
+
+
+def zeroed(run):
+    """Run one path with every launch counter set to 0 just before it and
+    read just after: ``(launches by kernel, run's result)``."""
     funcs = counters()
     for f in funcs.values():
         f.launches = 0
     out = run()
-    launches = {n: f.launches for n, f in funcs.items()}
-    want = {n: expect.get(n, 0) * steps for n in funcs}
+    return {n: f.launches for n, f in funcs.items()}, out
+
+
+def drive(label, run, expect, steps, once=None):
+    """Run one path with every launch counter set to 0 just before and
+    read just after; check the counts against ``expect`` per step plus
+    ``once`` (launches made once a run: the params' draws) — a kernel
+    missing from both must not launch."""
+    launches, out = zeroed(run)
+    once = once or {}
+    want = {n: expect.get(n, 0) * steps + once.get(n, 0) for n in launches}
     assert launches == want, (label, "launches", launches, want)
     for n, c in expect.items():
         assert c > 0 and launches[n] > 0, (label, n)
@@ -768,6 +795,9 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
                     acc["G"], acc["absG"] = G.clone(), G.abs()
         last[0] = event()
 
+    # the params are drawn on the card before step 0
+    from repro_torch.configs import get_config
+    once = {"threefry_bits": init_draws(cfg or get_config("llama3.2-1b"))}
     torch.cuda.reset_peak_memory_stats()
     timer = CompressTimer(torch)
     with timer:
@@ -776,13 +806,14 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
             (lambda: train.run(argv + ["--steps", str(steps),
                                        "--log-every", "1"], probe=probe,
                                    cfg=cfg)),
-            expect, steps)
+            expect, steps, once)
     peaks["after0"] = torch.cuda.max_memory_allocated()
     torch.cuda.synchronize()
     wire_ms = [a.elapsed_time(b) for a, b in wire_ev]
     for s, snap in enumerate(seen):
-        for n, c in expect.items():
-            assert snap[n] == c * (s + 1), (label, "per-step", s, n, snap)
+        for n in set(expect) | set(once):
+            assert snap[n] == expect.get(n, 0) * (s + 1) + once.get(n, 0), (
+                label, "per-step", s, n, snap)
     losses = [r["loss"] for r in records]
     assert all(math.isfinite(x) for x in losses), (label, losses)
     for r in records:
@@ -983,6 +1014,7 @@ def phase5c(torch, by_path, cfg) -> dict:
     for p in procs:
         assert p.exitcode == 0, ("5c rank exit code", p.exitcode)
     pg_launches = {n: 0 for n in funcs}
+    draws = {"threefry_bits": init_draws(cfg)}   # each run draws its params
     for strategy in PG_STRATEGIES:
         want = ref[strategy]
         for rank in range(2):
@@ -994,12 +1026,12 @@ def phase5c(torch, by_path, cfg) -> dict:
                 assert res["digests"][key] == want["digests"][key], (
                     strategy, rank, key)
             for n, c in res["launches"].items():
-                assert c == (12 * steps if n in MAIN_KERNELS else 0), (
-                    strategy, rank, n, c)
+                assert c == (12 * steps if n in MAIN_KERNELS else
+                             draws.get(n, 0)), (strategy, rank, n, c)
                 pg_launches[n] += c
         for n, c in want["launches"].items():
-            assert c == (2 * 12 * steps if n in MAIN_KERNELS else 0), (
-                strategy, "local", n, c)
+            assert c == (2 * 12 * steps if n in MAIN_KERNELS else
+                         draws.get(n, 0)), (strategy, "local", n, c)
     by_path["5c process group, 2 ranks"] = pg_launches
     by_path["5c LocalWire W=2"] = {n: sum(ref[s]["launches"][n]
                                           for s in PG_STRATEGIES)
@@ -1539,7 +1571,7 @@ def phase7_keyed(torch, by_path, rows, base, cfg) -> dict:
         "gtopk, full width with 4 layers, 2 steps")
     label = "7d gaussiank MC 0.9 gtopk W=4"
     by_path[label], records, peak, _, extra = train_path(
-        label, [], {}, 2, torch, workers=4, global_check=True,
+        label, [], {}, 2, torch, workers=4, cfg=cfg4, global_check=True,
         runner=mc_runner(torch, cfg4, "gaussiank", mesh="4x1", workers=4),
         mc_check="v")
     out[label] = {"losses": [r["loss"] for r in records],
@@ -1550,6 +1582,162 @@ def phase7_keyed(torch, by_path, rows, base, cfg) -> dict:
                   "conservation": extra["conservation"]}
     del records
     torch.cuda.empty_cache()
+    return out
+
+
+PAPER_SIM = (   # phase 8a: (compressor, density policy?) card vs CPU
+    ("none", False), ("topk", False), ("gaussiank", False),
+    ("randk", False), ("rtopk", False), ("gaussiank", True))
+# the wire of these is k a leaf and worker, whatever the data
+EXACT_COMM = ("none", "topk", "randk", "rtopk")
+# phase 8c: the TPU kernels' counterparts the fig4 benchmark must launch
+FIG4_KERNELS = ("fused_moments", "fused_moments_hist", "tree_count",
+                "compact_stage", "compact_resid", "moments", "count_gt",
+                "threshold_compact", "abs_histogram")
+
+
+def sim_idle(torch, sim, workers, steps) -> dict:
+    """Step ms of the card's simulation (host clock, synchronised) and,
+    over one more profiled run, the device's busy ms and idle share."""
+    t0 = time.perf_counter()
+    sim("gaussiank", workers=workers, ratio=0.005, steps=steps,
+        device="cuda")
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sim("gaussiank", workers=workers, ratio=0.005, steps=steps,
+            device="cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    from repro_torch.launch.profile import device_kernels
+    busy = sum(ms for _, ms, _ in device_kernels(prof))
+    return {"workers": workers, "steps": steps, "step_ms": step_ms,
+            "profiled_wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall}
+
+
+def phase8_paper(torch, by_path) -> dict:
+    """Phase 8, slice 4b: the paper's experiments on the card.
+
+    8a. ``simulate_sparsified_sgd`` (FNN-3, W = 4, 5 steps, ratio 0.005)
+        on the card and on the CPU from the same seed, for ``none``,
+        ``topk``, ``gaussiank``, ``randk``, ``rtopk`` and ``gaussiank``
+        under ``variance`` with ``normdecay``: losses within rtol 1e-4,
+        the wire equal for ``none``/``topk``/``randk``/``rtopk`` and
+        within 1% a step for Gaussian-k; then the card's step ms and
+        idle share at W = 16 (Fig. 1/6's workers);
+    8b. each simulation benchmark's ``run(smoke=True)`` on the card, its
+        rows printed; the program invariants enforced (fig5's Theorem 1
+        ordering, fig10's ``budget_exact``, rTop-k's ``comm_exact``,
+        normdecay never above its twin), the research claims printed;
+    8c. the fig4 benchmark at its smoke shapes: K1, K1 with histogram, K2,
+        the K3 stage and residual, K4a, K4b, K4c and K4d each launched;
+        the pass counts against ``benchmarks/baselines/fig4.json``
+        (unfused equal; fused one fewer: the baseline's interpret
+        backend adds ``u = g + e`` as a pass of its own).
+    """
+    import numpy as np
+
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks import fig4_selection_speed as fig4
+    from repro_torch.core import adaptk
+
+    t_start = time.time()
+    out = {"8a": {}, "8b": {}}
+    vn = adaptk.make_policy("variance", global_policy="normdecay",
+                            global_ema=0.5, global_floor=0.25)
+    for name, adaptive in PAPER_SIM:
+        label = name + (" variance normdecay" if adaptive else "")
+        pol = vn if adaptive else None
+        res = {}
+        for dev in ("cuda", "cpu"):
+            def sim(dev=dev):
+                return common.simulate_sparsified_sgd(
+                    name, workers=4, ratio=0.005, steps=5, seed=0,
+                    density_policy=pol, device=dev)
+            t0 = time.perf_counter()
+            if dev == "cuda":
+                by_path[f"8a {label}"], res[dev] = zeroed(sim)
+            else:
+                res[dev] = sim()
+            res[dev + "_s"] = time.perf_counter() - t0
+        (lc, _, cc, _), (lh, _, ch, _) = res["cuda"], res["cpu"]
+        np.testing.assert_allclose(lc, lh, rtol=1e-4)
+        if name in EXACT_COMM:
+            assert cc == ch, (label, "comm", cc, ch)
+        else:
+            for a, b in zip(cc, ch):
+                assert abs(a - b) <= 0.01 * b, (label, "comm", cc, ch)
+        out["8a"][label] = {"losses_card": lc, "losses_cpu": lh,
+                            "comm_card": cc, "comm_cpu": ch,
+                            "card_s": res["cuda_s"], "cpu_s": res["cpu_s"]}
+        log(f"phase 8a: {label}: card {lc} vs CPU {lh} within rtol 1e-4; "
+            f"comm {cc} (CPU {ch}); card {res['cuda_s']:.2f} s, CPU "
+            f"{res['cpu_s']:.2f} s; launches "
+            f"{ {n: c for n, c in by_path[f'8a {label}'].items() if c} }")
+    out["8a_s"] = time.time() - t_start
+    t0 = time.time()
+    out["8a"]["idle"] = sim_idle(torch, common.simulate_sparsified_sgd, 16,
+                                 3)
+    out["idle_s"] = time.time() - t0
+    log(f"phase 8a: gaussiank W=16 on the card: {out['8a']['idle']} "
+        f"({out['idle_s']:.1f} s with the profiler)")
+    t8b = time.time()
+
+    import importlib
+    for mod in ("fig5_bound", "fig2_histograms", "fig1_fig6_convergence",
+                "fig10_sensitivity", "fig_rtopk"):
+        t0 = time.time()
+        drv = importlib.import_module(f"repro_torch.benchmarks.{mod}")
+        by_path[f"8b {mod}"], rows = zeroed(
+            lambda: drv.run(smoke=True, device="cuda"))
+        wall = time.time() - t0
+        for r in rows:
+            log("  " + ",".join(str(x) for x in r))
+        derived = {r[0]: r[2] for r in rows}
+        for row, text in derived.items():
+            if row.startswith("fig10/adaptk/") and not row.endswith(
+                    "train_variance"):
+                assert "budget_exact=True" in text, (row, text)
+            if row.startswith("rtopk/ratio="):
+                assert "comm_exact=True" in text, (row, text)
+            if row == "rtopk/globalk/normdecay":
+                assert "never_above_base=True" in text, (row, text)
+        out["8b"][mod] = {"rows": rows, "wall_s": wall}
+        log(f"phase 8b: {mod} run(smoke=True) on the card in {wall:.1f} s "
+            "(invariants held; claims printed above)")
+
+    out["8b_s"] = time.time() - t8b
+    t8c = time.time()
+    with open(os.path.join(HERE, "benchmarks", "baselines",
+                           "fig4.json")) as f:
+        base = {(r["shape"], r["method"]): r["passes"]
+                for r in json.load(f)["rows"]}
+    by_path["8c fig4"], (rows, data) = zeroed(
+        lambda: fig4.collect(smoke=True, device="cuda"))
+    for r in rows:
+        log("  " + ",".join(str(x) for x in r))
+    launched = by_path["8c fig4"]
+    for n in FIG4_KERNELS:
+        assert launched[n] > 0, ("8c fig4", n, launched)
+    for r in data["rows"]:
+        want = base[(r["shape"], r["method"])]
+        if r["method"].endswith("-fused"):
+            want -= 1
+        assert r["passes"] == want, ("8c passes", r, want)
+    out["8c"] = {"rows": rows, "bench": data["rows"]}
+    log(f"phase 8c: fig4 smoke launched {launched}; passes "
+        f"{[(r['method'], r['passes']) for r in data['rows'][:5]]} "
+        "(baseline: unfused equal, fused one more for the interpret "
+        "backend's operand add)")
+    out["8c_s"] = time.time() - t8c
+    out["phase8_s"] = time.time() - t_start
+    log(f"phase 8 took {out['phase8_s']:.1f} s (8a {out['8a_s']:.1f}, "
+        f"the W=16 profile {out['idle_s']:.1f}, 8b {out['8b_s']:.1f}, 8c "
+        f"{out['8c_s']:.1f})")
     return out
 
 
@@ -1830,6 +2018,9 @@ def main(argv) -> int:
     # -- phase 7: the PRNG, the keyed compressors, momentum correction --
     phase7 = phase7_keyed(torch, by_path, rows, base, cfg)
 
+    # -- phase 8: the paper's experiments --
+    phase8 = phase8_paper(torch, by_path)
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -1838,7 +2029,7 @@ def main(argv) -> int:
     log(json.dumps({"pipelines": pipelines, "main_path": main_path,
                     "path_a": path_a, "path_b": path_b, "path_d": path_d,
                     "small": small, "phase5": phase5, "phase6": phase6,
-                    "phase7": phase7,
+                    "phase7": phase7, "phase8": phase8,
                     "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(json.dumps({"kernels": list(rows.values())}))

@@ -1,3 +1,3 @@
-from repro_torch.data.synthetic import batch_for, lm_batch
+from repro_torch.data.synthetic import batch_for, lm_batch, mnist_like
 
-__all__ = ["batch_for", "lm_batch"]
+__all__ = ["batch_for", "lm_batch", "mnist_like"]

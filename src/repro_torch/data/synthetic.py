@@ -1,10 +1,13 @@
-"""Deterministic synthetic LM data (port of ``repro/data/synthetic.py``,
-``lm_batch``/``batch_for``).
+"""Deterministic synthetic data (port of ``repro/data/synthetic.py``,
+``lm_batch``/``batch_for``/``mnist_like``).
 
 ``lm_batch`` is the reference's seeded affine-recurrence token stream
 with sparse noise — next-token structure exists, so the loss falls —
 drawn from the port's ``jax.random``-exact PRNG (``repro_torch.prng``):
 the same ``(seed, step)`` gives the reference's tokens, bit for bit.
+``mnist_like`` is the paper-fidelity FNN-3 benchmarks' classification
+set, class-conditional Gaussian blobs in 784-D: the reference's labels
+exactly, its inputs within ``prng.normal``'s tolerance.
 """
 from __future__ import annotations
 
@@ -45,3 +48,18 @@ def batch_for(cfg, step: int, *, global_batch: int, seq_len: int,
         raise not_ported(f"the {cfg.frontend!r} frontend", "arch")
     return lm_batch(step, global_batch=global_batch, seq_len=seq_len,
                     vocab=cfg.vocab_size, seed=seed, device=device)
+
+
+def mnist_like(step: int, *, batch: int, num_classes: int = 10,
+               dim: int = 784, seed: int = 0, device="cuda"):
+    """``{"x": (batch, dim) f32, "y": (batch,) int64}`` on ``device`` (the
+    card unless told ``"cpu"``): class-conditional Gaussian blobs, the
+    class means fixed by ``seed``, drawn where they are used."""
+    device = resolve_device(device)
+    means = prng.normal(prng.PRNGKey(seed), (num_classes, dim),
+                        device=device)
+    key = prng.fold_in(prng.PRNGKey(seed + 1), step)
+    k1, k2 = prng.split(key)
+    y = prng.randint(k1, (batch,), 0, num_classes, device=device)
+    x = means[y] + 0.8 * prng.normal(k2, (batch, dim), device=device)
+    return {"x": x, "y": y}

@@ -178,19 +178,8 @@ def _profile(args, cfg, strategy, policy, wire, dev) -> int:
         step(args.steps + 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    syncs = 0
-    for e in prof.key_averages():
-        if e.key in _SYNCS:
-            syncs += e.count
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue            # host-side ops; their kernels are listed
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "self_cuda_time_total", 0.0)
-        if dt and dt > 0:
-            kernels.append((e.key, dt / 1e3, e.count))
-    kernels.sort(key=lambda x: -x[1])
+    syncs = sum(e.count for e in prof.key_averages() if e.key in _SYNCS)
+    kernels = device_kernels(prof)
     busy = sum(k[1] for k in kernels)
     say(f"profiled step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
         f"(idle share {1 - busy / wall_ms:.3f}), {len(kernels)} kernel "
@@ -210,6 +199,22 @@ def _profile(args, cfg, strategy, policy, wire, dev) -> int:
                     "top_kernels": kernels[:25],
                     "device": torch.cuda.get_device_name(0)}))
     return 0
+
+
+def device_kernels(prof) -> list:
+    """``(name, device ms, launches)`` of every kernel a
+    ``torch.profiler`` run recorded, the longest first."""
+    import torch
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue            # host-side ops; their kernels are listed
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0.0)
+        if dt and dt > 0:
+            kernels.append((e.key, dt / 1e3, e.count))
+    return sorted(kernels, key=lambda x: -x[1])
 
 
 if __name__ == "__main__":

@@ -16,51 +16,56 @@ from typing import Optional
 
 import torch
 
+from repro_torch import prng
 from repro_torch.models.config import ModelConfig
 
 
-def dense_init(gen: torch.Generator, shape, dtype, *, fan_in: int,
-               scale: Optional[float] = None, device=None) -> torch.Tensor:
-    """``scale · N(0, 1)`` with ``scale = 1/sqrt(fan_in)`` by default (the
-    reference's ``_dense_init``; ``fan_in`` is the per-layer input width
-    when ``shape`` carries a leading layer axis)."""
+def dense_init(key, shape, dtype, *, fan_in: int,
+               scale: Optional[float] = None, device) -> torch.Tensor:
+    """``scale · normal(key, shape)`` with ``scale = 1/sqrt(fan_in)`` by
+    default: the reference's ``_dense_init``, drawn from
+    ``repro_torch.prng`` (within ``normal``'s tolerance of the
+    reference's weights).  On the ``meta`` device, the shape alone."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    x = prng.normal(key, shape, device=device)
     return x.mul_(scale).to(dtype)
 
 
-def init_attention(gen, cfg: ModelConfig, dtype, lead=(), device=None):
+def init_attention(key, cfg: ModelConfig, dtype, device=None):
     hd, H, KV, D = cfg.hd, cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    ks = prng.split(key, 4)
     p = {
-        "wq": dense_init(gen, lead + (D, H * hd), dtype, fan_in=D,
+        "wq": dense_init(ks[0], (D, H * hd), dtype, fan_in=D, device=device),
+        "wk": dense_init(ks[1], (D, KV * hd), dtype, fan_in=D,
                          device=device),
-        "wk": dense_init(gen, lead + (D, KV * hd), dtype, fan_in=D,
+        "wv": dense_init(ks[2], (D, KV * hd), dtype, fan_in=D,
                          device=device),
-        "wv": dense_init(gen, lead + (D, KV * hd), dtype, fan_in=D,
-                         device=device),
-        "wo": dense_init(gen, lead + (H * hd, D), dtype, fan_in=H * hd,
+        "wo": dense_init(ks[3], (H * hd, D), dtype, fan_in=H * hd,
                          device=device),
     }
     if cfg.use_bias:
         for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd),
                         ("bo", D)):
-            p[name] = torch.zeros(lead + (n,), dtype=dtype, device=device)
+            p[name] = torch.zeros((n,), dtype=dtype, device=device)
     return p
 
 
-def init_mlp(gen, d_model: int, d_ff: int, dtype, lead=(), device=None):
+def init_mlp(key, d_model: int, d_ff: int, dtype, device=None):
+    k1, k2, k3 = prng.split(key, 3)
     return {
-        "w_gate": dense_init(gen, lead + (d_model, d_ff), dtype,
-                             fan_in=d_model, device=device),
-        "w_up": dense_init(gen, lead + (d_model, d_ff), dtype,
-                           fan_in=d_model, device=device),
-        "w_down": dense_init(gen, lead + (d_ff, d_model), dtype, fan_in=d_ff,
+        "w_gate": dense_init(k1, (d_model, d_ff), dtype, fan_in=d_model,
+                             device=device),
+        "w_up": dense_init(k2, (d_model, d_ff), dtype, fan_in=d_model,
+                           device=device),
+        "w_down": dense_init(k3, (d_ff, d_model), dtype, fan_in=d_ff,
                              device=device),
     }
 
 
-def init_rmsnorm(d: int, dtype, lead=(), device=None):
-    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+def init_rmsnorm(d: int, dtype, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
 def rmsnorm(p, x, eps: float = 1e-6):

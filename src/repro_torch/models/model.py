@@ -19,7 +19,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch import tree
+from repro_torch import prng, tree
 from repro_torch.devices import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -41,48 +41,66 @@ def require_dense(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-def _init_block(gen, cfg: ModelConfig, kind: str, ffn: str, dtype, lead,
-                device):
-    p: Dict[str, Any] = {"norm1": L.init_rmsnorm(cfg.d_model, dtype, lead,
-                                                 device)}
-    p["core"] = L.init_attention(gen, cfg, dtype, lead, device)
+def _init_block(key, cfg: ModelConfig, kind: str, ffn: str, dtype, device):
+    kb, kf = prng.split(key)
+    p: Dict[str, Any] = {"norm1": L.init_rmsnorm(cfg.d_model, dtype, device)}
+    p["core"] = L.init_attention(kb, cfg, dtype, device)
     if ffn == "mlp":
-        p["norm2"] = L.init_rmsnorm(cfg.d_model, dtype, lead, device)
-        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead,
-                              device)
+        p["norm2"] = L.init_rmsnorm(cfg.d_model, dtype, device)
+        p["ffn"] = L.init_mlp(kf, cfg.d_model, cfg.d_ff, dtype, device)
     return p
+
+
+def _init_stacked(keys, cfg: ModelConfig, kind: str, ffn: str, dtype,
+                  device):
+    """One position of the layer pattern over its ``len(keys)`` reps:
+    each rep drawn from its own key (the reference ``vmap``s
+    ``_init_block`` over them) and copied into ``(reps, ...)`` leaves,
+    rep by rep (no stack of per-rep copies)."""
+    rep, td = tree.flatten(_init_block(keys[0], cfg, kind, ffn, dtype,
+                                       device))
+    out = [torch.empty((len(keys),) + x.shape, dtype=x.dtype, device=device)
+           for x in rep]
+    for r, key in enumerate(keys):
+        if r:
+            rep = tree.leaves(_init_block(key, cfg, kind, ffn, dtype,
+                                          device))
+        for o, x in zip(out, rep):
+            o[r].copy_(x)
+    return tree.unflatten(td, out)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
                 ) -> Dict[str, Any]:
-    """Random params from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (the card unless told ``"cpu"``; raises without a GPU).
-    The draws differ from ``jax.random``'s (and between devices); use
-    :func:`from_jax_params` to start from the JAX init.  On the ``meta``
-    device it returns the shapes alone."""
+    """Random params on ``device`` (the card unless told ``"cpu"``;
+    raises without a GPU), drawn from ``repro_torch.prng`` with the
+    reference's key tree from ``PRNGKey(seed)``: the reference's
+    ``init_params(cfg, PRNGKey(seed))`` within ``normal``'s tolerance
+    (rtol 1e-5).  On the card the draws are ``threefry_bits`` launches,
+    one a weight matrix a layer.  On the ``meta`` device it returns the
+    shapes alone."""
     require_dense(cfg.validate())
     device = resolve_device(device)
-    gen = None
-    if device.type != "meta":
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
     dtype = getattr(torch, cfg.param_dtype)
     period = cfg.pattern_period
     reps, tail = divmod(cfg.num_layers, period)
+    k_embed, k_head, k_layers = prng.split(prng.PRNGKey(seed), 3)
     params: Dict[str, Any] = {
-        "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
+        "embed": L.dense_init(k_embed, (cfg.vocab_size, cfg.d_model), dtype,
                               fan_in=cfg.vocab_size, scale=1.0,
                               device=device),
-        "final_norm": L.init_rmsnorm(cfg.d_model, dtype, device=device),
-        "lm_head": L.dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype,
-                                fan_in=cfg.d_model, device=device),
+        "final_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
+        "lm_head": L.dense_init(k_head, (cfg.d_model, cfg.vocab_size),
+                                dtype, fan_in=cfg.d_model, device=device),
     }
+    lkeys = prng.split(k_layers, cfg.num_layers)
     params["stack"] = [
-        _init_block(gen, cfg, *cfg.layer_sig(pos), dtype, (reps,), device)
+        _init_stacked([lkeys[r * period + pos] for r in range(reps)], cfg,
+                      *cfg.layer_sig(pos), dtype, device)
         for pos in range(period if reps else 0)]
     params["tail"] = [
-        _init_block(gen, cfg, *cfg.layer_sig(reps * period + i), dtype, (),
-                    device)
+        _init_block(lkeys[reps * period + i], cfg,
+                    *cfg.layer_sig(reps * period + i), dtype, device)
         for i in range(tail)]
     return params
 

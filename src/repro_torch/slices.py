@@ -10,16 +10,16 @@ from __future__ import annotations
 LATER = {
     # slice 2 leftovers — each its own ROADMAP item
     "perleaf": "slice 2b (the per-leaf aggregate_compressed, ROADMAP Queue "
-               "1 item 8a)",
+               "1 item 4)",
     "model_axis": "slice 2c (tensor parallelism over the model axis, "
-                  "ROADMAP Queue 1 item 8b)",
+                  "ROADMAP Queue 1 item 7)",
     # slice 6+
-    "chunks": "slice 6 (chunked overlap, ROADMAP Queue 1 item 11)",
+    "chunks": "slice 6 (chunked overlap, ROADMAP Queue 1 item 3)",
     "publish": "slice 7 (serve + weight-delta streaming, ROADMAP Queue 1 "
-               "item 12)",
+               "item 5)",
     "arch": "slice 8 (MoE/SSM/xLSTM/embeds architectures, ROADMAP Queue 1 "
-            "item 13)",
-    "auto": "slice 9 (topology tuner, ROADMAP Queue 1 item 14)",
+            "item 6)",
+    "auto": "slice 9 (topology tuner, ROADMAP Queue 1 item 8)",
 }
 
 

@@ -23,7 +23,10 @@ pairs and the gTop-k re-encode bitwise the CPU's, and four workers in
 one process deterministic, with losses within rtol 1e-4 of the CPU's.
 Slice 4: the ``threefry_bits`` kernel bitwise its plain version, the
 PRNG's known answers drawn on the card, and the key-sampled selections
-on the card bitwise the CPU's.
+on the card bitwise the CPU's.  Slice 4b: FNN-3's init bitwise and the
+LM's within rtol 1e-5 (``erfinv``) drawn on the card against the CPU,
+and the paper's simulation on the card against the CPU (losses within
+rtol 1e-4, the wire equal).
 """
 import math
 
@@ -453,3 +456,35 @@ def test_keyed_compressors_on_card_match_cpu(dev, name, d, k):
     assert (threefry_bits.launches > before) == (name == "randk")
     cv, ci = get_compressor(name).select(g.cpu(), k, key)
     assert torch.equal(i.cpu(), ci) and torch.equal(v.cpu(), cv)
+
+
+def test_paper_inits_on_card_match_cpu(dev):
+    """``init_fnn`` (``uniform``) bitwise and ``init_params`` (``normal``)
+    within rtol 1e-5, the card's ``threefry_bits`` against the CPU."""
+    from repro_torch import prng
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.models.fnn import init_fnn
+    for a, b in zip(tree.leaves(init_fnn(prng.PRNGKey(3), device=dev)),
+                    tree.leaves(init_fnn(prng.PRNGKey(3), device="cpu"))):
+        assert torch.equal(a.cpu(), b)
+    cfg = ModelConfig(name="sys", arch_type="dense", num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                      vocab_size=64).validate()
+    for a, b in zip(tree.leaves(init_params(cfg, 5, dev)),
+                    tree.leaves(init_params(cfg, 5, "cpu"))):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("name", ["topk", "gaussiank", "randk", "rtopk"])
+def test_paper_simulation_on_card_matches_cpu(dev, name):
+    """FNN-3's Eq. (2) simulation, W = 2, 3 steps: losses within rtol
+    1e-4 of the CPU's, the wire equal (Gaussian-k within 1% a step)."""
+    from repro_torch.benchmarks.common import simulate_sparsified_sgd
+    lc, _, cc, _ = simulate_sparsified_sgd(name, workers=2, ratio=0.005,
+                                           steps=3, device=dev)
+    lh, _, ch, _ = simulate_sparsified_sgd(name, workers=2, ratio=0.005,
+                                           steps=3, device="cpu")
+    torch.testing.assert_close(torch.tensor(lc), torch.tensor(lh),
+                               rtol=1e-4, atol=0)
+    for a, b in zip(cc, ch):
+        assert abs(a - b) <= (0.01 * b if name == "gaussiank" else 0)
