@@ -94,7 +94,18 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    and the card's step ms and idle share at W = 16; 8b each simulation
    benchmark's ``run(smoke=True)`` with its program invariants; 8c the fig4
    benchmark at its smoke shapes, every K1-K4d launched and the pass
-   counts against the JAX package's baseline.
+   counts against the JAX package's baseline;
+9. slices 6 and 2b, the chunked schedule and the per-leaf loop
+   (``phase9_chunked``): 9a llama3.2-1b at full width and depth, 3
+   steps each of chunks 1, 4 and 12 and per leaf (states bitwise chunks
+   1's, compared on the card; 12 launches a step of K1, K2 and both K3;
+   step ms, peak memory, each chunk's release as a fraction of the
+   backward); 9b ``variance`` at chunks 4 (one allocation a step); 9c
+   four workers on the card, each strategy at chunks 3 and per leaf
+   against bucketed; 9d two processes at chunks 3 against 5c's
+   ``LocalWire`` run (asynchronous gathers counted); 9e card against
+   CPU; 9f the overlap benchmark's and Fig. 4's dispatch counts against
+   their baselines.
 
 Every trainer path draws its params on the card (``init_params``: one
 ``threefry_bits`` launch a weight matrix), counted once a path beside the
@@ -741,8 +752,10 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
         return ev
 
     def probe(rank, G=None, values=None, indices=None, new_E=None,
-              mean=None, resid=None, resid2=None, u=None, k_alloc=None,
-              K_eff=None):
+              means=None, resid=None, resid2=None, u=None, k_alloc=None,
+              K_eff=None, chunk=None, backward=None, release=None):
+        if backward is not None or release is not None:
+            return      # the backward's ends and the chunk hook
         if rank is None and k_alloc is not None:
             k = np.asarray(k_alloc)
             lo, hi = (np.asarray(b) for b in bounds)
@@ -766,6 +779,7 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
                 peaks["step0"] = torch.cuda.max_memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
             if global_check and len(seen) == 1:
+                (mean,) = means         # the bucket is one chunk
                 E = resid.view(workers, *mean.shape)
                 lhs = E.sum(dim=0) + workers * mean
                 diff = (lhs - acc["G"]).abs()
@@ -854,10 +868,14 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
 PG_STRATEGIES = ("allgather", "gtopk")
 
 
-def train_lib(cfg, mesh, strategy, steps, batch, seq, wire, device):
-    """Train ``steps`` steps of Gaussian-k at ``RATIO`` through the
-    library entry points (``init_train_state``, ``make_train_step``) on
-    ``wire``; returns the losses and the final state."""
+def train_lib(cfg, mesh, strategy, steps, batch, seq, wire, device,
+              chunks=1):
+    """Train ``steps`` steps of Gaussian-k at ``RATIO`` (at ``chunks``)
+    through the library entry points (``init_train_state``,
+    ``make_train_step``) on ``wire``; returns the losses, the final state
+    and each step's ms (host clock around a synchronised step)."""
+    import torch
+
     from repro_torch.core.compression import CompressionConfig
     from repro_torch.data import batch_for
     from repro_torch.dist.layout import build_layout
@@ -865,19 +883,22 @@ def train_lib(cfg, mesh, strategy, steps, batch, seq, wire, device):
     from repro_torch.optim import constant, sgd_momentum
     from repro_torch.train import init_train_state, make_train_step
     params = init_params(cfg, 0, device)
-    comp = CompressionConfig(ratio=RATIO, strategy=strategy)
+    comp = CompressionConfig(ratio=RATIO, strategy=strategy, chunks=chunks)
     layout = build_layout(params, 1, comp)
     opt = sgd_momentum(0.9)
     state = init_train_state(params, opt, workers=wire.local_workers,
                              model_size=1, compression=comp, layout=layout)
     step = make_train_step(cfg, mesh, opt, constant(0.1), compression=comp,
                            layout=layout, wire=wire)
-    losses = []
+    losses, ms = [], []
     for i in range(steps):
         b = batch_for(cfg, i, global_batch=batch, seq_len=seq, device=device)
+        t0 = time.perf_counter()
         state, m = step(state, b)
         losses.append(float(m["loss"]))
-    return losses, state
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, state, ms
 
 
 def digests(state, ranks) -> dict:
@@ -906,10 +927,11 @@ def llama_layers(n):
                                num_layers=n).validate()
 
 
-def pg_child(rank, world, backend, port, cfg, steps, batch, seq, queue):
-    """Phase 5c, one rank: ``ProcessGroupWire`` over ``backend``, each of
-    ``PG_STRATEGIES`` trained ``steps`` steps; puts ``(rank, results)``
-    on ``queue``."""
+def pg_child(rank, world, backend, port, cfg, steps, batch, seq, queue,
+             chunks=1):
+    """Phases 5c and 9d, one rank: ``ProcessGroupWire`` over ``backend``,
+    each of ``PG_STRATEGIES`` trained ``steps`` steps at ``chunks``; puts
+    ``(rank, results)`` on ``queue``."""
     import traceback
     try:
         sys.path.insert(0, os.path.join(HERE, "src"))
@@ -934,13 +956,16 @@ def pg_child(rank, world, backend, port, cfg, steps, batch, seq, queue):
         for strategy in PG_STRATEGIES:
             for f in funcs.values():
                 f.launches = 0
-            losses, state = train_lib(cfg, mesh, strategy, steps, batch,
-                                      seq, wire, device)
+            issued = wire.async_ops
+            losses, state, ms = train_lib(cfg, mesh, strategy, steps, batch,
+                                          seq, wire, device, chunks)
             out[strategy] = {"losses": losses,
                              "digests": digests(state, [rank]),
                              "launches": {n: f.launches
                                           for n, f in funcs.items()},
-                             "backend": wire.backend}
+                             "backend": wire.backend,
+                             "async_ops": wire.async_ops - issued,
+                             "step_ms": ms}
             del state
             torch.cuda.empty_cache()
         dist.destroy_process_group()
@@ -957,38 +982,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase5c(torch, by_path, cfg) -> dict:
-    """The process-group wire on the card against ``LocalWire``: 2 ranks
-    (NCCL with a card each when there are two cards, else gloo staged
-    through host memory on the one card), 2 steps of each of
-    ``PG_STRATEGIES`` of ``cfg``; params,
-    optimizer state, residuals (sha256) and losses must be equal."""
-    import multiprocessing as mp
+PG_STEPS, PG_BATCH, PG_SEQ = 2, 4, 128
 
-    from repro_torch.dist.wire import LocalWire
-    from repro_torch.launch.mesh import parse_mesh
-    steps, batch, seq = 2, 4, 128
-    cards = torch.cuda.device_count()
-    backend = "nccl" if cards >= 2 else "gloo"
-    mesh = parse_mesh("2x1")
-    funcs = counters()
-    ref = {}
-    for strategy in PG_STRATEGIES:
-        for f in funcs.values():
-            f.launches = 0
-        losses, state = train_lib(cfg, mesh, strategy, steps, batch, seq,
-                                  LocalWire(mesh), torch.device("cuda"))
-        ref[strategy] = {"losses": losses, "digests": digests(state, [0, 1]),
-                         "launches": {n: f.launches
-                                      for n, f in funcs.items()}}
-        del state
-        torch.cuda.empty_cache()
+
+def pg_ranks(torch, cfg, chunks=1) -> tuple:
+    """Two ranks spawned over ``torch.distributed`` (NCCL with a card each
+    when there are two cards, else gloo staged through host memory on
+    the one card), each training ``PG_STRATEGIES`` of ``cfg`` at
+    ``chunks`` (``pg_child``); returns ``(backend, results by rank)``."""
+    import multiprocessing as mp
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=pg_child,
-                         args=(r, 2, backend, port, cfg, steps, batch,
-                               seq, queue)) for r in range(2)]
+                         args=(r, 2, backend, port, cfg, PG_STEPS, PG_BATCH,
+                               PG_SEQ, queue, chunks)) for r in range(2)]
     for p in procs:
         p.start()
     import queue as queue_mod
@@ -1002,7 +1011,7 @@ def phase5c(torch, by_path, cfg) -> dict:
                 dead = [p.exitcode for p in procs
                         if not p.is_alive() and p.exitcode != 0]
                 assert not dead and time.time() < deadline, (
-                    "5c ranks ended without a result", dead)
+                    "ranks ended without a result", dead)
     finally:
         for p in procs:
             p.join(timeout=60)
@@ -1012,8 +1021,16 @@ def phase5c(torch, by_path, cfg) -> dict:
     for rank, out in got.items():
         assert "error" not in out, (rank, out.get("error"))
     for p in procs:
-        assert p.exitcode == 0, ("5c rank exit code", p.exitcode)
-    pg_launches = {n: 0 for n in funcs}
+        assert p.exitcode == 0, ("rank exit code", p.exitcode)
+    return backend, got
+
+
+def check_ranks(cfg, backend, got, ref) -> dict:
+    """Each rank's losses, params, momentum and own residual (sha256)
+    equal ``ref``'s (the ``LocalWire`` run), and its launches 12 a step
+    of each Gaussian-k kernel plus its params' draws; returns the
+    launches summed over the ranks."""
+    pg_launches = {n: 0 for n in counters()}
     draws = {"threefry_bits": init_draws(cfg)}   # each run draws its params
     for strategy in PG_STRATEGIES:
         want = ref[strategy]
@@ -1026,13 +1043,41 @@ def phase5c(torch, by_path, cfg) -> dict:
                 assert res["digests"][key] == want["digests"][key], (
                     strategy, rank, key)
             for n, c in res["launches"].items():
-                assert c == (12 * steps if n in MAIN_KERNELS else
+                assert c == (12 * PG_STEPS if n in MAIN_KERNELS else
                              draws.get(n, 0)), (strategy, rank, n, c)
                 pg_launches[n] += c
-        for n, c in want["launches"].items():
-            assert c == (2 * 12 * steps if n in MAIN_KERNELS else
+    return pg_launches
+
+
+def phase5c(torch, by_path, cfg) -> tuple:
+    """The process-group wire on the card against ``LocalWire``: 2 ranks
+    (:func:`pg_ranks`), 2 steps of each of ``PG_STRATEGIES`` of ``cfg``;
+    params, optimizer state, residuals (sha256) and losses must be
+    equal.  Returns the summary and the ``LocalWire`` run's digests."""
+    from repro_torch.dist.wire import LocalWire
+    from repro_torch.launch.mesh import parse_mesh
+    cards = torch.cuda.device_count()
+    mesh = parse_mesh("2x1")
+    funcs = counters()
+    ref = {}
+    draws = {"threefry_bits": init_draws(cfg)}
+    for strategy in PG_STRATEGIES:
+        for f in funcs.values():
+            f.launches = 0
+        losses, state, _ = train_lib(cfg, mesh, strategy, PG_STEPS,
+                                     PG_BATCH, PG_SEQ, LocalWire(mesh),
+                                     torch.device("cuda"))
+        ref[strategy] = {"losses": losses, "digests": digests(state, [0, 1]),
+                         "launches": {n: f.launches
+                                      for n, f in funcs.items()}}
+        for n, c in ref[strategy]["launches"].items():
+            assert c == (2 * 12 * PG_STEPS if n in MAIN_KERNELS else
                          draws.get(n, 0)), (strategy, "local", n, c)
-    by_path["5c process group, 2 ranks"] = pg_launches
+        del state
+        torch.cuda.empty_cache()
+    backend, got = pg_ranks(torch, cfg)
+    by_path["5c process group, 2 ranks"] = check_ranks(cfg, backend, got,
+                                                       ref)
     by_path["5c LocalWire W=2"] = {n: sum(ref[s]["launches"][n]
                                           for s in PG_STRATEGIES)
                                    for n in funcs}
@@ -1043,7 +1088,7 @@ def phase5c(torch, by_path, cfg) -> dict:
         f"equal LocalWire's for {', '.join(PG_STRATEGIES)}; losses "
         f"{ {s: ref[s]['losses'] for s in PG_STRATEGIES} }")
     return {"backend": backend, "cards": cards, "layers": cfg.num_layers,
-            "losses": {s: ref[s]["losses"] for s in PG_STRATEGIES}}
+            "losses": {s: ref[s]["losses"] for s in PG_STRATEGIES}}, ref
 
 
 def adaptive_layout(cfg, compressor, policy):
@@ -1741,6 +1786,320 @@ def phase8_paper(torch, by_path) -> dict:
     return out
 
 
+def run_steps(torch, cfg, comp, *, perleaf=False, mesh="1x1", steps=3,
+              batch=8, seq=128, probe=None, device="cuda", params=None):
+    """``steps`` steps of ``cfg`` from ``init_params(cfg, 0)`` (or a copy
+    of ``params`` on ``device``) through the library entry points (a
+    ``LocalWire`` of the mesh's workers), the bucketed/chunked pipeline
+    or the per-leaf loop; returns the records (each with its step ms,
+    host clock around a synchronised step), the state and the layout."""
+    from repro_torch.data import batch_for
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.launch.mesh import data_world_size, parse_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim import constant, sgd_momentum
+    from repro_torch.train import init_train_state, make_train_step
+    if params is None:
+        params = init_params(cfg, 0, device)
+    else:
+        from repro_torch import tree
+        params = tree.tree_map(lambda x: x.clone().to(device), params)
+    layout = build_layout(params, 1, comp)
+    opt = sgd_momentum(0.9)
+    state = init_train_state(params, opt,
+                             workers=data_world_size(parse_mesh(mesh)),
+                             model_size=1, compression=comp,
+                             layout=None if perleaf else layout)
+    step = make_train_step(cfg, mesh, opt, constant(0.1), compression=comp,
+                           layout=None if perleaf else layout, probe=probe)
+    recs = []
+    for i in range(steps):
+        b = batch_for(cfg, i, global_batch=batch, seq_len=seq,
+                      device=device)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        rec = {k: float(v) for k, v in m.items()}
+        rec["ms"] = (time.perf_counter() - t0) * 1e3
+        recs.append(rec)
+    return recs, state, layout
+
+
+def state_equal(torch, a, b, layout) -> None:
+    """Two train states bitwise equal on the card: params, momentum,
+    ``resid`` and ``resid2`` (a per-leaf residual tree against the flat
+    bucket's columns), the controller state."""
+    from repro_torch import tree
+    for key in ("params", "opt"):
+        for x, y in zip(tree.leaves(a[key]), tree.leaves(b[key])):
+            assert same_bits(x, y), ("state", key)
+    for key in ("resid", "resid2"):
+        assert (key in a) == (key in b), key
+        if key not in a:
+            continue
+        x, y = a[key], b[key]
+        if not isinstance(x, torch.Tensor):
+            x, y = y, x
+        if isinstance(y, torch.Tensor):
+            assert same_bits(x, y), ("state", key)
+            continue
+        rows = x.view(x.shape[0], -1)      # (workers, flat), model_size 1
+        for s, leaf in zip(layout.segments, tree.leaves(y)):
+            assert same_bits(rows[:, s.row_off:s.row_off + s.d_row],
+                             leaf), ("state", key, s.name)
+    for k in a.get("adaptk", {}):
+        assert (a["adaptk"][k] == b["adaptk"][k]).all(), ("adaptk", k)
+
+
+def release_probe(torch):
+    """A probe that records CUDA events at each worker's backward ends
+    and at each chunk's hook (``profile.release_fractions`` reads them),
+    and each step's allocations; returns ``(probe, events, allocs)``."""
+    events, allocs = [], []
+
+    def probe(rank, backward=None, release=None, k_alloc=None, K_eff=None,
+              **_):
+        if backward is not None or release is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((rank, release if release is not None else
+                           "start" if backward else "end", ev))
+        if k_alloc is not None:
+            allocs.append((list(map(int, k_alloc)), int(K_eff)))
+    return probe, events, allocs
+
+
+def variant_runs(torch, by_path, label, cfg, variants, *, mesh="1x1",
+                 steps=3, expect=None, ref_key="chunks 1"):
+    """Run each ``(name, comp, perleaf)`` of ``variants`` with the launch
+    counters set to 0 just before and read just after (``expect`` a step
+    plus the params' draws), the first one the reference the others'
+    states must equal bitwise (held on the card meanwhile).  Returns
+    ``{name: summary}``."""
+    from repro_torch.dist.layout import build_chunk_plan
+    from repro_torch.launch.profile import release_fractions
+    out, ref = {}, None
+    once = {"threefry_bits": init_draws(cfg)}
+    for name, comp, perleaf in variants:
+        probe, events, allocs = release_probe(torch)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        launches, (recs, state, layout) = drive(
+            f"{label} {name}", lambda: run_steps(
+                torch, cfg, comp, perleaf=perleaf, mesh=mesh, steps=steps,
+                probe=probe), expect, steps, once)
+        peak = torch.cuda.max_memory_allocated() - held
+        by_path[f"{label} {name}"] = launches
+        n = (len(layout.segments) if perleaf else
+             build_chunk_plan(layout, comp.chunks).n_chunks)
+        torch.cuda.synchronize()
+        # the last step's events (as many a step)
+        rel = release_fractions(events[len(events) - len(events) // steps:])
+        summary = {"losses": [r["loss"] for r in recs],
+                   "step_ms": [r["ms"] for r in recs],
+                   "peak_gib": peak / 2 ** 30,
+                   "collectives_per_step": recs[0]["collectives_per_step"],
+                   "dispatches": n, "allocations": len(allocs),
+                   "k_total": [r.get("k_total") for r in recs],
+                   "release_fractions": {
+                       r: {c: round(f, 4) for c, f in v["released"].items()}
+                       for r, v in rel.items()},
+                   "backward_ms": {r: v["backward_ms"]
+                                   for r, v in rel.items()},
+                   "wall_s": time.time() - t0}
+        if ref is None:
+            ref, ref_recs, ref_allocs = state, recs, allocs
+            base_coll = recs[0]["collectives_per_step"]
+        else:
+            state_equal(torch, ref, state, layout)
+            for r, q in zip(ref_recs, recs):
+                for k in r:
+                    if k not in ("ms", "collectives_per_step"):
+                        assert r[k] == q[k], (label, name, k, r[k], q[k])
+            assert allocs == ref_allocs, (label, name, "allocations")
+            del state
+        for r in recs:
+            assert r["collectives_per_step"] == base_coll * n, (
+                label, name, r["collectives_per_step"], n)
+        if comp.adaptive:
+            assert len(allocs) == steps, (label, name, "allocations")
+            for (k, K), r in zip(allocs, recs):
+                assert sum(k) == K == r["k_total"], (label, name, K)
+        out[name] = summary
+        torch.cuda.empty_cache()
+        bwd = summary["backward_ms"]
+        log(f"  {label} {name}: losses {summary['losses']}; step ms "
+            f"{[round(x, 1) for x in summary['step_ms']]}; peak "
+            f"{summary['peak_gib']:.2f} GiB; collectives a step "
+            f"{summary['collectives_per_step']:.0f}; launches "
+            f"{ {k: c for k, c in launches.items() if c} }"
+            + ("" if name == ref_key else
+               f"; params, momentum, residuals bitwise {ref_key}'s")
+            + (f"; release fractions of the backward (last step) "
+               f"{summary['release_fractions']}, backward ms "
+               f"{ {r: round(v, 1) for r, v in bwd.items()} }"
+               if summary["release_fractions"] else ""))
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase9_chunked(torch, by_path, ref5c, small_cfg, small_base) -> dict:
+    """Phase 9, slices 6 and 2b: the chunked schedule and the per-leaf
+    loop, each path with the launch counters set to 0 just before it and
+    read just after.
+
+    9a. llama3.2-1b at full width and depth (batch 8 x 128, Gaussian-k
+        fused at ``RATIO``, world 1), 3 steps each of chunks 1, chunks 4,
+        chunks L (one a leaf) and the per-leaf loop: params, momentum and
+        residuals bitwise chunks 1's (``torch.equal`` of the int32 views
+        on the card), the metrics equal, ``collectives_per_step`` N (or
+        L), K1, K2 and both K3 launches 12 a step; step ms, peak GiB and
+        each chunk's release as a fraction of the backward's span;
+    9b. the same at llama3.2-1b's default ``variance``, chunks 1 and 4:
+        one allocation a step, equal, ``sum(k) == K_eff == k_total``, the
+        state bitwise;
+    9c. four workers on the card (``LocalWire``) at full width with 4
+        layers, each strategy bucketed, at chunks 3 and per leaf, 2 steps:
+        states bitwise the bucketed run's;
+    9d. two processes over ``torch.distributed`` (as 5c: NCCL with two
+        cards, else gloo) at chunks 3, allgather and gtopk: sha256 and
+        losses equal 5c's ``LocalWire`` (chunks 1) run; whether the
+        chunks' gathers ran asynchronously;
+    9e. the small config card against CPU (the card's block geometry),
+        chunked and per leaf, W = 1 and W = 4 gtopk, losses within rtol
+        1e-4;
+    9f. ``overlap_schedule.run(smoke=True)`` on the card, its dispatch
+        rows against ``benchmarks/baselines/overlap.json``, and fig4's
+        dispatch rows against ``benchmarks/baselines/fig4.json``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import adaptk
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.kernels.ef_fused import tuning
+    t_start = time.time()
+    out = {}
+    cfg = get_config("llama3.2-1b")
+    main12 = {n: 12 for n in MAIN_KERNELS}
+    fixed = CompressionConfig(ratio=RATIO)
+    log("phase 9a: llama3.2-1b at full width and depth, Gaussian-k fused, "
+        "world 1, 3 steps each: chunks 1, 4, 12 (one a leaf), per leaf")
+    out["9a"] = variant_runs(torch, by_path, "9a", cfg, [
+        ("chunks 1", fixed, False),
+        ("chunks 4", fixed.replace(chunks=4), False),
+        ("chunks 12", fixed.replace(chunks=12), False),
+        ("perleaf", fixed, True)], expect=main12)
+    out["9a_s"] = time.time() - t_start
+
+    t0 = time.time()
+    vpol = adaptk.make_policy(cfg.density_policy)
+    var = CompressionConfig(ratio=RATIO, density_policy=vpol)
+    log(f"phase 9b: llama3.2-1b's default {cfg.density_policy} at chunks 1 "
+        "and 4, 3 steps each")
+    out["9b"] = variant_runs(torch, by_path, "9b", cfg, [
+        ("chunks 1", var, False), ("chunks 4", var.replace(chunks=4),
+                                   False)], expect=main12)
+    out["9b_s"] = time.time() - t0
+
+    t0 = time.time()
+    cfg4 = llama_layers(4)
+    out["9c"] = {}
+    for strategy, mesh in (("allgather", "4x1"), ("gtopk", "4x1"),
+                           ("hierarchical", "2x2x1"),
+                           ("hier_gtopk", "2x2x1")):
+        # the two-level strategies compress the pod mean a second time
+        levels = 2 if strategy.startswith("hier") else 1
+        comp = CompressionConfig(ratio=RATIO, strategy=strategy)
+        log(f"phase 9c: {strategy}, --mesh {mesh}, 4 workers, full width "
+            "with 4 layers, 2 steps each: bucketed, chunks 3, per leaf")
+        out["9c"][strategy] = variant_runs(
+            torch, by_path, f"9c {strategy}", cfg4, [
+                ("bucketed", comp, False),
+                ("chunks 3", comp.replace(chunks=3), False),
+                ("perleaf", comp, True)], mesh=mesh, steps=2,
+            expect={n: 48 * levels for n in MAIN_KERNELS},
+            ref_key="bucketed")
+    out["9c_s"] = time.time() - t0
+
+    t0 = time.time()
+    cfg2 = llama_layers(2)
+    backend, got = pg_ranks(torch, cfg2, chunks=3)
+    by_path["9d process group, 2 ranks, chunks 3"] = check_ranks(
+        cfg2, backend, got, ref5c)
+    async_ops = {s: [got[r][s]["async_ops"] for r in range(2)]
+                 for s in PG_STRATEGIES}
+    # allgather's three chunk gathers a step are issued asynchronously;
+    # gTop-k's rounds exchange pairs with blocking sends and receives
+    assert async_ops["allgather"] == [3 * PG_STEPS] * 2, async_ops
+    assert async_ops["gtopk"] == [0, 0], async_ops
+    ms = {s: [got[r][s]["step_ms"] for r in range(2)] for s in PG_STRATEGIES}
+    out["9d"] = {"backend": backend, "async_ops": async_ops,
+                 "step_ms": ms,
+                 "losses": {s: got[0][s]["losses"] for s in PG_STRATEGIES}}
+    out["9d_s"] = time.time() - t0
+    log(f"phase 9d: 2 ranks over {backend} at chunks 3: params, momentum, "
+        f"each rank's residual (sha256) and losses equal 5c's LocalWire "
+        f"chunks-1 run for {', '.join(PG_STRATEGIES)}; asynchronous "
+        f"gathers a rank {async_ops} (allgather: yes, 3 a step; gtopk: "
+        f"none, its rounds block); step ms by rank "
+        f"{ {s: [[round(x, 1) for x in r] for r in v]
+             for s, v in ms.items()} }")
+
+    t0 = time.time()
+    out["9e"] = {}
+    for label, mesh, strategy in (("W=1 gaussiank", "1x1", "allgather"),
+                                  ("W=4 gtopk", "4x1", "gtopk")):
+        comp = CompressionConfig(ratio=0.01, strategy=strategy)
+        for name, c, perleaf in (("chunks 3", comp.replace(chunks=3),
+                                  False), ("perleaf", comp, True)):
+            ls = {}
+            for dev in ("cuda", "cpu"):
+                with tuning.geometry_of("cuda"):
+                    recs, _, _ = run_steps(
+                        torch, small_cfg, c, perleaf=perleaf, mesh=mesh,
+                        steps=2, batch=8, seq=16, device=dev,
+                        params=small_base)
+                ls[dev] = [r["loss"] for r in recs]
+            np.testing.assert_allclose(ls["cuda"], ls["cpu"], rtol=1e-4)
+            out["9e"][f"{label} {name}"] = ls
+            log(f"phase 9e: {label} {name}: card {ls['cuda']} vs CPU "
+                f"{ls['cpu']} within rtol 1e-4")
+    out["9e_s"] = time.time() - t0
+
+    t0 = time.time()
+    from repro_torch.benchmarks import fig4_selection_speed as fig4
+    from repro_torch.benchmarks import overlap_schedule
+    by_path["9f overlap_schedule"], rows = zeroed(
+        lambda: overlap_schedule.run(smoke=True, device="cuda"))
+    for r in rows:
+        log("  " + ",".join(str(x) for x in r))
+    got_rows = {r[0]: r[2] for r in rows}
+    for name in ("overlap", "fig4"):
+        with open(os.path.join(HERE, "benchmarks", "baselines",
+                               f"{name}.json")) as f:
+            base = [r for r in json.load(f)["rows"]
+                    if r["method"].startswith("dispatch")]
+        if name == "fig4":
+            drows, _ = fig4._dispatch_rows(torch.device("cuda"))
+            got_rows.update({r[0]: r[2] for r in drows})
+        for r in base:
+            text = got_rows[f"{name}/{r['method']}/{r['shape']}"]
+            assert text.startswith(f"collectives={r['passes']}"), (r, text)
+    out["9f"] = {"rows": rows}
+    out["9f_s"] = time.time() - t0
+    log("phase 9f: overlap_schedule run(smoke=True) on the card; its "
+        "dispatch rows and fig4's equal the baselines (overlap 1/2/4, "
+        "2/4/8, 3/6/12; fig4 per leaf 8 and 16, bucketed 1 and 2)")
+    out["phase9_s"] = time.time() - t_start
+    log(f"phase 9 took {out['phase9_s']:.1f} s (9a {out['9a_s']:.1f}, 9b "
+        f"{out['9b_s']:.1f}, 9c {out['9c_s']:.1f}, 9d {out['9d_s']:.1f}, "
+        f"9e {out['9e_s']:.1f}, 9f {out['9f_s']:.1f})")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1788,7 +2147,7 @@ def main(argv) -> int:
         phase7a_prng(torch, rows, timed=False)
         log(json.dumps({"kernels": list(rows.values()),
                         "pipelines": pipelines}))
-        log("kernels-only run: phases 3-7 skipped (7a run untimed)")
+        log("kernels-only run: phases 3-9 skipped (7a run untimed)")
         return 0
 
     # -- phase 3: the paths at full width --
@@ -1978,7 +2337,7 @@ def main(argv) -> int:
 
     log("phase 5c: the process-group wire on the card, 2 ranks, full width "
         "with 2 layers, 2 steps of allgather and of gtopk")
-    phase5["5c"] = phase5c(torch, by_path, llama_layers(2))
+    phase5["5c"], ref5c = phase5c(torch, by_path, llama_layers(2))
 
     from repro_torch.dist.wire import LocalWire
     from repro_torch.launch.mesh import parse_mesh
@@ -2021,6 +2380,9 @@ def main(argv) -> int:
     # -- phase 8: the paper's experiments --
     phase8 = phase8_paper(torch, by_path)
 
+    # -- phase 9: the chunked schedule and the per-leaf loop --
+    phase9 = phase9_chunked(torch, by_path, ref5c, cfg, base)
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -2030,6 +2392,7 @@ def main(argv) -> int:
                     "path_a": path_a, "path_b": path_b, "path_d": path_d,
                     "small": small, "phase5": phase5, "phase6": phase6,
                     "phase7": phase7, "phase8": phase8,
+                    "phase9": phase9,
                     "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(json.dumps({"kernels": list(rows.values())}))

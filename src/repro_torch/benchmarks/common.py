@@ -1,8 +1,9 @@
 """Shared helpers for the paper-fidelity benchmarks (port of the JAX
 package's ``benchmarks/common.py``): ``timeit``, the measurement
-provenance ``bench_meta``/``stamp_meta``, and
-``simulate_sparsified_sgd``, the single-process simulation of paper
-Eq. (2) on FNN-3 that Fig. 1/2/5/6/10/11 and rTop-k drive."""
+provenance ``bench_meta``/``stamp_meta``, the message-counting wire
+``CountingWire``, and ``simulate_sparsified_sgd``, the single-process
+simulation of paper Eq. (2) on FNN-3 that Fig. 1/2/5/6/10/11 and rTop-k
+drive."""
 from __future__ import annotations
 
 import subprocess
@@ -44,6 +45,28 @@ def timeit(fn, *args, warmup=2, iters=5):
         fn(*args)
         _sync()
     return (time.perf_counter() - t0) / iters * 1e6  # us
+
+
+class CountingWire:
+    """A wire that counts the codec-pair collectives it is asked for:
+    each ``all_gather`` and ``ppermute`` call is one message (the
+    reference counts the same primitives in a jaxpr); ``pmean`` (the
+    metrics' and the allocator's) is not a message.  Everything else is
+    the wrapped wire's."""
+
+    def __init__(self, inner):
+        self.inner, self.messages = inner, 0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def all_gather(self, xs, axis, async_op: bool = False):
+        self.messages += 1
+        return self.inner.all_gather(xs, axis, async_op=async_op)
+
+    def ppermute(self, xs, axis, perm):
+        self.messages += 1
+        return self.inner.ppermute(xs, axis, perm)
 
 
 def bytes_bound_ms(nbytes: float) -> float:

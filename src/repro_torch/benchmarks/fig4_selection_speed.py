@@ -5,7 +5,7 @@ paper's headline systems claim: Gaussian_k's threshold selection against
 exact top-k on a GPU, and the path on which the TPU kernels'
 counterparts (K1-K4d) run at the Fig. 4 shapes.
 
-Two groups of rows, each ``(name, us_per_call, derived)``:
+Three groups of rows, each ``(name, us_per_call, derived)``:
 
 * **selection**: the registry's ``topk`` (a stable full sort, kept for
   ``lax.top_k``'s tie order — it times what training runs, not
@@ -15,14 +15,19 @@ Two groups of rows, each ``(name, us_per_call, derived)``:
   its ``count_passes`` total, plus the plain-torch
   ``compress_with_ef(..., backend="reference")`` (the row keeps the
   reference's name, ``gaussiank-jnp``, so the two packages' rows line
-  up).
+  up);
+* **dispatch**: collectives a step of the per-leaf aggregation against
+  the bucketed one (eight leaves, W = 4 workers of a ``LocalWire`` in
+  this process, allgather and gtopk), counted from the wire's own calls
+  (``common.CountingWire``; the reference counts a jaxpr).  The
+  reference's mesh has a model axis of 2, which the port does not run
+  yet (slice 2c): the port counts at model size 1, which the count does
+  not depend on, and says so in the row.
 
 On the card the full mode adds d = 268,435,456 (llama3.2-1b's largest
 leaf) to both shape lists, and each of those rows gets its bytes bound
 (``bound_ms``: each input read once, each output written once, at the
-H100's 3.35 TB/s).  The reference's dispatch rows (collectives per step
-of the per-leaf against the bucketed aggregation) wait for slice 2b, the
-per-leaf ``aggregate_compressed``.
+H100's 3.35 TB/s).
 
 ``run()`` only reports; ``python -m
 repro_torch.benchmarks.fig4_selection_speed --json PATH`` writes the
@@ -34,10 +39,18 @@ from __future__ import annotations
 import argparse
 import json
 
+import torch
+
 from repro_torch import prng
-from repro_torch.benchmarks.common import bytes_bound_ms, stamp_meta, timeit
+from repro_torch.benchmarks.common import (CountingWire, bytes_bound_ms,
+                                           stamp_meta, timeit)
 from repro_torch.core import compress_with_ef, get_compressor
+from repro_torch.core.compression import CompressionConfig
 from repro_torch.devices import resolve_device
+from repro_torch.dist import aggregate
+from repro_torch.dist.layout import build_layout
+from repro_torch.dist.wire import LocalWire
+from repro_torch.launch.mesh import parse_mesh
 from repro_torch.kernels.ef_fused import (count_passes, fused_compress_ef,
                                           unfused_compress_ef)
 from repro_torch.kernels.histk import histk_select_kernel
@@ -126,14 +139,47 @@ def _ef_pipeline_rows(smoke: bool, device):
     return rows, bench
 
 
+def _dispatch_rows(device):
+    """Collectives a step of the per-leaf against the bucketed
+    aggregation: L per wire level against 1."""
+    L, W, ratio = 8, 4, 0.01
+    params = {f"layer{i}": torch.zeros(64 + 8 * i, device=device)
+              for i in range(L)}
+    layout = build_layout(params, 1, CompressionConfig(compressor="topk",
+                                                       ratio=ratio))
+    rows, bench = [], []
+    for strategy in ("allgather", "gtopk"):
+        config = CompressionConfig(compressor="topk", ratio=ratio,
+                                   strategy=strategy, backend="reference")
+        for method in ("dispatch-perleaf", "dispatch-bucketed"):
+            wire = CountingWire(LocalWire(parse_mesh(f"{W}x1")))
+            if method == "dispatch-perleaf":
+                aggregate.aggregate_compressed(
+                    [params] * W, aggregate.init_residuals(params, 1,
+                                                           workers=W),
+                    config, wire=wire)
+            else:
+                aggregate.aggregate_bucketed(
+                    [params] * W, torch.zeros((W, layout.flat_size),
+                                              device=device),
+                    layout, config, wire=wire)
+            shape = f"L{L}-W{W}-{strategy}"
+            bench.append({"shape": shape, "method": method,
+                          "passes": wire.messages, "ms": 0.0})
+            rows.append((f"fig4/{method}/{shape}", 0.0,
+                         f"collectives={wire.messages};model_size=1 (the "
+                         "reference's 2 waits for slice 2c)"))
+    return rows, bench
+
+
 def collect(smoke: bool = False, device="cuda"):
     device = resolve_device(device)
     rows = _selection_rows(smoke, device)
     ef_rows, bench = _ef_pipeline_rows(smoke, device)
-    # the dispatch rows (per-leaf vs bucketed collectives) land with
-    # slice 2b, the per-leaf aggregate_compressed
-    return (rows + ef_rows,
-            stamp_meta({"schema": SCHEMA, "smoke": smoke, "rows": bench}))
+    d_rows, d_bench = _dispatch_rows(device)
+    return (rows + ef_rows + d_rows,
+            stamp_meta({"schema": SCHEMA, "smoke": smoke,
+                        "rows": bench + d_bench}))
 
 
 def run(smoke: bool = False, device="cuda"):

@@ -17,7 +17,8 @@ import sys
 import time
 
 MODULES = ["fig5_bound", "fig2_histograms", "fig1_fig6_convergence",
-           "fig4_selection_speed", "fig10_sensitivity", "fig_rtopk"]
+           "fig4_selection_speed", "fig10_sensitivity", "fig_rtopk",
+           "overlap_schedule"]
 
 
 def run_module(name: str, smoke: bool = False, device="cuda") -> int:

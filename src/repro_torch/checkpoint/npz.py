@@ -9,8 +9,10 @@ adaptive controller's numpy arrays are stored as numpy arrays and Python
 integers (the step counter, AdamW's ``t``) as int32 scalars, so a state
 saved by the JAX package loads into the port with numpy alone, and the
 other way round.  The flat residuals are the ``(workers, model_size *
-d_row_total)`` buckets.  (The reference's migration of per-leaf residual
-checkpoints comes with the per-leaf pipeline.)
+d_row_total)`` buckets (``resid``, ``resid2``); the per-leaf pipeline's
+are ``(workers, d_pad)`` leaves (``resid/<leaf path>``).  With
+``layout=``, a per-leaf checkpoint loads into a state with flat buckets
+(the reference's ``_migrate_legacy_residual``).
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ _SEP = "/"
 # self-seed from their first positive observation (core/adaptk.py
 # ``global_scale``), so the migrated state is exact
 _GLOBALK_KEYS = ("adaptk/gnorm", "adaptk/gnorm0")
+# the residuals: a flat bucket each, or a tree of per-leaf entries below
+_RESID_KEYS = ("resid", "resid2")
 
 
 def _key(path) -> str:
@@ -53,16 +57,35 @@ def save_state(path: str, state: Any) -> None:
     os.replace(tmp, path)
 
 
+def _migrate_legacy_residual(flat: dict, key: str, layout):
+    """A per-leaf residual (``<key>/<leaf path>`` entries, segment order)
+    packed into the flat bucket; raises for a missing leaf."""
+    from repro_torch.dist.layout import pack_residual_arrays
+
+    arrays = []
+    for seg in layout.segments:
+        legacy = f"{key}{_SEP}{seg.name}"
+        if legacy not in flat:
+            raise KeyError(
+                f"checkpoint has neither a flat {key!r} buffer nor the "
+                f"per-leaf entry {legacy!r} (truncated or incompatible "
+                "checkpoint)")
+        arrays.append(flat[legacy])
+    return pack_residual_arrays(layout, arrays)
+
+
 def load_state(path: str, like: Any, *,
-               worker_rows: Optional[Sequence[int]] = None) -> Any:
+               worker_rows: Optional[Sequence[int]] = None,
+               layout=None) -> Any:
     """Restore into the structure of ``like``: each tensor leaf is
     overwritten in place (shape checked, cast to its dtype), each numpy
     or integer leaf replaced (numpy: shape checked, cast to its dtype).
-    ``worker_rows`` picks rows of the checkpoint's worker axis for
-    ``resid``/``resid2`` — a process that runs one worker of a W-worker
-    checkpoint passes its rank.  The global-k scalars ``adaptk/gnorm``
-    and ``adaptk/gnorm0`` are zero-filled when the checkpoint lacks
-    them."""
+    ``worker_rows`` picks rows of the checkpoint's worker axis for the
+    residuals — a process that runs one worker of a W-worker checkpoint
+    passes its rank.  ``layout`` (the state's ``BucketLayout``) lets a
+    per-leaf checkpoint's residuals load into the flat buckets,
+    bitwise.  The global-k scalars ``adaptk/gnorm`` and
+    ``adaptk/gnorm0`` are zero-filled when the checkpoint lacks them."""
     with np.load(path) as data:
         flat = dict(data)
     pairs, td = tree.flatten_with_path(like)
@@ -71,11 +94,13 @@ def load_state(path: str, like: Any, *,
         key = _key(p)
         if key not in flat and key in _GLOBALK_KEYS:
             arr = np.zeros(np.shape(leaf), np.float32)
+        elif key not in flat and layout is not None and key in _RESID_KEYS:
+            arr = _migrate_legacy_residual(flat, key, layout)
         elif key not in flat:
             raise KeyError(f"checkpoint {path!r} has no entry {key!r}")
         else:
             arr = flat[key]
-        if worker_rows is not None and key in ("resid", "resid2"):
+        if worker_rows is not None and key.split(_SEP)[0] in _RESID_KEYS:
             arr = arr[list(worker_rows)]
         if isinstance(leaf, torch.Tensor):
             if tuple(arr.shape) != tuple(leaf.shape):

@@ -2,11 +2,7 @@
 ``repro.core.compression``).
 
 :class:`CompressionConfig` carries what to compress with and how to move
-it; construction validates it as the reference does.  Values the port
-does not carry yet (chunking) are accepted by the vocabulary checks and
-then rejected by
-:meth:`CompressionConfig.require_ported` with an error naming the slice
-that ports them.
+it; construction validates it as the reference does.
 """
 from __future__ import annotations
 
@@ -18,7 +14,6 @@ import torch
 from repro_torch.core.adaptk import DensityPolicy
 from repro_torch.core.compressors import CompressorSpec, get_compressor
 from repro_torch.core.error_feedback import BACKENDS
-from repro_torch.slices import not_ported
 
 STRATEGIES = ("allgather", "gtopk", "hierarchical", "hier_gtopk")
 
@@ -98,12 +93,6 @@ class CompressionConfig:
 
     def replace(self, **changes) -> "CompressionConfig":
         return dataclasses.replace(self, **changes)
-
-    def require_ported(self) -> "CompressionConfig":
-        """Raise for every field value the port does not run yet."""
-        if self.chunks != 1:
-            raise not_ported("chunks > 1", "chunks")
-        return self
 
 
 def as_config(value) -> CompressionConfig:

@@ -8,7 +8,9 @@ branches and ``_wire_cast_fixup``, the adaptive-density pieces
 / ``_gtopk_reduce_bucket`` / ``gtopk_simulate``, ``_gather_mean``,
 ``aggregate_dense``, ``_wire_config`` and ``aggregate_bucketed`` for the
 four wire strategies, with the keyed compressors' per-segment keys and
-DGC momentum correction).
+DGC momentum correction; the chunked schedule
+``aggregate_bucketed_chunked``; the per-leaf ``init_residuals`` and
+``aggregate_compressed``).
 
 Per step and per worker: pack the worker's gradients into the
 ``(model_size, d_row_total)`` bucket and compress it against the
@@ -57,6 +59,20 @@ gradients exist, pass A (K1) runs on ``u`` alone, ``G`` is dropped, and
 ``u`` is compressed in place after the allocation.  The kernels form
 ``g + e`` in f32 before anything else, so this is bitwise the same as
 compressing ``(G, E)``.
+
+The chunked schedule and the per-leaf loop dispatch the same arithmetic
+at other granularities (:class:`ChunkedAggregation`): the bucket is cut
+into leaf-aligned chunk groups (``layout.build_chunk_plan``; per leaf,
+one group a leaf), and each chunk runs its own pack, compression and
+wire on its window of the residual (``layout.chunk_view``).  Selection,
+keys and the codec's index space are per segment, so every chunk's
+results are the bits of the same columns of the bucketed run; only the
+number of collectives changes (N, or L, a wire level).  A chunk is
+packed and compressed as soon as its gradients are released (the train
+step releases them from autograd hooks, during the backward), and its
+wire runs once every local worker has released it.  Under adaptive
+density the allocation needs every chunk's pass A first, so the
+compressions and the wire wait for it.
 """
 from __future__ import annotations
 
@@ -70,8 +86,11 @@ from repro_torch.core import adaptk, codec
 from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.compressors import CompressorSpec
 from repro_torch.core.error_feedback import resolve_backend
-from repro_torch.dist.layout import (STRATEGIES, BucketLayout, _log2_exact,
-                                     pack_grads, unpack_tree)
+from repro_torch.dist.layout import (STRATEGIES, BucketLayout, ChunkPlan,
+                                     _log2_exact, build_chunk_plan,
+                                     build_layout, chunk_view, flat_dims,
+                                     pack_grads, unpack_tree,
+                                     validate_chunk_plan)
 from repro_torch.dist.wire import LocalWire
 from repro_torch.kernels.ef_fused.segmented import (segmented_compress_ef,
                                                     segmented_pass_a,
@@ -519,20 +538,27 @@ def gtopk_simulate(partials, k_cap: int, codec_dtype=None):
 
 
 def _gather_mean(values, indices, axis, n: int, d_row: int, wire,
-                 dtype=torch.float32) -> list:
+                 dtype=torch.float32, async_op: bool = False):
     """All-gather the workers' pairs over ``axis`` and decode-average:
     one ``(model_size, d_row)`` mean per local worker (workers of one
     group share it).  The gathered block is decoded rank by rank into
     one bucket and divided by ``n`` (at ``n == 1`` the division is the
-    identity and is skipped)."""
-    gathered = wire.all_gather(list(zip(values, indices)), axis)
-    means = {}
-    for v_all, i_all in gathered:
-        key = (id(v_all), id(i_all))
-        if key not in means:
-            total = codec.decode_sum(v_all, i_all, d_row, dtype)
-            means[key] = total if n == 1 else total.div_(n)
-    return [means[(id(v), id(i))] for v, i in gathered]
+    identity and is skipped).  With ``async_op`` the gather is only
+    issued: returns a callable that waits for it and decodes."""
+    pending = wire.all_gather(list(zip(values, indices)), axis,
+                              async_op=async_op)
+
+    def decode():
+        gathered = pending.wait() if async_op else pending
+        means = {}
+        for v_all, i_all in gathered:
+            key = (id(v_all), id(i_all))
+            if key not in means:
+                total = codec.decode_sum(v_all, i_all, d_row, dtype)
+                means[key] = total if n == 1 else total.div_(n)
+        return [means[(id(v), id(i))] for v, i in gathered]
+
+    return decode if async_op else decode()
 
 
 def _wire_config(strategy: str, wire, with_resid2: bool, mc: float,
@@ -606,92 +632,45 @@ def _rows(resid: torch.Tensor, layout: BucketLayout, workers: int):
     return resid.view(workers, M, D)
 
 
-def _worker_grads(entry, seen: dict):
-    """One worker's gradient tree (``entry`` or what it returns); the
-    first records the dense baseline's bits, from the RUNTIME grad
-    dtypes, and an empty tree of the gradients' structure and dtypes
-    (for ``unpack_tree``) into ``seen``."""
-    g = entry() if callable(entry) else entry
-    if "like" not in seen:
-        leaves, td = tree.flatten(g)
-        seen["bits_dense"] = float(sum(2 * x.numel() * x.element_size() * 8
-                                       for x in leaves))
-        seen["like"] = tree.unflatten(td, [torch.empty(0, dtype=x.dtype)
-                                           for x in leaves])
-    return g
+def _workers_and_wire(grads, wire):
+    """``grads`` as a list of per-worker entries (a bare tree is the one
+    worker's) and the wire (default: one data axis of that many
+    workers in this process)."""
+    if isinstance(grads, dict):
+        grads = [grads]
+    return grads, (_one_data_axis_wire(len(grads)) if wire is None
+                   else wire)
 
 
-def _compress_workers(grads, E_rows, layout: BucketLayout,
-                      config: CompressionConfig, wire, probe, seen: dict,
-                      keys, V_rows=None):
-    """Fixed k: pack and compress each local worker's gradients against
-    its residual rows ``E_rows[w]`` (updated in place), with its key
-    ``keys[w]`` and, under momentum correction, its velocity rows
-    ``V_rows[w]`` (updated in place).  ``grads`` holds one entry per
-    local worker: a gradient tree, or a callable returning it (called in
-    worker order, so only one worker's gradients are alive at a time).
-    Returns per-worker lists of the wire pairs."""
-    mc = config.momentum_correction
-    values, indices = [], []
-    for w, entry in enumerate(grads):
-        g = _worker_grads(entry, seen)
-        G = pack_grads(layout, g, E_rows.dtype)
-        del g
-        v, i, new_E = bucket_compress(G, E_rows[w], layout, config.spec,
-                                      keys[w], backend=config.backend,
-                                      codec_dtype=config.codec_dtype,
-                                      momentum=mc,
-                                      V=V_rows[w] if mc > 0.0 else None)
-        if probe is not None:
-            probe(wire.ranks[w], G=G, values=v, indices=i, new_E=new_E)
-        del G
-        values.append(v)
-        indices.append(i)
-    return values, indices
-
-
-def _compress_workers_adaptive(grads, E_rows, layout: BucketLayout,
-                               config: CompressionConfig, wire, probe,
-                               seen: dict, adapt_state, step, keys):
-    """Adaptive density: per local worker, in worker order, ``E_rows[w]
-    += G`` (``u`` in place), pass A on ``u``, ``G`` dropped; then the
-    allocation across all workers; then each worker's ``u`` compressed
-    with the allocated budgets and its pass-A statistics (no second K1).
-    Returns the wire pairs, ``k_alloc``, ``K_eff`` and the new
-    controller state."""
-    spec, policy = config.spec, config.density_policy
-    fused = resolve_backend(config.backend, spec)
-    segs = layout.segments
-    stats, sigs, sqs = [], [], []
-    for w, entry in enumerate(grads):
-        g = _worker_grads(entry, seen)
-        G = pack_grads(layout, g, E_rows.dtype)
-        del g
-        u = E_rows[w].add_(G)
-        del G
-        st, moments = _pass_a(u, layout, spec, fused)
-        stats.append(st)
-        sigs.append([adaptk.leaf_signal(policy.policy, s.size, *m)
-                     for s, m in zip(segs, moments)])
-        sqs.append([m[1] for m in moments])
-        if probe is not None:
-            probe(wire.ranks[w], u=u)
-    k_alloc, K_eff, new_adapt = _adaptive_allocation(
-        adapt_state, sigs, sqs, [s.size for s in segs], layout.ratio,
-        policy, step, [s.k_lo for s in segs], [s.k_hi for s in segs], wire)
-    if probe is not None:
-        probe(None, k_alloc=k_alloc, K_eff=K_eff)
-    values, indices = [], []
-    for w in range(len(grads)):
-        v, i, new_E = bucket_compress(None, E_rows[w], layout, spec,
-                                      keys[w], backend=config.backend,
-                                      codec_dtype=config.codec_dtype,
-                                      k_alloc=k_alloc, seg_stats=stats[w])
-        if probe is not None:
-            probe(wire.ranks[w], G=None, values=v, indices=i, new_E=new_E)
-        values.append(v)
-        indices.append(i)
-    return values, indices, k_alloc, K_eff, new_adapt
+def _validate(config: CompressionConfig, layout: BucketLayout, wire,
+              workers: int, with_resid2: bool, keys):
+    """The checks every sparse aggregation makes: the wire configuration
+    (``_wire_config``'s tuple), the layout against the config, the
+    workers against the wire and one key per worker (None for all when
+    the compressor samples no key).  Returns ``(wire tuple, keys)``."""
+    spec = config.spec
+    adaptive = config.density_policy is not None
+    wcfg = _wire_config(config.strategy, wire, with_resid2,
+                        config.momentum_correction, adaptive, spec)
+    if layout.spec_name != spec.name:
+        raise ValueError(f"layout was built for compressor "
+                         f"{layout.spec_name!r}, got {spec.name!r}")
+    if layout.adaptive != adaptive:
+        raise ValueError(
+            f"layout adaptive={layout.adaptive} does not match "
+            f"density_policy={'set' if adaptive else 'None'}; rebuild the "
+            "layout with the matching density_policy")
+    if workers != wire.local_workers:
+        raise ValueError(f"got gradients of {workers} workers, the wire "
+                         f"runs {wire.local_workers} here")
+    if keys is None:
+        if spec.needs_key:
+            raise ValueError(f"compressor {spec.name!r} samples with a "
+                             "key: pass keys=, one prng key per worker")
+        keys = [None] * workers
+    elif len(keys) != workers:
+        raise ValueError(f"got {len(keys)} keys for {workers} workers")
+    return wcfg, keys
 
 
 def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
@@ -699,7 +678,9 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
                        resid2: Optional[torch.Tensor] = None,
                        probe: Optional[Callable] = None, adapt_state=None,
                        step=None, keys=None) -> AggregateResult:
-    """Eq. (2) sparse aggregation over the bucketed pipeline.
+    """Eq. (2) sparse aggregation over the bucketed pipeline: one
+    compress + wire chain a step (:func:`aggregate_bucketed_chunked` at
+    one chunk).
 
     ``grads`` holds one entry per local worker of ``wire`` (a gradient
     tree or a callable returning one, called in worker order so that one
@@ -720,125 +701,367 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
 
     Returns an :class:`AggregateResult` whose ``agg`` leaves are views
     into the decoded mean bucket (model_size 1), the same on every
-    worker.  ``probe``, when given, is called as ``probe(rank, G=,
-    values=, indices=, new_E=)`` right after each local worker's
-    compression (under adaptive density with ``G=None``, after
-    ``probe(rank, u=)`` once its pass A has run on ``u`` and
-    ``probe(None, k_alloc=, K_eff=)`` once the allocation is made), and
-    as ``probe(None, mean=, resid=, resid2=)`` once the wire has run —
-    hooks for checks such as conservation."""
-    spec = config.spec
-    policy = config.density_policy
-    adaptive = policy is not None
-    if isinstance(grads, dict):
-        grads = [grads]
-    workers = len(grads)
-    if wire is None:
-        wire = _one_data_axis_wire(workers)
-    strategy, hier, gtopk, outer_gtopk, outer_axis, inner_axes, n_pods, \
-        n_inner, world = _wire_config(config.strategy, wire,
-                                      resid2 is not None,
-                                      config.momentum_correction, adaptive,
-                                      spec)
-    config.require_ported()
-    if layout.spec_name != spec.name:
-        raise ValueError(f"layout was built for compressor "
-                         f"{layout.spec_name!r}, got {spec.name!r}")
-    if layout.adaptive != adaptive:
-        raise ValueError(
-            f"layout adaptive={layout.adaptive} does not match "
-            f"density_policy={'set' if adaptive else 'None'}; rebuild the "
-            "layout with the matching density_policy")
-    if workers != wire.local_workers:
-        raise ValueError(f"got gradients of {workers} workers, the wire "
-                         f"runs {wire.local_workers} here")
-    if keys is None:
-        if spec.needs_key:
-            raise ValueError(f"compressor {spec.name!r} samples with a "
-                             "key: pass keys=, one prng key per worker")
-        keys = [None] * workers
-    elif len(keys) != workers:
-        raise ValueError(f"got {len(keys)} keys for {workers} workers")
-    E_rows = _rows(resid, layout, workers)
-    R2_rows = None if resid2 is None else _rows(resid2, layout, workers)
-    D = layout.d_row_total
-    codec_dtype = config.codec_dtype
+    worker.  ``probe`` is :class:`ChunkedAggregation`'s (chunk 0): hooks
+    for checks such as conservation."""
+    return aggregate_bucketed_chunked(
+        grads, resid, layout, build_chunk_plan(layout, 1), config,
+        wire=wire, resid2=resid2, probe=probe, adapt_state=adapt_state,
+        step=step, keys=keys)
 
-    seen = {}
-    new_adapt = adapt_state
-    if adaptive:
-        values, indices, k_alloc, K_eff, new_adapt = \
-            _compress_workers_adaptive(grads, E_rows, layout, config, wire,
-                                       probe, seen, adapt_state, step, keys)
-    else:
-        k_alloc = None
-        values, indices = _compress_workers(grads, E_rows, layout, config,
-                                            wire, probe, seen, keys, R2_rows)
-    nnz = [codec.nnz(i).to(torch.float32) for i in indices]
 
-    if gtopk:
-        sums, drops = _gtopk_reduce_bucket(values, indices, wire.data_axes,
-                                           layout, wire, codec_dtype)
-        mean = sums[0].div_(world)
-        del sums
-        for w, drop in enumerate(drops):
-            if drop is not None:
-                E_rows[w].add_(drop)
-        del drops
-    else:
-        means = _gather_mean(values, indices, inner_axes, n_inner, D, wire)
-        mean = means[0]
-    del values, indices
+# ---------------------------------------------------------------------------
+# the chunked schedule and the per-leaf loop
+# ---------------------------------------------------------------------------
 
-    if hier:
-        # second level: compress the pod mean against resid2, then one
-        # more gather (or gTop-k) across the pods
-        v2s, i2s = [], []
-        for w in range(workers):
-            v2, i2, _ = bucket_compress(means[w], R2_rows[w], layout, spec,
-                                        keys[w], backend=config.backend,
-                                        codec_dtype=codec_dtype,
-                                        k_alloc=k_alloc, key_fold=1)
-            v2s.append(v2)
-            i2s.append(i2)
-            nnz[w] = nnz[w] + codec.nnz(i2).to(torch.float32)
-        del means, mean
-        if outer_gtopk:
-            sums, drops = _gtopk_reduce_bucket(v2s, i2s, (outer_axis,),
-                                               layout, wire, codec_dtype)
-            mean = sums[0].div_(n_pods)
-            del sums
+
+class ChunkedAggregation:
+    """One step of the aggregation dispatched chunk by chunk.
+
+    ``E`` (and ``R2``) hold, per local worker, each chunk group's
+    ``(model_size, d_row)`` residual window, updated in place: views
+    into the flat bucket (the chunked schedule) or the per-leaf residual
+    rows (the per-leaf loop).  :meth:`release` takes one local worker's
+    gradient leaves of one chunk: it packs them into the chunk's bucket
+    and compresses it against the window (adaptive density: writes ``u``
+    into the window and runs pass A), and once every local worker has
+    released the chunk it runs the chunk's wire.  :meth:`finish` (after
+    every release) makes the allocation and the compressions that wait
+    for it, waits for the chunks' gathers and returns the
+    :class:`AggregateResult`; its ``agg`` leaves are views into the
+    chunks' means.
+
+    ``probe``, when given, is called as ``probe(rank, chunk=, G=,
+    values=, indices=, new_E=)`` after each compression (adaptive:
+    ``G=None``, after ``probe(rank, chunk=, u=)`` once the chunk's pass
+    A has run, and ``probe(None, k_alloc=, K_eff=)`` after the
+    allocation), and ``probe(None, means=, resid=, resid2=)`` at the
+    end, ``means`` the chunks' ``(model_size, d_row)`` means."""
+
+    def __init__(self, layout: BucketLayout, plan: ChunkPlan,
+                 config: CompressionConfig, *, wire, E, R2=None,
+                 probe: Optional[Callable] = None, adapt_state=None,
+                 step=None, keys=None, resid=None, resid2=None):
+        validate_chunk_plan(layout, plan)
+        workers = len(E)
+        (self.strategy, self.hier, self.gtopk, self.outer_gtopk,
+         self.outer_axis, self.inner_axes, self.n_pods, self.n_inner,
+         self.world), self.keys = _validate(config, layout, wire, workers,
+                                            R2 is not None, keys)
+        self.layout, self.plan, self.config, self.wire = (layout, plan,
+                                                          config, wire)
+        self.spec, self.policy = config.spec, config.density_policy
+        self.mc = config.momentum_correction
+        self.fused = resolve_backend(config.backend, self.spec)
+        self.E, self.R2, self.probe = E, R2, probe
+        self.resid, self.resid2 = resid, resid2
+        self.adapt_state, self.step = adapt_state, step
+        self.views = [chunk_view(layout, g) for g in plan.groups]
+        n = plan.n_chunks
+        self.got = [[False] * n for _ in range(workers)]
+        self.count = [0] * n
+        self.pairs = [[None] * workers for _ in range(n)]
+        self.means = [None] * n
+        self.nnz = [torch.zeros((), dtype=torch.float32, device=e[0].device)
+                    for e in E]
+        self.dtypes = [None] * len(layout.segments)
+        self.bits_dense = 0.0
+        self.stats = [[None] * n for _ in range(workers)]
+        self.moments = [[None] * n for _ in range(workers)]
+        self.k_alloc = self.K_eff = None
+
+    def _note(self, rank, **kw):
+        if self.probe is not None:
+            self.probe(rank, **kw)
+
+    def release(self, w: int, c: int, leaves) -> None:
+        """Local worker ``w``'s gradient leaves of chunk ``c`` (in segment
+        order; a leaf the loss does not reach is zeros)."""
+        grp, view = self.plan.groups[c], self.views[c]
+        if self.got[w][c]:
+            raise ValueError(f"chunk {c} of worker {w} released twice")
+        if len(leaves) != grp.seg_hi - grp.seg_lo:
+            raise ValueError(f"chunk {c} has {grp.seg_hi - grp.seg_lo} "
+                             f"leaves, got {len(leaves)}")
+        self.got[w][c] = True
+        for j, g in enumerate(leaves, grp.seg_lo):
+            if self.dtypes[j] is None:
+                # the dense baseline's bits, from the runtime grad dtypes
+                self.dtypes[j] = g.dtype
+                self.bits_dense += 2 * g.numel() * g.element_size() * 8
+        E = self.E[w][c]
+        G = pack_grads(view, leaves, E.dtype)
+        del leaves
+        rank = self.wire.ranks[w]
+        if self.policy is not None:
+            u = E.add_(G)
+            del G
+            self.stats[w][c], self.moments[w][c] = _pass_a(
+                u, view, self.spec, self.fused)
+            self._note(rank, chunk=c, u=u)
+        else:
+            v, i, _ = bucket_compress(
+                G, E, view, self.spec, self.keys[w],
+                backend=self.config.backend,
+                codec_dtype=self.config.codec_dtype, momentum=self.mc,
+                V=self.R2[w][c] if self.mc > 0.0 else None)
+            self._note(rank, chunk=c, G=G, values=v, indices=i, new_E=E)
+            del G
+            self.pairs[c][w] = (v, i)
+            self.nnz[w] += codec.nnz(i).to(torch.float32)
+        self.count[c] += 1
+        if self.policy is None and self.count[c] == len(self.E):
+            self._wire(c)
+
+    def _wire(self, c: int) -> None:
+        """Chunk ``c``'s wire over the local workers' pairs: the gather
+        (its last level issued asynchronously) or the gTop-k rounds,
+        with the two-level strategies' second compression and level."""
+        view, wire = self.views[c], self.wire
+        D, cd = view.d_row_total, self.config.codec_dtype
+        values = [p[0] for p in self.pairs[c]]
+        indices = [p[1] for p in self.pairs[c]]
+        self.pairs[c] = None
+        grp = self.plan.groups[c]
+        ka = (None if self.k_alloc is None
+              else self.k_alloc[grp.seg_lo:grp.seg_hi])
+        if self.gtopk:
+            sums, drops = _gtopk_reduce_bucket(values, indices,
+                                               wire.data_axes, view, wire,
+                                               cd)
+            mean = sums[0].div_(self.world)
             for w, drop in enumerate(drops):
                 if drop is not None:
-                    R2_rows[w].add_(drop)
-            del drops
+                    self.E[w][c].add_(drop)
+            self.means[c] = mean
+        elif not self.hier:
+            self.means[c] = _gather_mean(values, indices, self.inner_axes,
+                                         self.n_inner, D, wire,
+                                         async_op=True)
         else:
-            mean = _gather_mean(v2s, i2s, outer_axis, n_pods, D, wire)[0]
-        del v2s, i2s
-    elif not gtopk:
-        del means
+            means = _gather_mean(values, indices, self.inner_axes,
+                                 self.n_inner, D, wire)
+            del values, indices
+            v2s, i2s = [], []
+            for w in range(len(self.E)):
+                v2, i2, _ = bucket_compress(
+                    means[w], self.R2[w][c], view, self.spec, self.keys[w],
+                    backend=self.config.backend, codec_dtype=cd,
+                    k_alloc=ka, key_fold=1)
+                v2s.append(v2)
+                i2s.append(i2)
+                self.nnz[w] += codec.nnz(i2).to(torch.float32)
+            del means
+            if self.outer_gtopk:
+                sums, drops = _gtopk_reduce_bucket(
+                    v2s, i2s, (self.outer_axis,), view, wire, cd)
+                self.means[c] = sums[0].div_(self.n_pods)
+                for w, drop in enumerate(drops):
+                    if drop is not None:
+                        self.R2[w][c].add_(drop)
+            else:
+                self.means[c] = _gather_mean(v2s, i2s, self.outer_axis,
+                                             self.n_pods, D, wire,
+                                             async_op=True)
 
-    new_resid = E_rows.reshape(resid.shape)
-    new_resid2 = None if resid2 is None else R2_rows.reshape(resid2.shape)
-    if probe is not None:
-        probe(None, mean=mean, resid=new_resid, resid2=new_resid2)
-    agg = unpack_tree(layout, mean, like=seen["like"])
-    M = layout.model_size
-    sparse_bits = layout.comm_bits_sparse(strategy, world, n_pods,
-                                          codec_dtype)
-    metrics = {
-        "density": wire.pmean([x / layout.d_total for x in nnz],
-                              wire.data_axes)[0],
-        "density_cap": M * layout.k_cap_total / layout.d_total,
-        "comm_bits_sparse": sparse_bits,
-        "comm_bits_dense": seen["bits_dense"],
-        "wire_bytes": sparse_bits / 8.0,
-        "collectives_per_step": float(layout.collectives(strategy, world,
-                                                         n_pods)),
-    }
-    if adaptive:
-        metrics["k_total"] = float(K_eff)
-        metrics["density_budget"] = float(np.float32(K_eff)
-                                          / np.float32(layout.d_total))
-    return AggregateResult(agg, new_resid, new_resid2,
-                           new_adapt if adaptive else None, metrics)
+    def _allocate(self) -> None:
+        """Adaptive density: ONE allocation over every chunk's pass-A
+        signals in global segment order, then each chunk's compressions
+        (with its budgets and statistics) and wire."""
+        segs = self.layout.segments
+        sigs, sqs = [], []
+        for w in range(len(self.E)):
+            moments = [m for c in range(self.plan.n_chunks)
+                       for m in self.moments[w][c]]
+            sigs.append([adaptk.leaf_signal(self.policy.policy, s.size, *m)
+                         for s, m in zip(segs, moments)])
+            sqs.append([m[1] for m in moments])
+        self.k_alloc, self.K_eff, self.adapt_state = _adaptive_allocation(
+            self.adapt_state, sigs, sqs, [s.size for s in segs],
+            self.layout.ratio, self.policy, self.step,
+            [s.k_lo for s in segs], [s.k_hi for s in segs], self.wire)
+        self._note(None, k_alloc=self.k_alloc, K_eff=self.K_eff)
+        for c, (grp, view) in enumerate(zip(self.plan.groups, self.views)):
+            for w in range(len(self.E)):
+                v, i, new_E = bucket_compress(
+                    None, self.E[w][c], view, self.spec, self.keys[w],
+                    backend=self.config.backend,
+                    codec_dtype=self.config.codec_dtype,
+                    k_alloc=self.k_alloc[grp.seg_lo:grp.seg_hi],
+                    seg_stats=self.stats[w][c])
+                self._note(self.wire.ranks[w], chunk=c, G=None, values=v,
+                           indices=i, new_E=new_E)
+                self.pairs[c][w] = (v, i)
+                self.nnz[w] += codec.nnz(i).to(torch.float32)
+                self.stats[w][c] = None
+            self._wire(c)
+
+    def finish(self, treedef) -> AggregateResult:
+        """The step's result once every chunk of every local worker is
+        released; ``treedef`` is the gradient tree's structure."""
+        missing = [(w, c) for w, got in enumerate(self.got)
+                   for c, ok in enumerate(got) if not ok]
+        if missing:
+            raise ValueError(f"chunks not released (worker, chunk): "
+                             f"{missing}")
+        if self.policy is not None:
+            self._allocate()
+        means = [m()[0] if callable(m) else m for m in self.means]
+        self.means = None
+        leaves = []
+        for view, mean in zip(self.views, means):
+            like = [torch.empty(0, dtype=self.dtypes[j]) for j in
+                    range(len(leaves), len(leaves) + len(view.segments))]
+            leaves.extend(unpack_tree(view, mean, like=like))
+        self._note(None, means=means, resid=self.resid, resid2=self.resid2)
+        layout, wire = self.layout, self.wire
+        M = layout.model_size
+        sparse_bits = layout.comm_bits_sparse(self.strategy, self.world,
+                                              self.n_pods,
+                                              self.config.codec_dtype)
+        metrics = {
+            "density": wire.pmean([x / layout.d_total for x in self.nnz],
+                                  wire.data_axes)[0],
+            "density_cap": M * layout.k_cap_total / layout.d_total,
+            "comm_bits_sparse": sparse_bits,
+            "comm_bits_dense": self.bits_dense,
+            "wire_bytes": sparse_bits / 8.0,
+            "collectives_per_step": float(self.plan.collectives(
+                self.strategy, self.world, self.n_pods)),
+        }
+        adaptive = self.policy is not None
+        if adaptive:
+            metrics["k_total"] = float(self.K_eff)
+            metrics["density_budget"] = float(np.float32(self.K_eff)
+                                              / np.float32(layout.d_total))
+        return AggregateResult(tree.unflatten(treedef, leaves), self.resid,
+                               self.resid2,
+                               self.adapt_state if adaptive else None,
+                               metrics)
+
+
+def _entries(entry):
+    """One worker's gradient leaves and tree structure (``entry`` is a
+    tree or a callable returning it)."""
+    return tree.flatten(entry() if callable(entry) else entry)
+
+
+def _feed(run: ChunkedAggregation, grads, first=None) -> Any:
+    """Release every chunk of every local worker, in worker order (one
+    worker's gradients alive at a time; ``first``, when given, a list
+    holding worker 0's flattened gradients, emptied here); returns the
+    tree structure."""
+    td = None
+    for w, entry in enumerate(grads):
+        leaves, td = first.pop() if w == 0 and first else _entries(entry)
+        if len(leaves) != len(run.layout.segments):
+            raise ValueError(f"tree has {len(leaves)} leaves, layout has "
+                             f"{len(run.layout.segments)} segments")
+        for c, grp in enumerate(run.plan.groups):
+            run.release(w, c, leaves[grp.seg_lo:grp.seg_hi])
+        del leaves
+    return td
+
+
+def flat_windows(resid: torch.Tensor, layout: BucketLayout,
+                 plan: ChunkPlan, workers: int) -> list:
+    """Per local worker, each chunk group's ``(model_size, d_row)``
+    window of a ``(workers, flat)`` (or ``(flat,)``) residual: views."""
+    rows = _rows(resid, layout, workers)
+    return [[rows[w][:, g.row_off:g.row_off + g.d_row] for g in plan.groups]
+            for w in range(workers)]
+
+
+def aggregate_bucketed_chunked(grads, resid: torch.Tensor,
+                               layout: BucketLayout, plan: ChunkPlan,
+                               config: CompressionConfig, *, wire=None,
+                               resid2: Optional[torch.Tensor] = None,
+                               probe: Optional[Callable] = None,
+                               adapt_state=None, step=None,
+                               keys=None) -> AggregateResult:
+    """:func:`aggregate_bucketed` dispatched as ``plan.n_chunks``
+    compress + wire chains, one a chunk group of ``plan`` (which must
+    tile ``layout``): the same arguments and bitwise the same results for
+    any plan; ``metrics["collectives_per_step"]`` is
+    ``plan.collectives(...)``.  The gradients are released here chunk
+    after chunk, worker by worker; the train step releases them during
+    the backward instead (:class:`ChunkedAggregation`)."""
+    grads, wire = _workers_and_wire(grads, wire)
+    workers = len(grads)
+    run = ChunkedAggregation(
+        layout, plan, config, wire=wire,
+        E=flat_windows(resid, layout, plan, workers),
+        R2=(None if resid2 is None
+            else flat_windows(resid2, layout, plan, workers)),
+        probe=probe, adapt_state=adapt_state, step=step, keys=keys,
+        resid=resid, resid2=resid2)
+    return run.finish(_feed(run, grads))
+
+
+def init_residuals(params, model_size: int, dtype=torch.float32,
+                   workers: Optional[int] = None):
+    """Zero per-leaf error-feedback residuals on the params' device: one
+    flat-padded ``(d_pad,)`` vector a leaf (``d_pad = ceil(size /
+    model_size) * model_size``), or ``(workers, d_pad)`` with one row a
+    worker.  The bucketed pipeline keeps the same values in one flat
+    buffer (``layout.init_flat_residual``)."""
+    def zero(p):
+        d_pad, _ = flat_dims(int(p.numel()), model_size)
+        shape = (d_pad,) if workers is None else (workers, d_pad)
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+
+    return tree.tree_map(zero, params)
+
+
+def leaf_windows(resid, layout: BucketLayout, workers: int) -> list:
+    """Per local worker, each leaf's ``(model_size, d_row)`` rows of a
+    per-leaf residual tree (``(workers, d_pad)`` leaves, or ``(d_pad,)``
+    for one worker): views."""
+    leaves = tree.leaves(resid)
+    if len(leaves) != len(layout.segments):
+        raise ValueError(f"residual tree has {len(leaves)} leaves, the "
+                         f"gradients {len(layout.segments)}")
+    out = []
+    for w in range(workers):
+        row = []
+        for s, e in zip(layout.segments, leaves):
+            if e.dim() == 1 and workers != 1:
+                raise ValueError(f"a (d_pad,) residual holds one worker, "
+                                 f"the wire runs {workers} here")
+            e = e if e.dim() == 1 else e[w]
+            if e.shape != (s.d_pad,):
+                raise ValueError(f"leaf {s.name!r}: residual rows of shape "
+                                 f"{tuple(e.shape)}, expected ({s.d_pad},)")
+            row.append(e.view(layout.model_size, s.d_row))
+        out.append(row)
+    return out
+
+
+def aggregate_compressed(grads, resid, config: CompressionConfig, *,
+                         model_size: int = 1, wire=None, resid2=None,
+                         probe: Optional[Callable] = None, adapt_state=None,
+                         step=None, keys=None) -> AggregateResult:
+    """Eq. (2) sparse aggregation, one compress + wire chain per gradient
+    leaf (the per-leaf loop; :func:`aggregate_bucketed` sends one).
+
+    ``grads`` as :func:`aggregate_bucketed`'s; ``resid`` (and ``resid2``)
+    are per-leaf residual trees of ``(workers, d_pad)`` leaves (or
+    ``(d_pad,)`` for one worker, :func:`init_residuals`), updated in
+    place.  Each leaf is compressed with its own plan, keyed with its
+    salt (``layout.leaf_key_salt`` of its path), and sent on its own
+    wire: bitwise the bucketed results, with
+    ``metrics["collectives_per_step"]`` L a wire level.  The leaves run
+    as the one-segment chunks of :class:`ChunkedAggregation`."""
+    grads, wire = _workers_and_wire(grads, wire)
+    workers = len(grads)
+    first = [_entries(grads[0])]
+    layout = build_layout(tree.unflatten(first[0][1], first[0][0]),
+                          model_size, config)
+    plan = build_chunk_plan(layout, len(layout.segments))
+    run = ChunkedAggregation(
+        layout, plan, config, wire=wire,
+        E=leaf_windows(resid, layout, workers),
+        R2=None if resid2 is None else leaf_windows(resid2, layout,
+                                                    workers),
+        probe=probe, adapt_state=adapt_state, step=step, keys=keys,
+        resid=resid, resid2=resid2)
+    return run.finish(_feed(run, grads, first))

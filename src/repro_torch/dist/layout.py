@@ -5,7 +5,9 @@
 ``strategy_wire_pairs`` / ``collective_count`` / ``resolve_strategy``,
 ``pack_grads``, ``unpack_tree``, ``init_flat_residual``,
 ``pack_residual_arrays`` / ``unpack_residual_arrays``,
-``leaf_key_salt``).
+``leaf_key_salt``, and the chunked schedule's ``ChunkGroup`` /
+``ChunkPlan`` / ``build_chunk_plan`` / ``validate_chunk_plan`` /
+``chunk_view``).
 
 Every leaf's zero-padded ``(model_size, d_row)`` rows occupy a static
 column range ``[row_off, row_off + d_row)`` of one ``(model_size,
@@ -300,6 +302,118 @@ def unpack_tree(layout: BucketLayout, bucket: torch.Tensor, *, like):
         flat = block[0] if layout.model_size == 1 else block.reshape(-1)
         out.append(flat[:seg.size].view(seg.shape).to(ref.dtype))
     return tree.unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# the chunked schedule's geometry
+# ---------------------------------------------------------------------------
+
+
+class ChunkGroup(NamedTuple):
+    """One contiguous run ``[seg_lo, seg_hi)`` of the layout's segments:
+    its column window ``[row_off, row_off + d_row)`` of the bucket and
+    ``[cap_off, cap_off + k_cap)`` of the wire block."""
+    index: int
+    seg_lo: int
+    seg_hi: int
+    row_off: int
+    d_row: int
+    cap_off: int
+    k_cap: int
+
+
+class ChunkPlan(NamedTuple):
+    """The layout cut into ``n_chunks`` leaf-aligned groups.  A cut never
+    splits a segment (selection, keys and the codec's index space are
+    per segment), so each segment computes what it computes unchunked;
+    only the wire's dispatch changes.  ``n_chunks`` is clamped to the
+    segment count; ``requested`` is the caller's ask."""
+    n_chunks: int
+    requested: int
+    groups: Tuple[ChunkGroup, ...]
+
+    def collectives(self, strategy: str, world: int, n_pods: int = 1) -> int:
+        """Codec-pair collectives a step: the unchunked count per chunk."""
+        return self.n_chunks * collective_count(strategy, world, n_pods,
+                                                leaves=1)
+
+
+def build_chunk_plan(layout: BucketLayout, n_chunks: int) -> ChunkPlan:
+    """Cut the layout's segments into ``n_chunks`` contiguous groups of
+    about equal bucket width: boundary ``j`` falls on the first segment
+    whose cumulative ``d_row`` reaches ``j/n`` of the total, leaving a
+    segment for every later group.  ``n_chunks`` is clamped to the
+    segment count; 1 is the unchunked schedule."""
+    if n_chunks < 1:
+        raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
+    segs = layout.segments
+    n = min(int(n_chunks), len(segs))
+    cums, tot = [], 0
+    for s in segs:
+        tot += s.d_row
+        cums.append(tot)
+    bounds = [0]
+    for j in range(1, n):
+        target = j * tot / n
+        lo, hi = bounds[-1] + 1, len(segs) - (n - j)
+        cut = hi
+        for i in range(lo, hi + 1):
+            if cums[i - 1] >= target:
+                cut = i
+                break
+        bounds.append(cut)
+    bounds.append(len(segs))
+    groups = []
+    for c in range(n):
+        first, last = segs[bounds[c]], segs[bounds[c + 1] - 1]
+        groups.append(ChunkGroup(
+            index=c, seg_lo=bounds[c], seg_hi=bounds[c + 1],
+            row_off=first.row_off,
+            d_row=last.row_off + last.d_row - first.row_off,
+            cap_off=first.cap_off,
+            k_cap=last.cap_off + last.k_cap - first.cap_off))
+    return ChunkPlan(n_chunks=n, requested=int(n_chunks),
+                     groups=tuple(groups))
+
+
+def validate_chunk_plan(layout: BucketLayout, plan: ChunkPlan) -> None:
+    """Raise unless ``plan`` tiles ``layout`` exactly: a plan of another
+    layout would put the chunks' residual windows in the wrong place."""
+    if not plan.groups or plan.n_chunks != len(plan.groups):
+        raise ValueError(f"malformed ChunkPlan: n_chunks={plan.n_chunks}, "
+                         f"{len(plan.groups)} groups")
+    seg, row, cap = 0, 0, 0
+    for g in plan.groups:
+        if (g.seg_lo, g.row_off, g.cap_off) != (seg, row, cap):
+            raise ValueError(
+                f"chunk {g.index} starts at (seg={g.seg_lo}, "
+                f"row={g.row_off}, cap={g.cap_off}), expected "
+                f"({seg}, {row}, {cap}) — plan does not tile this layout")
+        if g.seg_hi <= g.seg_lo:
+            raise ValueError(f"chunk {g.index} is empty")
+        seg, row, cap = g.seg_hi, g.row_off + g.d_row, g.cap_off + g.k_cap
+    if (seg, row, cap) != (len(layout.segments), layout.d_row_total,
+                           layout.k_cap_total):
+        raise ValueError(
+            f"plan covers (seg={seg}, row={row}, cap={cap}) but layout "
+            f"has ({len(layout.segments)}, {layout.d_row_total}, "
+            f"{layout.k_cap_total}) — plan built from a different layout?")
+
+
+def chunk_view(layout: BucketLayout, group: ChunkGroup) -> BucketLayout:
+    """The group's window as a layout of its own: its segments keep their
+    names, salts, plans and order, with ``row_off``/``cap_off`` rebased
+    to the window.  Every bucketed primitive works segment by segment
+    over ``[row_off, row_off + d_row)``, so running it on the view over
+    the window gives the bits of the same columns of the whole bucket."""
+    segs = tuple(
+        s._replace(row_off=s.row_off - group.row_off,
+                   cap_off=s.cap_off - group.cap_off)
+        for s in layout.segments[group.seg_lo:group.seg_hi])
+    return BucketLayout(segments=segs, model_size=layout.model_size,
+                        ratio=layout.ratio, spec_name=layout.spec_name,
+                        adaptive=layout.adaptive,
+                        d_row_total=group.d_row, k_cap_total=group.k_cap)
 
 
 def init_flat_residual(layout: BucketLayout, dtype=torch.float32,

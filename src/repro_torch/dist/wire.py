@@ -26,7 +26,10 @@ Two implementations:
 
 Both sum a ``pmean`` one rank at a time in rank order on the payload's
 device and divide by the group size, so the two implementations give
-the same bits.
+the same bits.  ``all_gather(..., async_op=True)`` returns a handle whose
+``wait()`` gives the gathered list: ``ProcessGroupWire`` issues the
+collective asynchronously (the chunked schedule waits for it only when
+it needs the mean), ``LocalWire`` has it already.
 """
 from __future__ import annotations
 
@@ -56,6 +59,29 @@ def _ordered_sum(stacked: torch.Tensor) -> torch.Tensor:
     for j in range(1, stacked.shape[0]):
         acc = acc + stacked[j]
     return acc
+
+
+class _Done:
+    """An all-gather that has already happened."""
+
+    def __init__(self, out: list):
+        self.out = out
+
+    def wait(self) -> list:
+        return self.out
+
+
+class _Pending:
+    """An all-gather in flight: ``wait()`` waits for it and unpacks."""
+
+    def __init__(self, work, finish, keep):
+        self.work, self.finish, self.keep = work, finish, keep
+
+    def wait(self) -> list:
+        self.work.wait()
+        out = self.finish()
+        self.work = self.finish = self.keep = None
+        return out
 
 
 class _MeshWire:
@@ -113,14 +139,14 @@ class LocalWire(_MeshWire):
     def local_workers(self) -> int:
         return self.world
 
-    def all_gather(self, xs: Sequence, axis) -> list:
+    def all_gather(self, xs: Sequence, axis, async_op: bool = False):
         out, done = [None] * self.world, {}
         for r in self.ranks:
             members = tuple(self.group(r, axis))
             if members not in done:
                 done[members] = _stack([xs[m] for m in members])
             out[r] = done[members]
-        return out
+        return _Done(out) if async_op else out
 
     def ppermute(self, xs: Sequence, axis: str, perm) -> list:
         src = self._sources(perm)
@@ -184,6 +210,7 @@ class ProcessGroupWire(_MeshWire):
                 f"{dist.get_world_size()} ranks")
         self.dist = dist
         self.backend = dist.get_backend()
+        self.async_ops = 0          # all-gathers issued with async_op
         self.rank = dist.get_rank()
         self.ranks = [self.rank]
         # one group per data axis and one over all of them, created in
@@ -238,7 +265,7 @@ class ProcessGroupWire(_MeshWire):
             off += n
         return out[0] if single else tuple(out)
 
-    def all_gather(self, xs: Sequence, axis) -> list:
+    def all_gather(self, xs: Sequence, axis, async_op: bool = False):
         (x,) = xs
         n = self.axis_size(axis)
         buf, meta = self._pack(x)
@@ -249,9 +276,16 @@ class ProcessGroupWire(_MeshWire):
         # all_gather_single is the newer name of all_gather_into_tensor
         gather = getattr(self.dist, "all_gather_single", None) or \
             self.dist.all_gather_into_tensor
-        gather(out, src, group=self._pg(axis))
-        return [self._unpack(out.to(dev).view(n, -1), meta, (n,),
-                             not isinstance(x, tuple))]
+        work = gather(out, src, group=self._pg(axis), async_op=async_op)
+
+        def finish():
+            return [self._unpack(out.to(dev).view(n, -1), meta, (n,),
+                                 not isinstance(x, tuple))]
+
+        if not async_op:
+            return finish()
+        self.async_ops += 1
+        return _Pending(work, finish, (src, out))
 
     def ppermute(self, xs: Sequence, axis: str, perm) -> list:
         (x,) = xs

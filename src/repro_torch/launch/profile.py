@@ -23,6 +23,13 @@ prints the device time by kernel name, the kernel count, the host
 syncs (the CUDA runtime's synchronize calls) and the device's idle
 share of that step's wall time.  The last line is one
 JSON object with all of it.  Needs a GPU.
+
+With ``--chunks N`` (N > 1) or ``--pipeline perleaf`` it times the
+train step itself (``make_train_step``) instead of its phases: the step,
+each worker's backward, and for the chunked schedule the moment each
+chunk's hook released its gradients, as a fraction of that worker's
+backward span (CUDA events recorded when the hook fires and at the
+backward's ends); then the same trace.
 """
 from __future__ import annotations
 
@@ -57,6 +64,8 @@ def main(argv=None) -> int:
     else:
         wire, dev, started = make_wire(args, mesh)
     try:
+        if args.chunks > 1 or args.pipeline == "perleaf":
+            return _profile_step(args, cfg, strategy, policy, wire, dev)
         return _profile(args, cfg, strategy, policy, wire, dev)
     finally:
         if started:
@@ -171,11 +180,25 @@ def _profile(args, cfg, strategy, policy, wire, dev) -> int:
         "(ms, summed over this process's workers): "
         + ", ".join(f"{p} {v:.2f}" for p, v in med.items()))
 
+    say(json.dumps(dict(_trace(lambda: step(args.steps + 1), say),
+                        arch=cfg.name, batch=args.batch, seq=args.seq,
+                        mesh=args.mesh, workers=W,
+                        compressor=args.compressor,
+                        density_policy=policy.policy if policy else None,
+                        wire=wire.name, dist_backend=wire.backend,
+                        strategy=strategy, phase_ms=med)))
+    return 0
+
+
+def _trace(run, say) -> dict:
+    """Trace one more ``run()`` with ``torch.profiler``: prints and
+    returns its wall ms, device busy ms, host syncs and top kernels."""
+    import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(args.steps + 1)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     syncs = sum(e.count for e in prof.key_averages() if e.key in _SYNCS)
@@ -186,18 +209,110 @@ def _profile(args, cfg, strategy, policy, wire, dev) -> int:
         f"names, {syncs} host syncs (the step's closing one included)")
     for name, ms, n in kernels[:25]:
         say(f"  {ms:9.3f} ms  x{n:<5d} {name[:100]}")
-    say(json.dumps({"arch": cfg.name, "batch": args.batch,
-                    "seq": args.seq, "mesh": args.mesh, "workers": W,
-                    "compressor": args.compressor,
-                    "density_policy": policy.policy if policy else None,
-                    "wire": wire.name, "dist_backend": wire.backend,
-                    "strategy": strategy, "phase_ms": med,
-                    "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
-                    "host_syncs": syncs,
-                    "peak_mem_gib": torch.cuda.max_memory_allocated()
-                    / 2 ** 30,
-                    "top_kernels": kernels[:25],
-                    "device": torch.cuda.get_device_name(0)}))
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+            "host_syncs": syncs,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "top_kernels": kernels[:25],
+            "device": torch.cuda.get_device_name(0)}
+
+
+def release_fractions(events: list) -> dict:
+    """A step's chunk releases as fractions of the backward's span, per
+    worker: ``events`` holds ``(rank, what, cuda event)`` in order,
+    ``what`` ``"start"``, ``"end"`` or a chunk index.  Returns
+    ``{rank: {"backward_ms", "released": {chunk: fraction}}}``."""
+    out, start = {}, {}
+    for rank, what, ev in events:
+        if what == "start":
+            start[rank] = ev
+            out[rank] = {"released": {}}
+        elif what == "end":
+            out[rank]["backward_ms"] = start[rank].elapsed_time(ev)
+    for rank, what, ev in events:
+        if what not in ("start", "end"):
+            span = out[rank]["backward_ms"]
+            out[rank]["released"][what] = (
+                start[rank].elapsed_time(ev) / span if span else 0.0)
+    return out
+
+
+def _profile_step(args, cfg, strategy, policy, wire, dev) -> int:
+    import torch
+
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data import batch_for
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw, constant, sgd_momentum
+    from repro_torch.train import init_train_state, make_train_step
+
+    W = wire.world
+    say = print if wire.ranks[0] == 0 else (lambda *a, **k: None)
+    params = init_params(cfg, args.seed, dev)
+    comp = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
+                             strategy=strategy, backend=args.backend,
+                             density_policy=policy, chunks=args.chunks)
+    layout = (None if args.pipeline == "perleaf"
+              else build_layout(params, 1, comp))
+    opt = sgd_momentum(0.9) if args.optimizer == "sgd" else adamw()
+    state = init_train_state(params, opt, workers=wire.local_workers,
+                             model_size=1, compression=comp, layout=layout)
+    events = []
+
+    def probe(rank, backward=None, release=None, **_):
+        if backward is not None or release is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            what = (release if release is not None
+                    else "start" if backward else "end")
+            events.append((rank, what, ev))
+
+    step_fn = make_train_step(cfg, args.mesh, opt, constant(args.lr),
+                              compression=comp, layout=layout, probe=probe,
+                              wire=wire, seed=args.seed)
+
+    def step(i):
+        nonlocal state
+        batch = batch_for(cfg, i, global_batch=args.batch, seq_len=args.seq,
+                          seed=args.seed, device=dev)
+        state, m = step_fn(state, batch)
+        return m
+
+    step_ms, backward_ms, fracs = [], [], []
+    for i in range(args.steps + 1):
+        events.clear()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        m = step(i)
+        b.record()
+        torch.cuda.synchronize()
+        if i == 0:
+            continue            # warm-up: Triton JIT, cuBLAS handles
+        step_ms.append(a.elapsed_time(b))
+        rel = release_fractions(events)
+        if rel:
+            backward_ms.append(sum(r["backward_ms"] for r in rel.values()))
+            fracs.append(rel)
+    say(f"mesh {args.mesh} ({W} workers, wire {wire.name}, "
+        f"{wire.backend}), strategy {strategy}, pipeline {args.pipeline}, "
+        f"chunks {args.chunks}: collectives a step "
+        f"{int(m['collectives_per_step'])}; step ms "
+        f"{[round(x, 2) for x in step_ms]}"
+        + (f", backward ms {[round(x, 2) for x in backward_ms]}"
+           if backward_ms else ""))
+    for rank, r in (fracs[-1].items() if fracs else ()):
+        rel = r["released"]
+        say(f"  worker {rank}: chunks released at fractions of its "
+            f"backward {[round(rel[c], 3) for c in sorted(rel)]}")
+    say(json.dumps(dict(_trace(lambda: step(args.steps + 1), say),
+                        arch=cfg.name, batch=args.batch, seq=args.seq,
+                        mesh=args.mesh, workers=W, strategy=strategy,
+                        pipeline=args.pipeline, chunks=args.chunks,
+                        collectives_per_step=m["collectives_per_step"],
+                        wire=wire.name, dist_backend=wire.backend,
+                        step_ms=step_ms, backward_ms=backward_ms,
+                        release_fractions=fracs[-1] if fracs else {})))
     return 0
 
 

@@ -23,7 +23,11 @@ JAX flag: ``LocalWire``) or one per process under ``torchrun`` with
 ``W > 1`` raises naming both.  The startup line prints the mesh, W, the
 wire and its backend.
 
-The port trains with the ``bucketed`` pipeline, the four wire
+The port trains with the ``bucketed`` pipeline, its chunked schedule
+(``--chunks N``: N leaf-aligned chunk groups, each compressed and sent
+as the backward releases its gradients; bitwise the unchunked run, N
+collectives a wire level) or the per-leaf loop (``--pipeline perleaf``:
+one chain a leaf, bitwise the bucketed run), the four wire
 strategies (``--strategy allgather|gtopk|hierarchical|hier_gtopk``;
 ``--hierarchical`` is the old spelling of the third) and
 ``--compressor`` ``topk``, ``gaussiank``, ``gaussiank2``, ``histk``
@@ -44,10 +48,11 @@ so ``randk`` and ``rtopk`` train adaptive by default there while
 correction has no flag, as in the reference: it is
 ``CompressionConfig(momentum_correction=...)``.
 ``--checkpoint`` saves the final state and ``--resume`` starts from one
-(``checkpoint/npz.py``, the JAX package's keys).  Every flag value it
-does not carry raises an error naming the slice that ports it: a model
-axis above 1, ``--strategy auto``, ``--chunks > 1``, ``--publish-every``, ``--pipeline perleaf``, and any
-value but the default of the flags only those features read, such as
+(``checkpoint/npz.py``, the JAX package's keys; a per-leaf checkpoint
+resumes into the bucketed pipeline).  Every flag value it does not
+carry raises an error naming the slice that ports it: a model axis
+above 1, ``--strategy auto``, ``--publish-every``, and any value but
+the default of the flags only those features read, such as
 ``--topology``.
 """
 from __future__ import annotations
@@ -79,8 +84,14 @@ def _parser() -> argparse.ArgumentParser:
                          "(their plain versions on --device cpu) or the "
                          "torch reference")
     ap.add_argument("--pipeline", default="bucketed",
-                    choices=["bucketed", "perleaf"])
-    ap.add_argument("--chunks", type=int, default=1)
+                    choices=["bucketed", "perleaf"],
+                    help="one wire chain a step over the flat bucket, or "
+                         "one a gradient leaf (bitwise the same results)")
+    ap.add_argument("--chunks", type=int, default=1,
+                    help="cut the bucket into N leaf-aligned chunks, each "
+                         "compressed and sent as the backward releases its "
+                         "gradients (needs --pipeline bucketed and a "
+                         "sparse compressor; bitwise the same results)")
     ap.add_argument("--density-policy", default="",
                     choices=["", "none", "uniform", "variance", "absmax"],
                     help="adaptive layer-wise density; default: the arch "
@@ -145,12 +156,16 @@ def require_ported(args, cfg):
     strategy = resolve_strategy(args.strategy, args.hierarchical)
     if args.compressor != "none":
         get_compressor(args.compressor)
-    if args.chunks != 1:
-        raise not_ported("--chunks > 1", "chunks")
+    if args.chunks < 1:
+        raise SystemExit(f"--chunks must be >= 1, got {args.chunks}")
+    if args.chunks > 1 and (args.pipeline != "bucketed"
+                            or args.compressor == "none"):
+        raise SystemExit(
+            "--chunks > 1 needs the bucketed sparse pipeline: use "
+            "--pipeline bucketed with a sparse compressor (the chunked "
+            "schedule re-dispatches the flat wire block)")
     if args.publish_every:
         raise not_ported("--publish-every", "publish")
-    if args.pipeline != "bucketed":
-        raise not_ported("--pipeline perleaf", "perleaf")
     defaults = _parser()
     for dest, key in _LATER_FLAGS.items():
         if getattr(args, dest) != defaults.get_default(dest):
@@ -226,7 +241,7 @@ def run(argv=None, *, probe: Optional[Callable] = None,
         cfg=None) -> list:
     """Parse ``argv``, train, print one line per logged step and return
     the per-step records ``[{"step", "loss", "ms", ...metrics}]``.
-    ``probe`` reaches ``dist.aggregate.aggregate_bucketed``; ``cfg``, a
+    ``probe`` reaches the train step and the aggregation; ``cfg``, a
     ModelConfig, replaces ``--arch``'s (a depth-cut copy, say).  Under
     ``torchrun`` only rank 0 prints, and the process group this call
     starts is destroyed before it returns."""
@@ -260,6 +275,7 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
            ) -> list:
     import torch
 
+    from repro_torch import tree
     from repro_torch.checkpoint import load_state, save_state
     from repro_torch.core.compression import CompressionConfig
     from repro_torch.core.compressors import get_compressor
@@ -279,18 +295,20 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
     policy, pol_name = density
     params = init_params(cfg, args.seed, device)
     layout = None
-    if args.compressor != "none":
+    if args.pipeline == "bucketed" and args.compressor != "none":
         layout = build_layout(params, 1, args.ratio,
                               get_compressor(args.compressor),
                               density_policy=policy)
     config = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
                                strategy=strategy, backend=args.backend,
-                               density_policy=policy)
+                               density_policy=policy, chunks=args.chunks)
     state = init_train_state(params, opt, workers=wire.local_workers,
                              model_size=1, compression=config,
                              layout=layout)
     if args.resume:
-        state = load_state(args.resume, state, worker_rows=wire.ranks)
+        # layout= loads a per-leaf checkpoint's residuals into the buckets
+        state = load_state(args.resume, state, worker_rows=wire.ranks,
+                           layout=layout)
     step = make_train_step(cfg, mesh, opt, lr_fn, compression=config,
                            layout=layout, probe=probe, wire=wire,
                            seed=args.seed)
@@ -299,7 +317,8 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
     say(f"arch={cfg.name} compressor={args.compressor} ratio={args.ratio} "
         f"strategy={strategy} backend={args.backend} mesh={args.mesh} "
         f"workers={wire.world} wire={wire.name} "
-        f"dist_backend={wire.backend} pipeline={args.pipeline} chunks=1 "
+        f"dist_backend={wire.backend} pipeline={args.pipeline} "
+        f"chunks={args.chunks} "
         f"density_policy={pol_name or 'fixed-k'} "
         f"global_k={args.global_k_policy} device={device} "
         f"steps={args.steps}",
@@ -337,8 +356,10 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
             out = dict(state)
             for key in ("resid", "resid2"):
                 if key in state:
-                    out[key] = wire.all_gather([state[key][0]],
-                                               wire.data_axes)[0]
+                    out[key] = tree.tree_map(
+                        lambda r: wire.all_gather([r[0]],
+                                                  wire.data_axes)[0],
+                        state[key])
         if lead:
             save_state(args.checkpoint, out)
             say(f"saved -> {args.checkpoint}")

@@ -8,13 +8,8 @@ missing piece.
 from __future__ import annotations
 
 LATER = {
-    # slice 2 leftovers — each its own ROADMAP item
-    "perleaf": "slice 2b (the per-leaf aggregate_compressed, ROADMAP Queue "
-               "1 item 4)",
     "model_axis": "slice 2c (tensor parallelism over the model axis, "
                   "ROADMAP Queue 1 item 7)",
-    # slice 6+
-    "chunks": "slice 6 (chunked overlap, ROADMAP Queue 1 item 3)",
     "publish": "slice 7 (serve + weight-delta streaming, ROADMAP Queue 1 "
                "item 5)",
     "arch": "slice 8 (MoE/SSM/xLSTM/embeds architectures, ROADMAP Queue 1 "

@@ -1,9 +1,14 @@
 """Train state (port of ``repro/train/state.py``, lines 54-127): params,
 optimizer state, step counter, the per-worker error-feedback
-residuals, each stored as ONE flat bucket per worker of shape
-``(workers, model_size * d_row_total)`` (``dist/layout.py``), and under
-adaptive density the controller state ``adaptk`` (numpy arrays on the
-host, where the allocation runs).  A plain dict.
+residuals, and under adaptive density the controller state ``adaptk``
+(numpy arrays on the host, where the allocation runs).  A plain dict.
+
+The residuals are stored as ONE flat bucket per worker of shape
+``(workers, model_size * d_row_total)`` with a ``layout``
+(``dist/layout.py``; the bucketed pipeline and the chunked schedule,
+whose chunks are windows of it, so the state does not depend on the
+chunk count), or as the per-leaf tree of ``(workers, d_pad)`` leaves
+without one (the per-leaf loop, ``dist/aggregate.init_residuals``).
 
 ``workers`` is the number of data-parallel workers whose residuals this
 state holds: all W of the mesh when they run in this process
@@ -19,6 +24,7 @@ from typing import Any, Dict, Optional
 from repro_torch import tree
 from repro_torch.core import adaptk
 from repro_torch.core.compression import CompressionConfig, as_config
+from repro_torch.dist.aggregate import init_residuals
 from repro_torch.dist.layout import BucketLayout, init_flat_residual
 from repro_torch.optim import Optimizer
 from repro_torch.slices import not_ported
@@ -30,12 +36,13 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
                      layout: Optional[BucketLayout] = None
                      ) -> Dict[str, Any]:
     """``{"params", "opt", "step"[, "resid"[, "resid2"]][, "adaptk"]}``.
-    A sparse compressor with ``layout`` allocates the zero residuals
-    ``resid`` on the params' device, and ``resid2`` too for the two-level
-    strategies (``hierarchical``, ``hier_gtopk``) and for momentum
-    correction (the DGC velocities); Dense-SGD allocates none.  A ``density_policy`` adds the zero controller state
-    ``adaptk`` (``signal``, ``count``, and ``gnorm``/``gnorm0`` under a
-    global-k policy)."""
+    A sparse compressor allocates the zero residuals ``resid`` on the
+    params' device (flat buckets with ``layout``, the per-leaf tree
+    without), and ``resid2`` too for the two-level strategies
+    (``hierarchical``, ``hier_gtopk``) and for momentum correction (the
+    DGC velocities); Dense-SGD allocates none.  A ``density_policy`` adds
+    the zero controller state ``adaptk`` (``signal``, ``count``, and
+    ``gnorm``/``gnorm0`` under a global-k policy)."""
     compression = as_config(compression)
     if workers < 1:
         raise ValueError(f"workers must be >= 1, got {workers}")
@@ -44,26 +51,28 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
     state: Dict[str, Any] = {"params": params,
                              "opt": optimizer.init(params), "step": 0}
     if not compression.dense:
-        compression.require_ported()
-        if layout is None:
-            raise not_ported("the per-leaf residual tree", "perleaf")
-        if layout.model_size != model_size:
-            raise ValueError(
-                f"layout was built for model_size={layout.model_size}, "
-                f"init_train_state got {model_size}")
         leaves = tree.leaves(params)
-        if len(layout.segments) != len(leaves):
-            raise ValueError(
-                f"layout has {len(layout.segments)} segments for a "
-                f"{len(leaves)}-leaf param tree; rebuild it from these "
-                "params")
+        if layout is None:
+            def zeros():
+                return init_residuals(params, model_size, workers=workers)
+        else:
+            if layout.model_size != model_size:
+                raise ValueError(
+                    f"layout was built for model_size={layout.model_size}, "
+                    f"init_train_state got {model_size}")
+            if len(layout.segments) != len(leaves):
+                raise ValueError(
+                    f"layout has {len(layout.segments)} segments for a "
+                    f"{len(leaves)}-leaf param tree; rebuild it from these "
+                    "params")
 
-        state["resid"] = init_flat_residual(layout, workers=workers,
-                                            device=leaves[0].device)
+            def zeros():
+                return init_flat_residual(layout, workers=workers,
+                                          device=leaves[0].device)
+        state["resid"] = zeros()
         if (compression.strategy in ("hierarchical", "hier_gtopk")
                 or compression.momentum_correction > 0):
-            state["resid2"] = init_flat_residual(layout, workers=workers,
-                                                 device=leaves[0].device)
+            state["resid2"] = zeros()
         policy = compression.density_policy
         if policy is not None:
             state["adaptk"] = adaptk.init_controller_state(

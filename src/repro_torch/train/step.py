@@ -5,8 +5,26 @@ the optimizer in one step, for the W data-parallel workers of a mesh.
   per local worker: its rows of the global batch -> grads by autograd
       -> pack + compress against its residual (under adaptive density:
       pass A of every worker, one allocation, then the compressions)
-  the wire over the data axes (aggregate_bucketed, or the dense mean)
+  the wire over the data axes (the bucket in chunks, the per-leaf loop,
+      or the dense mean)
   optimizer.update, once: the workers of one process share the params
+
+With a layout the bucket is cut into ``compression.chunks`` leaf-aligned
+chunk groups (``layout.build_chunk_plan``; one group is the bucketed
+pipeline, more the chunked schedule), and the backward releases each
+group's gradients as one unit once the last of them exists (the
+counterpart of the reference's custom-vjp seam): a gradient hook on
+each param (``Tensor.register_hook``) collects its gradient, and the
+hook that completes a group packs and compresses that chunk at once,
+while the backward goes on; the last local worker's release of a chunk
+runs that chunk's wire (on ``ProcessGroupWire`` its gathers are issued
+asynchronously and waited for at the end).  The hooks sit on the
+params themselves: the engine runs a param's gradient node as soon as
+its gradient is complete (hooks on aliases of the params would wait for
+the rest of the backward, since the engine runs the ready node created
+last first).  A group with a param the loss does not reach is released
+after the backward, that param's gradient zeros.  ``layout=None`` runs
+the per-leaf loop (``aggregate_compressed``).
 
 There is no ``shard_map``: the wire (``dist/wire.py``) runs either all W
 workers in this process (``LocalWire``, the default) or this process's
@@ -30,10 +48,11 @@ import torch
 from repro_torch import prng, tree
 from repro_torch.core.compression import CompressionConfig, as_config
 from repro_torch.dist import aggregate
+from repro_torch.dist.layout import build_chunk_plan
 from repro_torch.dist.wire import LocalWire
 from repro_torch.launch.mesh import (data_world_size, model_axis_size,
                                      parse_mesh)
-from repro_torch.models import loss_fn
+from repro_torch.models import loss_fn as model_loss_fn
 from repro_torch.optim import Optimizer
 from repro_torch.slices import not_ported
 
@@ -60,7 +79,8 @@ def step_keys(seed: int, step: int, ranks) -> list:
 def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
                     compression: Optional[CompressionConfig] = None,
                     layout=None, probe: Optional[Callable] = None,
-                    wire=None, seed: int = 0):
+                    wire=None, seed: int = 0,
+                    loss_fn: Optional[Callable] = None):
     """Returns ``step_fn(state, batch) -> (state, metrics)``.
 
     ``mesh`` is a Mesh, ``"DxM"``/``"PxDxM"`` or a tuple of sizes;
@@ -68,12 +88,17 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
     workers this process runs, and ``state`` holds their residuals
     (``init_train_state(workers=wire.local_workers)``).  ``batch`` is the
     GLOBAL batch.  ``compression`` names the compressor (``"none"`` =
-    Dense-SGD), ratio, strategy, wire dtype and backend; ``layout``
-    (built from the same params and config) routes the aggregation
-    through the flat bucket.  ``probe`` is handed to
-    :func:`~repro_torch.dist.aggregate.aggregate_bucketed`; ``seed`` roots
-    the key-sampled compressors' keys.  Loss metrics are the mean over
-    the workers."""
+    Dense-SGD), ratio, strategy, wire dtype, backend and chunk count;
+    ``layout`` (built from the same params and config) routes the
+    aggregation through the flat bucket, ``None`` through the per-leaf
+    loop.  ``probe`` is handed to the aggregation (``dist/aggregate.py``);
+    with a layout it is also called as ``probe(rank, backward=True)``
+    before a worker's backward, ``probe(rank, release=c)`` when chunk
+    ``c``'s hook fires (before it compresses) and ``probe(rank,
+    backward=False)`` after the backward.  ``seed``
+    roots the key-sampled compressors' keys.  ``loss_fn(params, batch)
+    -> (loss, metrics)`` replaces the model's loss (``cfg`` is then not
+    read).  Loss metrics are the mean over the workers."""
     compression = as_config(compression)
     mesh = require_data_parallel(mesh)
     wire = LocalWire(mesh) if wire is None else wire
@@ -81,10 +106,8 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
         raise ValueError(f"wire was built for {wire.mesh}, not {mesh}")
     world = data_world_size(mesh)
     dense = compression.dense
-    if not dense:
-        compression.require_ported()
-        if layout is None:
-            raise not_ported("the per-leaf aggregation", "perleaf")
+    loss = loss_fn or (lambda p, b: model_loss_fn(p, cfg, b))
+    if not dense and layout is not None:
         if layout.model_size != 1:
             raise ValueError(f"layout model_size={layout.model_size} != "
                              "mesh model axis 1")
@@ -97,7 +120,16 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
         if layout.adaptive != compression.adaptive:
             raise ValueError("layout density mode does not match "
                              "density_policy; rebuild the layout")
+    if compression.chunks > 1 and (dense or layout is None):
+        raise ValueError(
+            "chunks > 1 needs the bucketed sparse pipeline: pass "
+            "layout= (the chunked schedule re-dispatches the flat "
+            "wire block; the per-leaf and Dense-SGD paths have no "
+            "bucket to chunk)")
+    plan = (build_chunk_plan(layout, compression.chunks)
+            if layout is not None and not dense else None)
     density_policy = compression.density_policy
+    note = probe if probe is not None else (lambda *a, **k: None)
 
     def step_fn(state, batch):
         if (density_policy is not None and density_policy.ema > 0.0
@@ -116,32 +148,92 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
         per = B // world
         worker_metrics = []
 
-        def grads_of(w):
+        def local_batch(w):
             rank = wire.ranks[w]
-            rows = slice(rank * per, (rank + 1) * per)
-            local = {k: v[rows] for k, v in batch.items()}
-            ps = [p.detach().requires_grad_(True) for p in leaves]
-            with torch.enable_grad():
-                l, metrics = loss_fn(tree.unflatten(td, ps), cfg, local)
-                grads = torch.autograd.grad(l, ps, allow_unused=True)
-            worker_metrics.append({k: v.detach() for k, v in metrics.items()})
+            return {k: v[rank * per:(rank + 1) * per]
+                    for k, v in batch.items()}
+
+        def zeros_for_none(ps, grads):
             # a leaf the loss does not reach (norm2 of a parallel block)
             # has a zero gradient, as under jax.grad
-            return tree.unflatten(td, [torch.zeros_like(p) if g is None
-                                       else g for p, g in zip(ps, grads)])
+            return [torch.zeros_like(p) if g is None else g
+                    for p, g in zip(ps, grads)]
+
+        def grads_of(w):
+            ps = [p.detach().requires_grad_(True) for p in leaves]
+            with torch.enable_grad():
+                l, metrics = loss(tree.unflatten(td, ps), local_batch(w))
+                grads = torch.autograd.grad(l, ps, allow_unused=True)
+            worker_metrics.append({k: v.detach() for k, v in metrics.items()})
+            return tree.unflatten(td, zeros_for_none(ps, grads))
+
+        def backward_releasing(run, w):
+            """Worker ``w``'s backward, each chunk group released to
+            ``run`` as soon as its gradients exist."""
+            rank = wire.ranks[w]
+            ps = [p.detach().requires_grad_(True) for p in leaves]
+            got = [None] * len(ps)
+            left = [g.seg_hi - g.seg_lo for g in plan.groups]
+
+            def release(g):
+                left[g.index] = -1
+                note(rank, release=g.index)
+                grads = got[g.seg_lo:g.seg_hi]
+                got[g.seg_lo:g.seg_hi] = [None] * len(grads)
+                run.release(w, g.index,
+                            zeros_for_none(ps[g.seg_lo:g.seg_hi], grads))
+
+            def hook(j, g):
+                def collect(grad):
+                    got[j] = grad
+                    left[g.index] -= 1
+                    if left[g.index] == 0:
+                        release(g)
+                return collect
+
+            handles = [ps[j].register_hook(hook(j, g)) for g in plan.groups
+                       for j in range(g.seg_lo, g.seg_hi)]
+            try:
+                with torch.enable_grad():
+                    l, metrics = loss(tree.unflatten(td, ps),
+                                      local_batch(w))
+                    note(rank, backward=True)
+                    torch.autograd.grad(l, ps, allow_unused=True)
+                note(rank, backward=False)
+            finally:
+                for h in handles:
+                    h.remove()
+            worker_metrics.append({k: v.detach() for k, v in metrics.items()})
+            for g in plan.groups:
+                if left[g.index] >= 0:
+                    release(g)      # the loss does not reach a param of it
 
         workers = range(wire.local_workers)
+        agg_kw = dict(wire=wire, resid2=state.get("resid2"), probe=probe,
+                      adapt_state=state.get("adaptk"), step=state["step"],
+                      keys=step_keys(seed, state["step"], wire.ranks))
         if dense:
             agg = aggregate.aggregate_dense([grads_of(w) for w in workers],
                                             wire)
             agg_metrics = {}
         else:
-            res = aggregate.aggregate_bucketed(
-                [functools.partial(grads_of, w) for w in workers],
-                state["resid"], layout, compression, wire=wire,
-                resid2=state.get("resid2"), probe=probe,
-                adapt_state=state.get("adaptk"), step=state["step"],
-                keys=step_keys(seed, state["step"], wire.ranks))
+            if plan is not None:
+                n = wire.local_workers
+                run = aggregate.ChunkedAggregation(
+                    layout, plan, compression,
+                    E=aggregate.flat_windows(state["resid"], layout, plan,
+                                             n),
+                    R2=(None if "resid2" not in state else
+                        aggregate.flat_windows(state["resid2"], layout,
+                                               plan, n)),
+                    resid=state["resid"], **agg_kw)
+                for w in workers:
+                    backward_releasing(run, w)
+                res = run.finish(td)
+            else:
+                res = aggregate.aggregate_compressed(
+                    [functools.partial(grads_of, w) for w in workers],
+                    state["resid"], compression, **agg_kw)
             agg, agg_metrics = res.agg, res.metrics
             if res.adapt_state is not None and "adaptk" in state:
                 state["adaptk"] = res.adapt_state

@@ -103,9 +103,9 @@ def test_later_compressors_name_their_slice(name, slice_no):
 
 @pytest.mark.parametrize("name", ["randk", "dgck", "rtopk"])
 def test_config_names_the_slice_of_later_compressors(name):
-    """A config of a key-sampled compressor now builds and passes
-    ``require_ported``; its spec is the registry's."""
-    cfg = CompressionConfig(compressor=name).require_ported()
+    """A config of a key-sampled compressor now builds (the port refuses
+    no config field since slice 6); its spec is the registry's."""
+    cfg = CompressionConfig(compressor=name)
     assert cfg.spec is tc.get_compressor(name) and cfg.spec.needs_key
 
 
@@ -169,21 +169,19 @@ def test_compression_config_validation():
     c = CompressionConfig(compressor=None)
     assert c.dense and c.spec is None
     for strategy in ("allgather", "gtopk", "hierarchical", "hier_gtopk"):
-        c = CompressionConfig(strategy=strategy)
-        assert c.require_ported() is c
+        assert CompressionConfig(strategy=strategy).strategy == strategy
     assert CompressionConfig(codec_dtype="bfloat16").codec_dtype == \
         torch.bfloat16
     assert CompressionConfig(
-        codec_dtype=torch.float16).require_ported().codec_dtype == \
-        torch.float16
+        codec_dtype=torch.float16).codec_dtype == torch.float16
     with pytest.raises(ValueError, match="codec_dtype"):
         CompressionConfig(codec_dtype="int8")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        CompressionConfig(chunks=2).require_ported()
+    # chunks > 1 is ported (slice 6): the config carries it
+    assert CompressionConfig(chunks=2).chunks == 2
     # adaptive density is ported: a DensityPolicy passes, a bare name
     # is refused as the reference refuses it
     pol = make_policy("variance")
-    assert CompressionConfig(density_policy=pol).require_ported().adaptive
+    assert CompressionConfig(density_policy=pol).adaptive
     with pytest.raises(TypeError, match="DensityPolicy"):
         CompressionConfig(density_policy="variance")
     with pytest.raises(TypeError) as jerr:

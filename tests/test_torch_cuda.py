@@ -21,7 +21,9 @@ second K1 and is bitwise the one that runs its own.  The data-parallel
 wire on the card: the rank-order decode of gathered
 pairs and the gTop-k re-encode bitwise the CPU's, and four workers in
 one process deterministic, with losses within rtol 1e-4 of the CPU's.
-Slice 4: the ``threefry_bits`` kernel bitwise its plain version, the
+The chunked schedule and the per-leaf loop on the card, bitwise the
+bucketed run there.  Slice 4: the ``threefry_bits`` kernel bitwise its
+plain version, the
 PRNG's known answers drawn on the card, and the key-sampled selections
 on the card bitwise the CPU's.  Slice 4b: FNN-3's init bitwise and the
 LM's within rtol 1e-5 (``erfinv``) drawn on the card against the CPU,
@@ -354,6 +356,71 @@ def test_local_wire_on_card(dev, strategy, mesh):
     assert torch.equal(s1["resid"].view(torch.int32),
                        s2["resid"].view(torch.int32))
     assert torch.allclose(torch.tensor(l1), torch.tensor(lc), rtol=1e-4)
+
+
+@pytest.mark.parametrize("strategy,mesh,policy", [
+    ("allgather", "1x1", "variance"), ("allgather", "4x1", None),
+    ("gtopk", "4x1", None), ("hierarchical", "2x2x1", "variance"),
+    ("hier_gtopk", "2x2x1", None)])
+def test_chunked_and_perleaf_on_card(dev, strategy, mesh, policy):
+    """The chunked schedule (chunks 3: the hooks release each chunk during
+    the backward on the card) and the per-leaf loop on the card (fused
+    kernels), bitwise the bucketed run on the card: params, momentum and
+    residuals (the per-leaf tree packed); collectives a step 3 or 12
+    a wire level."""
+    from repro_torch.core.adaptk import make_policy
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data import lm_batch
+    from repro_torch.dist.layout import build_layout, pack_residual_arrays
+    from repro_torch.launch.mesh import data_world_size, parse_mesh
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.optim import constant, sgd_momentum
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = ModelConfig(name="sys", arch_type="dense", num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                      vocab_size=64).validate()
+    pol = make_policy(policy, ema=0.5) if policy else None
+    W = data_world_size(parse_mesh(mesh))
+
+    def run(chunks, perleaf):
+        comp = CompressionConfig(ratio=0.01, strategy=strategy,
+                                 density_policy=pol, chunks=chunks)
+        params = init_params(cfg, 0, dev)
+        layout = build_layout(params, 1, comp)
+        opt = sgd_momentum(0.9)
+        state = init_train_state(params, opt, workers=W, model_size=1,
+                                 compression=comp,
+                                 layout=None if perleaf else layout)
+        step = make_train_step(cfg, mesh, opt, constant(0.1),
+                               compression=comp,
+                               layout=None if perleaf else layout)
+        out = []
+        for i in range(2):
+            b = lm_batch(i, global_batch=8, seq_len=16,
+                         vocab=cfg.vocab_size, device=dev)
+            state, m = step(state, b)
+            out.append({k: float(v) for k, v in m.items()})
+        resid = {k: (state[k].cpu().numpy() if not perleaf else
+                     pack_residual_arrays(layout, [
+                         x.cpu().numpy() for x in tree.leaves(state[k])]))
+                 for k in ("resid", "resid2") if k in state}
+        return out, state, resid
+
+    base, s0, r0 = run(1, False)
+    levels = 2 if strategy != "allgather" else 1
+    for chunks, perleaf, coll in ((3, False, 3), (1, True, 12)):
+        ms, s, r = run(chunks, perleaf)
+        for key in ("params", "opt"):
+            for a, b in zip(tree.leaves(s0[key]), tree.leaves(s[key])):
+                assert torch.equal(a, b), (chunks, perleaf, key)
+        assert sorted(r) == sorted(r0)
+        for key in r0:
+            assert r[key].tobytes() == r0[key].tobytes(), key
+        for a, b in zip(base, ms):
+            assert b.pop("collectives_per_step") == coll * levels
+            a = dict(a)
+            a.pop("collectives_per_step")
+            assert a == b
 
 
 def test_process_group_wire_nccl_bitwise_local(dev, tmp_path):

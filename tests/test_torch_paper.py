@@ -11,8 +11,14 @@ package's ``benchmarks/`` (on the CPU).
   names, and calls the simulation with the reference's arguments.  The
   simulation is stubbed on both sides here (it is held above; the real
   smoke runs on the card, ``chip_smoke.py`` phase 8b); fig4's port rows
-  are real CPU runs.  The reference's dispatch rows wait for slice 2b.
-* The port's fig4 pass counts against ``benchmarks/baselines/fig4.json``.
+  are real CPU runs.
+* The port's fig4 pass counts, and its dispatch rows' collectives (per
+  leaf against bucketed), against ``benchmarks/baselines/fig4.json``;
+  the overlap benchmark's rows and its dispatch rows' collectives
+  (chunked at 1, 2, 4) against ``benchmarks/baselines/overlap.json``.
+  The reference's dispatch rows count a jaxpr traced over an
+  ``AbstractMesh`` that this jax version does not construct, so the
+  committed baselines stand for them.
 """
 import json
 import os
@@ -140,27 +146,41 @@ def fig4_port():
     return tfig4.collect(smoke=True, device="cpu")
 
 
+def _baseline_dispatch(name):
+    """A baseline's dispatch rows as the reference's ``_dispatch_rows``
+    returns them: ``(rows, bench)``."""
+    with open(os.path.join(ROOT, f"benchmarks/baselines/{name}.json")) as f:
+        bench = [r for r in json.load(f)["rows"]
+                 if r["method"].startswith("dispatch")]
+    rows = [(f"{name}/{r['method']}/{r['shape']}", 0.0,
+             f"collectives={r['passes']}") for r in bench]
+    return rows, bench
+
+
 def test_fig4_rows_are_the_references(fig4_port, monkeypatch):
-    """Names of the selection and EF rows, the dispatch rows aside (the
-    reference's are counted over a jaxpr of the per-leaf pipeline, which
-    lands in slice 2b).  The reference's timings and pipelines are
-    stubbed: only its row names are read."""
+    """Names of the selection, EF and dispatch rows.  The reference's
+    timings and pipelines are stubbed (only its row names are read), and
+    its dispatch rows are the baseline's: the reference counts them over
+    a jaxpr traced on an ``AbstractMesh`` this jax does not construct."""
     import benchmarks.fig4_selection_speed as jfig4
     monkeypatch.setattr(jfig4, "timeit", lambda *a, **k: 1.0)
     monkeypatch.setattr(jfig4, "fused_compress_ef", lambda *a, **k: None)
     monkeypatch.setattr(jfig4, "unfused_compress_ef", lambda *a, **k: None)
-    monkeypatch.setattr(jfig4, "_dispatch_rows", lambda: ([], []))
+    monkeypatch.setattr(jfig4, "_dispatch_rows",
+                        lambda: _baseline_dispatch("fig4"))
     jrows, jdata = jfig4.collect(smoke=True)
     trows, tdata = fig4_port
     assert [r[0] for r in trows] == [r[0] for r in jrows]
     assert ([(r["shape"], r["method"]) for r in tdata["rows"]]
             == [(r["shape"], r["method"]) for r in jdata["rows"]])
     for r in trows:
-        assert r[1] > 0 or r[0].startswith("fig4/speedup"), r
+        assert r[1] > 0 or r[0].startswith(("fig4/speedup",
+                                            "fig4/dispatch")), r
 
 
 def test_fig4_pass_counts_match_baseline(fig4_port):
-    """Unfused and the plain reference row: the baseline's counts.
+    """Unfused and the plain reference row: the baseline's counts, and
+    the dispatch rows' collectives (per leaf 8 and 16, bucketed 1 and 2).
     Fused: the baseline's less one.  The baseline was taken on the
     reference's interpret backend, which adds ``u = g + e`` as a pass of
     its own and writes ``e'`` by a scatter; the port's K1 reads ``g`` and
@@ -192,6 +212,24 @@ def test_fig4_pass_counts_match_baseline(fig4_port):
         assert tlog.by_label() == want
 
 
+def test_overlap_rows_match_baseline():
+    """The overlap benchmark on the CPU: its rows' shapes and methods are
+    the baseline's, the dispatch rows' collectives equal the baseline's
+    (allgather 1/2/4, hierarchical 2/4/8, gtopk 3/6/12) and the step rows
+    count 1 and 4 collectives; the row names are the reference's."""
+    from repro_torch.benchmarks import overlap_schedule as tover
+    with open(os.path.join(ROOT, "benchmarks/baselines/overlap.json")) as f:
+        base = json.load(f)["rows"]
+    rows, data = tover.collect(smoke=True, device="cpu")
+    assert [(r["shape"], r["method"]) for r in data["rows"]] == \
+        [(r["shape"], r["method"]) for r in base]
+    for got, want in zip(data["rows"], base):
+        assert got["passes"] == want["passes"], got
+        assert (got["ms"] > 0) == (want["ms"] > 0), got
+    names = [f"overlap/{r['method']}/{r['shape']}" for r in base]
+    assert [r[0] for r in rows] == names + ["overlap/step-ratio/L8-W8"]
+
+
 def test_harness_runs_a_benchmark_on_the_cpu(capsys):
     """``python -m repro_torch.benchmarks.run fig5 --smoke --device
     cpu``: the header, the benchmark's rows (the real simulation) and its
@@ -207,7 +245,8 @@ def test_harness_runs_a_benchmark_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("name", ["fig10_sensitivity", "fig_rtopk",
-                                  "fig4_selection_speed"])
+                                  "fig4_selection_speed",
+                                  "overlap_schedule"])
 def test_main_writes_only_the_named_path(name, tmp_path, monkeypatch):
     """No file unless ``--json`` names one (the JAX benchmarks' defaults,
     ``BENCH_*.json``, are committed artifacts), then exactly that one."""
