@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # the whole check, one card
     python3 chip_smoke.py --kernels-only  # phases 1-2 at small sizes
+    python3 chip_smoke.py --serve-only    # phases 1 and 10
 
 Phases (any failure exits non-zero; nothing is wrapped to pass):
 
@@ -105,7 +106,25 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    against bucketed; 9d two processes at chunks 3 against 5c's
    ``LocalWire`` run (asynchronous gathers counted); 9e card against
    CPU; 9f the overlap benchmark's and Fig. 4's dispatch counts against
-   their baselines.
+   their baselines;
+10. slice 7, serving and the train-to-serve weight-delta stream
+   (``phase10_serve``): 10a ``launch.serve.run`` on llama3.2-1b at full
+   width and depth (12 requests, waves of 8, prompt 64, gen 16, a delta
+   every 4 decode steps at 0.01, a resync every 3rd): at every publish
+   ``pub`` equals the packed replica bitwise, the replica equals the
+   trainer at a resync, the staleness equals the residual within 1e-5 at
+   a delta, the message sizes are the layout's and trainer, replica,
+   ``pub`` and ``resid`` share no storage; prefill, decode-step, publish
+   and apply ms (CUDA events), peak memory, and tokens/s frozen and
+   streaming; 10b the trainer with ``--publish-every 1 --resync-every
+   2``, 4 steps at full width and depth (12 launches a step of K1, K2
+   and both K3; 2 deltas + 2 resyncs of the layout's bits) and, on the
+   small config, a resumed run's checkpoint bitwise a straight run's;
+   10c a ``gaussiank`` publisher through the library on llama3.2-1b (K1,
+   K2 and both K3 12 a delta); 10d the small config with a wrapping
+   sliding-window ring card against CPU (logits within rtol 1e-4, tokens
+   equal, both publishers bitwise); 10e the ``serve_staleness`` driver's
+   deterministic rows against ``benchmarks/baselines/serve.json``.
 
 Every trainer path draws its params on the card (``init_params``: one
 ``threefry_bits`` launch a weight matrix), counted once a path beside the
@@ -2100,6 +2119,365 @@ def phase9_chunked(torch, by_path, ref5c, small_cfg, small_base) -> dict:
     return out
 
 
+# -- phase 10: serving and the weight-delta stream (slice 7) --
+
+SERVE_ARGV = ["--arch", "llama3.2-1b", "--requests", "12", "--max-batch",
+              "8", "--prompt-len", "64", "--gen", "16"]
+STREAM_ARGV = ["--publish-every", "4", "--publish-ratio", "0.01",
+               "--resync-every", "3"]
+
+
+def storage_disjoint(groups) -> None:
+    """No storage of one named group of tensors overlaps another's
+    (``data_ptr`` ranges of the untyped storages)."""
+    spans = []
+    for name, ts in groups.items():
+        for t in ts:
+            s = t.untyped_storage()
+            spans.append((s.data_ptr(), s.data_ptr() + s.nbytes(), name))
+    spans.sort()
+    for i, (a0, a1, na) in enumerate(spans):
+        for b0, b1, nb in spans[i + 1:]:
+            if b0 >= a1:
+                break
+            assert na == nb, ("shared storage", na, nb)
+
+
+def stream_checker(torch, label, counts):
+    """A ``probe`` for every publish: ``pub`` equals the packed replica
+    bitwise; at a resync the replica equals the trainer bitwise and the
+    message is ``M·d_row_total·32`` bits; at a delta ``|pack(trainer) -
+    pack(replica) - resid| <= 1e-5`` and the message is the layout's
+    ``pair_bits``; trainer, replica, ``pub`` and ``resid`` share no
+    storage.  ``counts`` collects the kinds, the largest gap and, per
+    publish, the peak memory since the previous probe (the probe's own
+    buckets left out: the peak statistics are reset as it returns)."""
+    from repro_torch import tree
+    from repro_torch.dist.layout import pack_grads
+    from repro_torch.serve import RESYNC, message_bits
+
+    def probe(event, msg, layout, state, trainer, replica):
+        counts.setdefault("peaks", []).append(
+            (msg.kind, torch.cuda.max_memory_allocated()))
+        R = pack_grads(layout, replica, torch.float32)
+        assert torch.equal(state["pub"], R), (label, "pub", msg.seq)
+        if msg.kind == RESYNC:
+            for a, b in zip(tree.leaves(replica), tree.leaves(trainer)):
+                assert torch.equal(a, b), (label, "resync", msg.seq)
+            assert message_bits(msg) == (layout.model_size
+                                         * layout.d_row_total * 32)
+        else:
+            gap = pack_grads(layout, trainer, torch.float32).sub_(R).sub_(
+                state["resid"]).abs_().max().item()
+            assert gap <= 1e-5, (label, "gap", msg.seq, gap)
+            counts["gap"] = max(counts.get("gap", 0.0), gap)
+            assert message_bits(msg) == layout.pair_bits()
+        del R
+        storage_disjoint({"trainer": tree.leaves(trainer),
+                          "replica": tree.leaves(replica),
+                          "pub": [state["pub"]], "resid": [state["resid"]]})
+        counts.setdefault("kinds", []).append(msg.kind)
+        torch.cuda.reset_peak_memory_stats()
+
+    return probe
+
+
+def med(xs):
+    return statistics.median(xs) if xs else None
+
+
+def phase10_serve(torch, by_path) -> dict:
+    """Phase 10, slice 7: serving and the train-to-serve weight-delta
+    stream, each path with the launch counters set to 0 just before it
+    and read just after.
+
+    10a. ``repro_torch.launch.serve.run`` on llama3.2-1b at full width
+         and depth (random weights from seed 0), 12 requests in waves of
+         8, prompts of 64, up to 16 tokens, ``--publish-every 4
+         --publish-ratio 0.01 --resync-every 3``: at every publish
+         ``pub`` equals the packed replica bitwise, the replica equals
+         the trainer at a resync, the staleness equals the residual
+         within 1e-5 at a delta, the message sizes the layout's, and
+         trainer, replica, ``pub`` and ``resid`` share no storage; the
+         launches are the init's and two ``threefry_bits`` a wave (the
+         prompts); prefill, decode-step, publish and apply ms (CUDA
+         events, median), peak memory; then unprobed runs frozen
+         (``--publish-every 0``) and streaming for their tokens/s;
+    10b. ``train.run`` at full width and depth, Gaussian-k fixed-k at
+         0.001, ``--publish-every 1 --resync-every 2``, 4 steps: 12
+         launches a step of K1, K2 and both K3 (the ``topk`` publisher
+         launches none), 2 deltas + 2 resyncs of the layout's bits; the
+         checkpoint and resume on the small config on the card: 3 steps
+         and a resumed fourth save what 4 straight steps save, bitwise
+         (a full-width checkpoint of params, momentum, residual and the
+         publisher's two buckets would be ~30 GB);
+    10c. a ``gaussiank`` publisher through the library on llama3.2-1b,
+         3 ticks (resync, delta, delta): K1, K2 and both K3 launched 12
+         times a delta, the invariants of 10a;
+    10d. the small config with a sliding-window layer (window 4 below
+         the prompt's 8) card against CPU: prefill and decode logits
+         within rtol 1e-4, tokens equal; the ``topk`` publisher's and
+         (at the card's block geometry) the ``gaussiank`` publisher's
+         messages, ``pub`` and ``resid`` bitwise;
+    10e. the ``serve_staleness`` driver on the card: its deterministic
+         rows equal ``benchmarks/baselines/serve.json``'s."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import prng, tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.compressors import get_compressor
+    from repro_torch.dist.layout import build_layout, rebudget_layout
+    from repro_torch.kernels.ef_fused import tuning
+    from repro_torch.launch import serve, train
+    from repro_torch.models import (ModelConfig, decode_step, init_params,
+                                    prefill)
+    from repro_torch.serve import apply_message, init_publisher_state, \
+        publish
+    t_start = time.time()
+    out = {}
+    cfg = get_config("llama3.2-1b")
+    main12 = {n: 12 for n in MAIN_KERNELS}
+
+    log("phase 10a: launch.serve.run on llama3.2-1b at full width and "
+        "depth, 12 requests, waves of 8, prompt 64, gen 16, "
+        "--publish-every 4 --publish-ratio 0.01 --resync-every 3")
+    counts = {}
+    torch.cuda.reset_peak_memory_stats()
+    launches, got = zeroed(lambda: serve.run(
+        SERVE_ARGV + STREAM_ARGV, probe=stream_checker(torch, "10a",
+                                                       counts)))
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: 0 for n in launches}
+    want["threefry_bits"] = init_draws(cfg) + 2 * got["waves"]
+    assert launches == want, ("10a launches", launches, want)
+    by_path["10a serve, topk stream"] = launches
+    assert counts["kinds"][0] == 0 and got["resyncs"] >= 2 and \
+        got["deltas"] >= 2, counts
+    assert got["done"] == 12 and math.isfinite(got["staleness"])
+    times = got["times"]
+    a = {"prefill_ms": times["prefill"],
+         "decode_ms_median": med(times["decode"]),
+         "decode_steps": got["decode_steps"],
+         "publish_delta_ms": times.get("publish_delta", []),
+         "apply_delta_ms": times.get("apply_delta", []),
+         "publish_resync_ms": times.get("publish_resync", []),
+         "apply_resync_ms": times.get("apply_resync", []),
+         "drift_ms_median": med(times.get("drift", [])),
+         "deltas": got["deltas"], "resyncs": got["resyncs"],
+         "wire_mib": got["wire_mib"], "staleness": got["staleness"],
+         "largest_gap": counts.get("gap"),
+         # the peak up to each publish's probe, by the message's kind
+         "peak_gib_by_publish": [(k, v / 2**30) for k, v in counts["peaks"]],
+         "peak_gib": max(peak, *(v for _, v in counts["peaks"])) / 2**30,
+         "tok_s_probed": got["tok_s"]}
+    del got
+    torch.cuda.empty_cache()
+    for name, extra in (("frozen", ["--publish-every", "0"]),
+                        ("streaming", STREAM_ARGV)):
+        torch.cuda.reset_peak_memory_stats()
+        run = serve.run(SERVE_ARGV + extra)
+        a[f"tok_s_{name}"] = run["tok_s"]
+        a[f"seconds_{name}"] = run["seconds"]
+        a[f"peak_gib_{name}"] = torch.cuda.max_memory_allocated() / 2**30
+        a[f"decode_ms_median_{name}"] = med(run["times"]["decode"])
+        del run
+        torch.cuda.empty_cache()
+    out["10a"] = a
+    log(f"  10a: every publish: pub == pack(replica) bitwise, replica == "
+        f"trainer at the {a['resyncs']} resyncs, |gap - resid| <= "
+        f"{a['largest_gap']:.3g} at the {a['deltas']} deltas, no shared "
+        f"storage; launches {launches}; prefill ms "
+        f"{[round(x, 2) for x in a['prefill_ms']]}, decode step median "
+        f"{a['decode_ms_median']:.3f} ms over {a['decode_steps']} steps, "
+        f"publish ms delta {[round(x, 1) for x in a['publish_delta_ms']]} "
+        f"resync {[round(x, 1) for x in a['publish_resync_ms']]}, apply ms "
+        f"delta {[round(x, 1) for x in a['apply_delta_ms']]} resync "
+        f"{[round(x, 1) for x in a['apply_resync_ms']]}; peak "
+        f"{a['peak_gib']:.2f} GiB (up to each publish, by kind: "
+        f"{[(k, round(v, 2)) for k, v in a['peak_gib_by_publish']]}); "
+        f"tokens/s frozen {a['tok_s_frozen']:.1f}"
+        f", streaming {a['tok_s_streaming']:.1f} (probed "
+        f"{a['tok_s_probed']:.1f}); {a['wire_mib']:.3f} MiB on the wire")
+    out["10a_s"] = time.time() - t_start
+
+    t0 = time.time()
+    log("phase 10b: train.run at full width and depth, Gaussian-k fixed-k, "
+        "--publish-every 1 --resync-every 2, 4 steps")
+    meta = init_params(cfg, 0, "meta")
+    pub_layout = rebudget_layout(
+        build_layout(meta, 1, RATIO, get_compressor("gaussiank")), 0.01,
+        get_compressor("topk"))
+    by_path["10b train --publish-every 1"], records, peak, _, _ = \
+        train_path("10b publish", ["--arch", "llama3.2-1b",
+                                   "--density-policy", "none", "--batch",
+                                   "8", "--seq", "128", "--publish-every",
+                                   "1", "--resync-every", "2"],
+                   main12, 4, torch)
+    kinds = [r["publish_kind"] for r in records]
+    bits = [r["publish_bits"] for r in records]
+    want_bits = [pub_layout.d_row_total * 32, pub_layout.pair_bits()] * 2
+    assert kinds == [0, 1, 0, 1] and bits == want_bits, (kinds, bits)
+    mib = sum(bits) / 8 / 2 ** 20
+    b = {"losses": [r["loss"] for r in records],
+         "step_ms": [r["ms"] for r in records], "peak_gib": peak / 2**30,
+         "published_mib": mib}
+    del records
+    torch.cuda.empty_cache()
+    small = ModelConfig(name="sys", arch_type="dense", num_layers=2,
+                        d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                        vocab_size=64).validate()
+    with tempfile.TemporaryDirectory() as tmp:
+        x, ca, cb = (os.path.join(tmp, n) for n in ("x.npz", "a.npz",
+                                                    "b.npz"))
+        base = ["--arch", "sys", "--density-policy", "none", "--batch",
+                "4", "--seq", "16", "--publish-every", "1",
+                "--resync-every", "2"]
+        train.run(base + ["--steps", "4", "--checkpoint", x], cfg=small)
+        train.run(base + ["--steps", "3", "--checkpoint", ca], cfg=small)
+        recs = train.run(base + ["--steps", "1", "--resume", ca,
+                                 "--checkpoint", cb], cfg=small)
+        assert [r["publish_kind"] for r in recs] == [1]
+        with np.load(x) as s, np.load(cb) as r:
+            assert sorted(s.files) == sorted(r.files)
+            assert int(r["publish/seq"]) == 4
+            for k in s.files:
+                assert np.array_equal(s[k], r[k]), ("10b resume", k)
+    log(f"  10b: K1, K2 and both K3 12 a step; published 2 deltas + 2 "
+        f"resyncs ({mib:.3f} MiB, the layout's); steps ms "
+        f"{[round(v, 1) for v in b['step_ms']]}; peak {b['peak_gib']:.2f} "
+        f"GiB; small config on the card: 3 steps + a resumed fourth save "
+        f"what 4 straight steps save, publish/ included, bitwise")
+    out["10b"] = b
+    out["10b_s"] = time.time() - t0
+
+    t0 = time.time()
+    log("phase 10c: a gaussiank publisher through the library on "
+        "llama3.2-1b, 3 ticks (resync, delta, delta)")
+    trainer = init_params(cfg, 0, "cuda")
+    config = CompressionConfig(compressor="gaussiank", ratio=0.01)
+    layout = build_layout(trainer, 1, config)
+    counts = {}
+    check = stream_checker(torch, "10c", counts)
+
+    def ticks():
+        nonlocal trainer
+        state = init_publisher_state(layout)
+        replica = tree.tree_map(torch.clone, trainer)
+        per, ms = [], []
+        for t in range(3):
+            trainer = serve.drift(trainer, 4 * t)
+            before = {n: f.launches for n, f in counters().items()}
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            state, msg = publish(state, trainer, layout, config,
+                                 prng.PRNGKey(5), resync_every=3)
+            ev[1].record()
+            replica = apply_message(replica, layout, msg)
+            ev[2].record()
+            per.append({n: f.launches - before[n]
+                        for n, f in counters().items()})
+            check("publish", msg, layout, state, trainer, replica)
+            ms.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+        return per, ms
+
+    launches, (per, ms) = zeroed(ticks)
+    by_path["10c gaussiank publisher"] = launches
+    assert counts["kinds"] == [0, 1, 1], counts
+    assert per[0] == {n: 0 for n in per[0]}, per[0]
+    for p in per[1:]:
+        assert p == {n: main12.get(n, 0) for n in p}, p
+    del trainer
+    torch.cuda.empty_cache()
+    out["10c"] = {"publish_ms": [m[0] for m in ms],
+                  "apply_ms": [m[1] for m in ms],
+                  "largest_gap": counts["gap"]}
+    log(f"  10c: launches a tick {per}; publish ms "
+        f"{[round(m[0], 1) for m in ms]}, apply ms "
+        f"{[round(m[1], 1) for m in ms]}; the invariants of 10a hold "
+        f"(largest gap {counts['gap']:.3g})")
+    out["10c_s"] = time.time() - t0
+
+    t0 = time.time()
+    sw = ModelConfig(name="sw", arch_type="dense", num_layers=2, d_model=64,
+                     num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=64,
+                     block_pattern=("swa", "attn"),
+                     sliding_window=4).validate()
+    base = init_params(sw, 0, "cpu")
+    prompt = prng.randint(prng.PRNGKey(4), (2, 8), 0, 64, device="cpu")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = tree.tree_map(lambda v: v.to(dev), base)
+        logits, cache, _ = prefill(p, sw, prompt.to(dev), s_max=16)
+        ls, toks = [logits.cpu()], []
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        for pos in range(8, 16):
+            toks.append(tok.cpu())
+            logits, cache = decode_step(p, sw, cache, pos, tok)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            ls.append(logits.cpu())
+        res[dev] = (torch.stack(ls), torch.cat(toks, dim=1))
+    np.testing.assert_allclose(res["cuda"][0].numpy(), res["cpu"][0].numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert torch.equal(res["cuda"][1], res["cpu"][1])
+    err = float((res["cuda"][0] - res["cpu"][0]).abs().max())
+    for name, backend in (("topk", "auto"), ("gaussiank", "fused")):
+        comp = CompressionConfig(compressor=name, ratio=0.01,
+                                 backend=backend)
+        lay = build_layout(base, 1, comp)
+        st = {d: init_publisher_state(lay, device=d)
+              for d in ("cuda", "cpu")}
+        cur = base
+        with tuning.geometry_of("cuda"):
+            for t in range(6):
+                cur = tree.tree_map(
+                    lambda v: v + 0.01 * torch.sin(v * float(t + 1)), cur)
+                msgs = {}
+                for d in ("cuda", "cpu"):
+                    st[d], msgs[d] = publish(
+                        st[d], tree.tree_map(lambda v: v.to(d), cur), lay,
+                        comp, prng.PRNGKey(7), resync_every=4)
+                assert msgs["cuda"].kind == msgs["cpu"].kind, (name, t)
+                for u, w in zip(msgs["cuda"][2:], msgs["cpu"][2:]):
+                    assert (u is None) == (w is None), (name, t)
+                    if u is not None:
+                        assert torch.equal(u.cpu(), w), (name, t)
+                for k in ("pub", "resid"):
+                    assert torch.equal(st["cuda"][k].cpu(), st["cpu"][k]), (
+                        name, t, k)
+    out["10d"] = {"max_abs_logit_err": err}
+    log(f"phase 10d: small config with an swa ring (window 4, prompt 8) "
+        f"card vs CPU: prefill + 8 decode logits within rtol 1e-4 (largest "
+        f"difference {err:.3g}), tokens equal; the topk and gaussiank "
+        f"(card geometry) publishers' messages, pub and resid bitwise over "
+        f"6 ticks")
+    out["10d_s"] = time.time() - t0
+
+    t0 = time.time()
+    from repro_torch.benchmarks import serve_staleness as sv
+    by_path["10e serve_staleness"], (rows, data) = zeroed(
+        lambda: sv.collect(smoke=True, device="cuda"))
+    with open(os.path.join(HERE, "benchmarks", "baselines",
+                           "serve.json")) as f:
+        base_rows = json.load(f)["rows"]
+    got_rows = {(r["shape"], r["method"]): r["passes"] for r in data["rows"]}
+    for r in base_rows:
+        assert got_rows[(r["shape"], r["method"])] == r["passes"], r
+    out["10e"] = {"rows": rows}
+    log("phase 10e: serve_staleness on the card; its rows equal the "
+        "baseline's (delta wire 768/768/2944 bits, resync-exact 1, "
+        "gap-vs-resid 1, 32 tokens each way): "
+        + "; ".join(f"{r[0]} {r[2]}" for r in rows))
+    out["10e_s"] = time.time() - t0
+    out["phase10_s"] = time.time() - t_start
+    log(f"phase 10 took {out['phase10_s']:.1f} s (10a {out['10a_s']:.1f}, "
+        f"10b {out['10b_s']:.1f}, 10c {out['10c_s']:.1f}, 10d "
+        f"{out['10d_s']:.1f}, 10e {out['10e_s']:.1f})")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2131,6 +2509,10 @@ def main(argv) -> int:
     build_s = build(cuda_build, torch)
     log(f"kernels built in {build_s:.1f} s (nvcc -> "
         f"{cuda_build.build_dir()}, Triton JIT)")
+    if "--serve-only" in argv:
+        log(json.dumps({"phase10": phase10_serve(torch, {})}))
+        log("serve-only run: phases 2-9 skipped")
+        return 0
 
     # -- phase 2: kernels against their plain versions --
     rows = {n: {"name": v[0], "route": v[1], "source": v[2],
@@ -2147,7 +2529,7 @@ def main(argv) -> int:
         phase7a_prng(torch, rows, timed=False)
         log(json.dumps({"kernels": list(rows.values()),
                         "pipelines": pipelines}))
-        log("kernels-only run: phases 3-9 skipped (7a run untimed)")
+        log("kernels-only run: phases 3-10 skipped (7a run untimed)")
         return 0
 
     # -- phase 3: the paths at full width --
@@ -2383,6 +2765,9 @@ def main(argv) -> int:
     # -- phase 9: the chunked schedule and the per-leaf loop --
     phase9 = phase9_chunked(torch, by_path, ref5c, cfg, base)
 
+    # -- phase 10: serving and the weight-delta stream --
+    phase10 = phase10_serve(torch, by_path)
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -2392,7 +2777,7 @@ def main(argv) -> int:
                     "path_a": path_a, "path_b": path_b, "path_d": path_d,
                     "small": small, "phase5": phase5, "phase6": phase6,
                     "phase7": phase7, "phase8": phase8,
-                    "phase9": phase9,
+                    "phase9": phase9, "phase10": phase10,
                     "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(json.dumps({"kernels": list(rows.values())}))

@@ -18,7 +18,7 @@ import time
 
 MODULES = ["fig5_bound", "fig2_histograms", "fig1_fig6_convergence",
            "fig4_selection_speed", "fig10_sensitivity", "fig_rtopk",
-           "overlap_schedule"]
+           "overlap_schedule", "serve_staleness"]
 
 
 def run_module(name: str, smoke: bool = False, device="cuda") -> int:

@@ -4,11 +4,12 @@
 The keys are the reference's: each leaf's path from the state's root,
 dict keys in sorted order joined with ``/`` (``params/embed``,
 ``opt/m/stack/0/ffn/w_up``, ``step``, ``resid``, ``resid2``,
-``adaptk/signal``, ``adaptk/count``, ``adaptk/gnorm``).  Tensors and the
-adaptive controller's numpy arrays are stored as numpy arrays and Python
-integers (the step counter, AdamW's ``t``) as int32 scalars, so a state
-saved by the JAX package loads into the port with numpy alone, and the
-other way round.  The flat residuals are the ``(workers, model_size *
+``adaptk/signal``, ``adaptk/count``, ``adaptk/gnorm``, and the serve
+publisher's ``publish/pub``, ``publish/resid``, ``publish/seq``).
+Tensors and the adaptive controller's numpy arrays are stored as numpy
+arrays and Python integers (the step counter, AdamW's ``t``, the
+publisher's ``seq``) as int32 scalars, so a state saved by the JAX
+package loads into the port with numpy alone, and the other way round.  The flat residuals are the ``(workers, model_size *
 d_row_total)`` buckets (``resid``, ``resid2``); the per-leaf pipeline's
 are ``(workers, d_pad)`` leaves (``resid/<leaf path>``).  With
 ``layout=``, a per-leaf checkpoint loads into a state with flat buckets
@@ -31,6 +32,11 @@ _SEP = "/"
 # self-seed from their first positive observation (core/adaptk.py
 # ``global_scale``), so the migrated state is exact
 _GLOBALK_KEYS = ("adaptk/gnorm", "adaptk/gnorm0")
+# the serve publisher's state (``publish/pub``, ``publish/resid``,
+# ``publish/seq``) absent from checkpoints written without it:
+# zero-filled, as the reference does — ``publish/seq == 0`` makes the
+# next publish a resync, so the zeroed view is never streamed against
+_PUBLISH_PREFIX = "publish" + _SEP
 # the residuals: a flat bucket each, or a tree of per-leaf entries below
 _RESID_KEYS = ("resid", "resid2")
 
@@ -85,15 +91,17 @@ def load_state(path: str, like: Any, *,
     passes its rank.  ``layout`` (the state's ``BucketLayout``) lets a
     per-leaf checkpoint's residuals load into the flat buckets,
     bitwise.  The global-k scalars ``adaptk/gnorm`` and
-    ``adaptk/gnorm0`` are zero-filled when the checkpoint lacks them."""
+    ``adaptk/gnorm0`` and the publisher's ``publish/...`` entries are
+    zero-filled when the checkpoint lacks them."""
     with np.load(path) as data:
         flat = dict(data)
     pairs, td = tree.flatten_with_path(like)
     out = []
     for p, leaf in pairs:
         key = _key(p)
-        if key not in flat and key in _GLOBALK_KEYS:
-            arr = np.zeros(np.shape(leaf), np.float32)
+        if key not in flat and (key in _GLOBALK_KEYS
+                                or key.startswith(_PUBLISH_PREFIX)):
+            arr = np.zeros(tuple(np.shape(leaf)), np.float32)
         elif key not in flat and layout is not None and key in _RESID_KEYS:
             arr = _migrate_legacy_residual(flat, key, layout)
         elif key not in flat:

@@ -8,10 +8,11 @@ from repro_torch.dist.aggregate import (AggregateResult, aggregate_bucketed,
 from repro_torch.dist.layout import (BucketLayout, LeafSegment, build_layout,
                                      collective_count, init_flat_residual,
                                      leaf_key_salt, pack_grads,
-                                     strategy_wire_pairs, unpack_tree)
+                                     rebudget_layout, strategy_wire_pairs,
+                                     unpack_tree)
 
 __all__ = ["aggregate", "layout", "AggregateResult", "aggregate_bucketed",
            "aggregate_dense", "bucket_compress", "BucketLayout",
            "LeafSegment", "build_layout", "collective_count",
            "init_flat_residual", "leaf_key_salt", "pack_grads",
-           "strategy_wire_pairs", "unpack_tree"]
+           "rebudget_layout", "strategy_wire_pairs", "unpack_tree"]

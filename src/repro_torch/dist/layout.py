@@ -1,6 +1,6 @@
 """Flat bucketed gradient layout — one wire message per step (port of
 ``repro/dist/layout.py``: ``build_layout`` fixed-k and adaptive,
-``leaf_plan``, ``leaf_plan_adaptive``, ``LeafSegment``,
+``rebudget_layout``, ``leaf_plan``, ``leaf_plan_adaptive``, ``LeafSegment``,
 ``BucketLayout`` and its accounting, the wire model
 ``strategy_wire_pairs`` / ``collective_count`` / ``resolve_strategy``,
 ``pack_grads``, ``unpack_tree``, ``init_flat_residual``,
@@ -266,6 +266,33 @@ def build_layout(params, model_size: int, ratio,
                         adaptive=density_policy is not None,
                         d_row_total=row_off,
                         k_cap_total=cap_off)
+
+
+def rebudget_layout(layout: BucketLayout, ratio: float,
+                    spec: CompressorSpec) -> BucketLayout:
+    """The same bucket re-budgeted at another ``(ratio, spec)``: the
+    serve publisher's delta layout.  Row geometry (``d_row``,
+    ``row_off``, names, salts, segment order) depends only on the leaf
+    sizes and ``model_size`` and is carried over, so a bucket packed
+    under ``layout`` is one under the new layout too; ``k_row``,
+    ``k_cap`` and ``cap_off`` are recomputed fixed-k (the publisher never
+    runs adaptive density).  Takes a plain ratio only, as the
+    reference."""
+    if isinstance(ratio, CompressionConfig):
+        raise TypeError("rebudget_layout takes a plain ratio + spec "
+                        "(build_layout accepts the config spelling)")
+    segments, cap_off = [], 0
+    for s in layout.segments:
+        k = max(1, math.ceil(ratio * s.size))
+        k_row = row_budget(k, layout.model_size, s.d_row)
+        k_cap = min(s.d_row, spec.k_cap(k_row, s.d_row))
+        segments.append(s._replace(k_row=k_row, k_cap=k_cap,
+                                   cap_off=cap_off, k_lo=k, k_hi=k))
+        cap_off += k_cap
+    return BucketLayout(segments=tuple(segments),
+                        model_size=layout.model_size, ratio=float(ratio),
+                        spec_name=spec.name, adaptive=False,
+                        d_row_total=layout.d_row_total, k_cap_total=cap_off)
 
 
 def pack_grads(layout: BucketLayout, grads, dtype) -> torch.Tensor:

@@ -1,0 +1,288 @@
+"""Continuous-batching serving driver with train-to-serve delta streaming
+(port of ``repro/launch/serve.py``).
+
+Requests are admitted in waves (admission control: at most
+``--max-batch`` slots a wave, each request with its own generation
+length), prefilled together, then decoded token by token.  Between
+decode steps the replica polls an in-process trainer: every
+``--publish-every`` decode steps the trainer takes a drift step and
+publishes a compressed weight delta (``serve/publish.py``), which the
+replica scatter-adds into its live params (``serve/subscribe.py``)
+without stopping decode.  Every ``--resync-every``-th publish ships the
+dense bucket: replica params equal trainer params exactly at those
+epochs.
+
+  python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --requests 12 --max-batch 8 --prompt-len 64 --gen 16 \\
+      --publish-every 4 --publish-ratio 0.01
+  python -m repro_torch.launch.serve --arch llama3.2-1b --smoke \\
+      --device cpu --requests 4 --max-batch 2 --prompt-len 8 --gen 4 \\
+      --publish-every 2 --resync-every 2
+
+Same flags and defaults as the JAX driver, plus ``--device {cuda,cpu}``
+(default ``cuda``; without a GPU it exits unless ``--device cpu``), and
+``--mesh`` defaults to ``1x1``.  A mesh ``DxM`` must have ``M = 1``; a
+data axis ``D > 1`` is the same function as the batch sharded over D
+devices, computed on the whole batch on one device (the startup line
+says so); ``--host-devices`` is accepted for the reference's command
+lines and changes nothing.  ``--publish-every 0`` freezes the weights
+(pure serving, no trainer).  The queue is ``np.random.default_rng(seed)``
+and the prompts ``randint`` draws of ``repro_torch.prng`` from
+``PRNGKey(seed)``, as the reference draws them; tokens are the argmax,
+or with ``--temperature > 0`` ``prng.categorical`` samples.
+
+``run(argv, probe=)`` returns the emitted tokens, the counters and the
+per-phase times (CUDA events on the card); ``probe("publish", ...)``
+is called after each message is applied to the replica.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Callable, Optional
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="total requests in the synthetic queue")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="admission control: slots per decode wave")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=16,
+                    help="max generation length; requests draw from "
+                         "[gen//2, gen]")
+    ap.add_argument("--mesh", default="1x1", help="DxM or PxDxM, M = 1")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="accepted for the reference's command lines; "
+                         "unused")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--publish-every", type=int, default=0,
+                    help="trainer publishes a weight delta every N decode "
+                         "steps (0 = frozen weights)")
+    ap.add_argument("--publish-ratio", type=float, default=0.01,
+                    help="density of the delta stream")
+    ap.add_argument("--resync-every", type=int, default=8,
+                    help="every Nth publish ships the dense bucket")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where to serve; cuda needs a GPU")
+    return ap
+
+
+class _Timer:
+    """Per-phase times in ms: CUDA events on the card (read once, at the
+    end, so timing adds no sync), the host clock on the CPU."""
+
+    def __init__(self, device):
+        import torch
+        self.torch, self.cuda = torch, device.type == "cuda"
+        self.spans = {}
+
+    def mark(self):
+        if self.cuda:
+            ev = self.torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def add(self, name: str, start) -> None:
+        self.spans.setdefault(name, []).append((start, self.mark()))
+
+    def ms(self) -> dict:
+        if self.cuda:
+            self.torch.cuda.synchronize()
+            return {n: [a.elapsed_time(b) for a, b in v]
+                    for n, v in self.spans.items()}
+        return {n: [(b - a) * 1e3 for a, b in v]
+                for n, v in self.spans.items()}
+
+
+def drift(params, i: int):
+    """The in-process trainer's stand-in for an optimizer step, out of
+    place: ``x + 1e-3 · sin(x · (1 + 0.1·i))`` in f32."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    f = float(np.float32(1.0) + np.float32(0.1) * np.float32(i))
+    return tree.tree_map(lambda x: x + 1e-3 * torch.sin(x * f), params)
+
+
+def norm(x) -> float:
+    """The 2-norm of ``x`` (the reference's ``jnp.linalg.norm``), summed
+    in f64 over chunks of 2**26 elements: torch's f32 ``vector_norm`` on
+    the CPU is off by ~2e-5 relative at a million elements, and a whole
+    f64 copy of a 6 GB bucket would not be small."""
+    import torch
+    flat = x.reshape(-1)
+    step = 1 << 26
+    parts = [torch.linalg.vector_norm(flat[a:a + step], dtype=torch.float64)
+             for a in range(0, flat.numel(), step)]
+    return float(torch.linalg.vector_norm(torch.stack(parts)))
+
+
+def run(argv=None, *, probe: Optional[Callable] = None, cfg=None) -> dict:
+    """Parse ``argv``, serve the queue, print the ``stream:`` (when
+    streaming) and ``serve:`` lines, and return ``{"tokens": one (B,
+    wave_gen) int64 tensor a wave, the counters, "times": per-phase ms
+    lists}``.  ``cfg``, a ModelConfig, replaces ``--arch``'s.
+    ``probe("publish", msg=, layout=, state=, trainer=, replica=)`` runs
+    after each message is applied; its time is left out of the reported
+    seconds and tokens/s."""
+    args = _parser().parse_args(argv)
+    import numpy as np
+    import torch
+
+    from repro_torch import prng, tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.launch.mesh import (data_world_size, model_axis_size,
+                                         parse_mesh)
+    from repro_torch.models import init_params
+    from repro_torch.models.model import require_dense
+    from repro_torch.serve import (RESYNC, apply_resync,
+                                   init_publisher_state, make_apply_delta,
+                                   make_decode_step, make_prefill_step,
+                                   message_bits, publish)
+    from repro_torch.slices import not_ported
+
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.smoke:
+            cfg = cfg.reduced()
+    require_dense(cfg)
+    mesh = parse_mesh(args.mesh)
+    if model_axis_size(mesh) != 1:
+        raise not_ported(f"--mesh {args.mesh} (a model axis of "
+                         f"{model_axis_size(mesh)})", "model_axis")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no GPU is visible; pass --device "
+                         "cpu to serve on the CPU")
+    device = torch.device(args.device)
+
+    key = prng.PRNGKey(args.seed)
+    trainer = init_params(cfg, args.seed, device)
+    # the replica starts in sync, in storage of its own
+    params = tree.tree_map(torch.clone, trainer)
+    B, T = args.max_batch, args.prompt_len
+    s_max = T + args.gen
+
+    streaming = args.publish_every > 0
+    if streaming:
+        pub_config = CompressionConfig(compressor="topk",
+                                       ratio=args.publish_ratio)
+        layout = build_layout(trainer, 1, pub_config)
+        pub_state = init_publisher_state(layout, device=device)
+        apply_delta = make_apply_delta(layout, device)
+        pub_key = prng.fold_in(key, 0x5EEDED)
+    prefill_step = make_prefill_step(cfg, device, s_max=s_max)
+    decode = make_decode_step(cfg, device)
+    print(f"arch={cfg.name} mesh={args.mesh} data={data_world_size(mesh)} "
+          f"(the whole batch on one {device.type} device) device={device} "
+          f"requests={args.requests} max_batch={B} prompt_len={T} "
+          f"gen={args.gen} publish_every={args.publish_every}"
+          + (f" publish_ratio={args.publish_ratio} resync_every="
+             f"{args.resync_every}" if streaming else ""), flush=True)
+
+    rng = np.random.default_rng(args.seed)
+    queue = [int(rng.integers(max(1, args.gen // 2), args.gen + 1))
+             for _ in range(args.requests)]
+    timer = _Timer(device)
+    waves_tokens = []
+    done = tokens_out = slot_steps = slot_busy = 0
+    deltas = resyncs = wire_bits = decode_steps = 0
+    probe_s = 0.0
+    t_start = time.time()
+    wave = 0
+    while queue:
+        admit, queue = queue[:args.max_batch], queue[args.max_batch:]
+        nact = len(admit)
+        gens = admit + [0] * (B - nact)     # padded slots generate nothing
+        wave_gen = max(admit)
+        key, pk = prng.split(key)
+        prompt = prng.randint(pk, (B, T), 0, cfg.vocab_size, device=device)
+        t0 = timer.mark()
+        logits, cache = prefill_step(params, prompt)
+        timer.add("prefill", t0)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        toks = [tok]
+        tokens_out += sum(1 for g in gens if g >= 1)
+        for i in range(wave_gen - 1):
+            if streaming and decode_steps % args.publish_every == 0:
+                t0 = timer.mark()
+                trainer = drift(trainer, decode_steps)
+                timer.add("drift", t0)
+                t0 = timer.mark()
+                pub_state, msg = publish(pub_state, trainer, layout,
+                                         pub_config, pub_key,
+                                         resync_every=args.resync_every)
+                kind = "resync" if msg.kind == RESYNC else "delta"
+                timer.add(f"publish_{kind}", t0)
+                wire_bits += message_bits(msg)
+                t0 = timer.mark()
+                if msg.kind == RESYNC:
+                    params = apply_resync(params, layout, msg.bucket)
+                    resyncs += 1
+                else:
+                    params = apply_delta(params, msg.values, msg.indices)
+                    deltas += 1
+                timer.add(f"apply_{kind}", t0)
+                if probe is not None:
+                    tp = time.time()
+                    probe("publish", msg=msg, layout=layout,
+                          state=pub_state, trainer=trainer, replica=params)
+                    probe_s += time.time() - tp
+            t0 = timer.mark()
+            logits, cache = decode(params, cache, T + i, tok)
+            timer.add("decode", t0)
+            if args.temperature > 0:
+                key, sk = prng.split(key)
+                tok = prng.categorical(sk, logits[:, -1] / args.temperature
+                                       )[:, None]
+            else:
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            toks.append(tok)
+            decode_steps += 1
+            emitted = sum(1 for g in gens if g >= i + 2)
+            tokens_out += emitted
+            slot_busy += emitted
+            slot_steps += B
+        waves_tokens.append(torch.cat(toks, dim=1))
+        done += nact
+        wave += 1
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t_start - probe_s
+
+    out = {"tokens": [t.cpu() for t in waves_tokens], "done": done,
+           "requests": args.requests, "waves": wave,
+           "tokens_out": tokens_out, "decode_steps": decode_steps,
+           "deltas": deltas, "resyncs": resyncs, "wire_bits": wire_bits,
+           "slot_util": slot_busy / max(1, slot_steps), "seconds": dt,
+           "tok_s": tokens_out / max(dt, 1e-9), "times": timer.ms()}
+    if streaming:
+        # the staleness gap is the delta stream's residual
+        gap = norm(pub_state["resid"])
+        out.update(staleness=gap, wire_mib=wire_bits / 8 / 2 ** 20)
+        print(f"stream: {deltas} deltas + {resyncs} resyncs, "
+              f"{wire_bits / 8 / 2 ** 20:.3f} MiB on the wire, "
+              f"staleness |resid| = {gap:.3e}")
+    print(f"serve: {done}/{args.requests} requests in {wave} waves, "
+          f"{tokens_out} tokens in {dt:.2f}s "
+          f"({out['tok_s']:.1f} tok/s), "
+          f"slot utilization {out['slot_util']:.2f}", flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

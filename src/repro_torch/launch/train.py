@@ -49,11 +49,17 @@ correction has no flag, as in the reference: it is
 ``CompressionConfig(momentum_correction=...)``.
 ``--checkpoint`` saves the final state and ``--resume`` starts from one
 (``checkpoint/npz.py``, the JAX package's keys; a per-leaf checkpoint
-resumes into the bucketed pipeline).  Every flag value it does not
-carry raises an error naming the slice that ports it: a model axis
-above 1, ``--strategy auto``, ``--publish-every``, and any value but
-the default of the flags only those features read, such as
-``--topology``.
+resumes into the bucketed pipeline).  ``--publish-every N`` publishes a
+compressed weight delta for serving replicas after every N-th step of
+the run (``serve/publish.py``: top-k at ``--publish-ratio`` over
+``params - pub`` with its own residual, on the training layout
+re-budgeted; every ``--resync-every``-th publish ships the dense
+bucket) and prints ``published D deltas + R resyncs (X MiB on the
+wire)``; the publisher's state rides in the checkpoint under
+``publish/``.  Every flag value it does not carry raises an error
+naming the slice that ports it: a model axis above 1, ``--strategy
+auto``, and any value but the default of the flags only those features
+read, such as ``--topology``.
 """
 from __future__ import annotations
 
@@ -136,10 +142,7 @@ def parse_args(argv=None):
 
 # flags that only a later slice reads -> the LATER key of that slice; any
 # value but the default raises rather than being ignored
-_LATER_FLAGS = {
-    "topology": "auto",
-    "publish_ratio": "publish", "resync_every": "publish",
-}
+_LATER_FLAGS = {"topology": "auto"}
 
 
 def require_ported(args, cfg):
@@ -164,8 +167,6 @@ def require_ported(args, cfg):
             "--chunks > 1 needs the bucketed sparse pipeline: use "
             "--pipeline bucketed with a sparse compressor (the chunked "
             "schedule re-dispatches the flat wire block)")
-    if args.publish_every:
-        raise not_ported("--publish-every", "publish")
     defaults = _parser()
     for dest, key in _LATER_FLAGS.items():
         if getattr(args, dest) != defaults.get_default(dest):
@@ -305,10 +306,17 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
     state = init_train_state(params, opt, workers=wire.local_workers,
                              model_size=1, compression=config,
                              layout=layout)
+    pub = _publisher(args, params, layout, device)
     if args.resume:
-        # layout= loads a per-leaf checkpoint's residuals into the buckets
-        state = load_state(args.resume, state, worker_rows=wire.ranks,
-                           layout=layout)
+        # layout= loads a per-leaf checkpoint's residuals into the
+        # buckets; the publisher's state rides under "publish/"
+        # (zero-filled when the checkpoint has none: seq 0 resyncs first)
+        full = load_state(args.resume, dict(state, publish=pub["state"])
+                          if pub else state, worker_rows=wire.ranks,
+                          layout=layout)
+        if pub:
+            pub["state"] = full.pop("publish")
+        state = full
     step = make_train_step(cfg, mesh, opt, lr_fn, compression=config,
                            layout=layout, probe=probe, wire=wire,
                            seed=args.seed)
@@ -336,6 +344,8 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
         ms = (time.perf_counter() - ts) * 1e3
         rec = {"step": i, "ms": ms}
         rec.update({k: float(v) for k, v in m.items()})
+        if pub and (i - first + 1) % args.publish_every == 0:
+            rec.update(_publish_tick(args, pub, state["params"]))
         records.append(rec)
         if i % args.log_every == 0 or i == first + args.steps - 1:
             comm = ""
@@ -349,11 +359,14 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
             say(f"step {i:5d} loss={rec['loss']:.4f} lr={rec['lr']:.4g}"
                 f"{comm} step_ms={ms:.1f} ({time.time() - t0:.1f}s)",
                 flush=True)
+    if pub:
+        say(f"published {pub['deltas']} deltas + {pub['resyncs']} resyncs "
+            f"({pub['bits'] / 8 / 2 ** 20:.3f} MiB on the wire)", flush=True)
     if args.checkpoint:
-        out = state
+        out = state if not pub else dict(state, publish=pub["state"])
         if wire.local_workers != wire.world:
             # every worker's residual rows, gathered in rank order
-            out = dict(state)
+            out = dict(out)
             for key in ("resid", "resid2"):
                 if key in state:
                     out[key] = tree.tree_map(
@@ -364,6 +377,47 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
             save_state(args.checkpoint, out)
             say(f"saved -> {args.checkpoint}")
     return records
+
+
+def _publisher(args, params, layout, device) -> Optional[dict]:
+    """The weight-delta publisher of ``--publish-every`` (None without):
+    top-k at ``--publish-ratio`` on the training layout re-budgeted
+    (``build_layout`` of the params without one), its state, its key
+    ``fold_in(PRNGKey(seed), 0x9B)`` and its counters."""
+    if args.publish_every <= 0:
+        return None
+    from repro_torch import prng
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.compressors import get_compressor
+    from repro_torch.dist.layout import build_layout, rebudget_layout
+    from repro_torch.serve import init_publisher_state
+
+    config = CompressionConfig(compressor="topk", ratio=args.publish_ratio,
+                               backend=args.backend)
+    pub_layout = (rebudget_layout(layout, args.publish_ratio,
+                                  get_compressor("topk"))
+                  if layout is not None else build_layout(params, 1, config))
+    return {"config": config, "layout": pub_layout,
+            "state": init_publisher_state(pub_layout, device=device),
+            "key": prng.fold_in(prng.PRNGKey(args.seed), 0x9B),
+            "bits": 0, "deltas": 0, "resyncs": 0}
+
+
+def _publish_tick(args, pub, params) -> dict:
+    """One publish of the trainer's params; returns the record's
+    ``publish_kind`` (``RESYNC`` 0 / ``DELTA`` 1) and ``publish_bits``."""
+    import torch
+
+    from repro_torch.serve import RESYNC, message_bits, publish
+
+    with torch.no_grad():
+        pub["state"], msg = publish(pub["state"], params, pub["layout"],
+                                    pub["config"], pub["key"],
+                                    resync_every=args.resync_every)
+    bits = message_bits(msg)
+    pub["bits"] += bits
+    pub["resyncs" if msg.kind == RESYNC else "deltas"] += 1
+    return {"publish_kind": msg.kind, "publish_bits": bits}
 
 
 def main(argv=None) -> int:

@@ -1,7 +1,9 @@
 """Dense decoder LM of the port (``repro.models`` dense path)."""
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import (forward, from_jax_params, init_params,
-                                      loss_fn, to_numpy_tree)
+from repro_torch.models.model import (decode_step, forward, from_jax_params,
+                                      init_cache, init_params, loss_fn,
+                                      prefill, to_numpy_tree)
 
-__all__ = ["ModelConfig", "forward", "from_jax_params", "init_params",
-           "loss_fn", "to_numpy_tree"]
+__all__ = ["ModelConfig", "decode_step", "forward", "from_jax_params",
+           "init_cache", "init_params", "loss_fn", "prefill",
+           "to_numpy_tree"]

@@ -1,6 +1,6 @@
 """Dense-decoder layers: RMSNorm, RoPE, GQA attention (full-causal and
-sliding-window), SwiGLU MLP (port of ``repro/models/layers.py``,
-lines 20-108, 142-168, 198-199).
+sliding-window, and its one-token decode against a KV cache), SwiGLU MLP
+(port of ``repro/models/layers.py``, lines 20-108, 142-199).
 
 Plain functions on tensors with the JAX package's layouts: params are
 nested dicts, weights are ``(in, out)`` and applied as ``x @ W``, q/k/v
@@ -79,8 +79,10 @@ def rope_angles(positions: torch.Tensor, hd: int, theta: float):
     """positions: (...,) int -> cos/sin of shape (..., hd//2)."""
     exps = torch.arange(0, hd, 2, dtype=torch.float32,
                         device=positions.device) / hd
-    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                       device=positions.device), exps)
+    # torch.full, not torch.tensor: no host-to-device copy (which would
+    # wait for the card) in every decode step's layers
+    inv = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                     device=positions.device), exps)
     ang = positions[..., None].to(torch.float32) * inv
     return torch.cos(ang), torch.sin(ang)
 
@@ -105,8 +107,9 @@ def _qkv(p, x, cfg: ModelConfig):
 
 
 def _sdpa(q, k, v, mask, cfg: ModelConfig):
-    """q: (B,T,H,hd), k/v: (B,S,KV,hd), mask: (T,S) bool — einsum, f32
-    softmax over ``-1e30``-masked logits (``layers.py:93-108``)."""
+    """q: (B,T,H,hd), k/v: (B,S,KV,hd), mask: (T,S) bool (or (1,S) for a
+    decode step) — einsum, f32 softmax over ``-1e30``-masked logits
+    (``layers.py:93-108``)."""
     hd = q.shape[-1]
     rep = cfg.num_heads // cfg.num_kv_heads
     k = torch.repeat_interleave(k, rep, dim=2)
@@ -131,10 +134,12 @@ def causal_mask(T: int, S: int, window: int = 0, device=None):
 
 
 def attention(p, x, cfg: ModelConfig, *, window: int = 0):
-    """Training self-attention over the full sequence.  The reference
-    switches to a query-chunked scan above 1024 tokens to bound its
-    memory; the result is the same attention, so the port keeps one
-    path."""
+    """Training and prefill self-attention over the full sequence:
+    ``(out, (k, v))`` with the post-RoPE keys and the values, which a
+    prefill stores as its cache (the training path drops them; they are
+    the tensors the backward keeps anyway).  The reference switches to a
+    query-chunked scan above 1024 tokens to bound its memory; the result
+    is the same attention, so the port keeps one path."""
     B, T, D = x.shape
     q, k, v = _qkv(p, x, cfg)
     positions = torch.arange(T, device=x.device)
@@ -145,7 +150,36 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0):
     out = out.reshape(B, T, -1) @ p["wo"]
     if cfg.use_bias:
         out = out + p["bo"]
-    return out
+    return out, (k, v)
+
+
+def attention_decode(p, x, cache_k, cache_v, pos: int, write_idx: int,
+                     cfg: ModelConfig):
+    """One-token decode: ``x`` (B,1,D) against the cache (B,S,KV,hd).
+
+    ``pos`` is the absolute position (RoPE and the causal mask);
+    ``write_idx`` the cache slot written (``pos`` for a full cache,
+    ``pos % window`` for a sliding-window ring).  Keys are cached
+    post-RoPE, so attention over a ring-permuted cache is exact (the
+    softmax does not depend on the slots' order); the mask ``slot <=
+    pos`` hides the slots not yet written.  The cache is written IN
+    PLACE (slot ``write_idx`` of ``cache_k``/``cache_v``) and returned:
+    ``(out, cache_k, cache_v)``."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, x, cfg)
+    positions = torch.full((1,), int(pos), device=x.device)
+    cos, sin = rope_angles(positions, cfg.hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    cache_k[:, write_idx].copy_(k[:, 0])
+    cache_v[:, write_idx].copy_(v[:, 0])
+    S = cache_k.shape[1]
+    mask = (torch.arange(S, device=x.device) <= pos)[None, :]
+    out = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask, cfg)
+    out = out.reshape(B, 1, -1) @ p["wo"]
+    if cfg.use_bias:
+        out = out + p["bo"]
+    return out, cache_k, cache_v
 
 
 def mlp(p, x):

@@ -1,5 +1,7 @@
-"""Dense decoder LM: init, forward and loss (port of the dense path of
-``repro/models/model.py``, lines 39-212), plus the weight converter.
+"""Dense decoder LM: init, forward and loss, and the serving entry
+points, a KV cache, ``prefill`` and ``decode_step`` (port of the dense
+path of ``repro/models/model.py``, lines 39-409), plus the weight
+converter.
 
 Params keep the JAX package's tree leaf for leaf: ``embed``,
 ``final_norm``, ``lm_head``, ``stack`` (one dict per position of the
@@ -11,6 +13,15 @@ pipeline runs over whole leaves, so a per-layer split would change every
 
 No rematerialisation in this slice: llama3.2-1b's activations at batch
 8 × 128 tokens are a few GB beside ~36 GB of f32 state.
+
+Caches keep the reference's tree: ``{"stack": [one dict a position of
+the layer pattern, leaves (reps, B, n, KV, hd)], "tail": [one dict a
+tail layer, leaves (B, n, KV, hd)]}`` with ``k`` and ``v`` (post-RoPE
+keys).  ``n`` is ``s_max``, or ``min(sliding_window, s_max)`` for a
+sliding-window layer, whose cache is a ring indexed by ``pos % n``.
+Unlike the reference's functional updates, ``prefill`` fills a new
+cache and ``decode_step`` writes its one slot a layer IN PLACE and
+returns the same cache.
 """
 from __future__ import annotations
 
@@ -106,15 +117,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
 
 
 def _apply_block(p, h, cfg: ModelConfig, kind: str, ffn: str):
+    """Returns ``(h, (k, v))``: the block's output and its attention's
+    post-RoPE keys and values (a prefill's cache contribution)."""
     normed = L.rmsnorm(p["norm1"], h)
     window = cfg.sliding_window if kind == "swa" else 0
-    core_out = L.attention(p["core"], normed, cfg, window=window)
+    core_out, kv = L.attention(p["core"], normed, cfg, window=window)
     if cfg.parallel_block and ffn != "none":
-        return h + core_out + L.mlp(p["ffn"], normed)
+        return h + core_out + L.mlp(p["ffn"], normed), kv
     h = h + core_out
     if ffn == "mlp":
         h = h + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], h))
-    return h
+    return h, kv
 
 
 def _unbind(stacked) -> list:
@@ -140,10 +153,10 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     for r in range(reps):
         for pos in range(period):
             kind, ffn = cfg.layer_sig(pos)
-            h = _apply_block(per_pos[pos][r], h, cfg, kind, ffn)
+            h, _ = _apply_block(per_pos[pos][r], h, cfg, kind, ffn)
     base = reps * period
     for i, p in enumerate(params["tail"]):
-        h = _apply_block(p, h, cfg, *cfg.layer_sig(base + i))
+        h, _ = _apply_block(p, h, cfg, *cfg.layer_sig(base + i))
     h = L.rmsnorm(params["final_norm"], h)
     return h @ params["lm_head"].to(adt)
 
@@ -163,6 +176,131 @@ def loss_fn(params, cfg: ModelConfig, batch) -> tuple:
     aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + aux
     return loss, {"ce": ce, "aux": aux, "loss": loss}
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _cache_len(cfg: ModelConfig, kind: str, s_max: int) -> int:
+    if kind == "swa":
+        return min(cfg.sliding_window, s_max)
+    return s_max
+
+
+def _init_layer_cache(cfg: ModelConfig, kind: str, B: int, s_max: int,
+                      dtype, device, lead=()):
+    """Zero ``k``/``v`` of one attention layer, ``lead + (B, n, KV,
+    hd)``."""
+    shape = tuple(lead) + (B, _cache_len(cfg, kind, s_max),
+                           cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cache(cfg: ModelConfig, B: int, s_max: int, dtype=None,
+               device="cuda"):
+    """The zero serve cache of ``B`` sequences of up to ``s_max``
+    positions, in ``dtype`` (the activation dtype by default), on
+    ``device`` (the card unless told ``"cpu"``)."""
+    require_dense(cfg)
+    device = resolve_device(device)
+    dtype = dtype or getattr(torch, cfg.activation_dtype)
+    period = cfg.pattern_period
+    reps, tail = divmod(cfg.num_layers, period)
+    stack = [_init_layer_cache(cfg, cfg.block_kind(pos), B, s_max, dtype,
+                               device, lead=(reps,))
+             for pos in range(period if reps else 0)]
+    tail_caches = [_init_layer_cache(cfg, cfg.block_kind(reps * period + i),
+                                     B, s_max, dtype, device)
+                   for i in range(tail)]
+    return {"stack": stack, "tail": tail_caches}
+
+
+def _store_prefill(kv, cache):
+    """Write a full-sequence ``(k, v)`` into one layer's (zero) cache, in
+    place.  A ring shorter than the prompt keeps the last ``n`` entries
+    at their absolute positions modulo ``n``."""
+    k, v = kv
+    n = cache["k"].shape[1]
+    T = k.shape[1]
+    if T >= n:
+        ring = torch.arange(T - n, T, device=k.device) % n
+        cache["k"].index_copy_(1, ring, k[:, -n:].to(cache["k"].dtype))
+        cache["v"].index_copy_(1, ring, v[:, -n:].to(cache["v"].dtype))
+    else:
+        cache["k"][:, :T].copy_(k)
+        cache["v"][:, :T].copy_(v)
+    return cache
+
+
+def _layers(params, cache, cfg: ModelConfig):
+    """``(p, c, kind, ffn)`` of every layer in execution order: the
+    stacked positions rep by rep, then the tail; ``p`` and ``c`` are
+    views into the stacked leaves."""
+    period = cfg.pattern_period
+    reps = cfg.num_layers // period
+    per_pos = [_unbind(sp) for sp in params["stack"]]
+    cache_pos = [_unbind(sc) for sc in cache["stack"]]
+    for r in range(reps):
+        for pos in range(period):
+            yield (per_pos[pos][r], cache_pos[pos][r]) + cfg.layer_sig(pos)
+    base = reps * period
+    for i, (p, c) in enumerate(zip(params["tail"], cache["tail"])):
+        yield (p, c) + cfg.layer_sig(base + i)
+
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            s_max=None, cache_dtype=None):
+    """Run the prompt ``tokens`` (B, T): ``(last-position logits (B, 1,
+    vocab), cache, next position T)``, the cache sized for ``s_max``
+    positions (T by default) on the tokens' device."""
+    require_dense(cfg)
+    adt = getattr(torch, cfg.activation_dtype)
+    h = torch.nn.functional.embedding(tokens, params["embed"]).to(adt)
+    B, T = tokens.shape
+    s_max = s_max or T
+    cache = init_cache(cfg, B, s_max, cache_dtype, device=tokens.device)
+    for p, c, kind, ffn in _layers(params, cache, cfg):
+        h, kv = _apply_block(p, h, cfg, kind, ffn)
+        _store_prefill(kv, c)
+    h = L.rmsnorm(params["final_norm"], h[:, -1:])
+    return h @ params["lm_head"].to(adt), cache, T
+
+
+def _decode_block(p, h, cfg: ModelConfig, kind: str, ffn: str, cache,
+                  pos: int):
+    normed = L.rmsnorm(p["norm1"], h)
+    n = cache["k"].shape[1]
+    # sliding-window layers write their ring at pos % n; full-attention
+    # layers at the absolute position
+    write_idx = pos % n if kind == "swa" else pos
+    core_out, _, _ = L.attention_decode(p["core"], normed, cache["k"],
+                                        cache["v"], pos, write_idx, cfg)
+    if cfg.parallel_block and ffn != "none":
+        return h + core_out + L.mlp(p["ffn"], normed)
+    h = h + core_out
+    if ffn == "mlp":
+        h = h + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], h))
+    return h
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, cache, pos: int,
+                tokens: torch.Tensor):
+    """One decode step: ``tokens`` (B, 1) at absolute position ``pos`` (a
+    Python int).  Returns ``(logits (B, 1, vocab), cache)``, the cache
+    updated in place."""
+    require_dense(cfg)
+    adt = getattr(torch, cfg.activation_dtype)
+    h = torch.nn.functional.embedding(tokens, params["embed"]).to(adt)
+    pos = int(pos)
+    for p, c, kind, ffn in _layers(params, cache, cfg):
+        h = _decode_block(p, h, cfg, kind, ffn, c, pos)
+    h = L.rmsnorm(params["final_norm"], h)
+    return h @ params["lm_head"].to(adt), cache
 
 
 def from_jax_params(np_tree, device="cuda") -> Dict[str, Any]:

@@ -34,6 +34,12 @@ int64 version on the CPU.
 ``normal``                ``√2 · erfinv(uniform(nextafter(-1, 0), 1))``:
                           torch's ``erfinv`` is not XLA's f32
                           polynomial, so within a tolerance
+``gumbel``                ``−log(−log(uniform(tiny, 1)))`` (jax's
+                          default ``"low"`` mode): the uniform exact,
+                          torch's ``log`` within an ulp of XLA's
+``categorical``           ``argmax(gumbel(key, logits.shape) +
+                          logits)`` over the last axis, first index
+                          of a tie
 ========================  ============================================
 """
 from __future__ import annotations
@@ -187,3 +193,21 @@ def normal(key: Key, shape: Shape = (), *, device) -> torch.Tensor:
     u = uniform(key, shape, NORMAL_LO, 1.0, device=device)
     return torch.special.erfinv(u).mul_(
         torch.tensor(np.float32(np.sqrt(2)), device=device))
+
+
+F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: Key, shape: Shape = (), *, device) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` (f32, ``mode="low"``):
+    ``−log(−log(u))`` of ``u = uniform(key, shape, tiny, 1)``."""
+    u = uniform(key, shape, F32_TINY, 1.0, device=device)
+    return torch.log(u).neg_().log_().neg_()
+
+
+def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis, with
+    replacement (the Gumbel-max trick): int64 indices of shape
+    ``logits.shape[:-1]``."""
+    g = gumbel(key, tuple(logits.shape), device=logits.device)
+    return torch.argmax(g + logits, dim=-1)

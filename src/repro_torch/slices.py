@@ -10,8 +10,6 @@ from __future__ import annotations
 LATER = {
     "model_axis": "slice 2c (tensor parallelism over the model axis, "
                   "ROADMAP Queue 1 item 7)",
-    "publish": "slice 7 (serve + weight-delta streaming, ROADMAP Queue 1 "
-               "item 5)",
     "arch": "slice 8 (MoE/SSM/xLSTM/embeds architectures, ROADMAP Queue 1 "
             "item 6)",
     "auto": "slice 9 (topology tuner, ROADMAP Queue 1 item 8)",

@@ -28,7 +28,12 @@ PRNG's known answers drawn on the card, and the key-sampled selections
 on the card bitwise the CPU's.  Slice 4b: FNN-3's init bitwise and the
 LM's within rtol 1e-5 (``erfinv``) drawn on the card against the CPU,
 and the paper's simulation on the card against the CPU (losses within
-rtol 1e-4, the wire equal).
+rtol 1e-4, the wire equal).  Slice 7: prefill and decode on the card
+against the CPU from the same weights (a sliding-window ring that
+wraps; logits within rtol 1e-4, atol 1e-5, tokens equal), the weight-
+delta publisher on the card bitwise the CPU's (``topk``, and the fused
+``gaussiank`` at the card's block geometry) with ``pub`` equal to the
+packed replica at every tick, and the serving CLI on the card.
 """
 import math
 
@@ -555,3 +560,102 @@ def test_paper_simulation_on_card_matches_cpu(dev, name):
                                rtol=1e-4, atol=0)
     for a, b in zip(cc, ch):
         assert abs(a - b) <= (0.01 * b if name == "gaussiank" else 0)
+
+
+def _serve_cfg():
+    from repro_torch.models import ModelConfig
+    return ModelConfig(name="sw", arch_type="dense", num_layers=2,
+                       d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                       vocab_size=64, block_pattern=("swa", "attn"),
+                       sliding_window=4).validate()
+
+
+def test_prefill_and_decode_on_card_match_cpu(dev):
+    """Prompt 8 over a window of 4, then 6 decode steps: logits within
+    rtol 1e-4, atol 1e-5 of the CPU's from the same weights, the argmax
+    tokens equal."""
+    from repro_torch import prng
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = _serve_cfg()
+    base = init_params(cfg, 0, "cpu")
+    prompt = prng.randint(prng.PRNGKey(4), (2, 8), 0, 64, device="cpu")
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        p = tree.tree_map(lambda x: x.to(d), base)
+        logits, cache, _ = prefill(p, cfg, prompt.to(d), s_max=14)
+        ls = [logits.cpu()]
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        toks = [tok.cpu()]
+        for pos in range(8, 14):
+            logits, cache = decode_step(p, cfg, cache, pos, tok)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            ls.append(logits.cpu())
+            toks.append(tok.cpu())
+        out[d.type] = (ls, toks)
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("compressor,backend", [("topk", "auto"),
+                                                ("gaussiank", "fused")])
+def test_publisher_on_card_matches_cpu(dev, compressor, backend):
+    """Six publishes of the same drifting params (resyncs at 0 and 4) on
+    the card and on the CPU at the card's block geometry: the messages,
+    ``pub`` and ``resid`` bitwise; on the card ``pub`` equals the packed
+    replica bitwise at every tick."""
+    from repro_torch import prng
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.dist.layout import build_layout, pack_grads
+    from repro_torch.models import init_params
+    from repro_torch.serve import (apply_message, init_publisher_state,
+                                   publish)
+    cfg = _serve_cfg()
+    params = init_params(cfg, 0, "cpu")
+    config = CompressionConfig(compressor=compressor, ratio=0.01,
+                               backend=backend)
+    layout = build_layout(params, 1, config)
+    st = {d: init_publisher_state(layout, device=d) for d in ("cuda", "cpu")}
+    rep = tree.tree_map(lambda x: torch.zeros_like(x, device=dev), params)
+    with tuning.geometry_of("cuda"):
+        for t in range(6):
+            params = tree.tree_map(
+                lambda x: x + 0.01 * torch.sin(x * float(t + 1)), params)
+            msgs = {}
+            for d in ("cuda", "cpu"):
+                p = tree.tree_map(lambda x: x.to(d), params)
+                st[d], msgs[d] = publish(st[d], p, layout, config,
+                                         prng.PRNGKey(7), resync_every=4)
+            for a, b in zip(msgs["cuda"][2:], msgs["cpu"][2:]):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert torch.equal(a.cpu(), b), t
+            for k in ("pub", "resid"):
+                assert torch.equal(st["cuda"][k].cpu(), st["cpu"][k]), (t, k)
+            rep = apply_message(rep, layout, msgs["cuda"])
+            assert torch.equal(pack_grads(layout, rep, torch.float32),
+                               st["cuda"]["pub"]), t
+
+
+def test_serve_cli_on_card(dev, capsys):
+    """``launch.serve.run`` on the card: the stream's counters as on the
+    CPU, ``pub`` equal to the packed replica at every publish."""
+    from repro_torch.dist.layout import pack_grads
+    from repro_torch.launch import serve
+    seen = []
+
+    def probe(event, msg, layout, state, trainer, replica):
+        seen.append(torch.equal(state["pub"], pack_grads(
+            layout, replica, torch.float32)))
+
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--requests", "4",
+            "--max-batch", "2", "--prompt-len", "8", "--gen", "6",
+            "--publish-every", "2", "--resync-every", "3"]
+    got = serve.run(argv, probe=probe)
+    ref = serve.run(argv + ["--device", "cpu"])
+    for k in ("done", "waves", "tokens_out", "deltas", "resyncs",
+              "wire_bits"):
+        assert got[k] == ref[k], k
+    assert seen and all(seen)
+    capsys.readouterr()

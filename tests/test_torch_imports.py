@@ -31,7 +31,11 @@ assert len(names) >= 30, names
 assert {"repro_torch.dist.wire", "repro_torch.launch.mesh",
         "repro_torch.checkpoint.npz", "repro_torch.core.adaptk",
         "repro_torch.f32",
-        "repro_torch.benchmarks.overlap_schedule"} <= set(names), names
+        "repro_torch.benchmarks.overlap_schedule",
+        "repro_torch.serve", "repro_torch.serve.publish",
+        "repro_torch.serve.subscribe", "repro_torch.serve.steps",
+        "repro_torch.launch.serve",
+        "repro_torch.benchmarks.serve_staleness"} <= set(names), names
 print(len(names))
 """
 

@@ -165,16 +165,20 @@ def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
 ])
 def test_cli_names_the_slice_of_what_it_lacks(extra, slice_no):
     """Each flag a later slice carries raises naming that slice.  Slices
-    4, 2b and 6 have landed, so their cases (``--compressor randk``/
-    ``dgck``, ``--pipeline perleaf``, ``--chunks 2``) now train a step,
-    with the collectives a step of their dispatch (12 leaves)."""
+    4, 2b, 6 and 7 have landed, so their cases (``--compressor randk``/
+    ``dgck``, ``--pipeline perleaf``, ``--chunks 2``, ``--publish-every
+    2``, ``--resync-every 4``) now train a step, with the collectives a
+    step of their dispatch (12 leaves); slice 7's one step publishes
+    nothing (``--publish-every 2`` publishes after the second)."""
     argv = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
             "--device", "cpu", "--steps", "1"] + extra
-    if slice_no in ("slice 4", "slice 2b", "slice 6"):
+    if slice_no in ("slice 4", "slice 2b", "slice 6", "slice 7"):
         recs = cli.run(argv + ["--batch", "2", "--seq", "16"])
         assert len(recs) == 1 and np.isfinite(recs[0]["loss"])
         assert 0 < recs[0]["density"] <= recs[0]["density_cap"] * (1 + 1e-6)
-        coll = {"slice 4": 1, "slice 2b": 12, "slice 6": 2}[slice_no]
+        assert "publish_kind" not in recs[0]
+        coll = {"slice 4": 1, "slice 2b": 12, "slice 6": 2,
+                "slice 7": 1}[slice_no]
         assert recs[0]["collectives_per_step"] == coll
         return
     with pytest.raises(NotImplementedError, match=slice_no):
