@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # the whole check, one card
     python3 chip_smoke.py --kernels-only  # phases 1-2 at small sizes
     python3 chip_smoke.py --serve-only    # phases 1 and 10
+    python3 chip_smoke.py --arch-only     # phases 1 and 11
 
 Phases (any failure exits non-zero; nothing is wrapped to pass):
 
@@ -12,7 +13,9 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    C++, Triton's JIT for the rest) and the build time;
 2. every kernel against its plain PyTorch version on the card, at d in
    {2048, 1,000,003, 268,435,456} (the last is the largest llama3.2-1b
-   leaf, ``stack/0/ffn/w_gate``): K1 ``fused_moments`` with and without
+   leaf, ``stack/0/ffn/w_gate``; the largest leaf the kernels meet,
+   jamba-1.5-large's 536,870,912-element ``embed``, is phase 11a's):
+   K1 ``fused_moments`` with and without
    its histogram, K2 ``tree_count``, the K3 stage and residual launches,
    and the unfused pipeline's K4a ``moments``, K4b ``count_gt``, K4c
    ``threshold_compact`` and K4d ``abs_histogram`` (integer outputs and
@@ -124,7 +127,19 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    K2 and both K3 12 a delta); 10d the small config with a wrapping
    sliding-window ring card against CPU (logits within rtol 1e-4, tokens
    equal, both publishers bitwise); 10e the ``serve_staleness`` driver's
-   deterministic rows against ``benchmarks/baselines/serve.json``.
+   deterministic rows against ``benchmarks/baselines/serve.json``;
+11. slice 8, the MoE, Mamba-hybrid and xLSTM blocks and the ``embeds``
+   frontend (``phase11_archs``): 11a K1, K2 and both K3 launches at
+   d = 536,870,912 (jamba-1.5-large's ``embed``, the largest leaf the
+   kernels meet) bitwise their plain versions (moments within
+   tolerance), timed; 11b ``launch.train.run`` at full width,
+   Gaussian-k fused, batch 8 x 128, on deepseek-moe-16b (2 layers),
+   jamba-1.5-large (1 layer: Mamba + MLP), musicgen-medium and
+   xlstm-125m, one K1, K2 and K3 pair a leaf a step; 11c
+   ``launch.serve.run`` on the same four (8 sequences, prompt 64, 8 new
+   tokens); 11d the smoke variants card against CPU (losses, prefill
+   and decode logits, greedy tokens) and jamba-smoke at chunks 3 and per
+   leaf bitwise its bucketed run.
 
 Every trainer path draws its params on the card (``init_params``: one
 ``threefry_bits`` launch a weight matrix), counted once a path beside the
@@ -156,6 +171,7 @@ F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
 INT32_OPS_PER_S = 128 * 132 * 1.98e9
 THREEFRY_OPS = 73             # 32-bit integer operations a draw
 BIG_LEAF = 268_435_456        # llama3.2-1b stack/0/ffn/w_gate (16x2048x8192)
+HUGE_LEAF = 536_870_912       # jamba-1.5-large embed (65536x8192), phase 11a
 RATIO = 0.001
 
 
@@ -649,9 +665,21 @@ ADAPTIVE_LEAF_BYTES = {"fused_moments": 4, "fused_moments_hist": 4,
 def init_draws(cfg) -> int:
     """``threefry_bits`` launches of ``init_params(cfg, seed)`` on the
     card: one a weight matrix (the embedding, the head, and a layer's
-    four attention and three MLP matrices)."""
-    return 2 + sum(4 + 3 * (cfg.layer_sig(i)[1] == "mlp")
-                   for i in range(cfg.num_layers))
+    core matrices — four of attention, five of Mamba, seven of mLSTM,
+    nine of sLSTM — and its FFN's: three of an MLP, four of MoE and three
+    more with shared experts)."""
+    core = {"attn": 4, "swa": 4, "mamba": 5, "mlstm": 7, "slstm": 9}
+    ffn = {"mlp": 3, "none": 0,
+           "moe": 4 + 3 * bool(cfg.num_shared_experts)}
+    return 2 + sum(core[k] + ffn[f] for k, f in
+                   map(cfg.layer_sig, range(cfg.num_layers)))
+
+
+def batch_draws(cfg) -> int:
+    """``threefry_bits`` launches of ``batch_for`` on the card a step:
+    an ``embeds`` batch draws its embeddings (one) and labels (two);
+    ``lm_batch`` draws on the host."""
+    return 3 if cfg.frontend == "embeds" else 0
 
 
 def zeroed(run):
@@ -2478,6 +2506,306 @@ def phase10_serve(torch, by_path) -> dict:
     return out
 
 
+# the configs of phase 11 at full width: (arch, num_layers kept or None
+# for the whole model, train steps)
+ARCH_PATHS = (("deepseek-moe-16b", 2, 3), ("jamba-1.5-large-398b", 1, 2),
+              ("musicgen-medium", None, 3), ("xlstm-125m", None, 3))
+SMOKE_ARCHS = ("deepseek-moe-16b", "phi3.5-moe-42b-a6.6b",
+               "jamba-1.5-large-398b", "xlstm-125m", "musicgen-medium")
+
+
+def full_width(arch, layers):
+    """``arch``'s config at full width, ``num_layers`` cut to ``layers``
+    (None: the whole model)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers).validate()
+    return cfg
+
+
+def phase11a_huge_leaf(torch, rows) -> dict:
+    """11a: K1, K2 and both K3 launches at d = ``HUGE_LEAF`` (jamba's
+    ``embed``, the largest leaf the kernels meet) against their plain
+    versions on the card — counts, staging and residual bitwise, the
+    moments within tolerance, the pipeline conserving — then each timed
+    with CUDA events beside its plain version and its bound; the times go
+    into the kernel rows as ``*_536m``."""
+    from repro_torch.core import codec
+    from repro_torch.core.compressors import gaussiank_cap
+    from repro_torch.kernels.ef_fused import compact_residual as cr
+    from repro_torch.kernels.ef_fused import fused_moments as fm
+    from repro_torch.kernels.ef_fused import ops, tuning
+    from repro_torch.kernels.ef_fused import tree_count as tc
+
+    d = HUGE_LEAF
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    g = torch.randn(d, generator=gen, device="cuda").mul_(1e-3)
+    e = torch.randn(d, generator=gen, device="cuda").mul_(5e-4)
+    k = math.ceil(RATIO * d)
+    cfg = tuning.resolve_config(d, "cuda")
+    sb, block = cfg.stats_block, cfg.block
+    k_cap = gaussiank_cap(k, d)
+    bcap = ops.fused_default_bcap(k_cap, d, block, cfg.bcap_slack)
+    nb, nbs = -(-d // block), -(-d // sb)
+
+    s, sq, mx = fm.fused_moments(g, e, block=sb)
+    ps, psq, pmx = fm.fused_moments_plain(g, e, block=sb)
+    sum_abs = float((g + e).abs().double().sum())
+    k1_err = check_moments(d, "K1", (s, sq, mx), (ps, psq, pmx), sum_abs)
+    t0 = ops.gaussian_t0(ps, psq, d, k, False)
+    heap, n_cnt = ops._tree_thresholds(t0, 4)
+    thr = torch.from_numpy(heap[:n_cnt]).cuda()
+    cnt_k = tc.tree_count(g, e, thr, block=sb)
+    assert torch.equal(cnt_k, tc.tree_count_plain(g, e, thr, block=sb)), (
+        d, "K2")
+    thres = float(ops._replay_refinement(heap, cnt_k.cpu().numpy(), k, 4))
+    vk, ok, ck = cr.compact_stage(g, e, thres, block=block, bcap=bcap)
+    vp, op, cp = cr.compact_stage_plain(g, e, thres, block=block, bcap=bcap)
+    assert torch.equal(ck, cp) and torch.equal(ok, op), (d, "K3 stage")
+    assert same_bits(vk, vp), (d, "K3 staged values")
+    del vp, op
+    enc = cr.exclusive_enc(cp, bcap)
+    rk = cr.compact_resid(g, e, thres, enc, block=block, bcap=bcap,
+                          k_cap=k_cap)
+    rp = cr.compact_resid_plain(g, e, thres, enc, block=block, bcap=bcap,
+                                k_cap=k_cap)
+    assert same_bits(rk, rp), (d, "K3 residual")
+    del rk, rp
+    v, i, ne = ops.fused_compress_ef(g, e, "gaussiank", k)
+    assert torch.equal(codec.decode(v, i, d) + ne, g + e), (d, "conserve")
+    nnz = int(codec.nnz(i))
+    del v, i, ne
+    torch.cuda.empty_cache()
+    log(f"  d={d:,}: K1 max error {k1_err:.3g}, absmax exact; K2 counts "
+        f"exact {cnt_k.tolist()[:3]}...; K3 staging + residual bitwise "
+        f"(block {block}, bcap {bcap}, {int(ck.sum())} over threshold "
+        f"{thres:.6g}); pipeline conserves bitwise, {nnz}/{k_cap} slots")
+
+    out = torch.empty_like(g)
+    ms = {
+        "fused_moments": (lambda: fm.fused_moments(g, e, block=sb),
+                          lambda: fm.fused_moments_plain(g, e, block=sb)),
+        "tree_count": (lambda: tc.tree_count(g, e, thr, block=sb),
+                       lambda: tc.tree_count_plain(g, e, thr, block=sb)),
+        "compact_stage": (
+            lambda: cr.compact_stage(g, e, thres, block=block, bcap=bcap),
+            lambda: cr.compact_stage_plain(g, e, thres, block=block,
+                                           bcap=bcap)),
+        "compact_resid": (
+            lambda: cr.compact_resid(g, e, thres, enc, block=block,
+                                     bcap=bcap, k_cap=k_cap, out=out),
+            lambda: cr.compact_resid_plain(g, e, thres, enc, block=block,
+                                           bcap=bcap, k_cap=k_cap)),
+    }
+    ms = {n: (time_ms(a, 10), time_ms(b, 3)) for n, (a, b) in ms.items()}
+    nt = thr.numel()
+    work = {"fused_moments": (8 * d + 12, 5 * d),
+            "tree_count": (8 * d + 8 * nt, 17 * d),
+            "compact_stage": (8 * d + 8 * nb * bcap + 4 * nb, 3 * d),
+            "compact_resid": (12 * d + 8 * nb, 3 * d)}
+    res = {}
+    for name, (k_ms, p_ms) in ms.items():
+        b_ms, b_by = bound(*work[name])
+        res[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by}
+        rows[name].update(ms_536m=k_ms, plain_ms_536m=p_ms,
+                          bound_ms_536m=b_ms, d_536m=d)
+    rows["fused_moments"]["max_abs_err_536m"] = k1_err
+    log(f"  times at d={d:,} (ms, median): " + ", ".join(
+        f"{n} {r['ms']:.4f} (plain {r['plain_ms']:.3f}, bound "
+        f"{r['bound_ms']:.4f})" for n, r in res.items()))
+    del g, e, out
+    torch.cuda.empty_cache()
+    return {"d": d, "k": k, "nnz": nnz, "k1_max_err": k1_err,
+            "kernels": res}
+
+
+def phase11_archs(torch, by_path, rows) -> dict:
+    """Phase 11, slice 8: the MoE, Mamba-hybrid and xLSTM blocks and the
+    ``embeds`` frontend, each path with the launch counters set to 0
+    just before it and read just after.
+
+    11a. K1, K2 and both K3 launches at d = 536,870,912 against their
+         plain versions, timed (``phase11a_huge_leaf``);
+    11b. ``launch.train.run`` at full width, Gaussian-k fused at 0.001
+         (the CLI's default), world 1, batch 8 x 128: deepseek-moe-16b
+         with 2 layers, jamba-1.5-large with 1 (layer 0: Mamba + MLP),
+         musicgen-medium and xlstm-125m whole, 3 steps each (2 for
+         jamba); one K1, K2, K3 stage and K3 residual launch a leaf a
+         step (and an ``embeds`` batch's three draws a step); step ms and
+         the compression's ms within it (CUDA events around
+         ``bucket_compress``), losses, peak memory;
+    11c. ``launch.serve.run`` on the same four configs: 8 sequences,
+         prompt 64, up to 8 new tokens (KV, Mamba and xLSTM caches,
+         musicgen's embeddings prompt); prefill ms, decode ms a step,
+         peak memory; the launches the params' and the prompts' draws;
+    11d. card against CPU on the smoke variants of deepseek-moe-16b,
+         phi3.5-moe, jamba-1.5-large (Mamba, attention, MLP and MoE
+         layers), xlstm-125m and musicgen-medium: 2 train steps each
+         (the CPU at the card's block geometry), losses within rtol
+         1e-4; prefill and 4 decode steps, logits within rtol 1e-5
+         (atol 1e-5), the greedy tokens equal; jamba-smoke at chunks 3
+         and per leaf bitwise its bucketed run on the card."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.ef_fused import tuning
+    from repro_torch.launch import serve, train
+    from repro_torch.models import decode_step, init_params, prefill
+    t_start = time.time()
+    out = {}
+
+    log(f"phase 11a: K1, K2 and both K3 launches at d={HUGE_LEAF:,} (jamba "
+        "embed) against their plain versions")
+    out["11a"] = phase11a_huge_leaf(torch, rows)
+    out["11a_s"] = time.time() - t_start
+
+    t0 = time.time()
+    out["11b"] = {}
+    for arch, layers, steps in ARCH_PATHS:
+        cfg = full_width(arch, layers)
+        n_leaves = len(tree.leaves(init_params(cfg, 0, "meta")))
+        label = f"11b {arch}" + (f" ({layers} layers)" if layers else "")
+        log(f"phase {label}: train.run at full width, Gaussian-k fused, "
+            f"{steps} steps of 8 x 128, {n_leaves} leaves")
+        expect = {n: n_leaves for n in MAIN_KERNELS}
+        if batch_draws(cfg):
+            expect["threefry_bits"] = batch_draws(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        timer = CompressTimer(torch)
+        with timer:
+            launches, recs = drive(
+                label, lambda: train.run(
+                    ["--arch", arch, "--batch", "8", "--seq", "128",
+                     "--steps", str(steps), "--log-every", "1"], cfg=cfg),
+                expect, steps, {"threefry_bits": init_draws(cfg)})
+        peak = torch.cuda.max_memory_allocated()
+        compress_ms = timer.per_step(steps)
+        by_path[label] = launches
+        losses = [r["loss"] for r in recs]
+        assert all(math.isfinite(x) for x in losses), (label, losses)
+        for r in recs:
+            assert 0 < r["density"] <= r["density_cap"], (label, r)
+        out["11b"][arch] = {
+            "num_layers": cfg.num_layers, "leaves": n_leaves,
+            "params": sum(math.prod(x.shape) for x in tree.leaves(
+                init_params(cfg, 0, "meta"))),
+            "losses": losses, "step_ms": [r["ms"] for r in recs],
+            "compress_ms": compress_ms, "peak_gib": peak / 2 ** 30,
+            "launches": launches}
+        log(f"  {label}: losses {losses}; step ms "
+            f"{[round(r['ms'], 1) for r in recs]} (compression "
+            f"{[round(x, 1) for x in compress_ms]}); peak {peak / 2**30:.2f} "
+            f"GiB; launches {({n: c for n, c in launches.items() if c})}")
+        del recs
+        torch.cuda.empty_cache()
+    out["11b_s"] = time.time() - t0
+
+    t0 = time.time()
+    out["11c"] = {}
+    for arch, layers, _ in ARCH_PATHS:
+        cfg = full_width(arch, layers)
+        label = f"11c {arch}"
+        log(f"phase {label}: serve.run at full width, 8 sequences, prompt "
+            "64, up to 8 new tokens")
+        prompt_draws = 1 if cfg.frontend == "embeds" else 2
+        torch.cuda.reset_peak_memory_stats()
+        launches, got = zeroed(lambda: serve.run(
+            ["--arch", arch, "--requests", "8", "--max-batch", "8",
+             "--prompt-len", "64", "--gen", "8"], cfg=cfg))
+        peak = torch.cuda.max_memory_allocated()
+        want = {n: 0 for n in launches}
+        want["threefry_bits"] = init_draws(cfg) + prompt_draws * got["waves"]
+        assert launches == want, (label, launches, want)
+        by_path[label] = launches
+        assert got["done"] == 8 and got["waves"] == 1, (label, got)
+        toks = got["tokens"][0]
+        assert toks.shape[0] == 8 and bool((toks >= 0).all()) and bool(
+            (toks < cfg.vocab_size).all()), (label, toks)
+        times = got["times"]
+        out["11c"][arch] = {"prefill_ms": times["prefill"],
+                            "decode_ms_median": med(times["decode"]),
+                            "decode_steps": got["decode_steps"],
+                            "tok_s": got["tok_s"],
+                            "peak_gib": peak / 2 ** 30}
+        log(f"  {label}: prefill ms {[round(x, 2) for x in times['prefill']]}"
+            f", decode step median {med(times['decode']):.3f} ms over "
+            f"{got['decode_steps']} steps, {got['tok_s']:.1f} tok/s; peak "
+            f"{peak / 2**30:.2f} GiB; tokens {toks[:2].tolist()}")
+        del got
+        torch.cuda.empty_cache()
+    out["11c_s"] = time.time() - t0
+
+    t0 = time.time()
+    out["11d"] = {}
+    comp = CompressionConfig(compressor="gaussiank", ratio=0.01)
+    for arch in SMOKE_ARCHS:
+        cfg = get_config(arch).reduced()
+        base = init_params(cfg, 0, "cpu")
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            # the CPU run takes the card's block geometry: both stage alike
+            with tuning.geometry_of("cuda"):
+                launches, (recs, _, _) = zeroed(lambda: run_steps(
+                    torch, cfg, comp, steps=2, batch=4, seq=16, device=dev,
+                    params=base))
+            if dev == "cuda":
+                by_path[f"11d {arch} train"] = launches
+            losses[dev] = [r["loss"] for r in recs]
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+        kw = "embeds" if cfg.frontend == "embeds" else "tokens"
+        prompt = batch_for(cfg, 0, global_batch=2, seq_len=8,
+                           device="cpu")[kw]
+        logits, caches, toks = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            params = tree.tree_map(lambda x: x.to(dev), base)
+            lg, caches[dev], _ = prefill(params, cfg, s_max=12,
+                                         **{kw: prompt.to(dev)})
+            logits[dev], toks[dev] = [lg.cpu()], []
+            for pos in range(8, 12):
+                tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+                toks[dev].append(tok.cpu())
+                lg, _ = decode_step(params, cfg, caches[dev], pos, tok)
+                logits[dev].append(lg.cpu())
+        err = 0.0
+        for a, b in zip(logits["cuda"], logits["cpu"]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+            err = max(err, float((a - b).abs().max()))
+        for a, b in zip(toks["cuda"], toks["cpu"]):
+            assert torch.equal(a, b), (arch, "tokens")
+        out["11d"][arch] = {"losses": losses, "max_abs_logit_err": err}
+        log(f"phase 11d {cfg.name}: card {losses['cuda']} vs CPU "
+            f"{losses['cpu']} within rtol 1e-4; prefill + 4 decode logits "
+            f"within rtol 1e-5, atol 1e-5 (largest difference {err:.3g}), "
+            f"greedy tokens equal")
+        del caches
+
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    n_leaves = len(tree.leaves(init_params(cfg, 0, "meta")))
+    comp = CompressionConfig(ratio=RATIO)
+    out["11d"]["jamba chunks"] = variant_runs(
+        torch, by_path, "11d jamba-smoke", cfg,
+        [("chunks 1", comp, False),
+         ("chunks 3", CompressionConfig(ratio=RATIO, chunks=3), False),
+         ("per leaf", comp, True)],
+        steps=2, expect={n: n_leaves for n in MAIN_KERNELS})
+    out["11d_s"] = time.time() - t0
+    out["phase11_s"] = time.time() - t_start
+    log(f"phase 11 took {out['phase11_s']:.1f} s (11a {out['11a_s']:.1f}, "
+        f"11b {out['11b_s']:.1f}, 11c {out['11c_s']:.1f}, 11d "
+        f"{out['11d_s']:.1f})")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2513,11 +2841,17 @@ def main(argv) -> int:
         log(json.dumps({"phase10": phase10_serve(torch, {})}))
         log("serve-only run: phases 2-9 skipped")
         return 0
-
-    # -- phase 2: kernels against their plain versions --
     rows = {n: {"name": v[0], "route": v[1], "source": v[2],
                 "replaces": v[3], "library_ms": None}
             for n, v in KERNELS.items()}
+    if "--arch-only" in argv:
+        by_path = {}
+        log(json.dumps({"phase11": phase11_archs(torch, by_path, rows),
+                        "launches_by_path": by_path}))
+        log("arch-only run: phases 2-10 skipped")
+        return 0
+
+    # -- phase 2: kernels against their plain versions --
     sizes = (2048, 1_000_003) if kernels_only else (2048, 1_000_003,
                                                     BIG_LEAF)
     log("phase 2: kernels against their plain versions on the card")
@@ -2768,6 +3102,9 @@ def main(argv) -> int:
     # -- phase 10: serving and the weight-delta stream --
     phase10 = phase10_serve(torch, by_path)
 
+    # -- phase 11: the other architectures --
+    phase11 = phase11_archs(torch, by_path, rows)
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -2778,6 +3115,7 @@ def main(argv) -> int:
                     "small": small, "phase5": phase5, "phase6": phase6,
                     "phase7": phase7, "phase8": phase8,
                     "phase9": phase9, "phase10": phase10,
+                    "phase11": phase11,
                     "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(json.dumps({"kernels": list(rows.values())}))

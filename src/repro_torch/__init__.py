@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of ``repro`` for NVIDIA Hopper (H100).
 
-Slices 1, 5, 2 and 3 of the port: data-parallel TopK-SGD training of
-the dense decoder LMs with Gaussian-k, hist-k or trimmed-k — fixed-k or
+Data-parallel TopK-SGD training of the ten assigned decoder LMs (dense,
+MoE, Mamba-hybrid, xLSTM and ``embeds``-frontend models; serving them
+with ``launch/serve.py``) with Gaussian-k, hist-k or trimmed-k — fixed-k or
 with adaptive layer-wise density (``core/adaptk.py``), the ``bucketed``
 pipeline, the ``allgather``, ``gtopk``, ``hierarchical`` and
 ``hier_gtopk`` wires over W workers (all in one process on one card, or

@@ -1,8 +1,6 @@
 """Architecture registry (port of ``repro.configs``): the 10 assigned
-architectures as data.  ``get_config(id)`` / ``--arch <id>`` resolve
-here.  Every config is registered, but this slice builds only the dense
-token-frontend models; ``models.model.init_params`` raises for the
-others, naming the slice that ports them."""
+architectures as data, and the assigned input shapes.  ``get_config(id)``
+/ ``--arch <id>`` resolve here."""
 from __future__ import annotations
 
 from repro_torch.configs import (
@@ -17,6 +15,8 @@ from repro_torch.configs import (
     stablelm_16b,
     xlstm_125m,
 )
+from repro_torch.configs.shapes import (INPUT_SHAPES, InputShape,
+                                        applicable, input_specs)
 from repro_torch.models.config import ModelConfig
 
 ARCHS = {
@@ -39,4 +39,5 @@ def list_archs() -> list:
     return sorted(ARCHS)
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "list_archs"]
+__all__ = ["ARCHS", "INPUT_SHAPES", "InputShape", "ModelConfig",
+           "applicable", "get_config", "input_specs", "list_archs"]

@@ -1,3 +1,4 @@
-from repro_torch.data.synthetic import batch_for, lm_batch, mnist_like
+from repro_torch.data.synthetic import (batch_for, embeds_batch, lm_batch,
+                                        mnist_like)
 
-__all__ = ["batch_for", "lm_batch", "mnist_like"]
+__all__ = ["batch_for", "embeds_batch", "lm_batch", "mnist_like"]

@@ -1,5 +1,5 @@
 """Deterministic synthetic data (port of ``repro/data/synthetic.py``,
-``lm_batch``/``batch_for``/``mnist_like``).
+``lm_batch``/``embeds_batch``/``batch_for``/``mnist_like``).
 
 ``lm_batch`` is the reference's seeded affine-recurrence token stream
 with sparse noise — next-token structure exists, so the loss falls —
@@ -41,11 +41,31 @@ def lm_batch(step: int, *, global_batch: int, seq_len: int, vocab: int,
             "labels": toks[:, 1:].to(device)}
 
 
+def embeds_batch(step: int, *, global_batch: int, seq_len: int,
+                 d_model: int, vocab: int, seed: int = 0, device="cuda"):
+    """The audio/VLM frontend's stand-in: ``{"embeds": (B, S, d_model)
+    f32 frame or patch embeddings, "labels": (B, S) int64 tokens}`` on
+    ``device`` (the card unless told ``"cpu"``), drawn from
+    ``fold_in(PRNGKey(seed), step)`` as the reference draws them: the
+    labels bitwise, the embeddings within ``prng.normal``'s
+    tolerance."""
+    device = resolve_device(device)
+    key = prng.fold_in(prng.PRNGKey(seed), step)
+    k1, k2 = prng.split(key)
+    return {"embeds": prng.normal(k1, (global_batch, seq_len, d_model),
+                                  device=device),
+            "labels": prng.randint(k2, (global_batch, seq_len), 0, vocab,
+                                   device=device)}
+
+
 def batch_for(cfg, step: int, *, global_batch: int, seq_len: int,
               seed: int = 0, device="cuda"):
-    if cfg.frontend != "tokens":
-        from repro_torch.slices import not_ported
-        raise not_ported(f"the {cfg.frontend!r} frontend", "arch")
+    """The batch of ``step`` for ``cfg``'s frontend: ``embeds_batch``
+    for ``embeds``, ``lm_batch`` for tokens."""
+    if cfg.frontend == "embeds":
+        return embeds_batch(step, global_batch=global_batch,
+                            seq_len=seq_len, d_model=cfg.d_model,
+                            vocab=cfg.vocab_size, seed=seed, device=device)
     return lm_batch(step, global_batch=global_batch, seq_len=seq_len,
                     vocab=cfg.vocab_size, seed=seed, device=device)
 

@@ -28,7 +28,9 @@ says so); ``--host-devices`` is accepted for the reference's command
 lines and changes nothing.  ``--publish-every 0`` freezes the weights
 (pure serving, no trainer).  The queue is ``np.random.default_rng(seed)``
 and the prompts ``randint`` draws of ``repro_torch.prng`` from
-``PRNGKey(seed)``, as the reference draws them; tokens are the argmax,
+``PRNGKey(seed)`` (for an ``embeds`` frontend, ``normal`` draws of (B, T,
+d_model) embeddings), as the reference draws them; the generated tokens
+enter through ``embed`` either way; tokens are the argmax,
 or with ``--temperature > 0`` ``prng.categorical`` samples.
 
 ``run(argv, probe=)`` returns the emitted tokens, the counters and the
@@ -144,7 +146,6 @@ def run(argv=None, *, probe: Optional[Callable] = None, cfg=None) -> dict:
     from repro_torch.launch.mesh import (data_world_size, model_axis_size,
                                          parse_mesh)
     from repro_torch.models import init_params
-    from repro_torch.models.model import require_dense
     from repro_torch.serve import (RESYNC, apply_resync,
                                    init_publisher_state, make_apply_delta,
                                    make_decode_step, make_prefill_step,
@@ -155,7 +156,6 @@ def run(argv=None, *, probe: Optional[Callable] = None, cfg=None) -> dict:
         cfg = get_config(args.arch)
         if args.smoke:
             cfg = cfg.reduced()
-    require_dense(cfg)
     mesh = parse_mesh(args.mesh)
     if model_axis_size(mesh) != 1:
         raise not_ported(f"--mesh {args.mesh} (a model axis of "
@@ -205,7 +205,11 @@ def run(argv=None, *, probe: Optional[Callable] = None, cfg=None) -> dict:
         gens = admit + [0] * (B - nact)     # padded slots generate nothing
         wave_gen = max(admit)
         key, pk = prng.split(key)
-        prompt = prng.randint(pk, (B, T), 0, cfg.vocab_size, device=device)
+        if cfg.frontend == "embeds":
+            prompt = prng.normal(pk, (B, T, cfg.d_model), device=device)
+        else:
+            prompt = prng.randint(pk, (B, T), 0, cfg.vocab_size,
+                                  device=device)
         t0 = timer.mark()
         logits, cache = prefill_step(params, prompt)
         timer.add("prefill", t0)

@@ -250,13 +250,11 @@ def run(argv=None, *, probe: Optional[Callable] = None,
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models.model import require_dense
 
     if cfg is None:
         cfg = get_config(args.arch)
         if args.smoke:
             cfg = cfg.reduced()
-    require_dense(cfg)
     mesh, strategy = require_ported(args, cfg)
     density = density_policy_of(args, cfg)
     if args.device == "cuda" and not torch.cuda.is_available():

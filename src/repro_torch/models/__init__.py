@@ -1,4 +1,5 @@
-"""Dense decoder LM of the port (``repro.models`` dense path)."""
+"""The port's models (``repro.models``): the decoder LM of every
+assigned architecture family and its config."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, forward, from_jax_params,
                                       init_cache, init_params, loss_fn,

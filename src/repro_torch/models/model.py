@@ -1,7 +1,15 @@
-"""Dense decoder LM: init, forward and loss, and the serving entry
-points, a KV cache, ``prefill`` and ``decode_step`` (port of the dense
-path of ``repro/models/model.py``, lines 39-409), plus the weight
-converter.
+"""Decoder LM of every assigned architecture family: init, forward and
+loss, and the serving entry points, the serve cache, ``prefill`` and
+``decode_step`` (port of ``repro/models/model.py``, lines 39-409), plus
+the weight converter.
+
+A model is a cycled ``block_pattern`` (attn / swa / mamba / mlstm /
+slstm) crossed with a cycled ``ffn_pattern`` (mlp / moe / none); the
+MoE layers add their load-balance loss to the cross-entropy.  An
+``embeds`` frontend (audio / VLM: precomputed frame or patch
+embeddings) feeds ``(B, T, d_model)`` embeddings where a token model
+looks its tokens up; decode feeds its generated tokens through
+``embed`` either way.
 
 Params keep the JAX package's tree leaf for leaf: ``embed``,
 ``final_norm``, ``lm_head``, ``stack`` (one dict per position of the
@@ -11,17 +19,20 @@ pipeline runs over whole leaves, so a per-layer split would change every
 ``k``; the forward therefore ``unbind``s each stacked leaf once per step
 (one stacked gradient per leaf in the backward, no per-layer copies).
 
-No rematerialisation in this slice: llama3.2-1b's activations at batch
-8 × 128 tokens are a few GB beside ~36 GB of f32 state.
+No rematerialisation: the activations of the full-width models at batch
+8 × 128 tokens are a few GB beside their f32 state.
 
 Caches keep the reference's tree: ``{"stack": [one dict a position of
-the layer pattern, leaves (reps, B, n, KV, hd)], "tail": [one dict a
-tail layer, leaves (B, n, KV, hd)]}`` with ``k`` and ``v`` (post-RoPE
-keys).  ``n`` is ``s_max``, or ``min(sliding_window, s_max)`` for a
-sliding-window layer, whose cache is a ring indexed by ``pos % n``.
-Unlike the reference's functional updates, ``prefill`` fills a new
-cache and ``decode_step`` writes its one slot a layer IN PLACE and
-returns the same cache.
+the layer pattern, leaves (reps, B, ...)], "tail": [one dict a tail
+layer]}``; an attention layer's dict holds ``k`` and ``v`` (post-RoPE
+keys) ``(B, n, KV, hd)``, with ``n`` ``s_max`` or, for a
+sliding-window layer, ``min(sliding_window, s_max)`` (a ring indexed by
+``pos % n``); a Mamba layer's ``ssm`` ``(B, d_inner, n)`` f32 and
+``conv`` ``(B, W, d_inner)``; an mLSTM's ``C``, ``n``, ``m`` and an
+sLSTM's ``h``, ``c``, ``n``, ``m``, f32.  Unlike the reference's
+functional updates, ``prefill`` fills a new cache and ``decode_step``
+writes every layer's slot or recurrent state IN PLACE and returns the
+same cache.
 """
 from __future__ import annotations
 
@@ -29,36 +40,36 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import prng, tree
 from repro_torch.devices import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 from repro_torch.models.config import ModelConfig
-from repro_torch.slices import not_ported
-
-_BLOCKS = ("attn", "swa")
-_FFNS = ("mlp", "none")
-
-
-def require_dense(cfg: ModelConfig) -> ModelConfig:
-    """Raise for an architecture this slice does not build."""
-    kinds = set(cfg.block_pattern)
-    ffns = set(cfg.ffn_pattern)
-    if (cfg.frontend != "tokens" or not kinds <= set(_BLOCKS)
-            or not ffns <= set(_FFNS)):
-        raise not_ported(f"architecture {cfg.name!r} ({cfg.arch_type}: "
-                         f"blocks {sorted(kinds)}, ffn {sorted(ffns)}, "
-                         f"frontend {cfg.frontend})", "arch")
-    return cfg
 
 
 def _init_block(key, cfg: ModelConfig, kind: str, ffn: str, dtype, device):
     kb, kf = prng.split(key)
     p: Dict[str, Any] = {"norm1": L.init_rmsnorm(cfg.d_model, dtype, device)}
-    p["core"] = L.init_attention(kb, cfg, dtype, device)
+    if kind in ("attn", "swa"):
+        p["core"] = L.init_attention(kb, cfg, dtype, device)
+    elif kind == "mamba":
+        p["core"] = S.init_mamba(kb, cfg, dtype, device)
+    elif kind == "mlstm":
+        p["core"] = X.init_mlstm(kb, cfg, dtype, device)
+    elif kind == "slstm":
+        p["core"] = X.init_slstm(kb, cfg, dtype, device)
+    else:
+        raise ValueError(kind)
     if ffn == "mlp":
         p["norm2"] = L.init_rmsnorm(cfg.d_model, dtype, device)
         p["ffn"] = L.init_mlp(kf, cfg.d_model, cfg.d_ff, dtype, device)
+    elif ffn == "moe":
+        p["norm2"] = L.init_rmsnorm(cfg.d_model, dtype, device)
+        p["ffn"] = M.init_moe(kf, cfg, dtype, device)
     return p
 
 
@@ -78,6 +89,7 @@ def _init_stacked(keys, cfg: ModelConfig, kind: str, ffn: str, dtype,
                                           device))
         for o, x in zip(out, rep):
             o[r].copy_(x)
+        del rep
     return tree.unflatten(td, out)
 
 
@@ -90,7 +102,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
     (rtol 1e-5).  On the card the draws are ``threefry_bits`` launches,
     one a weight matrix a layer.  On the ``meta`` device it returns the
     shapes alone."""
-    require_dense(cfg.validate())
+    cfg.validate()
     device = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     period = cfg.pattern_period
@@ -116,18 +128,45 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
     return params
 
 
+def _apply_core(p, h, cfg: ModelConfig, kind: str):
+    """Full-sequence core: ``(out, cache contribution)`` — the
+    attention's post-RoPE ``(k, v)``, a Mamba layer's ``(ssm state, conv
+    tail)``, an xLSTM layer's final state."""
+    if kind in ("attn", "swa"):
+        window = cfg.sliding_window if kind == "swa" else 0
+        return L.attention(p, h, cfg, window=window)
+    if kind == "mamba":
+        out, ssm_state, conv_tail = S.mamba_forward(p, h, cfg)
+        return out, (ssm_state, conv_tail)
+    if kind == "mlstm":
+        return X.mlstm_forward(p, h, cfg)
+    if kind == "slstm":
+        return X.slstm_forward(p, h, cfg)
+    raise ValueError(kind)
+
+
+def _ffn(p, x, cfg: ModelConfig, ffn: str):
+    """``(out, aux)`` of the layer's FFN; ``aux`` is None but for MoE."""
+    if ffn == "moe":
+        return M.moe_ffn(p, x, cfg)
+    return L.mlp(p, x), None
+
+
 def _apply_block(p, h, cfg: ModelConfig, kind: str, ffn: str):
-    """Returns ``(h, (k, v))``: the block's output and its attention's
-    post-RoPE keys and values (a prefill's cache contribution)."""
+    """Returns ``(h, aux, cache contribution)``: the block's output, its
+    MoE load-balance loss (None without MoE) and its core's cache
+    contribution (what a prefill stores)."""
     normed = L.rmsnorm(p["norm1"], h)
-    window = cfg.sliding_window if kind == "swa" else 0
-    core_out, kv = L.attention(p["core"], normed, cfg, window=window)
+    core_out, contrib = _apply_core(p["core"], normed, cfg, kind)
     if cfg.parallel_block and ffn != "none":
-        return h + core_out + L.mlp(p["ffn"], normed), kv
+        f_out, aux = _ffn(p["ffn"], normed, cfg, ffn)
+        return h + core_out + f_out, aux, contrib
     h = h + core_out
-    if ffn == "mlp":
-        h = h + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], h))
-    return h, kv
+    aux = None
+    if ffn != "none":
+        f_out, aux = _ffn(p["ffn"], L.rmsnorm(p["norm2"], h), cfg, ffn)
+        h = h + f_out
+    return h, aux, contrib
 
 
 def _unbind(stacked) -> list:
@@ -138,33 +177,67 @@ def _unbind(stacked) -> list:
     return [tree.unflatten(td, [p[r] for p in parts]) for r in range(reps)]
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward -> f32 logits ``(B, T, vocab)``."""
-    require_dense(cfg)
+def _embed_input(params, cfg: ModelConfig, tokens, embeds):
+    """The residual stream's input: the embeddings given, or the
+    tokens' rows of ``embed``.  F.embedding, not
+    ``params["embed"][tokens]``: the indexing's backward (``index_put_``
+    with accumulate) adds repeated tokens' rows in a thread-dependent
+    order on the CPU and with atomics on the card; embedding's backward
+    is deterministic on both."""
     adt = getattr(torch, cfg.activation_dtype)
-    # F.embedding, not params["embed"][tokens]: the indexing's backward
-    # (index_put_ with accumulate) adds repeated tokens' rows in a
-    # thread-dependent order on the CPU; embedding's backward is
-    # deterministic on the CPU and on the card
-    h = torch.nn.functional.embedding(tokens, params["embed"]).to(adt)
-    period = cfg.pattern_period
-    reps = cfg.num_layers // period
-    per_pos = [_unbind(sp) for sp in params["stack"]]
-    for r in range(reps):
-        for pos in range(period):
-            kind, ffn = cfg.layer_sig(pos)
-            h, _ = _apply_block(per_pos[pos][r], h, cfg, kind, ffn)
-    base = reps * period
-    for i, p in enumerate(params["tail"]):
-        h, _ = _apply_block(p, h, cfg, *cfg.layer_sig(base + i))
+    if embeds is not None:
+        return embeds.to(adt)
+    return F.embedding(tokens, params["embed"]).to(adt)
+
+
+def _head(params, cfg: ModelConfig, h):
+    adt = getattr(torch, cfg.activation_dtype)
     h = L.rmsnorm(params["final_norm"], h)
     return h @ params["lm_head"].to(adt)
 
 
+def _forward(params, cfg: ModelConfig, tokens=None, embeds=None):
+    """Full-sequence forward -> ``(logits (B, T, vocab), aux)``: ``aux``
+    the MoE layers' load-balance loss, summed a period at a time over
+    the reps and then over the tail as the reference's scan sums it (0
+    without MoE)."""
+    h = _embed_input(params, cfg, tokens, embeds)
+    period = cfg.pattern_period
+    reps = cfg.num_layers // period
+    per_pos = [_unbind(sp) for sp in params["stack"]]
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    rep_aux = []
+    for r in range(reps):
+        a_rep = zero
+        for pos in range(period):
+            kind, ffn = cfg.layer_sig(pos)
+            h, a, _ = _apply_block(per_pos[pos][r], h, cfg, kind, ffn)
+            if a is not None:
+                a_rep = a_rep + a
+        rep_aux.append(a_rep)
+    aux = torch.stack(rep_aux).sum() if rep_aux else zero
+    base = reps * period
+    for i, p in enumerate(params["tail"]):
+        h, a, _ = _apply_block(p, h, cfg, *cfg.layer_sig(base + i))
+        if a is not None:
+            aux = aux + a
+    return _head(params, cfg, h), aux
+
+
+def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None
+            ) -> torch.Tensor:
+    """Full-sequence forward of ``tokens`` (B, T) or ``embeds`` (B, T,
+    d_model) -> logits ``(B, T, vocab)``."""
+    return _forward(params, cfg, tokens, embeds)[0]
+
+
 def loss_fn(params, cfg: ModelConfig, batch) -> tuple:
-    """Cross-entropy of ``batch = {"tokens", "labels"[, "loss_mask"]}``:
-    ``(loss, {"ce", "aux", "loss"})`` as in ``model.py:192-212``."""
-    logits = forward(params, cfg, batch["tokens"]).to(torch.float32)
+    """Cross-entropy plus the MoE load-balance loss of ``batch =
+    {"tokens" or "embeds", "labels"[, "loss_mask"]}``: ``(loss, {"ce",
+    "aux", "loss"})`` as in ``model.py:192-212``."""
+    logits, aux = _forward(params, cfg, batch.get("tokens"),
+                           batch.get("embeds"))
+    logits = logits.to(torch.float32)
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -173,7 +246,6 @@ def loss_fn(params, cfg: ModelConfig, batch) -> tuple:
     if mask is None:
         mask = torch.ones_like(ll)
     ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + aux
     return loss, {"ce": ce, "aux": aux, "loss": loss}
 
@@ -191,20 +263,34 @@ def _cache_len(cfg: ModelConfig, kind: str, s_max: int) -> int:
 
 def _init_layer_cache(cfg: ModelConfig, kind: str, B: int, s_max: int,
                       dtype, device, lead=()):
-    """Zero ``k``/``v`` of one attention layer, ``lead + (B, n, KV,
-    hd)``."""
-    shape = tuple(lead) + (B, _cache_len(cfg, kind, s_max),
-                           cfg.num_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """One layer's zero cache, ``lead`` dims first (the recurrent
+    states in f32, as the reference keeps them)."""
+    lead = tuple(lead)
+    if kind in ("attn", "swa"):
+        shape = lead + (B, _cache_len(cfg, kind, s_max), cfg.num_kv_heads,
+                        cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "mamba":
+        return {"ssm": torch.zeros(lead + (B, cfg.d_inner,
+                                           cfg.ssm_state_dim),
+                                   dtype=torch.float32, device=device),
+                "conv": torch.zeros(lead + (B, cfg.ssm_conv_width,
+                                            cfg.d_inner),
+                                    dtype=dtype, device=device)}
+    if kind == "mlstm":
+        return X.mlstm_init_state(B, cfg, device, lead)
+    if kind == "slstm":
+        return X.slstm_init_state(B, cfg, device, lead)
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, B: int, s_max: int, dtype=None,
                device="cuda"):
     """The zero serve cache of ``B`` sequences of up to ``s_max``
-    positions, in ``dtype`` (the activation dtype by default), on
-    ``device`` (the card unless told ``"cpu"``)."""
-    require_dense(cfg)
+    positions, in ``dtype`` (the activation dtype by default; the
+    recurrent states are f32), on ``device`` (the card unless told
+    ``"cpu"``)."""
     device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.activation_dtype)
     period = cfg.pattern_period
@@ -218,20 +304,32 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, dtype=None,
     return {"stack": stack, "tail": tail_caches}
 
 
-def _store_prefill(kv, cache):
-    """Write a full-sequence ``(k, v)`` into one layer's (zero) cache, in
-    place.  A ring shorter than the prompt keeps the last ``n`` entries
-    at their absolute positions modulo ``n``."""
-    k, v = kv
-    n = cache["k"].shape[1]
-    T = k.shape[1]
-    if T >= n:
-        ring = torch.arange(T - n, T, device=k.device) % n
-        cache["k"].index_copy_(1, ring, k[:, -n:].to(cache["k"].dtype))
-        cache["v"].index_copy_(1, ring, v[:, -n:].to(cache["v"].dtype))
-    else:
-        cache["k"][:, :T].copy_(k)
-        cache["v"][:, :T].copy_(v)
+def _store_prefill(kind: str, contrib, cache):
+    """Write a full-sequence cache contribution into one layer's (zero)
+    cache, in place.  A ring shorter than the prompt keeps the last
+    ``n`` entries at their absolute positions modulo ``n``; a Mamba
+    layer's conv tail goes to the buffer's last slots (``W - len`` on);
+    a recurrent state is copied."""
+    if kind in ("attn", "swa"):
+        k, v = contrib
+        n = cache["k"].shape[1]
+        T = k.shape[1]
+        if T >= n:
+            ring = torch.arange(T - n, T, device=k.device) % n
+            cache["k"].index_copy_(1, ring, k[:, -n:].to(cache["k"].dtype))
+            cache["v"].index_copy_(1, ring, v[:, -n:].to(cache["v"].dtype))
+        else:
+            cache["k"][:, :T].copy_(k)
+            cache["v"][:, :T].copy_(v)
+        return cache
+    if kind == "mamba":
+        ssm_state, conv_tail = contrib
+        cache["ssm"].copy_(ssm_state)
+        W = cache["conv"].shape[1]
+        cache["conv"][:, W - conv_tail.shape[1]:].copy_(conv_tail)
+        return cache
+    for name, x in contrib.items():
+        cache[name].copy_(x)
     return cache
 
 
@@ -252,55 +350,71 @@ def _layers(params, cache, cfg: ModelConfig):
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+def prefill(params, cfg: ModelConfig, tokens=None, *, embeds=None,
             s_max=None, cache_dtype=None):
-    """Run the prompt ``tokens`` (B, T): ``(last-position logits (B, 1,
-    vocab), cache, next position T)``, the cache sized for ``s_max``
-    positions (T by default) on the tokens' device."""
-    require_dense(cfg)
-    adt = getattr(torch, cfg.activation_dtype)
-    h = torch.nn.functional.embedding(tokens, params["embed"]).to(adt)
-    B, T = tokens.shape
+    """Run the prompt, ``tokens`` (B, T) or ``embeds`` (B, T, d_model):
+    ``(last-position logits (B, 1, vocab), cache, next position T)``,
+    the cache sized for ``s_max`` positions (T by default) on the
+    prompt's device."""
+    prompt = embeds if embeds is not None else tokens
+    h = _embed_input(params, cfg, tokens, embeds)
+    B, T = prompt.shape[:2]
     s_max = s_max or T
-    cache = init_cache(cfg, B, s_max, cache_dtype, device=tokens.device)
+    cache = init_cache(cfg, B, s_max, cache_dtype, device=prompt.device)
     for p, c, kind, ffn in _layers(params, cache, cfg):
-        h, kv = _apply_block(p, h, cfg, kind, ffn)
-        _store_prefill(kv, c)
-    h = L.rmsnorm(params["final_norm"], h[:, -1:])
-    return h @ params["lm_head"].to(adt), cache, T
+        h, _, contrib = _apply_block(p, h, cfg, kind, ffn)
+        _store_prefill(kind, contrib, c)
+    return _head(params, cfg, h[:, -1:]), cache, T
+
+
+def _decode_core(p, normed, cfg: ModelConfig, kind: str, cache, pos: int):
+    """One token through a layer's core, its cache updated in place."""
+    if kind in ("attn", "swa"):
+        n = cache["k"].shape[1]
+        # sliding-window layers write their ring at pos % n;
+        # full-attention layers at the absolute position
+        write_idx = pos % n if kind == "swa" else pos
+        out, _, _ = L.attention_decode(p, normed, cache["k"], cache["v"],
+                                       pos, write_idx, cfg)
+        return out
+    if kind == "mamba":
+        out, ssm, conv = S.mamba_decode(p, normed, cache["ssm"],
+                                        cache["conv"], cfg)
+        new = {"ssm": ssm, "conv": conv}
+    elif kind == "mlstm":
+        out, new = X.mlstm_forward(p, normed, cfg, state=cache)
+    elif kind == "slstm":
+        out, new = X.slstm_forward(p, normed, cfg, state=cache)
+    else:
+        raise ValueError(kind)
+    for name, x in new.items():
+        cache[name].copy_(x)
+    return out
 
 
 def _decode_block(p, h, cfg: ModelConfig, kind: str, ffn: str, cache,
                   pos: int):
     normed = L.rmsnorm(p["norm1"], h)
-    n = cache["k"].shape[1]
-    # sliding-window layers write their ring at pos % n; full-attention
-    # layers at the absolute position
-    write_idx = pos % n if kind == "swa" else pos
-    core_out, _, _ = L.attention_decode(p["core"], normed, cache["k"],
-                                        cache["v"], pos, write_idx, cfg)
+    core_out = _decode_core(p["core"], normed, cfg, kind, cache, pos)
     if cfg.parallel_block and ffn != "none":
-        return h + core_out + L.mlp(p["ffn"], normed)
+        return h + core_out + _ffn(p["ffn"], normed, cfg, ffn)[0]
     h = h + core_out
-    if ffn == "mlp":
-        h = h + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], h))
+    if ffn != "none":
+        h = h + _ffn(p["ffn"], L.rmsnorm(p["norm2"], h), cfg, ffn)[0]
     return h
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, cache, pos: int,
-                tokens: torch.Tensor):
-    """One decode step: ``tokens`` (B, 1) at absolute position ``pos`` (a
-    Python int).  Returns ``(logits (B, 1, vocab), cache)``, the cache
-    updated in place."""
-    require_dense(cfg)
-    adt = getattr(torch, cfg.activation_dtype)
-    h = torch.nn.functional.embedding(tokens, params["embed"]).to(adt)
+def decode_step(params, cfg: ModelConfig, cache, pos: int, tokens=None, *,
+                embeds=None):
+    """One decode step: ``tokens`` (B, 1) or ``embeds`` (B, 1, d_model)
+    at absolute position ``pos`` (a Python int).  Returns ``(logits (B,
+    1, vocab), cache)``, the cache updated in place."""
+    h = _embed_input(params, cfg, tokens, embeds)
     pos = int(pos)
     for p, c, kind, ffn in _layers(params, cache, cfg):
         h = _decode_block(p, h, cfg, kind, ffn, c, pos)
-    h = L.rmsnorm(params["final_norm"], h)
-    return h @ params["lm_head"].to(adt), cache
+    return _head(params, cfg, h), cache
 
 
 def from_jax_params(np_tree, device="cuda") -> Dict[str, Any]:

@@ -15,20 +15,21 @@ from typing import Optional
 from repro_torch.devices import resolve_device
 from repro_torch.models import decode_step, prefill
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import require_dense
 
 
 def make_prefill_step(cfg: ModelConfig, device="cuda", *,
                       s_max: Optional[int] = None, cache_dtype=None):
     """``prefill_step(params, prompt) -> (logits, cache)``: ``prompt``
-    the (B, T) tokens, moved to ``device``; ``logits`` the last
+    the (B, T) tokens, or for an ``embeds`` frontend the (B, T,
+    d_model) embeddings, moved to ``device``; ``logits`` the last
     position's (B, 1, vocab); the cache sized for ``s_max``."""
-    require_dense(cfg)
     device = resolve_device(device)
+    kw = "embeds" if cfg.frontend == "embeds" else "tokens"
 
     def step(params, prompt):
-        logits, cache, _ = prefill(params, cfg, prompt.to(device),
-                                   s_max=s_max, cache_dtype=cache_dtype)
+        logits, cache, _ = prefill(params, cfg, s_max=s_max,
+                                   cache_dtype=cache_dtype,
+                                   **{kw: prompt.to(device)})
         return logits, cache
 
     return step
@@ -36,12 +37,15 @@ def make_prefill_step(cfg: ModelConfig, device="cuda", *,
 
 def make_decode_step(cfg: ModelConfig, device="cuda"):
     """``step(params, cache, pos, tok) -> (logits, cache)``: one token a
-    sequence (``tok`` (B, 1), moved to ``device``) at absolute position
-    ``pos`` against the cache, which is updated in place."""
-    require_dense(cfg)
+    sequence (``tok`` (B, 1), moved to ``device``; for an ``embeds``
+    frontend a (B, 1, d_model) ``tok`` is an embedding) at absolute
+    position ``pos`` against the cache, which is updated in place."""
     device = resolve_device(device)
 
     def step(params, cache, pos, tok):
-        return decode_step(params, cfg, cache, int(pos), tok.to(device))
+        kw = ("embeds" if cfg.frontend == "embeds" and tok.ndim == 3
+              else "tokens")
+        return decode_step(params, cfg, cache, int(pos),
+                           **{kw: tok.to(device)})
 
     return step

@@ -1,17 +1,14 @@
 """Which slice of the port carries what this slice does not.
 
 Single source for the ``NotImplementedError`` messages raised by the
-registry, the model builder, the aggregation layer and the CLI: each
-names the slice (and the ``ROADMAP.md`` queue item) that will port the
-missing piece.
+train step, the train state and the CLIs: each names the slice (and
+the ``ROADMAP.md`` queue item) that will port the missing piece.
 """
 from __future__ import annotations
 
 LATER = {
     "model_axis": "slice 2c (tensor parallelism over the model axis, "
                   "ROADMAP Queue 1 item 7)",
-    "arch": "slice 8 (MoE/SSM/xLSTM/embeds architectures, ROADMAP Queue 1 "
-            "item 6)",
     "auto": "slice 9 (topology tuner, ROADMAP Queue 1 item 8)",
 }
 

@@ -1,7 +1,9 @@
 """Subprocess body for tests/test_torch_dist.py: the JAX package's mesh
 train step on 4 forced host devices, ``backend="reference"``, for the
-four wire strategies; writes everything the port is held against to one
-npz (argv[1]).
+four wire strategies, and allgather on deepseek-moe-16b's smoke variant
+(``moe``: each device's MoE layers dispatch its own 2 rows at their own
+capacity); writes everything the port is held against to one npz
+(argv[1]).
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/_torch_dist_ref.py out.npz
@@ -12,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from repro.configs import get_config
 from repro.core.compressors import get_compressor
 from repro.core.compression import CompressionConfig
 from repro.dist.layout import build_layout
@@ -35,25 +38,37 @@ METRICS = ("loss", "density", "density_cap", "comm_bits_sparse",
            "comm_bits_dense", "wire_bytes", "collectives_per_step")
 
 
-def batches():
+MOE = get_config("deepseek-moe-16b").reduced()
+
+
+def batches(vocab=CFG.vocab_size):
     rng = np.random.default_rng(1)
     out = []
     for _ in range(STEPS):
-        toks = rng.integers(0, CFG.vocab_size, (8, 16)).astype(np.int32)
+        toks = rng.integers(0, vocab, (8, 16)).astype(np.int32)
         out.append({"tokens": toks, "labels": np.roll(toks, -1, axis=1)})
     return out
 
 
 def main(path):
-    params = init_params(CFG, jax.random.PRNGKey(0))
     out = {}
+    run_cases(CFG, CASES, "", out)
+    run_cases(MOE, {"moe": CASES["allgather"]}, "moe/", out)
+    np.savez(path, **out)
+    print("REF OK")
+
+
+def run_cases(cfg, cases, prefix, out):
+    """Every case of ``cases`` from ``init_params(cfg, PRNGKey(0))``;
+    the init, the batches and the results under ``prefix``."""
+    params = init_params(cfg, jax.random.PRNGKey(0))
     for i, leaf in enumerate(jax.tree.leaves(params)):
-        out[f"init/{i}"] = np.asarray(leaf)
-    bs = batches()
+        out[f"{prefix}init/{i}"] = np.asarray(leaf)
+    bs = batches(cfg.vocab_size)
     for i, b in enumerate(bs):
-        out[f"batch/{i}/tokens"] = b["tokens"]
-        out[f"batch/{i}/labels"] = b["labels"]
-    for name, (shape, axes, strategy) in CASES.items():
+        out[f"{prefix}batch/{i}/tokens"] = b["tokens"]
+        out[f"{prefix}batch/{i}/labels"] = b["labels"]
+    for name, (shape, axes, strategy) in cases.items():
         mesh = make_mesh(shape, axes)
         comp = CompressionConfig(compressor=COMPRESSOR, ratio=RATIO,
                                  strategy=strategy, backend="reference")
@@ -63,7 +78,7 @@ def main(path):
                                  workers=data_world_size(mesh),
                                  model_size=1, compression=comp,
                                  layout=layout)
-        step = make_train_step(CFG, mesh, opt, constant(LR), remat=False,
+        step = make_train_step(cfg, mesh, opt, constant(LR), remat=False,
                                compression=comp, layout=layout)
         for s, b in enumerate(bs):
             state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})
@@ -76,8 +91,6 @@ def main(path):
             out[f"{name}/resid2"] = np.asarray(state["resid2"])
         print(name, [float(out[f"{name}/{s}/loss"]) for s in range(STEPS)],
               flush=True)
-    np.savez(path, **out)
-    print("REF OK")
 
 
 if __name__ == "__main__":

@@ -8,8 +8,12 @@ helper makes the same calls in the same order with the library
 functions it wraps: ``repro.models.prefill`` and ``decode_step`` (each
 jitted without shardings), ``repro.serve.publish``, ``apply_resync`` and
 ``apply_delta``, the drift step, the queue and the prompt draws.
-Returns what ``repro_torch.launch.serve.run`` returns, minus the
-times.
+Every architecture's cache (KV, ring, Mamba, xLSTM) is the library's;
+an ``embeds`` model's prompts are ``jax.random.normal`` draws of (B, T,
+d_model) embeddings, or ``embed_prompt(pk)``'s (a numpy array from the
+wave's prompt key ``pk``), so that a test can feed the replay the very
+embeddings the port drew.  Returns what
+``repro_torch.launch.serve.run`` returns, minus the times.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from repro.serve import (RESYNC, apply_delta, apply_resync,
 
 def replay(arch="llama3.2-1b", *, smoke=True, requests=8, max_batch=8,
            prompt_len=64, gen=16, seed=0, temperature=0.0,
-           publish_every=0, publish_ratio=0.01, resync_every=8, cfg=None):
+           publish_every=0, publish_ratio=0.01, resync_every=8, cfg=None,
+           embed_prompt=None):
     if cfg is None:
         cfg = get_config(arch)
         if smoke:
@@ -50,8 +55,9 @@ def replay(arch="llama3.2-1b", *, smoke=True, requests=8, max_batch=8,
             return jax.tree.map(
                 lambda x: x + 1e-3 * jnp.sin(x * (1.0 + 0.1 * i)), p)
 
+    kw = "embeds" if cfg.frontend == "embeds" else "tokens"
     prefill_step = jax.jit(lambda p, prompt: prefill(
-        p, cfg, tokens=prompt, s_max=s_max)[:2])
+        p, cfg, s_max=s_max, **{kw: prompt})[:2])
     decode = jax.jit(lambda p, c, pos, tok: decode_step(p, cfg, c, pos,
                                                         tokens=tok))
     rng = np.random.default_rng(seed)
@@ -67,7 +73,12 @@ def replay(arch="llama3.2-1b", *, smoke=True, requests=8, max_batch=8,
         gens = admit + [0] * (B - nact)
         wave_gen = max(admit)
         key, pk = jax.random.split(key)
-        prompt = jax.random.randint(pk, (B, T), 0, cfg.vocab_size)
+        if kw == "tokens":
+            prompt = jax.random.randint(pk, (B, T), 0, cfg.vocab_size)
+        elif embed_prompt is not None:
+            prompt = jnp.asarray(embed_prompt(pk))
+        else:
+            prompt = jax.random.normal(pk, (B, T, cfg.d_model))
         logits, cache = prefill_step(params, prompt)
         tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
         toks = [tok]

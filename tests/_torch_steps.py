@@ -59,12 +59,12 @@ def config(mode, strategy="allgather", chunks=1, ratio=0.02):
 
 
 def train(comp, *, pipeline="bucketed", mesh="1x1", steps=3, probe=None,
-          state=None, first_step=0, params=None):
-    """``steps`` steps of ``CFG`` from ``init_params(CFG, 0)`` (or
-    ``params``, or ``state``); returns ``(state, metrics per step,
-    layout)``."""
+          state=None, first_step=0, params=None, cfg=CFG):
+    """``steps`` steps of ``cfg`` (default ``CFG``) from ``init_params(cfg,
+    0)`` (or ``params``, or ``state``) on ``batch_for``'s batches of 8 x
+    16; returns ``(state, metrics per step, layout)``."""
     if params is None:
-        params = init_params(CFG, 0, "cpu")
+        params = init_params(cfg, 0, "cpu")
     layout = (build_layout(params, 1, comp) if pipeline == "bucketed"
               else None)
     mesh = parse_mesh(mesh)
@@ -74,12 +74,12 @@ def train(comp, *, pipeline="bucketed", mesh="1x1", steps=3, probe=None,
         state = init_train_state(params, opt, workers=wire.local_workers,
                                  model_size=1, compression=comp,
                                  layout=layout)
-    step = make_train_step(CFG, mesh, opt, constant(0.05),
+    step = make_train_step(cfg, mesh, opt, constant(0.05),
                            compression=comp, layout=layout, probe=probe,
                            wire=wire)
     out = []
     for i in range(first_step, first_step + steps):
-        state, m = step(state, batch_for(CFG, i, global_batch=8, seq_len=16,
+        state, m = step(state, batch_for(cfg, i, global_batch=8, seq_len=16,
                                          device="cpu"))
         out.append({k: float(v) for k, v in m.items()})
     return state, out, layout or build_layout(params, 1, comp)

@@ -152,3 +152,24 @@ def test_resume_equals_straight_run(tmp_path, strategy, mesh):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         else:
             assert a == b
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "deepseek-moe-16b"])
+def test_cli_resume_equals_straight_run_new_archs(tmp_path, arch):
+    """The Mamba hybrid's and the MoE model's smoke variants through the
+    CLI (fused Gaussian-k): 2 steps saved and resumed for a third save
+    what 3 straight steps save, bitwise, with the same last loss."""
+    from repro_torch.launch import train as cli
+    base = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "4",
+            "--seq", "16"]
+    a, b, c = (str(tmp_path / n) for n in ("a.npz", "b.npz", "c.npz"))
+    cli.run(base + ["--steps", "2", "--checkpoint", a])
+    (last,) = cli.run(base + ["--steps", "1", "--resume", a, "--checkpoint",
+                              b])
+    straight = cli.run(base + ["--steps", "3", "--checkpoint", c])
+    assert last["step"] == 2 and last["loss"] == straight[2]["loss"]
+    with np.load(b) as x, np.load(c) as y:
+        assert sorted(x.files) == sorted(y.files)
+        assert int(x["step"]) == 3
+        for k in x.files:
+            assert x[k].tobytes() == y[k].tobytes(), k

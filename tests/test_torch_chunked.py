@@ -159,6 +159,32 @@ def test_chunked_bitwise_bucketed(mode, n):
     assert [m["collectives_per_step"] for m in cms] == [float(want)] * 3
 
 
+@pytest.mark.parametrize("variant", ["chunks3", "perleaf"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "deepseek-moe-16b",
+                                  "musicgen-medium"])
+def test_new_archs_chunked_and_perleaf_bitwise_bucketed(arch, variant):
+    """The smoke variants of the Mamba hybrid, the MoE model and the
+    ``embeds`` model, 2 steps of fused Gaussian-k at chunks 3 and per
+    leaf: bitwise the bucketed run.  musicgen never reads ``embed``: its
+    gradient is zero in the bucket (the group released after the
+    backward), so ``embed`` and its residual stay as they were."""
+    cfg = get_config(arch).reduced()
+    comp = config("gaussiank-fused")
+    a, ma, layout = train(comp, steps=2, cfg=cfg)
+    if variant == "chunks3":
+        b, mb, _ = train(config("gaussiank-fused", chunks=3), steps=2,
+                         cfg=cfg)
+        assert [m["collectives_per_step"] for m in mb] == [3.0, 3.0]
+    else:
+        b, mb, _ = train(comp, pipeline="perleaf", steps=2, cfg=cfg)
+    assert_same(a, b, layout, ma, mb)
+    if cfg.frontend == "embeds":
+        (seg,) = [s for s in layout.segments if s.name == "embed"]
+        assert torch.equal(a["params"]["embed"],
+                           init_params(cfg, 0, "cpu")["embed"])
+        assert not a["resid"][:, seg.row_off:seg.row_off + seg.d_row].any()
+
+
 @pytest.mark.parametrize("strategy", list(MESHES))
 def test_chunked_strategies_bitwise_bucketed(strategy):
     mesh = MESHES[strategy]

@@ -34,6 +34,9 @@ wraps; logits within rtol 1e-4, atol 1e-5, tokens equal), the weight-
 delta publisher on the card bitwise the CPU's (``topk``, and the fused
 ``gaussiank`` at the card's block geometry) with ``pub`` equal to the
 packed replica at every tick, and the serving CLI on the card.
+Slice 8: the MoE, Mamba-hybrid, xLSTM and ``embeds`` smoke models' loss
+and gradients on the card against the CPU (rtol 1e-4, atol 1e-6), and
+two backwards on the card bitwise equal.
 """
 import math
 
@@ -659,3 +662,34 @@ def test_serve_cli_on_card(dev, capsys):
         assert got[k] == ref[k], k
     assert seen and all(seen)
     capsys.readouterr()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-1.5-large-398b",
+                                  "xlstm-125m", "musicgen-medium"])
+def test_new_archs_on_card_match_cpu(dev, arch):
+    """Slice 8's smoke variants: the loss and every gradient on the card
+    within rtol 1e-4, atol 1e-6 of the CPU's from the same weights and
+    batch; a second backward on the card is bitwise the first (the MoE
+    dispatch and combine have no atomic scatter)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.models import init_params, loss_fn
+    cfg = get_config(arch).reduced()
+    base = init_params(cfg, 0, "cpu")
+    batch = batch_for(cfg, 0, global_batch=4, seq_len=16, device="cpu")
+    out = {}
+    for d, rep in ((dev, 0), (dev, 1), (torch.device("cpu"), 0)):
+        leaves, td = tree.flatten(tree.tree_map(lambda x: x.to(d), base))
+        ps = [p.requires_grad_(True) for p in leaves]
+        loss, _ = loss_fn(tree.unflatten(td, ps), cfg,
+                          {k: v.to(d) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, ps, allow_unused=True)
+        out[(d.type, rep)] = (loss.detach().cpu(), [
+            (torch.zeros_like(p) if g is None else g).cpu()
+            for p, g in zip(ps, grads)])
+    torch.testing.assert_close(out[("cuda", 0)][0], out[("cpu", 0)][0],
+                               rtol=1e-4, atol=0)
+    for a, b, c in zip(out[("cuda", 0)][1], out[("cuda", 1)][1],
+                       out[("cpu", 0)][1]):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-6)

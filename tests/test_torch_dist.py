@@ -14,6 +14,8 @@
   reproduces ``lax.top_k``'s tie order (the lower index wins a tie at the
   k-th magnitude), so the zero-valued slots of a row with fewer non-zeros
   than ``k_cap`` carry the reference's indices too.
+* deepseek-moe-16b's smoke variant at ``(4, 1)``, allgather, against
+  the same JAX mesh run: the MoE capacity is each worker's.
 * The rank-order decode of gathered pairs with cross-rank duplicates,
   bitwise a sequential numpy sum.
 * ``_wire_cast_fixup`` for bf16 and fp16, bitwise the reference's.
@@ -110,6 +112,79 @@ def test_local_wire_matches_jax_mesh(ref, strategy):
         np.testing.assert_allclose(state[key].numpy(),
                                    ref[f"{strategy}/{key}"], rtol=1e-4,
                                    atol=1e-5)
+
+
+def test_local_wire_moe_matches_jax_mesh(ref):
+    """deepseek-moe-16b's smoke variant on 4 workers (``--host-devices 4
+    --mesh 4x1``, allgather): each worker's MoE layers dispatch its own
+    2 rows at the capacity of its own 32 tokens, as each device of the
+    reference's mesh does; losses at the tolerances above, the wire
+    accounting equal, and params and residuals within them but at
+    near-tie swaps of the top-k selection (``_near_tie_swaps``): two
+    of worker 0's gradient elements of equal magnitude to f32 rounding
+    order one way in XLA's sums and the other in torch's."""
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config
+    jparams = j_init(j_get_config("deepseek-moe-16b").reduced(),
+                     jax.random.PRNGKey(0))
+    np_params = jax.tree.map(np.asarray, jparams)
+    for i, leaf in enumerate(jax.tree.leaves(np_params)):
+        np.testing.assert_array_equal(leaf, ref[f"moe/init/{i}"])
+    cfg = get_config("deepseek-moe-16b").reduced()
+    params = from_jax_params(np_params, "cpu")
+    comp = CompressionConfig(compressor="topk", ratio=0.02,
+                             backend="reference")
+    layout = build_layout(params, 1, comp)
+    opt = sgd_momentum(0.9)
+    state = init_train_state(params, opt, workers=4, model_size=1,
+                             compression=comp, layout=layout)
+    step = make_train_step(cfg, "4x1", opt, constant(0.05),
+                           compression=comp, layout=layout)
+    for s in range(2):
+        batch = {k: torch.from_numpy(ref[f"moe/batch/{s}/{k}"]).long()
+                 for k in ("tokens", "labels")}
+        state, m = step(state, batch)
+        np.testing.assert_allclose(float(m["loss"]), ref[f"moe/{s}/loss"],
+                                   rtol=1e-4)
+        for k in METRICS[1:]:
+            np.testing.assert_allclose(float(m[k]), ref[f"moe/{s}/{k}"],
+                                       rtol=1e-6, err_msg=k)
+    swapped = _near_tie_swaps(state["resid"].numpy(), ref["moe/resid"])
+    skip = {}
+    for col in swapped:
+        (seg,) = [g for g in layout.segments
+                  if g.row_off <= col < g.row_off + g.size]
+        skip.setdefault(seg.name, []).append(col - seg.row_off)
+    for i, (path, leaf) in enumerate(
+            tree.flatten_with_path(state["params"])[0]):
+        got = leaf.numpy().reshape(-1).copy()
+        want = ref[f"moe/params/{i}"].reshape(-1).copy()
+        at = skip.get(tree.path_name(path), [])
+        got[at] = want[at]
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _near_tie_swaps(got, want, limit=4):
+    """The bucket columns where two runs' residuals ``(W, D)`` differ
+    beyond rtol 1e-4 / atol 1e-5; each must be a near-tie swap of a
+    top-k selection: in each row the columns pair up, one run sent
+    (residual 0) what the other kept, and the kept magnitudes agree
+    within rtol 1e-5 — elements at the k-th magnitude whose order f32
+    summation flipped.  At most ``limit`` a row."""
+    bad = ~np.isclose(got, want, rtol=1e-4, atol=1e-5)
+    cols = []
+    for w in range(got.shape[0]):
+        c = np.flatnonzero(bad[w])
+        assert len(c) <= limit, (w, c)
+        sent_here = c[got[w, c] == 0]
+        sent_there = c[want[w, c] == 0]
+        assert len(sent_here) + len(sent_there) == len(c), (w, c)
+        assert len(sent_here) == len(sent_there), (w, c)
+        np.testing.assert_allclose(
+            np.sort(np.abs(want[w, sent_here])),
+            np.sort(np.abs(got[w, sent_there])), rtol=1e-5)
+        cols += list(c)
+    return sorted(set(cols))
 
 
 @pytest.mark.parametrize("sizes", [(1,), (2,), (4,), (8,), (2, 2), (2, 4),

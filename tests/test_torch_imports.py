@@ -35,7 +35,10 @@ assert {"repro_torch.dist.wire", "repro_torch.launch.mesh",
         "repro_torch.serve", "repro_torch.serve.publish",
         "repro_torch.serve.subscribe", "repro_torch.serve.steps",
         "repro_torch.launch.serve",
-        "repro_torch.benchmarks.serve_staleness"} <= set(names), names
+        "repro_torch.benchmarks.serve_staleness",
+        "repro_torch.models.moe", "repro_torch.models.ssm",
+        "repro_torch.models.xlstm",
+        "repro_torch.configs.shapes"} <= set(names), names
 print(len(names))
 """
 

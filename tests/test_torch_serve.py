@@ -27,6 +27,7 @@ from repro.models import init_params as j_init
 from repro.models import prefill as j_prefill
 from repro.models.config import ModelConfig as JModelConfig
 from repro_torch import prng, tree
+from repro_torch.configs import get_config
 from repro_torch.launch import serve as cli
 from repro_torch.models import (ModelConfig, decode_step, forward,
                                 from_jax_params, init_cache, init_params,
@@ -252,16 +253,57 @@ def test_serve_cli_acceptance_line(capsys):
 
 @pytest.mark.parametrize("extra,err,match", [
     (["--mesh", "2x2"], NotImplementedError, "slice 2c"),
-    (["--arch", "jamba-1.5-large-398b"], NotImplementedError, "slice 8"),
+    (["--arch", "jamba-1.5-large-398b"], None, None),
 ])
 def test_serve_cli_names_what_it_lacks(extra, err, match):
-    """A model axis above 1 and a non-dense architecture raise naming
-    their slice; a data axis above 1 serves the whole batch."""
+    """A model axis above 1 raises naming its slice; a data axis above 1
+    serves the whole batch.  jamba-1.5-large (slice 8, which it raised
+    for before) now serves: its smoke variant's tokens equal the replay
+    of the JAX driver's (``tests/_torch_serve_ref.py``)."""
     argv = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
             "--requests", "2", "--max-batch", "2", "--prompt-len", "4",
             "--gen", "2"] + extra
+    if err is None:
+        got = cli.run(argv)
+        ref = replay("jamba-1.5-large-398b", requests=2, max_batch=2,
+                     prompt_len=4, gen=2)
+        for a, b in zip(ref["tokens"], got["tokens"]):
+            np.testing.assert_array_equal(b.numpy(), a)
+        assert got["tokens_out"] == ref["tokens_out"]
+        return
     with pytest.raises(err, match=match):
         cli.run(argv)
+
+
+def _port_normal(shape):
+    """``embed_prompt`` for the replay: the port's ``prng.normal`` draw
+    of ``shape`` from the JAX key's two words."""
+    def draw(pk):
+        key = tuple(int(x) for x in np.asarray(pk))
+        return prng.normal(key, shape, device="cpu").numpy()
+    return draw
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-125m",
+                                  "musicgen-medium"])
+def test_serve_cli_new_archs_match_reference_replay(arch):
+    """The MoE, xLSTM and ``embeds`` smoke models served by the CLI in two
+    waves (MoE layers over KV caches, the mLSTM and sLSTM states;
+    musicgen prefills embeddings and decodes tokens): the tokens of every
+    wave and the counters equal the replay's, which is fed the
+    embeddings the port drew."""
+    kw = dict(requests=3, max_batch=2, prompt_len=8, gen=4)
+    cfg = get_config(arch).reduced()
+    ref = replay(arch, embed_prompt=_port_normal((2, 8, cfg.d_model)), **kw)
+    argv = ["--arch", arch, "--smoke", "--device", "cpu"]
+    for k, v in kw.items():
+        argv += ["--" + k.replace("_", "-"), str(v)]
+    got = cli.run(argv)
+    assert len(got["tokens"]) == ref["waves"] == 2
+    for a, b in zip(ref["tokens"], got["tokens"]):
+        np.testing.assert_array_equal(b.numpy(), a)
+    for k in ("done", "tokens_out", "decode_steps", "slot_util"):
+        assert got[k] == ref[k], k
 
 
 def test_serve_cli_data_axis_and_gpu_check(monkeypatch, capsys):

@@ -23,8 +23,11 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_prng_flag import threefry_partitionable  # noqa: F401
+from repro.configs import get_config as j_get_config
 from repro.core import codec as jcodec
 from repro.core.compressors import get_compressor as j_get
+from repro.data.synthetic import batch_for as j_batch_for
 from repro.dist import aggregate as jagg
 from repro.dist import layout as jl
 from repro.models import init_params as j_init
@@ -143,6 +146,27 @@ def test_cli_smoke_slice5_compressors_on_cpu(extra):
     assert len(recs) == 2
     assert all(np.isfinite(r["loss"]) for r in recs)
     assert all(0 < r["density"] <= r["density_cap"] for r in recs)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-1.5-large-398b",
+                                  "xlstm-125m", "musicgen-medium",
+                                  "llava-next-34b"])
+def test_cli_trains_each_family_on_cpu(arch):
+    """One step of the CLI's default (fused Gaussian-k, bucketed) on the
+    smoke variant of each family slice 8 ported (MoE, Mamba hybrid,
+    xLSTM, audio and VLM ``embeds`` frontends): its loss is the
+    reference's loss of the reference's ``init_params(PRNGKey(0))`` on
+    ``batch_for``'s step-0 batch, within rtol 1e-5 (the weights and the
+    embeddings agree within ``prng.normal``'s rtol 1e-5)."""
+    jcfg = j_get_config(arch).reduced()
+    jl, _ = j_loss(j_init(jcfg, jax.random.PRNGKey(0)), jcfg,
+                   j_batch_for(jcfg, 0, global_batch=2, seq_len=16),
+                   remat=False)
+    (rec,) = cli.run(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--steps", "1", "--batch", "2", "--seq", "16"])
+    np.testing.assert_allclose(rec["loss"], float(jl), rtol=1e-5)
+    assert 0 < rec["density"] <= rec["density_cap"]
+    assert rec["collectives_per_step"] == 1
 
 
 def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
