@@ -5,6 +5,9 @@
     python3 chip_smoke.py --kernels-only  # phases 1-2 at small sizes
     python3 chip_smoke.py --serve-only    # phases 1 and 10
     python3 chip_smoke.py --arch-only     # phases 1 and 11
+    python3 chip_smoke.py --model-axis-only  # phase 1, 2's M = 2 rows, 12
+    python3 chip_smoke.py --tensor-parallel-only  # phases 1 and 12b
+                                          # (NCCL when two cards are visible)
 
 Phases (any failure exits non-zero; nothing is wrapped to pass):
 
@@ -25,7 +28,10 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    offsets 1 and 3 (the scalar-load path), blocks 1024/2048/4096/1001,
    thresholds 0 (blocks overflow) and above ``max|u|`` (nothing
    selected), and K4d on one-bin, all-zero and zero/subnormal/inf/
-   ``>= edge[127]`` inputs.  At the largest size each kernel is timed
+   ``>= edge[127]`` inputs; K1, K2 and both K3 launches on every row of
+   an ``(M, d_row_total)`` bucket at M = 2 (the 1,000,003- and the
+   268,435,456-element leaves' rows, at ``ceil(k / 2)`` each, as segment
+   windows at their storage offsets).  At the largest size each kernel is timed
    with CUDA events (median after warm-up), K4c at block 2048 too, and
    so are the whole pipelines beside exact top-k (``torch.topk``, the
    paper's yardstick): fused Gaussian-k, fused hist-k, unfused
@@ -139,7 +145,18 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    ``launch.serve.run`` on the same four (8 sequences, prompt 64, 8 new
    tokens); 11d the smoke variants card against CPU (losses, prefill
    and decode logits, greedy tokens) and jamba-smoke at chunks 3 and per
-   leaf bitwise its bucketed run.
+   leaf bitwise its bucketed run;
+12. slice 2c, the model axis (``phase12_model_axis``): 12a
+   ``train.run`` at ``--mesh 4x2 --host-devices 8``, the reference's
+   default mesh, at full llama3.2-1b width and depth (96 launches a
+   step of each Gaussian-k kernel, every worker's two-row bucket
+   conserving bitwise; step ms, peak memory); 12b the tensor-parallel
+   step at ``--mesh 1x2`` in two processes (NCCL with a card each, else
+   gloo on the one card), each rank holding its shards: 12 launches a
+   step a rank of each kernel, the losses the one-process ``--mesh
+   1x2`` run's within rtol 1e-6, step ms, relayout ms and each rank's
+   peak memory; on one shared random gradient, the relayout both ways
+   and each row's compression bitwise the one-process bucket's row.
 
 Every trainer path draws its params on the card (``init_params``: one
 ``threefry_bits`` launch a weight matrix), counted once a path beside the
@@ -403,6 +420,100 @@ def check_edge_cases(d, g, e, u, thres, bcap, ubcap) -> str:
             f"magnitude, zeros, and zeros/subnormals/inf/>= edge[127]")
 
 
+def check_main_kernels(g, e, k: int, label):
+    """K1, K2 and both K3 launches of the Gaussian-k path on ``(g, e)``
+    (views allowed) at budget ``k`` against their plain versions on the
+    card: moments within tolerance, counts, staging and residual
+    bitwise, and the fused pipeline's conservation bitwise.  Returns
+    what the further checks and the timings reuse."""
+    import types
+
+    import torch
+
+    from repro_torch.core import codec
+    from repro_torch.core.compressors import gaussiank_cap
+    from repro_torch.kernels.ef_fused import compact_residual as cr
+    from repro_torch.kernels.ef_fused import fused_moments as fm
+    from repro_torch.kernels.ef_fused import ops, tuning
+    from repro_torch.kernels.ef_fused import tree_count as tc
+    from repro_torch.kernels.gaussian_topk import ops as gops
+
+    d = g.numel()
+    cfg = tuning.resolve_config(d, "cuda")
+    sb, block = cfg.stats_block, cfg.block
+    k_cap = gaussiank_cap(k, d)
+    bcap = ops.fused_default_bcap(k_cap, d, block, cfg.bcap_slack)
+    # K1
+    s, sq, mx = fm.fused_moments(g, e, block=sb)
+    ps, psq, pmx = fm.fused_moments_plain(g, e, block=sb)
+    sum_abs = float((g + e).abs().double().sum())
+    k1_err = check_moments(label, "K1", (s, sq, mx), (ps, psq, pmx),
+                           sum_abs)
+    # K2 at the refinement tree of the plain moments
+    t0 = ops.gaussian_t0(ps, psq, d, k, False)
+    heap, n_cnt = ops._tree_thresholds(t0, 4)
+    thr = torch.from_numpy(heap[:n_cnt]).cuda()
+    cnt_k = tc.tree_count(g, e, thr, block=sb)
+    cnt_p = tc.tree_count_plain(g, e, thr, block=sb)
+    assert torch.equal(cnt_k, cnt_p), (label, "K2", cnt_k, cnt_p)
+    thres = float(ops._replay_refinement(heap, cnt_p.cpu().numpy(), k, 4))
+    # K3 at that same threshold
+    vk, ok, ck = cr.compact_stage(g, e, thres, block=block, bcap=bcap)
+    vp, op, cp = cr.compact_stage_plain(g, e, thres, block=block, bcap=bcap)
+    assert torch.equal(ck, cp), (label, "K3 counts")
+    assert torch.equal(ok, op), (label, "K3 offsets")
+    assert same_bits(vk, vp), (label, "K3 staged values")
+    enc = cr.exclusive_enc(cp, bcap)
+    rk = cr.compact_resid(g, e, thres, enc, block=block, bcap=bcap,
+                          k_cap=k_cap)
+    rp = cr.compact_resid_plain(g, e, thres, enc, block=block, bcap=bcap,
+                                k_cap=k_cap)
+    assert same_bits(rk, rp), (label, "K3 residual")
+    # the pipeline: conservation decode(v, i) + e' == g + e, bitwise
+    v, i, ne = ops.fused_compress_ef(g, e, "gaussiank", k)
+    assert torch.equal(codec.decode(v, i, d) + ne, g + e), (label,
+                                                            "conserve")
+    nnz = int(codec.nnz(i))
+    log(f"  {label}: K1 max error {k1_err:.3g}, absmax exact; K2 counts "
+        f"exact {cnt_k.tolist()[:3]}...; K3 staging + residual bitwise "
+        f"(block {block}, bcap {bcap}, {int(ck.sum())} over threshold "
+        f"{thres:.6g}); pipeline conserves bitwise, {nnz}/{k_cap} slots "
+        f"for k={k}")
+    return types.SimpleNamespace(
+        sb=sb, block=block, k_cap=k_cap, bcap=bcap,
+        ubcap=gops.default_bcap(k_cap, d, block), s=s, sq=sq, ps=ps,
+        psq=psq, pmx=pmx, sum_abs=sum_abs, k1_err=k1_err, heap=heap,
+        thr=thr, cnt_k=cnt_k, thres=thres, vk=vk, ok=ok, ck=ck, enc=enc)
+
+
+def check_model_rows(torch, model_size: int = 2) -> None:
+    """Phase 2 at a model axis of ``model_size``: K1, K2 and both K3
+    launches against their plain versions on every row of an ``(M,
+    d_row_total)`` bucket of two segments, the 1,000,003- and the
+    268,435,456-element leaf (``layout.flat_dims``: 500,002 and
+    134,217,728 columns a row at M = 2), each row at its own budget
+    ``ceil(k / M)``, as the main path's segment windows (storage offset
+    ``r·d_row_total + row_off``) give them to the kernels."""
+    from repro_torch.dist.layout import flat_dims, row_budget
+    M = model_size
+    sizes = (1_000_003, BIG_LEAF)
+    d_rows = [flat_dims(n, M)[1] for n in sizes]
+    D = sum(d_rows)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    G = torch.randn((M, D), generator=gen, device="cuda").mul_(1e-3)
+    E = torch.randn((M, D), generator=gen, device="cuda").mul_(5e-4)
+    off = 0
+    for n, d_row in zip(sizes, d_rows):
+        k_row = row_budget(max(1, math.ceil(RATIO * n)), M, d_row)
+        for r in range(M):
+            check_main_kernels(G[r, off:off + d_row], E[r, off:off + d_row],
+                               k_row, f"row {r} of {M}, {n:,}-element leaf")
+        off += d_row
+    del G, E
+    torch.cuda.empty_cache()
+
+
 def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     """Phase 2 at one size: each kernel against its plain version on the
     card (moments within tolerance, everything else bitwise), the
@@ -411,10 +522,9 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     import torch
 
     from repro_torch.core import codec
-    from repro_torch.core.compressors import gaussiank_cap
     from repro_torch.kernels.ef_fused import compact_residual as cr
     from repro_torch.kernels.ef_fused import fused_moments as fm
-    from repro_torch.kernels.ef_fused import ops, tuning
+    from repro_torch.kernels.ef_fused import ops
     from repro_torch.kernels.ef_fused import tree_count as tc
     from repro_torch.kernels.gaussian_topk import count_gt as cg
     from repro_torch.kernels.gaussian_topk import ops as gops
@@ -428,47 +538,14 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     g = torch.randn(d, generator=gen, device="cuda").mul_(1e-3)
     e = torch.randn(d, generator=gen, device="cuda").mul_(5e-4)
     k = max(1, math.ceil(RATIO * d))
-    cfg = tuning.resolve_config(d, "cuda")
-    sb, block = cfg.stats_block, cfg.block
-    k_cap = gaussiank_cap(k, d)
-    bcap = ops.fused_default_bcap(k_cap, d, block, cfg.bcap_slack)
-    ubcap = gops.default_bcap(k_cap, d, block)
+    c = check_main_kernels(g, e, k, f"d={d:>11,}")
+    sb, block, k_cap, bcap, ubcap = c.sb, c.block, c.k_cap, c.bcap, c.ubcap
+    s, sq, ps, psq, pmx = c.s, c.sq, c.ps, c.psq, c.pmx
+    sum_abs, k1_err, heap, thr, cnt_k = (c.sum_abs, c.k1_err, c.heap,
+                                         c.thr, c.cnt_k)
+    thres, vk, ok, ck, enc = c.thres, c.vk, c.ok, c.ck, c.enc
     nb, nbs = -(-d // block), -(-d // sb)
-
-    # K1
-    s, sq, mx = fm.fused_moments(g, e, block=sb)
-    ps, psq, pmx = fm.fused_moments_plain(g, e, block=sb)
-    sum_abs = float((g + e).abs().double().sum())
-    k1_err = check_moments(d, "K1", (s, sq, mx), (ps, psq, pmx), sum_abs)
-    # K2 at the refinement tree of the plain moments
-    t0 = ops.gaussian_t0(ps, psq, d, k, False)
-    heap, n_cnt = ops._tree_thresholds(t0, 4)
-    thr = torch.from_numpy(heap[:n_cnt]).cuda()
-    cnt_k = tc.tree_count(g, e, thr, block=sb)
-    cnt_p = tc.tree_count_plain(g, e, thr, block=sb)
-    assert torch.equal(cnt_k, cnt_p), (d, "K2", cnt_k, cnt_p)
-    thres = float(ops._replay_refinement(heap, cnt_p.cpu().numpy(), k, 4))
-    # K3 at that same threshold
-    vk, ok, ck = cr.compact_stage(g, e, thres, block=block, bcap=bcap)
-    vp, op, cp = cr.compact_stage_plain(g, e, thres, block=block, bcap=bcap)
-    assert torch.equal(ck, cp), (d, "K3 counts")
-    assert torch.equal(ok, op), (d, "K3 offsets")
-    assert same_bits(vk, vp), (d, "K3 staged values")
-    enc = cr.exclusive_enc(cp, bcap)
-    rk = cr.compact_resid(g, e, thres, enc, block=block, bcap=bcap,
-                          k_cap=k_cap)
-    rp = cr.compact_resid_plain(g, e, thres, enc, block=block, bcap=bcap,
-                                k_cap=k_cap)
-    assert same_bits(rk, rp), (d, "K3 residual")
-    # the pipeline: conservation decode(v, i) + e' == g + e, bitwise
-    v, i, ne = ops.fused_compress_ef(g, e, "gaussiank", k)
-    assert torch.equal(codec.decode(v, i, d) + ne, g + e), (d, "conserve")
-    nnz = int(codec.nnz(i))
-    log(f"  d={d:>11,}: K1 max error {k1_err:.3g}, absmax exact; K2 counts "
-        f"exact {cnt_k.tolist()[:3]}...; K3 staging + residual bitwise "
-        f"(block {block}, bcap {bcap}, {int(ck.sum())} over threshold "
-        f"{thres:.6g}); pipeline conserves bitwise, {nnz}/{k_cap} slots "
-        f"for k={k}")
+    del c
 
     # K1 with its histogram, and K4d on the materialised u
     u = g + e
@@ -1037,14 +1114,23 @@ def pg_ranks(torch, cfg, chunks=1) -> tuple:
     when there are two cards, else gloo staged through host memory on
     the one card), each training ``PG_STRATEGIES`` of ``cfg`` at
     ``chunks`` (``pg_child``); returns ``(backend, results by rank)``."""
+    return spawn_ranks(torch, pg_child, lambda backend, port: (
+        cfg, PG_STEPS, PG_BATCH, PG_SEQ), chunks=chunks)
+
+
+def spawn_ranks(torch, target, args_of, **kw) -> tuple:
+    """Two ranks of ``target(rank, 2, backend, port, *args_of(backend,
+    port), queue, **kw)`` spawned (NCCL with a card each when there are
+    two cards, else gloo on the one card), each putting ``(rank,
+    results)`` on the queue; returns ``(backend, results by rank)``."""
     import multiprocessing as mp
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=pg_child,
-                         args=(r, 2, backend, port, cfg, PG_STEPS, PG_BATCH,
-                               PG_SEQ, queue, chunks)) for r in range(2)]
+    procs = [ctx.Process(target=target,
+                         args=(r, 2, backend, port, *args_of(backend, port),
+                               queue), kwargs=kw) for r in range(2)]
     for p in procs:
         p.start()
     import queue as queue_mod
@@ -1503,7 +1589,8 @@ def phase7_keyed(torch, by_path, rows, base, cfg) -> dict:
     out = {"7a": phase7a_prng(torch, rows, timed=True)}
     llama = get_config("llama3.2-1b")
     pol = adaptk.make_policy("variance")
-    base_argv = ["--arch", "llama3.2-1b", "--batch", "8", "--seq", "128"]
+    base_argv = ["--arch", "llama3.2-1b", "--mesh", "1x1", "--batch", "8",
+                 "--seq", "128"]
     fixed = ["--density-policy", "none"]
     draws = {"threefry_bits": 12}
     paths = (   # label, argv or None (MC), expect, compressor, adaptive
@@ -2149,8 +2236,8 @@ def phase9_chunked(torch, by_path, ref5c, small_cfg, small_base) -> dict:
 
 # -- phase 10: serving and the weight-delta stream (slice 7) --
 
-SERVE_ARGV = ["--arch", "llama3.2-1b", "--requests", "12", "--max-batch",
-              "8", "--prompt-len", "64", "--gen", "16"]
+SERVE_ARGV = ["--arch", "llama3.2-1b", "--mesh", "1x1", "--requests", "12",
+              "--max-batch", "8", "--prompt-len", "64", "--gen", "16"]
 STREAM_ARGV = ["--publish-every", "4", "--publish-ratio", "0.01",
                "--resync-every", "3"]
 
@@ -2339,7 +2426,7 @@ def phase10_serve(torch, by_path) -> dict:
         build_layout(meta, 1, RATIO, get_compressor("gaussiank")), 0.01,
         get_compressor("topk"))
     by_path["10b train --publish-every 1"], records, peak, _, _ = \
-        train_path("10b publish", ["--arch", "llama3.2-1b",
+        train_path("10b publish", ["--arch", "llama3.2-1b", "--mesh", "1x1",
                                    "--density-policy", "none", "--batch",
                                    "8", "--seq", "128", "--publish-every",
                                    "1", "--resync-every", "2"],
@@ -2360,8 +2447,8 @@ def phase10_serve(torch, by_path) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         x, ca, cb = (os.path.join(tmp, n) for n in ("x.npz", "a.npz",
                                                     "b.npz"))
-        base = ["--arch", "sys", "--density-policy", "none", "--batch",
-                "4", "--seq", "16", "--publish-every", "1",
+        base = ["--arch", "sys", "--mesh", "1x1", "--density-policy",
+                "none", "--batch", "4", "--seq", "16", "--publish-every", "1",
                 "--resync-every", "2"]
         train.run(base + ["--steps", "4", "--checkpoint", x], cfg=small)
         train.run(base + ["--steps", "3", "--checkpoint", ca], cfg=small)
@@ -2683,8 +2770,9 @@ def phase11_archs(torch, by_path, rows) -> dict:
         with timer:
             launches, recs = drive(
                 label, lambda: train.run(
-                    ["--arch", arch, "--batch", "8", "--seq", "128",
-                     "--steps", str(steps), "--log-every", "1"], cfg=cfg),
+                    ["--arch", arch, "--mesh", "1x1", "--batch", "8",
+                     "--seq", "128", "--steps", str(steps), "--log-every",
+                     "1"], cfg=cfg),
                 expect, steps, {"threefry_bits": init_draws(cfg)})
         peak = torch.cuda.max_memory_allocated()
         compress_ms = timer.per_step(steps)
@@ -2718,8 +2806,9 @@ def phase11_archs(torch, by_path, rows) -> dict:
         prompt_draws = 1 if cfg.frontend == "embeds" else 2
         torch.cuda.reset_peak_memory_stats()
         launches, got = zeroed(lambda: serve.run(
-            ["--arch", arch, "--requests", "8", "--max-batch", "8",
-             "--prompt-len", "64", "--gen", "8"], cfg=cfg))
+            ["--arch", arch, "--mesh", "1x1", "--requests", "8",
+             "--max-batch", "8", "--prompt-len", "64", "--gen", "8"],
+            cfg=cfg))
         peak = torch.cuda.max_memory_allocated()
         want = {n: 0 for n in launches}
         want["threefry_bits"] = init_draws(cfg) + prompt_draws * got["waves"]
@@ -2806,6 +2895,251 @@ def phase11_archs(torch, by_path, rows) -> dict:
     return out
 
 
+TP_STEPS = 3
+
+
+def tp_shared_gradient(torch, rank, backend, port) -> dict:
+    """12b's check of the relayout and of the row's compression at full
+    width, in a process group of its own on ``port``: one shared random
+    gradient of llama3.2-1b (drawn alike on both ranks from one seed)
+    cut to this rank's shards and moved into its row by ``ModelRow``,
+    held against the one-process ``(2, d_row_total)`` bucket bitwise:
+    the row equal to the bucket's row ``rank``, the bucket's row moved
+    back equal to the shards, and ``bucket_compress`` of the row (K1-K3)
+    equal to the whole bucket's row ``rank`` in values, indices, ``e'``
+    and nnz.  Returns the relayout's ms each way and the row's nnz."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import codec
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.dist import aggregate
+    from repro_torch.dist import tensor_parallel as tpm
+    from repro_torch.dist.layout import build_layout, pack_grads
+    from repro_torch.dist.wire import ProcessGroupWire, init_process_group
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.models import init_params
+
+    os.environ["MASTER_PORT"] = str(port)
+    init_process_group(backend, rank=rank, world_size=2, local_rank=rank,
+                       local_world_size=2)
+    try:
+        cfg = get_config("llama3.2-1b")
+        meta = init_params(cfg, 0, "meta")
+        tp = tpm.TensorParallel(cfg, ProcessGroupWire(parse_mesh("1x2")),
+                                meta)
+        M, r = tp.axis.size, tp.axis.rank
+        comp = CompressionConfig(compressor="gaussiank", ratio=RATIO)
+        layout = build_layout(meta, M, comp)
+        dev = torch.device("cuda", torch.cuda.current_device())
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(29)
+        grads = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3)
+                 for p in tree.leaves(meta)]
+        full = pack_grads(layout, grads, torch.float32)
+        local = [tpm.shard(g, s, r, M) for g, s in zip(grads, tp.specs)]
+        del grads
+        rows = tp.rows(layout)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in "abc"]
+        ev[0].record()
+        mine = rows.pack(layout, 0, local, torch.float32)
+        ev[1].record()
+        back = rows.unpack(layout, 0, full[r:r + 1], local)
+        ev[2].record()
+        assert torch.equal(mine[0], full[r]), "relayout into the row"
+        for a, b, seg in zip(back, local, layout.segments):
+            assert torch.equal(a, b), ("relayout back", seg.name)
+        del back
+        E = torch.randn((M, layout.d_row_total), generator=gen,
+                        device=dev).mul_(5e-4)
+        E_row = E[r:r + 1].clone()
+        want = aggregate.bucket_compress(full, E, layout, comp.spec)
+        got = aggregate.bucket_compress(mine, E_row, layout, comp.spec,
+                                        row=r)
+        for a, b, what in zip(got, want, ("values", "indices", "e'")):
+            assert torch.equal(a[0], b[r]), ("row compression", what)
+        nnz = codec.nnz(got[1]).float()
+        assert torch.equal(rows.total(nnz), codec.nnz(want[1]).float()), \
+            "nnz over the model group"
+        torch.cuda.synchronize()
+        return {"pack_ms": ev[0].elapsed_time(ev[1]),
+                "unpack_ms": ev[1].elapsed_time(ev[2]), "nnz": int(nnz)}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def tp_child(rank, world, backend, port, argv, check_port, queue):
+    """Phase 12b, one rank of the tensor-parallel launch: ``train.run``
+    under a ``torchrun``-style environment (``argv`` at ``--mesh 1x2``),
+    its launches counted from 0, the relayout's ms a step (CUDA events
+    around ``ModelRow.pack`` and ``ModelRow.unpack``) and its peak
+    memory; then :func:`tp_shared_gradient` on ``check_port``; puts
+    ``(rank, results)`` on ``queue``."""
+    import traceback
+    try:
+        sys.path.insert(0, os.path.join(HERE, "src"))
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        from repro_torch.dist import tensor_parallel as tpm
+        from repro_torch.launch import train
+        events = {"pack": [], "unpack": []}
+        origs = {n: getattr(tpm.ModelRow, n) for n in events}
+
+        def timed(name):
+            def call(self, *a, **k):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                out = origs[name](self, *a, **k)
+                ev[1].record()
+                events[name].append(ev)
+                return out
+            return call
+
+        for n in events:
+            setattr(tpm.ModelRow, n, timed(n))
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
+        funcs = counters()
+        for f in funcs.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            recs = train.run(argv + ["--steps", str(TP_STEPS),
+                                     "--dist-backend", backend])
+        finally:
+            for n, f in origs.items():
+                setattr(tpm.ModelRow, n, f)
+        torch.cuda.synchronize()
+        launches = {n: f.launches for n, f in funcs.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = {n: [a.elapsed_time(b) for a, b in ev]
+              for n, ev in events.items()}
+        shared = tp_shared_gradient(torch, rank, backend, check_port)
+        queue.put((rank, {
+            "losses": [r["loss"] for r in recs],
+            "step_ms": [r["ms"] for r in recs],
+            "density": [r["density"] for r in recs],
+            "density_cap": recs[0]["density_cap"],
+            "launches": launches,
+            "pack_ms": ms["pack"], "unpack_ms": ms["unpack"],
+            "peak_gib": peak, "shared_gradient": shared,
+            "device": torch.cuda.current_device()}))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def phase12_model_axis(torch, by_path, llama) -> dict:
+    """Slice 2c, the model axis, each path with the launch counters set
+    to 0 just before it and read just after (:func:`phase12a`,
+    :func:`phase12b`):
+
+    12a. ``train.run`` at ``--mesh 4x2 --host-devices 8`` (the
+         reference's default mesh, in this process) on llama3.2-1b at
+         full width and depth, Gaussian-k fixed-k at 0.001, 8 x 128, 3
+         steps: 96 launches a step of K1, K2 and both K3 (4 workers x 12
+         leaves x 2 rows), every worker's step-0 ``(2, d_row_total)``
+         bucket conserving bitwise; step ms and peak memory;
+    12b. the tensor-parallel step at ``--mesh 1x2``: two processes
+         (``tp_child``; NCCL with a card each when two are visible, else
+         gloo on the one card, staged through host memory), each holding
+         its half of every split leaf, 3 steps: 12 launches a step of
+         each kernel a rank (one a row a leaf), the losses those of the
+         one-process ``--mesh 1x2`` run within rtol 1e-6 (run first,
+         24 launches a step); step ms, the relayout's ms (shards into
+         the row and the mean row back) and each rank's peak memory;
+         then, on one shared random gradient at full width, the
+         relayout both ways and the row's compression bitwise the
+         one-process bucket's row (:func:`tp_shared_gradient`)."""
+    return {"12a": phase12a(torch, by_path, llama),
+            "12b": phase12b(torch, by_path, llama)}
+
+
+def phase12a(torch, by_path, llama) -> dict:
+    """12a of :func:`phase12_model_axis`."""
+    label = "12a mesh 4x2"
+    log("phase 12a: llama3.2-1b at full width and depth, --mesh 4x2 in "
+        "this process (--host-devices 8), Gaussian-k fixed-k, 3 steps")
+    by_path[label], records, peak, bnd, extra = train_path(
+        label, llama + ["--host-devices", "8", "--mesh", "4x2"],
+        {n: 96 for n in MAIN_KERNELS}, 3, torch, workers=4)
+    assert peak < 80e9, (label, "peak memory", peak)
+    out = {"losses": [r["loss"] for r in records],
+           "step_ms": [r["ms"] for r in records],
+           "wire_ms": extra["wire_ms"],
+           "compress_ms": extra["compress_ms"],
+           "peak_mem_gib": peak / 2**30,
+           "density": [r["density"] for r in records],
+           "density_cap": records[0]["density_cap"],
+           "step_bound_ms": bnd}
+    del records
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase12b(torch, by_path, llama) -> dict:
+    """12b of :func:`phase12_model_axis`."""
+    import numpy as np
+    label = "12b one process, mesh 1x2"
+    log("phase 12b: the one-process --mesh 1x2 run the tensor-parallel "
+        "ranks are held to, 3 steps")
+    by_path[label], records, peak1, _, _ = train_path(
+        label, llama + ["--host-devices", "2", "--mesh", "1x2"],
+        {n: 24 for n in MAIN_KERNELS}, TP_STEPS, torch)
+    ref = [r["loss"] for r in records]
+    del records
+    torch.cuda.empty_cache()
+    log("phase 12b: the tensor-parallel step, --mesh 1x2 in 2 processes, "
+        "full width and depth, 3 steps")
+    from repro_torch.configs import get_config
+    argv = llama + ["--mesh", "1x2", "--log-every", "1"]
+    t0 = time.time()
+    check_port = []
+
+    def args_of(backend, port):
+        # one port for both ranks' check group, not the launch's
+        while not check_port or check_port[0] == port:
+            check_port[:] = [free_port()]
+        return argv, check_port[0]
+
+    backend, got = spawn_ranks(torch, tp_child, args_of)
+    draws = init_draws(get_config("llama3.2-1b"))
+    ranks = {}
+    for rank in range(2):
+        res = got[rank]
+        want = {n: (12 * TP_STEPS if n in MAIN_KERNELS else
+                    draws if n == "threefry_bits" else 0)
+                for n in res["launches"]}
+        assert res["launches"] == want, (rank, res["launches"], want)
+        np.testing.assert_allclose(res["losses"], ref, rtol=1e-6)
+        assert all(math.isfinite(x) for x in res["losses"])
+        assert len(res["pack_ms"]) == len(res["unpack_ms"]) == TP_STEPS
+        by_path[f"12b tensor parallel, rank {rank}"] = res["launches"]
+        relayout = [a + b for a, b in zip(res["pack_ms"],
+                                          res["unpack_ms"])]
+        ranks[rank] = {k: res[k] for k in ("losses", "step_ms", "pack_ms",
+                                           "unpack_ms", "peak_gib",
+                                           "density", "device",
+                                           "shared_gradient")}
+        ranks[rank]["relayout_ms"] = relayout
+        log(f"  12b rank {rank} (cuda:{res['device']}): losses "
+            f"{res['losses']} (one process {ref}); step ms "
+            f"{[round(x, 1) for x in res['step_ms']]}; relayout ms "
+            f"{[round(x, 1) for x in relayout]} (into the row "
+            f"{[round(x, 1) for x in res['pack_ms']]}, back "
+            f"{[round(x, 1) for x in res['unpack_ms']]}); peak "
+            f"{res['peak_gib']:.2f} GiB; launches {res['launches']}; "
+            f"shared gradient bitwise (relayout and row compression): "
+            f"{res['shared_gradient']}")
+    return {"backend": backend, "cards": torch.cuda.device_count(),
+            "one_process_losses": ref,
+            "one_process_peak_gib": peak1 / 2**30, "ranks": ranks,
+            "wall_s": time.time() - t0}
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2850,6 +3184,23 @@ def main(argv) -> int:
                         "launches_by_path": by_path}))
         log("arch-only run: phases 2-10 skipped")
         return 0
+    llama = ["--arch", "llama3.2-1b", "--mesh", "1x1", "--density-policy",
+             "none", "--batch", "8", "--seq", "128"]
+    if "--model-axis-only" in argv:
+        check_model_rows(torch)
+        by_path = {}
+        log(json.dumps({"phase12": phase12_model_axis(torch, by_path,
+                                                      llama),
+                        "launches_by_path": by_path}))
+        log("model-axis-only run: phases 2-11 skipped (phase 2's M = 2 "
+            "rows run)")
+        return 0
+    if "--tensor-parallel-only" in argv:
+        by_path = {}
+        log(json.dumps({"phase12b": phase12b(torch, by_path, llama),
+                        "launches_by_path": by_path}))
+        log("tensor-parallel-only run: phase 12b alone")
+        return 0
 
     # -- phase 2: kernels against their plain versions --
     sizes = (2048, 1_000_003) if kernels_only else (2048, 1_000_003,
@@ -2858,6 +3209,8 @@ def main(argv) -> int:
     for n, d in enumerate(sizes):
         check_kernels(d, n, rows, timed=d == sizes[-1])
         torch.cuda.empty_cache()
+    log("phase 2: K1-K3 on the rows of a bucket at a model axis of 2")
+    check_model_rows(torch)
     pipelines = rows.pop("pipelines", None)
     if kernels_only:
         phase7a_prng(torch, rows, timed=False)
@@ -2867,8 +3220,6 @@ def main(argv) -> int:
         return 0
 
     # -- phase 3: the paths at full width --
-    llama = ["--arch", "llama3.2-1b", "--density-policy", "none",
-             "--batch", "8", "--seq", "128"]
     by_path = {}
     log("phase 3: llama3.2-1b at full width, Gaussian-k (fused), 3 steps")
     by_path["gaussiank fused"], records, peak, bnd, _ = train_path(
@@ -3086,8 +3437,8 @@ def main(argv) -> int:
 
     # -- phase 6: adaptive layer-wise density --
     phase6 = phase6_adaptive(torch, by_path, llama_adaptive=[
-        "--arch", "llama3.2-1b", "--batch", "8", "--seq", "128"],
-        fixed_step_ms=main_path["step_ms"], fixed_peak=main_path[
+        "--arch", "llama3.2-1b", "--mesh", "1x1", "--batch", "8", "--seq",
+        "128"], fixed_step_ms=main_path["step_ms"], fixed_peak=main_path[
             "peak_mem_gib"], base=base, cfg=cfg)
 
     # -- phase 7: the PRNG, the keyed compressors, momentum correction --
@@ -3105,6 +3456,9 @@ def main(argv) -> int:
     # -- phase 11: the other architectures --
     phase11 = phase11_archs(torch, by_path, rows)
 
+    # -- phase 12: the model axis --
+    phase12 = phase12_model_axis(torch, by_path, llama)
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -3115,7 +3469,7 @@ def main(argv) -> int:
                     "small": small, "phase5": phase5, "phase6": phase6,
                     "phase7": phase7, "phase8": phase8,
                     "phase9": phase9, "phase10": phase10,
-                    "phase11": phase11,
+                    "phase11": phase11, "phase12": phase12,
                     "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(json.dumps({"kernels": list(rows.values())}))

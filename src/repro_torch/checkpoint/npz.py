@@ -18,7 +18,7 @@ are ``(workers, d_pad)`` leaves (``resid/<leaf path>``).  With
 from __future__ import annotations
 
 import os
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -82,7 +82,8 @@ def _migrate_legacy_residual(flat: dict, key: str, layout):
 
 def load_state(path: str, like: Any, *,
                worker_rows: Optional[Sequence[int]] = None,
-               layout=None) -> Any:
+               layout=None,
+               shard: Optional[Callable[[str, Any], Any]] = None) -> Any:
     """Restore into the structure of ``like``: each tensor leaf is
     overwritten in place (shape checked, cast to its dtype), each numpy
     or integer leaf replaced (numpy: shape checked, cast to its dtype).
@@ -90,9 +91,14 @@ def load_state(path: str, like: Any, *,
     residuals — a process that runs one worker of a W-worker checkpoint
     passes its rank.  ``layout`` (the state's ``BucketLayout``) lets a
     per-leaf checkpoint's residuals load into the flat buckets,
-    bitwise.  The global-k scalars ``adaptk/gnorm`` and
-    ``adaptk/gnorm0`` and the publisher's ``publish/...`` entries are
-    zero-filled when the checkpoint lacks them."""
+    bitwise.  ``shard(key, array)`` cuts each entry to what ``like``
+    holds: a tensor-parallel rank's shards and residual row
+    (``dist/tensor_parallel.state_shard_fn``); a tensor-parallel save
+    gathers them first (``gather_state``), so the keys and shapes are
+    the one-process run's at the same mesh.  The global-k scalars
+    ``adaptk/gnorm`` and ``adaptk/gnorm0`` and the publisher's
+    ``publish/...`` entries are zero-filled when the checkpoint lacks
+    them."""
     with np.load(path) as data:
         flat = dict(data)
     pairs, td = tree.flatten_with_path(like)
@@ -110,6 +116,8 @@ def load_state(path: str, like: Any, *,
             arr = flat[key]
         if worker_rows is not None and key.split(_SEP)[0] in _RESID_KEYS:
             arr = arr[list(worker_rows)]
+        if shard is not None:
+            arr = shard(key, arr)
         if isinstance(leaf, torch.Tensor):
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} != "

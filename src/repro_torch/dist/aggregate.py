@@ -60,6 +60,14 @@ gradients exist, pass A (K1) runs on ``u`` alone, ``G`` is dropped, and
 ``g + e`` in f32 before anything else, so this is bitwise the same as
 compressing ``(G, E)``.
 
+A tensor-parallel rank holds one model row of every bucket
+(:class:`AllRows` is the one-process default, which holds all ``M``;
+``dist/tensor_parallel.ModelRow`` the rank's): the rank compresses row
+``r`` at the row's own budget and keys, its pass-A statistics are
+gathered over the model group for the allocation, and its nnz summed
+over it for the density, so each row is bitwise the one-process
+bucket's.
+
 The chunked schedule and the per-leaf loop dispatch the same arithmetic
 at other granularities (:class:`ChunkedAggregation`): the bucket is cut
 into leaf-aligned chunk groups (``layout.build_chunk_plan``; per leaf,
@@ -159,11 +167,13 @@ def _row_budget(k, model_size: int, d_row: int) -> np.int32:
 
 
 def _compress_rows_dynamic(u_rows, spec: CompressorSpec, k, k_cap: int,
-                           codec_dtype=None, keys=None):
+                           codec_dtype=None, keys=None, model_size=None):
     """Reference branch with a per-step leaf budget ``k``: each row
     selects ``adaptk.select_dynamic`` at ``k_row = ceil(k / M)`` into
-    the static capacity ``k_cap`` (with its key from ``keys``)."""
-    k_row = _row_budget(k, u_rows.shape[0], u_rows.shape[1])
+    the static capacity ``k_cap`` (with its key from ``keys``); ``M`` is
+    ``model_size``, by default the number of rows given."""
+    M = u_rows.shape[0] if model_size is None else model_size
+    k_row = _row_budget(k, M, u_rows.shape[1])
     return _compress_rows_reference(
         u_rows, lambda r, key: adaptk.select_dynamic(spec, r, k_row, k_cap,
                                                      key),
@@ -179,15 +189,17 @@ def _zero_velocity(V_rows: torch.Tensor, indices: torch.Tensor) -> None:
                                        V_rows.dtype))
 
 
-def _segment_keys(key, s, key_fold, M: int):
+def _segment_keys(key, s, key_fold, M: int, row=None):
     """The rows' keys of segment ``s``: ``split(fold_in(key, salt)[,
-    key_fold], M)``; None without a key."""
+    key_fold], M)``, or of model row ``row`` alone; None without a
+    key."""
     if key is None:
         return None
     seg = prng.fold_in(key, s.salt)
     if key_fold is not None:
         seg = prng.fold_in(seg, key_fold)
-    return prng.split(seg, M)
+    keys = prng.split(seg, M)
+    return keys if row is None else keys[row:row + 1]
 
 
 def _wire_cast_fixup(values, indices, new_e_rows, codec_dtype):
@@ -209,10 +221,13 @@ def bucket_compress(G: Optional[torch.Tensor], E: torch.Tensor,
                     layout: BucketLayout, spec: CompressorSpec, key=None, *,
                     backend: str = "auto", codec_dtype=None,
                     momentum: float = 0.0, V: Optional[torch.Tensor] = None,
-                    k_alloc=None, seg_stats=None, key_fold=None):
+                    k_alloc=None, seg_stats=None, key_fold=None,
+                    row=None):
     """Worker-local EF compression of the packed bucket.
 
-    ``G``/``E`` are ``(model_size, d_row_total)`` buckets; ``G=None``
+    ``G``/``E`` are ``(model_size, d_row_total)`` buckets, or with
+    ``row`` the ``(1, d_row_total)`` model row ``row`` of them alone (a
+    tensor-parallel rank's; budgets and keys are the row's); ``G=None``
     means ``E`` already holds ``u = G + E``.  Returns ``(values, indices,
     new_E)`` with ONE ``(model_size, k_cap_total)`` codec pair whose
     indices are bucket-global and whose values are ``codec_dtype`` (f32
@@ -254,7 +269,7 @@ def bucket_compress(G: Optional[torch.Tensor], E: torch.Tensor,
     else:
         for si, s in enumerate(segs):
             cols = slice(s.row_off, s.row_off + s.d_row)
-            keys = _segment_keys(key, s, key_fold, M)
+            keys = _segment_keys(key, s, key_fold, M, row)
             if momentum > 0.0:
                 vel = V[:, cols].mul_(momentum).add_(G[:, cols])
                 u = E[:, cols] + vel
@@ -262,7 +277,8 @@ def bucket_compress(G: Optional[torch.Tensor], E: torch.Tensor,
                 u = E[:, cols] if G is None else E[:, cols] + G[:, cols]
             if adaptive:
                 v, i, ne = _compress_rows_dynamic(u, spec, k_alloc[si],
-                                                  s.k_cap, codec_dtype, keys)
+                                                  s.k_cap, codec_dtype, keys,
+                                                  M)
             else:
                 v, i, ne = _compress_rows_reference(
                     u, lambda r, k, s=s: spec.select(r, s.k_row, k),
@@ -283,6 +299,45 @@ def bucket_compress(G: Optional[torch.Tensor], E: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# which rows of the bucket this process holds
+# ---------------------------------------------------------------------------
+
+
+class AllRows:
+    """This process holds all ``M`` model rows of every bucket: it packs
+    whole gradient leaves into them and unpacks whole leaves.  A
+    tensor-parallel rank holds one row instead
+    (``dist/tensor_parallel.ModelRow``, the same methods)."""
+
+    row = None
+
+    def held(self, layout: BucketLayout) -> int:
+        """The number of bucket rows held."""
+        return layout.model_size
+
+    def pack(self, view: BucketLayout, seg_lo: int, leaves, dtype):
+        """The chunk ``view`` (its first segment global ``seg_lo``) of
+        the gradient ``leaves`` as its held rows."""
+        return pack_grads(view, leaves, dtype)
+
+    def unpack(self, view: BucketLayout, seg_lo: int, mean, like) -> list:
+        """The held rows ``mean`` of the chunk back into its leaves."""
+        return unpack_tree(view, mean, like=like)
+
+    def all_rows(self, row_stats: list) -> list:
+        """Per segment, every model row's pass-A ``(s, sq, mx)``, in row
+        order, from the held rows' ``row_stats``."""
+        return row_stats
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-worker count summed over the model rows."""
+        return x
+
+
+ALL_ROWS = AllRows()
+
+
+# ---------------------------------------------------------------------------
 # adaptive density: pass A, the signal, the allocation
 # ---------------------------------------------------------------------------
 
@@ -298,29 +353,39 @@ def _stats_reduce(row_stats):
     return s, sq, mx
 
 
-def pass_a_stats_rows(u_rows: torch.Tensor) -> tuple:
+def pass_a_stats_rows(u_rows: torch.Tensor) -> torch.Tensor:
     """The reference backend's pass A of one leaf's ``(M, d_row)`` rows
-    of ``u``: ``(sum(u), sum(u²), max|u|)`` as 0-d tensors on ``u``'s
-    device (zero padding adds nothing)."""
-    return (torch.sum(u_rows), torch.sum(u_rows * u_rows),
-            torch.amax(torch.abs(u_rows)))
+    of ``u``: ``(M, 3)`` rows of ``(sum(u), sum(u²), max|u|)`` on
+    ``u``'s device (zero padding adds nothing); :func:`_stats_reduce`
+    makes them the leaf's, as it does the fused branch's."""
+    return torch.stack([torch.sum(u_rows, dim=1),
+                        torch.sum(u_rows * u_rows, dim=1),
+                        torch.amax(torch.abs(u_rows), dim=1)], dim=1)
 
 
 def _pass_a(u: torch.Tensor, layout: BucketLayout, spec: CompressorSpec,
-            fused: bool):
+            fused: bool, rows=None):
     """Pass A of one worker over its bucket of ``u``: ``(seg_stats,
     moments)`` with ``seg_stats`` the fused branch's per-segment row
     statistics on the host (None on the reference branch) and
-    ``moments`` each segment's ``(s, sq, mx)``.  One device-to-host copy
-    of the statistics (two for hist-k's histograms)."""
+    ``moments`` each segment's ``(s, sq, mx)``, reduced over the rows
+    in row order.  One device-to-host copy of the statistics (two for
+    hist-k's histograms).  ``rows`` (an :class:`AllRows`) brings the
+    rows this process does not hold."""
     segs = layout.segments
+    rows = ALL_ROWS if rows is None else rows
     if fused:
         seg_stats = stats_to_host(segmented_pass_a(
             u, None, [(s.row_off, s.d_row) for s in segs], spec.name))
-        return seg_stats, [_stats_reduce(rows) for rows in seg_stats]
-    stacked = torch.stack([torch.stack(pass_a_stats_rows(
-        u[:, s.row_off:s.row_off + s.d_row])) for s in segs]).cpu().numpy()
-    return None, [tuple(np.float32(x) for x in row) for row in stacked]
+        row_stats = [[tuple(np.float32(x) for x in st[:3]) for st in r]
+                     for r in seg_stats]
+    else:
+        seg_stats = None
+        stacked = torch.stack([pass_a_stats_rows(
+            u[:, s.row_off:s.row_off + s.d_row]) for s in segs]).cpu()
+        row_stats = [[tuple(np.float32(x) for x in st) for st in r]
+                     for r in stacked.numpy()]
+    return seg_stats, [_stats_reduce(r) for r in rows.all_rows(row_stats)]
 
 
 def _adaptive_allocation(adapt_state, sigs, sqs, dims, ratio, policy, step,
@@ -617,10 +682,13 @@ def _wire_config(strategy: str, wire, with_resid2: bool, mc: float,
         n_pods, n_inner, world
 
 
-def _rows(resid: torch.Tensor, layout: BucketLayout, workers: int):
+def _rows(resid: torch.Tensor, layout: BucketLayout, workers: int,
+          held=None):
     """``(workers, M, D)`` view of a ``(workers, flat)`` or, for one
-    worker, ``(flat,)`` residual."""
-    M, D = layout.model_size, layout.d_row_total
+    worker, ``(flat,)`` residual; ``M`` is ``held`` when given (the rows
+    this process holds)."""
+    M = layout.model_size if held is None else held
+    D = layout.d_row_total
     if resid.dim() == 1:
         if workers != 1:
             raise ValueError(f"a (flat,) residual holds one worker, the "
@@ -677,7 +745,8 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
                        config: CompressionConfig, *, wire=None,
                        resid2: Optional[torch.Tensor] = None,
                        probe: Optional[Callable] = None, adapt_state=None,
-                       step=None, keys=None) -> AggregateResult:
+                       step=None, keys=None,
+                       rows: Optional[AllRows] = None) -> AggregateResult:
     """Eq. (2) sparse aggregation over the bucketed pipeline: one
     compress + wire chain a step (:func:`aggregate_bucketed_chunked` at
     one chunk).
@@ -702,11 +771,11 @@ def aggregate_bucketed(grads, resid: torch.Tensor, layout: BucketLayout,
     Returns an :class:`AggregateResult` whose ``agg`` leaves are views
     into the decoded mean bucket (model_size 1), the same on every
     worker.  ``probe`` is :class:`ChunkedAggregation`'s (chunk 0): hooks
-    for checks such as conservation."""
+    for checks such as conservation; so is ``rows``."""
     return aggregate_bucketed_chunked(
         grads, resid, layout, build_chunk_plan(layout, 1), config,
         wire=wire, resid2=resid2, probe=probe, adapt_state=adapt_state,
-        step=step, keys=keys)
+        step=step, keys=keys, rows=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -730,6 +799,11 @@ class ChunkedAggregation:
     :class:`AggregateResult`; its ``agg`` leaves are views into the
     chunks' means.
 
+    ``rows`` says which model rows of the buckets this process holds
+    (:class:`AllRows` by default; a tensor-parallel rank's
+    ``ModelRow``): it packs the released leaves into them, brings the
+    other rows' pass-A statistics and unpacks the means.
+
     ``probe``, when given, is called as ``probe(rank, chunk=, G=,
     values=, indices=, new_E=)`` after each compression (adaptive:
     ``G=None``, after ``probe(rank, chunk=, u=)`` once the chunk's pass
@@ -740,7 +814,8 @@ class ChunkedAggregation:
     def __init__(self, layout: BucketLayout, plan: ChunkPlan,
                  config: CompressionConfig, *, wire, E, R2=None,
                  probe: Optional[Callable] = None, adapt_state=None,
-                 step=None, keys=None, resid=None, resid2=None):
+                 step=None, keys=None, resid=None, resid2=None,
+                 rows: Optional[AllRows] = None):
         validate_chunk_plan(layout, plan)
         workers = len(E)
         (self.strategy, self.hier, self.gtopk, self.outer_gtopk,
@@ -753,6 +828,7 @@ class ChunkedAggregation:
         self.mc = config.momentum_correction
         self.fused = resolve_backend(config.backend, self.spec)
         self.E, self.R2, self.probe = E, R2, probe
+        self.rows = ALL_ROWS if rows is None else rows
         self.resid, self.resid2 = resid, resid2
         self.adapt_state, self.step = adapt_state, step
         self.views = [chunk_view(layout, g) for g in plan.groups]
@@ -787,23 +863,25 @@ class ChunkedAggregation:
             if self.dtypes[j] is None:
                 # the dense baseline's bits, from the runtime grad dtypes
                 self.dtypes[j] = g.dtype
-                self.bits_dense += 2 * g.numel() * g.element_size() * 8
+                self.bits_dense += (2 * self.layout.segments[j].size
+                                    * g.element_size() * 8)
         E = self.E[w][c]
-        G = pack_grads(view, leaves, E.dtype)
+        G = self.rows.pack(view, grp.seg_lo, leaves, E.dtype)
         del leaves
         rank = self.wire.ranks[w]
         if self.policy is not None:
             u = E.add_(G)
             del G
             self.stats[w][c], self.moments[w][c] = _pass_a(
-                u, view, self.spec, self.fused)
+                u, view, self.spec, self.fused, self.rows)
             self._note(rank, chunk=c, u=u)
         else:
             v, i, _ = bucket_compress(
                 G, E, view, self.spec, self.keys[w],
                 backend=self.config.backend,
                 codec_dtype=self.config.codec_dtype, momentum=self.mc,
-                V=self.R2[w][c] if self.mc > 0.0 else None)
+                V=self.R2[w][c] if self.mc > 0.0 else None,
+                row=self.rows.row)
             self._note(rank, chunk=c, G=G, values=v, indices=i, new_E=E)
             del G
             self.pairs[c][w] = (v, i)
@@ -846,7 +924,7 @@ class ChunkedAggregation:
                 v2, i2, _ = bucket_compress(
                     means[w], self.R2[w][c], view, self.spec, self.keys[w],
                     backend=self.config.backend, codec_dtype=cd,
-                    k_alloc=ka, key_fold=1)
+                    k_alloc=ka, key_fold=1, row=self.rows.row)
                 v2s.append(v2)
                 i2s.append(i2)
                 self.nnz[w] += codec.nnz(i2).to(torch.float32)
@@ -887,7 +965,7 @@ class ChunkedAggregation:
                     backend=self.config.backend,
                     codec_dtype=self.config.codec_dtype,
                     k_alloc=self.k_alloc[grp.seg_lo:grp.seg_hi],
-                    seg_stats=self.stats[w][c])
+                    seg_stats=self.stats[w][c], row=self.rows.row)
                 self._note(self.wire.ranks[w], chunk=c, G=None, values=v,
                            indices=i, new_E=new_E)
                 self.pairs[c][w] = (v, i)
@@ -908,10 +986,10 @@ class ChunkedAggregation:
         means = [m()[0] if callable(m) else m for m in self.means]
         self.means = None
         leaves = []
-        for view, mean in zip(self.views, means):
-            like = [torch.empty(0, dtype=self.dtypes[j]) for j in
-                    range(len(leaves), len(leaves) + len(view.segments))]
-            leaves.extend(unpack_tree(view, mean, like=like))
+        for grp, view, mean in zip(self.plan.groups, self.views, means):
+            like = [torch.empty(0, dtype=self.dtypes[j])
+                    for j in range(grp.seg_lo, grp.seg_hi)]
+            leaves.extend(self.rows.unpack(view, grp.seg_lo, mean, like))
         self._note(None, means=means, resid=self.resid, resid2=self.resid2)
         layout, wire = self.layout, self.wire
         M = layout.model_size
@@ -919,8 +997,8 @@ class ChunkedAggregation:
                                               self.n_pods,
                                               self.config.codec_dtype)
         metrics = {
-            "density": wire.pmean([x / layout.d_total for x in self.nnz],
-                                  wire.data_axes)[0],
+            "density": wire.pmean([self.rows.total(x) / layout.d_total
+                                   for x in self.nnz], wire.data_axes)[0],
             "density_cap": M * layout.k_cap_total / layout.d_total,
             "comm_bits_sparse": sparse_bits,
             "comm_bits_dense": self.bits_dense,
@@ -963,10 +1041,11 @@ def _feed(run: ChunkedAggregation, grads, first=None) -> Any:
 
 
 def flat_windows(resid: torch.Tensor, layout: BucketLayout,
-                 plan: ChunkPlan, workers: int) -> list:
+                 plan: ChunkPlan, workers: int, held=None) -> list:
     """Per local worker, each chunk group's ``(model_size, d_row)``
-    window of a ``(workers, flat)`` (or ``(flat,)``) residual: views."""
-    rows = _rows(resid, layout, workers)
+    window of a ``(workers, flat)`` (or ``(flat,)``) residual: views
+    (``(held, d_row)`` when the residual holds ``held`` rows)."""
+    rows = _rows(resid, layout, workers, held)
     return [[rows[w][:, g.row_off:g.row_off + g.d_row] for g in plan.groups]
             for w in range(workers)]
 
@@ -977,23 +1056,26 @@ def aggregate_bucketed_chunked(grads, resid: torch.Tensor,
                                resid2: Optional[torch.Tensor] = None,
                                probe: Optional[Callable] = None,
                                adapt_state=None, step=None,
-                               keys=None) -> AggregateResult:
+                               keys=None, rows: Optional[AllRows] = None
+                               ) -> AggregateResult:
     """:func:`aggregate_bucketed` dispatched as ``plan.n_chunks``
     compress + wire chains, one a chunk group of ``plan`` (which must
     tile ``layout``): the same arguments and bitwise the same results for
     any plan; ``metrics["collectives_per_step"]`` is
-    ``plan.collectives(...)``.  The gradients are released here chunk
+    ``plan.collectives(...)``.  ``rows``: :class:`ChunkedAggregation`'s.  The gradients are released here chunk
     after chunk, worker by worker; the train step releases them during
     the backward instead (:class:`ChunkedAggregation`)."""
     grads, wire = _workers_and_wire(grads, wire)
     workers = len(grads)
+    rows = ALL_ROWS if rows is None else rows
+    held = rows.held(layout)
     run = ChunkedAggregation(
         layout, plan, config, wire=wire,
-        E=flat_windows(resid, layout, plan, workers),
+        E=flat_windows(resid, layout, plan, workers, held),
         R2=(None if resid2 is None
-            else flat_windows(resid2, layout, plan, workers)),
+            else flat_windows(resid2, layout, plan, workers, held)),
         probe=probe, adapt_state=adapt_state, step=step, keys=keys,
-        resid=resid, resid2=resid2)
+        resid=resid, resid2=resid2, rows=rows)
     return run.finish(_feed(run, grads))
 
 

@@ -444,13 +444,15 @@ def chunk_view(layout: BucketLayout, group: ChunkGroup) -> BucketLayout:
 
 
 def init_flat_residual(layout: BucketLayout, dtype=torch.float32,
-                       device="cuda", workers: Optional[int] = None
-                       ) -> torch.Tensor:
+                       device="cuda", workers: Optional[int] = None,
+                       rows: Optional[int] = None) -> torch.Tensor:
     """Zero flat residual bucket, ``(model_size * d_row_total,)`` — or
     ``(workers, model_size * d_row_total)``, one row per worker — on
-    ``device`` (the card unless told ``"cpu"``; raises without a GPU)."""
-    shape = ((layout.flat_size,) if workers is None
-             else (workers, layout.flat_size))
+    ``device`` (the card unless told ``"cpu"``; raises without a GPU).
+    ``rows`` (default ``model_size``) is the number of the bucket's rows
+    held: a tensor-parallel rank holds 1."""
+    flat = (layout.model_size if rows is None else rows) * layout.d_row_total
+    shape = (flat,) if workers is None else (workers, flat)
     return torch.zeros(shape, dtype=dtype, device=resolve_device(device))
 
 

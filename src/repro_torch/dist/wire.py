@@ -22,7 +22,16 @@ Two implementations:
   share the other coordinates), ``all_gather_into_tensor`` of the
   payload's bytes, ``batch_isend_irecv`` for ``ppermute``.  Under gloo a
   CUDA payload is copied to the host and back explicitly; NCCL needs one
-  card per rank (:func:`init_process_group` raises otherwise).
+  card per rank (:func:`init_process_group` raises otherwise).  With a
+  model axis ``M > 1`` it is a tensor-parallel launch of ``D·M``
+  processes: a process's global rank is its joint rank over all mesh
+  axes, row-major with the model axis last (``w·M + r`` for data rank
+  ``w``, model rank ``r``); its data wire runs over the processes that
+  share ``r``, and its model group (:meth:`model_gather`,
+  :meth:`model_all_to_all`) holds the ``M`` processes that share ``w``.
+
+Under :class:`LocalWire` the model axis stays virtual: the one process
+holds all ``M`` rows of every bucket.
 
 Both sum a ``pmean`` one rank at a time in rank order on the payload's
 device and divide by the group size, so the two implementations give
@@ -39,7 +48,8 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from repro_torch.launch.mesh import (Mesh, data_axes_of, data_world_size,
-                                     worker_coords, worker_index)
+                                     model_axis_size, worker_coords,
+                                     worker_index)
 
 
 def _axes(axis) -> Tuple[str, ...]:
@@ -91,6 +101,7 @@ class _MeshWire:
         self.mesh = mesh
         self.data_axes = data_axes_of(mesh)
         self.world = data_world_size(mesh)
+        self.model_size = model_axis_size(mesh)
 
     def axis_size(self, axis) -> int:
         size = 1
@@ -126,10 +137,12 @@ class _MeshWire:
 
 
 class LocalWire(_MeshWire):
-    """All ``W`` workers of ``mesh`` in this process."""
+    """All ``W`` workers of ``mesh`` in this process, each holding all
+    ``M`` rows of its buckets."""
 
     name = "local"
     backend = "none"
+    tensor_parallel = False
 
     def __init__(self, mesh: Mesh):
         super().__init__(mesh)
@@ -190,8 +203,10 @@ def init_process_group(backend: str, *, rank: int, world_size: int,
 
 
 class ProcessGroupWire(_MeshWire):
-    """One worker per process over ``torch.distributed``; the process's
-    rank is its worker's joint rank.  Call after
+    """One worker per process over ``torch.distributed``; ``rank`` is its
+    worker's joint rank over the data axes.  With a model axis above 1
+    the launch has ``D·M`` processes and this one is model rank
+    ``model_rank`` of its worker (``tensor_parallel``).  Call after
     :func:`init_process_group`, in every rank (the groups are created
     collectively)."""
 
@@ -203,30 +218,48 @@ class ProcessGroupWire(_MeshWire):
         if not dist.is_initialized():
             raise RuntimeError("ProcessGroupWire: torch.distributed is not "
                                "initialised (init_process_group first)")
-        if dist.get_world_size() != self.world:
+        M = self.model_size
+        size = dist.get_world_size()
+        if size != self.world * M:
             raise ValueError(
-                f"mesh {'x'.join(map(str, mesh.shape))} has a data world "
-                f"of {self.world}, the process group has "
-                f"{dist.get_world_size()} ranks")
+                f"mesh {'x'.join(map(str, mesh.shape))} has {self.world} "
+                f"data-parallel workers x {M} model ranks, the process "
+                f"group has {size} ranks")
         self.dist = dist
         self.backend = dist.get_backend()
         self.async_ops = 0          # all-gathers issued with async_op
-        self.rank = dist.get_rank()
+        self.global_rank = dist.get_rank()
+        self.rank, self.model_rank = divmod(self.global_rank, M)
         self.ranks = [self.rank]
-        # one group per data axis and one over all of them, created in
-        # the same order by every rank
+        self.tensor_parallel = M > 1
+
+        def group_of(members):
+            return (dist.group.WORLD if len(members) == size
+                    else dist.new_group(list(members)))
+
+        # one group per data axis and one over all of them, for every
+        # model rank, created in the same order by every rank
         self._groups = {}
         for axes in [(a,) for a in self.data_axes] + [self.data_axes]:
             if axes in self._groups:
                 continue
             mine = None
-            for members in sorted({tuple(self.group(r, axes))
-                                   for r in range(self.world)}):
-                g = (dist.group.WORLD if len(members) == self.world
-                     else dist.new_group(list(members)))
-                if self.rank in members:
-                    mine = g
+            for r in range(M):
+                for members in sorted({tuple(self.group(w, axes))
+                                       for w in range(self.world)}):
+                    g = group_of([m * M + r for m in members])
+                    if r == self.model_rank and self.rank in members:
+                        mine = g
             self._groups[axes] = mine
+        self.model_group = None
+        if M > 1:
+            for w in range(self.world):
+                g = group_of([w * M + r for r in range(M)])
+                if w == self.rank:
+                    self.model_group = g
+
+    def _global(self, data_rank: int) -> int:
+        return data_rank * self.model_size + self.model_rank
 
     @property
     def local_workers(self) -> int:
@@ -296,11 +329,11 @@ class ProcessGroupWire(_MeshWire):
         dev = buf.device
         send = self._staged(buf)
         recv = torch.zeros_like(send)
-        ops = [self.dist.P2POp(self.dist.isend, send,
-                               self._peer(self.rank, axis, d)) for d in dst]
+        ops = [self.dist.P2POp(self.dist.isend, send, self._global(
+            self._peer(self.rank, axis, d))) for d in dst]
         if src is not None:
-            ops.append(self.dist.P2POp(self.dist.irecv, recv,
-                                       self._peer(self.rank, axis, src)))
+            ops.append(self.dist.P2POp(self.dist.irecv, recv, self._global(
+                self._peer(self.rank, axis, src))))
         if ops:
             for req in self.dist.batch_isend_irecv(ops):
                 req.wait()
@@ -311,6 +344,44 @@ class ProcessGroupWire(_MeshWire):
         n = self.axis_size(axes)
         return [_map(g, lambda t: _ordered_sum(t) / n)
                 for g in self.all_gather(xs, axes)]
+
+    # -- the model group (tensor parallelism) --
+
+    def model_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``(M, *t.shape)``: every model rank's ``t`` in model-rank
+        order, on ``t``'s device."""
+        src = self._staged(t.contiguous())
+        out = torch.empty((self.model_size * src.numel(),), dtype=src.dtype,
+                          device=src.device)
+        gather = getattr(self.dist, "all_gather_single", None) or \
+            self.dist.all_gather_into_tensor
+        gather(out, src.reshape(-1), group=self.model_group)
+        return out.view((self.model_size,) + tuple(t.shape)).to(t.device)
+
+    def model_all_reduce(self, t: torch.Tensor, op: str = "sum"
+                         ) -> torch.Tensor:
+        """``all_reduce`` of ``t`` over the model group (``"sum"`` or
+        ``"max"``) into a new tensor on ``t``'s device; ``t`` is left as
+        it is.  Every rank gets the same result."""
+        out = self._staged(t)
+        out = out.clone(memory_format=torch.contiguous_format) \
+            if out is t else out.contiguous()
+        reduce_op = {"sum": self.dist.ReduceOp.SUM,
+                     "max": self.dist.ReduceOp.MAX}[op]
+        self.dist.all_reduce(out, op=reduce_op, group=self.model_group)
+        return out.to(t.device)
+
+    def model_all_to_all(self, send: torch.Tensor, out_splits: Sequence[int],
+                         in_splits: Sequence[int]) -> torch.Tensor:
+        """``all_to_all_single`` of the 1-D ``send`` over the model group:
+        ``in_splits[q]`` elements to model rank ``q``, ``out_splits[q]``
+        from it, received in model-rank order on ``send``'s device."""
+        src = self._staged(send.contiguous())
+        out = torch.empty((sum(out_splits),), dtype=src.dtype,
+                          device=src.device)
+        self.dist.all_to_all_single(out, src, list(out_splits),
+                                    list(in_splits), group=self.model_group)
+        return out.to(send.device)
 
 
 def torchrun_env():

@@ -2,7 +2,7 @@
 
     python -m repro_torch.launch.profile --arch llama3.2-1b \\
         --steps 3 --batch 8 --seq 128 [--density-policy none] \\
-        [--mesh 4x1 --strategy gtopk]
+        [--mesh 4x1 --strategy gtopk]     # --mesh defaults to 4x2
 
     # one worker per card over NCCL
     torchrun --nproc-per-node 4 -m repro_torch.launch.profile ... --mesh 4x1
@@ -30,6 +30,10 @@ each worker's backward, and for the chunked schedule the moment each
 chunk's hook released its gradients, as a fraction of that worker's
 backward span (CUDA events recorded when the hook fires and at the
 backward's ends); then the same trace.
+
+The mesh's model axis ``M`` makes every worker's buckets ``M`` rows, as
+in the trainer; a tensor-parallel ``torchrun`` launch (``M > 1``) is not
+profiled yet.
 """
 from __future__ import annotations
 
@@ -64,6 +68,10 @@ def main(argv=None) -> int:
     else:
         wire, dev, started = make_wire(args, mesh)
     try:
+        if wire.tensor_parallel:
+            from repro_torch.slices import not_ported
+            raise not_ported("the profiler under tensor parallelism",
+                             "model_placement")
         if args.chunks > 1 or args.pipeline == "perleaf":
             return _profile_step(args, cfg, strategy, policy, wire, dev)
         return _profile(args, cfg, strategy, policy, wire, dev)
@@ -92,10 +100,11 @@ def _profile(args, cfg, strategy, policy, wire, dev) -> int:
     comp = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
                              strategy=strategy, backend=args.backend,
                              density_policy=policy)
-    layout = build_layout(params, 1, comp)
+    layout = build_layout(params, wire.model_size, comp)
     opt = sgd_momentum(0.9) if args.optimizer == "sgd" else adamw()
-    state = init_train_state(params, opt, workers=L, model_size=1,
-                             compression=comp, layout=layout)
+    state = init_train_state(params, opt, workers=L,
+                             model_size=wire.model_size, compression=comp,
+                             layout=layout)
     leaves, td = tree.flatten(params)
     per = args.batch // W
 
@@ -253,10 +262,11 @@ def _profile_step(args, cfg, strategy, policy, wire, dev) -> int:
                              strategy=strategy, backend=args.backend,
                              density_policy=policy, chunks=args.chunks)
     layout = (None if args.pipeline == "perleaf"
-              else build_layout(params, 1, comp))
+              else build_layout(params, wire.model_size, comp))
     opt = sgd_momentum(0.9) if args.optimizer == "sgd" else adamw()
     state = init_train_state(params, opt, workers=wire.local_workers,
-                             model_size=1, compression=comp, layout=layout)
+                             model_size=wire.model_size, compression=comp,
+                             layout=layout)
     events = []
 
     def probe(rank, backward=None, release=None, **_):

@@ -20,12 +20,15 @@ epochs.
       --publish-every 2 --resync-every 2
 
 Same flags and defaults as the JAX driver, plus ``--device {cuda,cpu}``
-(default ``cuda``; without a GPU it exits unless ``--device cpu``), and
-``--mesh`` defaults to ``1x1``.  A mesh ``DxM`` must have ``M = 1``; a
-data axis ``D > 1`` is the same function as the batch sharded over D
-devices, computed on the whole batch on one device (the startup line
-says so); ``--host-devices`` is accepted for the reference's command
-lines and changes nothing.  ``--publish-every 0`` freezes the weights
+(default ``cuda``; without a GPU it exits unless ``--device cpu``);
+``--mesh`` defaults to the reference's ``4x2``.  A mesh ``DxM`` is the
+same function as the batch sharded over D devices and the params over
+M, computed on the whole batch with the whole model on one device (the
+startup line says so); placing the serving specs on several cards
+(``serve_param_specs``, ``decode_specs``) comes in a later slice.  The
+delta stream's layout has model size 1, as the reference's driver builds
+it.  ``--host-devices`` is accepted for the reference's command lines
+and changes nothing.  ``--publish-every 0`` freezes the weights
 (pure serving, no trainer).  The queue is ``np.random.default_rng(seed)``
 and the prompts ``randint`` draws of ``repro_torch.prng`` from
 ``PRNGKey(seed)`` (for an ``embeds`` frontend, ``normal`` draws of (B, T,
@@ -57,7 +60,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=16,
                     help="max generation length; requests draw from "
                          "[gen//2, gen]")
-    ap.add_argument("--mesh", default="1x1", help="DxM or PxDxM, M = 1")
+    ap.add_argument("--mesh", default="4x2", help="DxM or PxDxM")
     ap.add_argument("--host-devices", type=int, default=0,
                     help="accepted for the reference's command lines; "
                          "unused")
@@ -150,16 +153,12 @@ def run(argv=None, *, probe: Optional[Callable] = None, cfg=None) -> dict:
                                    init_publisher_state, make_apply_delta,
                                    make_decode_step, make_prefill_step,
                                    message_bits, publish)
-    from repro_torch.slices import not_ported
 
     if cfg is None:
         cfg = get_config(args.arch)
         if args.smoke:
             cfg = cfg.reduced()
     mesh = parse_mesh(args.mesh)
-    if model_axis_size(mesh) != 1:
-        raise not_ported(f"--mesh {args.mesh} (a model axis of "
-                         f"{model_axis_size(mesh)})", "model_axis")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no GPU is visible; pass --device "
                          "cpu to serve on the CPU")
@@ -183,7 +182,8 @@ def run(argv=None, *, probe: Optional[Callable] = None, cfg=None) -> dict:
     prefill_step = make_prefill_step(cfg, device, s_max=s_max)
     decode = make_decode_step(cfg, device)
     print(f"arch={cfg.name} mesh={args.mesh} data={data_world_size(mesh)} "
-          f"(the whole batch on one {device.type} device) device={device} "
+          f"(the whole batch on one {device.type} device) "
+          f"model={model_axis_size(mesh)} (the whole model) device={device} "
           f"requests={args.requests} max_batch={B} prompt_len={T} "
           f"gen={args.gen} publish_every={args.publish_every}"
           + (f" publish_ratio={args.publish_ratio} resync_every="

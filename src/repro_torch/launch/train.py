@@ -1,27 +1,35 @@
 """Training entry point of the port (port of ``repro/launch/train.py``).
 
   python -m repro_torch.launch.train --arch llama3.2-1b \\
-      --steps 3 --batch 8 --seq 128
-  # four data-parallel workers in this process, on one card
-  python -m repro_torch.launch.train ... --host-devices 4 --mesh 4x1 \\
-      --strategy gtopk
+      --steps 3 --batch 8 --seq 128 --mesh 1x1
+  # the reference's default mesh: four data-parallel workers of two
+  # model rows each, in this process, on one card
+  python -m repro_torch.launch.train ... --host-devices 8 --mesh 4x2
   # one worker per process
   torchrun --nproc-per-node 2 -m repro_torch.launch.train ... --mesh 2x1
+  # tensor parallel: one model rank per process
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train ... --mesh 1x2
 
 Same flags as the JAX trainer, plus ``--device {cuda,cpu}`` (default
 ``cuda``) and ``--dist-backend`` (the process group's backend under
 ``torchrun``: ``nccl`` by default on ``--device cuda``, which needs one
 card per process, ``gloo`` on ``--device cpu``).  Without a GPU the
 trainer exits with an error unless ``--device cpu`` is given; it never
-drops to the CPU by itself.  The mesh defaults to ``1x1``.
+drops to the CPU by itself.  The mesh defaults to the reference's
+``4x2``.
 
 A mesh ``DxM`` or ``PxDxM`` has ``W = D`` (``P·D``) data-parallel
-workers; the model axis ``M`` must be 1.  They run either all in this
-process (``--host-devices N`` with ``N >= W``, the counterpart of the
-JAX flag: ``LocalWire``) or one per process under ``torchrun`` with
-``WORLD_SIZE = W`` (``ProcessGroupWire``).  With neither, a mesh of
-``W > 1`` raises naming both.  The startup line prints the mesh, W, the
-wire and its backend.
+workers and a model axis of ``M``: each worker's buckets are ``M`` rows,
+each selecting its own ``ceil(k / M)`` (the reference's row-wise
+selection).  The workers run either all in this process
+(``--host-devices N`` with ``N >= W·M``, the count of the JAX flag:
+``LocalWire``, each worker holding the whole model and all ``M`` rows) or
+under ``torchrun`` with ``WORLD_SIZE = W·M``, one process a (worker,
+model rank) pair (``ProcessGroupWire``; with ``M > 1`` tensor-parallel:
+each process holds its model rank's shards of the params and one row,
+``dist/tensor_parallel.py``, the dense decoders only).  With neither, a
+mesh of ``W·M > 1`` raises naming both.  The startup line prints the
+mesh, W, the wire and its backend.
 
 The port trains with the ``bucketed`` pipeline, its chunked schedule
 (``--chunks N``: N leaf-aligned chunk groups, each compressed and sent
@@ -59,7 +67,8 @@ wire)``; the publisher's state rides in the checkpoint under
 ``publish/``.  Every flag value it does not carry raises an error
 naming the slice that ports it: a model axis above 1, ``--strategy
 auto``, and any value but the default of the flags only those features
-read, such as ``--topology``.
+read, such as ``--topology``; under tensor parallelism also
+``--publish-every`` and ``--pipeline perleaf``.
 """
 from __future__ import annotations
 
@@ -121,7 +130,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--mesh", default="1x1", help="DxM or PxDxM")
+    ap.add_argument("--mesh", default="4x2", help="DxM or PxDxM")
     ap.add_argument("--host-devices", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
@@ -150,10 +159,10 @@ def require_ported(args, cfg):
     mesh and the strategy."""
     from repro_torch.core.compressors import get_compressor
     from repro_torch.dist.layout import resolve_strategy
+    from repro_torch.launch.mesh import parse_mesh
     from repro_torch.slices import not_ported
-    from repro_torch.train.step import require_data_parallel
 
-    mesh = require_data_parallel(args.mesh)
+    mesh = parse_mesh(args.mesh)
     if args.strategy == "auto":
         raise not_ported("--strategy auto", "auto")
     strategy = resolve_strategy(args.strategy, args.hierarchical)
@@ -207,27 +216,29 @@ def make_wire(args, mesh):
     """The wire of this launch and this process's device: under
     ``torchrun`` a ``ProcessGroupWire`` (the process group initialised
     here; the caller destroys it), else a ``LocalWire`` when
-    ``--host-devices`` covers the mesh's data world.  Returns ``(wire,
-    device, started)``, ``started`` true under ``torchrun``."""
+    ``--host-devices`` covers the mesh's ``W·M`` devices.  Returns
+    ``(wire, device, started)``, ``started`` true under ``torchrun``."""
     import torch
 
     from repro_torch.dist.wire import (LocalWire, ProcessGroupWire,
                                        init_process_group, torchrun_env)
-    from repro_torch.launch.mesh import data_world_size
+    from repro_torch.launch.mesh import data_world_size, model_axis_size
 
-    W = data_world_size(mesh)
+    W, M = data_world_size(mesh), model_axis_size(mesh)
     env = torchrun_env()
     if env is None:
-        if W > max(args.host_devices, 1):
+        if W * M > max(args.host_devices, 1):
             raise SystemExit(
-                f"--mesh {args.mesh} has {W} data-parallel workers: run "
-                f"them in this process with --host-devices {W}, or one per "
-                f"process with torchrun --nproc-per-node {W}")
+                f"--mesh {args.mesh} has {W} data-parallel workers x {M} "
+                f"model ranks: run them in this process with "
+                f"--host-devices {W * M}, or one per process with torchrun "
+                f"--nproc-per-node {W * M}")
         return LocalWire(mesh), torch.device(args.device), False
     rank, world, local_rank, local_world = env
-    if world != W:
+    if world != W * M:
         raise SystemExit(f"torchrun started {world} processes; --mesh "
-                         f"{args.mesh} has {W} data-parallel workers")
+                         f"{args.mesh} has {W} data-parallel workers x {M} "
+                         "model ranks")
     backend = args.dist_backend or ("nccl" if args.device == "cuda"
                                     else "gloo")
     init_process_group(backend, rank=rank, world_size=world,
@@ -280,6 +291,7 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
     from repro_torch.core.compressors import get_compressor
     from repro_torch.data import batch_for
     from repro_torch.dist.layout import build_layout
+    from repro_torch.launch.mesh import model_axis_size
     from repro_torch.models import init_params
     from repro_torch.optim import (adamw, constant, cosine, sgd_momentum,
                                    step_decay)
@@ -292,38 +304,47 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
                                         max(args.steps // 2, 1))}[
         args.schedule]()
     policy, pol_name = density
+    M = model_axis_size(mesh)
     params = init_params(cfg, args.seed, device)
     layout = None
     if args.pipeline == "bucketed" and args.compressor != "none":
-        layout = build_layout(params, 1, args.ratio,
+        layout = build_layout(params, M, args.ratio,
                               get_compressor(args.compressor),
                               density_policy=policy)
     config = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
                                strategy=strategy, backend=args.backend,
                                density_policy=policy, chunks=args.chunks)
+    tp = _tensor_parallel(args, cfg, params, wire) if wire.tensor_parallel \
+        else None
+    if tp is not None:
+        params = tp.shard(params)
     state = init_train_state(params, opt, workers=wire.local_workers,
-                             model_size=1, compression=config,
-                             layout=layout)
-    pub = _publisher(args, params, layout, device)
+                             model_size=M, compression=config,
+                             layout=layout,
+                             rows=1 if tp and layout is not None else None)
+    pub = _publisher(args, params, layout, device, M)
     if args.resume:
         # layout= loads a per-leaf checkpoint's residuals into the
         # buckets; the publisher's state rides under "publish/"
-        # (zero-filled when the checkpoint has none: seq 0 resyncs first)
+        # (zero-filled when the checkpoint has none: seq 0 resyncs
+        # first); a tensor-parallel rank takes its shards and row
         full = load_state(args.resume, dict(state, publish=pub["state"])
                           if pub else state, worker_rows=wire.ranks,
-                          layout=layout)
+                          layout=layout,
+                          shard=None if tp is None else tp.state_shard())
         if pub:
             pub["state"] = full.pop("publish")
         state = full
     step = make_train_step(cfg, mesh, opt, lr_fn, compression=config,
                            layout=layout, probe=probe, wire=wire,
-                           seed=args.seed)
-    lead = wire.ranks[0] == 0
+                           seed=args.seed, tensor_parallel=tp)
+    lead = wire.ranks[0] == 0 and getattr(wire, "model_rank", 0) == 0
     say = print if lead else (lambda *a, **k: None)
     say(f"arch={cfg.name} compressor={args.compressor} ratio={args.ratio} "
         f"strategy={strategy} backend={args.backend} mesh={args.mesh} "
         f"workers={wire.world} wire={wire.name} "
-        f"dist_backend={wire.backend} pipeline={args.pipeline} "
+        f"dist_backend={wire.backend} model={M} "
+        f"tensor_parallel={int(tp is not None)} pipeline={args.pipeline} "
         f"chunks={args.chunks} "
         f"density_policy={pol_name or 'fixed-k'} "
         f"global_k={args.global_k_policy} device={device} "
@@ -362,26 +383,48 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
             f"({pub['bits'] / 8 / 2 ** 20:.3f} MiB on the wire)", flush=True)
     if args.checkpoint:
         out = state if not pub else dict(state, publish=pub["state"])
+        if tp is not None:
+            # the model group's shards and rows, as one whole state
+            out = tp.gather_state(out)
         if wire.local_workers != wire.world:
             # every worker's residual rows, gathered in rank order
             out = dict(out)
             for key in ("resid", "resid2"):
-                if key in state:
+                if key in out:
                     out[key] = tree.tree_map(
                         lambda r: wire.all_gather([r[0]],
                                                   wire.data_axes)[0],
-                        state[key])
+                        out[key])
         if lead:
             save_state(args.checkpoint, out)
             say(f"saved -> {args.checkpoint}")
     return records
 
 
-def _publisher(args, params, layout, device) -> Optional[dict]:
+def _tensor_parallel(args, cfg, params, wire):
+    """A tensor-parallel rank's setup (``TensorParallel``: its model
+    axis and its params' checked specs), made once from the whole
+    ``params``.  Raises for what tensor parallelism does not carry
+    yet."""
+    from repro_torch.dist.tensor_parallel import TensorParallel
+    from repro_torch.slices import not_ported
+
+    if args.publish_every > 0:
+        raise not_ported("--publish-every under tensor parallelism",
+                         "model_placement")
+    if args.pipeline == "perleaf" and args.compressor != "none":
+        raise not_ported("tensor parallelism of the per-leaf loop",
+                         "model_placement")
+    return TensorParallel(cfg, wire, params)
+
+
+def _publisher(args, params, layout, device, model_size: int
+               ) -> Optional[dict]:
     """The weight-delta publisher of ``--publish-every`` (None without):
     top-k at ``--publish-ratio`` on the training layout re-budgeted
-    (``build_layout`` of the params without one), its state, its key
-    ``fold_in(PRNGKey(seed), 0x9B)`` and its counters."""
+    (``build_layout`` of the params at the mesh's model axis without
+    one), its state, its key ``fold_in(PRNGKey(seed), 0x9B)`` and its
+    counters."""
     if args.publish_every <= 0:
         return None
     from repro_torch import prng
@@ -394,7 +437,8 @@ def _publisher(args, params, layout, device) -> Optional[dict]:
                                backend=args.backend)
     pub_layout = (rebudget_layout(layout, args.publish_ratio,
                                   get_compressor("topk"))
-                  if layout is not None else build_layout(params, 1, config))
+                  if layout is not None
+                  else build_layout(params, model_size, config))
     return {"config": config, "layout": pub_layout,
             "state": init_publisher_state(pub_layout, device=device),
             "key": prng.fold_in(prng.PRNGKey(args.seed), 0x9B),

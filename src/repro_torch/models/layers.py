@@ -8,6 +8,14 @@ are ``(B, T, heads, hd)``.  The JAX code computes these with plain jnp,
 so the port does too with plain torch ops — no fused attention: the
 softmax is taken in f32 over ``-1e30``-masked logits exactly as
 ``layers._sdpa`` writes it.
+
+Under tensor parallelism (``axis``, a ``dist/tensor_parallel.ModelAxis``)
+``attention`` and ``mlp`` run on one model rank's shards, the Megatron
+split: ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` hold this rank's
+heads and hidden units (column-parallel), ``wo`` and ``w_down`` the
+matching rows, so each layer all-reduces its partial sums once, before
+``bo``.  The biases of the column-parallel matmuls are replicated, and
+each rank adds its slice.  ``axis=None`` is the whole model.
 """
 from __future__ import annotations
 
@@ -17,6 +25,8 @@ from typing import Optional
 import torch
 
 from repro_torch import prng
+from repro_torch.dist.tensor_parallel import (copy_to_model, local_columns,
+                                              reduce_from_model)
 from repro_torch.models.config import ModelConfig
 
 
@@ -94,16 +104,18 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
 
 
-def _qkv(p, x, cfg: ModelConfig):
-    hd, H, KV = cfg.hd, cfg.num_heads, cfg.num_kv_heads
+def _qkv(p, x, cfg: ModelConfig, axis=None):
+    """q, k, v ``(B, T, heads, hd)``: all heads, or this model rank's."""
     B, T, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.use_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, T, H, hd), k.reshape(B, T, KV, hd),
-            v.reshape(B, T, KV, hd))
+        q = q + local_columns(p["bq"], axis)
+        k = k + local_columns(p["bk"], axis)
+        v = v + local_columns(p["bv"], axis)
+    return (q.reshape(B, T, -1, cfg.hd), k.reshape(B, T, -1, cfg.hd),
+            v.reshape(B, T, -1, cfg.hd))
 
 
 def _sdpa(q, k, v, mask, cfg: ModelConfig):
@@ -133,21 +145,23 @@ def causal_mask(T: int, S: int, window: int = 0, device=None):
     return m
 
 
-def attention(p, x, cfg: ModelConfig, *, window: int = 0):
+def attention(p, x, cfg: ModelConfig, *, window: int = 0, axis=None):
     """Training and prefill self-attention over the full sequence:
     ``(out, (k, v))`` with the post-RoPE keys and the values, which a
     prefill stores as its cache (the training path drops them; they are
     the tensors the backward keeps anyway).  The reference switches to a
     query-chunked scan above 1024 tokens to bound its memory; the result
-    is the same attention, so the port keeps one path."""
+    is the same attention, so the port keeps one path.  With ``axis``,
+    this model rank's heads (module docstring)."""
     B, T, D = x.shape
-    q, k, v = _qkv(p, x, cfg)
+    x = copy_to_model(x, axis)
+    q, k, v = _qkv(p, x, cfg, axis)
     positions = torch.arange(T, device=x.device)
     cos, sin = rope_angles(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     out = _sdpa(q, k, v, causal_mask(T, T, window, device=x.device), cfg)
-    out = out.reshape(B, T, -1) @ p["wo"]
+    out = reduce_from_model(out.reshape(B, T, -1) @ p["wo"], axis)
     if cfg.use_bias:
         out = out + p["bo"]
     return out, (k, v)
@@ -182,6 +196,9 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, write_idx: int,
     return out, cache_k, cache_v
 
 
-def mlp(p, x):
-    return (torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-            ) @ p["w_down"]
+def mlp(p, x, axis=None):
+    """SwiGLU; with ``axis``, this model rank's hidden units."""
+    x = copy_to_model(x, axis)
+    return reduce_from_model(
+        (torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"]))
+        @ p["w_down"], axis)

@@ -33,6 +33,13 @@ sLSTM's ``h``, ``c``, ``n``, ``m``, f32.  Unlike the reference's
 functional updates, ``prefill`` fills a new cache and ``decode_step``
 writes every layer's slot or recurrent state IN PLACE and returns the
 same cache.
+
+``loss_fn`` also runs on one model rank's shards (tensor parallelism
+over the model axis: ``axis``, a ``dist/tensor_parallel.ModelAxis``),
+for the dense blocks: attention and the MLP split Megatron-wise
+(``layers.py``), ``embed`` split on ``d_model`` (the lookup gathers the
+hidden width), ``lm_head`` on the vocab (the cross-entropy reduces over
+the model group).  The residual stream and the norms are replicated.
 """
 from __future__ import annotations
 
@@ -44,6 +51,10 @@ import torch.nn.functional as F
 
 from repro_torch import prng, tree
 from repro_torch.devices import resolve_device
+from repro_torch.dist.tensor_parallel import (copy_to_model,
+                                              gather_from_model,
+                                              reduce_from_model,
+                                              require_dense)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -128,13 +139,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
     return params
 
 
-def _apply_core(p, h, cfg: ModelConfig, kind: str):
+def _apply_core(p, h, cfg: ModelConfig, kind: str, axis=None):
     """Full-sequence core: ``(out, cache contribution)`` — the
     attention's post-RoPE ``(k, v)``, a Mamba layer's ``(ssm state, conv
     tail)``, an xLSTM layer's final state."""
     if kind in ("attn", "swa"):
         window = cfg.sliding_window if kind == "swa" else 0
-        return L.attention(p, h, cfg, window=window)
+        return L.attention(p, h, cfg, window=window, axis=axis)
     if kind == "mamba":
         out, ssm_state, conv_tail = S.mamba_forward(p, h, cfg)
         return out, (ssm_state, conv_tail)
@@ -145,26 +156,27 @@ def _apply_core(p, h, cfg: ModelConfig, kind: str):
     raise ValueError(kind)
 
 
-def _ffn(p, x, cfg: ModelConfig, ffn: str):
+def _ffn(p, x, cfg: ModelConfig, ffn: str, axis=None):
     """``(out, aux)`` of the layer's FFN; ``aux`` is None but for MoE."""
     if ffn == "moe":
         return M.moe_ffn(p, x, cfg)
-    return L.mlp(p, x), None
+    return L.mlp(p, x, axis), None
 
 
-def _apply_block(p, h, cfg: ModelConfig, kind: str, ffn: str):
+def _apply_block(p, h, cfg: ModelConfig, kind: str, ffn: str, axis=None):
     """Returns ``(h, aux, cache contribution)``: the block's output, its
     MoE load-balance loss (None without MoE) and its core's cache
     contribution (what a prefill stores)."""
     normed = L.rmsnorm(p["norm1"], h)
-    core_out, contrib = _apply_core(p["core"], normed, cfg, kind)
+    core_out, contrib = _apply_core(p["core"], normed, cfg, kind, axis)
     if cfg.parallel_block and ffn != "none":
-        f_out, aux = _ffn(p["ffn"], normed, cfg, ffn)
+        f_out, aux = _ffn(p["ffn"], normed, cfg, ffn, axis)
         return h + core_out + f_out, aux, contrib
     h = h + core_out
     aux = None
     if ffn != "none":
-        f_out, aux = _ffn(p["ffn"], L.rmsnorm(p["norm2"], h), cfg, ffn)
+        f_out, aux = _ffn(p["ffn"], L.rmsnorm(p["norm2"], h), cfg, ffn,
+                          axis)
         h = h + f_out
     return h, aux, contrib
 
@@ -177,9 +189,10 @@ def _unbind(stacked) -> list:
     return [tree.unflatten(td, [p[r] for p in parts]) for r in range(reps)]
 
 
-def _embed_input(params, cfg: ModelConfig, tokens, embeds):
+def _embed_input(params, cfg: ModelConfig, tokens, embeds, axis=None):
     """The residual stream's input: the embeddings given, or the
-    tokens' rows of ``embed``.  F.embedding, not
+    tokens' rows of ``embed`` (with ``axis``, the shards of the hidden
+    width gathered over the model group).  F.embedding, not
     ``params["embed"][tokens]``: the indexing's backward (``index_put_``
     with accumulate) adds repeated tokens' rows in a thread-dependent
     order on the CPU and with atomics on the card; embedding's backward
@@ -187,21 +200,24 @@ def _embed_input(params, cfg: ModelConfig, tokens, embeds):
     adt = getattr(torch, cfg.activation_dtype)
     if embeds is not None:
         return embeds.to(adt)
-    return F.embedding(tokens, params["embed"]).to(adt)
+    return gather_from_model(F.embedding(tokens, params["embed"]),
+                             axis).to(adt)
 
 
-def _head(params, cfg: ModelConfig, h):
+def _head(params, cfg: ModelConfig, h, axis=None):
     adt = getattr(torch, cfg.activation_dtype)
-    h = L.rmsnorm(params["final_norm"], h)
+    h = copy_to_model(L.rmsnorm(params["final_norm"], h), axis)
     return h @ params["lm_head"].to(adt)
 
 
-def _forward(params, cfg: ModelConfig, tokens=None, embeds=None):
+def _forward(params, cfg: ModelConfig, tokens=None, embeds=None,
+             axis=None):
     """Full-sequence forward -> ``(logits (B, T, vocab), aux)``: ``aux``
     the MoE layers' load-balance loss, summed a period at a time over
     the reps and then over the tail as the reference's scan sums it (0
-    without MoE)."""
-    h = _embed_input(params, cfg, tokens, embeds)
+    without MoE).  With ``axis``, this model rank's vocab columns of the
+    logits."""
+    h = _embed_input(params, cfg, tokens, embeds, axis)
     period = cfg.pattern_period
     reps = cfg.num_layers // period
     per_pos = [_unbind(sp) for sp in params["stack"]]
@@ -211,17 +227,19 @@ def _forward(params, cfg: ModelConfig, tokens=None, embeds=None):
         a_rep = zero
         for pos in range(period):
             kind, ffn = cfg.layer_sig(pos)
-            h, a, _ = _apply_block(per_pos[pos][r], h, cfg, kind, ffn)
+            h, a, _ = _apply_block(per_pos[pos][r], h, cfg, kind, ffn,
+                                   axis)
             if a is not None:
                 a_rep = a_rep + a
         rep_aux.append(a_rep)
     aux = torch.stack(rep_aux).sum() if rep_aux else zero
     base = reps * period
     for i, p in enumerate(params["tail"]):
-        h, a, _ = _apply_block(p, h, cfg, *cfg.layer_sig(base + i))
+        h, a, _ = _apply_block(p, h, cfg, *cfg.layer_sig(base + i),
+                               axis=axis)
         if a is not None:
             aux = aux + a
-    return _head(params, cfg, h), aux
+    return _head(params, cfg, h, axis), aux
 
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None
@@ -231,17 +249,40 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None
     return _forward(params, cfg, tokens, embeds)[0]
 
 
-def loss_fn(params, cfg: ModelConfig, batch) -> tuple:
+def _vocab_parallel_ll(logits, labels, axis):
+    """``log softmax`` at ``labels`` from this rank's columns ``[lo, lo +
+    V)`` of the logits: the max and the sum of exponentials reduced over
+    the model group, the picked logit from the rank that owns the
+    label."""
+    V = logits.shape[-1]
+    m = axis.amax(torch.amax(logits.detach(), dim=-1))
+    lse = m + torch.log(reduce_from_model(
+        torch.sum(torch.exp(logits - m[..., None]), dim=-1), axis))
+    labels = labels - axis.rank * V
+    own = (labels >= 0) & (labels < V)
+    picked = torch.gather(logits, -1, labels.clamp(0, V - 1)[..., None])
+    picked = reduce_from_model(
+        torch.where(own, picked[..., 0], torch.zeros_like(picked[..., 0])),
+        axis)
+    return picked - lse
+
+
+def loss_fn(params, cfg: ModelConfig, batch, axis=None) -> tuple:
     """Cross-entropy plus the MoE load-balance loss of ``batch =
     {"tokens" or "embeds", "labels"[, "loss_mask"]}``: ``(loss, {"ce",
-    "aux", "loss"})`` as in ``model.py:192-212``."""
+    "aux", "loss"})`` as in ``model.py:192-212``.  With ``axis``, on this
+    model rank's shards (dense blocks only), the same on every rank."""
+    if axis is not None:
+        require_dense(cfg)
     logits, aux = _forward(params, cfg, batch.get("tokens"),
-                           batch.get("embeds"))
+                           batch.get("embeds"), axis)
     logits = logits.to(torch.float32)
     labels = batch["labels"].long()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
-    ll = picked - lse
+    if axis is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0] - lse
+    else:
+        ll = _vocab_parallel_ll(logits, labels, axis)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones_like(ll)

@@ -7,8 +7,12 @@ the ``ROADMAP.md`` queue item) that will port the missing piece.
 from __future__ import annotations
 
 LATER = {
-    "model_axis": "slice 2c (tensor parallelism over the model axis, "
-                  "ROADMAP Queue 1 item 7)",
+    "model_placement": "a later slice of the model axis (the model-axis "
+                       "placement of serving: serve_param_specs, "
+                       "cache_specs and make_apply_delta; tensor "
+                       "parallelism of the MoE, Mamba and xLSTM blocks, "
+                       "of the per-leaf loop and of the profiler; "
+                       "ROADMAP Queue 1 item 7)",
     "auto": "slice 9 (topology tuner, ROADMAP Queue 1 item 8)",
 }
 

@@ -15,7 +15,10 @@ state holds: all W of the mesh when they run in this process
 (``LocalWire``), 1 per process under ``ProcessGroupWire``.  The workers
 of one process share ONE copy of the params and the optimizer state:
 the reference replicates them, and every worker computes the identical
-update.
+update.  ``model_size`` is the mesh's model axis M: the buckets hold M
+rows of ``d_row_total`` each.  A tensor-parallel rank holds one of them
+(``rows=1``, ``(workers, d_row_total)`` buckets) and its own shards of
+the params and the optimizer state (``dist/tensor_parallel.py``).
 """
 from __future__ import annotations
 
@@ -27,14 +30,13 @@ from repro_torch.core.compression import CompressionConfig, as_config
 from repro_torch.dist.aggregate import init_residuals
 from repro_torch.dist.layout import BucketLayout, init_flat_residual
 from repro_torch.optim import Optimizer
-from repro_torch.slices import not_ported
 
 
 def init_train_state(params, optimizer: Optimizer, *, workers: int,
                      model_size: int,
                      compression: Optional[CompressionConfig] = None,
-                     layout: Optional[BucketLayout] = None
-                     ) -> Dict[str, Any]:
+                     layout: Optional[BucketLayout] = None,
+                     rows: Optional[int] = None) -> Dict[str, Any]:
     """``{"params", "opt", "step"[, "resid"[, "resid2"]][, "adaptk"]}``.
     A sparse compressor allocates the zero residuals ``resid`` on the
     params' device (flat buckets with ``layout``, the per-leaf tree
@@ -42,17 +44,21 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
     (``hierarchical``, ``hier_gtopk``) and for momentum correction (the
     DGC velocities); Dense-SGD allocates none.  A ``density_policy`` adds
     the zero controller state ``adaptk`` (``signal``, ``count``, and
-    ``gnorm``/``gnorm0`` under a global-k policy)."""
+    ``gnorm``/``gnorm0`` under a global-k policy).  ``rows=1`` (with a
+    layout) allocates one row of the buckets: a tensor-parallel rank's."""
     compression = as_config(compression)
     if workers < 1:
         raise ValueError(f"workers must be >= 1, got {workers}")
-    if model_size != 1:
-        raise not_ported(f"model axis of size {model_size}", "model_axis")
+    if model_size < 1:
+        raise ValueError(f"model_size must be >= 1, got {model_size}")
     state: Dict[str, Any] = {"params": params,
                              "opt": optimizer.init(params), "step": 0}
     if not compression.dense:
         leaves = tree.leaves(params)
         if layout is None:
+            if rows is not None:
+                raise ValueError("rows= needs the bucketed layout")
+
             def zeros():
                 return init_residuals(params, model_size, workers=workers)
         else:
@@ -68,7 +74,8 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
 
             def zeros():
                 return init_flat_residual(layout, workers=workers,
-                                          device=leaves[0].device)
+                                          device=leaves[0].device,
+                                          rows=rows)
         state["resid"] = zeros()
         if (compression.strategy in ("hierarchical", "hier_gtopk")
                 or compression.momentum_correction > 0):

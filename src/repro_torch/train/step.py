@@ -31,8 +31,22 @@ workers in this process (``LocalWire``, the default) or this process's
 one worker over ``torch.distributed`` (``ProcessGroupWire``).  Worker
 ``w`` (its joint rank over the data axes, row-major) takes rows ``[w·B/W,
 (w+1)·B/W)`` of the global batch, as ``batch_specs`` shards the leading
-dim over the joint data axes.  The model axis stays 1.  The residual
+dim over the joint data axes, whatever the model axis.  The residual
 buckets and the params are updated in place.
+
+The model axis ``M`` changes the numerics of the compression only, as
+in the reference: every bucket is ``(M, d_row_total)`` rows, each
+selecting its own ``ceil(k / M)``.  Under ``LocalWire`` (and a
+``ProcessGroupWire`` of ``M = 1``) each worker holds all M rows and the
+whole model.  Under a tensor-parallel ``ProcessGroupWire``
+(``wire.tensor_parallel``, a launch of ``D·M`` processes) this process
+is model rank ``r`` of its worker: ``state["params"]`` and the optimizer
+state hold its shards (``dist/tensor_parallel.TensorParallel``), the
+forward and backward are ``model.loss_fn``'s on them (``axis=``), the
+gradient shards are relaid into row ``r`` (``tensor_parallel.ModelRow``),
+row ``r`` is compressed against the residual row ``(1, d_row_total)``
+and sent over the data group of the processes that share ``r``, and the
+mean row is relaid back into the shards.
 
 The key-sampled compressors draw from the reference's keys: step ``t``
 of worker ``w`` uses ``fold_in(fold_in(PRNGKey(seed), t), w)``, derived
@@ -57,17 +71,6 @@ from repro_torch.optim import Optimizer
 from repro_torch.slices import not_ported
 
 
-def require_data_parallel(mesh):
-    """The mesh as a :class:`~repro_torch.launch.mesh.Mesh`; raises for a
-    model axis above 1 (tensor parallelism is not ported)."""
-    mesh = parse_mesh(mesh)
-    if model_axis_size(mesh) != 1:
-        raise not_ported(
-            f"mesh {'x'.join(map(str, mesh.shape))} (model axis of size "
-            f"{model_axis_size(mesh)})", "model_axis")
-    return mesh
-
-
 def step_keys(seed: int, step: int, ranks) -> list:
     """The key-sampled compressors' keys of ``step`` for the workers of
     joint ranks ``ranks``: ``fold_in(fold_in(PRNGKey(seed), step),
@@ -80,15 +83,18 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
                     compression: Optional[CompressionConfig] = None,
                     layout=None, probe: Optional[Callable] = None,
                     wire=None, seed: int = 0,
-                    loss_fn: Optional[Callable] = None):
+                    loss_fn: Optional[Callable] = None,
+                    tensor_parallel=None):
     """Returns ``step_fn(state, batch) -> (state, metrics)``.
 
     ``mesh`` is a Mesh, ``"DxM"``/``"PxDxM"`` or a tuple of sizes;
     ``wire`` (default: a ``LocalWire`` over it) decides which of its
     workers this process runs, and ``state`` holds their residuals
-    (``init_train_state(workers=wire.local_workers)``).  ``batch`` is the
-    GLOBAL batch.  ``compression`` names the compressor (``"none"`` =
-    Dense-SGD), ratio, strategy, wire dtype, backend and chunk count;
+    (``init_train_state(workers=wire.local_workers)``; on a
+    tensor-parallel wire this rank's shards and residual row,
+    ``rows=1``).  ``batch`` is the GLOBAL batch.  ``compression`` names
+    the compressor (``"none"`` = Dense-SGD), ratio, strategy, wire dtype,
+    backend and chunk count;
     ``layout`` (built from the same params and config) routes the
     aggregation through the flat bucket, ``None`` through the per-leaf
     loop.  ``probe`` is handed to the aggregation (``dist/aggregate.py``);
@@ -98,19 +104,34 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
     backward=False)`` after the backward.  ``seed``
     roots the key-sampled compressors' keys.  ``loss_fn(params, batch)
     -> (loss, metrics)`` replaces the model's loss (``cfg`` is then not
-    read).  Loss metrics are the mean over the workers."""
+    read).  On a tensor-parallel wire ``tensor_parallel`` is the rank's
+    ``dist/tensor_parallel.TensorParallel`` (built with its params, once).
+    Loss metrics are the mean over the workers."""
     compression = as_config(compression)
-    mesh = require_data_parallel(mesh)
+    mesh = parse_mesh(mesh)
     wire = LocalWire(mesh) if wire is None else wire
     if wire.mesh != mesh:
         raise ValueError(f"wire was built for {wire.mesh}, not {mesh}")
     world = data_world_size(mesh)
+    msize = model_axis_size(mesh)
     dense = compression.dense
     loss = loss_fn or (lambda p, b: model_loss_fn(p, cfg, b))
+    rows = None
+    if getattr(wire, "tensor_parallel", False):
+        if tensor_parallel is None or loss_fn is not None:
+            raise ValueError("a tensor-parallel step needs tensor_parallel="
+                             " and runs the model's loss; loss_fn= is not "
+                             "taken")
+        if layout is None and not dense:
+            raise not_ported("tensor parallelism of the per-leaf loop",
+                             "model_placement")
+        axis = tensor_parallel.axis
+        loss = lambda p, b: model_loss_fn(p, cfg, b, axis)  # noqa: E731
+        rows = None if layout is None else tensor_parallel.rows(layout)
     if not dense and layout is not None:
-        if layout.model_size != 1:
+        if layout.model_size != msize:
             raise ValueError(f"layout model_size={layout.model_size} != "
-                             "mesh model axis 1")
+                             f"mesh model axis {msize}")
         if layout.spec_name != compression.spec.name:
             raise ValueError(f"layout compressor {layout.spec_name!r} != "
                              f"{compression.spec.name!r}")
@@ -219,21 +240,23 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
         else:
             if plan is not None:
                 n = wire.local_workers
+                held = None if rows is None else rows.held(layout)
                 run = aggregate.ChunkedAggregation(
                     layout, plan, compression,
                     E=aggregate.flat_windows(state["resid"], layout, plan,
-                                             n),
+                                             n, held),
                     R2=(None if "resid2" not in state else
                         aggregate.flat_windows(state["resid2"], layout,
-                                               plan, n)),
-                    resid=state["resid"], **agg_kw)
+                                               plan, n, held)),
+                    resid=state["resid"], rows=rows, **agg_kw)
                 for w in workers:
                     backward_releasing(run, w)
                 res = run.finish(td)
             else:
                 res = aggregate.aggregate_compressed(
                     [functools.partial(grads_of, w) for w in workers],
-                    state["resid"], compression, **agg_kw)
+                    state["resid"], compression, model_size=msize,
+                    **agg_kw)
             agg, agg_metrics = res.agg, res.metrics
             if res.adapt_state is not None and "adaptk" in state:
                 state["adaptk"] = res.adapt_state

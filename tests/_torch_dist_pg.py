@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.launch import train as cli
 
-COMMON = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
+COMMON = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
+          "--density-policy", "none",
           "--steps", "2", "--batch", "4", "--seq", "16", "--log-every", "1"]
 
 

@@ -1,0 +1,212 @@
+"""Subprocess body for tests/test_torch_tp.py and
+tests/test_torch_checkpoint.py: one rank of a ``torchrun``-style
+tensor-parallel launch (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` from the environment).
+
+``python tests/_torch_tp_pg.py OUT CASES.json`` runs, for each case
+``{"name", "port", "argv"}`` of the JSON list, the port's trainer on the
+2-layer config of ``tests/_torch_dist_ref.py`` (``argv`` plus
+``--device cpu --checkpoint OUT/<name>.npz``) with that ``MASTER_PORT``,
+and on rank 0 writes the step records to ``OUT/<name>.json``.  A case
+named ``bitwise`` (its ``argv`` the mesh and the compressor) instead
+holds the relayout and the compression of one shared random gradient
+against the one-process bucket of every model row, bitwise, checks that
+the loss and the replicated leaves' gradients are the same bits on every
+model rank, and raises on a difference; one named ``archs`` holds the
+loss and gradients on the shards of other dense archs (and of a biased
+config) against the whole model's.  :func:`launch` starts such a launch
+from a test.
+"""
+import json
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+from repro_torch.core.compression import CompressionConfig
+from repro_torch.dist import aggregate
+from repro_torch.dist.layout import build_layout, pack_grads
+from repro_torch.dist.tensor_parallel import TensorParallel
+from repro_torch.dist.wire import ProcessGroupWire, init_process_group
+from repro_torch.launch import train as cli
+from repro_torch.launch.mesh import parse_mesh
+from repro_torch.models import ModelConfig, init_params, loss_fn
+
+CFG = ModelConfig(name="t", arch_type="dense", num_layers=2, d_model=64,
+                  num_heads=4, num_kv_heads=2, d_ff=128,
+                  vocab_size=64).validate()
+
+
+def bitwise(mesh, compressor, ratio, policy):
+    """One shared gradient: the TP rank's row (relayout of its shards),
+    its compression and the inverse relayout against the one-process
+    ``(M, d_row_total)`` bucket's row, bitwise."""
+    init_process_group("gloo", rank=int(os.environ["RANK"]),
+                       world_size=int(os.environ["WORLD_SIZE"]))
+    try:
+        params = init_params(CFG, 0, "cpu")
+        tp = TensorParallel(CFG, ProcessGroupWire(parse_mesh(mesh)), params)
+        axis = tp.axis
+        M, r = axis.size, axis.rank
+        comp = CompressionConfig(compressor=compressor, ratio=ratio)
+        layout = build_layout(params, M, comp)
+        rng = np.random.default_rng(7)
+        grads = tree.tree_map(lambda p: torch.from_numpy(
+            rng.standard_normal(tuple(p.shape)).astype(np.float32)), params)
+        E = torch.from_numpy((0.1 * rng.standard_normal(
+            (M, layout.d_row_total))).astype(np.float32))
+        full = pack_grads(layout, tree.leaves(grads), torch.float32)
+        rows = tp.rows(layout)
+        local = tree.leaves(tp.shard(grads))
+        mine = rows.pack(layout, 0, local, torch.float32)
+        assert torch.equal(mine[0], full[r]), "relayout into the row"
+        back = rows.unpack(layout, 0, full[r:r + 1], local)
+        for a, b in zip(back, local):
+            assert torch.equal(a, b), "relayout back into the shards"
+        spec = comp.spec
+        if policy:
+            # the allocation from every row's pass A, as one process
+            one = E + full
+            _, moments = aggregate._pass_a(one, layout, spec, True)
+            st, tp_moments = aggregate._pass_a(E[r:r + 1] + mine, layout,
+                                               spec, True, rows)
+            assert tp_moments == moments, "pass A over the model group"
+            k = np.asarray([max(1, s.k_row * M // 2)
+                            for s in layout.segments], np.int32)
+            kw = dict(k_alloc=k)
+        else:
+            kw = {}
+        want = aggregate.bucket_compress(full, E.clone(), layout, spec,
+                                         **kw)
+        got = aggregate.bucket_compress(mine, E[r:r + 1].clone(), layout,
+                                        spec, row=r, **kw)
+        for a, b, what in zip(got, want, ("values", "indices", "e'")):
+            assert torch.equal(a[0], b[r]), what
+        assert torch.equal(rows.total(aggregate.codec.nnz(got[1]).float()),
+                           aggregate.codec.nnz(want[1]).float()), "nnz"
+        # the forward and backward on the shards: every model rank holds
+        # the same loss and the same gradient of each replicated leaf
+        ps = [p.requires_grad_(True) for p in tree.leaves(
+            tp.shard(params))]
+        toks = torch.from_numpy(rng.integers(0, CFG.vocab_size, (2, 8)))
+        loss, _ = loss_fn(tree.unflatten(tree.flatten(params)[1], ps),
+                          CFG, {"tokens": toks, "labels": toks.roll(-1, 1)},
+                          axis)
+        gs = torch.autograd.grad(loss, ps)
+        for t in [loss.detach()] + [g for g, s in zip(gs, tp.specs)
+                                    if not s]:
+            every = axis.gather(t)
+            assert all(torch.equal(every[0], x) for x in every), \
+                "replicated on every model rank"
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def archs(mesh, names):
+    """``model.loss_fn`` on the shards of the smoke variants of ``names``
+    (sliding-window attention, the parallel block, the ``embeds``
+    frontend; a name ending ``+bias`` with the biased projections)
+    against it on the whole params: the loss within rtol 1e-5, every
+    gathered gradient within rtol 1e-4 / atol 1e-6 (the all-reduces sum
+    in another order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.tensor_parallel import gather_leaf
+    init_process_group("gloo", rank=int(os.environ["RANK"]),
+                       world_size=int(os.environ["WORLD_SIZE"]))
+    try:
+        wire = ProcessGroupWire(parse_mesh(mesh))
+        for name in names:
+            arch, _, bias = name.partition("+")
+            cfg = get_config(arch).reduced(use_bias=bool(bias))
+            params = init_params(cfg, 0, "cpu")
+            gen = torch.Generator().manual_seed(3)
+            for path, p in tree.flatten_with_path(params)[0]:
+                if path[-1] in ("bq", "bk", "bv", "bo"):
+                    # nonzero biases, so that each rank's slice matters
+                    p.add_(0.01 * torch.randn(p.shape, generator=gen))
+            tp = TensorParallel(cfg, wire, params)
+            axis = tp.axis
+            rng = np.random.default_rng(1)
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+            batch = {"labels": toks.roll(-1, 1)}
+            if cfg.frontend == "embeds":
+                batch["embeds"] = torch.from_numpy(rng.standard_normal(
+                    (2, 8, cfg.d_model)).astype(np.float32))
+            else:
+                batch["tokens"] = toks
+            leaves, td = tree.flatten(params)
+            full = [p.clone().requires_grad_(True) for p in leaves]
+            want, _ = loss_fn(tree.unflatten(td, full), cfg, batch)
+            wgrads = torch.autograd.grad(want, full, allow_unused=True)
+            ps = [p.requires_grad_(True) for p in tree.leaves(
+                tp.shard(params))]
+            got, _ = loss_fn(tree.unflatten(td, ps), cfg, batch, axis)
+            grads = torch.autograd.grad(got, ps, allow_unused=True)
+            np.testing.assert_allclose(float(got), float(want), rtol=1e-5,
+                                       err_msg=name)
+            for g, w, spec, p, whole in zip(grads, wgrads, tp.specs, ps,
+                                            leaves):
+                g = torch.zeros_like(p) if g is None else g
+                w = torch.zeros_like(whole) if w is None else w
+                np.testing.assert_allclose(
+                    gather_leaf(g, spec, axis).numpy(), w.numpy(),
+                    rtol=1e-4, atol=1e-6, err_msg=name)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch(out, procs: int, cases: list, timeout: float = 300) -> list:
+    """Run ``cases`` (``{"name", "argv"}``, each given a free port) in
+    ``procs`` gloo processes writing to ``out``; returns their logs and
+    fails unless every process exits 0."""
+    path = os.path.join(str(out), "cases.json")
+    with open(path, "w") as f:
+        json.dump([dict(c, port=_free_port()) for c in cases], f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(os.path.dirname(here), "src")
+    running = []
+    for r in range(procs):
+        env = dict(os.environ, PYTHONPATH=src, RANK=str(r),
+                   WORLD_SIZE=str(procs), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(procs), MASTER_ADDR="127.0.0.1",
+                   OMP_NUM_THREADS="1")
+        running.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), str(out), path],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = [p.communicate(timeout=timeout)[0] for p in running]
+    for p, log in zip(running, logs):
+        assert p.returncode == 0, log[-3000:]
+    return logs
+
+
+def main(out, cases_path):
+    torch.set_num_threads(1)
+    with open(cases_path) as f:
+        cases = json.load(f)
+    for case in cases:
+        os.environ["MASTER_PORT"] = str(case["port"])
+        if case["name"] in ("bitwise", "archs"):
+            {"bitwise": bitwise, "archs": archs}[case["name"]](*case["argv"])
+            continue
+        name = case["name"]
+        recs = cli.run(case["argv"] + [
+            "--device", "cpu", "--checkpoint",
+            os.path.join(out, name + ".npz")], cfg=CFG)
+        if os.environ["RANK"] == "0":
+            with open(os.path.join(out, name + ".json"), "w") as f:
+                json.dump(recs, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])

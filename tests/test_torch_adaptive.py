@@ -535,7 +535,8 @@ def test_process_group_wire_gloo_bitwise_local(tmp_path):
     for strategy, mesh in _PG.items():
         name = f"{strategy}-{mesh}"
         local = tmp_path / f"local-{name}.npz"
-        recs = cli.run(["--arch", "llama3.2-1b", "--smoke", "--device",
+        recs = cli.run(["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
+                        "--device",
                         "cpu", "--steps", "2", "--batch", "4", "--seq",
                         "16", "--mesh", mesh, "--strategy", strategy,
                         "--host-devices", str(W), "--checkpoint",
@@ -617,7 +618,8 @@ def test_checkpoint_without_gnorm_is_zero_filled(tmp_path):
                    dict(_port_state(jpol), extra=np.zeros(2, np.float32)))
 
 
-_SMOKE = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+_SMOKE = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1", "--device",
+          "cpu",
           "--batch", "4", "--seq", "16", "--log-every", "1"]
 
 

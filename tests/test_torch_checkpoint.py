@@ -1,6 +1,8 @@
 """Checkpoints: the port's ``checkpoint/npz.py`` against the JAX
 package's, both ways, on a 4-worker state with both residual levels; and
 a resumed run against a straight one, bitwise."""
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,7 +162,8 @@ def test_cli_resume_equals_straight_run_new_archs(tmp_path, arch):
     CLI (fused Gaussian-k): 2 steps saved and resumed for a third save
     what 3 straight steps save, bitwise, with the same last loss."""
     from repro_torch.launch import train as cli
-    base = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "4",
+    base = ["--arch", arch, "--smoke", "--mesh", "1x1", "--device", "cpu",
+            "--batch", "4",
             "--seq", "16"]
     a, b, c = (str(tmp_path / n) for n in ("a.npz", "b.npz", "c.npz"))
     cli.run(base + ["--steps", "2", "--checkpoint", a])
@@ -173,3 +176,46 @@ def test_cli_resume_equals_straight_run_new_archs(tmp_path, arch):
         assert int(x["step"]) == 3
         for k in x.files:
             assert x[k].tobytes() == y[k].tobytes(), k
+
+
+def test_tensor_parallel_checkpoint_round_trip(tmp_path):
+    """A tensor-parallel run's checkpoint (2 gloo processes at ``1x2``,
+    ``tests/_torch_tp_pg.py``) has the one-process run's keys and
+    shapes (the shards and the residual rows gathered into the
+    ``(workers, M·d_row_total)`` buckets), and it resumes a one-process
+    run; a one-process checkpoint resumes the tensor-parallel run.
+    Either resumed third step has the loss of 3 straight one-process
+    steps within rtol 1e-5, and its final state their checkpoint's
+    within the tolerances of ``tests/test_torch_tp.py``."""
+    from _torch_tp_pg import CFG, launch
+    from repro_torch.launch import train as cli
+    from test_torch_tp import compare_checkpoints
+    base = ["--arch", "llama3.2-1b", "--mesh", "1x2", "--compressor",
+            "gaussiank", "--ratio", "0.02", "--density-policy", "none",
+            "--batch", "4", "--seq", "16"]
+    one = ["--device", "cpu", "--host-devices", "2"]
+    p = {n: str(tmp_path / f"{n}.npz") for n in ("one2", "one3", "back")}
+    cli.run(base + one + ["--steps", "2", "--checkpoint", p["one2"]],
+            cfg=CFG)
+    straight = cli.run(base + one + ["--steps", "3", "--checkpoint",
+                                     p["one3"]], cfg=CFG)
+    launch(tmp_path, 2, [
+        {"name": "tp2", "argv": base + ["--steps", "2"]},
+        {"name": "tp3", "argv": base + ["--steps", "1", "--resume",
+                                        p["one2"]]}], timeout=300)
+    (back,) = cli.run(base + one + ["--steps", "1", "--resume",
+                                    str(tmp_path / "tp2.npz"),
+                                    "--checkpoint", p["back"]], cfg=CFG)
+    with open(tmp_path / "tp3.json") as f:
+        (resumed,) = json.load(f)
+    for rec in (back, resumed):
+        assert rec["step"] == 2
+        np.testing.assert_allclose(rec["loss"], straight[2]["loss"],
+                                   rtol=1e-5)
+    with np.load(p["one2"]) as a, np.load(tmp_path / "tp2.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert all(a[k].shape == b[k].shape for k in a.files)
+    for got in (p["back"], str(tmp_path / "tp3.npz")):
+        with np.load(p["one3"]) as want, np.load(got) as g:
+            assert int(g["step"]) == 3
+            compare_checkpoints(want, g, "1x2", base)

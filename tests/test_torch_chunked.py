@@ -331,7 +331,8 @@ def test_chunks_need_the_bucketed_sparse_pipeline():
     with pytest.raises(ValueError, match="chunks > 1 needs the bucketed"):
         make_train_step(CFG, "1x1", opt, constant(0.1),
                         compression=comp.replace(compressor="none"))
-    base = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+    base = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1", "--device",
+            "cpu",
             "--steps", "1"]
     for extra, msg in ((["--chunks", "0"], "must be >= 1"),
                        (["--chunks", "2", "--pipeline", "perleaf"],

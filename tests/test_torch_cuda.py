@@ -473,7 +473,7 @@ def test_process_group_wire_nccl_bitwise_local(dev, tmp_path):
     for strategy, mesh in meshes.items():
         name = f"{strategy}-{mesh}"
         local = tmp_path / f"local-{name}.npz"
-        recs = cli.run(["--arch", "llama3.2-1b", "--smoke",
+        recs = cli.run(["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
                         "--density-policy", "none", "--steps", "2",
                         "--batch", "4", "--seq", "16", "--mesh", mesh,
                         "--strategy", strategy, "--host-devices", str(W),
@@ -652,7 +652,8 @@ def test_serve_cli_on_card(dev, capsys):
         seen.append(torch.equal(state["pub"], pack_grads(
             layout, replica, torch.float32)))
 
-    argv = ["--arch", "llama3.2-1b", "--smoke", "--requests", "4",
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1", "--requests",
+            "4",
             "--max-batch", "2", "--prompt-len", "8", "--gen", "6",
             "--publish-every", "2", "--resync-every", "3"]
     got = serve.run(argv, probe=probe)

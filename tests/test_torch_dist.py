@@ -16,6 +16,12 @@
   than ``k_cap`` carry the reference's indices too.
 * deepseek-moe-16b's smoke variant at ``(4, 1)``, allgather, against
   the same JAX mesh run: the MoE capacity is each worker's.
+* The model axis (``M2_CASES`` of the same subprocess, on 8 forced host
+  devices): a model axis of 2 in one process, each worker's buckets two
+  rows selecting ``ceil(k / 2)`` each, at ``(2, 2)`` for allgather,
+  gtopk, adaptive density (``variance``) and ``randk``, at ``(2, 1, 2)``
+  for hierarchical and hier_gtopk, and at the reference's default
+  ``(4, 2)``; the tolerances above.
 * The rank-order decode of gathered pairs with cross-rank duplicates,
   bitwise a sequential numpy sum.
 * ``_wire_cast_fixup`` for bf16 and fp16, bitwise the reference's.
@@ -38,6 +44,7 @@ import torch
 from repro.dist import aggregate as jagg
 from repro.models import ModelConfig as JModelConfig
 from repro.models import init_params as j_init
+from _torch_steps import near_tie_swaps as _near_tie_swaps
 from repro_torch import tree
 from repro_torch.core import codec
 from repro_torch.core.compression import CompressionConfig
@@ -68,7 +75,7 @@ def ref(tmp_path_factory):
     """The JAX mesh run of every strategy, one subprocess."""
     out = tmp_path_factory.mktemp("jax_mesh") / "ref.npz"
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
     r = subprocess.run([sys.executable,
                         os.path.join(TESTS, "_torch_dist_ref.py"), str(out)],
                        env=env, capture_output=True, text=True, timeout=900)
@@ -112,6 +119,59 @@ def test_local_wire_matches_jax_mesh(ref, strategy):
         np.testing.assert_allclose(state[key].numpy(),
                                    ref[f"{strategy}/{key}"], rtol=1e-4,
                                    atol=1e-5)
+
+
+M2_MESHES = {"m2_allgather": ("2x2", "allgather", "topk", None),
+             "m2_gtopk": ("2x2", "gtopk", "topk", None),
+             "m2_hierarchical": ("2x1x2", "hierarchical", "topk", None),
+             "m2_hier_gtopk": ("2x1x2", "hier_gtopk", "topk", None),
+             "m2_variance": ("2x2", "allgather", "topk", "variance"),
+             "m2_randk": ("2x2", "allgather", "randk", None),
+             "m2_4x2": ("4x2", "allgather", "topk", None)}
+
+
+@pytest.mark.parametrize("case", list(M2_MESHES))
+def test_local_wire_model_axis_matches_jax_mesh(ref, case):
+    """A model axis of 2 in one process (``LocalWire``, the buckets
+    ``(2, d_row_total)``) against the JAX mesh step at the same mesh:
+    losses, the wire accounting (and ``k_total`` under adaptive
+    density) and the final params and residuals ``(D, 2·d_row_total)``
+    at the tolerances of the model axis of 1."""
+    from repro_torch.core.adaptk import make_policy
+    mesh_s, strategy, compressor, policy = M2_MESHES[case]
+    jparams = j_init(JModelConfig(**_CFG).validate(), jax.random.PRNGKey(0))
+    np_params = jax.tree.map(np.asarray, jparams)
+    for i, leaf in enumerate(jax.tree.leaves(np_params)):
+        np.testing.assert_array_equal(leaf, ref[f"m2/init/{i}"])
+    params = from_jax_params(np_params, "cpu")
+    comp = CompressionConfig(compressor=compressor, ratio=0.02,
+                             strategy=strategy, backend="reference",
+                             density_policy=policy and make_policy(policy))
+    layout = build_layout(params, 2, comp)
+    mesh = parse_mesh(mesh_s)
+    opt = sgd_momentum(0.9)
+    state = init_train_state(params, opt, workers=data_world_size(mesh),
+                             model_size=2, compression=comp, layout=layout)
+    step = make_train_step(ModelConfig(**_CFG).validate(), mesh, opt,
+                           constant(0.05), compression=comp, layout=layout)
+    for s in range(2):
+        batch = {k: torch.from_numpy(ref[f"m2/batch/{s}/{k}"]).long()
+                 for k in ("tokens", "labels")}
+        state, m = step(state, batch)
+        np.testing.assert_allclose(float(m["loss"]), ref[f"{case}/{s}/loss"],
+                                   rtol=1e-4)
+        for k in METRICS[1:] + (("k_total",) if policy else ()):
+            np.testing.assert_allclose(float(m[k]), ref[f"{case}/{s}/{k}"],
+                                       rtol=1e-6, err_msg=k)
+    for i, leaf in enumerate(tree.leaves(state["params"])):
+        np.testing.assert_allclose(leaf.numpy(), ref[f"{case}/params/{i}"],
+                                   rtol=1e-4, atol=1e-5)
+    keys = ["resid"] + (["resid2"] if strategy.startswith("hier") else [])
+    for key in keys:
+        assert state[key].shape == (data_world_size(mesh),
+                                    2 * layout.d_row_total)
+        np.testing.assert_allclose(state[key].numpy(), ref[f"{case}/{key}"],
+                                   rtol=1e-4, atol=1e-5)
 
 
 def test_local_wire_moe_matches_jax_mesh(ref):
@@ -162,29 +222,6 @@ def test_local_wire_moe_matches_jax_mesh(ref):
         at = skip.get(tree.path_name(path), [])
         got[at] = want[at]
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-
-
-def _near_tie_swaps(got, want, limit=4):
-    """The bucket columns where two runs' residuals ``(W, D)`` differ
-    beyond rtol 1e-4 / atol 1e-5; each must be a near-tie swap of a
-    top-k selection: in each row the columns pair up, one run sent
-    (residual 0) what the other kept, and the kept magnitudes agree
-    within rtol 1e-5 — elements at the k-th magnitude whose order f32
-    summation flipped.  At most ``limit`` a row."""
-    bad = ~np.isclose(got, want, rtol=1e-4, atol=1e-5)
-    cols = []
-    for w in range(got.shape[0]):
-        c = np.flatnonzero(bad[w])
-        assert len(c) <= limit, (w, c)
-        sent_here = c[got[w, c] == 0]
-        sent_there = c[want[w, c] == 0]
-        assert len(sent_here) + len(sent_there) == len(c), (w, c)
-        assert len(sent_here) == len(sent_there), (w, c)
-        np.testing.assert_allclose(
-            np.sort(np.abs(want[w, sent_here])),
-            np.sort(np.abs(got[w, sent_there])), rtol=1e-5)
-        cols += list(c)
-    return sorted(set(cols))
 
 
 @pytest.mark.parametrize("sizes", [(1,), (2,), (4,), (8,), (2, 2), (2, 4),
@@ -374,7 +411,7 @@ def test_process_group_wire_gloo_bitwise_local(tmp_path, W):
     for strategy, mesh in meshes.items():
         name = f"{strategy}-{mesh}"
         local = tmp_path / f"local-{name}.npz"
-        recs = cli.run(["--arch", "llama3.2-1b", "--smoke",
+        recs = cli.run(["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
                         "--density-policy", "none", "--device", "cpu",
                         "--steps", "2", "--batch", "4", "--seq", "16",
                         "--mesh", mesh, "--strategy", strategy,

@@ -38,7 +38,8 @@ assert {"repro_torch.dist.wire", "repro_torch.launch.mesh",
         "repro_torch.benchmarks.serve_staleness",
         "repro_torch.models.moe", "repro_torch.models.ssm",
         "repro_torch.models.xlstm",
-        "repro_torch.configs.shapes"} <= set(names), names
+        "repro_torch.configs.shapes", "repro_torch.dist.sharding",
+        "repro_torch.dist.tensor_parallel"} <= set(names), names
 print(len(names))
 """
 

@@ -392,7 +392,8 @@ def test_local_wire_matches_jax_mesh(mesh_ref, case):
                                    rtol=1e-4, atol=1e-5)
 
 
-_SMOKE = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--steps",
+_SMOKE = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1", "--device",
+          "cpu", "--steps",
           "1", "--batch", "2", "--seq", "16", "--log-every", "1"]
 
 

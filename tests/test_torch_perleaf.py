@@ -184,7 +184,8 @@ def test_perleaf_checkpoint_resumes_bucketed(tmp_path, mode):
 
 
 def test_cli_resumes_a_perleaf_checkpoint_bucketed(tmp_path):
-    base = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
+    base = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
+            "--density-policy", "none",
             "--device", "cpu", "--batch", "4", "--seq", "16",
             "--log-every", "1"]
     straight = cli.run(base + ["--steps", "3", "--checkpoint",

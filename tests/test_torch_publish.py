@@ -275,7 +275,8 @@ def test_checkpoint_zero_fills_publish_keys(tmp_path):
                                       np.asarray(js[k]))
 
 
-_TRAIN = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
+_TRAIN = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
+          "--density-policy", "none",
           "--steps", "4", "--batch", "4", "--seq", "32", "--log-every", "1",
           "--publish-every", "1", "--resync-every", "2", "--backend",
           "reference"]
@@ -318,7 +319,8 @@ def test_train_cli_resumes_the_publisher(tmp_path, capsys):
     starts the publisher at seq 0, a resync first."""
     x, a, b, c = (str(tmp_path / n) for n in ("x.npz", "a.npz", "b.npz",
                                               "c.npz"))
-    plain = ["--arch", "llama3.2-1b", "--smoke", "--density-policy",
+    plain = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
+             "--density-policy",
              "none", "--device", "cpu", "--batch", "2", "--seq", "16"]
     base = plain + ["--publish-every", "1", "--resync-every", "2"]
     cli.run(base + ["--steps", "4", "--checkpoint", x])

@@ -194,7 +194,8 @@ _CLI_CASES = {
 
 
 def _argv(kw):
-    argv = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu"]
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1", "--device",
+            "cpu"]
     for k, v in kw.items():
         argv += ["--" + k.replace("_", "-"), str(v)]
     return argv
@@ -239,7 +240,8 @@ def test_serve_cli_matches_reference_replay(case, capsys):
 def test_serve_cli_acceptance_line(capsys):
     """The acceptance command prints the ``stream:`` and ``serve:``
     lines and reports per-phase times."""
-    got = cli.run(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+    got = cli.run(["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
+                   "--device", "cpu",
                    "--requests", "4", "--max-batch", "2", "--prompt-len",
                    "8", "--gen", "4", "--publish-every", "2",
                    "--resync-every", "2"])
@@ -252,21 +254,24 @@ def test_serve_cli_acceptance_line(capsys):
 
 
 @pytest.mark.parametrize("extra,err,match", [
-    (["--mesh", "2x2"], NotImplementedError, "slice 2c"),
+    (["--mesh", "2x2"], None, None),
     (["--arch", "jamba-1.5-large-398b"], None, None),
 ])
 def test_serve_cli_names_what_it_lacks(extra, err, match):
-    """A model axis above 1 raises naming its slice; a data axis above 1
-    serves the whole batch.  jamba-1.5-large (slice 8, which it raised
-    for before) now serves: its smoke variant's tokens equal the replay
-    of the JAX driver's (``tests/_torch_serve_ref.py``)."""
-    argv = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+    """Nothing of these is missing any more.  A model axis above 1
+    (slice 2c, which it raised for before) serves the whole batch on one
+    device, as a data axis above 1 does: the model axis shards the
+    reference's params but changes no token.  jamba-1.5-large (slice 8)
+    serves too.  Each run's tokens equal the replay of the JAX driver's
+    (``tests/_torch_serve_ref.py``)."""
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1", "--device",
+            "cpu",
             "--requests", "2", "--max-batch", "2", "--prompt-len", "4",
             "--gen", "2"] + extra
     if err is None:
         got = cli.run(argv)
-        ref = replay("jamba-1.5-large-398b", requests=2, max_batch=2,
-                     prompt_len=4, gen=2)
+        arch = [argv[i + 1] for i, a in enumerate(argv) if a == "--arch"][-1]
+        ref = replay(arch, requests=2, max_batch=2, prompt_len=4, gen=2)
         for a, b in zip(ref["tokens"], got["tokens"]):
             np.testing.assert_array_equal(b.numpy(), a)
         assert got["tokens_out"] == ref["tokens_out"]
@@ -295,7 +300,7 @@ def test_serve_cli_new_archs_match_reference_replay(arch):
     kw = dict(requests=3, max_batch=2, prompt_len=8, gen=4)
     cfg = get_config(arch).reduced()
     ref = replay(arch, embed_prompt=_port_normal((2, 8, cfg.d_model)), **kw)
-    argv = ["--arch", arch, "--smoke", "--device", "cpu"]
+    argv = ["--arch", arch, "--smoke", "--mesh", "1x1", "--device", "cpu"]
     for k, v in kw.items():
         argv += ["--" + k.replace("_", "-"), str(v)]
     got = cli.run(argv)
@@ -309,7 +314,8 @@ def test_serve_cli_new_archs_match_reference_replay(arch):
 def test_serve_cli_data_axis_and_gpu_check(monkeypatch, capsys):
     """``--mesh 4x1`` is the same function on one device; without a GPU
     ``--device cuda`` (the default) exits."""
-    argv = ["--arch", "llama3.2-1b", "--smoke", "--requests", "3",
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1", "--requests",
+            "3",
             "--max-batch", "2", "--prompt-len", "4", "--gen", "3"]
     a = cli.run(argv + ["--device", "cpu"])
     b = cli.run(argv + ["--device", "cpu", "--mesh", "4x1",

@@ -123,7 +123,8 @@ def test_three_steps_match_composed_reference(compressor, ratio, backend):
 
 
 def test_cli_smoke_on_cpu(capsys):
-    argv = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
+            "--density-policy", "none",
             "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
             "--log-every", "1"]
     assert cli.main(argv) == 0
@@ -140,7 +141,8 @@ def test_cli_smoke_on_cpu(capsys):
     ["--compressor", "histk", "--backend", "reference"],
     ["--compressor", "trimmedk"]])
 def test_cli_smoke_slice5_compressors_on_cpu(extra):
-    recs = cli.run(["--arch", "llama3.2-1b", "--smoke", "--density-policy",
+    recs = cli.run(["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
+                    "--density-policy",
                     "none", "--device", "cpu", "--steps", "2", "--batch",
                     "2", "--seq", "16", "--log-every", "1"] + extra)
     assert len(recs) == 2
@@ -162,7 +164,8 @@ def test_cli_trains_each_family_on_cpu(arch):
     jl, _ = j_loss(j_init(jcfg, jax.random.PRNGKey(0)), jcfg,
                    j_batch_for(jcfg, 0, global_batch=2, seq_len=16),
                    remat=False)
-    (rec,) = cli.run(["--arch", arch, "--smoke", "--device", "cpu",
+    (rec,) = cli.run(["--arch", arch, "--smoke", "--mesh", "1x1", "--device",
+                      "cpu",
                       "--steps", "1", "--batch", "2", "--seq", "16"])
     np.testing.assert_allclose(rec["loss"], float(jl), rtol=1e-5)
     assert 0 < rec["density"] <= rec["density_cap"]
@@ -172,7 +175,8 @@ def test_cli_trains_each_family_on_cpu(arch):
 def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
-        cli.run(["--arch", "llama3.2-1b", "--smoke", "--density-policy",
+        cli.run(["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
+                 "--density-policy",
                  "none", "--steps", "1"])
 
 
@@ -189,19 +193,23 @@ def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
 ])
 def test_cli_names_the_slice_of_what_it_lacks(extra, slice_no):
     """Each flag a later slice carries raises naming that slice.  Slices
-    4, 2b, 6 and 7 have landed, so their cases (``--compressor randk``/
-    ``dgck``, ``--pipeline perleaf``, ``--chunks 2``, ``--publish-every
-    2``, ``--resync-every 4``) now train a step, with the collectives a
-    step of their dispatch (12 leaves); slice 7's one step publishes
-    nothing (``--publish-every 2`` publishes after the second)."""
-    argv = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
+    4, 2b, 2c, 6 and 7 have landed, so their cases (``--compressor
+    randk``/``dgck``, ``--pipeline perleaf``, ``--mesh 2x2
+    --host-devices 4``, ``--chunks 2``, ``--publish-every 2``,
+    ``--resync-every 4``) now train a step, with the collectives a step
+    of their dispatch (12 leaves); slice 7's one step publishes nothing
+    (``--publish-every 2`` publishes after the second); slice 2c's
+    buckets are two rows a worker."""
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
+            "--density-policy", "none",
             "--device", "cpu", "--steps", "1"] + extra
-    if slice_no in ("slice 4", "slice 2b", "slice 6", "slice 7"):
+    if slice_no in ("slice 4", "slice 2b", "slice 2c", "slice 6",
+                    "slice 7"):
         recs = cli.run(argv + ["--batch", "2", "--seq", "16"])
         assert len(recs) == 1 and np.isfinite(recs[0]["loss"])
         assert 0 < recs[0]["density"] <= recs[0]["density_cap"] * (1 + 1e-6)
         assert "publish_kind" not in recs[0]
-        coll = {"slice 4": 1, "slice 2b": 12, "slice 6": 2,
+        coll = {"slice 4": 1, "slice 2b": 12, "slice 2c": 1, "slice 6": 2,
                 "slice 7": 1}[slice_no]
         assert recs[0]["collectives_per_step"] == coll
         return
@@ -221,7 +229,8 @@ def test_cli_runs_the_density_flags(extra):
     policy, its floor and the global-k controller's floor train; the
     global-k controller without an adaptive policy exits, as the
     reference's CLI does."""
-    argv = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1", "--device",
+            "cpu",
             "--steps", "1", "--batch", "2", "--seq", "16"] + extra
     if "none" in extra:
         with pytest.raises(SystemExit, match="needs an adaptive"):
@@ -231,7 +240,8 @@ def test_cli_runs_the_density_flags(extra):
     assert np.isfinite(rec["loss"]) and rec["k_total"] > 0
 
 
-_SMOKE = ["--arch", "llama3.2-1b", "--smoke", "--density-policy", "none",
+_SMOKE = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
+          "--density-policy", "none",
           "--device", "cpu", "--steps", "2", "--batch", "4", "--seq", "16",
           "--log-every", "1"]
 
@@ -299,7 +309,8 @@ def test_llama_default_density_policy_is_rejected(capsys):
     adaptive density: with no ``--density-policy`` the trainer runs
     ``variance`` and reports ``k_total``; ``--density-policy none`` is
     fixed-k."""
-    argv = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1", "--device",
+            "cpu",
             "--steps", "1", "--batch", "2", "--seq", "16"]
     (rec,) = cli.run(argv)
     assert "density_policy=variance" in capsys.readouterr().out
