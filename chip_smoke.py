@@ -8,6 +8,7 @@
     python3 chip_smoke.py --model-axis-only  # phase 1, 2's M = 2 rows, 12
     python3 chip_smoke.py --tensor-parallel-only  # phases 1 and 12b
                                           # (NCCL when two cards are visible)
+    python3 chip_smoke.py --tuner-only    # phases 1 and 13
 
 Phases (any failure exits non-zero; nothing is wrapped to pass):
 
@@ -156,7 +157,20 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    step a rank of each kernel, the losses the one-process ``--mesh
    1x2`` run's within rtol 1e-6, step ms, relayout ms and each rank's
    peak memory; on one shared random gradient, the relayout both ways
-   and each row's compression bitwise the one-process bucket's row.
+   and each row's compression bitwise the one-process bucket's row;
+13. slice 9, the launch and tuning stack (``phase13_tuner``): 13a the
+   tuner benchmark's rows against ``benchmarks/baselines/tuner.json``; 13b
+   ``measure_hardware`` on the card (1 GiB copy, at most 105% of 3.35
+   TB/s); 13c ``launch.multihost`` coordinate and validate under
+   ``torchrun`` in 2 processes at the reference's factors, the measured
+   topology saved; 13d ``--strategy auto`` at full width, ``4x1`` on
+   13c's topology and ``2x2x1`` (4 layers) on the reference's ``asym``
+   descriptor (``hier_gtopk``), each bitwise the run that names the
+   chosen strategy, 48 and 96 launches a step of each Gaussian-k
+   kernel; 13e ``step_cost`` and the roofline of the 4x1 step, and the
+   share of the f32 peak of the forward plus backward and of the step;
+   13f ``dryrun`` on meta for all ten archs at ``4x2`` and
+   ``table2_scaling``'s rows.
 
 Every trainer path draws its params on the card (``init_params``: one
 ``threefry_bits`` launch a weight matrix), counted once a path beside the
@@ -3140,6 +3154,380 @@ def phase12b(torch, by_path, llama) -> dict:
             "wall_s": time.time() - t0}
 
 
+# -- phase 13: the launch and tuning stack (slice 9) --
+
+TUNE_STEPS = 2
+
+
+def phase13_tuner(torch, by_path, llama) -> dict:
+    """Slice 9, the launch and tuning stack (``phase13a`` .. ``phase13f``):
+
+    13a. ``benchmarks.tuner_decision``'s rows equal
+         ``benchmarks/baselines/tuner.json`` (the choice and ``passes``
+         exactly, ``ms`` within 1e-12 relative);
+    13b. ``launch.topo.measure_hardware`` on the card (an 8192-square
+         f32 matmul, TF32 off; ``x + 1`` over 1024 MiB) against
+         ``H100_SXM``: the copy rate may read at most 105% of 3.35 TB/s;
+    13c. ``launch.multihost --mode coordinate`` and ``--mode validate``
+         under ``torchrun`` in 2 processes (NCCL with a card each when
+         two are visible, else gloo on the one card, staged through the
+         host): every rank's ``COORDINATE OK``, the reference's validate
+         asserts at its factors (2 and 4), the decision
+         ``choose_strategy``'s on the measured topology, which is saved
+         for 13d;
+    13d. ``launch.train.run`` at full llama3.2-1b width, Gaussian-k
+         fixed-k at 0.001, fused, 8 x 128, ``--strategy auto`` against
+         the strategy it chose, 2 steps each: ``--mesh 4x1
+         --host-devices 4 --topology <13c's>`` at 16 layers (48
+         launches a step of K1, K2 and both K3), and ``--mesh 2x2x1
+         --host-devices 4 --topology <the reference's asym>`` at 4
+         layers (5b's cut: the per-worker gTop-k buffers of 16 layers
+         exceed the card), which must choose ``hier_gtopk`` (96 a step:
+         the pod means are compressed again, 5b's count); the printed
+         decision ``choose_strategy``'s on the run's layout, the losses
+         and every step's residual digests bitwise; step ms, peak
+         memory;
+    13e. ``launch.step_cost`` and ``launch.roofline`` on 13d's 4x1 step:
+         the counted FLOPs against 6·N·tokens, the wire counted through
+         ``ByteCountingWire`` during the explicit run, the roofline
+         under ``H100_SXM``, and the share of the f32 peak,
+         ``model_flops / (s x 67e12)``, of the forward plus backward
+         alone at world 1 (CUDA events) and of the 4x1 step;
+    13f. ``launch.dryrun`` on the meta device for all ten archs x their
+         input shapes at ``4x2`` (every applicable cell ``OK``) and
+         ``benchmarks.table2_scaling``'s rows (merge rows on the card)."""
+    out = {"13a": phase13a(), "13b": phase13b(torch)}
+    out["13c"], topo_path = phase13c(torch)
+    out["13d"], cost_in = phase13d(torch, by_path, llama, topo_path)
+    out["13e"] = phase13e(torch, cost_in)
+    out["13f"] = phase13f()
+    return out
+
+
+def phase13a() -> dict:
+    from repro_torch.benchmarks import tuner_decision
+    _, doc = tuner_decision.collect()
+    with open(os.path.join(HERE, "benchmarks", "baselines",
+                           "tuner.json")) as f:
+        base = json.load(f)
+    bad = tuner_decision.baseline_mismatches(doc["rows"], base["rows"])
+    assert not bad, ("13a tuner rows", bad[:3])
+    log(f"phase 13a: tuner_decision's {len(doc['rows'])} rows equal "
+        "benchmarks/baselines/tuner.json")
+    return {"rows": len(doc["rows"])}
+
+
+def phase13b(torch) -> dict:
+    from repro_torch.launch.topo import H100_SXM, measure_hardware
+    hw = measure_hardware(reps=5, n=8192, copy_mb=1024, device="cuda")
+    log(f"phase 13b: measured f32 matmul {hw.peak_flops / 1e12:.2f} "
+        f"TFLOP/s (H100_SXM {H100_SXM.peak_flops / 1e12:.0f}), copy "
+        f"{hw.hbm_bw / 1e12:.3f} TB/s (H100_SXM "
+        f"{H100_SXM.hbm_bw / 1e12:.2f}) on {nvidia_smi()}")
+    assert hw.hbm_bw <= 1.05 * H100_SXM.hbm_bw, ("13b copy rate", hw)
+    return hw.to_dict()
+
+
+def torchrun(args, timeout: int = 300) -> str:
+    """``torchrun --standalone --nproc-per-node 2 -m <args>`` from the
+    checkout; returns its output, raising unless it exits 0."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m"] + args
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    text = out.stdout + out.stderr
+    assert out.returncode == 0, (cmd, text[-4000:])
+    return text
+
+
+def phase13c(torch) -> tuple:
+    import tempfile
+
+    from repro_torch.dist.tuner import choose_strategy
+    from repro_torch.launch.multihost import _validate_layout
+    from repro_torch.launch.topo import Topology, save_topology
+    t0 = time.time()
+    text = torchrun(["repro_torch.launch.multihost", "--mode", "coordinate"])
+    for rank in range(2):
+        assert f"COORDINATE OK p{rank}" in text, text[-3000:]
+    # the two ranks share one pipe, so their lines may interleave
+    coord, dec = [], json.JSONDecoder()
+    for rank in range(2):
+        at = text.index(f"coordinate p{rank}: ") + len(f"coordinate p{rank}: ")
+        coord.append(dec.raw_decode(text, at)[0])
+        assert coord[-1]["process_id"] == rank, coord[-1]
+    t1 = time.time()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    report = os.path.join(tmp, "validate.json")
+    text = torchrun(["repro_torch.launch.multihost", "--mode", "validate",
+                     "--json", report])
+    assert "VALIDATE OK" in text, text[-3000:]
+    with open(report) as f:
+        rep = json.load(f)
+    topo = Topology.from_dict(rep["topology"])
+    want = choose_strategy(_validate_layout(0.05), [("data", 2)], topo)
+    assert rep["decision"] == json.loads(json.dumps(want.to_dict())), (
+        "13c decision", rep["decision"], want.to_dict())
+    path = os.path.join(tmp, "topology.json")
+    save_topology(topo, path)
+    backend = coord[0]["backend"]
+    for r in rep["strategies"]:
+        log(f"  13c {r['strategy']}: predicted "
+            f"{r['predicted_s'] * 1e6:.1f} us, measured "
+            f"{r['measured_s'] * 1e6:.1f} us, ratio {r['ratio']:.3f}")
+    log(f"phase 13c: coordinate ({backend}, {t1 - t0:.1f} s) and validate "
+        f"({time.time() - t1:.1f} s) in 2 processes: chose "
+        f"{rep['decision']['strategy']}; link "
+        f"{topo.link('data').to_dict()}; hardware "
+        f"{topo.hardware.to_dict()}; saved to {path}")
+    return {"backend": backend, "coordinate": coord,
+            "validate": rep, "wall_s": time.time() - t0}, path
+
+
+def device_digest(torch, t) -> tuple:
+    """A digest of ``t``'s bits on the card: the sum of its int32 words
+    and their sum weighted by ``1 + index % 65521`` (int64, wrapping)."""
+    x = t.detach().reshape(-1).view(torch.int32)
+    s1 = s2 = 0
+    step = 1 << 26
+    for a in range(0, x.numel(), step):
+        c = x[a:a + step].to(torch.int64)
+        w = torch.arange(a, a + c.numel(), device=c.device) % 65521 + 1
+        s1 += int(c.sum())
+        s2 += int((c * w).sum())
+    return s1, s2
+
+
+def tuned_run(torch, label, argv, cfg, expect, count_wire=False):
+    """One ``train.run`` with its launch counters set to 0 just before
+    and read just after (:func:`drive`), the printed output captured and
+    every step's residual digested; returns ``(launches, records,
+    digests, printed, peak, wire)`` (``wire``: the
+    ``step_cost.ByteCountingWire`` around the run's wire, when asked)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import step_cost, train
+    digests, wires = [], []
+
+    def probe(rank, resid=None, means=None, **kw):
+        if rank is None and resid is not None:
+            digests.append(device_digest(torch, resid))
+
+    make_wire = train.make_wire
+
+    def counted(*a, **k):
+        wire, device, started = make_wire(*a, **k)
+        wires.append(step_cost.ByteCountingWire(wire))
+        return wires[-1], device, started
+
+    buf = io.StringIO()
+    once = {"threefry_bits": init_draws(cfg)}
+    torch.cuda.reset_peak_memory_stats()
+    if count_wire:
+        train.make_wire = counted
+    try:
+        with contextlib.redirect_stdout(buf):
+            launches, records = drive(label, lambda: train.run(
+                argv + ["--steps", str(TUNE_STEPS), "--log-every", "1"],
+                probe=probe, cfg=cfg), expect, TUNE_STEPS, once)
+    finally:
+        train.make_wire = make_wire
+    peak = torch.cuda.max_memory_allocated()
+    printed = buf.getvalue()
+    log(printed.rstrip())
+    return (launches, records, digests, printed, peak,
+            wires[0] if wires else None)
+
+
+def phase13d(torch, by_path, llama, topo_path) -> tuple:
+    import tempfile
+
+    from repro_torch.benchmarks.tuner_decision import cases
+    from repro_torch.core.compressors import get_compressor
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.dist.tuner import choose_strategy
+    from repro_torch.launch.topo import load_topology, save_topology
+    from repro_torch.models import init_params
+    asym = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "asym.json")
+    save_topology(cases()[0][3], asym)
+    cells = (("4x1", [("data", 4)], topo_path, 16, 48, None),
+             ("2x2x1", [("pod", 2), ("data", 2)], asym, 4, 96,
+              "hier_gtopk"))
+    out, cost_in = {}, None
+    def decide(layers, axes, topo):
+        cfg = llama_layers(layers)
+        layout = build_layout(init_params(cfg, 0, "meta"), 1, RATIO,
+                              get_compressor("gaussiank"))
+        return cfg, layout, choose_strategy(layout, axes,
+                                            load_topology(topo))
+
+    for mesh_s, axes, topo, layers, per_step, must in cells:
+        cfg, layout, want = decide(layers, axes, topo)
+        if want.strategy != "allgather" and layers > 4:
+            # 5b's cut: a gTop-k worker's buffers of 16 layers exceed
+            # the card
+            layers = 4
+            cfg, layout, want = decide(layers, axes, topo)
+        if must:
+            assert want.strategy == must, (mesh_s, want.to_dict())
+        argv = llama + ["--host-devices", "4", "--mesh", mesh_s]
+        expect = {n: per_step for n in MAIN_KERNELS}
+        log(f"phase 13d: --mesh {mesh_s} --strategy auto --topology "
+            f"{topo}, full width with {layers} layers, {TUNE_STEPS} steps")
+        label = f"13d auto {mesh_s}"
+        by_path[label], recs, dig, printed, peak, _ = tuned_run(
+            torch, label, argv + ["--strategy", "auto", "--topology", topo],
+            cfg, expect)
+        chosen = printed.split("-> strategy=")[1].split()[0]
+        assert chosen == want.strategy, (label, chosen, want.to_dict())
+        assert f" tuner={chosen} " in printed, label
+        torch.cuda.empty_cache()
+        label2 = f"13d {chosen} {mesh_s}"
+        by_path[label2], recs2, dig2, _, peak2, wire = tuned_run(
+            torch, label2, argv + ["--strategy", chosen], cfg, expect,
+            count_wire=mesh_s == "4x1")
+        assert [r["loss"] for r in recs] == [r["loss"] for r in recs2], (
+            label, recs, recs2)
+        assert dig == dig2 and len(dig) == TUNE_STEPS, (label, dig, dig2)
+        assert peak < 80e9 and peak2 < 80e9, (label, peak, peak2)
+        out[mesh_s] = {"chosen": chosen, "layers": layers,
+                       "predictions": want.to_dict()["predictions"],
+                       "losses": [r["loss"] for r in recs],
+                       "step_ms_auto": [r["ms"] for r in recs],
+                       "step_ms_explicit": [r["ms"] for r in recs2],
+                       "peak_mem_gib": peak / 2**30,
+                       "launches_per_step": per_step}
+        log(f"  13d {mesh_s}: auto chose {chosen} (choose_strategy on the "
+            f"run's layout agrees); losses and {len(dig)} residual digests "
+            f"bitwise the explicit run's; step ms auto "
+            f"{[round(r['ms'], 1) for r in recs]} explicit "
+            f"{[round(r['ms'], 1) for r in recs2]}; peak "
+            f"{peak / 2**30:.2f} GiB; {per_step} launches a step of each "
+            "Gaussian-k kernel")
+        if wire is not None:
+            from repro_torch.launch.step_cost import count_wire_collectives
+            cost_in = {"cfg": cfg, "layout": layout, "strategy": chosen,
+                       "step_ms":
+                       recs2[-1]["ms"], "wire": count_wire_collectives(
+                           wire, TUNE_STEPS),
+                       "topo": load_topology(topo)}
+        del recs, recs2
+        torch.cuda.empty_cache()
+    return out, cost_in
+
+
+def phase13e(torch, cost_in) -> dict:
+    from repro_torch import tree
+    from repro_torch.data import batch_for
+    from repro_torch.dist.tuner import MSGS_PER_PAIR
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import step_cost
+    from repro_torch.launch.topo import H100_SXM
+    from repro_torch.models import init_params, loss_fn
+    cfg, layout = cost_in["cfg"], cost_in["layout"]
+    batch, seq, workers = 8, 128, 4
+    cost = step_cost.step_cost(cfg, batch=batch, seq=seq, layout=layout,
+                               workers=workers,
+                               wire_counts=cost_in["wire"])
+    n = cost["n_params"]
+    total, active = rl.active_params(init_params(cfg, 0, "meta"), cfg)
+    mf = rl.model_flops(cfg, total, active, "train", batch, seq)
+    strategy = cost_in["strategy"]
+    assert cost_in["wire"]["bytes"] * 8 == layout.comm_bits_sparse(
+        strategy, workers), ("13e wire bytes", cost_in["wire"])
+    assert cost_in["wire"]["messages"] == layout.collectives(
+        strategy, workers), cost_in["wire"]
+    terms = rl.roofline_terms(
+        cost["flops"], cost["bytes_accessed"], cost["coll_bytes"], mf,
+        hw=H100_SXM, link=cost_in["topo"].link("data"),
+        n_messages=cost["n_messages"] * MSGS_PER_PAIR)
+    # the forward plus backward alone, world 1, at full depth, between
+    # CUDA events
+    full = llama_layers(16)
+    params = init_params(full, 0, "cuda")
+    leaves = tree.leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    b = batch_for(full, 0, global_batch=batch, seq_len=seq, device="cuda")
+
+    def fwd_bwd():
+        loss, _ = loss_fn(params, full, b)
+        torch.autograd.grad(loss, leaves)
+
+    fb_ms = time_ms(fwd_bwd, 5)
+    w1 = step_cost.count_flops(full, batch, seq, params=params,
+                               device="cuda")
+    n_full, _ = rl.active_params(params, full)
+    del params, leaves
+    torch.cuda.empty_cache()
+    mf_full = rl.model_flops(full, n_full, n_full, "train", batch, seq)
+    peak = H100_SXM.peak_flops
+    share_fb = mf_full / (fb_ms / 1e3 * peak)
+    counted_fb = w1["flops"] / (fb_ms / 1e3 * peak)
+    share_step = mf / (cost_in["step_ms"] / 1e3 * peak)
+    out = {"layers_4x1": cfg.num_layers, "strategy_4x1": strategy,
+           "flops_counted": cost["flops"], "model_flops_6NT": mf,
+           "counted_over_6NT": cost["flops"] / mf,
+           "uncounted_ops": cost["uncounted_ops"],
+           "bytes_accessed": cost["bytes_accessed"],
+           "state_bytes": cost["state_bytes"],
+           "coll_bytes": cost["coll_bytes"],
+           "n_messages": cost["n_messages"], "roofline": terms.to_dict(),
+           "step_ms_4x1": cost_in["step_ms"],
+           "f32_peak_share_step_4x1": share_step,
+           "fwd_bwd_ms_16_layers": fb_ms,
+           "flops_counted_16_layers": w1["flops"],
+           "model_flops_6NT_16_layers": mf_full,
+           "f32_peak_share_fwd_bwd": share_fb,
+           "counted_f32_share_fwd_bwd": counted_fb, "n_params": n}
+    log(f"phase 13e: llama3.2-1b ({cfg.num_layers} layers) step at 4x1 "
+        f"({strategy}), 8 x 128: counted {cost['flops']:.4e} FLOPs "
+        f"(6·N·tokens {mf:.4e}, ratio {cost['flops'] / mf:.4f}); bytes "
+        f"{cost['bytes_accessed']:.4e}; wire {cost['coll_bytes']:.0f} B in "
+        f"{cost['n_messages']:.0f} call(s); roofline under H100_SXM and "
+        f"13c's link: compute {terms.compute_s * 1e3:.2f} ms, memory "
+        f"{terms.memory_s * 1e3:.2f} ms, collective "
+        f"{terms.collective_s * 1e3:.3f} ms ({terms.dominant}); the step "
+        f"{cost_in['step_ms']:.1f} ms -> {share_step:.3f} of the f32 peak. "
+        f"At 16 layers, world 1: forward + backward {fb_ms:.1f} ms, "
+        f"6·N·tokens {mf_full:.4e} -> {share_fb:.3f} of the f32 peak "
+        f"(counted {w1['flops']:.4e} -> {counted_fb:.3f}); {nvidia_smi()}")
+    return out
+
+
+def phase13f() -> dict:
+    import tempfile
+
+    from repro_torch.benchmarks import table2_scaling
+    from repro_torch.launch import dryrun
+    t0 = time.time()
+    recs = dryrun.run_all(mesh="4x2")
+    bad = [(r["arch"], r["shape"], r.get("error")) for r in recs
+           if r["status"] == "FAIL"]
+    assert not bad, ("13f dryrun", bad)
+    ok = sum(r["status"] == "OK" for r in recs)
+    t1 = time.time()
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"),
+                        "dryrun.json")
+    with open(path, "w") as f:
+        json.dump(recs, f)
+    rows = table2_scaling.run(smoke=False, device="cuda", dryrun_json=path)
+    merge = [r for r in rows if r[0].startswith("table2/merge/")]
+    eff = [r for r in rows if r[0].startswith("table2/eff/")]
+    assert len(eff) == 10 and len(merge) == 2, rows
+    log(f"phase 13f: dryrun at 4x2 on meta: {ok} OK, "
+        f"{len(recs) - ok} SKIP, 0 FAIL ({t1 - t0:.1f} s); table2 "
+        f"{len(rows)} rows ({time.time() - t1:.1f} s); merge rows {merge}")
+    return {"ok": ok, "skip": len(recs) - ok, "dryrun_s": t1 - t0,
+            "merge_rows": merge, "eff_rows": eff,
+            "flops_methods": {f"{r['arch']}/{r['shape']}":
+                              r["flops"]["method"] for r in recs
+                              if r["status"] == "OK"}}
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3194,6 +3582,12 @@ def main(argv) -> int:
                         "launches_by_path": by_path}))
         log("model-axis-only run: phases 2-11 skipped (phase 2's M = 2 "
             "rows run)")
+        return 0
+    if "--tuner-only" in argv:
+        by_path = {}
+        log(json.dumps({"phase13": phase13_tuner(torch, by_path, llama),
+                        "launches_by_path": by_path}))
+        log("tuner-only run: phases 2-12 skipped")
         return 0
     if "--tensor-parallel-only" in argv:
         by_path = {}
@@ -3459,6 +3853,9 @@ def main(argv) -> int:
     # -- phase 12: the model axis --
     phase12 = phase12_model_axis(torch, by_path, llama)
 
+    # -- phase 13: the launch and tuning stack --
+    phase13 = phase13_tuner(torch, by_path, llama)
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -3470,7 +3867,7 @@ def main(argv) -> int:
                     "phase7": phase7, "phase8": phase8,
                     "phase9": phase9, "phase10": phase10,
                     "phase11": phase11, "phase12": phase12,
-                    "build_s": build_s,
+                    "phase13": phase13, "build_s": build_s,
                     "total_s": time.time() - t_start}))
     log(json.dumps({"kernels": list(rows.values())}))
     log(smi)

@@ -78,10 +78,13 @@ def bench_meta() -> dict:
     """Measurement-provenance fields every result document records: the
     platform, the card's name and power limit as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` gives them, and
-    the torch and CUDA versions."""
+    the torch and CUDA versions, and the launch environment
+    (``launch.env.describe_env``)."""
+    from repro_torch.launch.env import describe_env
     meta = {"platform": "gpu" if torch.cuda.is_available() else "cpu",
             "torch": torch.__version__, "cuda": torch.version.cuda,
-            "python": sys.version.split()[0], "gpu": None}
+            "python": sys.version.split()[0], "gpu": None,
+            "env": describe_env()}
     if torch.cuda.is_available():
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,

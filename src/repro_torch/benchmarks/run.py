@@ -18,7 +18,8 @@ import time
 
 MODULES = ["fig5_bound", "fig2_histograms", "fig1_fig6_convergence",
            "fig4_selection_speed", "fig10_sensitivity", "fig_rtopk",
-           "overlap_schedule", "serve_staleness"]
+           "overlap_schedule", "serve_staleness", "tuner_decision",
+           "table2_scaling"]
 
 
 def run_module(name: str, smoke: bool = False, device="cuda") -> int:

@@ -64,11 +64,17 @@ the run (``serve/publish.py``: top-k at ``--publish-ratio`` over
 re-budgeted; every ``--resync-every``-th publish ships the dense
 bucket) and prints ``published D deltas + R resyncs (X MiB on the
 wire)``; the publisher's state rides in the checkpoint under
-``publish/``.  Every flag value it does not carry raises an error
-naming the slice that ports it: a model axis above 1, ``--strategy
-auto``, and any value but the default of the flags only those features
-read, such as ``--topology``; under tensor parallelism also
-``--publish-every`` and ``--pipeline perleaf``.
+``publish/``.  ``--strategy auto`` picks the wire strategy with the
+topology tuner (``dist/tuner.choose_strategy``) over the mesh's data
+axes, from the ``--topology`` JSON descriptor or, without one, from
+``launch/topo.measure_topology`` over this run's own wire (under
+``torchrun`` rank 0's measurement, broadcast, so every rank decides
+alike; in one process ``LocalWire`` crosses no link and every axis keeps
+the default link); it prints ``tuner: topology=... -> strategy=...``,
+tags each log line with ``tuner=<strategy>`` and then trains exactly as
+that strategy given explicitly.  Under tensor parallelism
+``--publish-every`` and ``--pipeline perleaf`` raise an error naming
+the slice that ports them.
 """
 from __future__ import annotations
 
@@ -92,7 +98,10 @@ def _parser() -> argparse.ArgumentParser:
                              "hier_gtopk", "auto"])
     ap.add_argument("--hierarchical", action="store_true",
                     help="deprecated alias for --strategy hierarchical")
-    ap.add_argument("--topology", default="")
+    ap.add_argument("--topology", default="",
+                    help="JSON topology descriptor (launch/topo.py) that "
+                         "--strategy auto prices; default: measured over "
+                         "this run's wire")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "fused", "reference"],
                     help="compression pipeline: the fused Hopper kernels "
@@ -149,23 +158,22 @@ def parse_args(argv=None):
     return _parser().parse_args(argv)
 
 
-# flags that only a later slice reads -> the LATER key of that slice; any
-# value but the default raises rather than being ignored
-_LATER_FLAGS = {"topology": "auto"}
-
-
 def require_ported(args, cfg):
-    """Raise for every flag value the port does not carry; returns the
-    mesh and the strategy."""
+    """Check the flags against each other; returns the mesh and the
+    strategy (``"auto"`` for the tuner to decide)."""
     from repro_torch.core.compressors import get_compressor
     from repro_torch.dist.layout import resolve_strategy
     from repro_torch.launch.mesh import parse_mesh
-    from repro_torch.slices import not_ported
 
     mesh = parse_mesh(args.mesh)
     if args.strategy == "auto":
-        raise not_ported("--strategy auto", "auto")
-    strategy = resolve_strategy(args.strategy, args.hierarchical)
+        if args.compressor == "none":
+            raise SystemExit(
+                "--strategy auto tunes the sparse wire pattern; it is "
+                "meaningless with --compressor none (dense all-reduce)")
+        strategy = "auto"
+    else:
+        strategy = resolve_strategy(args.strategy, args.hierarchical)
     if args.compressor != "none":
         get_compressor(args.compressor)
     if args.chunks < 1:
@@ -176,10 +184,6 @@ def require_ported(args, cfg):
             "--chunks > 1 needs the bucketed sparse pipeline: use "
             "--pipeline bucketed with a sparse compressor (the chunked "
             "schedule re-dispatches the flat wire block)")
-    defaults = _parser()
-    for dest, key in _LATER_FLAGS.items():
-        if getattr(args, dest) != defaults.get_default(dest):
-            raise not_ported(f"--{dest.replace('_', '-')}", key)
     return mesh, strategy
 
 
@@ -311,6 +315,18 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
         layout = build_layout(params, M, args.ratio,
                               get_compressor(args.compressor),
                               density_policy=policy)
+    lead = wire.ranks[0] == 0 and getattr(wire, "model_rank", 0) == 0
+    say = print if lead else (lambda *a, **k: None)
+    decision = None
+    if strategy == "auto":
+        decision = tune_strategy(args, mesh, wire, device, params, layout,
+                                 policy)
+        strategy = decision.strategy
+        preds = " ".join(f"{p.strategy}={p.total_s * 1e6:.1f}us"
+                         for p in decision.predictions)
+        say(f"tuner: topology={decision.topology} "
+            f"axes={dict(data_axes_pairs(mesh))} -> strategy={strategy} "
+            f"({preds})", flush=True)
     config = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
                                strategy=strategy, backend=args.backend,
                                density_policy=policy, chunks=args.chunks)
@@ -338,10 +354,9 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
     step = make_train_step(cfg, mesh, opt, lr_fn, compression=config,
                            layout=layout, probe=probe, wire=wire,
                            seed=args.seed, tensor_parallel=tp)
-    lead = wire.ranks[0] == 0 and getattr(wire, "model_rank", 0) == 0
-    say = print if lead else (lambda *a, **k: None)
     say(f"arch={cfg.name} compressor={args.compressor} ratio={args.ratio} "
-        f"strategy={strategy} backend={args.backend} mesh={args.mesh} "
+        f"strategy={strategy}{'(auto)' if decision is not None else ''} "
+        f"backend={args.backend} mesh={args.mesh} "
         f"workers={wire.world} wire={wire.name} "
         f"dist_backend={wire.backend} model={M} "
         f"tensor_parallel={int(tp is not None)} pipeline={args.pipeline} "
@@ -375,6 +390,9 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
                         f" density={rec['density']:.6f}")
             if "k_total" in m:
                 comm += f" k_total={int(rec['k_total'])}"
+            if decision is not None:
+                comm += (f" tuner={decision.strategy}"
+                         f" pred_wire_us={decision.best.total_s * 1e6:.1f}")
             say(f"step {i:5d} loss={rec['loss']:.4f} lr={rec['lr']:.4g}"
                 f"{comm} step_ms={ms:.1f} ({time.time() - t0:.1f}s)",
                 flush=True)
@@ -399,6 +417,34 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
             save_state(args.checkpoint, out)
             say(f"saved -> {args.checkpoint}")
     return records
+
+
+def data_axes_pairs(mesh) -> list:
+    """The mesh's data axes as ``(name, size)`` pairs, outermost first."""
+    from repro_torch.launch.mesh import data_axes_of
+    return [(ax, mesh.sizes[ax]) for ax in data_axes_of(mesh)]
+
+
+def tune_strategy(args, mesh, wire, device, params, layout, policy):
+    """``--strategy auto``: the ``TunerDecision`` of
+    ``dist.tuner.choose_strategy`` over the mesh's data axes, on the
+    ``--topology`` descriptor or on one measured over ``wire``.  The
+    per-leaf pipeline has no layout of its own; the tuner only needs the
+    bucket's geometry, so it builds one (with the run's density policy)
+    from the whole params."""
+    from repro_torch.core.compressors import get_compressor
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.dist.tuner import choose_strategy
+    from repro_torch.launch.mesh import model_axis_size
+    from repro_torch.launch.topo import load_topology, measure_topology
+
+    topo = (load_topology(args.topology) if args.topology
+            else measure_topology(mesh, wire, device=device))
+    if layout is None:
+        layout = build_layout(params, model_axis_size(mesh), args.ratio,
+                              get_compressor(args.compressor),
+                              density_policy=policy)
+    return choose_strategy(layout, data_axes_pairs(mesh), topo)
 
 
 def _tensor_parallel(args, cfg, params, wire):

@@ -13,7 +13,6 @@ LATER = {
                        "parallelism of the MoE, Mamba and xLSTM blocks, "
                        "of the per-leaf loop and of the profiler; "
                        "ROADMAP Queue 1 item 7)",
-    "auto": "slice 9 (topology tuner, ROADMAP Queue 1 item 8)",
 }
 
 

@@ -39,7 +39,13 @@ assert {"repro_torch.dist.wire", "repro_torch.launch.mesh",
         "repro_torch.models.moe", "repro_torch.models.ssm",
         "repro_torch.models.xlstm",
         "repro_torch.configs.shapes", "repro_torch.dist.sharding",
-        "repro_torch.dist.tensor_parallel"} <= set(names), names
+        "repro_torch.dist.tensor_parallel",
+        "repro_torch.dist.tuner", "repro_torch.launch.topo",
+        "repro_torch.launch.multihost", "repro_torch.launch.env",
+        "repro_torch.launch.step_cost", "repro_torch.launch.roofline",
+        "repro_torch.launch.dryrun",
+        "repro_torch.benchmarks.tuner_decision",
+        "repro_torch.benchmarks.table2_scaling"} <= set(names), names
 print(len(names))
 """
 

@@ -191,18 +191,28 @@ def test_cli_needs_a_gpu_unless_told_cpu(monkeypatch):
     (["--topology", "topo.json"], "slice 9"),
     (["--resync-every", "4"], "slice 7"),
 ])
-def test_cli_names_the_slice_of_what_it_lacks(extra, slice_no):
+def test_cli_names_the_slice_of_what_it_lacks(extra, slice_no, tmp_path,
+                                              capsys):
     """Each flag a later slice carries raises naming that slice.  Slices
-    4, 2b, 2c, 6 and 7 have landed, so their cases (``--compressor
+    4, 2b, 2c, 6, 7 and 9 have landed, so their cases (``--compressor
     randk``/``dgck``, ``--pipeline perleaf``, ``--mesh 2x2
     --host-devices 4``, ``--chunks 2``, ``--publish-every 2``,
-    ``--resync-every 4``) now train a step, with the collectives a step
-    of their dispatch (12 leaves); slice 7's one step publishes nothing
-    (``--publish-every 2`` publishes after the second); slice 2c's
-    buckets are two rows a worker."""
+    ``--resync-every 4``, ``--strategy auto``, ``--topology``) now train
+    a step, with the collectives a step of their dispatch (12 leaves);
+    slice 7's one step publishes nothing (``--publish-every 2``
+    publishes after the second); slice 2c's buckets are two rows a
+    worker.  Slice 9's two cases tune at ``--mesh 4x1 --host-devices 4``
+    on a topology JSON the test writes (``--strategy auto`` on the slow
+    flat link, ``--topology`` on the asymmetric fabric): the printed
+    decision is the reference's ``choose_strategy`` on the reference's
+    layout of the same params, and the losses are those of the run that
+    names that strategy, bitwise."""
     argv = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1",
             "--density-policy", "none",
             "--device", "cpu", "--steps", "1"] + extra
+    if slice_no == "slice 9":
+        _tunes_as_the_reference(argv, extra, tmp_path, capsys)
+        return
     if slice_no in ("slice 4", "slice 2b", "slice 2c", "slice 6",
                     "slice 7"):
         recs = cli.run(argv + ["--batch", "2", "--seq", "16"])
@@ -215,6 +225,47 @@ def test_cli_names_the_slice_of_what_it_lacks(extra, slice_no):
         return
     with pytest.raises(NotImplementedError, match=slice_no):
         cli.run(argv)
+
+
+_TOPOLOGIES = {   # the reference tuner test's slow flat and asymmetric
+    "--strategy": {"name": "slow-flat", "default_link": {
+        "alpha_s": 1e-6, "beta_Bps": 1e8}},
+    "--topology": {"name": "asym", "links": {
+        "data": {"alpha_s": 1e-6, "beta_Bps": 5e10},
+        "pod": {"alpha_s": 1e-3, "beta_Bps": 1e8}},
+        "default_link": {"alpha_s": 1e-6, "beta_Bps": 5e10}},
+}
+
+
+def _tunes_as_the_reference(argv, extra, tmp_path, capsys):
+    import json
+
+    from repro.dist.tuner import choose_strategy
+    from repro.launch.topo import load_topology
+    path = str(tmp_path / "topo.json")
+    desc = dict(_TOPOLOGIES[extra[0]], hardware={
+        "name": "test-hw", "peak_flops": 197e12, "hbm_bw": 819e9})
+    with open(path, "w") as f:
+        json.dump(desc, f)
+    base = [a for a in argv if a not in extra] + [
+        "--mesh", "4x1", "--host-devices", "4", "--batch", "4", "--seq",
+        "16"]
+    recs = cli.run(base + ["--strategy", "auto", "--topology", path])
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines() if ln.startswith("tuner: "))
+    chosen = line.split("-> strategy=")[1].split()[0]
+    cfg = j_get_config("llama3.2-1b").reduced()
+    shapes = jax.eval_shape(lambda k: j_init(cfg, k), jax.random.PRNGKey(0))
+    want = choose_strategy(jl.build_layout(shapes, 1, 0.001,
+                                           j_get("gaussiank")),
+                           [("data", 4)], load_topology(path))
+    assert chosen == want.strategy, (line, want.to_dict())
+    assert f"strategy={chosen}(auto)" in out
+    assert f" tuner={chosen} " in out
+    explicit = cli.run(base + ["--strategy", chosen])
+    assert [r["loss"] for r in recs] == [r["loss"] for r in explicit]
+    assert [r["collectives_per_step"] for r in recs] == [
+        r["collectives_per_step"] for r in explicit]
 
 
 @pytest.mark.parametrize("extra", [
@@ -318,3 +369,11 @@ def test_llama_default_density_policy_is_rejected(capsys):
     (rec,) = cli.run(argv + ["--density-policy", "none"])
     assert "density_policy=none" in capsys.readouterr().out
     assert "k_total" not in rec
+
+
+def test_cli_auto_needs_a_sparse_compressor():
+    """``--strategy auto`` tunes the sparse wire: with ``--compressor
+    none`` it exits with the reference's message."""
+    with pytest.raises(SystemExit, match="meaningless with --compressor "
+                                         "none"):
+        cli.run(_SMOKE + ["--strategy", "auto", "--compressor", "none"])
