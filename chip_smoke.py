@@ -6,8 +6,10 @@
     python3 chip_smoke.py --serve-only    # phases 1 and 10
     python3 chip_smoke.py --arch-only     # phases 1 and 11
     python3 chip_smoke.py --model-axis-only  # phase 1, 2's M = 2 rows, 12
-    python3 chip_smoke.py --tensor-parallel-only  # phases 1 and 12b
+    python3 chip_smoke.py --tensor-parallel-only  # phases 1, 12b, 12c
                                           # (NCCL when two cards are visible)
+    python3 chip_smoke.py --tensor-parallel-cards  # phase 1 and the TP
+                                          # step at 1x4 on four cards
     python3 chip_smoke.py --tuner-only    # phases 1 and 13
 
 Phases (any failure exits non-zero; nothing is wrapped to pass):
@@ -157,7 +159,14 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    step a rank of each kernel, the losses the one-process ``--mesh
    1x2`` run's within rtol 1e-6, step ms, relayout ms and each rank's
    peak memory; on one shared random gradient, the relayout both ways
-   and each row's compression bitwise the one-process bucket's row;
+   and each row's compression bitwise the one-process bucket's row; 12c
+   the tensor-parallel step of the MoE, Mamba and xLSTM blocks at full
+   width, ``--mesh 1x2``, 2 steps: deepseek-moe-16b (2 layers),
+   jamba-1.5-large (1 layer) and xlstm-125m, each against its
+   one-process ``--mesh 1x2`` run (losses within rtol 1e-6, the wire
+   accounting equal, one K1, K2 and K3 pair a leaf a step a rank), and
+   xlstm-125m's per-leaf loop bitwise its bucketed TP run; step ms,
+   relayout ms and its share of the step, peak memory a rank;
 13. slice 9, the launch and tuning stack (``phase13_tuner``): 13a the
    tuner benchmark's rows against ``benchmarks/baselines/tuner.json``; 13b
    ``measure_hardware`` on the card (1 GiB copy, at most 105% of 3.35
@@ -850,7 +859,7 @@ class CompressTimer:
 
 def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
                global_check=False, levels=1, leaf_bytes=None, bounds=None,
-               runner=None, mc_check=""):
+               runner=None, mc_check="", leaves=12):
     """One trainer path at full width (``workers`` of them in this
     process): returns its launches, records, peak memory, each launched
     kernel's bound per step (``leaf_bytes``, default ``LEAF_BYTES``,
@@ -871,7 +880,8 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
     the card) as ``extra["peak_after0"]``.
 
     ``runner(steps, probe)``, when given, trains instead of the CLI and
-    returns the records (momentum correction has no flag).  ``mc_check``
+    returns the records (momentum correction has no flag).  ``leaves``
+    is the model's leaf count (llama3.2-1b's 12 by default).  ``mc_check``
     holds, at step 0, momentum correction's zeroing at every index a
     worker sent: ``"v"`` of the velocities ``resid2``, ``"ev"`` of the
     residual too (not under gTop-k, whose merge drops land in it).
@@ -979,8 +989,8 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
             assert r["k_total"] == K_eff, (label, r["k_total"], K_eff)
     step_ms = [r["ms"] for r in records]
     cols = G_cols[0]
-    # each of the 12 leaves' launches reads and writes its columns once
-    step_bound = {n: (leaf_bytes or LEAF_BYTES)[n] * cols * (c // 12)
+    # each leaf's launches read and write its columns once
+    step_bound = {n: (leaf_bytes or LEAF_BYTES)[n] * cols * (c // leaves)
                   / HBM_BYTES_PER_S * 1e3 for n, c in expect.items()}
     peak = max(peaks["after0"], peaks["step0"])
     log(f"  {label}: losses {losses}; step ms "
@@ -1132,19 +1142,21 @@ def pg_ranks(torch, cfg, chunks=1) -> tuple:
         cfg, PG_STEPS, PG_BATCH, PG_SEQ), chunks=chunks)
 
 
-def spawn_ranks(torch, target, args_of, **kw) -> tuple:
-    """Two ranks of ``target(rank, 2, backend, port, *args_of(backend,
-    port), queue, **kw)`` spawned (NCCL with a card each when there are
-    two cards, else gloo on the one card), each putting ``(rank,
-    results)`` on the queue; returns ``(backend, results by rank)``."""
+def spawn_ranks(torch, target, args_of, world=2, **kw) -> tuple:
+    """``world`` ranks of ``target(rank, world, backend, port,
+    *args_of(backend, port), queue, **kw)`` spawned (NCCL with a card
+    each when there are ``world`` cards, else gloo on the one card), each
+    putting ``(rank, results)`` on the queue; returns ``(backend,
+    results by rank)``."""
     import multiprocessing as mp
-    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=target,
-                         args=(r, 2, backend, port, *args_of(backend, port),
-                               queue), kwargs=kw) for r in range(2)]
+                         args=(r, world, backend, port,
+                               *args_of(backend, port), queue), kwargs=kw)
+             for r in range(world)]
     for p in procs:
         p.start()
     import queue as queue_mod
@@ -2716,6 +2728,15 @@ def phase11a_huge_leaf(torch, rows) -> dict:
         rows[name].update(ms_536m=k_ms, plain_ms_536m=p_ms,
                           bound_ms_536m=b_ms, d_536m=d)
     rows["fused_moments"]["max_abs_err_536m"] = k1_err
+    # the TPU's one-sweep pass B (compact_residual.py:237) as the stage
+    # and residual launches, against the bound of one sweep: g and e
+    # read once, e' and the staging rows written once
+    b_ms, b_by = bound(12 * d + 8 * nb * bcap + 4 * nb, 3 * d)
+    res["one_sweep"] = {
+        "ms": res["compact_stage"]["ms"] + res["compact_resid"]["ms"],
+        "plain_ms": (res["compact_stage"]["plain_ms"]
+                     + res["compact_resid"]["plain_ms"]),
+        "bound_ms": b_ms, "bound_by": b_by}
     log(f"  times at d={d:,} (ms, median): " + ", ".join(
         f"{n} {r['ms']:.4f} (plain {r['plain_ms']:.3f}, bound "
         f"{r['bound_ms']:.4f})" for n, r in res.items()))
@@ -2950,7 +2971,8 @@ def tp_shared_gradient(torch, rank, backend, port) -> dict:
         grads = [torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3)
                  for p in tree.leaves(meta)]
         full = pack_grads(layout, grads, torch.float32)
-        local = [tpm.shard(g, s, r, M) for g, s in zip(grads, tp.specs)]
+        local = [tpm.shard(g, pl, r, M)
+                 for g, pl in zip(grads, tp.placements)]
         del grads
         rows = tp.rows(layout)
         ev = [torch.cuda.Event(enable_timing=True) for _ in "abc"]
@@ -2981,66 +3003,97 @@ def tp_shared_gradient(torch, rank, backend, port) -> dict:
         torch.distributed.destroy_process_group()
 
 
-def tp_child(rank, world, backend, port, argv, check_port, queue):
-    """Phase 12b, one rank of the tensor-parallel launch: ``train.run``
-    under a ``torchrun``-style environment (``argv`` at ``--mesh 1x2``),
-    its launches counted from 0, the relayout's ms a step (CUDA events
-    around ``ModelRow.pack`` and ``ModelRow.unpack``) and its peak
-    memory; then :func:`tp_shared_gradient` on ``check_port``; puts
-    ``(rank, results)`` on ``queue``."""
-    import traceback
+def tp_train(torch, argv, cfg=None) -> dict:
+    """One tensor-parallel rank's ``train.run(argv, cfg=cfg)`` (under a
+    ``torchrun``-style environment set by the caller): its launches
+    counted from 0, the relayout's ms a step (CUDA events around
+    ``ModelRow.pack`` and ``ModelRow.unpack``) and its peak memory."""
+    from repro_torch.dist import tensor_parallel as tpm
+    from repro_torch.launch import train
+    events = {"pack": [], "unpack": []}
+    origs = {n: getattr(tpm.ModelRow, n) for n in events}
+
+    def timed(name):
+        def call(self, *a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            ev[0].record()
+            out = origs[name](self, *a, **k)
+            ev[1].record()
+            events[name].append(ev)
+            return out
+        return call
+
+    for n in events:
+        setattr(tpm.ModelRow, n, timed(n))
+    funcs = counters()
+    for f in funcs.values():
+        f.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     try:
-        sys.path.insert(0, os.path.join(HERE, "src"))
-        import torch
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                          LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-        from repro_torch.dist import tensor_parallel as tpm
-        from repro_torch.launch import train
-        events = {"pack": [], "unpack": []}
-        origs = {n: getattr(tpm.ModelRow, n) for n in events}
-
-        def timed(name):
-            def call(self, *a, **k):
-                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
-                ev[0].record()
-                out = origs[name](self, *a, **k)
-                ev[1].record()
-                events[name].append(ev)
-                return out
-            return call
-
-        for n in events:
-            setattr(tpm.ModelRow, n, timed(n))
-        if backend == "nccl":
-            torch.cuda.set_device(rank)
-        funcs = counters()
-        for f in funcs.values():
-            f.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            recs = train.run(argv + ["--steps", str(TP_STEPS),
-                                     "--dist-backend", backend])
-        finally:
-            for n, f in origs.items():
-                setattr(tpm.ModelRow, n, f)
-        torch.cuda.synchronize()
-        launches = {n: f.launches for n, f in funcs.items()}
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        ms = {n: [a.elapsed_time(b) for a, b in ev]
-              for n, ev in events.items()}
-        shared = tp_shared_gradient(torch, rank, backend, check_port)
-        queue.put((rank, {
-            "losses": [r["loss"] for r in recs],
+        recs = train.run(argv, cfg=cfg)
+    finally:
+        for n, f in origs.items():
+            setattr(tpm.ModelRow, n, f)
+    torch.cuda.synchronize()
+    launches = {n: f.launches for n, f in funcs.items()}
+    ms = {n: [a.elapsed_time(b) for a, b in ev]
+          for n, ev in events.items()}
+    return {"losses": [r["loss"] for r in recs],
             "step_ms": [r["ms"] for r in recs],
             "density": [r["density"] for r in recs],
             "density_cap": recs[0]["density_cap"],
+            "comm_bits_sparse": [r["comm_bits_sparse"] for r in recs],
+            "collectives": [r["collectives_per_step"] for r in recs],
             "launches": launches,
             "pack_ms": ms["pack"], "unpack_ms": ms["unpack"],
-            "peak_gib": peak, "shared_gradient": shared,
-            "device": torch.cuda.current_device()}))
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "device": torch.cuda.current_device()}
+
+
+def _tp_env(torch, rank, world, backend, port) -> None:
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+
+
+def tp_child(rank, world, backend, port, argv, check_port, queue):
+    """Phase 12b, one rank of the tensor-parallel launch: :func:`tp_train`
+    of ``argv`` (at ``--mesh 1x2``), then :func:`tp_shared_gradient` on
+    ``check_port``; puts ``(rank, results)`` on ``queue``."""
+    import traceback
+    try:
+        import torch
+        _tp_env(torch, rank, world, backend, port)
+        out = tp_train(torch, argv + ["--steps", str(TP_STEPS),
+                                      "--dist-backend", backend])
+        out["shared_gradient"] = tp_shared_gradient(torch, rank, backend,
+                                                    check_port)
+        queue.put((rank, out))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def tp_blocks_child(rank, world, backend, port, runs, queue):
+    """Phase 12c, one rank: :func:`tp_train` of each ``(label, argv, cfg,
+    port)`` of ``runs`` in order, each on its own ``MASTER_PORT``; puts
+    ``(rank, {label: results})`` on ``queue``."""
+    import traceback
+    try:
+        import torch
+        _tp_env(torch, rank, world, backend, port)
+        out = {}
+        for label, argv, cfg, run_port in runs:
+            os.environ["MASTER_PORT"] = str(run_port)
+            out[label] = tp_train(torch, argv + ["--dist-backend", backend],
+                                  cfg)
+        queue.put((rank, out))
     except BaseException:  # noqa: BLE001 — reported to the parent
         queue.put((rank, {"error": traceback.format_exc()}))
         raise
@@ -3067,9 +3120,12 @@ def phase12_model_axis(torch, by_path, llama) -> dict:
          the row and the mean row back) and each rank's peak memory;
          then, on one shared random gradient at full width, the
          relayout both ways and the row's compression bitwise the
-         one-process bucket's row (:func:`tp_shared_gradient`)."""
+         one-process bucket's row (:func:`tp_shared_gradient`);
+    12c. the tensor-parallel step of the MoE, Mamba and xLSTM blocks at
+         ``--mesh 1x2`` (:func:`phase12c`)."""
     return {"12a": phase12a(torch, by_path, llama),
-            "12b": phase12b(torch, by_path, llama)}
+            "12b": phase12b(torch, by_path, llama),
+            "12c": phase12c(torch, by_path)}
 
 
 def phase12a(torch, by_path, llama) -> dict:
@@ -3152,6 +3208,264 @@ def phase12b(torch, by_path, llama) -> dict:
             "one_process_losses": ref,
             "one_process_peak_gib": peak1 / 2**30, "ranks": ranks,
             "wall_s": time.time() - t0}
+
+
+# the configs of phase 12c at full width: (arch, num_layers kept or None
+# for the whole model); xlstm-125m also runs the per-leaf loop
+TP_ARCHS = (("deepseek-moe-16b", 2), ("jamba-1.5-large-398b", 1),
+            ("xlstm-125m", None))
+TP_BLOCK_STEPS = 2
+
+
+def phase12c(torch, by_path) -> dict:
+    """Phase 12c, slice 2d: the tensor-parallel step of the MoE, Mamba
+    and xLSTM blocks at full width, ``--mesh 1x2``, Gaussian-k fixed-k at
+    0.001, 8 x 128, 2 steps: deepseek-moe-16b at 2 of its 28 layers (MoE
+    with shared experts), jamba-1.5-large at 1 of its 72 (Mamba + MLP)
+    and xlstm-125m whole (mLSTM + sLSTM), and xlstm-125m's per-leaf loop.
+    Each first in one process (``--host-devices 2``: two rows a leaf,
+    each worker's step-0 bucket conserving bitwise), then in two
+    processes (``tp_blocks_child``; NCCL with a card each when two are
+    visible, else gloo on the one card), each rank holding its shards:
+    one K1, K2 and K3 pair a leaf a step a rank (and the params' draws),
+    the losses the one-process run's within rtol 1e-6, the wire
+    accounting equal; the per-leaf run's losses, densities and wire
+    bits bitwise the bucketed TP run's, one collective a leaf.  Step
+    ms, relayout ms and each rank's peak memory."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.models import init_params
+    t_start = time.time()
+    out = {"one_process": {}, "ranks": {}}
+    runs, want = [], {}
+    for arch, layers in TP_ARCHS:
+        cfg = full_width(arch, layers)
+        n_leaves = len(tree.leaves(init_params(cfg, 0, "meta")))
+        argv = ["--arch", arch, "--density-policy", "none", "--batch", "8",
+                "--seq", "128", "--log-every", "1"]
+        label = f"12c {arch}" + (f" ({layers} layers)" if layers else "")
+        log(f"phase {label}: the one-process --mesh 1x2 run, "
+            f"{TP_BLOCK_STEPS} steps, {n_leaves} leaves")
+        by_path[label + " one process"], recs, peak, _, _ = train_path(
+            label, argv + ["--host-devices", "2", "--mesh", "1x2"],
+            {n: 2 * n_leaves for n in MAIN_KERNELS}, TP_BLOCK_STEPS, torch,
+            cfg=cfg, leaves=n_leaves)
+        out["one_process"][arch] = {
+            "losses": [r["loss"] for r in recs],
+            "step_ms": [r["ms"] for r in recs], "peak_gib": peak / 2**30,
+            "comm_bits_sparse": [r["comm_bits_sparse"] for r in recs],
+            "collectives": [r["collectives_per_step"] for r in recs]}
+        del recs
+        torch.cuda.empty_cache()
+        tp_argv = argv + ["--mesh", "1x2", "--steps", str(TP_BLOCK_STEPS)]
+        runs.append((label, tp_argv, cfg))
+        want[label] = (arch, n_leaves, init_draws(cfg), None)
+        if arch == "xlstm-125m":
+            runs.append((label + " per leaf",
+                         tp_argv + ["--pipeline", "perleaf"], cfg))
+            want[label + " per leaf"] = (arch, n_leaves, init_draws(cfg),
+                                         label)
+    ports = []
+
+    def args_of(backend, port):
+        # a port a run for both ranks, none the launch's
+        while len(ports) < len(runs):
+            p = free_port()
+            if p != port and p not in ports:
+                ports.append(p)
+        return ([r + (p,) for r, p in zip(runs, ports)],)
+
+    log(f"phase 12c: the tensor-parallel step, --mesh 1x2 in 2 processes, "
+        f"{len(runs)} runs of {TP_BLOCK_STEPS} steps")
+    t0 = time.time()
+    backend, got = spawn_ranks(torch, tp_blocks_child, args_of)
+    out.update(backend=backend, cards=torch.cuda.device_count(),
+               tp_wall_s=time.time() - t0)
+    for label, (arch, n_leaves, draws, bucketed) in want.items():
+        ref = out["one_process"][arch]
+        for rank in range(2):
+            res = got[rank][label]
+            expect = {n: (n_leaves * TP_BLOCK_STEPS if n in MAIN_KERNELS
+                          else draws if n == "threefry_bits" else 0)
+                      for n in res["launches"]}
+            assert res["launches"] == expect, (label, rank, res["launches"],
+                                               expect)
+            assert all(math.isfinite(x) for x in res["losses"]), label
+            np.testing.assert_allclose(res["losses"], ref["losses"],
+                                       rtol=1e-6, err_msg=label)
+            if bucketed is None:
+                assert res["comm_bits_sparse"] == ref["comm_bits_sparse"], \
+                    label
+                assert res["collectives"] == ref["collectives"], label
+            else:
+                base = got[rank][bucketed]
+                for k in ("losses", "density", "comm_bits_sparse"):
+                    assert res[k] == base[k], (label, rank, k)
+                assert res["collectives"] == [float(n_leaves)] * len(
+                    res["collectives"]), (label, res["collectives"])
+            assert len(res["pack_ms"]) == len(res["unpack_ms"]) == (
+                TP_BLOCK_STEPS * (n_leaves if bucketed else 1))
+            by_path[f"{label}, rank {rank}"] = res["launches"]
+            per = len(res["pack_ms"]) // TP_BLOCK_STEPS
+            relayout = [sum(res["pack_ms"][i * per:(i + 1) * per])
+                        + sum(res["unpack_ms"][i * per:(i + 1) * per])
+                        for i in range(TP_BLOCK_STEPS)]
+            share = [a / b for a, b in zip(relayout, res["step_ms"])]
+            out["ranks"].setdefault(label, {})[rank] = {
+                k: res[k] for k in ("losses", "step_ms", "peak_gib",
+                                    "density", "device")}
+            out["ranks"][label][rank].update(relayout_ms=relayout,
+                                             relayout_share=share)
+            log(f"  {label} rank {rank} (cuda:{res['device']}, {backend}): "
+                f"losses {res['losses']} (one process {ref['losses']}); "
+                f"step ms {[round(x, 1) for x in res['step_ms']]} (one "
+                f"process {[round(x, 1) for x in ref['step_ms']]}); "
+                f"relayout ms {[round(x, 1) for x in relayout]} "
+                f"({[round(x, 3) for x in share]} of the step); peak "
+                f"{res['peak_gib']:.2f} GiB (one process "
+                f"{ref['peak_gib']:.2f}); launches "
+                f"{({n: c for n, c in res['launches'].items() if c})}")
+    out["phase12c_s"] = time.time() - t_start
+    log(f"phase 12c took {out['phase12c_s']:.1f} s (the two processes "
+        f"{out['tp_wall_s']:.1f} s)")
+    return out
+
+
+# the four-card measurement (``--tensor-parallel-cards``, not a phase):
+# (arch, num_layers kept) at --mesh 1x4 over NCCL, and the profiler's
+# tensor-parallel breakdown of the first
+TP_CARD_ARCHS = (("deepseek-moe-16b", 8), ("jamba-1.5-large-398b", 1))
+TP_CARD_STEPS = 3
+
+
+def tp_cards_child(rank, world, backend, port, runs, prof, queue):
+    """One rank of the four-card measurement: :func:`tp_train` of each
+    ``(label, argv, cfg, port)`` of ``runs``, then ``launch.profile``'s
+    tensor-parallel breakdown of ``prof`` (its printed lines and its
+    JSON line); puts ``(rank, results)`` on ``queue``."""
+    import contextlib
+    import io
+    import traceback
+    try:
+        import torch
+        _tp_env(torch, rank, world, backend, port)
+        out = {}
+        for label, argv, cfg, run_port in runs:
+            os.environ["MASTER_PORT"] = str(run_port)
+            out[label] = tp_train(torch, argv + ["--dist-backend", backend],
+                                  cfg)
+        from repro_torch.launch import profile
+        argv, cfg, run_port = prof
+        os.environ["MASTER_PORT"] = str(run_port)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            profile.main(argv + ["--dist-backend", backend], cfg=cfg)
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("{")]
+        out["profile"] = {"text": buf.getvalue(),
+                          "json": json.loads(lines[-1]) if lines else None}
+        queue.put((rank, out))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def tensor_parallel_cards(torch) -> dict:
+    """The tensor-parallel step on four cards over NCCL, ``--mesh 1x4``,
+    Gaussian-k fixed-k at 0.001, 8 x 128, ``TP_CARD_STEPS`` steps:
+    deepseek-moe-16b at 8 of its 28 layers (5.1 B params, ~19 GiB of
+    state a rank) and jamba-1.5-large at 1 of its 72, each rank holding a
+    quarter of every split leaf: one K1, K2 and K3 pair a leaf a step a
+    rank, the same losses on every rank; jamba's losses within rtol 1e-6
+    of its one-process ``--mesh 1x4`` run on card 0 (deepseek's 8 layers
+    do not fit one card).  Step ms, relayout ms and its share, peak a
+    rank; then ``launch.profile``'s tensor-parallel breakdown of the
+    deepseek config (rank 0 prints every rank's and the slowest)."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.models import init_params
+    cards = torch.cuda.device_count()
+    assert cards >= 4, ("--tensor-parallel-cards needs four cards", cards)
+    t_start = time.time()
+    out = {"one_process": {}, "ranks": {}}
+    runs, want = [], {}
+    for arch, layers in TP_CARD_ARCHS:
+        cfg = full_width(arch, layers)
+        n_leaves = len(tree.leaves(init_params(cfg, 0, "meta")))
+        argv = ["--arch", arch, "--density-policy", "none", "--batch", "8",
+                "--seq", "128", "--log-every", "1"]
+        label = f"4 cards {arch} ({layers} layers)"
+        if arch == "jamba-1.5-large-398b":
+            log(f"{label}: the one-process --mesh 1x4 run on card 0")
+            _, recs, peak, _, _ = train_path(
+                label, argv + ["--host-devices", "4", "--mesh", "1x4"],
+                {n: 4 * n_leaves for n in MAIN_KERNELS}, TP_CARD_STEPS,
+                torch, cfg=cfg, leaves=n_leaves)
+            out["one_process"][label] = {
+                "losses": [r["loss"] for r in recs],
+                "step_ms": [r["ms"] for r in recs],
+                "peak_gib": peak / 2**30}
+            del recs
+            torch.cuda.empty_cache()
+        runs.append((label, argv + ["--mesh", "1x4", "--steps",
+                                    str(TP_CARD_STEPS)], cfg))
+        want[label] = (n_leaves, init_draws(cfg))
+    prof_cfg = full_width(*TP_CARD_ARCHS[0])
+    prof_argv = ["--arch", TP_CARD_ARCHS[0][0], "--density-policy", "none",
+                 "--batch", "8", "--seq", "128", "--mesh", "1x4",
+                 "--steps", str(TP_CARD_STEPS)]
+    ports = []
+
+    def args_of(backend, port):
+        while len(ports) < len(runs) + 1:
+            p = free_port()
+            if p != port and p not in ports:
+                ports.append(p)
+        return ([r + (p,) for r, p in zip(runs, ports)],
+                (prof_argv, prof_cfg, ports[-1]))
+
+    log(f"four cards: the tensor-parallel step, --mesh 1x4 in 4 processes, "
+        f"{len(runs)} runs of {TP_CARD_STEPS} steps, then the profiler")
+    backend, got = spawn_ranks(torch, tp_cards_child, args_of, world=4)
+    assert backend == "nccl", backend
+    for label, (n_leaves, draws) in want.items():
+        for rank in range(4):
+            res = got[rank][label]
+            expect = {n: (n_leaves * TP_CARD_STEPS if n in MAIN_KERNELS
+                          else draws if n == "threefry_bits" else 0)
+                      for n in res["launches"]}
+            assert res["launches"] == expect, (label, rank, res["launches"])
+            assert all(math.isfinite(x) for x in res["losses"]), label
+            assert res["losses"] == got[0][label]["losses"], (label, rank)
+            if label in out["one_process"]:
+                np.testing.assert_allclose(
+                    res["losses"], out["one_process"][label]["losses"],
+                    rtol=1e-6, err_msg=label)
+            relayout = [a + b for a, b in zip(res["pack_ms"],
+                                              res["unpack_ms"])]
+            share = [a / b for a, b in zip(relayout, res["step_ms"])]
+            out["ranks"].setdefault(label, {})[rank] = {
+                k: res[k] for k in ("losses", "step_ms", "peak_gib",
+                                    "density", "device")}
+            out["ranks"][label][rank].update(relayout_ms=relayout,
+                                             relayout_share=share)
+            log(f"  {label} rank {rank} (cuda:{res['device']}, {backend}): "
+                f"losses {res['losses']}; step ms "
+                f"{[round(x, 1) for x in res['step_ms']]}; relayout ms "
+                f"{[round(x, 1) for x in relayout]} "
+                f"({[round(x, 3) for x in share]} of the step); peak "
+                f"{res['peak_gib']:.2f} GiB")
+    prof = got[0]["profile"]
+    assert prof["json"] is not None, prof["text"][-2000:]
+    for line in prof["text"].splitlines():
+        if not line.startswith("{"):
+            log("  profile: " + line)
+    out["profile"] = prof["json"]
+    out["seconds"] = time.time() - t_start
+    log(f"four cards took {out['seconds']:.1f} s")
+    return out
 
 
 # -- phase 13: the launch and tuning stack (slice 9) --
@@ -3589,11 +3903,16 @@ def main(argv) -> int:
                         "launches_by_path": by_path}))
         log("tuner-only run: phases 2-12 skipped")
         return 0
+    if "--tensor-parallel-cards" in argv:
+        log(json.dumps({"four_cards": tensor_parallel_cards(torch)}))
+        log("tensor-parallel-cards run: the four-card measurement alone")
+        return 0
     if "--tensor-parallel-only" in argv:
         by_path = {}
         log(json.dumps({"phase12b": phase12b(torch, by_path, llama),
+                        "phase12c": phase12c(torch, by_path),
                         "launches_by_path": by_path}))
-        log("tensor-parallel-only run: phase 12b alone")
+        log("tensor-parallel-only run: phases 12b and 12c alone")
         return 0
 
     # -- phase 2: kernels against their plain versions --

@@ -92,10 +92,13 @@ def load_state(path: str, like: Any, *,
     passes its rank.  ``layout`` (the state's ``BucketLayout``) lets a
     per-leaf checkpoint's residuals load into the flat buckets,
     bitwise.  ``shard(key, array)`` cuts each entry to what ``like``
-    holds: a tensor-parallel rank's shards and residual row
-    (``dist/tensor_parallel.state_shard_fn``); a tensor-parallel save
-    gathers them first (``gather_state``), so the keys and shapes are
-    the one-process run's at the same mesh.  The global-k scalars
+    holds: a tensor-parallel rank's shards (by the placement of each
+    leaf) and residual row, of the buckets or of each per-leaf residual
+    (``dist/tensor_parallel.state_shard_fn``), so a tensor-parallel run
+    loads a whole checkpoint of either form (a per-leaf one into its
+    buckets through ``layout``); a tensor-parallel save gathers them
+    first (``gather_state``), so the keys and shapes are the one-process
+    run's at the same mesh.  The global-k scalars
     ``adaptk/gnorm`` and ``adaptk/gnorm0`` and the publisher's
     ``publish/...`` entries are zero-filled when the checkpoint lacks
     them."""

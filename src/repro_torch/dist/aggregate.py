@@ -1080,24 +1080,33 @@ def aggregate_bucketed_chunked(grads, resid: torch.Tensor,
 
 
 def init_residuals(params, model_size: int, dtype=torch.float32,
-                   workers: Optional[int] = None):
-    """Zero per-leaf error-feedback residuals on the params' device: one
-    flat-padded ``(d_pad,)`` vector a leaf (``d_pad = ceil(size /
-    model_size) * model_size``), or ``(workers, d_pad)`` with one row a
-    worker.  The bucketed pipeline keeps the same values in one flat
-    buffer (``layout.init_flat_residual``)."""
+                   workers: Optional[int] = None, rows: Optional[int] = None,
+                   device=None):
+    """Zero per-leaf error-feedback residuals on the params' device (or
+    ``device``): one flat-padded ``(d_pad,)`` vector a leaf (``d_pad =
+    ceil(size / model_size) * model_size``), or ``(workers, d_pad)`` with
+    one row a worker.  ``rows`` holds that many of each leaf's
+    ``model_size`` rows (``rows · d_row`` a worker; a tensor-parallel
+    rank's one, ``params`` then the whole params' shapes).  The bucketed
+    pipeline keeps the same values in one flat buffer
+    (``layout.init_flat_residual``)."""
     def zero(p):
-        d_pad, _ = flat_dims(int(p.numel()), model_size)
-        shape = (d_pad,) if workers is None else (workers, d_pad)
-        return torch.zeros(shape, dtype=dtype, device=p.device)
+        d_pad, d_row = flat_dims(int(p.numel()), model_size)
+        n = d_pad if rows is None else rows * d_row
+        shape = (n,) if workers is None else (workers, n)
+        return torch.zeros(shape, dtype=dtype,
+                           device=p.device if device is None else device)
 
     return tree.tree_map(zero, params)
 
 
-def leaf_windows(resid, layout: BucketLayout, workers: int) -> list:
+def leaf_windows(resid, layout: BucketLayout, workers: int,
+                 held: Optional[int] = None) -> list:
     """Per local worker, each leaf's ``(model_size, d_row)`` rows of a
     per-leaf residual tree (``(workers, d_pad)`` leaves, or ``(d_pad,)``
-    for one worker): views."""
+    for one worker): views (``(held, d_row)`` when the residual holds
+    ``held`` rows of each leaf)."""
+    held = layout.model_size if held is None else held
     leaves = tree.leaves(resid)
     if len(leaves) != len(layout.segments):
         raise ValueError(f"residual tree has {len(leaves)} leaves, the "
@@ -1110,10 +1119,11 @@ def leaf_windows(resid, layout: BucketLayout, workers: int) -> list:
                 raise ValueError(f"a (d_pad,) residual holds one worker, "
                                  f"the wire runs {workers} here")
             e = e if e.dim() == 1 else e[w]
-            if e.shape != (s.d_pad,):
+            if e.shape != (held * s.d_row,):
                 raise ValueError(f"leaf {s.name!r}: residual rows of shape "
-                                 f"{tuple(e.shape)}, expected ({s.d_pad},)")
-            row.append(e.view(layout.model_size, s.d_row))
+                                 f"{tuple(e.shape)}, expected "
+                                 f"({held * s.d_row},)")
+            row.append(e.view(held, s.d_row))
         out.append(row)
     return out
 
@@ -1121,7 +1131,9 @@ def leaf_windows(resid, layout: BucketLayout, workers: int) -> list:
 def aggregate_compressed(grads, resid, config: CompressionConfig, *,
                          model_size: int = 1, wire=None, resid2=None,
                          probe: Optional[Callable] = None, adapt_state=None,
-                         step=None, keys=None) -> AggregateResult:
+                         step=None, keys=None,
+                         layout: Optional[BucketLayout] = None,
+                         rows: Optional[AllRows] = None) -> AggregateResult:
     """Eq. (2) sparse aggregation, one compress + wire chain per gradient
     leaf (the per-leaf loop; :func:`aggregate_bucketed` sends one).
 
@@ -1132,18 +1144,25 @@ def aggregate_compressed(grads, resid, config: CompressionConfig, *,
     salt (``layout.leaf_key_salt`` of its path), and sent on its own
     wire: bitwise the bucketed results, with
     ``metrics["collectives_per_step"]`` L a wire level.  The leaves run
-    as the one-segment chunks of :class:`ChunkedAggregation`."""
+    as the one-segment chunks of :class:`ChunkedAggregation`.  The
+    leaves' geometry is the layout of the gradients' shapes at
+    ``model_size`` unless ``layout`` (built from the same config) is
+    given: a tensor-parallel rank's gradients are shards, so it passes
+    the whole params' layout and its ``rows`` (``ModelRow``; the
+    residual leaves then hold its one row, ``(workers, d_row)``)."""
     grads, wire = _workers_and_wire(grads, wire)
     workers = len(grads)
     first = [_entries(grads[0])]
-    layout = build_layout(tree.unflatten(first[0][1], first[0][0]),
-                          model_size, config)
+    if layout is None:
+        layout = build_layout(tree.unflatten(first[0][1], first[0][0]),
+                              model_size, config)
     plan = build_chunk_plan(layout, len(layout.segments))
+    held = None if rows is None else rows.held(layout)
     run = ChunkedAggregation(
         layout, plan, config, wire=wire,
-        E=leaf_windows(resid, layout, workers),
+        E=leaf_windows(resid, layout, workers, held),
         R2=None if resid2 is None else leaf_windows(resid2, layout,
-                                                    workers),
+                                                    workers, held),
         probe=probe, adapt_state=adapt_state, step=step, keys=keys,
-        resid=resid, resid2=resid2)
+        resid=resid, resid2=resid2, rows=rows)
     return run.finish(_feed(run, grads, first))

@@ -32,8 +32,19 @@ backward span (CUDA events recorded when the hook fires and at the
 backward's ends); then the same trace.
 
 The mesh's model axis ``M`` makes every worker's buckets ``M`` rows, as
-in the trainer; a tensor-parallel ``torchrun`` launch (``M > 1``) is not
-profiled yet.
+in the trainer.  A tensor-parallel ``torchrun`` launch (``M > 1``: one
+model rank a process, ``dist/tensor_parallel.py``) times each rank's
+forward + backward on its shards, the relayout of its gradient shards
+into its row (``ModelRow.pack``), the row's compression, the wire, the
+relayout of the mean row back into the shards (``ModelRow.unpack``),
+the metrics and the optimizer; every rank's medians are gathered, and
+rank 0 prints each rank's and the slowest rank's (the largest of each
+phase over the ranks).  ``--chunks N`` and ``--pipeline perleaf`` time
+the tensor-parallel train step as above:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.profile \
+        --arch deepseek-moe-16b --mesh 1x2 --steps 3 \
+        [--dist-backend gloo]   # two ranks on one card
 """
 from __future__ import annotations
 
@@ -47,7 +58,10 @@ _SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
           "cudaEventSynchronize")
 
 
-def main(argv=None) -> int:
+def main(argv=None, cfg=None) -> int:
+    """Parse ``argv`` (the trainer's flags) and profile; ``cfg``, a
+    ModelConfig, replaces ``--arch``'s (a depth-cut copy, say), as in
+    ``launch.train.run``."""
     import torch
 
     from repro_torch.configs import get_config
@@ -58,9 +72,10 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a GPU")
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.smoke:
+            cfg = cfg.reduced()
     mesh, strategy = require_ported(args, cfg)
     policy, _ = density_policy_of(args, cfg)
     if torchrun_env() is None:
@@ -68,12 +83,10 @@ def main(argv=None) -> int:
     else:
         wire, dev, started = make_wire(args, mesh)
     try:
-        if wire.tensor_parallel:
-            from repro_torch.slices import not_ported
-            raise not_ported("the profiler under tensor parallelism",
-                             "model_placement")
         if args.chunks > 1 or args.pipeline == "perleaf":
             return _profile_step(args, cfg, strategy, policy, wire, dev)
+        if wire.tensor_parallel:
+            return _profile_tp(args, cfg, strategy, policy, wire, dev)
         return _profile(args, cfg, strategy, policy, wire, dev)
     finally:
         if started:
@@ -95,7 +108,7 @@ def _profile(args, cfg, strategy, policy, wire, dev) -> int:
     from repro_torch.train.step import step_keys
 
     W, L = wire.world, wire.local_workers
-    say = print if wire.ranks[0] == 0 else (lambda *a, **k: None)
+    say = print if _lead(wire) else (lambda *a, **k: None)
     params = init_params(cfg, args.seed, dev)
     comp = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
                              strategy=strategy, backend=args.backend,
@@ -256,17 +269,23 @@ def _profile_step(args, cfg, strategy, policy, wire, dev) -> int:
     from repro_torch.train import init_train_state, make_train_step
 
     W = wire.world
-    say = print if wire.ranks[0] == 0 else (lambda *a, **k: None)
+    say = print if _lead(wire) else (lambda *a, **k: None)
     params = init_params(cfg, args.seed, dev)
     comp = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
                              strategy=strategy, backend=args.backend,
                              density_policy=policy, chunks=args.chunks)
     layout = (None if args.pipeline == "perleaf"
               else build_layout(params, wire.model_size, comp))
+    tp = None
+    if wire.tensor_parallel:
+        from repro_torch.dist.tensor_parallel import TensorParallel
+        tp = TensorParallel(cfg, wire, params)
+        params = tp.shard(params)
     opt = sgd_momentum(0.9) if args.optimizer == "sgd" else adamw()
     state = init_train_state(params, opt, workers=wire.local_workers,
                              model_size=wire.model_size, compression=comp,
-                             layout=layout)
+                             layout=layout, rows=1 if tp else None,
+                             whole=tp.whole if tp else None)
     events = []
 
     def probe(rank, backward=None, release=None, **_):
@@ -279,7 +298,7 @@ def _profile_step(args, cfg, strategy, policy, wire, dev) -> int:
 
     step_fn = make_train_step(cfg, args.mesh, opt, constant(args.lr),
                               compression=comp, layout=layout, probe=probe,
-                              wire=wire, seed=args.seed)
+                              wire=wire, seed=args.seed, tensor_parallel=tp)
 
     def step(i):
         nonlocal state
@@ -323,6 +342,133 @@ def _profile_step(args, cfg, strategy, policy, wire, dev) -> int:
                         wire=wire.name, dist_backend=wire.backend,
                         step_ms=step_ms, backward_ms=backward_ms,
                         release_fractions=fracs[-1] if fracs else {})))
+    return 0
+
+
+def _lead(wire) -> bool:
+    """Whether this process prints: data rank 0, model rank 0."""
+    return wire.ranks[0] == 0 and getattr(wire, "model_rank", 0) == 0
+
+
+# the tensor-parallel step's phases, in order, each between two events
+TP_PHASES = ("forward_backward", "relayout_in", "compress", "wire",
+             "relayout_back", "unpack_metrics", "optimizer")
+
+
+def _profile_tp(args, cfg, strategy, policy, wire, dev) -> int:
+    """The tensor-parallel rank's breakdown (module docstring): the
+    bucketed pipeline in one chunk, its phases between CUDA events."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data import batch_for
+    from repro_torch.dist import aggregate
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.dist.tensor_parallel import TensorParallel
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import adamw, sgd_momentum
+    from repro_torch.train import init_train_state
+    from repro_torch.train.step import step_keys
+
+    W, M = wire.world, wire.model_size
+    say = print if _lead(wire) else (lambda *a, **k: None)
+    params = init_params(cfg, args.seed, dev)
+    comp = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
+                             strategy=strategy, backend=args.backend,
+                             density_policy=policy)
+    layout = build_layout(params, M, comp)
+    tp = TensorParallel(cfg, wire, params)
+    params = tp.shard(params)
+    opt = sgd_momentum(0.9) if args.optimizer == "sgd" else adamw()
+    state = init_train_state(params, opt, workers=1, model_size=M,
+                             compression=comp, layout=layout, rows=1)
+    leaves, td = tree.flatten(params)
+    per = args.batch // W
+    rank = wire.ranks[0]
+    rows = tp.rows(layout)
+    ev = {}
+
+    def event(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev[name] = e
+
+    def timed(fn, before, after):
+        def call(*a, **k):
+            event(before)
+            out = fn(*a, **k)
+            event(after)
+            return out
+        return call
+
+    rows.pack = timed(rows.pack, "forward_backward", "relayout_in")
+    rows.unpack = timed(rows.unpack, "wire", "relayout_back")
+
+    def probe(r, **kw):
+        if r is not None and "u" not in kw:
+            event("compress")           # after the row's compression
+
+    def step(i):
+        ev.clear()
+        batch = batch_for(cfg, i, global_batch=args.batch, seq_len=args.seq,
+                          seed=args.seed, device=dev)
+        event("start")
+        local = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+        ps = [p.detach().requires_grad_(True) for p in leaves]
+        loss, _ = loss_fn(tree.unflatten(td, ps), cfg, local, tp.axis)
+        grads = torch.autograd.grad(loss, ps, allow_unused=True)
+        grads = tree.unflatten(td, [torch.zeros_like(p) if g is None else g
+                                    for p, g in zip(ps, grads)])
+        res = aggregate.aggregate_bucketed(
+            [grads], state["resid"], layout, comp, wire=wire,
+            resid2=state.get("resid2"), probe=probe,
+            adapt_state=state.get("adaptk"), step=i,
+            keys=step_keys(args.seed, i, wire.ranks), rows=rows)
+        del grads
+        if res.adapt_state is not None:
+            state["adaptk"] = res.adapt_state
+        event("unpack_metrics")
+        opt.update(params, state["opt"], res.agg, args.lr)
+        event("optimizer")
+        return dict(ev)
+
+    times = {p: [] for p in TP_PHASES + ("step",)}
+    for i in range(args.steps + 1):
+        got = step(i)
+        torch.cuda.synchronize()
+        if i == 0:
+            continue            # warm-up: Triton JIT, cuBLAS handles
+        prev = got["start"]
+        for p in TP_PHASES:
+            times[p].append(prev.elapsed_time(got[p]))
+            prev = got[p]
+        times["step"].append(got["start"].elapsed_time(got["optimizer"]))
+    med = {p: statistics.median(v) for p, v in times.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {"phase_ms": med, "peak_mem_gib": peak,
+                                   "data_rank": rank,
+                                   "model_rank": wire.model_rank})
+    slowest = {p: max(r["phase_ms"][p] for r in every) for p in med}
+    say(f"mesh {args.mesh} ({W} workers x {M} model ranks, tensor "
+        f"parallel, wire {wire.name}, {wire.backend}), strategy "
+        f"{strategy}; phase medians (ms):")
+    for r in every:
+        say(f"  data rank {r['data_rank']} model rank {r['model_rank']}: "
+            + ", ".join(f"{p} {v:.2f}" for p, v in r["phase_ms"].items())
+            + f"; peak {r['peak_mem_gib']:.2f} GiB")
+    say("  slowest rank (each phase's largest): "
+        + ", ".join(f"{p} {v:.2f}" for p, v in slowest.items()))
+    say(json.dumps(dict(_trace(lambda: step(args.steps + 1), say),
+                        arch=cfg.name, batch=args.batch, seq=args.seq,
+                        mesh=args.mesh, workers=W, model_size=M,
+                        compressor=args.compressor,
+                        density_policy=policy.policy if policy else None,
+                        wire=wire.name, dist_backend=wire.backend,
+                        strategy=strategy, tensor_parallel=True,
+                        phase_ms_by_rank=every, phase_ms_slowest=slowest)))
     return 0
 
 

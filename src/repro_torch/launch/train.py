@@ -27,7 +27,7 @@ selection).  The workers run either all in this process
 under ``torchrun`` with ``WORLD_SIZE = W·M``, one process a (worker,
 model rank) pair (``ProcessGroupWire``; with ``M > 1`` tensor-parallel:
 each process holds its model rank's shards of the params and one row,
-``dist/tensor_parallel.py``, the dense decoders only).  With neither, a
+``dist/tensor_parallel.py``, every block kind).  With neither, a
 mesh of ``W·M > 1`` raises naming both.  The startup line prints the
 mesh, W, the wire and its backend.
 
@@ -73,8 +73,7 @@ alike; in one process ``LocalWire`` crosses no link and every axis keeps
 the default link); it prints ``tuner: topology=... -> strategy=...``,
 tags each log line with ``tuner=<strategy>`` and then trains exactly as
 that strategy given explicitly.  Under tensor parallelism
-``--publish-every`` and ``--pipeline perleaf`` raise an error naming
-the slice that ports them.
+``--publish-every`` raises an error naming the slice that ports it.
 """
 from __future__ import annotations
 
@@ -336,8 +335,8 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
         params = tp.shard(params)
     state = init_train_state(params, opt, workers=wire.local_workers,
                              model_size=M, compression=config,
-                             layout=layout,
-                             rows=1 if tp and layout is not None else None)
+                             layout=layout, rows=1 if tp else None,
+                             whole=tp.whole if tp else None)
     pub = _publisher(args, params, layout, device, M)
     if args.resume:
         # layout= loads a per-leaf checkpoint's residuals into the
@@ -449,7 +448,7 @@ def tune_strategy(args, mesh, wire, device, params, layout, policy):
 
 def _tensor_parallel(args, cfg, params, wire):
     """A tensor-parallel rank's setup (``TensorParallel``: its model
-    axis and its params' checked specs), made once from the whole
+    axis and its params' checked placements), made once from the whole
     ``params``.  Raises for what tensor parallelism does not carry
     yet."""
     from repro_torch.dist.tensor_parallel import TensorParallel
@@ -457,9 +456,6 @@ def _tensor_parallel(args, cfg, params, wire):
 
     if args.publish_every > 0:
         raise not_ported("--publish-every under tensor parallelism",
-                         "model_placement")
-    if args.pipeline == "perleaf" and args.compressor != "none":
-        raise not_ported("tensor parallelism of the per-leaf loop",
                          "model_placement")
     return TensorParallel(cfg, wire, params)
 

@@ -196,9 +196,14 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, write_idx: int,
     return out, cache_k, cache_v
 
 
+def mlp_partial(p, x):
+    """SwiGLU over the hidden units ``p`` holds: the whole output, or
+    under tensor parallelism this rank's partial sum (the caller's
+    ``x`` has been through ``copy_to_model``)."""
+    return (torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])) \
+        @ p["w_down"]
+
+
 def mlp(p, x, axis=None):
     """SwiGLU; with ``axis``, this model rank's hidden units."""
-    x = copy_to_model(x, axis)
-    return reduce_from_model(
-        (torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"]))
-        @ p["w_down"], axis)
+    return reduce_from_model(mlp_partial(p, copy_to_model(x, axis)), axis)

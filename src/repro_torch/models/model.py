@@ -36,8 +36,11 @@ same cache.
 
 ``loss_fn`` also runs on one model rank's shards (tensor parallelism
 over the model axis: ``axis``, a ``dist/tensor_parallel.ModelAxis``),
-for the dense blocks: attention and the MLP split Megatron-wise
-(``layers.py``), ``embed`` split on ``d_model`` (the lookup gathers the
+for every block kind, each split Megatron-wise by the placement of
+``dist/tensor_parallel.py``: attention and the MLP (``layers.py``), the
+MoE experts by hidden units with the routing on every rank
+(``moe.py``), Mamba by channels (``ssm.py``), mLSTM and sLSTM by heads
+(``xlstm.py``); ``embed`` split on ``d_model`` (the lookup gathers the
 hidden width), ``lm_head`` on the vocab (the cross-entropy reduces over
 the model group).  The residual stream and the norms are replicated.
 """
@@ -53,8 +56,7 @@ from repro_torch import prng, tree
 from repro_torch.devices import resolve_device
 from repro_torch.dist.tensor_parallel import (copy_to_model,
                                               gather_from_model,
-                                              reduce_from_model,
-                                              require_dense)
+                                              reduce_from_model)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -147,19 +149,19 @@ def _apply_core(p, h, cfg: ModelConfig, kind: str, axis=None):
         window = cfg.sliding_window if kind == "swa" else 0
         return L.attention(p, h, cfg, window=window, axis=axis)
     if kind == "mamba":
-        out, ssm_state, conv_tail = S.mamba_forward(p, h, cfg)
+        out, ssm_state, conv_tail = S.mamba_forward(p, h, cfg, axis=axis)
         return out, (ssm_state, conv_tail)
     if kind == "mlstm":
-        return X.mlstm_forward(p, h, cfg)
+        return X.mlstm_forward(p, h, cfg, axis=axis)
     if kind == "slstm":
-        return X.slstm_forward(p, h, cfg)
+        return X.slstm_forward(p, h, cfg, axis=axis)
     raise ValueError(kind)
 
 
 def _ffn(p, x, cfg: ModelConfig, ffn: str, axis=None):
     """``(out, aux)`` of the layer's FFN; ``aux`` is None but for MoE."""
     if ffn == "moe":
-        return M.moe_ffn(p, x, cfg)
+        return M.moe_ffn(p, x, cfg, axis)
     return L.mlp(p, x, axis), None
 
 
@@ -271,9 +273,7 @@ def loss_fn(params, cfg: ModelConfig, batch, axis=None) -> tuple:
     """Cross-entropy plus the MoE load-balance loss of ``batch =
     {"tokens" or "embeds", "labels"[, "loss_mask"]}``: ``(loss, {"ce",
     "aux", "loss"})`` as in ``model.py:192-212``.  With ``axis``, on this
-    model rank's shards (dense blocks only), the same on every rank."""
-    if axis is not None:
-        require_dense(cfg)
+    model rank's shards, the same on every rank."""
     logits, aux = _forward(params, cfg, batch.get("tokens"),
                            batch.get("embeds"), axis)
     logits = logits.to(torch.float32)

@@ -13,6 +13,12 @@ gathers each token's K slots and adds them, times their router
 weights, in ascending expert order — the order in which the
 reference's scatter-add of the slots (sorted by expert) adds them —
 instead of scattering with atomics.
+
+Under tensor parallelism (``axis``) every model rank routes, dispatches
+and computes the combine's integers from the whole replicated router,
+so they are the same on every rank; each rank runs its ``F/M`` hidden
+units of every expert (and of the shared experts), and the combined and
+shared outputs' partial sums are all-reduced once.
 """
 from __future__ import annotations
 
@@ -23,8 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import prng
+from repro_torch.dist.tensor_parallel import copy_to_model, reduce_from_model
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, init_mlp, mlp
+from repro_torch.models.layers import dense_init, init_mlp, mlp_partial
 
 
 def init_moe(key, cfg: ModelConfig, dtype, device=None):
@@ -96,14 +103,21 @@ def dispatch(eidx: torch.Tensor, C: int, E: int) -> dict:
             "slot_of": slot_of.view(N, K)}
 
 
-def moe_ffn(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p, x, cfg: ModelConfig, axis=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, D) -> (out, aux_loss); the capacity is that of the
-    ``B·T`` tokens given."""
+    ``B·T`` tokens given.  With ``axis``, this model rank's hidden units
+    of the experts (module docstring): the routing reads ``x`` as it is,
+    the experts read it through ``copy_to_model``, and the router
+    weights enter the rank's partial combine through it too, so that
+    both gradients are the model group's sums."""
     B, T, D = x.shape
     E = cfg.num_experts
     N = B * T
     xt = x.reshape(N, D)
     gate, eidx, aux = route(p, xt, cfg)
+    gate = copy_to_model(gate, axis)
+    xt = copy_to_model(xt, axis)
     C = capacity(N, cfg)
     dsp = dispatch(eidx, C, E)
 
@@ -129,5 +143,5 @@ def moe_ffn(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
         out = out + parts[:, k]
 
     if cfg.num_shared_experts:
-        out = out + mlp(p["shared"], xt)
-    return out.reshape(B, T, D).to(x.dtype), aux
+        out = out + mlp_partial(p["shared"], xt)
+    return reduce_from_model(out, axis).reshape(B, T, D).to(x.dtype), aux

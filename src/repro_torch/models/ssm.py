@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import prng
+from repro_torch.dist.tensor_parallel import (copy_to_model, local_columns,
+                                              reduce_from_model)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
 
@@ -80,18 +82,25 @@ def _split_bcdt(bcdt, cfg: ModelConfig):
     return bcdt[..., :dtr], bcdt[..., dtr:dtr + n], bcdt[..., dtr + n:]
 
 
-def mamba_forward(p, x, cfg: ModelConfig, *, chunk: int = 128):
+def mamba_forward(p, x, cfg: ModelConfig, *, chunk: int = 128,
+                  axis=None):
     """x: (B, T, D) -> (y, final state (B, di, n) f32, conv tail (B,
-    min(W-1, T), di): the last pre-conv activations)."""
+    min(W-1, T), di): the last pre-conv activations).  With ``axis``,
+    this model rank's channels (module docstring; the state and the
+    tail of those channels)."""
     B, T, D = x.shape
-    di, n = cfg.d_inner, cfg.ssm_state_dim
-    xz = x @ p["in_proj"]
+    n = cfg.ssm_state_dim
+    xz = copy_to_model(x, axis) @ p["in_proj"]
+    di = xz.shape[-1] // 2                                    # this rank's
     xs, z = xz[..., :di], xz[..., di:]
     conv_tail = xs[:, -(cfg.ssm_conv_width - 1):, :]
-    xs = F.silu(_causal_depthwise_conv(xs, p["conv_w"], p["conv_b"]))
+    xs = F.silu(_causal_depthwise_conv(xs, p["conv_w"],
+                                       local_columns(p["conv_b"], axis)))
 
-    dtr, Bm, Cm = _split_bcdt(xs @ p["x_proj"], cfg)
-    dt = softplus(dtr @ p["dt_proj"] + p["dt_bias"])          # (B, T, di)
+    bcdt = copy_to_model(reduce_from_model(xs @ p["x_proj"], axis), axis)
+    dtr, Bm, Cm = _split_bcdt(bcdt, cfg)
+    dt = softplus(dtr @ p["dt_proj"]
+                  + local_columns(p["dt_bias"], axis))       # (B, T, di)
     A = -torch.exp(p["A_log"].to(torch.float32))              # (di, n)
 
     ch = min(chunk, T)
@@ -110,9 +119,10 @@ def mamba_forward(p, x, cfg: ModelConfig, *, chunk: int = 128):
         h, y = _ssm_chunk(h, dA, dBx, C_i.to(torch.float32))
         ys.append(y)
     y = torch.cat(ys, 0).transpose(0, 1)                      # (B, T, di)
-    y = y + xs.to(torch.float32) * p["D"].to(torch.float32)
+    y = y + xs.to(torch.float32) * local_columns(p["D"], axis).to(
+        torch.float32)
     y = y.to(x.dtype)
-    out = (y * F.silu(z)) @ p["out_proj"]
+    out = reduce_from_model((y * F.silu(z)) @ p["out_proj"], axis)
     return out, h, conv_tail
 
 

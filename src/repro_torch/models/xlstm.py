@@ -10,6 +10,13 @@ where indexing a step would fill a sequence-sized zero gradient a
 step).  A ``*_forward`` with ``state=`` continues from that state:
 one-token decode is a forward of length 1.  The states are f32 dicts
 with the reference's keys; the ``*_forward``s return new tensors.
+
+Under tensor parallelism (``axis``) a model rank holds ``H / M`` heads
+of both blocks (``dist/tensor_parallel.py``'s placement): the columns of
+the input projections and gates of its heads, its heads' recurrent
+matrices (sLSTM) and its slice of the per-head biases; the recurrences
+are per head, so they run on the rank's heads alone, and ``out_proj``
+(row-parallel) all-reduces the block's output once.
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.dist.tensor_parallel import (copy_to_model, local_columns,
+                                              reduce_from_model)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
 
@@ -46,9 +55,11 @@ def init_mlstm(key, cfg: ModelConfig, dtype, device=None):
     }
 
 
-def mlstm_init_state(B: int, cfg: ModelConfig, device=None, lead=()):
-    """The zero mLSTM state of ``B`` sequences, ``lead`` dims first."""
-    H, hd = cfg.num_heads, cfg.hd
+def mlstm_init_state(B: int, cfg: ModelConfig, device=None, lead=(),
+                     heads=None):
+    """The zero mLSTM state of ``B`` sequences, ``lead`` dims first, of
+    ``heads`` heads (all of them by default)."""
+    H, hd = heads or cfg.num_heads, cfg.hd
     lead = tuple(lead)
 
     def z(*shape):
@@ -73,18 +84,20 @@ def _mlstm_step(state, q, k, v, it, ft):
     return {"C": C, "n": n, "m": m_new}, h
 
 
-def mlstm_forward(p, x, cfg: ModelConfig, state=None):
-    """x: (B, T, D) -> (out, final state)."""
+def mlstm_forward(p, x, cfg: ModelConfig, state=None, axis=None):
+    """x: (B, T, D) -> (out, final state).  With ``axis``, this model
+    rank's heads (module docstring)."""
     B, T, D = x.shape
-    H, hd = cfg.num_heads, cfg.hd
+    H, hd = p["wi"].shape[-1], cfg.hd
     if state is None:
-        state = mlstm_init_state(B, cfg, x.device)
+        state = mlstm_init_state(B, cfg, x.device, heads=H)
+    x = copy_to_model(x, axis)
     sc = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     q = (x @ p["wq"]).reshape(B, T, H, hd) * sc
     k = (x @ p["wk"]).reshape(B, T, H, hd) * sc
     v = (x @ p["wv"]).reshape(B, T, H, hd)
-    it = (x @ p["wi"] + p["bi"]).to(torch.float32)
-    ft = (x @ p["wf"] + p["bf"]).to(torch.float32)
+    it = (x @ p["wi"] + local_columns(p["bi"], axis)).to(torch.float32)
+    ft = (x @ p["wf"] + local_columns(p["bf"], axis)).to(torch.float32)
     steps = zip(*(a.to(torch.float32).unbind(1) for a in (q, k, v, it, ft)))
     hs = []
     for q_t, k_t, v_t, i_t, f_t in steps:
@@ -92,7 +105,7 @@ def mlstm_forward(p, x, cfg: ModelConfig, state=None):
         hs.append(h)
     h = torch.stack(hs, 1).to(x.dtype).reshape(B, T, H * hd)
     o = torch.sigmoid(x @ p["wo_gate"])
-    return (o * h) @ p["out_proj"], state
+    return reduce_from_model((o * h) @ p["out_proj"], axis), state
 
 
 # ---------------------------------------------------------------------------
@@ -117,10 +130,11 @@ def init_slstm(key, cfg: ModelConfig, dtype, device=None):
     return p
 
 
-def slstm_init_state(B: int, cfg: ModelConfig, device=None, lead=()):
+def slstm_init_state(B: int, cfg: ModelConfig, device=None, lead=(),
+                     heads=None):
     """The sLSTM state of ``B`` sequences (``n`` ones, the rest zeros),
-    ``lead`` dims first."""
-    H, hd = cfg.num_heads, cfg.hd
+    ``lead`` dims first, of ``heads`` heads (all of them by default)."""
+    H, hd = heads or cfg.num_heads, cfg.hd
     shape = tuple(lead) + (B, H, hd)
 
     def z():
@@ -129,14 +143,17 @@ def slstm_init_state(B: int, cfg: ModelConfig, device=None, lead=()):
     return {"h": z(), "c": z(), "n": z() + 1.0, "m": z()}
 
 
-def slstm_forward(p, x, cfg: ModelConfig, state=None):
-    """x: (B, T, D) -> (out, final state)."""
+def slstm_forward(p, x, cfg: ModelConfig, state=None, axis=None):
+    """x: (B, T, D) -> (out, final state).  With ``axis``, this model
+    rank's heads (module docstring)."""
     B, T, D = x.shape
-    H, hd = cfg.num_heads, cfg.hd
+    H, hd = p["ri"].shape[-3], cfg.hd
     if state is None:
-        state = slstm_init_state(B, cfg, x.device)
-    pre = [(x @ p[f"w{g}"] + p[f"b{g}"]).reshape(B, T, H, hd)
-           .to(torch.float32).unbind(1) for g in _GATES]
+        state = slstm_init_state(B, cfg, x.device, heads=H)
+    x = copy_to_model(x, axis)
+    pre = [(x @ p[f"w{g}"] + local_columns(p[f"b{g}"], axis))
+           .reshape(B, T, H, hd).to(torch.float32).unbind(1)
+           for g in _GATES]
     s = state
     hs = []
     for pi, pf, pz, po in zip(*pre):
@@ -155,4 +172,4 @@ def slstm_forward(p, x, cfg: ModelConfig, state=None):
         s = {"h": h, "c": c, "n": n, "m": m_new}
         hs.append(h)
     h = torch.stack(hs, 1).to(x.dtype).reshape(B, T, H * hd)
-    return h @ p["out_proj"], s
+    return reduce_from_model(h @ p["out_proj"], axis), s

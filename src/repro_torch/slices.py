@@ -9,10 +9,9 @@ from __future__ import annotations
 LATER = {
     "model_placement": "a later slice of the model axis (the model-axis "
                        "placement of serving: serve_param_specs, "
-                       "cache_specs and make_apply_delta; tensor "
-                       "parallelism of the MoE, Mamba and xLSTM blocks, "
-                       "of the per-leaf loop and of the profiler; "
-                       "ROADMAP Queue 1 item 7)",
+                       "cache_specs and make_apply_delta on a sharded "
+                       "replica; --publish-every under tensor "
+                       "parallelism; ROADMAP Queue 1 item 7.2)",
 }
 
 

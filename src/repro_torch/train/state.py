@@ -17,8 +17,9 @@ of one process share ONE copy of the params and the optimizer state:
 the reference replicates them, and every worker computes the identical
 update.  ``model_size`` is the mesh's model axis M: the buckets hold M
 rows of ``d_row_total`` each.  A tensor-parallel rank holds one of them
-(``rows=1``, ``(workers, d_row_total)`` buckets) and its own shards of
-the params and the optimizer state (``dist/tensor_parallel.py``).
+(``rows=1``: ``(workers, d_row_total)`` buckets, or the per-leaf loop's
+``(workers, d_row)`` leaves) and its own shards of the params and the
+optimizer state (``dist/tensor_parallel.py``).
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
                      model_size: int,
                      compression: Optional[CompressionConfig] = None,
                      layout: Optional[BucketLayout] = None,
-                     rows: Optional[int] = None) -> Dict[str, Any]:
+                     rows: Optional[int] = None,
+                     whole=None) -> Dict[str, Any]:
     """``{"params", "opt", "step"[, "resid"[, "resid2"]][, "adaptk"]}``.
     A sparse compressor allocates the zero residuals ``resid`` on the
     params' device (flat buckets with ``layout``, the per-leaf tree
@@ -44,8 +46,10 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
     (``hierarchical``, ``hier_gtopk``) and for momentum correction (the
     DGC velocities); Dense-SGD allocates none.  A ``density_policy`` adds
     the zero controller state ``adaptk`` (``signal``, ``count``, and
-    ``gnorm``/``gnorm0`` under a global-k policy).  ``rows=1`` (with a
-    layout) allocates one row of the buckets: a tensor-parallel rank's."""
+    ``gnorm``/``gnorm0`` under a global-k policy).  ``rows=1`` allocates
+    one row of the buckets (with a layout) or of each leaf (without one,
+    sized from ``whole``, the whole params' shapes): a tensor-parallel
+    rank's."""
     compression = as_config(compression)
     if workers < 1:
         raise ValueError(f"workers must be >= 1, got {workers}")
@@ -56,11 +60,16 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
     if not compression.dense:
         leaves = tree.leaves(params)
         if layout is None:
-            if rows is not None:
-                raise ValueError("rows= needs the bucketed layout")
+            if (rows is None) != (whole is None):
+                raise ValueError("the per-leaf residual rows (rows=) are "
+                                 "sized from the whole params (whole=)")
 
             def zeros():
-                return init_residuals(params, model_size, workers=workers)
+                if rows is None:
+                    return init_residuals(params, model_size,
+                                          workers=workers)
+                return init_residuals(whole, model_size, workers=workers,
+                                      rows=rows, device=leaves[0].device)
         else:
             if layout.model_size != model_size:
                 raise ValueError(

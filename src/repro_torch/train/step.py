@@ -46,7 +46,9 @@ forward and backward are ``model.loss_fn``'s on them (``axis=``), the
 gradient shards are relaid into row ``r`` (``tensor_parallel.ModelRow``),
 row ``r`` is compressed against the residual row ``(1, d_row_total)``
 and sent over the data group of the processes that share ``r``, and the
-mean row is relaid back into the shards.
+mean row is relaid back into the shards; the per-leaf loop does the
+same a leaf at a time, over the whole params' per-leaf geometry
+(``(workers, d_row)`` residual leaves).
 
 The key-sampled compressors draw from the reference's keys: step ``t``
 of worker ``w`` uses ``fold_in(fold_in(PRNGKey(seed), t), w)``, derived
@@ -62,13 +64,12 @@ import torch
 from repro_torch import prng, tree
 from repro_torch.core.compression import CompressionConfig, as_config
 from repro_torch.dist import aggregate
-from repro_torch.dist.layout import build_chunk_plan
+from repro_torch.dist.layout import build_chunk_plan, build_layout
 from repro_torch.dist.wire import LocalWire
 from repro_torch.launch.mesh import (data_world_size, model_axis_size,
                                      parse_mesh)
 from repro_torch.models import loss_fn as model_loss_fn
 from repro_torch.optim import Optimizer
-from repro_torch.slices import not_ported
 
 
 def step_keys(seed: int, step: int, ranks) -> list:
@@ -122,12 +123,15 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
             raise ValueError("a tensor-parallel step needs tensor_parallel="
                              " and runs the model's loss; loss_fn= is not "
                              "taken")
-        if layout is None and not dense:
-            raise not_ported("tensor parallelism of the per-leaf loop",
-                             "model_placement")
         axis = tensor_parallel.axis
         loss = lambda p, b: model_loss_fn(p, cfg, b, axis)  # noqa: E731
-        rows = None if layout is None else tensor_parallel.rows(layout)
+        if layout is not None:
+            rows = tensor_parallel.rows(layout)
+        elif not dense:
+            # the per-leaf loop over the whole params' geometry
+            leaf_layout = build_layout(tensor_parallel.whole, msize,
+                                       compression)
+            rows = tensor_parallel.rows(leaf_layout)
     if not dense and layout is not None:
         if layout.model_size != msize:
             raise ValueError(f"layout model_size={layout.model_size} != "
@@ -256,7 +260,8 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
                 res = aggregate.aggregate_compressed(
                     [functools.partial(grads_of, w) for w in workers],
                     state["resid"], compression, model_size=msize,
-                    **agg_kw)
+                    layout=None if rows is None else leaf_layout,
+                    rows=rows, **agg_kw)
             agg, agg_metrics = res.agg, res.metrics
             if res.adapt_state is not None and "adaptk" in state:
                 state["adaptk"] = res.adapt_state

@@ -4,8 +4,10 @@ four wire strategies, allgather on deepseek-moe-16b's smoke variant
 (``moe``: each device's MoE layers dispatch its own 2 rows at their own
 capacity), and the model axis (``M2_CASES``: a model axis of 2 at
 ``(2, 2)`` and ``(2, 1, 2)`` for the four strategies, adaptive density,
-``randk``, and the default ``(4, 2)`` on 8 devices); writes everything
-the port is held against to one npz (argv[1]).
+``randk``, and the default ``(4, 2)`` on 8 devices; ``M2_BLOCKS``:
+allgather at ``(2, 2)`` on the smoke variants of jamba-1.5-large and
+xlstm-125m, the Mamba, MoE and xLSTM blocks at a model axis of 2);
+writes everything the port is held against to one npz (argv[1]).
 
 Under jax 0.9.0 the mesh step at a model axis above 1 raises in
 ``constrain_params``; its constraint is a layout hint only, so the
@@ -54,6 +56,8 @@ M2_CASES = {
     "m2_randk": ((2, 2), ("data", "model"), "allgather", "randk", None),
     "m2_4x2": ((4, 2), ("data", "model"), "allgather", "topk", None),
 }
+# name: arch, whose smoke variant runs M2_CASES["m2_allgather"]
+M2_BLOCKS = {"m2_jamba": "jamba-1.5-large-398b", "m2_xlstm": "xlstm-125m"}
 COMPRESSOR, RATIO, LR, STEPS = "topk", 0.02, 0.05, 2
 METRICS = ("loss", "density", "density_cap", "comm_bits_sparse",
            "comm_bits_dense", "wire_bytes", "collectives_per_step")
@@ -78,6 +82,9 @@ def main(path):
     from repro.dist import compat
     compat.supports_auto_axis_constraints = lambda: False
     run_cases(CFG, M2_CASES, "m2/", out)
+    for name, arch in M2_BLOCKS.items():
+        run_cases(get_config(arch).reduced(),
+                  {name: M2_CASES["m2_allgather"]}, f"{name}/", out)
     np.savez(path, **out)
     print("REF OK")
 

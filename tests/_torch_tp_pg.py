@@ -5,16 +5,18 @@ tensor-parallel launch (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 
 ``python tests/_torch_tp_pg.py OUT CASES.json`` runs, for each case
 ``{"name", "port", "argv"}`` of the JSON list, the port's trainer on the
-2-layer config of ``tests/_torch_dist_ref.py`` (``argv`` plus
-``--device cpu --checkpoint OUT/<name>.npz``) with that ``MASTER_PORT``,
-and on rank 0 writes the step records to ``OUT/<name>.json``.  A case
+2-layer config of ``tests/_torch_dist_ref.py`` (on its arch's smoke
+variant when ``argv`` has ``--smoke``; ``argv`` plus ``--device cpu
+--checkpoint OUT/<name>.npz``) with that ``MASTER_PORT``, and on rank 0
+writes the step records to ``OUT/<name>.json``.  A case
 named ``bitwise`` (its ``argv`` the mesh and the compressor) instead
 holds the relayout and the compression of one shared random gradient
 against the one-process bucket of every model row, bitwise, checks that
 the loss and the replicated leaves' gradients are the same bits on every
 model rank, and raises on a difference; one named ``archs`` holds the
-loss and gradients on the shards of other dense archs (and of a biased
-config) against the whole model's.  :func:`launch` starts such a launch
+loss and gradients on the shards of other archs (the other dense paths,
+a biased config, and the MoE, Mamba and xLSTM blocks with nonzero
+biases) against the whole model's.  :func:`launch` starts such a launch
 from a test.
 """
 import json
@@ -39,6 +41,9 @@ from repro_torch.models import ModelConfig, init_params, loss_fn
 CFG = ModelConfig(name="t", arch_type="dense", num_layers=2, d_model=64,
                   num_heads=4, num_kv_heads=2, d_ff=128,
                   vocab_size=64).validate()
+# the replicated vectors that the column-parallel blocks take a slice of
+# (attention's, xLSTM's and Mamba's)
+BIASES = ("bq", "bk", "bv", "bo", "bi", "bf", "bz", "conv_b", "dt_bias", "D")
 
 
 def bitwise(mesh, compressor, ratio, policy):
@@ -97,8 +102,8 @@ def bitwise(mesh, compressor, ratio, policy):
                           CFG, {"tokens": toks, "labels": toks.roll(-1, 1)},
                           axis)
         gs = torch.autograd.grad(loss, ps)
-        for t in [loss.detach()] + [g for g, s in zip(gs, tp.specs)
-                                    if not s]:
+        for t in [loss.detach()] + [g for g, pl in zip(gs, tp.placements)
+                                    if pl.replicated]:
             every = axis.gather(t)
             assert all(torch.equal(every[0], x) for x in every), \
                 "replicated on every model rank"
@@ -109,8 +114,9 @@ def bitwise(mesh, compressor, ratio, policy):
 def archs(mesh, names):
     """``model.loss_fn`` on the shards of the smoke variants of ``names``
     (sliding-window attention, the parallel block, the ``embeds``
-    frontend; a name ending ``+bias`` with the biased projections)
-    against it on the whole params: the loss within rtol 1e-5, every
+    frontend, the MoE, Mamba and xLSTM blocks; a name ending ``+bias``
+    with the biased projections; every vector of ``BIASES`` made
+    nonzero) against it on the whole params: the loss within rtol 1e-5, every
     gathered gradient within rtol 1e-4 / atol 1e-6 (the all-reduces sum
     in another order)."""
     from repro_torch.configs import get_config
@@ -125,7 +131,7 @@ def archs(mesh, names):
             params = init_params(cfg, 0, "cpu")
             gen = torch.Generator().manual_seed(3)
             for path, p in tree.flatten_with_path(params)[0]:
-                if path[-1] in ("bq", "bk", "bv", "bo"):
+                if path[-1] in BIASES:
                     # nonzero biases, so that each rank's slice matters
                     p.add_(0.01 * torch.randn(p.shape, generator=gen))
             tp = TensorParallel(cfg, wire, params)
@@ -148,12 +154,12 @@ def archs(mesh, names):
             grads = torch.autograd.grad(got, ps, allow_unused=True)
             np.testing.assert_allclose(float(got), float(want), rtol=1e-5,
                                        err_msg=name)
-            for g, w, spec, p, whole in zip(grads, wgrads, tp.specs, ps,
-                                            leaves):
+            for g, w, pl, p, whole in zip(grads, wgrads, tp.placements, ps,
+                                          leaves):
                 g = torch.zeros_like(p) if g is None else g
                 w = torch.zeros_like(whole) if w is None else w
                 np.testing.assert_allclose(
-                    gather_leaf(g, spec, axis).numpy(), w.numpy(),
+                    gather_leaf(g, pl, axis).numpy(), w.numpy(),
                     rtol=1e-4, atol=1e-6, err_msg=name)
     finally:
         torch.distributed.destroy_process_group()
@@ -200,9 +206,11 @@ def main(out, cases_path):
             {"bitwise": bitwise, "archs": archs}[case["name"]](*case["argv"])
             continue
         name = case["name"]
+        # a case with --smoke trains its arch's smoke variant
         recs = cli.run(case["argv"] + [
             "--device", "cpu", "--checkpoint",
-            os.path.join(out, name + ".npz")], cfg=CFG)
+            os.path.join(out, name + ".npz")],
+            cfg=None if "--smoke" in case["argv"] else CFG)
         if os.environ["RANK"] == "0":
             with open(os.path.join(out, name + ".json"), "w") as f:
                 json.dump(recs, f)

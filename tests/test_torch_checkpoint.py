@@ -219,3 +219,41 @@ def test_tensor_parallel_checkpoint_round_trip(tmp_path):
         with np.load(p["one3"]) as want, np.load(got) as g:
             assert int(g["step"]) == 3
             compare_checkpoints(want, g, "1x2", base)
+
+
+def test_tensor_parallel_blocks_resume_either_form(tmp_path):
+    """jamba-1.5-large's smoke variant (Mamba with ``in_proj`` placed as
+    ``(D, 2, d_inner)``, attention, MLP and MoE layers) under tensor
+    parallelism at ``1x2`` resumes a one-process per-leaf checkpoint
+    into either form: the bucketed TP state (the per-leaf residuals
+    packed into the bucket, then cut to the rank's row) and the per-leaf
+    TP state (each leaf's residual cut to its row).  Each resumed third
+    step has the loss of 3 straight one-process steps within rtol 1e-5;
+    the per-leaf TP run saves the per-leaf checkpoint's keys and shapes
+    (``resid/<leaf path>`` gathered to ``(workers, d_pad)``)."""
+    from _torch_tp_pg import launch
+    from repro_torch.launch import train as cli
+    base = ["--arch", "jamba-1.5-large-398b", "--smoke", "--mesh", "1x2",
+            "--compressor", "gaussiank", "--ratio", "0.02",
+            "--density-policy", "none", "--batch", "4", "--seq", "16"]
+    one = ["--device", "cpu", "--host-devices", "2"]
+    leaf2 = str(tmp_path / "leaf2.npz")
+    cli.run(base + one + ["--steps", "2", "--pipeline", "perleaf",
+                          "--checkpoint", leaf2])
+    straight = cli.run(base + one + ["--steps", "3"])
+    launch(tmp_path, 2, [
+        {"name": "bucketed", "argv": base + ["--steps", "1", "--resume",
+                                             leaf2]},
+        {"name": "perleaf", "argv": base + ["--steps", "1", "--resume",
+                                            leaf2, "--pipeline",
+                                            "perleaf"]}], timeout=300)
+    for name in ("bucketed", "perleaf"):
+        with open(tmp_path / f"{name}.json") as f:
+            (rec,) = json.load(f)
+        assert rec["step"] == 2, name
+        np.testing.assert_allclose(rec["loss"], straight[2]["loss"],
+                                   rtol=1e-5, err_msg=name)
+    with np.load(leaf2) as a, np.load(tmp_path / "perleaf.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert all(a[k].shape == b[k].shape for k in a.files)
+        assert int(b["step"]) == 3

@@ -36,7 +36,9 @@ delta publisher on the card bitwise the CPU's (``topk``, and the fused
 packed replica at every tick, and the serving CLI on the card.
 Slice 8: the MoE, Mamba-hybrid, xLSTM and ``embeds`` smoke models' loss
 and gradients on the card against the CPU (rtol 1e-4, atol 1e-6), and
-two backwards on the card bitwise equal.
+two backwards on the card bitwise equal.  Slice 2d: the profiler's
+tensor-parallel breakdown (two ranks of smoke deepseek-moe-16b under
+``torchrun``), every phase of every rank present and finite.
 """
 import math
 
@@ -694,3 +696,37 @@ def test_new_archs_on_card_match_cpu(dev, arch):
                        out[("cpu", 0)][1]):
         assert torch.equal(a, b)
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-6)
+
+
+def test_profile_tensor_parallel_on_card(dev):
+    """``launch/profile.py`` under ``torchrun --nproc-per-node 2 ...
+    --mesh 1x2`` (NCCL with two cards, else gloo on the one): its JSON
+    line holds both ranks' and the slowest rank's medians of every
+    phase of the tensor-parallel step and of the step, each finite and
+    >= 0."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.launch.profile import TP_PHASES
+    tests = os.path.dirname(os.path.abspath(__file__))
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(os.path.dirname(tests), "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.profile",
+         "--arch", "deepseek-moe-16b", "--smoke", "--mesh", "1x2",
+         "--steps", "2", "--batch", "4", "--seq", "16",
+         "--dist-backend", backend],
+        env=env, capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    doc = json.loads([ln for ln in r.stdout.splitlines()
+                      if ln.startswith("{")][-1])
+    assert doc["tensor_parallel"] and doc["model_size"] == 2
+    assert len(doc["phase_ms_by_rank"]) == 2
+    for ms in [r["phase_ms"] for r in doc["phase_ms_by_rank"]] + [
+            doc["phase_ms_slowest"]]:
+        assert set(ms) == set(TP_PHASES) | {"step"}
+        assert all(math.isfinite(v) and v >= 0 for v in ms.values()), ms

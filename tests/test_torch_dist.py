@@ -21,7 +21,10 @@
   rows selecting ``ceil(k / 2)`` each, at ``(2, 2)`` for allgather,
   gtopk, adaptive density (``variance``) and ``randk``, at ``(2, 1, 2)``
   for hierarchical and hier_gtopk, and at the reference's default
-  ``(4, 2)``; the tolerances above.
+  ``(4, 2)``; the tolerances above.  The same at ``(2, 2)`` on the smoke
+  variants of jamba-1.5-large and xlstm-125m (``M2_BLOCKS``: Mamba,
+  MoE, mLSTM and sLSTM layers), params and residuals within them but at
+  near-tie swaps of a selection.
 * The rank-order decode of gathered pairs with cross-rank duplicates,
   bitwise a sequential numpy sum.
 * ``_wire_cast_fixup`` for bf16 and fp16, bitwise the reference's.
@@ -172,6 +175,59 @@ def test_local_wire_model_axis_matches_jax_mesh(ref, case):
                                     2 * layout.d_row_total)
         np.testing.assert_allclose(state[key].numpy(), ref[f"{case}/{key}"],
                                    rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["m2_jamba", "m2_xlstm"])
+def test_local_wire_model_axis_blocks_match_jax_mesh(ref, case):
+    """A model axis of 2 in one process at ``2x2`` on the smoke variants
+    of jamba-1.5-large (Mamba, attention, MLP, MoE) and xlstm-125m
+    (mLSTM, sLSTM) against the JAX mesh step (allgather, ``topk``):
+    losses and the wire accounting at the tolerances above; params and
+    the ``(2, 2·d_row_total)`` residuals within them but at near-tie
+    swaps of the top-k selection (``_near_tie_swaps``)."""
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config
+    arch = {"m2_jamba": "jamba-1.5-large-398b",
+            "m2_xlstm": "xlstm-125m"}[case]
+    jparams = j_init(j_get_config(arch).reduced(), jax.random.PRNGKey(0))
+    np_params = jax.tree.map(np.asarray, jparams)
+    for i, leaf in enumerate(jax.tree.leaves(np_params)):
+        np.testing.assert_array_equal(leaf, ref[f"{case}/init/{i}"])
+    cfg = get_config(arch).reduced()
+    params = from_jax_params(np_params, "cpu")
+    comp = CompressionConfig(compressor="topk", ratio=0.02,
+                             backend="reference")
+    layout = build_layout(params, 2, comp)
+    opt = sgd_momentum(0.9)
+    state = init_train_state(params, opt, workers=2, model_size=2,
+                             compression=comp, layout=layout)
+    step = make_train_step(cfg, "2x2", opt, constant(0.05),
+                           compression=comp, layout=layout,
+                           wire=LocalWire(parse_mesh("2x2")))
+    for s in range(2):
+        batch = {k: torch.from_numpy(ref[f"{case}/batch/{s}/{k}"]).long()
+                 for k in ("tokens", "labels")}
+        state, m = step(state, batch)
+        np.testing.assert_allclose(float(m["loss"]), ref[f"{case}/{s}/loss"],
+                                   rtol=1e-4)
+        for k in METRICS[1:]:
+            np.testing.assert_allclose(float(m[k]), ref[f"{case}/{s}/{k}"],
+                                       rtol=1e-6, err_msg=k)
+    swapped = _near_tie_swaps(state["resid"].numpy(), ref[f"{case}/resid"])
+    skip = {}
+    for col in swapped:
+        r, c = divmod(col, layout.d_row_total)
+        (seg,) = [g for g in layout.segments
+                  if g.row_off <= c < g.row_off + g.d_row]
+        skip.setdefault(seg.name, []).append(r * seg.d_row + c - seg.row_off)
+    for i, (path, leaf) in enumerate(
+            tree.flatten_with_path(state["params"])[0]):
+        got = leaf.numpy().reshape(-1).copy()
+        want = ref[f"{case}/params/{i}"].reshape(-1).copy()
+        at = [j for j in skip.get(tree.path_name(path), []) if j < got.size]
+        got[at] = want[at]
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5,
+                                   err_msg=tree.path_name(path))
 
 
 def test_local_wire_moe_matches_jax_mesh(ref):

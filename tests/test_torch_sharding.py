@@ -4,9 +4,12 @@
 their published widths and model axes of 1, 2, 4, 8 and 16.  Shapes
 only: ``jax.eval_shape`` on the reference's side, meta tensors on the
 port's.  Also the split check of the tensor-parallel step
-(``dist/tensor_parallel.check_split``): llama3.2-1b splits on head
-boundaries at 2, 4 and 8, and at 16 its KV projections would split
-inside a head, which it refuses naming the leaf.
+(``dist/tensor_parallel.check_split``): llama3.2-1b's placement splits
+each leaf on the dim its spec shards at 2, 4 and 8 (on head
+boundaries), and at 16 its KV projections would split inside a head,
+which it refuses naming the leaf; and at M = 2 and 4 every arch's
+placement agrees with its specs but on the leaves the port places
+itself (``OWN_PLACEMENT``: Mamba's, sLSTM's and the router).
 """
 import functools
 import types
@@ -112,10 +115,43 @@ def test_tensor_parallel_split_is_refused_inside_a_head(model_size):
     cfg = get_config("llama3.2-1b")
     meta = init_params(cfg, 0, "meta")
     if model_size < 16:
-        specs = check_split(cfg, meta, model_size)
-        assert specs == list(tshd.param_specs(meta, "model",
-                                              model_size).values())
+        placements = check_split(cfg, meta, model_size)
+        assert [pl.dim for pl in placements] == [
+            tshd.sharded_dim(s) for s in tshd.param_specs(
+                meta, "model", model_size).values()]
         return
     with pytest.raises(ValueError, match="stack/0/core/wk.*inside an "
                                          "attention head of 64"):
         check_split(cfg, meta, model_size)
+
+
+# the leaves whose placement is not their spec's split (block kind, leaf
+# name): the reference's specs give them no local computation (Mamba's
+# in_proj would put all of x on one rank and all of z on the other;
+# x_proj's output, dt_proj's dt_rank and A_log's state dim are not
+# channels; sLSTM's output-gate projection wo takes the attention wo's
+# input split, its recurrent matrices split inside a head), and the
+# router stays whole so that every rank routes alike
+OWN_PLACEMENT = {("mamba", "in_proj"), ("mamba", "x_proj"),
+                 ("mamba", "dt_proj"), ("mamba", "A_log"),
+                 ("slstm", "wo"), ("slstm", "ri"), ("slstm", "rf"),
+                 ("slstm", "rz"), ("slstm", "ro"), ("moe", "router")}
+
+
+@pytest.mark.parametrize("model_size", [2, 4])
+@pytest.mark.parametrize("arch", list_archs())
+def test_placement_agrees_with_specs_but_where_named(arch, model_size):
+    """At the published widths the placement splits every leaf on the
+    dim its spec shards (the same view) except the leaves of
+    ``OWN_PLACEMENT``, and each of those differs from its spec."""
+    from repro_torch import tree
+    from repro_torch.dist.tensor_parallel import leaf_kind
+    cfg = get_config(arch)
+    meta = init_params(cfg, 0, "meta")
+    placements = check_split(cfg, meta, model_size)
+    specs = tshd.param_specs(meta, "model", model_size)
+    for (path, _), pl, spec in zip(tree.flatten_with_path(meta)[0],
+                                   placements, specs.values()):
+        own = (leaf_kind(cfg, path), path[-1]) in OWN_PLACEMENT
+        same = pl.view == pl.shape and pl.dim == tshd.sharded_dim(spec)
+        assert same != own, (tree.path_name(path), pl, spec)
