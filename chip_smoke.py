@@ -11,6 +11,7 @@
     python3 chip_smoke.py --tensor-parallel-cards  # phase 1 and the TP
                                           # step at 1x4 on four cards
     python3 chip_smoke.py --tuner-only    # phases 1 and 13
+    python3 chip_smoke.py --serve-placement-only  # phases 1 and 14
 
 Phases (any failure exits non-zero; nothing is wrapped to pass):
 
@@ -179,7 +180,29 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    kernel; 13e ``step_cost`` and the roofline of the 4x1 step, and the
    share of the f32 peak of the forward plus backward and of the step;
    13f ``dryrun`` on meta for all ten archs at ``4x2`` and
-   ``table2_scaling``'s rows.
+   ``table2_scaling``'s rows;
+14. slice 7.2, serving placed over the mesh and the tensor-parallel
+   publisher (``phase14_placed``; two processes on the card, gloo): 14a
+   ``launch.serve.run`` at ``--mesh 1x2`` on llama3.2-1b at full width
+   and depth, 10a's traffic, frozen and streaming, each rank holding
+   half of every weight and of the KV cache: the prefill's and first
+   decode's logits within 1e-4 of the largest one-process |logit|, the
+   greedy tokens the one-process run's or near ties, at every publish
+   each rank's pieces the cut of ``pub`` bitwise; prefill, decode-step,
+   broadcast and apply ms, tokens/s, each rank's peak; 14b ``--mesh
+   2x1`` in mode ``2d`` (half of every weight at rest a rank, half the
+   batch) at 2 layers, the gathers' share of the decode step; 14c the
+   tensor-parallel trainer at ``1x2`` with ``--publish-every 1
+   --resync-every 2``, 4 steps at full width and depth (12 launches a
+   step a rank of K1, K2 and both K3; its records' publish kinds and bits
+   and the ``published`` line the one-process ``1x2`` run's; on shared
+   params the rows bitwise the one-process publisher's); 14d the smoke
+   variants of deepseek-moe-16b, jamba-1.5-large, xlstm-125m and
+   gemma3-4b (a sliding-window ring that wraps) at ``1x2`` against their
+   one-process card runs.  ``--tensor-parallel-cards`` (four cards,
+   NCCL) adds serving at ``1x4`` and ``2x2`` (llama3.2-1b,
+   deepseek-moe-16b at 8 layers, command-r-35b at full width and depth)
+   and the TP trainer's publisher at ``2x2`` (data replicas' rows equal).
 
 Every trainer path draws its params on the card (``init_params``: one
 ``threefry_bits`` launch a weight matrix), counted once a path beside the
@@ -1142,12 +1165,13 @@ def pg_ranks(torch, cfg, chunks=1) -> tuple:
         cfg, PG_STEPS, PG_BATCH, PG_SEQ), chunks=chunks)
 
 
-def spawn_ranks(torch, target, args_of, world=2, **kw) -> tuple:
+def spawn_ranks(torch, target, args_of, world=2, deadline_s=600,
+                **kw) -> tuple:
     """``world`` ranks of ``target(rank, world, backend, port,
     *args_of(backend, port), queue, **kw)`` spawned (NCCL with a card
     each when there are ``world`` cards, else gloo on the one card), each
-    putting ``(rank, results)`` on the queue; returns ``(backend,
-    results by rank)``."""
+    putting ``(rank, results)`` on the queue within ``deadline_s``;
+    returns ``(backend, results by rank)``."""
     import multiprocessing as mp
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
     ctx = mp.get_context("spawn")
@@ -1160,7 +1184,7 @@ def spawn_ranks(torch, target, args_of, world=2, **kw) -> tuple:
     for p in procs:
         p.start()
     import queue as queue_mod
-    got, deadline = {}, time.time() + 600
+    got, deadline = {}, time.time() + deadline_s
     try:
         while len(got) < len(procs):
             try:
@@ -3003,11 +3027,15 @@ def tp_shared_gradient(torch, rank, backend, port) -> dict:
         torch.distributed.destroy_process_group()
 
 
-def tp_train(torch, argv, cfg=None) -> dict:
+def tp_train(torch, argv, cfg=None, on_publish=None) -> dict:
     """One tensor-parallel rank's ``train.run(argv, cfg=cfg)`` (under a
     ``torchrun``-style environment set by the caller): its launches
     counted from 0, the relayout's ms a step (CUDA events around
-    ``ModelRow.pack`` and ``ModelRow.unpack``) and its peak memory."""
+    ``ModelRow.pack`` and ``ModelRow.unpack``), its peak memory and,
+    with ``--publish-every``, each record's publish kind and bits and
+    the ``published`` line rank 0 printed."""
+    import contextlib
+    import io
     from repro_torch.dist import tensor_parallel as tpm
     from repro_torch.launch import train
     events = {"pack": [], "unpack": []}
@@ -3030,11 +3058,14 @@ def tp_train(torch, argv, cfg=None) -> dict:
         f.launches = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
     try:
-        recs = train.run(argv, cfg=cfg)
+        with contextlib.redirect_stdout(buf):
+            recs = train.run(argv, cfg=cfg, on_publish=on_publish)
     finally:
         for n, f in origs.items():
             setattr(tpm.ModelRow, n, f)
+    print(buf.getvalue(), end="", flush=True)
     torch.cuda.synchronize()
     launches = {n: f.launches for n, f in funcs.items()}
     ms = {n: [a.elapsed_time(b) for a, b in ev]
@@ -3048,7 +3079,11 @@ def tp_train(torch, argv, cfg=None) -> dict:
             "launches": launches,
             "pack_ms": ms["pack"], "unpack_ms": ms["unpack"],
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "device": torch.cuda.current_device()}
+            "device": torch.cuda.current_device(),
+            "publish": [(r["publish_kind"], r["publish_bits"])
+                        for r in recs if "publish_kind" in r],
+            "published": [ln for ln in buf.getvalue().splitlines()
+                          if ln.startswith("published")]}
 
 
 def _tp_env(torch, rank, world, backend, port) -> None:
@@ -3463,6 +3498,7 @@ def tensor_parallel_cards(torch) -> dict:
         if not line.startswith("{"):
             log("  profile: " + line)
     out["profile"] = prof["json"]
+    out["serving"] = placed_cards(torch)
     out["seconds"] = time.time() - t_start
     log(f"four cards took {out['seconds']:.1f} s")
     return out
@@ -3842,6 +3878,662 @@ def phase13f() -> dict:
                               if r["status"] == "OK"}}
 
 
+# -- phase 14: serving placed over the mesh (slice 7.2) --
+
+# 14d: the smoke variants served at 1x2 (arch, sliding window cut so that
+# 14a's prompt of 64 and 16 new tokens wrap the ring, or None)
+PLACED_SMOKE = (("deepseek-moe-16b", None), ("jamba-1.5-large-398b", None),
+                ("xlstm-125m", None), ("gemma3-4b", 32))
+# 14b: each decode step gathers the other half of every weight over
+# gloo (0.33 GB/s on one card), so the vocabulary-wide embedding and
+# head with this many layers, one wave of 8 requests of up to 8 tokens
+PLACED_2D_LAYERS = 2
+PLACED_2D_TRAFFIC = ["--requests", "8", "--gen", "8"]
+# 14c's shared-params check at full width: rank 0 holds the whole params
+# and the one-process publisher beside its own row's, so this depth
+SHARED_LAYERS = 4
+# a near tie: the one-process logits' top two within TIE of the row's
+# largest |logit|; the placed logits within TIE of the step's
+TIE = 1e-4
+
+
+def placed_argv(mesh, arch="llama3.2-1b"):
+    """14a's traffic (12 requests, waves of 8, prompt 64, gen 16) at
+    ``mesh``."""
+    return ["--arch", arch, "--mesh", mesh] + SERVE_ARGV[4:]
+
+
+def smoke_cfg(arch, window=None):
+    """``arch``'s smoke variant, its sliding window cut to ``window``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if window:
+        cfg = dataclasses.replace(cfg, sliding_window=window).validate()
+    return cfg
+
+
+def logit_log(keep_all):
+    """``(on_logits, store)``: the last position's logits of each wave's
+    steps (every step, or steps 0 and 1) as ``{(wave, step): (B, V)}``
+    float32 numpy arrays."""
+    store = {}
+
+    def on_logits(wave, step, logits):
+        if keep_all or step < 2:
+            store[(wave, step)] = logits[:, -1].float().cpu().numpy()
+
+    return on_logits, store
+
+
+def hold_tokens(label, got, ref, ref_logits) -> list:
+    """The placed run's greedy tokens ``got`` against the one-process
+    run's ``ref`` (a (B, L) array a wave): equal, or at a row's first
+    differing token a near tie in the one-process logits of that step
+    (top-two gap <= ``TIE`` of the row's largest |logit|).  Returns the
+    near ties as ``(wave, row, step, gap, scale)``."""
+    import numpy as np
+    ties = []
+    assert len(got) == len(ref), (label, "waves")
+    for w, (a, b) in enumerate(zip(got, ref)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape, (label, w, a.shape, b.shape)
+        for row in range(b.shape[0]):
+            diff = np.nonzero(a[row] != b[row])[0]
+            if not len(diff):
+                continue
+            col = int(diff[0])
+            lg = ref_logits[(w, col)][row]
+            top = np.sort(lg)[-2:]
+            gap, scale = float(top[1] - top[0]), float(np.abs(lg).max())
+            assert gap <= TIE * scale, (label, "token", w, row, col, gap,
+                                        scale)
+            ties.append((w, row, col, gap, scale))
+    return ties
+
+
+def hold_logits(label, got, ref, ties) -> float:
+    """The prefill's and first decode's logits of every wave within
+    ``TIE`` of the step's largest one-process |logit| (a row whose
+    prefill token was a near tie decodes another token: its first
+    decode is skipped); returns the largest error over its scale."""
+    import numpy as np
+    worst = 0.0
+    tied = {(w, r) for w, r, c, _, _ in ties if c == 0}
+    for (w, step), g in sorted(got.items()):
+        want = ref[(w, step)]
+        rows = [i for i in range(g.shape[0])
+                if step == 0 or (w, i) not in tied]
+        err = float(np.abs(g[rows] - want[rows]).max())
+        scale = float(np.abs(want[rows]).max())
+        assert err <= TIE * scale, (label, "logits", w, step, err, scale)
+        worst = max(worst, err / scale)
+    return worst
+
+
+def placed_checker(torch, counts):
+    """A probe for every publish of a placed run, outside its timed
+    window: every rank's pieces against the cut of rank 0's ``pub``
+    (the packed one-process replica, 10a's invariant) under that rank's
+    placement, rank 0's own bitwise (``torch.equal``), the others' by
+    ``device_digest`` (the pieces stay on their ranks); ``counts``
+    collects the kinds and each publish's peak since the previous one."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+
+    def probe(event, msg, layout, state, trainer, replica, placed):
+        counts.setdefault("peaks", []).append(
+            torch.cuda.max_memory_allocated())
+        pairs = tree.flatten_with_path(replica)[0]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (placed.model_rank, placed.data_rank,
+                                       [device_digest(torch, x)
+                                        for _, x in pairs]))
+        if state is not None:
+            pub = state["pub"][0]
+            for i, (seg, (path, x)) in enumerate(zip(layout.segments,
+                                                     pairs)):
+                whole = pub[seg.row_off:seg.row_off + seg.size].view(
+                    seg.shape)
+                assert torch.equal(placed.cut(path, whole), x), (
+                    "placed piece", seg.name, msg.seq)
+                for r, j, digs in every[1:]:
+                    want = device_digest(torch, placed.cut(
+                        path, whole, model_rank=r, data_rank=j))
+                    assert digs[i] == want, ("placed piece", seg.name, r, j,
+                                             msg.seq)
+        counts.setdefault("kinds", []).append(msg.kind)
+        torch.cuda.reset_peak_memory_stats()
+
+    return probe
+
+
+def serve_placed_child(rank, world, backend, port, runs, queue):
+    """One rank of the placed serving launches: ``launch.serve.run`` of
+    each ``(label, argv, cfg, port, streaming)`` of ``runs`` in order
+    (``cfg`` None: ``argv``'s arch), its launches counted from 0, the
+    prefill's and first decode's logits of every wave, its times and
+    peak memory, and with ``streaming`` :func:`placed_checker` at every
+    publish; puts ``(rank, {label: results})`` on ``queue``."""
+    import traceback
+    try:
+        # rank 0's publisher and a resync's leaves are transients of many
+        # sizes beside the other rank on the one card
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        import torch
+        _tp_env(torch, rank, world, backend, port)
+        from repro_torch.launch import serve
+        out = {}
+        for label, argv, cfg, run_port, streaming in runs:
+            t0 = time.time()
+            os.environ["MASTER_PORT"] = str(run_port)
+            counts = {}
+            on_logits, store = logit_log(False)
+            funcs = counters()
+            for f in funcs.values():
+                f.launches = 0
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            got = serve.run(argv + ["--dist-backend", backend], cfg=cfg,
+                            on_logits=on_logits,
+                            probe=(placed_checker(torch, counts)
+                                   if streaming else None))
+            torch.cuda.synchronize()
+            res = {k: got[k] for k in ("done", "waves", "tokens_out",
+                                       "decode_steps", "deltas", "resyncs",
+                                       "wire_bits", "seconds", "tok_s")}
+            res.update(tokens=[t.numpy() for t in got["tokens"]],
+                       times=got["times"], logits=store,
+                       launches={n: f.launches for n, f in funcs.items()},
+                       peak_gib=max([torch.cuda.max_memory_allocated()]
+                                    + counts.get("peaks", [])) / 2**30,
+                       kinds=counts.get("kinds", []),
+                       device=torch.cuda.current_device())
+            out[label] = res
+            del got
+            if rank == 0:
+                log(f"  {label}: served in {time.time() - t0:.1f} s, peak "
+                    f"{res['peak_gib']:.2f} GiB on rank 0")
+        queue.put((rank, out))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def rounded(rep, key):
+    """``rep[key]``'s ms to one decimal (empty when absent)."""
+    return [round(x, 1) for x in rep.get(key, [])]
+
+
+def placed_report(label, res, ref, ref_logits, draws, rank) -> dict:
+    """Hold one rank's placed serving run against the one-process run
+    ``ref`` (its tokens and every step's logits): the counters equal,
+    the tokens equal or near ties, the prefill's and first decode's
+    logits within ``TIE`` (rank 0's), the launches the params' draws and
+    two ``threefry_bits`` a wave (the prompts); returns the summary."""
+    want = {n: 0 for n in res["launches"]}
+    want["threefry_bits"] = draws + 2 * res["waves"]
+    assert res["launches"] == want, (label, rank, res["launches"], want)
+    for k in ("done", "waves", "tokens_out", "decode_steps", "deltas",
+              "resyncs", "wire_bits"):
+        assert res[k] == ref[k], (label, rank, k, res[k], ref[k])
+    ties = hold_tokens(label, res["tokens"], [t.numpy()
+                                               for t in ref["tokens"]],
+                       ref_logits)
+    err = (hold_logits(label, res["logits"], ref_logits, ties)
+           if res["logits"] else None)
+    t = res["times"]
+    out = {"prefill_ms": t["prefill"], "decode_ms_median": med(t["decode"]),
+           "tok_s": res["tok_s"], "seconds": res["seconds"],
+           "peak_gib": res["peak_gib"], "near_ties": ties,
+           "logit_err_over_scale": err, "device": res["device"]}
+    for k in ("publish_delta", "publish_resync", "apply_delta",
+              "apply_resync", "broadcast", "gather_prefill",
+              "gather_decode"):
+        if k in t:
+            out[k + "_ms"] = t[k]
+    if "gather_decode" in t:
+        # the decode steps' gathers, step by step, over the step's ms
+        per = len(t["gather_decode"]) // max(1, len(t["decode"]))
+        out["gather_share_of_decode"] = med([
+            sum(t["gather_decode"][i * per:(i + 1) * per]) / d
+            for i, d in enumerate(t["decode"])])
+    return out
+
+
+def phase14_placed(torch, by_path) -> dict:
+    """Phase 14, slice 7.2: serving placed over the mesh and the
+    tensor-parallel publisher, two processes on the one card over gloo
+    (NCCL with a card each when two are visible), each run held against
+    its one-process run (here, on the card) and each path's launches
+    counted from 0:
+
+    14a. ``launch.serve.run`` at ``--mesh 1x2`` on llama3.2-1b at full
+         width and depth, 12 requests, waves of 8, prompt 64, gen 16,
+         frozen and with ``--publish-every 4 --publish-ratio 0.01
+         --resync-every 3``: each rank holds half of every weight and of
+         the KV cache; the prefill's and first decode's logits within
+         ``TIE`` of the largest one-process |logit| (the row-parallel
+         sums reassociate), the greedy tokens equal or, at a row's first
+         difference, a near tie in the one-process logits (reported);
+         at every publish each rank's pieces are the cut of ``pub``
+         bitwise (:func:`placed_checker`); prefill and decode-step ms,
+         publish, broadcast and apply ms, tokens/s, each rank's peak;
+    14b. ``--mesh 2x1``, mode ``2d``, frozen, at ``PLACED_2D_LAYERS``
+         layers (the embedding and head at full width), one wave of 8
+         requests of up to 8 tokens (``PLACED_2D_TRAFFIC``): half of every
+         weight at rest on each rank (gathered a block at a time over
+         the data group), half the batch each; held as 14a against the
+         one-process run at that depth; the gathers' share of the decode
+         step;
+    14c. the tensor-parallel trainer at ``--mesh 1x2`` with
+         ``--publish-every 1 --resync-every 2``, llama3.2-1b at full
+         width and depth, 4 steps (:func:`phase14c`);
+    14d. the smoke variants of deepseek-moe-16b, jamba-1.5-large,
+         xlstm-125m and gemma3-4b (its sliding window cut to 32, so the
+         ring wraps) served at ``1x2`` against their one-process card
+         runs, held as 14a."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    t_start = time.time()
+    out = {"runs": {}}
+    llama = get_config("llama3.2-1b")
+    refs = {}
+    log("phase 14: the one-process runs the placed ones are held to "
+        "(llama3.2-1b frozen and streaming, the 14d smoke variants), "
+        "every step's logits kept")
+    for name, argv, cfg in (
+            [("frozen", SERVE_ARGV + ["--publish-every", "0"], None),
+             ("streaming", SERVE_ARGV + STREAM_ARGV, None),
+             ("frozen cut", SERVE_ARGV + ["--publish-every", "0"]
+              + PLACED_2D_TRAFFIC, llama_layers(PLACED_2D_LAYERS))]
+            + [(arch, placed_argv("1x1", arch) + ["--smoke"],
+                smoke_cfg(arch, window)) for arch, window in PLACED_SMOKE]):
+        on_logits, store = logit_log(True)
+        got = serve.run(argv, cfg=cfg, on_logits=on_logits)
+        refs[name] = (got, store)
+        out.setdefault("one_process", {})[name] = {
+            "decode_ms_median": med(got["times"]["decode"]),
+            "tok_s": got["tok_s"]}
+        torch.cuda.empty_cache()
+    runs = [("14a frozen 1x2", placed_argv("1x2"), None, "frozen",
+             llama),
+            ("14a streaming 1x2", placed_argv("1x2") + STREAM_ARGV, None,
+             "streaming", llama),
+            ("14b 2d 2x1", placed_argv("2x1") + PLACED_2D_TRAFFIC,
+             llama_layers(PLACED_2D_LAYERS), "frozen cut",
+             llama_layers(PLACED_2D_LAYERS))]
+    runs += [(f"14d {arch} 1x2", placed_argv("1x2", arch) + ["--smoke"],
+              smoke_cfg(arch, window), arch, smoke_cfg(arch, window))
+             for arch, window in PLACED_SMOKE]
+    ports = []
+
+    def args_of(backend, port):
+        while len(ports) < len(runs):
+            p = free_port()
+            if p != port and p not in ports:
+                ports.append(p)
+        return ([(label, argv, cfg, p, "--publish-every" in argv)
+                 for (label, argv, cfg, _, _), p in zip(runs, ports)],)
+
+    log("phase 14a, 14b, 14d: the placed runs, 2 processes, "
+        + ", ".join(r[0] for r in runs))
+    t0 = time.time()
+    backend, got = spawn_ranks(torch, serve_placed_child, args_of,
+                               deadline_s=900)
+    out.update(backend=backend, placed_wall_s=time.time() - t0)
+    for label, _, _, ref_name, cfg in runs:
+        ref, ref_logits = refs[ref_name]
+        for rank in range(2):
+            res = got[rank][label]
+            if rank:
+                res["logits"] = {}      # rank 0's are the whole batch's
+            rep = placed_report(label, res, ref, ref_logits,
+                                init_draws(cfg), rank)
+            if "streaming" in label:
+                assert res["kinds"] and res["kinds"][0] == 0, res["kinds"]
+                rep["publishes_checked"] = len(res["kinds"])
+            out["runs"].setdefault(label, {})[rank] = rep
+            by_path[f"{label}, rank {rank}"] = res["launches"]
+            log(f"  {label} rank {rank} (cuda:{rep['device']}, {backend}): "
+                f"{ref['waves']} waves, tokens "
+                f"{rep['near_ties'] or 'equal'}; "
+                f"logits within {rep['logit_err_over_scale']} of the "
+                f"scale; prefill ms "
+                f"{[round(x, 1) for x in rep['prefill_ms']]}, decode step "
+                f"median {rep['decode_ms_median']:.2f} (one process "
+                f"{med(ref['times']['decode']):.2f}); tokens/s "
+                f"{rep['tok_s']:.1f} (one process {ref['tok_s']:.1f}); "
+                f"peak {rep['peak_gib']:.2f} GiB"
+                + (f"; gathers {rep['gather_share_of_decode']:.3f} of the "
+                   f"decode step" if "gather_share_of_decode" in rep
+                   else "")
+                + (f"; {rep['publishes_checked']} publishes checked, "
+                   f"broadcast ms {rounded(rep, 'broadcast_ms')}, apply ms "
+                   f"delta {rounded(rep, 'apply_delta_ms')} resync "
+                   f"{rounded(rep, 'apply_resync_ms')}"
+                   if "publishes_checked" in rep else ""))
+    del refs, got
+    torch.cuda.empty_cache()
+    out["14c"] = phase14c(torch, by_path)
+    out["phase14_s"] = time.time() - t_start
+    log(f"phase 14 took {out['phase14_s']:.1f} s (the placed serving "
+        f"processes {out['placed_wall_s']:.1f} s, 14c "
+        f"{out['14c']['seconds']:.1f} s)")
+    return out
+
+
+def tp_publish_shared(torch, rank, backend, port) -> dict:
+    """14c's check of the tensor-parallel publisher on one shared set of
+    params at full width (``SHARED_LAYERS`` layers), in a process group
+    of its own on ``port``: every rank draws llama3.2-1b whole from seed
+    0 and cuts its shards;
+    over 3 ticks (resync, delta, delta) of ``launch.serve.drift`` (an
+    elementwise step, so the shards' drift is the drift's shards) rank 0
+    runs the one-process publisher on the whole params (``(2,
+    d_row_total)`` rows) and every rank its own row's publisher on its
+    shards (``rows=``); the message, ``pub`` and residual rows equal the
+    one-process ones bitwise (rank 0's by ``torch.equal``, rank 1's by
+    ``device_digest``).  Returns each tick's publish ms of the row."""
+    import torch.distributed as dist
+
+    from repro_torch import prng
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.dist import tensor_parallel as tpm
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.dist.wire import ProcessGroupWire, init_process_group
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.models import init_params
+    from repro_torch.serve import init_publisher_state, publish
+
+    os.environ["MASTER_PORT"] = str(port)
+    init_process_group(backend, rank=rank, world_size=2, local_rank=rank,
+                       local_world_size=2)
+    try:
+        cfg = llama_layers(SHARED_LAYERS)
+        whole = init_params(cfg, 0, "cuda")
+        tp = tpm.TensorParallel(cfg, ProcessGroupWire(parse_mesh("1x2")),
+                                whole)
+        r = tp.axis.rank
+        mine = tp.shard(whole)
+        if r:
+            del whole
+        config = CompressionConfig(compressor="topk", ratio=0.01)
+        layout = build_layout(tp.whole, 2, config)
+        rows = tp.rows(layout)
+        state = init_publisher_state(layout, rows=1)
+        one = init_publisher_state(layout) if r == 0 else None
+        key = prng.PRNGKey(5)
+        ms = []
+        for t in range(3):
+            mine = serve.drift(mine, t)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            ev[0].record()
+            state, msg = publish(state, mine, layout, config, key,
+                                 resync_every=3, rows=rows)
+            ev[1].record()
+            got = [x for x in msg[2:] if x is not None] + [state["pub"],
+                                                           state["resid"]]
+            digs = [device_digest(torch, x[0]) for x in got]
+            every = [None, None]
+            dist.all_gather_object(every, digs)
+            if r == 0:
+                whole = serve.drift(whole, t)
+                one, want = publish(one, whole, layout, config, key,
+                                    resync_every=3)
+                wants = [x for x in want[2:] if x is not None] + [
+                    one["pub"], one["resid"]]
+                for a, b in zip(got, wants):
+                    assert torch.equal(a[0], b[0]), ("14c shared row 0", t)
+                assert every[1] == [device_digest(torch, b[1])
+                                    for b in wants], ("14c shared row 1", t)
+                del want, wants
+            del got, msg
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        return {"publish_ms": ms}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def tp_publish_child(rank, world, backend, port, argv, check_port, queue):
+    """Phase 14c, one rank: :func:`tp_train` of ``argv`` (the
+    tensor-parallel trainer with ``--publish-every``), then
+    :func:`tp_publish_shared` on ``check_port``."""
+    import traceback
+    try:
+        # the publishers' transients of many sizes beside the other rank
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        import torch
+        _tp_env(torch, rank, world, backend, port)
+        out = tp_train(torch, argv + ["--dist-backend", backend])
+        torch.cuda.empty_cache()
+        out["shared"] = tp_publish_shared(torch, rank, backend, check_port)
+        queue.put((rank, out))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def phase14c(torch, by_path) -> dict:
+    """14c of :func:`phase14_placed`: the one-process ``--mesh 1x2``
+    trainer with ``--publish-every 1 --resync-every 2`` (24 launches a
+    step of K1, K2 and both K3; its records' publish kinds and bits),
+    then the tensor-parallel one in two processes: 12 launches a step a
+    rank of each (and the params' draws), the losses within rtol 1e-6,
+    every record's publish kind and bits and the ``published`` line the
+    one-process run's; then :func:`tp_publish_shared`."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    t0 = time.time()
+    argv = ["--arch", "llama3.2-1b", "--density-policy", "none", "--batch",
+            "8", "--seq", "128", "--publish-every", "1", "--resync-every",
+            "2", "--steps", "4", "--log-every", "1"]
+    log("phase 14c: the one-process --mesh 1x2 trainer with "
+        "--publish-every 1 --resync-every 2, 4 steps")
+    by_path["14c one process, mesh 1x2"], records, peak1, _, _ = train_path(
+        "14c one process", argv[:-4] + ["--host-devices", "2", "--mesh",
+                                        "1x2", "--log-every", "1"],
+        {n: 24 for n in MAIN_KERNELS}, 4, torch)
+    ref_pub = [(r["publish_kind"], r["publish_bits"]) for r in records]
+    ref_losses = [r["loss"] for r in records]
+    assert [k for k, _ in ref_pub] == [0, 1, 0, 1], ref_pub
+    bits = sum(b for _, b in ref_pub)
+    line = (f"published 2 deltas + 2 resyncs ({bits / 8 / 2 ** 20:.3f} MiB "
+            f"on the wire)")
+    del records
+    torch.cuda.empty_cache()
+    log("phase 14c: the tensor-parallel trainer, --mesh 1x2 in 2 "
+        "processes, then the shared-params publisher check")
+    check_port = []
+
+    def args_of(backend, port):
+        while not check_port or check_port[0] == port:
+            check_port[:] = [free_port()]
+        return argv + ["--mesh", "1x2"], check_port[0]
+
+    backend, got = spawn_ranks(torch, tp_publish_child, args_of)
+    draws = init_draws(get_config("llama3.2-1b"))
+    out = {"backend": backend, "one_process_losses": ref_losses,
+           "one_process_peak_gib": peak1 / 2**30, "line": line, "ranks": {}}
+    for rank in range(2):
+        res = got[rank]
+        want = {n: (12 * 4 if n in MAIN_KERNELS else
+                    draws if n == "threefry_bits" else 0)
+                for n in res["launches"]}
+        assert res["launches"] == want, (rank, res["launches"], want)
+        np.testing.assert_allclose(res["losses"], ref_losses, rtol=1e-6)
+        assert [tuple(x) for x in res["publish"]] == ref_pub, (
+            rank, res["publish"], ref_pub)
+        if rank == 0:
+            assert res["published"] == [line], (res["published"], line)
+        by_path[f"14c tensor parallel publisher, rank {rank}"] = \
+            res["launches"]
+        out["ranks"][rank] = {k: res[k] for k in (
+            "losses", "step_ms", "peak_gib", "pack_ms", "shared")}
+        log(f"  14c rank {rank}: losses {res['losses']} (one process "
+            f"{ref_losses}); publish kinds and bits the one-process run's"
+            f"{'; ' + line if rank == 0 else ''}; step ms "
+            f"{[round(x, 1) for x in res['step_ms']]}; peak "
+            f"{res['peak_gib']:.2f} GiB; launches {res['launches']}; shared "
+            f"params: the row's messages, pub and resid bitwise the "
+            f"one-process publisher's rows, publish ms "
+            f"{[round(x, 1) for x in res['shared']['publish_ms']]}")
+    out["seconds"] = time.time() - t0
+    return out
+
+
+# the four-card serving runs (``--tensor-parallel-cards``): command-r-35b
+# at full width and this depth, 2x2 (2d); its rank peak stays under
+# ~70 GiB (32.4 B params: 30.2 GiB a rank at rest, plus the whole
+# embedding's draw and a gathered block)
+CMDR_LAYERS = 40
+
+
+def tp_replicas_child(rank, world, backend, port, argv, queue):
+    """One rank of the four-card tensor-parallel trainer at ``2x2`` with
+    ``--publish-every``: :func:`tp_train`, and at every publish the
+    ``device_digest`` of the rank's message row, ``pub`` and residual;
+    puts ``(rank, results)`` on ``queue``."""
+    import traceback
+    try:
+        import torch
+        _tp_env(torch, rank, world, backend, port)
+        digests = []
+
+        def on_publish(msg, layout, state, params, tp):
+            digests.append([device_digest(torch, x) for x in
+                            [x for x in msg[2:] if x is not None]
+                            + [state["pub"], state["resid"]]])
+
+        out = tp_train(torch, argv + ["--dist-backend", backend],
+                       on_publish=on_publish)
+        out["digests"] = digests
+        queue.put((rank, out))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def placed_cards(torch) -> dict:
+    """Serving placed on four cards over NCCL, 14a's traffic, frozen:
+    llama3.2-1b at ``1x4`` and ``2x2`` (2d) and deepseek-moe-16b at 8
+    layers at ``1x4``, each held against its one-process run on card 0
+    as 14a (tokens, the prefill's and first decode's logits);
+    command-r-35b at full width and ``CMDR_LAYERS`` layers at ``2x2``
+    (2d), which no one card holds: its tokens in the vocabulary, the
+    counters the queue's, each rank's peak under 70 GiB.  Then the
+    tensor-parallel trainer at ``2x2`` with ``--publish-every 1
+    --resync-every 2``: the two data replicas of each model rank publish
+    the same row, message, ``pub`` and residual (``device_digest``).
+    Decode-step and prefill ms, tokens/s and each rank's peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    t0 = time.time()
+    out = {"runs": {}}
+    ds, cmdr = full_width("deepseek-moe-16b", 8), full_width(
+        "command-r-35b", CMDR_LAYERS)
+    llama = get_config("llama3.2-1b")
+    refs = {}
+    for name, cfg in (("llama", None), ("deepseek", ds)):
+        log(f"four cards: the one-process {name} run on card 0, frozen")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        on_logits, store = logit_log(True)
+        argv = placed_argv("1x1", cfg.name if cfg else "llama3.2-1b")
+        got = serve.run(argv, cfg=cfg, on_logits=on_logits)
+        refs[name] = (got, store)
+        out.setdefault("one_process", {})[name] = {
+            "decode_ms_median": med(got["times"]["decode"]),
+            "prefill_ms": got["times"]["prefill"], "tok_s": got["tok_s"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    runs = [("4 cards llama3.2-1b 1x4", placed_argv("1x4"), None, "llama",
+             llama),
+            ("4 cards llama3.2-1b 2x2 2d", placed_argv("2x2"), None,
+             "llama", llama),
+            ("4 cards deepseek-moe-16b (8 layers) 1x4",
+             placed_argv("1x4", "deepseek-moe-16b"), ds, "deepseek", ds),
+            (f"4 cards command-r-35b ({CMDR_LAYERS} layers) 2x2 2d",
+             placed_argv("2x2", "command-r-35b"), cmdr, None, cmdr)]
+    ports = []
+
+    def args_of(backend, port):
+        while len(ports) < len(runs):
+            p = free_port()
+            if p != port and p not in ports:
+                ports.append(p)
+        return ([(label, argv, cfg, p, False)
+                 for (label, argv, cfg, _, _), p in zip(runs, ports)],)
+
+    log("four cards: placed serving, " + ", ".join(r[0] for r in runs))
+    backend, got = spawn_ranks(torch, serve_placed_child, args_of, world=4)
+    assert backend == "nccl", backend
+    for label, _, _, ref_name, cfg in runs:
+        for rank in range(4):
+            res = got[rank][label]
+            if rank:
+                res["logits"] = {}
+            if ref_name is not None:
+                ref, ref_logits = refs[ref_name]
+                rep = placed_report(label, res, ref, ref_logits,
+                                    init_draws(cfg), rank)
+            else:
+                want = {n: 0 for n in res["launches"]}
+                want["threefry_bits"] = init_draws(cfg) + 2 * res["waves"]
+                assert res["launches"] == want, (label, res["launches"])
+                assert res["done"] == 12 and res["waves"] == 2, res
+                for t in res["tokens"]:
+                    assert t.min() >= 0 and t.max() < cfg.vocab_size, label
+                assert all(bool((t == got[0][label]["tokens"][w]).all())
+                           for w, t in enumerate(res["tokens"])), label
+                assert res["peak_gib"] < 70, (label, res["peak_gib"])
+                rep = {"prefill_ms": res["times"]["prefill"],
+                       "decode_ms_median": med(res["times"]["decode"]),
+                       "tok_s": res["tok_s"], "seconds": res["seconds"],
+                       "peak_gib": res["peak_gib"], "device": res["device"]}
+                if "gather_decode" in res["times"]:
+                    rep["gather_decode_ms_total"] = sum(
+                        res["times"]["gather_decode"])
+            out["runs"].setdefault(label, {})[rank] = rep
+            log(f"  {label} rank {rank} (cuda:{rep['device']}): prefill ms "
+                f"{[round(x, 1) for x in rep['prefill_ms']]}, decode step "
+                f"median {rep['decode_ms_median']:.2f}, tokens/s "
+                f"{rep['tok_s']:.1f}, peak {rep['peak_gib']:.2f} GiB"
+                + (f", tokens {rep['near_ties'] or 'equal'}, logits "
+                   f"within {rep['logit_err_over_scale']} of the scale"
+                   if "near_ties" in rep else ""))
+    del got, refs
+    torch.cuda.empty_cache()
+    log("four cards: the tensor-parallel trainer at 2x2 with "
+        "--publish-every 1 --resync-every 2, 4 steps")
+    argv = ["--arch", "llama3.2-1b", "--density-policy", "none", "--batch",
+            "8", "--seq", "128", "--publish-every", "1", "--resync-every",
+            "2", "--steps", "4", "--log-every", "1", "--mesh", "2x2"]
+    backend, got = spawn_ranks(torch, tp_replicas_child,
+                               lambda backend, port: (argv,), world=4)
+    for rank in range(4):
+        res = got[rank]
+        assert res["losses"] == got[0]["losses"], rank
+        # global rank w·M + r: data replica w of model rank r
+        assert res["digests"] == got[rank % 2]["digests"], (
+            "data replicas publish the same row", rank)
+        assert len(res["digests"]) == 4, res["digests"]
+    out["publish_2x2"] = {rank: {k: got[rank][k] for k in (
+        "losses", "step_ms", "peak_gib", "publish")} for rank in range(4)}
+    log(f"  the data replicas of each model rank published the same rows "
+        f"(4 publishes); step ms "
+        f"{[[round(x, 1) for x in got[r]['step_ms']] for r in range(4)]}; "
+        f"{got[0]['published']}")
+    out["seconds"] = time.time() - t0
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3904,8 +4596,15 @@ def main(argv) -> int:
         log("tuner-only run: phases 2-12 skipped")
         return 0
     if "--tensor-parallel-cards" in argv:
-        log(json.dumps({"four_cards": tensor_parallel_cards(torch)}))
+        log(json.dumps({"four_cards": tensor_parallel_cards(torch)},
+                       default=str))
         log("tensor-parallel-cards run: the four-card measurement alone")
+        return 0
+    if "--serve-placement-only" in argv:
+        by_path = {}
+        log(json.dumps({"phase14": phase14_placed(torch, by_path),
+                        "launches_by_path": by_path}, default=str))
+        log("serve-placement-only run: phases 2-13 skipped")
         return 0
     if "--tensor-parallel-only" in argv:
         by_path = {}
@@ -4175,6 +4874,9 @@ def main(argv) -> int:
     # -- phase 13: the launch and tuning stack --
     phase13 = phase13_tuner(torch, by_path, llama)
 
+    # -- phase 14: serving placed over the mesh --
+    phase14 = phase14_placed(torch, by_path)
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -4186,8 +4888,9 @@ def main(argv) -> int:
                     "phase7": phase7, "phase8": phase8,
                     "phase9": phase9, "phase10": phase10,
                     "phase11": phase11, "phase12": phase12,
-                    "phase13": phase13, "build_s": build_s,
-                    "total_s": time.time() - t_start}))
+                    "phase13": phase13, "phase14": phase14,
+                    "build_s": build_s,
+                    "total_s": time.time() - t_start}, default=str))
     log(json.dumps({"kernels": list(rows.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

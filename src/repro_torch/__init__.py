@@ -27,6 +27,5 @@ Params are stored leaf for leaf the way the JAX package stores them
 the bucket layout, every per-leaf ``k`` and every selection agree with
 the JAX reference.  Nothing here imports ``jax``.
 
-What later slices carry is listed in ``slices.py``; asking for it raises
-``NotImplementedError`` naming the slice.
+Nothing is left to a later slice (``slices.py``).
 """

@@ -108,9 +108,11 @@ def load_state(path: str, like: Any, *,
     out = []
     for p, leaf in pairs:
         key = _key(p)
+        filled = False
         if key not in flat and (key in _GLOBALK_KEYS
                                 or key.startswith(_PUBLISH_PREFIX)):
-            arr = np.zeros(tuple(np.shape(leaf)), np.float32)
+            # zero-filled in the state's own shape: nothing to cut
+            arr, filled = np.zeros(tuple(np.shape(leaf)), np.float32), True
         elif key not in flat and layout is not None and key in _RESID_KEYS:
             arr = _migrate_legacy_residual(flat, key, layout)
         elif key not in flat:
@@ -119,7 +121,7 @@ def load_state(path: str, like: Any, *,
             arr = flat[key]
         if worker_rows is not None and key.split(_SEP)[0] in _RESID_KEYS:
             arr = arr[list(worker_rows)]
-        if shard is not None:
+        if shard is not None and not filled:
             arr = shard(key, arr)
         if isinstance(leaf, torch.Tensor):
             if tuple(arr.shape) != tuple(leaf.shape):

@@ -116,7 +116,13 @@ def cache_specs(cache, data_axes: Sequence[str], data_size: int,
                 model_axis: str = "model", model_size: int = 1):
     """Serve-time cache specs: the batch dim (the first after a stacked
     dim) over the joint data axes when it divides, and the largest
-    remaining dim that divides over ``model``."""
+    remaining dim that divides over ``model``.  These are the
+    reference's at-rest specs, for GSPMD to reshard as it computes: for
+    a KV cache ``(B, S, KV, hd)`` the model axis often lands on ``S``.
+    The port places a cache by heads instead (``models.init_cache`` with
+    a model axis: the KV heads, Mamba's ``d_inner``, the xLSTM heads),
+    like its Mamba and sLSTM params: a rank's attention over its own
+    heads then reads only its own cache."""
     joint = _joint(data_axes)
 
     def spec_of(path, leaf):

@@ -514,7 +514,8 @@ def gather_state(state: dict, placements: dict, axis: ModelAxis) -> dict:
     name: Placement}``), the residual rows (``(workers, d_row_total)``
     buckets, or the per-leaf loop's ``(workers, d_row)`` leaves) as the
     ``(workers, M·d_row_total)`` buckets (``(workers, d_pad)`` leaves)
-    the checkpoint keys document."""
+    the checkpoint keys document, and the publisher's row buckets
+    (``publish/pub``, ``publish/resid``) as its ``(M, d_row_total)``."""
     pairs, td = tree.flatten_with_path(state)
     out = []
     for path, leaf in pairs:
@@ -523,6 +524,8 @@ def gather_state(state: dict, placements: dict, axis: ModelAxis) -> dict:
         if str(path[0]) in ("resid", "resid2"):
             rows = axis.gather(leaf)                    # (M, workers, D)
             leaf = rows.transpose(0, 1).reshape(leaf.shape[0], -1)
+        elif str(path[0]) == "publish" and isinstance(leaf, torch.Tensor):
+            leaf = axis.gather(leaf).reshape(axis.size, -1)
         elif name is not None and isinstance(leaf, torch.Tensor):
             leaf = gather_leaf(leaf, placements[name], axis)
         out.append(leaf)
@@ -533,12 +536,15 @@ def state_shard_fn(placements: dict, rank: int, model_size: int):
     """``shard(key, array) -> array`` for ``checkpoint.load_state``: a
     whole checkpoint's entry cut to model rank ``rank``'s part (params and
     optimizer leaves by their placements, the residual buckets, or the
-    per-leaf residuals, to their row ``rank``)."""
+    per-leaf residuals, and the publisher's buckets to their row
+    ``rank``)."""
     def cut(key: str, arr):
         if key.split("/")[0] in ("resid", "resid2"):
             w = arr.shape[0]
             return np.ascontiguousarray(
                 arr.reshape(w, model_size, -1)[:, rank])
+        if key.split("/")[0] == "publish" and np.ndim(arr) == 2:
+            return np.ascontiguousarray(arr[rank:rank + 1])
         name = _param_name(key, placements)
         if name is None or placements[name].replicated:
             return arr

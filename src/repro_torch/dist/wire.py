@@ -345,6 +345,14 @@ class ProcessGroupWire(_MeshWire):
         return [_map(g, lambda t: _ordered_sum(t) / n)
                 for g in self.all_gather(xs, axes)]
 
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Global rank ``src``'s ``t`` on every rank of the launch, on
+        ``t``'s device: every rank passes a tensor of that shape and
+        dtype (the receivers' contents are overwritten)."""
+        buf = self._staged(t.contiguous())
+        self.dist.broadcast(buf, src=src)
+        return t if self.global_rank == src else buf.to(t.device)
+
     # -- the model group (tensor parallelism) --
 
     def model_gather(self, t: torch.Tensor) -> torch.Tensor:

@@ -72,8 +72,12 @@ axes, from the ``--topology`` JSON descriptor or, without one, from
 alike; in one process ``LocalWire`` crosses no link and every axis keeps
 the default link); it prints ``tuner: topology=... -> strategy=...``,
 tags each log line with ``tuner=<strategy>`` and then trains exactly as
-that strategy given explicitly.  Under tensor parallelism
-``--publish-every`` raises an error naming the slice that ports it.
+that strategy given explicitly.  Under tensor parallelism each rank
+publishes its model row: the params' shards packed into row ``r`` by
+the gradients' relayout (``ModelRow.pack``) and encoded at ``ceil(k /
+M)``, so the rows, the bits on the wire and the ``published`` line are
+the one-process ``--mesh 1xM`` publisher's on the same params; the
+checkpoint's ``publish/`` buckets gather to its ``(M, d_row_total)``.
 """
 from __future__ import annotations
 
@@ -253,11 +257,13 @@ def make_wire(args, mesh):
 
 
 def run(argv=None, *, probe: Optional[Callable] = None,
-        cfg=None) -> list:
+        cfg=None, on_publish: Optional[Callable] = None) -> list:
     """Parse ``argv``, train, print one line per logged step and return
     the per-step records ``[{"step", "loss", "ms", ...metrics}]``.
     ``probe`` reaches the train step and the aggregation; ``cfg``, a
-    ModelConfig, replaces ``--arch``'s (a depth-cut copy, say).  Under
+    ModelConfig, replaces ``--arch``'s (a depth-cut copy, say);
+    ``on_publish(msg=, layout=, state=, params=, tp=)`` runs after each
+    publish (``tp`` the rank's ``TensorParallel`` or None).  Under
     ``torchrun`` only rank 0 prints, and the process group this call
     starts is destroyed before it returns."""
     args = parse_args(argv)
@@ -277,15 +283,15 @@ def run(argv=None, *, probe: Optional[Callable] = None,
     wire, device, started = make_wire(args, mesh)
     try:
         return _train(args, cfg, mesh, strategy, density, wire, device,
-                      probe)
+                      probe, on_publish)
     finally:
         if started:
             import torch.distributed as dist
             dist.destroy_process_group()
 
 
-def _train(args, cfg, mesh, strategy, density, wire, device, probe
-           ) -> list:
+def _train(args, cfg, mesh, strategy, density, wire, device, probe,
+           on_publish=None) -> list:
     import torch
 
     from repro_torch import tree
@@ -294,6 +300,7 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
     from repro_torch.core.compressors import get_compressor
     from repro_torch.data import batch_for
     from repro_torch.dist.layout import build_layout
+    from repro_torch.dist.tensor_parallel import TensorParallel
     from repro_torch.launch.mesh import model_axis_size
     from repro_torch.models import init_params
     from repro_torch.optim import (adamw, constant, cosine, sgd_momentum,
@@ -329,7 +336,9 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
     config = CompressionConfig(compressor=args.compressor, ratio=args.ratio,
                                strategy=strategy, backend=args.backend,
                                density_policy=policy, chunks=args.chunks)
-    tp = _tensor_parallel(args, cfg, params, wire) if wire.tensor_parallel \
+    # a tensor-parallel rank's model axis and its params' checked
+    # placements, made once from the whole params
+    tp = TensorParallel(cfg, wire, params) if wire.tensor_parallel \
         else None
     if tp is not None:
         params = tp.shard(params)
@@ -337,7 +346,7 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
                              model_size=M, compression=config,
                              layout=layout, rows=1 if tp else None,
                              whole=tp.whole if tp else None)
-    pub = _publisher(args, params, layout, device, M)
+    pub = _publisher(args, params, layout, device, M, tp)
     if args.resume:
         # layout= loads a per-leaf checkpoint's residuals into the
         # buckets; the publisher's state rides under "publish/"
@@ -378,7 +387,8 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe
         rec = {"step": i, "ms": ms}
         rec.update({k: float(v) for k, v in m.items()})
         if pub and (i - first + 1) % args.publish_every == 0:
-            rec.update(_publish_tick(args, pub, state["params"]))
+            rec.update(_publish_tick(args, pub, state["params"],
+                                     on_publish, tp))
         records.append(rec)
         if i % args.log_every == 0 or i == first + args.steps - 1:
             comm = ""
@@ -446,27 +456,14 @@ def tune_strategy(args, mesh, wire, device, params, layout, policy):
     return choose_strategy(layout, data_axes_pairs(mesh), topo)
 
 
-def _tensor_parallel(args, cfg, params, wire):
-    """A tensor-parallel rank's setup (``TensorParallel``: its model
-    axis and its params' checked placements), made once from the whole
-    ``params``.  Raises for what tensor parallelism does not carry
-    yet."""
-    from repro_torch.dist.tensor_parallel import TensorParallel
-    from repro_torch.slices import not_ported
-
-    if args.publish_every > 0:
-        raise not_ported("--publish-every under tensor parallelism",
-                         "model_placement")
-    return TensorParallel(cfg, wire, params)
-
-
-def _publisher(args, params, layout, device, model_size: int
+def _publisher(args, params, layout, device, model_size: int, tp=None
                ) -> Optional[dict]:
     """The weight-delta publisher of ``--publish-every`` (None without):
     top-k at ``--publish-ratio`` on the training layout re-budgeted
-    (``build_layout`` of the params at the mesh's model axis without
-    one), its state, its key ``fold_in(PRNGKey(seed), 0x9B)`` and its
-    counters."""
+    (``build_layout`` of the whole params at the mesh's model axis
+    without one), its state, its key ``fold_in(PRNGKey(seed), 0x9B)``
+    and its counters.  A tensor-parallel rank (``tp``) holds its model
+    row of the state and packs its shards into it (``rows``)."""
     if args.publish_every <= 0:
         return None
     from repro_torch import prng
@@ -480,16 +477,20 @@ def _publisher(args, params, layout, device, model_size: int
     pub_layout = (rebudget_layout(layout, args.publish_ratio,
                                   get_compressor("topk"))
                   if layout is not None
-                  else build_layout(params, model_size, config))
+                  else build_layout(tp.whole if tp else params, model_size,
+                                    config))
     return {"config": config, "layout": pub_layout,
-            "state": init_publisher_state(pub_layout, device=device),
+            "state": init_publisher_state(pub_layout, device=device,
+                                          rows=1 if tp else None),
+            "rows": tp.rows(pub_layout) if tp else None,
             "key": prng.fold_in(prng.PRNGKey(args.seed), 0x9B),
             "bits": 0, "deltas": 0, "resyncs": 0}
 
 
-def _publish_tick(args, pub, params) -> dict:
+def _publish_tick(args, pub, params, on_publish=None, tp=None) -> dict:
     """One publish of the trainer's params; returns the record's
-    ``publish_kind`` (``RESYNC`` 0 / ``DELTA`` 1) and ``publish_bits``."""
+    ``publish_kind`` (``RESYNC`` 0 / ``DELTA`` 1) and ``publish_bits``
+    (of every model row: a tensor-parallel rank's message is its row)."""
     import torch
 
     from repro_torch.serve import RESYNC, message_bits, publish
@@ -497,10 +498,15 @@ def _publish_tick(args, pub, params) -> dict:
     with torch.no_grad():
         pub["state"], msg = publish(pub["state"], params, pub["layout"],
                                     pub["config"], pub["key"],
-                                    resync_every=args.resync_every)
-    bits = message_bits(msg)
+                                    resync_every=args.resync_every,
+                                    rows=pub["rows"])
+    bits = message_bits(msg) * (pub["layout"].model_size
+                                // pub["state"]["pub"].shape[0])
     pub["bits"] += bits
     pub["resyncs" if msg.kind == RESYNC else "deltas"] += 1
+    if on_publish is not None:
+        on_publish(msg=msg, layout=pub["layout"], state=pub["state"],
+                   params=params, tp=tp)
     return {"publish_kind": msg.kind, "publish_bits": bits}
 
 

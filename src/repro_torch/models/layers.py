@@ -10,7 +10,8 @@ softmax is taken in f32 over ``-1e30``-masked logits exactly as
 ``layers._sdpa`` writes it.
 
 Under tensor parallelism (``axis``, a ``dist/tensor_parallel.ModelAxis``)
-``attention`` and ``mlp`` run on one model rank's shards, the Megatron
+``attention``, ``attention_decode`` and ``mlp`` run on one model rank's
+shards, the Megatron
 split: ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` hold this rank's
 heads and hidden units (column-parallel), ``wo`` and ``w_down`` the
 matching rows, so each layer all-reduces its partial sums once, before
@@ -168,7 +169,7 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0, axis=None):
 
 
 def attention_decode(p, x, cache_k, cache_v, pos: int, write_idx: int,
-                     cfg: ModelConfig):
+                     cfg: ModelConfig, axis=None):
     """One-token decode: ``x`` (B,1,D) against the cache (B,S,KV,hd).
 
     ``pos`` is the absolute position (RoPE and the causal mask);
@@ -178,9 +179,10 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, write_idx: int,
     softmax does not depend on the slots' order); the mask ``slot <=
     pos`` hides the slots not yet written.  The cache is written IN
     PLACE (slot ``write_idx`` of ``cache_k``/``cache_v``) and returned:
-    ``(out, cache_k, cache_v)``."""
+    ``(out, cache_k, cache_v)``.  With ``axis``, this model rank's
+    heads against its heads' cache (``KV / M`` of them)."""
     B = x.shape[0]
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, copy_to_model(x, axis), cfg, axis)
     positions = torch.full((1,), int(pos), device=x.device)
     cos, sin = rope_angles(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
@@ -190,7 +192,7 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, write_idx: int,
     S = cache_k.shape[1]
     mask = (torch.arange(S, device=x.device) <= pos)[None, :]
     out = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask, cfg)
-    out = out.reshape(B, 1, -1) @ p["wo"]
+    out = reduce_from_model(out.reshape(B, 1, -1) @ p["wo"], axis)
     if cfg.use_bias:
         out = out + p["bo"]
     return out, cache_k, cache_v

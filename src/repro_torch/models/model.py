@@ -34,15 +34,17 @@ functional updates, ``prefill`` fills a new cache and ``decode_step``
 writes every layer's slot or recurrent state IN PLACE and returns the
 same cache.
 
-``loss_fn`` also runs on one model rank's shards (tensor parallelism
-over the model axis: ``axis``, a ``dist/tensor_parallel.ModelAxis``),
-for every block kind, each split Megatron-wise by the placement of
-``dist/tensor_parallel.py``: attention and the MLP (``layers.py``), the
-MoE experts by hidden units with the routing on every rank
-(``moe.py``), Mamba by channels (``ssm.py``), mLSTM and sLSTM by heads
-(``xlstm.py``); ``embed`` split on ``d_model`` (the lookup gathers the
-hidden width), ``lm_head`` on the vocab (the cross-entropy reduces over
-the model group).  The residual stream and the norms are replicated.
+``loss_fn``, ``prefill`` and ``decode_step`` also run on one model
+rank's shards (tensor parallelism over the model axis: ``axis``, a
+``dist/tensor_parallel.ModelAxis``), for every block kind, each split
+Megatron-wise by the placement of ``dist/tensor_parallel.py``: attention
+and the MLP (``layers.py``), the MoE experts by hidden units with the
+routing on every rank (``moe.py``), Mamba by channels (``ssm.py``),
+mLSTM and sLSTM by heads (``xlstm.py``); ``embed`` split on ``d_model``
+(the lookup gathers the hidden width), ``lm_head`` on the vocab (the
+cross-entropy reduces over the model group; serving gathers the last
+position's logits). The residual stream and the norms are replicated; a
+rank's serve cache holds its own heads and channels.
 """
 from __future__ import annotations
 
@@ -86,58 +88,80 @@ def _init_block(key, cfg: ModelConfig, kind: str, ffn: str, dtype, device):
     return p
 
 
+def _whole(path, leaf):
+    return leaf
+
+
 def _init_stacked(keys, cfg: ModelConfig, kind: str, ffn: str, dtype,
-                  device):
+                  device, cut=_whole, prefix=()):
     """One position of the layer pattern over its ``len(keys)`` reps:
     each rep drawn from its own key (the reference ``vmap``s
     ``_init_block`` over them) and copied into ``(reps, ...)`` leaves,
-    rep by rep (no stack of per-rep copies)."""
-    rep, td = tree.flatten(_init_block(keys[0], cfg, kind, ffn, dtype,
-                                       device))
-    out = [torch.empty((len(keys),) + x.shape, dtype=x.dtype, device=device)
-           for x in rep]
+    rep by rep (no stack of per-rep copies).  ``cut(path, leaf)`` keeps
+    its part of each rep's leaf, given as ``(1, ...)``."""
+    rep, td = tree.flatten_with_path(_init_block(keys[0], cfg, kind, ffn,
+                                                 dtype, device))
+    out = []
+    for path, x in rep:
+        kept = cut(prefix + path, torch.empty((1,) + x.shape, dtype=x.dtype,
+                                              device="meta"))
+        out.append(torch.empty((len(keys),) + kept.shape[1:],
+                               dtype=x.dtype, device=device))
     for r, key in enumerate(keys):
         if r:
-            rep = tree.leaves(_init_block(key, cfg, kind, ffn, dtype,
-                                          device))
-        for o, x in zip(out, rep):
-            o[r].copy_(x)
+            rep = tree.flatten_with_path(_init_block(key, cfg, kind, ffn,
+                                                     dtype, device))[0]
+        for o, (path, x) in zip(out, rep):
+            o[r].copy_(cut(prefix + path, x[None])[0])
         del rep
     return tree.unflatten(td, out)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
-                ) -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", *,
+                cut=None) -> Dict[str, Any]:
     """Random params on ``device`` (the card unless told ``"cpu"``;
     raises without a GPU), drawn from ``repro_torch.prng`` with the
     reference's key tree from ``PRNGKey(seed)``: the reference's
     ``init_params(cfg, PRNGKey(seed))`` within ``normal``'s tolerance
     (rtol 1e-5).  On the card the draws are ``threefry_bits`` launches,
     one a weight matrix a layer.  On the ``meta`` device it returns the
-    shapes alone."""
+    shapes alone.
+
+    ``cut(path, leaf)`` keeps a part of each leaf as it is drawn (a
+    serving rank's piece, ``serve/steps.ServePlacement.cut``): a leaf
+    under ``stack`` is handed over one rep at a time, as ``(1, ...)``,
+    so the transient is one block, or one leaf outside the stack; the
+    parts kept are the cut of the whole draw, bitwise."""
     cfg.validate()
     device = resolve_device(device)
+    cut = cut or _whole
     dtype = getattr(torch, cfg.param_dtype)
     period = cfg.pattern_period
     reps, tail = divmod(cfg.num_layers, period)
     k_embed, k_head, k_layers = prng.split(prng.PRNGKey(seed), 3)
     params: Dict[str, Any] = {
-        "embed": L.dense_init(k_embed, (cfg.vocab_size, cfg.d_model), dtype,
-                              fan_in=cfg.vocab_size, scale=1.0,
-                              device=device),
-        "final_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
-        "lm_head": L.dense_init(k_head, (cfg.d_model, cfg.vocab_size),
-                                dtype, fan_in=cfg.d_model, device=device),
+        "embed": cut(("embed",), L.dense_init(
+            k_embed, (cfg.vocab_size, cfg.d_model), dtype,
+            fan_in=cfg.vocab_size, scale=1.0, device=device)),
+        "final_norm": {"scale": cut(("final_norm", "scale"), L.init_rmsnorm(
+            cfg.d_model, dtype, device)["scale"])},
+        "lm_head": cut(("lm_head",), L.dense_init(
+            k_head, (cfg.d_model, cfg.vocab_size), dtype,
+            fan_in=cfg.d_model, device=device)),
     }
     lkeys = prng.split(k_layers, cfg.num_layers)
     params["stack"] = [
         _init_stacked([lkeys[r * period + pos] for r in range(reps)], cfg,
-                      *cfg.layer_sig(pos), dtype, device)
+                      *cfg.layer_sig(pos), dtype, device, cut,
+                      ("stack", pos))
         for pos in range(period if reps else 0)]
-    params["tail"] = [
-        _init_block(lkeys[reps * period + i], cfg,
-                    *cfg.layer_sig(reps * period + i), dtype, device)
-        for i in range(tail)]
+    params["tail"] = []
+    for i in range(tail):
+        pairs, td = tree.flatten_with_path(_init_block(
+            lkeys[reps * period + i], cfg, *cfg.layer_sig(reps * period + i),
+            dtype, device))
+        params["tail"].append(tree.unflatten(
+            td, [cut(("tail", i) + path, x) for path, x in pairs]))
     return params
 
 
@@ -158,27 +182,35 @@ def _apply_core(p, h, cfg: ModelConfig, kind: str, axis=None):
     raise ValueError(kind)
 
 
-def _ffn(p, x, cfg: ModelConfig, ffn: str, axis=None):
-    """``(out, aux)`` of the layer's FFN; ``aux`` is None but for MoE."""
+def _ffn(p, x, cfg: ModelConfig, ffn: str, axis=None, batch_group=None):
+    """``(out, aux)`` of the layer's FFN; ``aux`` is None but for MoE.
+    With ``batch_group`` (a serving data group that splits the batch:
+    ``gather_rows``, ``own_rows``) an MoE layer routes the group's whole
+    batch and keeps its own rows, so that the experts' capacity is the
+    whole batch's, as in one process."""
     if ffn == "moe":
-        return M.moe_ffn(p, x, cfg, axis)
+        if batch_group is None:
+            return M.moe_ffn(p, x, cfg, axis)
+        out, aux = M.moe_ffn(p, batch_group.gather_rows(x), cfg, axis)
+        return batch_group.own_rows(out), aux
     return L.mlp(p, x, axis), None
 
 
-def _apply_block(p, h, cfg: ModelConfig, kind: str, ffn: str, axis=None):
+def _apply_block(p, h, cfg: ModelConfig, kind: str, ffn: str, axis=None,
+                 batch_group=None):
     """Returns ``(h, aux, cache contribution)``: the block's output, its
     MoE load-balance loss (None without MoE) and its core's cache
     contribution (what a prefill stores)."""
     normed = L.rmsnorm(p["norm1"], h)
     core_out, contrib = _apply_core(p["core"], normed, cfg, kind, axis)
     if cfg.parallel_block and ffn != "none":
-        f_out, aux = _ffn(p["ffn"], normed, cfg, ffn, axis)
+        f_out, aux = _ffn(p["ffn"], normed, cfg, ffn, axis, batch_group)
         return h + core_out + f_out, aux, contrib
     h = h + core_out
     aux = None
     if ffn != "none":
         f_out, aux = _ffn(p["ffn"], L.rmsnorm(p["norm2"], h), cfg, ffn,
-                          axis)
+                          axis, batch_group)
         h = h + f_out
     return h, aux, contrib
 
@@ -303,44 +335,51 @@ def _cache_len(cfg: ModelConfig, kind: str, s_max: int) -> int:
 
 
 def _init_layer_cache(cfg: ModelConfig, kind: str, B: int, s_max: int,
-                      dtype, device, lead=()):
+                      dtype, device, lead=(), model_size: int = 1):
     """One layer's zero cache, ``lead`` dims first (the recurrent
-    states in f32, as the reference keeps them)."""
+    states in f32, as the reference keeps them), of a model rank's
+    ``1 / model_size`` of the KV heads, Mamba channels or xLSTM heads."""
     lead = tuple(lead)
+    M = model_size
     if kind in ("attn", "swa"):
-        shape = lead + (B, _cache_len(cfg, kind, s_max), cfg.num_kv_heads,
-                        cfg.hd)
+        shape = lead + (B, _cache_len(cfg, kind, s_max),
+                        cfg.num_kv_heads // M, cfg.hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if kind == "mamba":
-        return {"ssm": torch.zeros(lead + (B, cfg.d_inner,
-                                           cfg.ssm_state_dim),
+        di = cfg.d_inner // M
+        return {"ssm": torch.zeros(lead + (B, di, cfg.ssm_state_dim),
                                    dtype=torch.float32, device=device),
-                "conv": torch.zeros(lead + (B, cfg.ssm_conv_width,
-                                            cfg.d_inner),
+                "conv": torch.zeros(lead + (B, cfg.ssm_conv_width, di),
                                     dtype=dtype, device=device)}
     if kind == "mlstm":
-        return X.mlstm_init_state(B, cfg, device, lead)
+        return X.mlstm_init_state(B, cfg, device, lead,
+                                  heads=cfg.num_heads // M)
     if kind == "slstm":
-        return X.slstm_init_state(B, cfg, device, lead)
+        return X.slstm_init_state(B, cfg, device, lead,
+                                  heads=cfg.num_heads // M)
     raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, B: int, s_max: int, dtype=None,
-               device="cuda"):
+               device="cuda", axis=None):
     """The zero serve cache of ``B`` sequences of up to ``s_max``
     positions, in ``dtype`` (the activation dtype by default; the
     recurrent states are f32), on ``device`` (the card unless told
-    ``"cpu"``)."""
+    ``"cpu"``).  With ``axis``, a model rank's cache, placed like its
+    params (``dist/tensor_parallel.placement``): the KV caches on their
+    KV-head dim, Mamba's ``ssm`` and ``conv`` on ``d_inner``, the mLSTM
+    and sLSTM states on their head dim."""
     device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.activation_dtype)
+    M = 1 if axis is None else axis.size
     period = cfg.pattern_period
     reps, tail = divmod(cfg.num_layers, period)
     stack = [_init_layer_cache(cfg, cfg.block_kind(pos), B, s_max, dtype,
-                               device, lead=(reps,))
+                               device, lead=(reps,), model_size=M)
              for pos in range(period if reps else 0)]
     tail_caches = [_init_layer_cache(cfg, cfg.block_kind(reps * period + i),
-                                     B, s_max, dtype, device)
+                                     B, s_max, dtype, device, model_size=M)
                    for i in range(tail)]
     return {"stack": stack, "tail": tail_caches}
 
@@ -374,41 +413,74 @@ def _store_prefill(kind: str, contrib, cache):
     return cache
 
 
-def _layers(params, cache, cfg: ModelConfig):
+def _layers(params, cache, cfg: ModelConfig, constrain=None):
     """``(p, c, kind, ffn)`` of every layer in execution order: the
     stacked positions rep by rep, then the tail; ``p`` and ``c`` are
-    views into the stacked leaves."""
+    views into the stacked leaves.  With ``constrain`` (serving's
+    counterpart of the reference's ``serve_constrain``), each rep's
+    params come from ``constrain(params["stack"], ("stack",), r)`` and
+    each tail layer's from ``constrain(p, ("tail", i))``."""
     period = cfg.pattern_period
     reps = cfg.num_layers // period
-    per_pos = [_unbind(sp) for sp in params["stack"]]
     cache_pos = [_unbind(sc) for sc in cache["stack"]]
+    per_pos = None if constrain else [_unbind(sp) for sp in params["stack"]]
     for r in range(reps):
+        rep = (constrain(params["stack"], ("stack",), r) if constrain
+               else [pp[r] for pp in per_pos])
         for pos in range(period):
-            yield (per_pos[pos][r], cache_pos[pos][r]) + cfg.layer_sig(pos)
+            yield (rep[pos], cache_pos[pos][r]) + cfg.layer_sig(pos)
     base = reps * period
     for i, (p, c) in enumerate(zip(params["tail"], cache["tail"])):
+        if constrain is not None:
+            p = constrain(p, ("tail", i))
         yield (p, c) + cfg.layer_sig(base + i)
+
+
+def _serve_input(params, cfg: ModelConfig, tokens, embeds, axis,
+                 constrain):
+    if embeds is None and constrain is not None:
+        params = constrain({"embed": params["embed"]}, ())
+    return _embed_input(params, cfg, tokens, embeds, axis)
+
+
+def _serve_head(params, cfg: ModelConfig, h, axis, constrain):
+    """The logits of ``h`` over the whole vocabulary: with ``axis``,
+    every model rank's columns gathered in rank order."""
+    if constrain is not None:
+        params = constrain({"final_norm": params["final_norm"],
+                            "lm_head": params["lm_head"]}, ())
+    return gather_from_model(_head(params, cfg, h, axis), axis)
 
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens=None, *, embeds=None,
-            s_max=None, cache_dtype=None):
+            s_max=None, cache_dtype=None, axis=None, constrain=None,
+            batch_group=None):
     """Run the prompt, ``tokens`` (B, T) or ``embeds`` (B, T, d_model):
     ``(last-position logits (B, 1, vocab), cache, next position T)``,
     the cache sized for ``s_max`` positions (T by default) on the
-    prompt's device."""
+    prompt's device.
+
+    Serving placed over the mesh (``serve/steps.py``) passes this model
+    rank's ``axis`` (the cache is its heads' and channels', the logits
+    are gathered to the whole vocabulary), ``constrain`` (a block's data
+    pieces gathered before it runs) and ``batch_group`` (the data group
+    whose whole batch an MoE layer routes)."""
     prompt = embeds if embeds is not None else tokens
-    h = _embed_input(params, cfg, tokens, embeds)
+    h = _serve_input(params, cfg, tokens, embeds, axis, constrain)
     B, T = prompt.shape[:2]
     s_max = s_max or T
-    cache = init_cache(cfg, B, s_max, cache_dtype, device=prompt.device)
-    for p, c, kind, ffn in _layers(params, cache, cfg):
-        h, _, contrib = _apply_block(p, h, cfg, kind, ffn)
+    cache = init_cache(cfg, B, s_max, cache_dtype, device=prompt.device,
+                       axis=axis)
+    for p, c, kind, ffn in _layers(params, cache, cfg, constrain):
+        h, _, contrib = _apply_block(p, h, cfg, kind, ffn, axis,
+                                     batch_group)
         _store_prefill(kind, contrib, c)
-    return _head(params, cfg, h[:, -1:]), cache, T
+    return _serve_head(params, cfg, h[:, -1:], axis, constrain), cache, T
 
 
-def _decode_core(p, normed, cfg: ModelConfig, kind: str, cache, pos: int):
+def _decode_core(p, normed, cfg: ModelConfig, kind: str, cache, pos: int,
+                 axis=None):
     """One token through a layer's core, its cache updated in place."""
     if kind in ("attn", "swa"):
         n = cache["k"].shape[1]
@@ -416,16 +488,16 @@ def _decode_core(p, normed, cfg: ModelConfig, kind: str, cache, pos: int):
         # full-attention layers at the absolute position
         write_idx = pos % n if kind == "swa" else pos
         out, _, _ = L.attention_decode(p, normed, cache["k"], cache["v"],
-                                       pos, write_idx, cfg)
+                                       pos, write_idx, cfg, axis)
         return out
     if kind == "mamba":
         out, ssm, conv = S.mamba_decode(p, normed, cache["ssm"],
-                                        cache["conv"], cfg)
+                                        cache["conv"], cfg, axis)
         new = {"ssm": ssm, "conv": conv}
     elif kind == "mlstm":
-        out, new = X.mlstm_forward(p, normed, cfg, state=cache)
+        out, new = X.mlstm_forward(p, normed, cfg, state=cache, axis=axis)
     elif kind == "slstm":
-        out, new = X.slstm_forward(p, normed, cfg, state=cache)
+        out, new = X.slstm_forward(p, normed, cfg, state=cache, axis=axis)
     else:
         raise ValueError(kind)
     for name, x in new.items():
@@ -434,28 +506,31 @@ def _decode_core(p, normed, cfg: ModelConfig, kind: str, cache, pos: int):
 
 
 def _decode_block(p, h, cfg: ModelConfig, kind: str, ffn: str, cache,
-                  pos: int):
+                  pos: int, axis=None, batch_group=None):
     normed = L.rmsnorm(p["norm1"], h)
-    core_out = _decode_core(p["core"], normed, cfg, kind, cache, pos)
+    core_out = _decode_core(p["core"], normed, cfg, kind, cache, pos, axis)
     if cfg.parallel_block and ffn != "none":
-        return h + core_out + _ffn(p["ffn"], normed, cfg, ffn)[0]
+        return h + core_out + _ffn(p["ffn"], normed, cfg, ffn, axis,
+                                   batch_group)[0]
     h = h + core_out
     if ffn != "none":
-        h = h + _ffn(p["ffn"], L.rmsnorm(p["norm2"], h), cfg, ffn)[0]
+        h = h + _ffn(p["ffn"], L.rmsnorm(p["norm2"], h), cfg, ffn, axis,
+                     batch_group)[0]
     return h
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache, pos: int, tokens=None, *,
-                embeds=None):
+                embeds=None, axis=None, constrain=None, batch_group=None):
     """One decode step: ``tokens`` (B, 1) or ``embeds`` (B, 1, d_model)
     at absolute position ``pos`` (a Python int).  Returns ``(logits (B,
-    1, vocab), cache)``, the cache updated in place."""
-    h = _embed_input(params, cfg, tokens, embeds)
+    1, vocab), cache)``, the cache updated in place.  ``axis``,
+    ``constrain`` and ``batch_group`` as in :func:`prefill`."""
+    h = _serve_input(params, cfg, tokens, embeds, axis, constrain)
     pos = int(pos)
-    for p, c, kind, ffn in _layers(params, cache, cfg):
-        h = _decode_block(p, h, cfg, kind, ffn, c, pos)
-    return _head(params, cfg, h), cache
+    for p, c, kind, ffn in _layers(params, cache, cfg, constrain):
+        h = _decode_block(p, h, cfg, kind, ffn, c, pos, axis, batch_group)
+    return _serve_head(params, cfg, h, axis, constrain), cache
 
 
 def from_jax_params(np_tree, device="cuda") -> Dict[str, Any]:

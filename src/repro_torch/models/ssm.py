@@ -126,26 +126,33 @@ def mamba_forward(p, x, cfg: ModelConfig, *, chunk: int = 128,
     return out, h, conv_tail
 
 
-def mamba_decode(p, x, ssm_state, conv_state, cfg: ModelConfig):
+def mamba_decode(p, x, ssm_state, conv_state, cfg: ModelConfig,
+                 axis=None):
     """One-token decode.  x: (B, 1, D); ssm_state: (B, di, n);
     conv_state: (B, W, di), the rolling buffer of pre-conv activations
     (slot W-1 the newest).  Returns ``(y (B, 1, D), new ssm state, new
-    conv state)``, new tensors."""
-    di = cfg.d_inner
-    xz = x[:, 0] @ p["in_proj"]
+    conv state)``, new tensors.  With ``axis``, this model rank's
+    channels and their states (``di / M`` of them), split as
+    :func:`mamba_forward` splits them."""
+    xz = copy_to_model(x[:, 0], axis) @ p["in_proj"]
+    di = xz.shape[-1] // 2                                    # this rank's
     xs, z = xz[..., :di], xz[..., di:]                        # (B, di)
     conv_state = torch.cat([conv_state[:, 1:], xs[:, None]], dim=1)
-    xc = torch.einsum("bwd,wd->bd", conv_state, p["conv_w"]) + p["conv_b"]
+    xc = torch.einsum("bwd,wd->bd", conv_state, p["conv_w"]) + \
+        local_columns(p["conv_b"], axis)
     xc = F.silu(xc)
 
-    dtr, Bm, Cm = _split_bcdt(xc @ p["x_proj"], cfg)
-    dt = softplus(dtr @ p["dt_proj"] + p["dt_bias"])          # (B, di)
+    bcdt = copy_to_model(reduce_from_model(xc @ p["x_proj"], axis), axis)
+    dtr, Bm, Cm = _split_bcdt(bcdt, cfg)
+    dt = softplus(dtr @ p["dt_proj"]
+                  + local_columns(p["dt_bias"], axis))        # (B, di)
     A = -torch.exp(p["A_log"].to(torch.float32))
     dA = torch.exp(dt[..., None].to(torch.float32) * A)      # (B, di, n)
     dBx = ((dt * xc)[..., None] * Bm[:, None, :]).to(torch.float32)
     h = dA * ssm_state + dBx
     y = torch.einsum("bdn,bn->bd", h, Cm.to(torch.float32))
-    y = y + xc.to(torch.float32) * p["D"].to(torch.float32)
+    y = y + xc.to(torch.float32) * local_columns(p["D"], axis).to(
+        torch.float32)
     y = y.to(x.dtype)
-    out = (y * F.silu(z)) @ p["out_proj"]
+    out = reduce_from_model((y * F.silu(z)) @ p["out_proj"], axis)
     return out[:, None], h, conv_state

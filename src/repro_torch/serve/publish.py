@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch import prng
+from repro_torch import prng, tree
 from repro_torch.core import codec
 from repro_torch.core.compression import CompressionConfig, as_config
 from repro_torch.dist.aggregate import bucket_compress
@@ -85,56 +85,77 @@ def publisher_config(config) -> CompressionConfig:
 
 
 def init_publisher_state(layout: BucketLayout, dtype=torch.float32,
-                         device="cuda") -> dict:
+                         device="cuda", rows: Optional[int] = None) -> dict:
     """``{"pub", "resid", "seq"}``: the published view and the delta
     stream's residual (zero ``(model_size, d_row_total)`` buckets on
-    ``device``, the card unless told ``"cpu"``) and the host publish
-    counter.  ``seq == 0`` forces the first publish to resync."""
+    ``device``, the card unless told ``"cpu"``; ``rows`` rows of them, a
+    tensor-parallel rank's one) and the host publish counter.  ``seq ==
+    0`` forces the first publish to resync."""
     from repro_torch.devices import resolve_device
     device = resolve_device(device)
-    shape = (layout.model_size, layout.d_row_total)
+    shape = (layout.model_size if rows is None else rows,
+             layout.d_row_total)
     return {"pub": torch.zeros(shape, dtype=dtype, device=device),
             "resid": torch.zeros(shape, dtype=dtype, device=device),
             "seq": 0}
 
 
 def encode_delta(state: dict, P: torch.Tensor, layout: BucketLayout,
-                 config: CompressionConfig, key):
+                 config: CompressionConfig, key, row: Optional[int] = None):
     """One delta encode against packed params ``P``: ``(new_state,
     (values, indices))``.  ``G = P - pub - resid`` in that order (formed
     in ``P``'s storage, which this call takes over), then
     ``bucket_compress(G, resid)`` forms ``u = G + resid`` as the
     reference does: ``decode(wire) + resid' == u``, which is ``P - pub``
     only up to f32 rounding.  ``state["resid"]`` is overwritten in
-    place (the state is consumed); ``pub`` is advanced out of place."""
+    place (the state is consumed); ``pub`` is advanced out of place.
+    With ``row``, the state and ``P`` are model row ``row`` alone (a
+    tensor-parallel rank's), encoded as that row of the whole bucket."""
     pub, resid = state["pub"], state["resid"]
     G = P.sub_(pub).sub_(resid)
     values, indices, new_resid = bucket_compress(
         G, resid, layout, config.spec, key, backend=config.backend,
-        codec_dtype=config.codec_dtype)
+        codec_dtype=config.codec_dtype, row=row)
     del G
     vals = values.to(pub.dtype)
-    rows = [codec.decode_add(pub[m], vals[m], indices[m])
-            for m in range(pub.shape[0])]
-    # one row: its own (M, d) view, no second copy of the bucket
-    new_pub = rows[0][None] if len(rows) == 1 else torch.stack(rows)
+    if pub.shape[0] == 1:
+        # one row: its own (1, d) view, no second copy of the bucket
+        new_pub = codec.decode_add(pub[0], vals[0], indices[0])[None]
+    else:
+        new_pub = torch.empty_like(pub)
+        for m in range(pub.shape[0]):
+            new_pub[m] = codec.decode_add(pub[m], vals[m], indices[m])
     return ({"pub": new_pub, "resid": new_resid.to(resid.dtype),
              "seq": state["seq"] + 1},
             (values, indices))
 
 
+def resyncs_at(seq: int, resync_every: int) -> bool:
+    """Whether publish ``seq`` ships the dense bucket: the first, and
+    with ``resync_every > 0`` every ``resync_every``-th."""
+    return seq == 0 or (resync_every > 0 and seq % resync_every == 0)
+
+
 def publish(state: dict, params, layout: BucketLayout, config, key=None,
-            *, resync_every: int = 0):
+            *, resync_every: int = 0, rows=None):
     """One publish tick: ``(new_state, DeltaMessage)``.  Resyncs (the
     dense bucket, the residual zeroed) at ``seq == 0`` and, with
     ``resync_every > 0``, at every ``seq % resync_every == 0``; every
     other tick streams a delta keyed ``fold_in(key, seq)`` (``key``
     defaults to ``PRNGKey(0)``).  Consumes ``state``.  A resync's
-    ``pub`` and message bucket are two new tensors."""
+    ``pub`` and message bucket are two new tensors.
+
+    ``rows`` (a tensor-parallel rank's ``ModelRow``) packs the rank's
+    param shards into its model row by the gradients' relayout: the
+    state, ``P`` and the message are that row of the one-process
+    ``(model_size, ...)`` ones, bitwise."""
     config = publisher_config(config)
-    P = pack_grads(layout, params, state["pub"].dtype)
+    if rows is None:
+        P = pack_grads(layout, params, state["pub"].dtype)
+    else:
+        P = rows.pack(layout, 0, tree.leaves(params), state["pub"].dtype)
     seq = int(state["seq"])
-    if seq == 0 or (resync_every > 0 and seq % resync_every == 0):
+    if resyncs_at(seq, resync_every):
         state["resid"].zero_()
         # the message's bucket and the new view hold the same bits in
         # storage of their own
@@ -145,6 +166,7 @@ def publish(state: dict, params, layout: BucketLayout, config, key=None,
     if key is None:
         key = prng.PRNGKey(0)
     new_state, (values, indices) = encode_delta(
-        state, P, layout, config, prng.fold_in(key, seq))
+        state, P, layout, config, prng.fold_in(key, seq),
+        None if rows is None else rows.row)
     return new_state, DeltaMessage(seq=seq, kind=DELTA, values=values,
                                    indices=indices, bucket=None)

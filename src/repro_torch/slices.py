@@ -1,22 +1,9 @@
-"""Which slice of the port carries what this slice does not.
+"""What later slices of the port carry: nothing is left.
 
-Single source for the ``NotImplementedError`` messages raised by the
-train step, the train state and the CLIs: each names the slice (and
-the ``ROADMAP.md`` queue item) that will port the missing piece.
+Every module of ``repro`` has its counterpart in ``repro_torch`` and
+every entry point runs (``ROADMAP.md``, Queue 1).  :data:`LATER`, which
+named the slice that would port each missing piece, is empty.
 """
 from __future__ import annotations
 
-LATER = {
-    "model_placement": "a later slice of the model axis (the model-axis "
-                       "placement of serving: serve_param_specs, "
-                       "cache_specs and make_apply_delta on a sharded "
-                       "replica; --publish-every under tensor "
-                       "parallelism; ROADMAP Queue 1 item 7.2)",
-}
-
-
-def not_ported(what: str, key: str) -> NotImplementedError:
-    """``NotImplementedError`` for ``what``, naming the slice that ports
-    ``key`` (a :data:`LATER` entry)."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: it lands in {LATER[key]}")
+LATER: dict = {}

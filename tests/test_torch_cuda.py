@@ -38,7 +38,10 @@ Slice 8: the MoE, Mamba-hybrid, xLSTM and ``embeds`` smoke models' loss
 and gradients on the card against the CPU (rtol 1e-4, atol 1e-6), and
 two backwards on the card bitwise equal.  Slice 2d: the profiler's
 tensor-parallel breakdown (two ranks of smoke deepseek-moe-16b under
-``torchrun``), every phase of every rank present and finite.
+``torchrun``), every phase of every rank present and finite.  Slice
+7.2: serving placed at ``1x2`` on the card (two ranks under
+``torchrun``, gloo on one card), its tokens and counters those of the
+one-process run on the card.
 """
 import math
 
@@ -730,3 +733,46 @@ def test_profile_tensor_parallel_on_card(dev):
             doc["phase_ms_slowest"]]:
         assert set(ms) == set(TP_PHASES) | {"step"}
         assert all(math.isfinite(v) and v >= 0 for v in ms.values()), ms
+
+
+def test_sharded_decode_on_card(dev, tmp_path):
+    """``launch.serve`` under ``torchrun --nproc-per-node 2 ... --mesh
+    1x2`` (NCCL with two cards, else gloo on the one), streaming: each
+    rank prefills and decodes on its half of every weight and of the KV
+    cache, and rank 0's tokens and counters equal the one-process run's
+    on the card."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.launch import serve
+    tests = os.path.dirname(os.path.abspath(__file__))
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--requests", "3",
+            "--max-batch", "2", "--prompt-len", "8", "--gen", "6",
+            "--publish-every", "2", "--resync-every", "2"]
+    script = tmp_path / "serve_tokens.py"
+    script.write_text(
+        "import json, os, sys\n"
+        "from repro_torch.launch import serve\n"
+        "got = serve.run(sys.argv[1:])\n"
+        "if os.environ['RANK'] == '0':\n"
+        "    print(json.dumps({'tokens': [t.tolist() for t in "
+        "got['tokens']], 'counts': [got[k] for k in ('tokens_out', "
+        "'deltas', 'resyncs', 'wire_bits')]}))\n")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(os.path.dirname(tests), "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", str(script), "--mesh", "1x2",
+         "--dist-backend", backend] + argv,
+        env=env, capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "model=2 (a shard a rank, mode 2d)" in r.stdout
+    got = json.loads([ln for ln in r.stdout.splitlines()
+                      if ln.startswith("{")][-1])
+    ref = serve.run(argv + ["--mesh", "1x1"])
+    assert got["tokens"] == [t.tolist() for t in ref["tokens"]]
+    assert got["counts"] == [ref[k] for k in ("tokens_out", "deltas",
+                                              "resyncs", "wire_bits")]

@@ -258,10 +258,12 @@ def test_serve_cli_acceptance_line(capsys):
     (["--arch", "jamba-1.5-large-398b"], None, None),
 ])
 def test_serve_cli_names_what_it_lacks(extra, err, match):
-    """Nothing of these is missing any more.  A model axis above 1
-    (slice 2c, which it raised for before) serves the whole batch on one
-    device, as a data axis above 1 does: the model axis shards the
-    reference's params but changes no token.  jamba-1.5-large (slice 8)
+    """Nothing of these is missing any more.  In one process a model
+    axis above 1 (slice 2c, which it raised for before) serves the whole
+    batch on one device, as a data axis above 1 does: the model axis
+    shards the reference's params but changes no token; under
+    ``torchrun`` the mesh is placed on the ranks
+    (``tests/test_torch_serve_placement.py``).  jamba-1.5-large (slice 8)
     serves too.  Each run's tokens equal the replay of the JAX driver's
     (``tests/_torch_serve_ref.py``)."""
     argv = ["--arch", "llama3.2-1b", "--smoke", "--mesh", "1x1", "--device",
