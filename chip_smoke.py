@@ -12,6 +12,7 @@
                                           # step at 1x4 on four cards
     python3 chip_smoke.py --tuner-only    # phases 1 and 13
     python3 chip_smoke.py --serve-placement-only  # phases 1 and 14
+    python3 chip_smoke.py --remat-table-only  # phases 1 and 15
 
 Phases (any failure exits non-zero; nothing is wrapped to pass):
 
@@ -202,7 +203,23 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    one-process card runs.  ``--tensor-parallel-cards`` (four cards,
    NCCL) adds serving at ``1x4`` and ``2x2`` (llama3.2-1b,
    deepseek-moe-16b at 8 layers, command-r-35b at full width and depth)
-   and the TP trainer's publisher at ``2x2`` (data replicas' rows equal).
+   and the TP trainer's publisher at ``2x2`` (data replicas' rows equal);
+15. slice 10, rematerialised training and the kernel-configuration
+   table (``phase15_remat_table``): 15a ``train.run`` on llama3.2-1b at
+   full width and depth, batch 8: at ``--seq 512`` 3 steps without and
+   3 with rematerialisation (losses and the final params, momentum and
+   residuals bitwise equal), then at ``--seq 1024`` 3 steps with it (the
+   run without it would not fit the card and is not launched); losses,
+   step ms and peak memory of each; 15b every leaf of phase 3's path
+   resolving from the checked-in table (``source == "table"``), and K1,
+   K2 and both K3 launches at the 268,435,456-element leaf at the
+   table's config held against their plain versions and timed beside
+   the heuristic config (block 1024), with the fused pipeline.
+
+Every trainer path at full width trains as ``launch.train`` does
+without ``--smoke``: each layer-pattern period rematerialised in the
+backward.  Every kernel runs at the geometry ``kernels/ef_fused/
+tuning.py`` resolves, the checked-in table's on the card.
 
 Every trainer path draws its params on the card (``init_params``: one
 ``threefry_bits`` launch a weight matrix), counted once a path beside the
@@ -486,11 +503,11 @@ def check_main_kernels(g, e, k: int, label):
 
     d = g.numel()
     cfg = tuning.resolve_config(d, "cuda")
-    sb, block = cfg.stats_block, cfg.block
+    sb, block, w = cfg.stats_block, cfg.block, cfg.num_warps
     k_cap = gaussiank_cap(k, d)
     bcap = ops.fused_default_bcap(k_cap, d, block, cfg.bcap_slack)
     # K1
-    s, sq, mx = fm.fused_moments(g, e, block=sb)
+    s, sq, mx = fm.fused_moments(g, e, block=sb, num_warps=w)
     ps, psq, pmx = fm.fused_moments_plain(g, e, block=sb)
     sum_abs = float((g + e).abs().double().sum())
     k1_err = check_moments(label, "K1", (s, sq, mx), (ps, psq, pmx),
@@ -499,7 +516,7 @@ def check_main_kernels(g, e, k: int, label):
     t0 = ops.gaussian_t0(ps, psq, d, k, False)
     heap, n_cnt = ops._tree_thresholds(t0, 4)
     thr = torch.from_numpy(heap[:n_cnt]).cuda()
-    cnt_k = tc.tree_count(g, e, thr, block=sb)
+    cnt_k = tc.tree_count(g, e, thr, block=sb, num_warps=w)
     cnt_p = tc.tree_count_plain(g, e, thr, block=sb)
     assert torch.equal(cnt_k, cnt_p), (label, "K2", cnt_k, cnt_p)
     thres = float(ops._replay_refinement(heap, cnt_p.cpu().numpy(), k, 4))
@@ -524,9 +541,9 @@ def check_main_kernels(g, e, k: int, label):
         f"exact {cnt_k.tolist()[:3]}...; K3 staging + residual bitwise "
         f"(block {block}, bcap {bcap}, {int(ck.sum())} over threshold "
         f"{thres:.6g}); pipeline conserves bitwise, {nnz}/{k_cap} slots "
-        f"for k={k}")
+        f"for k={k}; K1/K2 at stats block {sb}, {w} warps ({cfg.source})")
     return types.SimpleNamespace(
-        sb=sb, block=block, k_cap=k_cap, bcap=bcap,
+        sb=sb, block=block, k_cap=k_cap, bcap=bcap, warps=w, cfg=cfg,
         ubcap=gops.default_bcap(k_cap, d, block), s=s, sq=sq, ps=ps,
         psq=psq, pmx=pmx, sum_abs=sum_abs, k1_err=k1_err, heap=heap,
         thr=thr, cnt_k=cnt_k, thres=thres, vk=vk, ok=ok, ck=ck, enc=enc)
@@ -586,6 +603,7 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     k = max(1, math.ceil(RATIO * d))
     c = check_main_kernels(g, e, k, f"d={d:>11,}")
     sb, block, k_cap, bcap, ubcap = c.sb, c.block, c.k_cap, c.bcap, c.ubcap
+    w, cfg = c.warps, c.cfg
     s, sq, ps, psq, pmx = c.s, c.sq, c.ps, c.psq, c.pmx
     sum_abs, k1_err, heap, thr, cnt_k = (c.sum_abs, c.k1_err, c.heap,
                                          c.thr, c.cnt_k)
@@ -595,7 +613,7 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
 
     # K1 with its histogram, and K4d on the materialised u
     u = g + e
-    hs = fm.fused_moments_hist(g, e, block=sb)
+    hs = fm.fused_moments_hist(g, e, block=sb, num_warps=w)
     hp = hist.abs_histogram_plain(u, block=sb)
     assert torch.equal(hs[3], hp), (d, "K1 histogram")
     assert int(hs[3].sum()) == d, (d, "K1 histogram total")
@@ -603,7 +621,7 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     h4 = hist.abs_histogram(u, block=sb)
     assert torch.equal(h4, hp), (d, "K4d histogram")
     # K4a: the same per-block sums as K1, so bitwise K1's
-    m4 = mom.moments(u, block=sb)
+    m4 = mom.moments(u, block=sb, num_warps=w)
     k4a_err = check_moments(d, "K4a", m4, fm.moments_plain(u, sb), sum_abs)
     assert same_bits(m4[0], s) and same_bits(m4[1], sq), (
         d, "K4a vs K1", [float(x) for x in m4], float(s), float(sq))
@@ -634,8 +652,8 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     edge_summary = check_edge_cases(d, g, e, u, thres, bcap, ubcap)
     # unfused against fused, bitwise, and conservation.  Each pipeline
     # takes its own default staging width (2x and 4x the expected
-    # per-block selection); at the card's block of 1024 both are 64 at
-    # these sizes, so they truncate alike.
+    # per-block selection); at the table's blocks (at most 8192) both are
+    # 64 at these sizes, so they truncate alike.
     assert ubcap == bcap, (d, "staging widths", bcap, ubcap)
     for name in ("gaussiank", "gaussiank2", "histk"):
         fv, fi, fne = ops.fused_compress_ef(g, e, name, k)
@@ -667,13 +685,15 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     it, pit = (20, 5) if d < BIG_LEAF else (10, 3)
     out = torch.empty_like(g)
     ms = {
-        "fused_moments": (lambda: fm.fused_moments(g, e, block=sb),
-                          lambda: fm.fused_moments_plain(g, e, block=sb)),
+        "fused_moments": (
+            lambda: fm.fused_moments(g, e, block=sb, num_warps=w),
+            lambda: fm.fused_moments_plain(g, e, block=sb)),
         "fused_moments_hist": (
-            lambda: fm.fused_moments_hist(g, e, block=sb),
+            lambda: fm.fused_moments_hist(g, e, block=sb, num_warps=w),
             lambda: fm.fused_moments_hist_plain(g, e, block=sb)),
-        "tree_count": (lambda: tc.tree_count(g, e, thr, block=sb),
-                       lambda: tc.tree_count_plain(g, e, thr, block=sb)),
+        "tree_count": (
+            lambda: tc.tree_count(g, e, thr, block=sb, num_warps=w),
+            lambda: tc.tree_count_plain(g, e, thr, block=sb)),
         "compact_stage": (
             lambda: cr.compact_stage(g, e, thres, block=block, bcap=bcap),
             lambda: cr.compact_stage_plain(g, e, thres, block=block,
@@ -683,7 +703,7 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
                                      bcap=bcap, k_cap=k_cap, out=out),
             lambda: cr.compact_resid_plain(g, e, thres, enc, block=block,
                                            bcap=bcap, k_cap=k_cap)),
-        "moments": (lambda: mom.moments(u, block=sb),
+        "moments": (lambda: mom.moments(u, block=sb, num_warps=w),
                     lambda: fm.moments_plain(u, sb)),
         "count_gt": (lambda: cg.count_gt(u, thres, block=sb),
                      lambda: cg.count_gt_plain(u, thres, block=sb)),
@@ -723,6 +743,10 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
         rows[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                           bound_by=b_by, max_abs_err=errs.get(name, 0.0),
                           d=d, partial_rows_bytes=rows_bytes)
+        if name in MAIN_KERNELS + ("fused_moments_hist",):
+            rows[name]["config"] = {
+                "block": block, "stats_block": sb, "num_warps": w,
+                "bcap": bcap, "source": cfg.source}
     log(f"  times at d={d:,} (ms, median): " + ", ".join(
         f"{n} {a:.4f} (plain {b:.3f})" for n, (a, b) in ms.items()))
     # K4c at the registry's hist-k block (path B's geometry) as well
@@ -2684,19 +2708,19 @@ def phase11a_huge_leaf(torch, rows) -> dict:
     e = torch.randn(d, generator=gen, device="cuda").mul_(5e-4)
     k = math.ceil(RATIO * d)
     cfg = tuning.resolve_config(d, "cuda")
-    sb, block = cfg.stats_block, cfg.block
+    sb, block, w = cfg.stats_block, cfg.block, cfg.num_warps
     k_cap = gaussiank_cap(k, d)
     bcap = ops.fused_default_bcap(k_cap, d, block, cfg.bcap_slack)
     nb, nbs = -(-d // block), -(-d // sb)
 
-    s, sq, mx = fm.fused_moments(g, e, block=sb)
+    s, sq, mx = fm.fused_moments(g, e, block=sb, num_warps=w)
     ps, psq, pmx = fm.fused_moments_plain(g, e, block=sb)
     sum_abs = float((g + e).abs().double().sum())
     k1_err = check_moments(d, "K1", (s, sq, mx), (ps, psq, pmx), sum_abs)
     t0 = ops.gaussian_t0(ps, psq, d, k, False)
     heap, n_cnt = ops._tree_thresholds(t0, 4)
     thr = torch.from_numpy(heap[:n_cnt]).cuda()
-    cnt_k = tc.tree_count(g, e, thr, block=sb)
+    cnt_k = tc.tree_count(g, e, thr, block=sb, num_warps=w)
     assert torch.equal(cnt_k, tc.tree_count_plain(g, e, thr, block=sb)), (
         d, "K2")
     thres = float(ops._replay_refinement(heap, cnt_k.cpu().numpy(), k, 4))
@@ -2720,14 +2744,17 @@ def phase11a_huge_leaf(torch, rows) -> dict:
     log(f"  d={d:,}: K1 max error {k1_err:.3g}, absmax exact; K2 counts "
         f"exact {cnt_k.tolist()[:3]}...; K3 staging + residual bitwise "
         f"(block {block}, bcap {bcap}, {int(ck.sum())} over threshold "
-        f"{thres:.6g}); pipeline conserves bitwise, {nnz}/{k_cap} slots")
+        f"{thres:.6g}); pipeline conserves bitwise, {nnz}/{k_cap} slots; "
+        f"K1/K2 at stats block {sb}, {w} warps ({cfg.source})")
 
     out = torch.empty_like(g)
     ms = {
-        "fused_moments": (lambda: fm.fused_moments(g, e, block=sb),
-                          lambda: fm.fused_moments_plain(g, e, block=sb)),
-        "tree_count": (lambda: tc.tree_count(g, e, thr, block=sb),
-                       lambda: tc.tree_count_plain(g, e, thr, block=sb)),
+        "fused_moments": (
+            lambda: fm.fused_moments(g, e, block=sb, num_warps=w),
+            lambda: fm.fused_moments_plain(g, e, block=sb)),
+        "tree_count": (
+            lambda: tc.tree_count(g, e, thr, block=sb, num_warps=w),
+            lambda: tc.tree_count_plain(g, e, thr, block=sb)),
         "compact_stage": (
             lambda: cr.compact_stage(g, e, thres, block=block, bcap=bcap),
             lambda: cr.compact_stage_plain(g, e, thres, block=block,
@@ -2767,6 +2794,8 @@ def phase11a_huge_leaf(torch, rows) -> dict:
     del g, e, out
     torch.cuda.empty_cache()
     return {"d": d, "k": k, "nnz": nnz, "k1_max_err": k1_err,
+            "config": {"block": block, "stats_block": sb, "num_warps": w,
+                       "bcap": bcap, "source": cfg.source},
             "kernels": res}
 
 
@@ -3538,7 +3567,8 @@ def phase13_tuner(torch, by_path, llama) -> dict:
          and every step's residual digests bitwise; step ms, peak
          memory;
     13e. ``launch.step_cost`` and ``launch.roofline`` on 13d's 4x1 step:
-         the counted FLOPs against 6·N·tokens, the wire counted through
+         the counted FLOPs (rematerialised, as 13d trains) against
+         6·N·tokens, the wire counted through
          ``ByteCountingWire`` during the explicit run, the roofline
          under ``H100_SXM``, and the share of the f32 peak,
          ``model_flops / (s x 67e12)``, of the forward plus backward
@@ -3781,7 +3811,7 @@ def phase13e(torch, cost_in) -> dict:
     batch, seq, workers = 8, 128, 4
     cost = step_cost.step_cost(cfg, batch=batch, seq=seq, layout=layout,
                                workers=workers,
-                               wire_counts=cost_in["wire"])
+                               wire_counts=cost_in["wire"], remat=True)
     n = cost["n_params"]
     total, active = rl.active_params(init_params(cfg, 0, "meta"), cfg)
     mf = rl.model_flops(cfg, total, active, "train", batch, seq)
@@ -3795,7 +3825,7 @@ def phase13e(torch, cost_in) -> dict:
         hw=H100_SXM, link=cost_in["topo"].link("data"),
         n_messages=cost["n_messages"] * MSGS_PER_PAIR)
     # the forward plus backward alone, world 1, at full depth, between
-    # CUDA events
+    # CUDA events, not rematerialised (comparable with earlier runs)
     full = llama_layers(16)
     params = init_params(full, 0, "cuda")
     leaves = tree.leaves(params)
@@ -3804,7 +3834,7 @@ def phase13e(torch, cost_in) -> dict:
     b = batch_for(full, 0, global_batch=batch, seq_len=seq, device="cuda")
 
     def fwd_bwd():
-        loss, _ = loss_fn(params, full, b)
+        loss, _ = loss_fn(params, full, b, remat=False)
         torch.autograd.grad(loss, leaves)
 
     fb_ms = time_ms(fwd_bwd, 5)
@@ -4534,6 +4564,210 @@ def placed_cards(torch) -> dict:
     return out
 
 
+# -- phase 15: rematerialised training and the kernel-config table --
+
+REMAT_STEPS = 3
+
+
+def remat_run(torch, label, argv, cfg, remat, by_path) -> dict:
+    """One ``train.run`` of ``argv`` on ``cfg`` for ``REMAT_STEPS`` steps,
+    its launch counters set to 0 just before it and read just after
+    (12 a step of K1, K2 and both K3; the params' draws once), with
+    rematerialisation (the trainer's default) or without it (the
+    trainer's own switch, ``--smoke``, which with ``cfg`` given changes
+    nothing else).  ``--checkpoint`` hands the final state to
+    ``repro_torch.checkpoint.save_state``, which is swapped for a digest
+    of every leaf on the card.  Returns the losses, step ms, peak
+    memory and the digests."""
+    from repro_torch import checkpoint, tree
+    from repro_torch.launch import train
+    digests = {}
+
+    def digest(path, state):
+        for p, leaf in tree.flatten_with_path(state)[0]:
+            digests[tree.path_name(p)] = (
+                device_digest(torch, leaf) if torch.is_tensor(leaf)
+                and leaf.element_size() == 4 else repr(leaf))
+
+    save = checkpoint.save_state
+    checkpoint.save_state = digest
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        by_path[label], records = drive(
+            label, lambda: train.run(
+                argv + ["--steps", str(REMAT_STEPS), "--log-every", "1",
+                        "--checkpoint", "state.npz"]
+                + ([] if remat else ["--smoke"]), cfg=cfg),
+            {n: 12 for n in MAIN_KERNELS}, REMAT_STEPS,
+            {"threefry_bits": init_draws(cfg)})
+    finally:
+        checkpoint.save_state = save
+    peak = torch.cuda.max_memory_allocated()
+    ms = [r["ms"] for r in records]
+    losses = [r["loss"] for r in records]
+    assert all(math.isfinite(x) for x in losses), (label, losses)
+    assert digests, (label, "no state digested")
+    out = {"losses": losses, "step_ms": ms,
+           "steady_ms": statistics.median(ms[1:]),
+           "peak_gib": peak / 2 ** 30, "digests": digests}
+    log(f"  {label}: losses {losses}, step ms {[round(x, 1) for x in ms]}, "
+        f"peak {out['peak_gib']:.2f} GiB")
+    return out
+
+
+def phase15a(torch, by_path) -> dict:
+    """15a: llama3.2-1b at full width and depth (16 layers), batch 8,
+    Gaussian-k fused at 0.001, fixed-k, through ``train.run``: at ``--seq
+    512`` 3 steps without rematerialisation and 3 with it (losses and the
+    final params, momentum and residuals bitwise equal: the recompute
+    runs the same operations on the same inputs), then at ``--seq 1024``
+    3 steps with it (without, the activations, ~3 GB a layer, do not fit
+    beside the training state: that run is not launched).  Step ms,
+    steady ms (the median of steps 1-2), peak memory, and the
+    recompute's share of the step at 512."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3.2-1b")
+    base = ["--arch", "llama3.2-1b", "--mesh", "1x1", "--density-policy",
+            "none", "--batch", "8"]
+    out = {}
+    log("phase 15a: llama3.2-1b at full width and depth, 8 x 512, 3 steps "
+        "without and 3 with rematerialisation")
+    out["seq512_off"] = remat_run(torch, "15a seq 512 remat off",
+                                  base + ["--seq", "512"], cfg, False,
+                                  by_path)
+    out["seq512_on"] = remat_run(torch, "15a seq 512 remat on",
+                                 base + ["--seq", "512"], cfg, True, by_path)
+    off, on = out["seq512_off"], out["seq512_on"]
+    assert off["losses"] == on["losses"], ("15a losses", off["losses"],
+                                           on["losses"])
+    assert off["digests"] == on["digests"], "15a final state"
+    out["recompute_share_512"] = (
+        (on["steady_ms"] - off["steady_ms"]) / on["steady_ms"])
+    log(f"  remat on == off bitwise at 512 (losses, {len(on['digests'])} "
+        f"state leaves); steady step {off['steady_ms']:.1f} -> "
+        f"{on['steady_ms']:.1f} ms (the recompute "
+        f"{out['recompute_share_512']:.1%} of the step), peak "
+        f"{off['peak_gib']:.2f} -> {on['peak_gib']:.2f} GiB")
+    log("phase 15a: llama3.2-1b, 8 x 1024, 3 steps with rematerialisation")
+    out["seq1024_on"] = remat_run(torch, "15a seq 1024 remat on",
+                                  base + ["--seq", "1024"], cfg, True,
+                                  by_path)
+    for run in out.values():
+        if isinstance(run, dict):
+            run.pop("digests", None)
+    return out
+
+
+def phase15b(torch) -> dict:
+    """15b: the kernel-configuration ladder on the card against the
+    checked-in table (``kernels/ef_fused/kernelconfig.cuda.json``): every
+    leaf of phase 3's path (llama3.2-1b's 12 bucket segments) resolves
+    with ``source == "table"``; at the 268,435,456-element leaf K1, K2
+    and both K3 launches at the table's config are held against their
+    plain versions (:func:`check_main_kernels`) and timed with CUDA
+    events beside the heuristic config (block 1024, stats block 4096,
+    each kernel's own warps), in the order heuristic, table, table,
+    heuristic; so is the whole fused pipeline."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compressors import gaussiank_cap, get_compressor
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.kernels.ef_fused import compact_residual as cr
+    from repro_torch.kernels.ef_fused import fused_moments as fm
+    from repro_torch.kernels.ef_fused import ops, tuning
+    from repro_torch.kernels.ef_fused import tree_count as tc
+    from repro_torch.models import init_params
+
+    layout = build_layout(init_params(get_config("llama3.2-1b"), 0, "meta"),
+                          1, RATIO, get_compressor("gaussiank"))
+    leaves = {}
+    for seg in layout.segments:
+        cfg = tuning.resolve_config(seg.d_row, "cuda")
+        assert cfg.source == "table", (seg.name, cfg)
+        leaves[seg.name] = {"d": seg.d_row, "block": cfg.block,
+                            "stats_block": cfg.stats_block,
+                            "num_warps": cfg.num_warps}
+    log(f"phase 15b: the {len(leaves)} leaves of phase 3's path resolve "
+        f"from the table: " + "; ".join(
+            f"{n} ({v['d']:,}) block {v['block']} stats {v['stats_block']} "
+            f"warps {v['num_warps']}" for n, v in leaves.items()))
+    d = BIG_LEAF
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    g = torch.randn(d, generator=gen, device="cuda").mul_(1e-3)
+    e = torch.randn(d, generator=gen, device="cuda").mul_(5e-4)
+    k = math.ceil(RATIO * d)
+    c = check_main_kernels(g, e, k, f"15b d={d:,} at the table's config")
+    thres, thr = c.thres, c.thr
+    k_cap = gaussiank_cap(k, d)
+    configs = {"table": tuning.resolve_config(d, "cuda"),
+               "heuristic": tuning.heuristic_config("cuda", d)}
+    out = torch.empty_like(g)
+
+    def launches(cfg):
+        sb, block, w = cfg.stats_block, cfg.block, cfg.num_warps
+        bcap = ops.fused_default_bcap(k_cap, d, block, cfg.bcap_slack)
+        _, _, cnt = cr.compact_stage(g, e, thres, block=block, bcap=bcap)
+        enc = cr.exclusive_enc(cnt, bcap)
+        return bcap, {
+            "fused_moments": lambda: fm.fused_moments(g, e, block=sb,
+                                                      num_warps=w),
+            "tree_count": lambda: tc.tree_count(g, e, thr, block=sb,
+                                                num_warps=w),
+            "compact_stage": lambda: cr.compact_stage(
+                g, e, thres, block=block, bcap=bcap),
+            "compact_resid": lambda: cr.compact_resid(
+                g, e, thres, enc, block=block, bcap=bcap, k_cap=k_cap,
+                out=out),
+            "pipeline": lambda: ops.fused_compress_ef(
+                g, e, "gaussiank", k, block=block, stats_block=sb,
+                num_warps=w)}
+
+    fns = {name: launches(cfg) for name, cfg in configs.items()}
+    times = {name: {n: [] for n in fns[name][1]} for name in configs}
+    for name in ("heuristic", "table", "table", "heuristic"):
+        for n, fn in fns[name][1].items():
+            times[name][n].append(time_ms(fn, 10))
+    res = {}
+    for name, cfg in configs.items():
+        ms = {n: statistics.mean(t) for n, t in times[name].items()}
+        ms["one_sweep"] = ms["compact_stage"] + ms["compact_resid"]
+        res[name] = {"block": cfg.block, "stats_block": cfg.stats_block,
+                     "num_warps": cfg.num_warps, "bcap": fns[name][0],
+                     "ms": ms, "runs_ms": times[name]}
+    nb = -(-d // configs["table"].block)
+    sweep_bound = bound(12 * d + 8 * nb * fns["table"][0] + 4 * nb,
+                        3 * d)[0]
+    res["table"]["one_sweep_bound_ms"] = sweep_bound
+    res["table"]["one_sweep_share_of_bound"] = (
+        sweep_bound / res["table"]["ms"]["one_sweep"])
+    log(f"phase 15b: d={d:,}, ms (mean of two medians): " + "; ".join(
+        f"{name} (block {r['block']}, stats {r['stats_block']}, warps "
+        f"{r['num_warps']}): " + ", ".join(
+            f"{n} {t:.4f}" for n, t in r["ms"].items())
+        for name, r in res.items())
+        + f"; K3's one sweep at the table's config at "
+        f"{res['table']['one_sweep_share_of_bound']:.1%} of its bound "
+        f"({sweep_bound:.4f} ms); {nvidia_smi()}")
+    del g, e, out, fns, c
+    torch.cuda.empty_cache()
+    return {"leaves": leaves, "d": d, "k": k, "configs": res}
+
+
+def phase15_remat_table(torch, by_path) -> dict:
+    """Phase 15, slice 10: rematerialised training at full width
+    (:func:`phase15a`) and the kernel-configuration table
+    (:func:`phase15b`)."""
+    t0 = time.time()
+    out = {"15a": phase15a(torch, by_path)}
+    t1 = time.time()
+    out["15b"] = phase15b(torch)
+    out["phase15_s"] = time.time() - t0
+    log(f"phase 15 took {out['phase15_s']:.1f} s (15a {t1 - t0:.1f}, 15b "
+        f"{time.time() - t1:.1f})")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4605,6 +4839,12 @@ def main(argv) -> int:
         log(json.dumps({"phase14": phase14_placed(torch, by_path),
                         "launches_by_path": by_path}, default=str))
         log("serve-placement-only run: phases 2-13 skipped")
+        return 0
+    if "--remat-table-only" in argv:
+        by_path = {}
+        log(json.dumps({"phase15": phase15_remat_table(torch, by_path),
+                        "launches_by_path": by_path}, default=str))
+        log("remat-table-only run: phases 2-14 skipped")
         return 0
     if "--tensor-parallel-only" in argv:
         by_path = {}
@@ -4877,6 +5117,9 @@ def main(argv) -> int:
     # -- phase 14: serving placed over the mesh --
     phase14 = phase14_placed(torch, by_path)
 
+    # -- phase 15: rematerialised training, the kernel-config table --
+    phase15 = phase15_remat_table(torch, by_path)
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -4889,7 +5132,7 @@ def main(argv) -> int:
                     "phase9": phase9, "phase10": phase10,
                     "phase11": phase11, "phase12": phase12,
                     "phase13": phase13, "phase14": phase14,
-                    "build_s": build_s,
+                    "phase15": phase15, "build_s": build_s,
                     "total_s": time.time() - t_start}, default=str))
     log(json.dumps({"kernels": list(rows.values())}))
     log(smi)

@@ -115,11 +115,13 @@ def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, nb * block - d)).view(nb, block)
 
 
-def launch_stats(name: str, g: torch.Tensor, e, *, block: int, hist: bool):
-    """Launch the statistics kernel on CUDA ``g`` (and ``e``): returns
-    the folded ``(s, sq, mx)`` and the int64 ``(BINS,)`` histogram of the
-    ``d`` real elements (or ``None``).  The wrapper that calls this
-    counts the launch."""
+def launch_stats(name: str, g: torch.Tensor, e, *, block: int, hist: bool,
+                 num_warps=None):
+    """Launch the statistics kernel on CUDA ``g`` (and ``e``) with
+    ``num_warps`` warps a program (``None``: 4): returns the folded
+    ``(s, sq, mx)`` and the int64 ``(BINS,)`` histogram of the ``d`` real
+    elements (or ``None``).  The wrapper that calls this counts the
+    launch."""
     _check_cuda_f32(name, g, e)
     if block < 16 or block & (block - 1):
         raise ValueError(f"stats block must be a power of two >= 16, got "
@@ -133,7 +135,7 @@ def launch_stats(name: str, g: torch.Tensor, e, *, block: int, hist: bool):
     with torch.cuda.device(g.device):
         kern[(nb,)](g, g if e is None else e, parts, hparts, d,
                     HAS_E=e is not None, WITH_HIST=hist, BLOCK=block,
-                    num_warps=4)
+                    num_warps=num_warps or 4)
     # deterministic folds of the per-block rows (no float atomics)
     stats = parts[:, 0].sum(), parts[:, 1].sum(), parts[:, 2].amax()
     h = None
@@ -168,14 +170,16 @@ def fused_moments_plain(g: torch.Tensor, e=None, *, block: int):
     return moments_plain(_u(g, e), block)
 
 
-def fused_moments(g: torch.Tensor, e=None, *, block: int):
+def fused_moments(g: torch.Tensor, e=None, *, block: int, num_warps=None):
     """``(sum, sumsq, absmax)`` of ``u = g + e`` as 0-d f32 tensors on
     ``g``'s device.  CUDA tensors launch the Triton kernel (f32 only,
-    ``block`` a power of two); CPU tensors take the plain version."""
+    ``block`` a power of two, ``num_warps`` warps a program, 4 unless
+    given); CPU tensors take the plain version."""
     _check(g, e)
     if g.device.type != "cuda":
         return fused_moments_plain(g, e, block=block)
-    stats, _ = launch_stats("fused_moments", g, e, block=block, hist=False)
+    stats, _ = launch_stats("fused_moments", g, e, block=block, hist=False,
+                            num_warps=num_warps)
     fused_moments.launches += 1
     return stats
 
@@ -190,17 +194,19 @@ def fused_moments_hist_plain(g: torch.Tensor, e=None, *, block: int):
     return (*moments_plain(u, block), abs_histogram_plain(u, block=block))
 
 
-def fused_moments_hist(g: torch.Tensor, e=None, *, block: int):
+def fused_moments_hist(g: torch.Tensor, e=None, *, block: int,
+                       num_warps=None):
     """``(sum, sumsq, absmax, hist)`` of ``u = g + e`` in one pass:
     the reference's ``fused_moments(..., with_hist=True)``.  ``hist`` is
     the int64 ``(BINS,)`` histogram of the ``d`` real elements (padding
-    already taken out of bin 0).  CUDA tensors launch the Triton kernel;
-    CPU tensors take the plain version."""
+    already taken out of bin 0).  CUDA tensors launch the Triton kernel
+    (``num_warps`` as in :func:`fused_moments`); CPU tensors take the
+    plain version."""
     _check(g, e)
     if g.device.type != "cuda":
         return fused_moments_hist_plain(g, e, block=block)
     stats, h = launch_stats("fused_moments_hist", g, e, block=block,
-                            hist=True)
+                            hist=True, num_warps=num_warps)
     fused_moments_hist.launches += 1
     return (*stats, h)
 

@@ -37,6 +37,7 @@ of ``u``) or left in the residual (``e' = u``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -125,36 +126,42 @@ def gaussian_t0(s, sq, d: int, k, two_sided: bool) -> np.float32:
 
 def _gaussian_threshold_fused(g, e, d: int, k, *, stats_block: int,
                               refine_iters: int, two_sided: bool,
-                              moments=None) -> np.float32:
+                              moments=None, num_warps=None) -> np.float32:
     if moments is None:
-        s, sq, _ = fused_moments(g, e, block=stats_block)
+        s, sq, _ = fused_moments(g, e, block=stats_block,
+                                 num_warps=num_warps)
         passes.record("moments", 1)
     else:
         s, sq = moments
     t0 = gaussian_t0(s, sq, d, k, two_sided)
     heap, n_cnt = _tree_thresholds(t0, refine_iters)
     counts = tree_count(g, e, torch.from_numpy(heap[:n_cnt]).to(g.device),
-                        block=stats_block)
+                        block=stats_block, num_warps=num_warps)
     passes.record("tree_count", 1)
     return _replay_refinement(heap, counts.cpu().numpy(), k, refine_iters)
 
 
 def _hist_threshold_fused(g, e, d: int, k, *, stats_block: int,
-                          hist=None) -> np.float32:
+                          hist=None, num_warps=None) -> np.float32:
     # the histogram K1 returns already counts only the d real elements
     from repro_torch.kernels.histk.ops import threshold_from_histogram
     if hist is None:
-        _, _, _, hist = fused_moments_hist(g, e, block=stats_block)
+        _, _, _, hist = fused_moments_hist(g, e, block=stats_block,
+                                           num_warps=num_warps)
         passes.record("moments+hist", 1)
     return threshold_from_histogram(hist, k)
 
 
 def _resolve(g, e, name, k, k_cap, block, stats_block, bcap,
-             slack: Optional[float] = None):
+             slack: Optional[float] = None,
+             num_warps: Optional[int] = None):
     """Backend + geometry: explicit ``block``/``stats_block``/``bcap``
-    win, the heuristic of ``tuning`` fills the rest; the default staging
-    width takes ``slack`` (``None``: the config's).  Returns ``(d, k_cap,
-    block, stats_block, bcap)``."""
+    (and ``num_warps``) win; with both blocks given the ladder is
+    skipped (``source="explicit"``), else ``tuning.resolve_config`` —
+    the table, the cache, a measurement on the card, the heuristic —
+    fills the rest; the default staging width takes ``slack`` (``None``:
+    the config's).  Returns ``(d, k_cap, block, stats_block, bcap,
+    cfg)``, ``cfg.num_warps`` what K1 and K2 launch with."""
     if not supports_fused(name):
         raise ValueError(f"compressor {name!r} has no fused pipeline; "
                          f"supported: {FUSED_COMPRESSORS}")
@@ -164,14 +171,22 @@ def _resolve(g, e, name, k, k_cap, block, stats_block, bcap,
     if e is not None and e.shape != g.shape:
         raise ValueError(f"e shape {tuple(e.shape)} != g shape "
                          f"{tuple(g.shape)}")
-    cfg = tuning.resolve_config(d, tuning.resolve_backend(g))
+    backend = tuning.resolve_backend(g)
+    if block is None or stats_block is None:
+        cfg = tuning.resolve_config(d, backend)
+    else:
+        cfg = tuning.KernelConfig(backend=backend, block=block,
+                                  stats_block=stats_block,
+                                  source="explicit")
+    if num_warps is not None:
+        cfg = dataclasses.replace(cfg, num_warps=num_warps)
     block = cfg.block if block is None else block
     stats_block = cfg.stats_block if stats_block is None else stats_block
     k_cap = gaussiank_cap(k, d) if k_cap is None else k_cap
     if bcap is None:
         bcap = fused_default_bcap(k_cap, d, block,
                                   cfg.bcap_slack if slack is None else slack)
-    return d, k_cap, block, stats_block, bcap
+    return d, k_cap, block, stats_block, bcap, cfg
 
 
 def compress_at_threshold(g, e, thres, *, k_cap: int, block: int, bcap: int,
@@ -196,13 +211,15 @@ def fused_pass_a(g: torch.Tensor, e: Optional[torch.Tensor], name: str):
     that call launches no K1: K1 runs once per leaf.  The statistics
     are on ``g``'s device (0-d tensors and an int64 ``(BINS,)``
     histogram)."""
-    _, _, _, stats_block, _ = _resolve(g, e, name, 1, None, None, None,
-                                       None)
+    _, _, _, stats_block, _, cfg = _resolve(g, e, name, 1, None, None,
+                                            None, None)
     if name == "histk":
-        out = fused_moments_hist(g, e, block=stats_block)
+        out = fused_moments_hist(g, e, block=stats_block,
+                                 num_warps=cfg.num_warps)
         passes.record("moments+hist", 1)
         return out
-    s, sq, mx = fused_moments(g, e, block=stats_block)
+    s, sq, mx = fused_moments(g, e, block=stats_block,
+                              num_warps=cfg.num_warps)
     passes.record("moments", 1)
     return s, sq, mx, None
 
@@ -212,7 +229,8 @@ def fused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor], name: str,
                       block: Optional[int] = None,
                       stats_block: Optional[int] = None,
                       refine_iters: int = 4, bcap: Optional[int] = None,
-                      out: Optional[torch.Tensor] = None, stats=None):
+                      out: Optional[torch.Tensor] = None, stats=None,
+                      num_warps: Optional[int] = None):
     """One EF compression step on ``u = g + e`` (``e=None``: ``u = g``).
 
     Returns ``(values, indices, new_e)``: a ``(k_cap,)`` f32/int32 codec
@@ -227,18 +245,22 @@ def fused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor], name: str,
     (on the device or already on the host) and skips K1.  ``k`` is a
     static int or the allocator's per-step ``np.int32``, for which the
     threshold arithmetic is f32 as in the reference; ``k_cap`` sizes
-    the pair either way."""
-    d, k_cap, block, stats_block, bcap = _resolve(
-        g, e, name, k, k_cap, block, stats_block, bcap)
+    the pair either way.  The geometry not given comes from
+    :func:`_resolve` (``tuning``'s ladder); ``num_warps`` overrides
+    K1's and K2's."""
+    d, k_cap, block, stats_block, bcap, cfg = _resolve(
+        g, e, name, k, k_cap, block, stats_block, bcap, None, num_warps)
     if name == "histk":
         thres = _hist_threshold_fused(
             g, e, d, k, stats_block=stats_block,
-            hist=None if stats is None else stats[3])
+            hist=None if stats is None else stats[3],
+            num_warps=cfg.num_warps)
     else:
         thres = _gaussian_threshold_fused(
             g, e, d, k, stats_block=stats_block, refine_iters=refine_iters,
             two_sided=(name == "gaussiank2"),
-            moments=None if stats is None else stats[:2])
+            moments=None if stats is None else stats[:2],
+            num_warps=cfg.num_warps)
     return compress_at_threshold(g, e, thres, k_cap=k_cap, block=block,
                                  bcap=bcap, out=out)
 
@@ -255,16 +277,16 @@ def unfused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor],
     ``refine_iters`` sequential K4b counts, or the K4d histogram for
     ``histk``), K4c block compaction, then pays the dense ``decode`` and
     the ``u − decode`` subtract for the residual: ~8 leaf-sized passes
-    where the fused pipeline makes 3-4.  Same block policy as
-    :func:`fused_compress_ef`; the staging width defaults to the unfused
-    4× slack (``gaussian_topk.ops.default_bcap``), so the comparison
-    measures both pipelines as shipped.  Returns ``(values, indices,
+    where the fused pipeline makes 3-4.  Same block policy (and K4a/K4b
+    at K1/K2's warps) as :func:`fused_compress_ef`; the staging width
+    defaults to the unfused 4× slack (``gaussian_topk.ops.default_bcap``),
+    so the comparison measures both pipelines as shipped.  Returns ``(values, indices,
     new_e)`` like :func:`fused_compress_ef`."""
     # the K4 modules build on this package's kernels: imported at the call
     from repro_torch.kernels.gaussian_topk.ops import (
         gaussian_threshold_kernel, select_by_threshold)
     from repro_torch.kernels.histk.ops import histk_threshold
-    d, k_cap, block, stats_block, bcap = _resolve(
+    d, k_cap, block, stats_block, bcap, cfg = _resolve(
         g, e, name, k, k_cap, block, stats_block, bcap, UNFUSED_BCAP_SLACK)
     u = g.to(torch.float32)
     if e is not None:
@@ -276,7 +298,7 @@ def unfused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor],
     else:
         thres = gaussian_threshold_kernel(
             u, k, block=stats_block, refine_iters=refine_iters,
-            two_sided=(name == "gaussiank2"))
+            two_sided=(name == "gaussiank2"), num_warps=cfg.num_warps)
         passes.record("moments", 1)
         passes.record("count_gt", refine_iters)
     values, indices = select_by_threshold(u, thres, k_cap, block=block,

@@ -85,10 +85,12 @@ def tree_count_plain(g: torch.Tensor, e, thresholds: torch.Tensor, *,
 
 
 def launch_counts(name: str, g: torch.Tensor, e, thresholds: torch.Tensor,
-                  *, block: int) -> torch.Tensor:
+                  *, block: int, num_warps=None) -> torch.Tensor:
     """Launch the count kernel on CUDA ``g`` (and ``e``) for 1..128
-    thresholds: the ``(n_t,)`` int32 counts, summed over the blocks.  The
-    wrapper that calls this counts the launch."""
+    thresholds with ``num_warps`` warps a program (``None``: 8 for
+    blocks of 4096 and more, else 4): the ``(n_t,)`` int32 counts,
+    summed over the blocks.  The wrapper that calls this counts the
+    launch."""
     _check_cuda_f32(name, g, e)
     n_t = int(thresholds.shape[0])
     nt = max(2, 1 << (n_t - 1).bit_length())
@@ -105,23 +107,25 @@ def launch_counts(name: str, g: torch.Tensor, e, thresholds: torch.Tensor,
     with torch.cuda.device(g.device):
         kern[(nb,)](g, g if e is None else e, t, parts, d,
                     HAS_E=e is not None, BLOCK=block, TILE=tile, NT=nt,
-                    num_warps=8 if block >= 4096 else 4)
+                    num_warps=num_warps or (8 if block >= 4096 else 4))
     return parts[:, :n_t].sum(dim=0).to(torch.int32)
 
 
 def tree_count(g: torch.Tensor, e, thresholds: torch.Tensor, *,
-               block: int) -> torch.Tensor:
+               block: int, num_warps=None) -> torch.Tensor:
     """Counts of ``|g + e| > thresholds[j]``, an ``(n_t,)`` int32 tensor on
-    ``g``'s device.  CUDA tensors launch the Triton kernel with 8 warps
-    for blocks of 4096 and more, else 4 (the faster of the two on an
-    H100 for each); CPU tensors take the plain version."""
+    ``g``'s device.  CUDA tensors launch the Triton kernel with
+    ``num_warps`` warps or, unless given, 8 for blocks of 4096 and more,
+    else 4 (the faster of the two on an H100 for each); CPU tensors take
+    the plain version."""
     _check(g, e)
     n_t = int(thresholds.shape[0])
     if not 0 < n_t <= 128:
         raise ValueError(f"need 1..128 thresholds, got {n_t}")
     if g.device.type != "cuda":
         return tree_count_plain(g, e, thresholds, block=block)
-    counts = launch_counts("tree_count", g, e, thresholds, block=block)
+    counts = launch_counts("tree_count", g, e, thresholds, block=block,
+                           num_warps=num_warps)
     tree_count.launches += 1
     return counts
 

@@ -32,16 +32,18 @@ def count_gt_plain(x: torch.Tensor, thres: float, *, block: int
     return (a > t).sum(dim=1).sum().to(torch.int32)
 
 
-def count_gt(x: torch.Tensor, thres: float, *, block: int = 2048
-             ) -> torch.Tensor:
+def count_gt(x: torch.Tensor, thres: float, *, block: int = 2048,
+             num_warps=None) -> torch.Tensor:
     """``#{i : |x_i| > thres}`` of flat ``x`` as a 0-d int32 tensor on
     ``x``'s device (``thres`` an f32 host scalar).  CUDA tensors launch
-    the Triton kernel; CPU tensors take the plain version."""
+    the Triton kernel (``num_warps`` as K2's); CPU tensors take the
+    plain version."""
     _check(x, None)
     if x.device.type != "cuda":
         return count_gt_plain(x, thres, block=block)
     t = torch.tensor([thres], dtype=torch.float32)
-    counts = launch_counts("count_gt", x, None, t, block=block)
+    counts = launch_counts("count_gt", x, None, t, block=block,
+                           num_warps=num_warps)
     count_gt.launches += 1
     return counts[0]
 

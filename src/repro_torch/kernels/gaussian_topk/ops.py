@@ -39,20 +39,22 @@ def default_bcap(k_cap: int, d: int, block: int) -> int:
 
 def gaussian_threshold_kernel(u: torch.Tensor, k, *, block: int = 2048,
                               refine_iters: int = 4,
-                              two_sided: bool = False) -> np.float32:
+                              two_sided: bool = False,
+                              num_warps=None) -> np.float32:
     """Algorithm 1 lines 2-13 on flat ``u``: the ppf start threshold from
     K4a's moments, then ``refine_iters`` K4b counts — every one is made,
     also after the threshold froze inside the band ``[2k/3, 4k/3]``, as
     the reference's ``fori_loop`` makes them.  Halve below the band,
-    ×1.5 above it, in f32."""
+    ×1.5 above it, in f32.  ``num_warps`` reaches K4a and K4b."""
     d = u.shape[0]
-    s, sq, _ = moments(u, block=block)
+    s, sq, _ = moments(u, block=block, num_warps=num_warps)
     thres = gaussian_t0(s, sq, d, k, two_sided)
     lo, hi = np.float32(2.0 * k / 3.0), np.float32(4.0 * k / 3.0)
     half, three_halves = np.float32(0.5), np.float32(1.5)
     done = False
     for _ in range(refine_iters):
-        est = np.float32(int(count_gt(u, float(thres), block=block)))
+        est = np.float32(int(count_gt(u, float(thres), block=block,
+                                      num_warps=num_warps)))
         in_band = bool(lo <= est <= hi)
         if not (done or in_band):
             thres = half * thres if est < lo else three_halves * thres

@@ -16,7 +16,9 @@ here, so a record is assembled from the port's own pieces:
   serving), the momentum and the residual row of a train step, and the
   decode cache (``dist.sharding.cache_specs``);
 * FLOPs: ``launch.step_cost.count_flops`` of the global batch, divided
-  over the cards (the reference's per-card SPMD program);
+  over the cards (the reference's per-card SPMD program); a train step
+  rematerialised, as the reference lowers it (``remat=True``) and the
+  trainer runs it at full width;
 * collectives: the layout's closed forms (``pair_bits``,
   ``strategy_wire_pairs``, ``collective_count``): one card holds one of
   the bucket's ``M`` rows;
@@ -121,7 +123,7 @@ def run_one(arch: str, shape_name: str, mesh="4x2",
         total_p, active_p = rl.active_params(params, cfg)
         B, S = shape.global_batch, shape.seq_len
         cost = step_cost.count_flops(cfg, B, S, kind=shape.kind,
-                                     params=params)
+                                     params=params, remat=True)
         flops_chip = cost["flops"] / chips
         coll, msgs = 0.0, 0.0
         memory = {}

@@ -18,7 +18,9 @@ allocation, and the workers' threshold and compaction); then the
 wire (the gather or the gTop-k rounds and the decode, and for the
 two-level strategies the pod mean's second compression and the second
 level); the unpack and metrics; the
-optimizer.  Then it traces one more step with ``torch.profiler`` and
+optimizer.  The forward + backward rematerialises each layer-pattern
+period unless ``--smoke``, as the trainer's step does.  Then it traces
+one more step with ``torch.profiler`` and
 prints the device time by kernel name, the kernel count, the host
 syncs (the CUDA runtime's synchronize calls) and the device's idle
 share of that step's wall time.  The last line is one
@@ -137,7 +139,8 @@ def _profile(args, cfg, strategy, policy, wire, dev) -> int:
             rows = slice(rank * per, (rank + 1) * per)
             local = {k: v[rows] for k, v in batch.items()}
             ps = [p.detach().requires_grad_(True) for p in leaves]
-            loss, _ = loss_fn(tree.unflatten(td, ps), cfg, local)
+            loss, _ = loss_fn(tree.unflatten(td, ps), cfg, local,
+                              remat=not args.smoke)
             grads = tree.unflatten(td, list(torch.autograd.grad(loss, ps)))
             ev["fb"].append(event())
             return grads
@@ -298,7 +301,8 @@ def _profile_step(args, cfg, strategy, policy, wire, dev) -> int:
 
     step_fn = make_train_step(cfg, args.mesh, opt, constant(args.lr),
                               compression=comp, layout=layout, probe=probe,
-                              wire=wire, seed=args.seed, tensor_parallel=tp)
+                              wire=wire, seed=args.seed, tensor_parallel=tp,
+                              remat=not args.smoke)
 
     def step(i):
         nonlocal state
@@ -417,7 +421,8 @@ def _profile_tp(args, cfg, strategy, policy, wire, dev) -> int:
         event("start")
         local = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
         ps = [p.detach().requires_grad_(True) for p in leaves]
-        loss, _ = loss_fn(tree.unflatten(td, ps), cfg, local, tp.axis)
+        loss, _ = loss_fn(tree.unflatten(td, ps), cfg, local, tp.axis,
+                          remat=not args.smoke)
         grads = torch.autograd.grad(loss, ps, allow_unused=True)
         grads = tree.unflatten(td, [torch.zeros_like(p) if g is None else g
                                     for p, g in zip(ps, grads)])

@@ -135,19 +135,20 @@ def _counted(fn, inputs, train: bool, ops: set) -> float:
 
 
 def _whole(cfg, params, batch: int, seq: int, kind: str, device,
-           ops: set) -> float:
+           ops: set, remat: bool = False) -> float:
     from repro_torch import tree
     from repro_torch.models.model import (decode_step, forward, init_cache,
                                           loss_fn)
 
     if kind == "train":
         b = _inputs(cfg, batch, seq, kind, device)
-        return _counted(lambda: loss_fn(params, cfg, b)[0],
+        return _counted(lambda: loss_fn(params, cfg, b, remat=remat)[0],
                         tree.leaves(params), True, ops)
     if kind == "prefill":
         b = _inputs(cfg, batch, seq, kind, device)
         return _counted(lambda: forward(params, cfg, b.get("tokens"),
-                                        embeds=b.get("embeds")).sum(),
+                                        embeds=b.get("embeds"),
+                                        remat=False).sum(),
                         [], False, ops)
     cache = init_cache(cfg, batch, seq, device=device)
     tok = torch.zeros((batch, 1), dtype=torch.int64, device=device)
@@ -156,20 +157,34 @@ def _whole(cfg, params, batch: int, seq: int, kind: str, device,
 
 
 def _piecewise(cfg, params, batch: int, seq: int, train: bool, device,
-               ops: set) -> float:
+               ops: set, remat: bool = False) -> float:
     """Forward (and backward) FLOPs of the model summed over its pieces:
     the head with the loss, then per layer its core and its FFN, each
     from a hidden state of ``(batch, seq, d_model)``; a recurrent core
-    at :data:`FIT_SEQS`, extended linearly to ``seq``."""
+    at :data:`FIT_SEQS`, extended linearly to ``seq``.  With ``remat``
+    (and ``train``) every layer of the stacked periods adds its forward
+    once more, the backward's recompute, but for the period's last
+    piece (the last layer's FFN, or its core without one): that piece
+    is counted under a checkpoint of its own, whose recompute stops, as
+    the period's does, at the last tensor the backward keeps (its output
+    projection is not recomputed)."""
+    from torch.utils.checkpoint import checkpoint
     from repro_torch import tree
     from repro_torch.models import model as mdl
 
     adt = getattr(torch, cfg.activation_dtype)
 
-    def piece(fn, p, s):
+    def piece(fn, p, s, train=train):
         h = torch.zeros((batch, s, cfg.d_model), dtype=adt, device=device,
                         requires_grad=train)
         return _counted(lambda: fn(p, h), [h] + tree.leaves(p), train, ops)
+
+    def counted(fn, p, recurrent, train=train):
+        if not recurrent:
+            return piece(fn, p, seq, train)
+        s1, s2 = FIT_SEQS
+        f1, f2 = (piece(fn, p, s, train) for s in (s1, s2))
+        return f1 + (f2 - f1) * (seq - s1) / (s2 - s1)
 
     def head(p, h):
         return torch.logsumexp(mdl._head(p, cfg, h).float(), dim=-1).sum()
@@ -184,6 +199,7 @@ def _piecewise(cfg, params, batch: int, seq: int, train: bool, device,
                for i, p in enumerate(params["tail"])]
     for p, index, times in layers:
         kind, ffn = cfg.layer_sig(index)
+        recurrent = kind in ("mamba", "mlstm", "slstm")
 
         def core(q, h, kind=kind):
             return mdl._apply_core(q, h, cfg, kind)[0].sum()
@@ -192,25 +208,36 @@ def _piecewise(cfg, params, batch: int, seq: int, train: bool, device,
             out, aux = mdl._ffn(q, h, cfg, ffn)
             return out.sum() if aux is None else out.sum() + aux
 
-        if kind in ("mamba", "mlstm", "slstm"):
-            s1, s2 = FIT_SEQS
-            f1, f2 = (piece(core, p["core"], s) for s in (s1, s2))
-            f = f1 + (f2 - f1) * (seq - s1) / (s2 - s1)
-        else:
-            f = piece(core, p["core"], seq)
+        def rematerialised(fn):
+            return lambda q, h: checkpoint(fn, q, h, use_reentrant=False,
+                                           preserve_rng_state=False)
+
+        parts = [(core, p["core"], recurrent)]
         if ffn != "none":
-            f += piece(ffn_sum, p["ffn"], seq)
+            parts.append((ffn_sum, p["ffn"], False))
+        f = 0.0
+        for n, (fn, q, rec) in enumerate(parts):
+            if not (remat and train and index < reps * period):
+                f += counted(fn, q, rec)
+            elif index == period - 1 and n == len(parts) - 1:
+                f += counted(rematerialised(fn), q, rec)
+            else:
+                f += counted(fn, q, rec) + counted(fn, q, rec, False)
         total += times * f
     return total
 
 
 def count_flops(cfg, batch: int, seq: int, *, kind: str = "train",
-                params=None, device="meta") -> dict:
+                params=None, device="meta", remat: bool = False) -> dict:
     """FLOPs of one ``kind`` call (``train``: forward plus backward;
     ``prefill``: forward; ``decode``: one token against a cache of
     ``seq``) on ``batch`` sequences of ``seq``, as ``FlopCounterMode``
-    counts them.  ``params`` default to the arch's on the meta device
-    (nothing allocated).  Returns ``{"flops", "method",
+    counts them.  ``remat`` counts a train call as the trainer runs it
+    at full width (``models.loss_fn(remat=True)``): the backward's
+    recompute adds one forward of every rematerialised layer-pattern
+    period, as the reference's ``hlo_cost`` counts the compiled
+    program's recompute.  ``params`` default to the arch's on the meta
+    device (nothing allocated).  Returns ``{"flops", "method",
     "uncounted_ops"}``; ``method`` is ``whole`` (one call), or
     ``piecewise`` for a train or prefill call of a model with a
     recurrent layer at a sequence above :data:`FIT_SEQS`."""
@@ -227,10 +254,12 @@ def count_flops(cfg, batch: int, seq: int, *, kind: str = "train",
     ops: set = set()
     try:
         if kind == "decode" or not _recurrent(cfg) or seq <= FIT_SEQS[-1]:
-            flops = _whole(cfg, params, batch, seq, kind, device, ops)
+            flops = _whole(cfg, params, batch, seq, kind, device, ops,
+                           remat)
             method = "whole"
         else:
-            flops = _piecewise(cfg, params, batch, seq, train, device, ops)
+            flops = _piecewise(cfg, params, batch, seq, train, device, ops,
+                               remat)
             method = "piecewise"
     finally:
         for leaf in leaves:
@@ -262,19 +291,21 @@ def state_bytes(n_params: int, bucket_elems: int = 0, *, workers: int = 1,
 
 def step_cost(cfg, *, batch: int, seq: int, layout=None, workers: int = 1,
               wire_counts: Optional[Dict[str, float]] = None,
-              params=None) -> dict:
+              params=None, remat: bool = False) -> dict:
     """The three roofline inputs of one data-parallel train step on one
     card running ``workers`` workers, each on ``batch // workers`` of the
     global ``batch``: FLOPs (:func:`count_flops` of one worker, times the
-    workers), bytes (:func:`state_bytes`) and, when given, the counted
-    wire (``wire_counts`` from :func:`count_wire_collectives`)."""
+    workers; ``remat`` as the step is trained), bytes
+    (:func:`state_bytes`) and, when given, the counted wire
+    (``wire_counts`` from :func:`count_wire_collectives`)."""
     from repro_torch import tree
     from repro_torch.models import init_params
 
     if params is None:
         params = init_params(cfg, 0, "meta")
     n = sum(int(x.numel()) for x in tree.leaves(params))
-    per = count_flops(cfg, batch // workers, seq, params=params)
+    per = count_flops(cfg, batch // workers, seq, params=params,
+                      remat=remat)
     sb = state_bytes(n, layout.flat_size if layout is not None else 0,
                      workers=workers)
     wc = wire_counts or {"messages": 0.0, "bytes": 0.0}

@@ -361,7 +361,8 @@ def _train(args, cfg, mesh, strategy, density, wire, device, probe,
         state = full
     step = make_train_step(cfg, mesh, opt, lr_fn, compression=config,
                            layout=layout, probe=probe, wire=wire,
-                           seed=args.seed, tensor_parallel=tp)
+                           seed=args.seed, tensor_parallel=tp,
+                           remat=not args.smoke)
     say(f"arch={cfg.name} compressor={args.compressor} ratio={args.ratio} "
         f"strategy={strategy}{'(auto)' if decision is not None else ''} "
         f"backend={args.backend} mesh={args.mesh} "

@@ -12,7 +12,8 @@ wrapper.  Before it is timed, each variant is checked bitwise against
 the kernel's plain version.  The first variant of each kernel is the
 source as it stands.  Inputs are those of ``chip_smoke.py`` at the
 268,435,456-element leaf: ``g`` and ``e`` from seed 2, the fused
-Gaussian-k threshold, block 1024 and its staging width.  Every variant
+Gaussian-k threshold, the leaf's block from ``ef_fused.tuning`` (the
+checked-in table's) and its staging width.  Every variant
 is timed twice (CUDA-event medians), in order and in reverse order, and
 the line gives both.  The last line is one JSON object.  Needs a GPU.
 """
@@ -139,7 +140,7 @@ def main(argv=None) -> int:
     bcap = ops.fused_default_bcap(k_cap, d, block, cfg.bcap_slack)
     thres = float(ops._gaussian_threshold_fused(
         g, e, d, k, stats_block=cfg.stats_block, refine_iters=4,
-        two_sided=False))
+        two_sided=False, num_warps=cfg.num_warps))
     nb = -(-d // block)
 
     libs = _build({**{f"stage{i}": _variant("compact_residual.cu", dfn)

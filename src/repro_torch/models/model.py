@@ -19,8 +19,21 @@ pipeline runs over whole leaves, so a per-layer split would change every
 ``k``; the forward therefore ``unbind``s each stacked leaf once per step
 (one stacked gradient per leaf in the backward, no per-layer copies).
 
-No rematerialisation: the activations of the full-width models at batch
-8 × 128 tokens are a few GB beside their f32 state.
+Training rematerialises each layer-pattern period, as the reference's
+``forward(remat=True)`` wraps each period of its scan in
+``jax.checkpoint`` (``model.py:144-176``): ``loss_fn`` and ``forward``
+run each of the ``reps`` periods through ``torch.utils.checkpoint``
+(non-reentrant), which keeps the period's input ``h`` and recomputes its
+activations in the backward, one period at a time.  The tail layers are
+not rematerialised (the reference's ``:181-187``); ``prefill`` and
+``decode_step`` never are.  The recompute runs the same operations on
+the same inputs, so the loss and the gradients are those of
+``remat=False`` bit for bit; under tensor parallelism it re-issues the
+period's forward all-reduces inside the backward, in the same order on
+every rank.  It is what lets llama3.2-1b train at 8 × 1024 on one
+card: without it each layer keeps ~3 GB of activations there (the f32
+attention probabilities, the MLP's), ~50 GB for 16 layers beside the
+training state; with it the peak is one period's recompute.
 
 Caches keep the reference's tree: ``{"stack": [one dict a position of
 the layer pattern, leaves (reps, B, ...)], "tail": [one dict a tail
@@ -53,6 +66,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng, tree
 from repro_torch.devices import resolve_device
@@ -244,29 +258,45 @@ def _head(params, cfg: ModelConfig, h, axis=None):
     return h @ params["lm_head"].to(adt)
 
 
+def _period(h, reps_p, cfg: ModelConfig, axis=None):
+    """One layer-pattern period on ``h`` (``reps_p``: one param dict a
+    position of the pattern): ``(h, aux)``, ``aux`` the period's MoE
+    load-balance losses summed (0 without MoE)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for pos, p in enumerate(reps_p):
+        kind, ffn = cfg.layer_sig(pos)
+        h, a, _ = _apply_block(p, h, cfg, kind, ffn, axis)
+        if a is not None:
+            aux = aux + a
+    return h, aux
+
+
 def _forward(params, cfg: ModelConfig, tokens=None, embeds=None,
-             axis=None):
+             axis=None, remat: bool = True):
     """Full-sequence forward -> ``(logits (B, T, vocab), aux)``: ``aux``
     the MoE layers' load-balance loss, summed a period at a time over
     the reps and then over the tail as the reference's scan sums it (0
     without MoE).  With ``axis``, this model rank's vocab columns of the
-    logits."""
+    logits.  With ``remat``, each period is a checkpointed region whose
+    inputs are ``h`` and the period's views of the stacked params, and
+    whose outputs are ``h`` and the period's aux; the forward draws no
+    random numbers, so no RNG state is kept for the recompute."""
     h = _embed_input(params, cfg, tokens, embeds, axis)
     period = cfg.pattern_period
     reps = cfg.num_layers // period
     per_pos = [_unbind(sp) for sp in params["stack"]]
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
     rep_aux = []
     for r in range(reps):
-        a_rep = zero
-        for pos in range(period):
-            kind, ffn = cfg.layer_sig(pos)
-            h, a, _ = _apply_block(per_pos[pos][r], h, cfg, kind, ffn,
-                                   axis)
-            if a is not None:
-                a_rep = a_rep + a
+        reps_p = [per_pos[pos][r] for pos in range(period)]
+        if remat:
+            h, a_rep = checkpoint(_period, h, reps_p, cfg, axis,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            h, a_rep = _period(h, reps_p, cfg, axis)
         rep_aux.append(a_rep)
-    aux = torch.stack(rep_aux).sum() if rep_aux else zero
+    aux = (torch.stack(rep_aux).sum() if rep_aux else
+           torch.zeros((), dtype=torch.float32, device=h.device))
     base = reps * period
     for i, p in enumerate(params["tail"]):
         h, a, _ = _apply_block(p, h, cfg, *cfg.layer_sig(base + i),
@@ -276,11 +306,12 @@ def _forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     return _head(params, cfg, h, axis), aux
 
 
-def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None
-            ) -> torch.Tensor:
+def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
+            remat: bool = True) -> torch.Tensor:
     """Full-sequence forward of ``tokens`` (B, T) or ``embeds`` (B, T,
-    d_model) -> logits ``(B, T, vocab)``."""
-    return _forward(params, cfg, tokens, embeds)[0]
+    d_model) -> logits ``(B, T, vocab)``; ``remat`` as in
+    :func:`_forward`."""
+    return _forward(params, cfg, tokens, embeds, remat=remat)[0]
 
 
 def _vocab_parallel_ll(logits, labels, axis):
@@ -301,13 +332,16 @@ def _vocab_parallel_ll(logits, labels, axis):
     return picked - lse
 
 
-def loss_fn(params, cfg: ModelConfig, batch, axis=None) -> tuple:
+def loss_fn(params, cfg: ModelConfig, batch, axis=None,
+            remat: bool = True) -> tuple:
     """Cross-entropy plus the MoE load-balance loss of ``batch =
     {"tokens" or "embeds", "labels"[, "loss_mask"]}``: ``(loss, {"ce",
     "aux", "loss"})`` as in ``model.py:192-212``.  With ``axis``, on this
-    model rank's shards, the same on every rank."""
+    model rank's shards, the same on every rank.  ``remat`` (the
+    reference's default, True) rematerialises each layer-pattern period
+    in the backward (:func:`_forward`); the result is the same bits."""
     logits, aux = _forward(params, cfg, batch.get("tokens"),
-                           batch.get("embeds"), axis)
+                           batch.get("embeds"), axis, remat)
     logits = logits.to(torch.float32)
     labels = batch["labels"].long()
     if axis is None:

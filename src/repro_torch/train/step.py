@@ -85,7 +85,7 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
                     layout=None, probe: Optional[Callable] = None,
                     wire=None, seed: int = 0,
                     loss_fn: Optional[Callable] = None,
-                    tensor_parallel=None):
+                    tensor_parallel=None, remat: bool = True):
     """Returns ``step_fn(state, batch) -> (state, metrics)``.
 
     ``mesh`` is a Mesh, ``"DxM"``/``"PxDxM"`` or a tuple of sizes;
@@ -107,7 +107,10 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
     -> (loss, metrics)`` replaces the model's loss (``cfg`` is then not
     read).  On a tensor-parallel wire ``tensor_parallel`` is the rank's
     ``dist/tensor_parallel.TensorParallel`` (built with its params, once).
-    Loss metrics are the mean over the workers."""
+    ``remat`` (the reference's default) rematerialises each layer-pattern
+    period of the model's loss in the backward (``models.loss_fn``): the
+    same gradients, bit for bit, in less memory.  Loss metrics are the
+    mean over the workers."""
     compression = as_config(compression)
     mesh = parse_mesh(mesh)
     wire = LocalWire(mesh) if wire is None else wire
@@ -116,7 +119,8 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
     world = data_world_size(mesh)
     msize = model_axis_size(mesh)
     dense = compression.dense
-    loss = loss_fn or (lambda p, b: model_loss_fn(p, cfg, b))
+    loss = loss_fn or (lambda p, b: model_loss_fn(p, cfg, b,
+                                                  remat=remat))
     rows = None
     if getattr(wire, "tensor_parallel", False):
         if tensor_parallel is None or loss_fn is not None:
@@ -124,7 +128,8 @@ def make_train_step(cfg, mesh, optimizer: Optimizer, lr_fn: Callable, *,
                              " and runs the model's loss; loss_fn= is not "
                              "taken")
         axis = tensor_parallel.axis
-        loss = lambda p, b: model_loss_fn(p, cfg, b, axis)  # noqa: E731
+        loss = lambda p, b: model_loss_fn(p, cfg, b, axis,  # noqa: E731
+                                          remat=remat)
         if layout is not None:
             rows = tensor_parallel.rows(layout)
         elif not dense:

@@ -4,11 +4,12 @@ tensor-parallel launch (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` from the environment).
 
 ``python tests/_torch_tp_pg.py OUT CASES.json`` runs, for each case
-``{"name", "port", "argv"}`` of the JSON list, the port's trainer on the
+``{"name", "argv"}`` of the JSON list, the port's trainer on the
 2-layer config of ``tests/_torch_dist_ref.py`` (on its arch's smoke
 variant when ``argv`` has ``--smoke``; ``argv`` plus ``--device cpu
---checkpoint OUT/<name>.npz``) with that ``MASTER_PORT``, and on rank 0
-writes the step records to ``OUT/<name>.json``.  A case
+--checkpoint OUT/<name>.npz``) with a ``MASTER_PORT`` that rank 0 takes
+just before the case (:func:`_case_port`), and on rank 0 writes the
+step records to ``OUT/<name>.json``.  A case
 named ``bitwise`` (its ``argv`` the mesh and the compressor) instead
 holds the relayout and the compression of one shared random gradient
 against the one-process bucket of every model row, bitwise, checks that
@@ -16,14 +17,21 @@ the loss and the replicated leaves' gradients are the same bits on every
 model rank, and raises on a difference; one named ``archs`` holds the
 loss and gradients on the shards of other archs (the other dense paths,
 a biased config, and the MoE, Mamba and xLSTM blocks with nonzero
-biases) against the whole model's.  :func:`launch` starts such a launch
-from a test.
+biases) against the whole model's; one named ``remat`` holds the loss
+and gradients on the shards with each layer-pattern period
+rematerialised bitwise those without (``tests/test_torch_remat.py``);
+one named ``tuning`` resolves kernel configs in the process group
+(``tests/test_torch_tuning.py``).  A case with a ``reduced`` arch name
+trains that arch's smoke variant given as ``cfg``, so that ``--smoke``
+in its ``argv`` switches the rematerialisation off and nothing else.
+:func:`launch` starts such a launch from a test.
 """
 import json
 import os
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -165,32 +173,144 @@ def archs(mesh, names):
         torch.distributed.destroy_process_group()
 
 
+def remat(mesh, names):
+    """On the shards of the smoke variants of ``names``, the loss, the
+    MoE aux loss and every gradient of ``model.loss_fn(remat=True)``
+    bitwise those of ``remat=False``: the recompute re-issues each
+    period's forward all-reduces inside the backward, in the same order
+    on every rank."""
+    from repro_torch.configs import get_config
+    init_process_group("gloo", rank=int(os.environ["RANK"]),
+                       world_size=int(os.environ["WORLD_SIZE"]))
+    try:
+        wire = ProcessGroupWire(parse_mesh(mesh))
+        for name in names:
+            cfg = get_config(name).reduced()
+            params = init_params(cfg, 0, "cpu")
+            tp = TensorParallel(cfg, wire, params)
+            rng = np.random.default_rng(5)
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+            batch = {"labels": toks.roll(-1, 1)}
+            if cfg.frontend == "embeds":
+                batch["embeds"] = torch.from_numpy(rng.standard_normal(
+                    (2, 8, cfg.d_model)).astype(np.float32))
+            else:
+                batch["tokens"] = toks
+            shards, td = tree.flatten(tp.shard(params))
+            out = []
+            for on in (False, True):
+                ps = [p.clone().requires_grad_(True) for p in shards]
+                loss, m = loss_fn(tree.unflatten(td, ps), cfg, batch,
+                                  tp.axis, remat=on)
+                grads = torch.autograd.grad(loss, ps, allow_unused=True)
+                out.append([loss.detach(), m["aux"].detach()] + [
+                    torch.zeros_like(p) if g is None else g
+                    for p, g in zip(ps, grads)])
+            for a, b in zip(*out):
+                assert torch.equal(a, b), (name, "remat changed a bit")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def tuning(out, table_dir):
+    """Kernel configs resolved in a gloo group of ``WORLD_SIZE``: before
+    the group, a stub timer that prefers a different candidate on each
+    rank picks different winners; inside it, a class missing from the
+    table (``table_dir``) resolves to the heuristic on every rank
+    without timing anything, a class in it to the table's row; rank 0
+    writes every rank's picks to ``out/tuning.json``."""
+    from repro_torch.kernels.ef_fused import tuning as tn
+    os.environ[tn.ENV_TABLE_DIR] = table_dir
+    rank = int(os.environ["RANK"])
+    calls = []
+
+    def timer(cfg, d):
+        calls.append(cfg)
+        # each rank scores a different candidate fastest
+        best = tn.candidates(d)[rank % len(tn.candidates(d))]
+        return 0.0 if cfg == best else 1.0
+
+    alone = tn.resolve_config(5000, "cuda", measure=True, timer=timer)
+    n_alone = len(calls)
+    tn.clear_cache()
+    init_process_group("gloo", rank=rank,
+                       world_size=int(os.environ["WORLD_SIZE"]))
+    try:
+        shared = tn.resolve_config(5000, "cuda", measure=True, timer=timer)
+        pinned = tn.resolve_config(70000, "cuda", measure=True, timer=timer)
+        mine = {"alone": alone.to_dict(), "timed_alone": n_alone,
+                "shared": shared.to_dict(), "pinned": pinned.to_dict(),
+                "timed_shared": len(calls) - n_alone}
+        every = [None] * int(os.environ["WORLD_SIZE"])
+        torch.distributed.all_gather_object(every, mine)
+        if rank == 0:
+            with open(os.path.join(out, "tuning.json"), "w") as f:
+                json.dump(every, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
+def _case_port(out, index: int) -> int:
+    """Case ``index``'s ``MASTER_PORT``: rank 0 takes a free port just
+    before the case and writes it to ``out``, the other ranks read it.
+    A port taken minutes ahead may be in use by then (another launch's
+    store, or one end of a gloo connection), and a rank whose store
+    cannot bind leaves the others waiting for it."""
+    path = os.path.join(out, f"port.{os.environ['TP_LAUNCH']}.{index}")
+    if os.environ["RANK"] == "0":
+        with open(path + ".tmp", "w") as f:
+            f.write(str(_free_port()))
+        os.replace(path + ".tmp", path)
+    deadline = time.time() + 120
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            raise TimeoutError(f"no port for case {index} from rank 0")
+        time.sleep(0.05)
+    with open(path) as f:
+        return int(f.read())
+
+
 def launch(out, procs: int, cases: list, timeout: float = 300) -> list:
-    """Run ``cases`` (``{"name", "argv"}``, each given a free port) in
-    ``procs`` gloo processes writing to ``out``; returns their logs and
-    fails unless every process exits 0."""
+    """Run ``cases`` (``{"name", "argv"}``) in ``procs`` gloo processes
+    writing to ``out``; returns their logs and fails unless every
+    process exits 0 (at once, killing the others, when one fails)."""
     path = os.path.join(str(out), "cases.json")
     with open(path, "w") as f:
-        json.dump([dict(c, port=_free_port()) for c in cases], f)
+        json.dump(cases, f)
     here = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(os.path.dirname(here), "src")
-    running = []
+    running, logs = [], []
+    token = f"{os.getpid()}-{time.time_ns()}"   # this launch's port files
     for r in range(procs):
         env = dict(os.environ, PYTHONPATH=src, RANK=str(r),
                    WORLD_SIZE=str(procs), LOCAL_RANK=str(r),
                    LOCAL_WORLD_SIZE=str(procs), MASTER_ADDR="127.0.0.1",
-                   OMP_NUM_THREADS="1")
+                   OMP_NUM_THREADS="1", TP_LAUNCH=token)
+        # output to a file: a pipe nobody reads while we poll can fill
+        logs.append(open(os.path.join(str(out), f"rank{r}.log"), "w+"))
         running.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), str(out), path],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    logs = [p.communicate(timeout=timeout)[0] for p in running]
+            env=env, stdout=logs[-1], stderr=subprocess.STDOUT, text=True))
+    deadline = time.time() + timeout
+    while any(p.poll() is None for p in running):
+        failed = any(p.poll() not in (None, 0) for p in running)
+        if failed or time.time() > deadline:
+            for p in running:
+                p.kill()
+            break
+        time.sleep(0.2)
+    for p in running:
+        p.wait()
+    for i, f in enumerate(logs):
+        f.seek(0)
+        logs[i] = f.read()
+        f.close()
     for p, log in zip(running, logs):
         assert p.returncode == 0, log[-3000:]
     return logs
@@ -200,17 +320,25 @@ def main(out, cases_path):
     torch.set_num_threads(1)
     with open(cases_path) as f:
         cases = json.load(f)
-    for case in cases:
-        os.environ["MASTER_PORT"] = str(case["port"])
-        if case["name"] in ("bitwise", "archs"):
-            {"bitwise": bitwise, "archs": archs}[case["name"]](*case["argv"])
+    for index, case in enumerate(cases):
+        os.environ["MASTER_PORT"] = str(_case_port(out, index))
+        if case["name"] in ("bitwise", "archs", "remat"):
+            {"bitwise": bitwise, "archs": archs,
+             "remat": remat}[case["name"]](*case["argv"])
+            continue
+        if case["name"] == "tuning":
+            tuning(out, *case["argv"])
             continue
         name = case["name"]
-        # a case with --smoke trains its arch's smoke variant
+        # a case with --smoke trains its arch's smoke variant; one with
+        # "reduced" that variant given as cfg (--smoke: remat off)
+        cfg = None if "--smoke" in case["argv"] else CFG
+        if "reduced" in case:
+            from repro_torch.configs import get_config
+            cfg = get_config(case["reduced"]).reduced()
         recs = cli.run(case["argv"] + [
             "--device", "cpu", "--checkpoint",
-            os.path.join(out, name + ".npz")],
-            cfg=None if "--smoke" in case["argv"] else CFG)
+            os.path.join(out, name + ".npz")], cfg=cfg)
         if os.environ["RANK"] == "0":
             with open(os.path.join(out, name + ".json"), "w") as f:
                 json.dump(recs, f)

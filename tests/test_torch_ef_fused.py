@@ -128,13 +128,14 @@ def test_histk_runs_and_conserves():
 
 def test_geometry_of_gives_the_cards_geometry_on_the_cpu():
     """Under ``geometry_of("cuda")`` a CPU call stages with the card's
-    block and bcap: bitwise the same call with that geometry spelled
-    out."""
+    block and bcap (the checked-in table's): bitwise the same call with
+    that geometry spelled out."""
     rng = np.random.default_rng(4)
     d, k = 70001, 700
     g = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
     e = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
     cfg = tuning.resolve_config(d, "cuda")
+    assert cfg.source == "table"
     assert tuning.resolve_config(d, "torch") != cfg
     with tuning.geometry_of("cuda"):
         assert tuning.resolve_config(d, "torch").block == cfg.block
