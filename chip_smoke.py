@@ -13,6 +13,8 @@
     python3 chip_smoke.py --tuner-only    # phases 1 and 13
     python3 chip_smoke.py --serve-placement-only  # phases 1 and 14
     python3 chip_smoke.py --remat-table-only  # phases 1 and 15
+    python3 chip_smoke.py --long-seq-only  # phases 1 and 16 (with four
+                                          # cards visible, 16c at 1x4)
 
 Phases (any failure exits non-zero; nothing is wrapped to pass):
 
@@ -164,8 +166,8 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    and each row's compression bitwise the one-process bucket's row; 12c
    the tensor-parallel step of the MoE, Mamba and xLSTM blocks at full
    width, ``--mesh 1x2``, 2 steps: deepseek-moe-16b (2 layers),
-   jamba-1.5-large (1 layer) and xlstm-125m, each against its
-   one-process ``--mesh 1x2`` run (losses within rtol 1e-6, the wire
+   jamba-1.5-large (1 layer) and xlstm-125m (4 layers), each against
+   its one-process ``--mesh 1x2`` run (losses within rtol 1e-6, the wire
    accounting equal, one K1, K2 and K3 pair a leaf a step a rank), and
    xlstm-125m's per-leaf loop bitwise its bucketed TP run; step ms,
    relayout ms and its share of the step, peak memory a rank;
@@ -214,7 +216,23 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    resolving from the checked-in table (``source == "table"``), and K1,
    K2 and both K3 launches at the 268,435,456-element leaf at the
    table's config held against their plain versions and timed beside
-   the heuristic config (block 1024), with the fused pipeline.
+   the heuristic config (block 1024), with the fused pipeline;
+16. slice 11, long sequences (``phase16_long``): 16a ``models.prefill``
+   of one 32,768-token prompt on llama3.2-1b at full width and depth
+   (query-chunked attention: one block's f32 logits, 128 GiB a layer,
+   would not fit), then 4 decode steps from its cache; prefill and
+   decode-step ms, peak memory; 16b ``train.run`` with remat at 8 x 2048
+   and 2 x 4096, 3 steps each (12 launches a step of K1, K2 and both
+   K3), each step's memory, and at 8 x 2048 the one-block attention
+   too (both peaks, the losses' bitwise equality a step); 16c
+   ``shard_activations`` on the tensor-parallel llama3.2-1b at ``1x2``
+   (gloo on one card, 2 x 1024): the loss and every gradient shard
+   bitwise the run without, the memory kept at the end of the forward
+   falling by the carries' ``(1 - 1/M)`` within 10%, the peaks and the
+   dry run's count of their change; 16d ``step_cost.count_temp_bytes``
+   of 16b's 8 x 2048 step and 16a's prefill within 25% of the card's
+   peak above the memory allocated before them.
+   ``--tensor-parallel-cards`` runs 16c at ``1x4`` over NCCL, 8 x 2048.
 
 Every trainer path at full width trains as ``launch.train`` does
 without ``--smoke``: each layer-pattern period rematerialised in the
@@ -3275,9 +3293,11 @@ def phase12b(torch, by_path, llama) -> dict:
 
 
 # the configs of phase 12c at full width: (arch, num_layers kept or None
-# for the whole model); xlstm-125m also runs the per-leaf loop
+# for the whole model); xlstm-125m also runs the per-leaf loop, at 4 of
+# its 12 layers (two mLSTM/sLSTM periods: its recurrences are host-bound,
+# twice over with remat, and the whole model's 4 runs took ~35 s)
 TP_ARCHS = (("deepseek-moe-16b", 2), ("jamba-1.5-large-398b", 1),
-            ("xlstm-125m", None))
+            ("xlstm-125m", 4))
 TP_BLOCK_STEPS = 2
 
 
@@ -3286,7 +3306,8 @@ def phase12c(torch, by_path) -> dict:
     and xLSTM blocks at full width, ``--mesh 1x2``, Gaussian-k fixed-k at
     0.001, 8 x 128, 2 steps: deepseek-moe-16b at 2 of its 28 layers (MoE
     with shared experts), jamba-1.5-large at 1 of its 72 (Mamba + MLP)
-    and xlstm-125m whole (mLSTM + sLSTM), and xlstm-125m's per-leaf loop.
+    and xlstm-125m at 4 of its 12 (mLSTM + sLSTM), and xlstm-125m's
+    per-leaf loop.
     Each first in one process (``--host-devices 2``: two rows a leaf,
     each worker's step-0 bucket conserving bitwise), then in two
     processes (``tp_blocks_child``; NCCL with a card each when two are
@@ -3528,6 +3549,7 @@ def tensor_parallel_cards(torch) -> dict:
             log("  profile: " + line)
     out["profile"] = prof["json"]
     out["serving"] = placed_cards(torch)
+    out["16c"] = phase16c(torch, 4)
     out["seconds"] = time.time() - t_start
     log(f"four cards took {out['seconds']:.1f} s")
     return out
@@ -4569,7 +4591,8 @@ def placed_cards(torch) -> dict:
 REMAT_STEPS = 3
 
 
-def remat_run(torch, label, argv, cfg, remat, by_path) -> dict:
+def remat_run(torch, label, argv, cfg, remat, by_path,
+              step_memory=False) -> dict:
     """One ``train.run`` of ``argv`` on ``cfg`` for ``REMAT_STEPS`` steps,
     its launch counters set to 0 just before it and read just after
     (12 a step of K1, K2 and both K3; the params' draws once), with
@@ -4578,10 +4601,28 @@ def remat_run(torch, label, argv, cfg, remat, by_path) -> dict:
     nothing else).  ``--checkpoint`` hands the final state to
     ``repro_torch.checkpoint.save_state``, which is swapped for a digest
     of every leaf on the card.  Returns the losses, step ms, peak
-    memory and the digests."""
-    from repro_torch import checkpoint, tree
+    memory and the digests; with ``step_memory`` also each step's
+    ``(memory allocated before it, its own peak)`` in bytes, the train
+    step wrapped for it (``repro_torch.train.make_train_step``)."""
+    from repro_torch import checkpoint, train as train_mod, tree
     from repro_torch.launch import train
     digests = {}
+    steps_mem = []
+    make_step = train_mod.make_train_step
+
+    def measured(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            steps_mem.append([torch.cuda.memory_allocated(),
+                              torch.cuda.max_memory_allocated()])
+            torch.cuda.reset_peak_memory_stats()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            steps_mem[-1].append(torch.cuda.max_memory_allocated())
+            return out
+        return run
 
     def digest(path, state):
         for p, leaf in tree.flatten_with_path(state)[0]:
@@ -4591,6 +4632,8 @@ def remat_run(torch, label, argv, cfg, remat, by_path) -> dict:
 
     save = checkpoint.save_state
     checkpoint.save_state = digest
+    if step_memory:
+        train_mod.make_train_step = measured
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -4603,7 +4646,10 @@ def remat_run(torch, label, argv, cfg, remat, by_path) -> dict:
             {"threefry_bits": init_draws(cfg)})
     finally:
         checkpoint.save_state = save
-    peak = torch.cuda.max_memory_allocated()
+        train_mod.make_train_step = make_step
+    # the peak before, during and after every step
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [x for m in steps_mem for x in m[1:]])
     ms = [r["ms"] for r in records]
     losses = [r["loss"] for r in records]
     assert all(math.isfinite(x) for x in losses), (label, losses)
@@ -4611,6 +4657,9 @@ def remat_run(torch, label, argv, cfg, remat, by_path) -> dict:
     out = {"losses": losses, "step_ms": ms,
            "steady_ms": statistics.median(ms[1:]),
            "peak_gib": peak / 2 ** 30, "digests": digests}
+    if step_memory:
+        assert len(steps_mem) == REMAT_STEPS, (label, steps_mem)
+        out["step_memory"] = [(m[0], m[2]) for m in steps_mem]
     log(f"  {label}: losses {losses}, step ms {[round(x, 1) for x in ms]}, "
         f"peak {out['peak_gib']:.2f} GiB")
     return out
@@ -4768,6 +4817,276 @@ def phase15_remat_table(torch, by_path) -> dict:
     return out
 
 
+# -- phase 16: long sequences (slice 11) --
+
+LONG_PREFILL = 32_768        # prefill_32k's sequence, one prompt
+LONG_DECODE = 4              # decode steps from its cache
+LONG_TRAIN = ((8, 2048), (2, 4096))      # 16b: batch x seq
+# 16c: ranks -> batch x seq (gloo on one card at 2, NCCL on four at 4)
+ACTSHARD_SHAPES = {2: (2, 1024), 4: (8, 2048)}
+COUNT_TOLERANCE = 0.25       # 16d: the count against the card
+
+
+def phase16a(torch) -> dict:
+    """16a: llama3.2-1b at full width and depth, f32, random weights from
+    seed 0: ``models.prefill`` of one 32,768-token prompt (query-chunked
+    attention; one block's f32 logits, 128 GiB a layer, would not fit
+    the card), then 4 decode steps from its cache.  Prefill and
+    decode-step ms (CUDA events), the memory allocated before the
+    prefill (params and prompt) and the prefill's peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_config("llama3.2-1b")
+    params = init_params(cfg, 0, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    toks = torch.randint(0, cfg.vocab_size, (1, LONG_PREFILL),
+                         generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(2 + LONG_DECODE)]
+    ev[0].record()
+    logits, cache, pos = prefill(params, cfg, toks,
+                                 s_max=LONG_PREFILL + LONG_DECODE)
+    ev[1].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    assert pos == LONG_PREFILL
+    for i in range(LONG_DECODE):
+        assert logits.shape == (1, 1, cfg.vocab_size), logits.shape
+        assert bool(torch.isfinite(logits).all()), ("16a logits", i)
+        logits, cache = decode_step(params, cfg, cache, pos + i,
+                                    logits.argmax(-1))
+        ev[2 + i].record()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all()), "16a last decode logits"
+    out = {"prefill_ms": ev[0].elapsed_time(ev[1]),
+           "decode_ms": [ev[1 + i].elapsed_time(ev[2 + i])
+                         for i in range(LONG_DECODE)],
+           "before_bytes": before, "peak_bytes": peak,
+           "peak_gib": peak / 2 ** 30}
+    log(f"phase 16a: llama3.2-1b prefill of 1 x {LONG_PREFILL:,} in "
+        f"{out['prefill_ms']:.1f} ms, decode steps "
+        f"{[round(x, 2) for x in out['decode_ms']]} ms; peak "
+        f"{out['peak_gib']:.2f} GiB ({before / 2 ** 30:.2f} GiB before "
+        f"the prefill)")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase16b(torch, by_path) -> dict:
+    """16b: the trainer (``train.run``, remat on) on llama3.2-1b at full
+    width and depth, Gaussian-k fused at 0.001, fixed-k, 3 steps at
+    each of ``LONG_TRAIN`` (12 launches a step of K1, K2 and both K3),
+    each step's memory recorded; at 8 x 2048 also with the one-block
+    attention (``layers._SDPA_CHUNK`` raised above T for that run):
+    both peaks and whether the losses are bitwise equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    cfg = get_config("llama3.2-1b")
+    out = {}
+    for B, T in LONG_TRAIN:
+        argv = ["--arch", "llama3.2-1b", "--mesh", "1x1",
+                "--density-policy", "none", "--batch", str(B), "--seq",
+                str(T)]
+        log(f"phase 16b: llama3.2-1b, {B} x {T}, 3 steps with "
+            f"rematerialisation, chunked attention")
+        out[f"{B}x{T}"] = remat_run(torch, f"16b {B} x {T}", argv, cfg,
+                                    True, by_path, step_memory=True)
+        if (B, T) != LONG_TRAIN[0]:
+            continue
+        log(f"phase 16b: llama3.2-1b, {B} x {T}, the one-block attention")
+        chunk = layers._SDPA_CHUNK
+        layers._SDPA_CHUNK = 1 << 30
+        try:
+            one = remat_run(torch, f"16b {B} x {T} one block", argv, cfg,
+                            True, by_path)
+        finally:
+            layers._SDPA_CHUNK = chunk
+        mine = out[f"{B}x{T}"]
+        one["losses_bitwise"] = [a == b for a, b in
+                                 zip(mine["losses"], one["losses"])]
+        out[f"{B}x{T} one block"] = one
+        log(f"  {B} x {T}: peak chunked {mine['peak_gib']:.2f} GiB, one "
+            f"block {one['peak_gib']:.2f} GiB; losses bitwise a step: "
+            f"{one['losses_bitwise']}")
+    for run in out.values():
+        run.pop("digests", None)
+    return out
+
+
+def actshard_child(rank, world, backend, port, batch, seq, queue):
+    """16c, one rank: the tensor-parallel llama3.2-1b at full width and
+    depth on its shards, one forward and backward (``loss_fn``, remat)
+    of ``batch`` x ``seq`` without and with ``shard_activations``: the
+    loss's and every gradient's digest on the card, the memory live at
+    the end of the forward and the peak, each above what was allocated
+    before; puts ``(rank, {False: ..., True: ...})`` on ``queue``."""
+    import dataclasses
+    import traceback
+    try:
+        import torch
+        _tp_env(torch, rank, world, backend, port)
+        from repro_torch import tree
+        from repro_torch.configs import get_config
+        from repro_torch.data import lm_batch
+        from repro_torch.dist import tensor_parallel as tpm
+        from repro_torch.dist.wire import (ProcessGroupWire,
+                                           init_process_group)
+        from repro_torch.launch.mesh import parse_mesh
+        from repro_torch.models import init_params, loss_fn
+        init_process_group(backend, rank=rank, world_size=world,
+                           local_rank=rank, local_world_size=world)
+        out = {}
+        try:
+            cfg = get_config("llama3.2-1b")
+            tp = tpm.TensorParallel(cfg, ProcessGroupWire(parse_mesh(
+                f"1x{world}")), init_params(cfg, 0, "meta"))
+            dev = torch.device("cuda", torch.cuda.current_device())
+            shards, td = tree.flatten(tp.shard(init_params(cfg, 0, dev)))
+            torch.cuda.empty_cache()
+            data = lm_batch(0, global_batch=batch, seq_len=seq,
+                            vocab=cfg.vocab_size, device=dev)
+            ps = [p.requires_grad_(True) for p in shards]
+            # cuBLAS takes its workspace (32 MiB) from the caching
+            # allocator at the first matmul: before the first run counts
+            torch.ones((8, 8), device=dev) @ torch.ones((8, 8), device=dev)
+            for on in (False, True):
+                c = dataclasses.replace(cfg, shard_activations=on)
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                loss, _ = loss_fn(tree.unflatten(td, ps), c, data, tp.axis,
+                                  remat=True)
+                torch.cuda.synchronize()
+                kept = torch.cuda.memory_allocated() - before
+                grads = torch.autograd.grad(loss, ps)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                peak = torch.cuda.max_memory_allocated() - before
+                out[on] = {"loss": float(loss.detach()), "ms": ms,
+                           "kept": kept,
+                           "peak": peak, "digests": [
+                               device_digest(torch, t)
+                               for t in [loss] + list(grads)]}
+                del loss, grads
+                torch.cuda.empty_cache()
+        finally:
+            torch.distributed.destroy_process_group()
+        queue.put((rank, out))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def phase16c(torch, world) -> dict:
+    """16c: ``shard_activations`` on the tensor-parallel llama3.2-1b
+    (16 layers, remat) at ``--mesh 1x{world}``: 2 ranks over gloo on
+    one card at 2 x 1024, or 4 over NCCL on four cards at 8 x 2048
+    (:func:`actshard_child`).  The loss and every gradient shard bitwise
+    the run without; each rank's memory at the end of the forward falls
+    by the period inputs it keeps as ``1 / M`` slices, ``reps x B x T x
+    D x 4 x (1 - 1/M)`` bytes, within 10%; its peak change printed
+    beside the dry run's count of it (``step_cost.count_temp_bytes``:
+    the peak falls by that much only where the carries are all live at
+    it)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import step_cost
+    cfg = get_config("llama3.2-1b")
+    B, T = ACTSHARD_SHAPES[world]
+    carries = cfg.num_layers * B * T * cfg.d_model * 4 * (world - 1) // world
+    counted = [step_cost.count_temp_bytes(
+        dataclasses.replace(cfg, shard_activations=on), B, T, remat=True,
+        model_size=world)["temp_bytes"] for on in (False, True)]
+    log(f"phase 16c: shard_activations, llama3.2-1b at --mesh 1x{world} "
+        f"in {world} processes, {B} x {T}, one forward and backward "
+        f"without and with")
+    backend, got = spawn_ranks(torch, actshard_child,
+                               lambda backend, port: (B, T), world=world)
+    out = {"backend": backend, "batch": B, "seq": T, "carries": carries,
+           "counted_peak_drop": counted[0] - counted[1], "ranks": {}}
+    for rank in range(world):
+        off, on = got[rank][False], got[rank][True]
+        assert on["digests"] == off["digests"], (
+            "16c shard_activations changed a bit", rank)
+        assert on["digests"][0] == got[0][False]["digests"][0], (
+            "16c the loss differs between ranks", rank)
+        kept_drop = off["kept"] - on["kept"]
+        assert abs(kept_drop - carries) <= 0.1 * carries, (
+            "16c the forward's kept bytes", rank, kept_drop, carries)
+        out["ranks"][rank] = {
+            "loss": on["loss"], "ms": [off["ms"], on["ms"]],
+            "kept": [off["kept"], on["kept"]],
+            "peak": [off["peak"], on["peak"]],
+            "kept_drop": kept_drop, "peak_drop": off["peak"] - on["peak"]}
+        log(f"  rank {rank} ({backend}): loss {on['loss']!r} and "
+            f"{len(on['digests']) - 1} gradient shards bitwise; forward "
+            f"keeps {off['kept'] / 2 ** 20:.1f} -> "
+            f"{on['kept'] / 2 ** 20:.1f} MiB (falls "
+            f"{kept_drop / 2 ** 20:.1f}, the carries "
+            f"{carries / 2 ** 20:.1f}); peak above the params "
+            f"{off['peak'] / 2 ** 20:.1f} -> {on['peak'] / 2 ** 20:.1f} "
+            f"MiB (falls {(off['peak'] - on['peak']) / 2 ** 20:.1f}, "
+            f"counted {(counted[0] - counted[1]) / 2 ** 20:.1f}); ms "
+            f"{off['ms']:.1f} / {on['ms']:.1f}")
+    return out
+
+
+def phase16d(torch, a, b) -> dict:
+    """16d: the dry run's count (``step_cost.count_temp_bytes`` on meta)
+    of 16b's 8 x 2048 train step (remat) and of 16a's prefill against
+    the card: the step's peak above the memory allocated before it (the
+    train state, the batch), its largest over the 3 steps, and the
+    prefill's peak above the params; each within 25%."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import step_cost
+    cfg = get_config("llama3.2-1b")
+    B, T = LONG_TRAIN[0]
+    step = max(peak - before for before, peak in b[f"{B}x{T}"][
+        "step_memory"])
+    rows = {
+        f"train {B} x {T}": (step_cost.count_temp_bytes(
+            cfg, B, T, remat=True)["temp_bytes"], step),
+        f"prefill 1 x {LONG_PREFILL}": (step_cost.count_temp_bytes(
+            cfg, 1, LONG_PREFILL, kind="prefill")["temp_bytes"],
+            a["peak_bytes"] - a["before_bytes"])}
+    out = {}
+    for label, (counted, measured) in rows.items():
+        ratio = counted / measured
+        out[label] = {"counted": counted, "measured": measured,
+                      "ratio": ratio}
+        log(f"phase 16d: {label}: counted {counted / 2 ** 30:.3f} GiB, "
+            f"measured {measured / 2 ** 30:.3f} GiB on the card "
+            f"(count / card {ratio:.3f})")
+        assert abs(ratio - 1) <= COUNT_TOLERANCE, ("16d", label, ratio)
+    return out
+
+
+def phase16_long(torch, by_path) -> dict:
+    """Phase 16, slice 11, long sequences: 16a the prefill, 16b the
+    trainer, 16c ``shard_activations`` at ``1x2``, 16d the dry run's
+    count against 16a and 16b."""
+    t0 = time.time()
+    out = {"16a": phase16a(torch)}
+    t1 = time.time()
+    out["16b"] = phase16b(torch, by_path)
+    t2 = time.time()
+    out["16c"] = phase16c(torch, 2)
+    t3 = time.time()
+    out["16d"] = phase16d(torch, out["16a"], out["16b"])
+    out["phase16_s"] = time.time() - t0
+    log(f"phase 16 took {out['phase16_s']:.1f} s (16a {t1 - t0:.1f}, 16b "
+        f"{t2 - t1:.1f}, 16c {t3 - t2:.1f}, 16d {time.time() - t3:.1f})")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4845,6 +5164,17 @@ def main(argv) -> int:
         log(json.dumps({"phase15": phase15_remat_table(torch, by_path),
                         "launches_by_path": by_path}, default=str))
         log("remat-table-only run: phases 2-14 skipped")
+        return 0
+    if "--long-seq-only" in argv:
+        by_path = {}
+        if torch.cuda.device_count() >= 4:
+            res = {"16c": phase16c(torch, 4)}
+            log(json.dumps({"phase16": res}, default=str))
+            log("long-seq-only run on four cards: 16c at 1x4 alone")
+            return 0
+        log(json.dumps({"phase16": phase16_long(torch, by_path),
+                        "launches_by_path": by_path}, default=str))
+        log("long-seq-only run: phases 2-15 skipped")
         return 0
     if "--tensor-parallel-only" in argv:
         by_path = {}
@@ -5120,6 +5450,9 @@ def main(argv) -> int:
     # -- phase 15: rematerialised training, the kernel-config table --
     phase15 = phase15_remat_table(torch, by_path)
 
+    # -- phase 16: long sequences --
+    phase16 = phase16_long(torch, by_path)
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -5132,7 +5465,8 @@ def main(argv) -> int:
                     "phase9": phase9, "phase10": phase10,
                     "phase11": phase11, "phase12": phase12,
                     "phase13": phase13, "phase14": phase14,
-                    "phase15": phase15, "build_s": build_s,
+                    "phase15": phase15, "phase16": phase16,
+                    "build_s": build_s,
                     "total_s": time.time() - t_start}, default=str))
     log(json.dumps({"kernels": list(rows.values())}))
     log(smi)

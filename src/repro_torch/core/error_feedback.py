@@ -10,8 +10,16 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tree
 from repro_torch.core import codec
 from repro_torch.core.compressors import CompressorSpec
+
+
+def init_residual(grads_like) -> dict:
+    """The zero residual tree of a gradient tree: each leaf's shape,
+    dtype and device."""
+    return tree.tree_map(torch.zeros_like, grads_like)
+
 
 BACKENDS = ("auto", "fused", "reference")
 

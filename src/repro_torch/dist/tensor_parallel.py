@@ -6,9 +6,10 @@ port's physical placement of every block kind.
   (:func:`copy_to_model`: identity forward, all-reduce backward;
   :func:`reduce_from_model`: all-reduce forward, identity backward;
   :func:`gather_from_model`: the shards' concatenation forward, the own
-  slice backward; :func:`local_columns`: this rank's columns of a
-  replicated vector).  ``torch.distributed`` collectives carry no
-  gradient of their own.  The model's forward (``models/*.py``) calls
+  slice backward; :func:`split_to_model`: the own slice forward, the
+  slices' concatenation backward; :func:`local_columns`: this rank's
+  columns of a replicated vector).  ``torch.distributed`` collectives
+  carry no gradient of their own.  The model's forward (``models/*.py``) calls
   them with its ``axis``; with ``None`` (one process holding the whole
   model) they are identities.
 * The placement (:class:`Placement`, :func:`placement`,
@@ -118,6 +119,19 @@ class _GatherFromModel(torch.autograd.Function):
         return g[..., r * n:(r + 1) * n].contiguous(), None
 
 
+class _SplitToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        n = x.shape[-1] // axis.size
+        return x[..., axis.rank * n:(axis.rank + 1) * n].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = ctx.axis.gather(g.contiguous())
+        return torch.cat(list(parts.unbind(0)), dim=-1), None
+
+
 def copy_to_model(x: torch.Tensor, axis: Optional[ModelAxis]
                   ) -> torch.Tensor:
     """The input of a column-parallel matmul: identity forward, the
@@ -137,6 +151,15 @@ def gather_from_model(x: torch.Tensor, axis: Optional[ModelAxis]
     """The shards of the last dim concatenated in rank order; backward
     takes this rank's slice."""
     return x if axis is None else _GatherFromModel.apply(x, axis)
+
+
+def split_to_model(x: torch.Tensor, axis: Optional[ModelAxis]
+                   ) -> torch.Tensor:
+    """This rank's ``1 / M`` slice of the last dim of a replicated
+    ``x``, as a copy of its own (a view would keep the whole storage
+    alive); backward, the gradient slices of every rank concatenated in
+    rank order.  The inverse of :func:`gather_from_model`."""
+    return x if axis is None else _SplitToModel.apply(x, axis)
 
 
 def local_columns(b: torch.Tensor, axis: Optional[ModelAxis]

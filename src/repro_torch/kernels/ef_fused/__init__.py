@@ -16,10 +16,13 @@ from repro_torch.kernels.ef_fused.segmented import (rows_compress_ef,
                                                     segmented_pass_a,
                                                     stats_to_host)
 from repro_torch.kernels.ef_fused.tuning import (BACKENDS, KernelConfig,
+                                                 choose_block,
+                                                 choose_stats_block,
                                                  resolve_backend,
                                                  resolve_config)
 
-__all__ = ["FUSED_COMPRESSORS", "compress_at_threshold", "fused_compress_ef",
+__all__ = ["FUSED_COMPRESSORS", "choose_block", "choose_stats_block",
+           "compress_at_threshold", "fused_compress_ef",
            "fused_default_bcap", "fused_pass_a", "supports_fused",
            "unfused_compress_ef", "count_passes", "rows_compress_ef",
            "rows_pass_a", "segmented_compress_ef", "segmented_pass_a",

@@ -5,23 +5,29 @@ hold, compute and send.
 
   python -m repro_torch.launch.dryrun --arch all --shape all \\
       --mesh 4x2 [--hardware h100-sxm|tpu-v5e | --topology topo.json] \\
-      [--out dryrun.json]
+      [--serve-mode 2d|model-only] [--codec-dtype bfloat16] \\
+      [--shard-activations] [--out dryrun.json]
 
 The reference lowers and compiles each cell with XLA and reads the
 compiled program's memory and cost analysis.  Torch compiles nothing
 here, so a record is assembled from the port's own pieces:
 
 * memory: the per-card bytes of the params (``dist.sharding`` specs over
-  the model axis for training, ``serve.steps.serve_param_specs`` for
-  serving), the momentum and the residual row of a train step, and the
-  decode cache (``dist.sharding.cache_specs``);
+  the model axis for training, ``serve.steps.serve_param_specs`` in
+  ``--serve-mode`` for serving), the momentum and the residual row of a
+  train step, the decode cache (``dist.sharding.cache_specs``), and
+  ``temp_bytes``, the live bytes the call allocates
+  (``launch.step_cost.count_temp_bytes`` at the per-card batch on model
+  rank 0's shards; a train step rematerialised; the record's
+  ``temp_method`` says whether it was counted whole or piecewise), where
+  the reference reads XLA's ``temp_size_in_bytes``;
 * FLOPs: ``launch.step_cost.count_flops`` of the global batch, divided
   over the cards (the reference's per-card SPMD program); a train step
   rematerialised, as the reference lowers it (``remat=True``) and the
   trainer runs it at full width;
-* collectives: the layout's closed forms (``pair_bits``,
-  ``strategy_wire_pairs``, ``collective_count``): one card holds one of
-  the bucket's ``M`` rows;
+* collectives: the layout's closed forms (``pair_bits`` in
+  ``--codec-dtype``, ``strategy_wire_pairs``, ``collective_count``): one
+  card holds one of the bucket's ``M`` rows;
 * the roofline (``launch.roofline``) under ``--hardware`` (default the
   H100's) or the ``--topology`` descriptor's.
 
@@ -31,15 +37,17 @@ totals are computed leaf by leaf as ``build_layout`` computes them,
 without its int32 limit on the bucket's width, which a row of a model
 above 2**31 parameters at a small model axis exceeds.  A record has
 the reference's keys (``arch``, ``shape``, ``mesh``, ``kind``,
-``compressor``, ``strategy``, ``status`` — ``OK``, ``SKIP`` or ``FAIL``
+``compressor``, ``strategy``, ``codec_dtype``, ``serve_mode``,
+``shard_activations``, ``status`` — ``OK``, ``SKIP`` or ``FAIL``
 — and for ``OK`` ``chips``, ``memory``, ``collectives``,
 ``collective_messages``, ``roofline``, ``params_total``,
 ``params_active``) plus ``flops`` (the count, its method and the ops it
-leaves out), so ``benchmarks/table2_scaling.py`` reads it.
+leaves out) and ``temp_method``, so ``benchmarks/table2_scaling.py`` reads it.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import traceback
@@ -83,14 +91,22 @@ def _sharded_bytes(params, specs: dict, model_size: int,
 
 def run_one(arch: str, shape_name: str, mesh="4x2",
             compressor: str = "gaussiank", strategy: str = "allgather",
-            ratio: float = 0.001, topo=None, smoke: bool = False) -> dict:
+            ratio: float = 0.001, topo=None, smoke: bool = False,
+            hierarchical: bool = False, codec_dtype=None,
+            serve_mode: str = "2d", shard_activations: bool = False
+            ) -> dict:
     """The record of one cell (see the module docstring); ``topo``
     defaults to the H100 with the reference's default link; ``smoke``
-    takes the arch's reduced variant."""
+    takes the arch's reduced variant; ``hierarchical`` promotes the
+    default strategy (the reference's deprecated flag);
+    ``codec_dtype`` the wire's value dtype (f32 by default);
+    ``serve_mode`` the serving params' placement (``2d`` or
+    ``model-only``); ``shard_activations`` sets the config's."""
     from repro_torch.configs import INPUT_SHAPES, applicable, get_config
     from repro_torch.core.compressors import get_compressor
     from repro_torch.dist import sharding as shd
-    from repro_torch.dist.layout import (collective_count, resolve_strategy,
+    from repro_torch.dist.layout import (BucketLayout, _dtype_name,
+                                         collective_count, resolve_strategy,
                                          strategy_wire_pairs)
     from repro_torch.dist.tuner import MSGS_PER_PAIR
     from repro_torch.launch import roofline as rl
@@ -100,15 +116,19 @@ def run_one(arch: str, shape_name: str, mesh="4x2",
     from repro_torch.models import init_cache, init_params
     from repro_torch.serve.steps import serve_param_specs
 
-    strategy = resolve_strategy(strategy)
+    strategy = resolve_strategy(strategy, hierarchical)
     topo = topology_of() if topo is None else topo
     mesh = parse_mesh(mesh)
     cfg = get_config(arch).reduced() if smoke else get_config(arch)
+    if shard_activations:
+        cfg = dataclasses.replace(cfg, shard_activations=True)
     shape = INPUT_SHAPES[shape_name]
     rec = {"arch": arch, "shape": shape_name,
            "mesh": "x".join(str(n) for n in mesh.shape), "kind": shape.kind,
            "compressor": compressor, "strategy": strategy,
            "hierarchical": strategy in ("hierarchical", "hier_gtopk"),
+           "codec_dtype": _dtype_name(codec_dtype) if codec_dtype else None,
+           "serve_mode": serve_mode, "shard_activations": shard_activations,
            "hardware": topo.hardware.name}
     ok, why = applicable(cfg, shape)
     if not ok:
@@ -135,16 +155,19 @@ def run_one(arch: str, shape_name: str, mesh="4x2",
             # one f32 residual row a card
             memory.update(param_bytes=pbytes, momentum_bytes=pbytes,
                           resid_bytes=float(d_row * 4))
-            # a card sends its row's share of each pair: k_cap values f32
-            # and int32 indices, strategy_wire_pairs times a step
+            # a card sends its row's share of each pair: k_cap values in
+            # the codec dtype and int32 indices, strategy_wire_pairs
+            # times a step
+            pair = BucketLayout((), M, ratio, compressor, False, d_row,
+                                k_cap).pair_bits(codec_dtype)
             coll = float(strategy_wire_pairs(strategy, W, n_pods)
-                         * k_cap * 8)
+                         * pair / M / 8)
             msgs = float(collective_count(strategy, W, n_pods)
                          * MSGS_PER_PAIR)
             bytes_chip = step_cost.state_bytes(pbytes / 4, d_row)["total"]
         else:
-            pbytes = _sharded_bytes(params, serve_param_specs(params, mesh),
-                                    M, W)
+            pbytes = _sharded_bytes(params, serve_param_specs(
+                params, mesh, serve_mode), M, W)
             memory.update(param_bytes=pbytes)
             bytes_chip = pbytes
             if shape.kind == "decode":
@@ -153,6 +176,10 @@ def run_one(arch: str, shape_name: str, mesh="4x2",
                     cache, axes, W, "model", M), M, W)
                 memory.update(cache_bytes=cbytes)
                 bytes_chip += cbytes
+        temp = step_cost.count_temp_bytes(
+            cfg, -(-B // W), S, kind=shape.kind, params=params, remat=True,
+            model_size=M)
+        memory["temp_bytes"] = float(temp["temp_bytes"])
         memory["total_per_device"] = sum(memory.values())
         mf_global = rl.model_flops(cfg, total_p, active_p, shape.kind, B, S)
         terms = rl.roofline_terms(flops_chip, bytes_chip, coll,
@@ -165,7 +192,7 @@ def run_one(arch: str, shape_name: str, mesh="4x2",
                           "method": cost["method"],
                           "uncounted_ops": cost["uncounted_ops"]},
                    roofline=terms.to_dict(), params_total=total_p,
-                   params_active=active_p)
+                   params_active=active_p, temp_method=temp["method"])
     except Exception as e:  # noqa: BLE001 — a failed cell is data
         rec.update(status="FAIL", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-2000:])
@@ -201,7 +228,16 @@ def main(argv=None) -> int:
     ap.add_argument("--strategy", default="allgather",
                     choices=["allgather", "gtopk", "hierarchical",
                              "hier_gtopk"])
+    ap.add_argument("--hierarchical", action="store_true",
+                    help="deprecated alias for --strategy hierarchical")
     ap.add_argument("--ratio", type=float, default=0.001)
+    ap.add_argument("--codec-dtype", default=None,
+                    help="wire dtype for codec values, e.g. bfloat16")
+    ap.add_argument("--serve-mode", default="2d",
+                    choices=["2d", "model-only"])
+    ap.add_argument("--shard-activations", action="store_true",
+                    help="keep each rematerialised period's input "
+                         "model-sharded (the config's shard_activations)")
     ap.add_argument("--hardware", default="h100-sxm", choices=sorted(HARDWARE))
     ap.add_argument("--topology", default="",
                     help="JSON topology descriptor (launch/topo.py) that "
@@ -218,7 +254,11 @@ def main(argv=None) -> int:
         for shape in shapes:
             rec = run_one(arch, shape, args.mesh, compressor=args.compressor,
                           strategy=args.strategy, ratio=args.ratio,
-                          topo=topo, smoke=args.smoke)
+                          topo=topo, smoke=args.smoke,
+                          hierarchical=args.hierarchical,
+                          codec_dtype=args.codec_dtype,
+                          serve_mode=args.serve_mode,
+                          shard_activations=args.shard_activations)
             extra = ""
             if rec["status"] == "OK":
                 r = rec["roofline"]

@@ -23,9 +23,18 @@ over time, too slow on meta tensors at thousands of steps, so
 loss, and each layer's FFN and non-recurrent core at the real shape,
 and each recurrent core at two short sequences, extended linearly (a
 recurrence's cost is linear in the sequence: exact).
+
+:func:`count_temp_bytes` counts the fourth input the dry run needs, the
+live bytes one call allocates (activations, saved tensors, gradients,
+the head's logits, a prefill's cache), at one card's share: under a
+dispatch mode (:class:`LiveBytes`) that adds each new storage when an
+op returns it and takes it off when it dies, on meta tensors.  What a
+kernel allocates inside itself and frees before it returns (a fused
+op's workspace) is not seen.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional
 
 import torch
@@ -265,6 +274,225 @@ def count_flops(cfg, batch: int, seq: int, *, kind: str = "train",
         for leaf in leaves:
             leaf.requires_grad_(False)
     return {"flops": flops, "method": method, "uncounted_ops": sorted(ops)}
+
+
+class LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
+    """The bytes of the storages the ops under it create that are alive
+    at once: ``live`` now, ``peak`` the most.  A storage is counted
+    once, when an op first returns a tensor on it (views and in-place
+    results share one seen before), and taken off when it dies (a weak
+    reference's callback).  The storages of the inputs it first meets
+    are the caller's: they count nothing."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = self.peak = 0
+        self._refs: dict = {}
+
+    def _gone(self, key: int, nbytes: int):
+        def drop(_ref):
+            self._refs.pop(key, None)
+            self.live -= nbytes
+        return drop
+
+    def _track(self, t: torch.Tensor, new: bool) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._refs:
+            return
+        nbytes = st.nbytes() if new else 0
+        self._refs[key] = weakref.ref(st, self._gone(key, nbytes))
+        self.live += nbytes
+        self.peak = max(self.peak, self.live)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for t in _tensors(args + tuple(kwargs.values())):
+            self._track(t, False)
+        out = func(*args, **kwargs)
+        for t in _tensors(out if isinstance(out, (tuple, list)) else (out,)):
+            self._track(t, True)
+        return out
+
+
+def _tensors(xs):
+    """The tensors among an op's arguments or results (a tensor list is
+    an aten op's only nesting)."""
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (tuple, list)):
+            yield from (t for t in x if isinstance(t, torch.Tensor))
+
+
+class MetaAxis:
+    """Model rank 0 of ``size`` on meta tensors: the collectives of
+    ``dist/tensor_parallel.ModelAxis`` allocating what the wire's do
+    (a gather ``size`` times its input, a reduction a copy) and moving
+    nothing."""
+
+    def __init__(self, size: int):
+        self.rank, self.size = 0, size
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return t.new_empty((self.size,) + tuple(t.shape))
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+    amax = all_reduce
+
+
+def _rank_params(cfg, params, model_size: int):
+    """Model rank 0's shards of the whole ``params`` (their shapes, on
+    meta) under the tensor-parallel placement."""
+    from repro_torch import tree
+    from repro_torch.dist.tensor_parallel import check_split
+    if model_size == 1:
+        return params
+    leaves, td = tree.flatten(params)
+    return tree.unflatten(td, [
+        torch.empty(pl.shard_shape, dtype=p.dtype, device="meta")
+        for p, pl in zip(leaves, check_split(cfg, params, model_size))])
+
+
+def _live_peak(fn) -> int:
+    mode = LiveBytes()
+    with mode:
+        fn()
+    return mode.peak
+
+
+def _temp_whole(cfg, params, batch: int, seq: int, kind: str, axis,
+                remat: bool) -> int:
+    from repro_torch import tree
+    from repro_torch.models.model import (decode_step, init_cache, loss_fn,
+                                          prefill)
+    b = _inputs(cfg, batch, seq, kind, "meta")
+    if kind == "train":
+        leaves = tree.leaves(params)
+
+        def step():
+            loss = loss_fn(params, cfg, b, axis, remat=remat)[0]
+            torch.autograd.grad(loss, leaves, allow_unused=True)
+        return _live_peak(step)
+    if kind == "prefill":
+        return _live_peak(lambda: prefill(
+            params, cfg, b.get("tokens"), embeds=b.get("embeds"),
+            axis=axis))
+    cache = init_cache(cfg, batch, seq, device="meta", axis=axis)
+    tok = torch.zeros((batch, 1), dtype=torch.int64, device="meta")
+    return _live_peak(lambda: decode_step(params, cfg, cache, seq - 1, tok,
+                                          axis=axis))
+
+
+def _temp_piecewise(cfg, params, batch: int, seq: int, train: bool, axis,
+                    remat: bool) -> int:
+    """A recurrent arch's train or prefill temporaries from its pieces
+    (each counted as :func:`_piecewise` counts its FLOPs, a recurrent
+    core at :data:`FIT_SEQS` extended linearly): the bytes kept across
+    the call (a train step's period inputs under ``remat``, its tail
+    layers' pieces and, without ``remat``, every layer's; a prefill's
+    cache) plus the largest of the head's piece and, for a train step,
+    one period's pieces summed (its recompute), for a prefill its
+    largest piece."""
+    from repro_torch import tree
+    from repro_torch.models import model as mdl
+
+    adt = getattr(torch, cfg.activation_dtype)
+    h_bytes = batch * seq * cfg.d_model * torch.empty(
+        (), dtype=adt).element_size()
+
+    def piece(fn, p, s):
+        h = torch.empty((batch, s, cfg.d_model), dtype=adt, device="meta",
+                        requires_grad=train)
+        leaves = [h] + tree.leaves(p)
+
+        def run():
+            out = fn(p, h)
+            if train:
+                torch.autograd.grad(out, leaves, allow_unused=True)
+        return _live_peak(run)
+
+    def counted(fn, p, recurrent):
+        if not recurrent:
+            return piece(fn, p, seq)
+        s1, s2 = FIT_SEQS
+        b1, b2 = (piece(fn, p, s) for s in (s1, s2))
+        return int(b1 + (b2 - b1) * (seq - s1) / (s2 - s1))
+
+    def head(p, h):
+        return torch.logsumexp(mdl._head(p, cfg, h, axis).float(),
+                               dim=-1).sum()
+
+    top = counted(head, {k: params[k] for k in ("final_norm", "lm_head")},
+                  False)
+    period = cfg.pattern_period
+    reps = cfg.num_layers // period
+    layers = [(mdl._unbind(params["stack"][pos])[0], pos)
+              for pos in range(period if reps else 0)]
+    tail = [(p, reps * period + i) for i, p in enumerate(params["tail"])]
+
+    def layer_bytes(p, index):
+        kind, ffn = cfg.layer_sig(index)
+        total = counted(lambda q, h: mdl._apply_core(q, h, cfg, kind,
+                                                     axis)[0].sum(),
+                        p["core"], kind in ("mamba", "mlstm", "slstm"))
+        if ffn != "none":
+            total += counted(lambda q, h: mdl._ffn(q, h, cfg, ffn,
+                                                   axis)[0].sum(),
+                             p["ffn"], False)
+        return total
+
+    body = [layer_bytes(p, i) for p, i in layers]
+    tails = [layer_bytes(p, i) for p, i in tail]
+    if not train:
+        cache = mdl.init_cache(cfg, batch, seq, device="meta", axis=axis)
+        kept = sum(int(x.untyped_storage().nbytes())
+                   for x in tree.leaves(cache)) + h_bytes
+        return kept + max([top] + body + tails)
+    if remat:
+        shard = axis.size if cfg.shard_activations and axis else 1
+        kept = reps * h_bytes // shard + sum(tails)
+        return kept + max(top, sum(body))
+    return reps * sum(body) + sum(tails) + top
+
+
+def count_temp_bytes(cfg, batch: int, seq: int, *, kind: str = "train",
+                     params=None, remat: bool = False,
+                     model_size: int = 1) -> dict:
+    """The live bytes one ``kind`` call allocates on one card (its
+    temporaries: a train step's activations, saved tensors, gradients
+    and logits; a prefill's cache and transients; a decode step's, its
+    cache given), counted on meta tensors by :class:`LiveBytes` at
+    ``batch`` sequences of ``seq`` on model rank 0's shards of a model
+    axis of ``model_size`` (:class:`MetaAxis`; ``cfg.shard_activations``
+    as the config says).  ``remat`` as in :func:`count_flops`.  Returns
+    ``{"temp_bytes", "method"}``: ``whole``, or ``piecewise`` where
+    :func:`count_flops` goes piecewise (:func:`_temp_piecewise`)."""
+    from repro_torch import tree
+    from repro_torch.models import init_params
+
+    if params is None:
+        params = init_params(cfg, 0, "meta")
+    params = _rank_params(cfg, params, model_size)
+    axis = MetaAxis(model_size) if model_size > 1 else None
+    train = kind == "train"
+    leaves = tree.leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(train)
+    try:
+        if kind == "decode" or not _recurrent(cfg) or seq <= FIT_SEQS[-1]:
+            n = _temp_whole(cfg, params, batch, seq, kind, axis, remat)
+            method = "whole"
+        else:
+            n = _temp_piecewise(cfg, params, batch, seq, train, axis,
+                                remat)
+            method = "piecewise"
+    finally:
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+    return {"temp_bytes": int(n), "method": method}
 
 
 def state_bytes(n_params: int, bucket_elems: int = 0, *, workers: int = 1,

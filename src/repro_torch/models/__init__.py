@@ -3,8 +3,8 @@ assigned architecture family and its config."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, forward, from_jax_params,
                                       init_cache, init_params, loss_fn,
-                                      prefill, to_numpy_tree)
+                                      param_count, prefill, to_numpy_tree)
 
 __all__ = ["ModelConfig", "decode_step", "forward", "from_jax_params",
-           "init_cache", "init_params", "loss_fn", "prefill",
+           "init_cache", "init_params", "loss_fn", "param_count", "prefill",
            "to_numpy_tree"]

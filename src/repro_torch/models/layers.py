@@ -1,13 +1,14 @@
 """Dense-decoder layers: RMSNorm, RoPE, GQA attention (full-causal and
 sliding-window, and its one-token decode against a KV cache), SwiGLU MLP
-(port of ``repro/models/layers.py``, lines 20-108, 142-199).
+(port of ``repro/models/layers.py``, lines 20-199).
 
 Plain functions on tensors with the JAX package's layouts: params are
 nested dicts, weights are ``(in, out)`` and applied as ``x @ W``, q/k/v
 are ``(B, T, heads, hd)``.  The JAX code computes these with plain jnp,
 so the port does too with plain torch ops — no fused attention: the
 softmax is taken in f32 over ``-1e30``-masked logits exactly as
-``layers._sdpa`` writes it.
+``layers._sdpa`` writes it, query block by query block above 1024
+tokens as ``layers._sdpa_chunked`` takes it.
 
 Under tensor parallelism (``axis``, a ``dist/tensor_parallel.ModelAxis``)
 ``attention``, ``attention_decode`` and ``mlp`` run on one model rank's
@@ -130,10 +131,37 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     logits = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(hd)
     logits = logits.to(torch.float32)
     if mask is not None:
-        logits = torch.where(mask[None, None], logits,
-                             torch.full_like(logits, -1e30))
+        logits = logits.masked_fill(~mask[None, None], -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+# the query length above which full-sequence attention runs query block
+# by query block (the reference's ``layers._SDPA_CHUNK``): only one
+# ``(B, H, chunk, S)`` block of f32 logits is live at a time
+_SDPA_CHUNK = 1024
+
+
+def _sdpa_chunked(q, k, v, cfg: ModelConfig, window: int, chunk: int):
+    """Query-blocked causal attention (``layers.py:116-143``): ``_sdpa``
+    on each block of ``chunk`` query rows against all ``S`` keys, under
+    those rows' mask, the blocks' outputs concatenated along T.  Every
+    row's softmax runs over the same ``S`` keys as in one block (the
+    masked keys of early blocks are not dropped), so the result is the
+    one-block ``_sdpa``'s."""
+    B, T = q.shape[:2]
+    S = k.shape[1]
+    assert T % chunk == 0, (T, chunk)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    outs = []
+    for start in range(0, T, chunk):
+        qpos = torch.arange(start, start + chunk,
+                            device=q.device)[:, None] + (S - T)
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        outs.append(_sdpa(q[:, start:start + chunk], k, v, mask, cfg))
+    return torch.cat(outs, dim=1)
 
 
 def causal_mask(T: int, S: int, window: int = 0, device=None):
@@ -150,10 +178,14 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0, axis=None):
     """Training and prefill self-attention over the full sequence:
     ``(out, (k, v))`` with the post-RoPE keys and the values, which a
     prefill stores as its cache (the training path drops them; they are
-    the tensors the backward keeps anyway).  The reference switches to a
-    query-chunked scan above 1024 tokens to bound its memory; the result
-    is the same attention, so the port keeps one path.  With ``axis``,
-    this model rank's heads (module docstring)."""
+    the tensors the backward keeps anyway).  Above :data:`_SDPA_CHUNK`
+    tokens, when it divides T, the reference's condition, the queries
+    run block by block (:func:`_sdpa_chunked`): the forward's f32
+    logits and their masked copy are one block's, not ``(B, H, T, T)``.
+    Under autograd every block's softmax output stays saved for the
+    backward, so a training step keeps the ``T x T`` probabilities
+    either way.  With ``axis``, this model rank's heads (module
+    docstring)."""
     B, T, D = x.shape
     x = copy_to_model(x, axis)
     q, k, v = _qkv(p, x, cfg, axis)
@@ -161,7 +193,11 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0, axis=None):
     cos, sin = rope_angles(positions, cfg.hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = _sdpa(q, k, v, causal_mask(T, T, window, device=x.device), cfg)
+    if T > _SDPA_CHUNK and T % _SDPA_CHUNK == 0:
+        out = _sdpa_chunked(q, k, v, cfg, window, _SDPA_CHUNK)
+    else:
+        out = _sdpa(q, k, v, causal_mask(T, T, window, device=x.device),
+                    cfg)
     out = reduce_from_model(out.reshape(B, T, -1) @ p["wo"], axis)
     if cfg.use_bias:
         out = out + p["bo"]

@@ -33,7 +33,9 @@ period's forward all-reduces inside the backward, in the same order on
 every rank.  It is what lets llama3.2-1b train at 8 × 1024 on one
 card: without it each layer keeps ~3 GB of activations there (the f32
 attention probabilities, the MLP's), ~50 GB for 16 layers beside the
-training state; with it the peak is one period's recompute.
+training state; with it the peak is one period's recompute.  Under
+tensor parallelism ``cfg.shard_activations`` keeps each period's input
+as the rank's ``1 / M`` slice of ``d_model`` (:func:`_forward`).
 
 Caches keep the reference's tree: ``{"stack": [one dict a position of
 the layer pattern, leaves (reps, B, ...)], "tail": [one dict a tail
@@ -72,7 +74,8 @@ from repro_torch import prng, tree
 from repro_torch.devices import resolve_device
 from repro_torch.dist.tensor_parallel import (copy_to_model,
                                               gather_from_model,
-                                              reduce_from_model)
+                                              reduce_from_model,
+                                              split_to_model)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -179,6 +182,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", *,
     return params
 
 
+def param_count(params) -> int:
+    """The number of parameters in ``params`` (tensors, or meta)."""
+    return sum(int(x.numel()) for x in tree.leaves(params))
+
+
 def _apply_core(p, h, cfg: ModelConfig, kind: str, axis=None):
     """Full-sequence core: ``(out, cache contribution)`` — the
     attention's post-RoPE ``(k, v)``, a Mamba layer's ``(ssm state, conv
@@ -271,6 +279,13 @@ def _period(h, reps_p, cfg: ModelConfig, axis=None):
     return h, aux
 
 
+def _sharded_period(h_shard, reps_p, cfg: ModelConfig, axis):
+    """:func:`_period` of the period's input kept as this model rank's
+    slice of ``d_model`` (``cfg.shard_activations``): the slices are
+    gathered into the whole ``h`` first, in the recompute too."""
+    return _period(gather_from_model(h_shard, axis), reps_p, cfg, axis)
+
+
 def _forward(params, cfg: ModelConfig, tokens=None, embeds=None,
              axis=None, remat: bool = True):
     """Full-sequence forward -> ``(logits (B, T, vocab), aux)``: ``aux``
@@ -280,17 +295,26 @@ def _forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     logits.  With ``remat``, each period is a checkpointed region whose
     inputs are ``h`` and the period's views of the stacked params, and
     whose outputs are ``h`` and the period's aux; the forward draws no
-    random numbers, so no RNG state is kept for the recompute."""
+    random numbers, so no RNG state is kept for the recompute.  With
+    ``cfg.shard_activations`` and ``axis``, the checkpoint keeps this
+    rank's ``d_model / M`` slice of each period's input ``h`` (a copy of
+    its own, :func:`~repro_torch.dist.tensor_parallel.split_to_model`)
+    and gathers the whole ``h`` as its first operation, the reference's
+    model-sharded layer-boundary carry (``model.py:162-168``); both are
+    exact copies, so the loss and every gradient keep their bits.  The
+    tail layers are not touched, as in the reference."""
     h = _embed_input(params, cfg, tokens, embeds, axis)
     period = cfg.pattern_period
     reps = cfg.num_layers // period
     per_pos = [_unbind(sp) for sp in params["stack"]]
+    sharded = cfg.shard_activations and axis is not None
     rep_aux = []
     for r in range(reps):
         reps_p = [per_pos[pos][r] for pos in range(period)]
         if remat:
-            h, a_rep = checkpoint(_period, h, reps_p, cfg, axis,
-                                  use_reentrant=False,
+            h, a_rep = checkpoint(_sharded_period if sharded else _period,
+                                  split_to_model(h, axis) if sharded else h,
+                                  reps_p, cfg, axis, use_reentrant=False,
                                   preserve_rng_state=False)
         else:
             h, a_rep = _period(h, reps_p, cfg, axis)

@@ -20,12 +20,18 @@ a biased config, and the MoE, Mamba and xLSTM blocks with nonzero
 biases) against the whole model's; one named ``remat`` holds the loss
 and gradients on the shards with each layer-pattern period
 rematerialised bitwise those without (``tests/test_torch_remat.py``);
-one named ``tuning`` resolves kernel configs in the process group
+one named ``actshard`` holds them with ``shard_activations`` bitwise
+those without and each period's saved input model-sharded
+(``tests/test_torch_shard_activations.py``); one named ``tuning``
+resolves kernel configs in the process group
 (``tests/test_torch_tuning.py``).  A case with a ``reduced`` arch name
 trains that arch's smoke variant given as ``cfg``, so that ``--smoke``
-in its ``argv`` switches the rematerialisation off and nothing else.
+in its ``argv`` switches the rematerialisation off and nothing else;
+one with ``"shard_activations": true`` trains its config with that
+option set.
 :func:`launch` starts such a launch from a test.
 """
+import dataclasses
 import json
 import os
 import socket
@@ -212,6 +218,74 @@ def remat(mesh, names):
         torch.distributed.destroy_process_group()
 
 
+def actshard(mesh, names):
+    """On the shards of the 2-layer config and of the smoke variants of
+    ``names``, ``model.loss_fn(remat=True)`` with ``shard_activations``
+    against it without: the loss and every gradient bitwise; and each
+    checkpoint's input, as its own saved tensor, this rank's ``d_model
+    / M`` slice of the period's ``h``, in a storage of its own size."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as mdl
+    init_process_group("gloo", rank=int(os.environ["RANK"]),
+                       world_size=int(os.environ["WORLD_SIZE"]))
+    try:
+        wire = ProcessGroupWire(parse_mesh(mesh))
+        for name in ["dense"] + list(names):
+            cfg = CFG if name == "dense" else get_config(name).reduced()
+            params = init_params(cfg, 0, "cpu")
+            tp = TensorParallel(cfg, wire, params)
+            M = tp.axis.size
+            rng = np.random.default_rng(9)
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+            batch = {"labels": toks.roll(-1, 1)}
+            if cfg.frontend == "embeds":
+                batch["embeds"] = torch.from_numpy(rng.standard_normal(
+                    (2, 8, cfg.d_model)).astype(np.float32))
+            else:
+                batch["tokens"] = toks
+            shards, td = tree.flatten(tp.shard(params))
+            out = []
+            for on in (False, True):
+                c = dataclasses.replace(cfg, shard_activations=on)
+                ps = [p.clone().requires_grad_(True) for p in shards]
+                carries, saved = [], {}
+                real = mdl.checkpoint
+
+                def spy(fn, h, *a, **k):
+                    carries.append(h)
+                    return real(fn, h, *a, **k)
+
+                def pack(t):
+                    saved[id(t)] = t.untyped_storage().nbytes()
+                    return t
+
+                mdl.checkpoint = spy
+                try:
+                    with torch.autograd.graph.saved_tensors_hooks(
+                            pack, lambda t: t):
+                        loss, m = loss_fn(tree.unflatten(td, ps), c, batch,
+                                          tp.axis, remat=True)
+                finally:
+                    mdl.checkpoint = real
+                reps = cfg.num_layers // cfg.pattern_period
+                assert len(carries) == reps, (name, len(carries))
+                width = cfg.d_model // M if on else cfg.d_model
+                for h in carries:
+                    assert h.shape == (2, 8, width), (name, on, h.shape)
+                    assert saved.get(id(h)) == h.numel() * h.element_size(), \
+                        (name, on, "the carry is saved in its own storage")
+                del carries, saved
+                grads = torch.autograd.grad(loss, ps, allow_unused=True)
+                out.append([loss.detach(), m["aux"].detach()] + [
+                    torch.zeros_like(p) if g is None else g
+                    for p, g in zip(ps, grads)])
+            for a, b in zip(*out):
+                assert torch.equal(a, b), (name, "shard_activations "
+                                           "changed a bit")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def tuning(out, table_dir):
     """Kernel configs resolved in a gloo group of ``WORLD_SIZE``: before
     the group, a stub timer that prefers a different candidate on each
@@ -322,9 +396,9 @@ def main(out, cases_path):
         cases = json.load(f)
     for index, case in enumerate(cases):
         os.environ["MASTER_PORT"] = str(_case_port(out, index))
-        if case["name"] in ("bitwise", "archs", "remat"):
-            {"bitwise": bitwise, "archs": archs,
-             "remat": remat}[case["name"]](*case["argv"])
+        if case["name"] in ("bitwise", "archs", "remat", "actshard"):
+            {"bitwise": bitwise, "archs": archs, "remat": remat,
+             "actshard": actshard}[case["name"]](*case["argv"])
             continue
         if case["name"] == "tuning":
             tuning(out, *case["argv"])
@@ -336,6 +410,8 @@ def main(out, cases_path):
         if "reduced" in case:
             from repro_torch.configs import get_config
             cfg = get_config(case["reduced"]).reduced()
+        if case.get("shard_activations"):
+            cfg = dataclasses.replace(cfg, shard_activations=True)
         recs = cli.run(case["argv"] + [
             "--device", "cpu", "--checkpoint",
             os.path.join(out, name + ".npz")], cfg=cfg)

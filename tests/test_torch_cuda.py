@@ -41,7 +41,8 @@ tensor-parallel breakdown (two ranks of smoke deepseek-moe-16b under
 ``torchrun``), every phase of every rank present and finite.  Slice
 7.2: serving placed at ``1x2`` on the card (two ranks under
 ``torchrun``, gloo on one card), its tokens and counters those of the
-one-process run on the card.
+one-process run on the card.  Slice 11: query-chunked attention at
+T = 2048 on the card against the one-block run there.
 """
 import math
 
@@ -776,3 +777,46 @@ def test_sharded_decode_on_card(dev, tmp_path):
     assert got["tokens"] == [t.tolist() for t in ref["tokens"]]
     assert got["counts"] == [ref[k] for k in ("tokens_out", "deltas",
                                               "resyncs", "wire_bits")]
+
+
+@pytest.mark.parametrize("window", [0, 300])
+def test_chunked_attention_on_card(dev, window, monkeypatch):
+    """Query-chunked attention at T = 2048 (two blocks of 1024) on the
+    card against the one-block run there: the output and the cached
+    keys and values within rtol 1e-5, atol 1e-6 (cuBLAS may tile a
+    shorter GEMM another way), every gradient within 2**-20 of its
+    largest magnitude (the blocks' contributions to the keys' and
+    values' gradients are summed block by block); prints whether each
+    is bitwise."""
+    from repro_torch.models import ModelConfig
+    from repro_torch.models import layers as L
+    cfg = ModelConfig(name="attn", arch_type="dense", num_layers=1,
+                      d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                      vocab_size=64).validate()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    shapes = {"wq": (64, 64), "wk": (64, 32), "wv": (64, 32),
+              "wo": (64, 64)}
+    p = {k: torch.randn(s, generator=gen, device=dev) / 8
+         for k, s in shapes.items()}
+    x = torch.randn((2, 2048, 64), generator=gen, device=dev)
+    ct = torch.randn((2, 2048, 64), generator=gen, device=dev) / 4096
+
+    def run():
+        ps = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        tx = x.clone().requires_grad_(True)
+        out, (k, v) = L.attention(ps, tx, cfg, window=window)
+        grads = torch.autograd.grad(out, [tx] + [ps[n] for n in shapes],
+                                    ct)
+        return [out.detach(), k.detach(), v.detach()] + list(grads)
+
+    chunked = run()
+    monkeypatch.setattr(L, "_SDPA_CHUNK", 4096)
+    one = run()
+    names = ("out", "k", "v", "x") + tuple(shapes)
+    print({n: torch.equal(a, b) for n, a, b in zip(names, chunked, one)})
+    for n, a, b in zip(names[:3], chunked, one):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=n)
+    for n, a, b in zip(names[3:], chunked[3:], one[3:]):
+        bound = 2.0 ** -20 * float(b.abs().max())
+        assert float((a - b).abs().max()) <= bound, n
