@@ -15,6 +15,7 @@
     python3 chip_smoke.py --remat-table-only  # phases 1 and 15
     python3 chip_smoke.py --long-seq-only  # phases 1 and 16 (with four
                                           # cards visible, 16c at 1x4)
+    python3 chip_smoke.py --bf16-only     # phases 1 and 17
 
 Phases (any failure exits non-zero; nothing is wrapped to pass):
 
@@ -159,7 +160,8 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    step of each Gaussian-k kernel, every worker's two-row bucket
    conserving bitwise; step ms, peak memory); 12b the tensor-parallel
    step at ``--mesh 1x2`` in two processes (NCCL with a card each, else
-   gloo on the one card), each rank holding its shards: 12 launches a
+   gloo on the one card) at full width with 4 layers (16 until PR 28),
+   each rank holding its shards: 12 launches a
    step a rank of each kernel, the losses the one-process ``--mesh
    1x2`` run's within rtol 1e-6, step ms, relayout ms and each rank's
    peak memory; on one shared random gradient, the relayout both ways
@@ -182,12 +184,14 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    chosen strategy, 48 and 96 launches a step of each Gaussian-k
    kernel; 13e ``step_cost`` and the roofline of the 4x1 step, and the
    share of the f32 peak of the forward plus backward and of the step;
-   13f ``dryrun`` on meta for all ten archs at ``4x2`` and
+   13f ``dryrun`` on meta for all ten archs at ``4x2`` (no card: in a
+   process of its own, started after the build, since PR 28) and
    ``table2_scaling``'s rows;
 14. slice 7.2, serving placed over the mesh and the tensor-parallel
    publisher (``phase14_placed``; two processes on the card, gloo): 14a
    ``launch.serve.run`` at ``--mesh 1x2`` on llama3.2-1b at full width
-   and depth, 10a's traffic, frozen and streaming, each rank holding
+   with 4 layers (16 until PR 28), 10a's traffic, frozen and streaming,
+   each rank holding
    half of every weight and of the KV cache: the prefill's and first
    decode's logits within 1e-4 of the largest one-process |logit|, the
    greedy tokens the one-process run's or near ties, at every publish
@@ -196,7 +200,8 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    2x1`` in mode ``2d`` (half of every weight at rest a rank, half the
    batch) at 2 layers, the gathers' share of the decode step; 14c the
    tensor-parallel trainer at ``1x2`` with ``--publish-every 1
-   --resync-every 2``, 4 steps at full width and depth (12 launches a
+   --resync-every 2``, 4 steps at full width with 4 layers (16 until
+   PR 28, cut to keep the smoke inside its time; 12 launches a
    step a rank of K1, K2 and both K3; its records' publish kinds and bits
    and the ``published`` line the one-process ``1x2`` run's; on shared
    params the rows bitwise the one-process publisher's); 14d the smoke
@@ -233,6 +238,21 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    of 16b's 8 x 2048 step and 16a's prefill within 25% of the card's
    peak above the memory allocated before them.
    ``--tensor-parallel-cards`` runs 16c at ``1x4`` over NCCL, 8 x 2048.
+17. slice 12, bf16 operands (``phase17_bf16``): 17a every EF kernel at
+   d = 268,435,456 with ``(g, e)`` in (bf16, bf16), (bf16, f32) and
+   (bf16, None) at the table's bf16 geometry, bitwise its plain version
+   (K4a-K4d on the pair's ``u`` in its promoted dtype; ``e'`` compared
+   as int16 at bf16, in place over ``e``), the fused and unfused
+   pipelines' conservation in that dtype, timed at (bf16, bf16) beside
+   the plain versions and the bytes' bound; 17b llama3.2-1b at full
+   width and depth in bf16 (params, activations, residual: the
+   reference dry run's train step) at ``4x2`` in this process, 8 x 512
+   with remat, 3 steps: 96 launches a step of K1, K2 and both K3, ``e'``
+   written into the state's bf16 residual in place, every worker's
+   step-0 bucket conserving bitwise in bf16, step ms and peak memory;
+   17c row 0 of that step-0 bucket compressed on the CPU at the card's
+   geometry, bitwise the card's pair and ``e'``, and the bf16 smoke
+   variant 2 steps card against CPU (losses within rtol 2.5e-4).
 
 Every trainer path at full width trains as ``launch.train`` does
 without ``--smoke``: each layer-pattern period rematerialised in the
@@ -390,13 +410,20 @@ def build(cuda_build, torch) -> float:
     th.start()
     k = counters()
     x = torch.ones(4096, device="cuda")
+    xb = x.bfloat16()
+    # every operand-dtype specialisation of the Triton kernels: f32, and
+    # bf16 with an e of either dtype or none
     for d in (4096, 4095):
-        k["fused_moments"](x[:d], x[:d], block=1024)
-        k["fused_moments_hist"](x[:d], x[:d], block=1024)
-        k["tree_count"](x[:d], x[:d], torch.ones(15, device="cuda"),
-                        block=1024)
-        k["moments"](x[:d], block=1024)
-        k["count_gt"](x[:d], 0.5, block=1024)
+        for g, e in ((x, x), (xb, xb), (xb, x), (x, xb), (xb, None)):
+            k["fused_moments"](g[:d], None if e is None else e[:d],
+                               block=1024)
+            k["fused_moments_hist"](g[:d], None if e is None else e[:d],
+                                    block=1024)
+            k["tree_count"](g[:d], None if e is None else e[:d],
+                            torch.ones(15, device="cuda"), block=1024)
+        for u in (x, xb):
+            k["moments"](u[:d], block=1024)
+            k["count_gt"](u[:d], 0.5, block=1024)
         for dt in (torch.int32, torch.int64):
             k["threefry_bits"]((1, 2), torch.empty(d, dtype=dt,
                                                    device="cuda"))
@@ -425,12 +452,15 @@ def check_moments(d, what, got, plain, sum_abs):
 
 
 def same_bits(a, b) -> bool:
-    """Bitwise equality: same shape and dtype, f32 compared as int32."""
+    """Bitwise equality: same shape and dtype, f32 compared as int32,
+    bf16 as int16."""
     import torch
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return torch.equal(a, b)
 
 
@@ -872,17 +902,18 @@ def drive(label, run, expect, steps, once=None):
 
 
 def conserves(G, values, indices, new_E, label, torch) -> None:
-    """``decode(values, indices) + new_E == G`` bitwise, one 1 GiB column
-    slice at a time (not one 6 GB decode); ``G`` may be a host copy."""
+    """``decode(values, indices) + new_E == G`` bitwise in ``new_E``'s
+    dtype (f32, or bf16 for a bf16 residual), one 1 GiB column slice at
+    a time (not one 6 GB decode); ``G`` may be a host copy."""
     step = 1 << 28
     D = G.shape[1]
     dev = new_E.device
     for m in range(G.shape[0]):
-        v, i = values[m].float(), indices[m].long()
+        v, i = values[m].to(new_E.dtype), indices[m].long()
         for a in range(0, D, step):
             b = min(a + step, D)
             sel = (i >= a) & (i < b)
-            dec = torch.zeros(b - a, device=dev)
+            dec = torch.zeros(b - a, device=dev, dtype=new_E.dtype)
             dec.index_add_(0, i[sel] - a, v[sel])
             assert torch.equal(dec + new_E[m, a:b], G[m, a:b].to(dev)), (
                 label, "conservation", m, a)
@@ -3153,7 +3184,8 @@ def tp_child(rank, world, backend, port, argv, check_port, queue):
         import torch
         _tp_env(torch, rank, world, backend, port)
         out = tp_train(torch, argv + ["--steps", str(TP_STEPS),
-                                      "--dist-backend", backend])
+                                      "--dist-backend", backend],
+                       cfg=llama_layers(TP_LAYERS))
         out["shared_gradient"] = tp_shared_gradient(torch, rank, backend,
                                                     check_port)
         queue.put((rank, out))
@@ -3232,21 +3264,28 @@ def phase12a(torch, by_path, llama) -> dict:
     return out
 
 
+# 12b's trainers at full width and this depth (16 until PR 28): their
+# relayout through gloo's host staging scales with the layers; the
+# shared-gradient check keeps the whole model
+TP_LAYERS = 4
+
+
 def phase12b(torch, by_path, llama) -> dict:
-    """12b of :func:`phase12_model_axis`."""
+    """12b of :func:`phase12_model_axis`, the trainers at ``TP_LAYERS``
+    layers."""
     import numpy as np
+    cfg = llama_layers(TP_LAYERS)
     label = "12b one process, mesh 1x2"
     log("phase 12b: the one-process --mesh 1x2 run the tensor-parallel "
-        "ranks are held to, 3 steps")
+        f"ranks are held to, {TP_LAYERS} layers, 3 steps")
     by_path[label], records, peak1, _, _ = train_path(
         label, llama + ["--host-devices", "2", "--mesh", "1x2"],
-        {n: 24 for n in MAIN_KERNELS}, TP_STEPS, torch)
+        {n: 24 for n in MAIN_KERNELS}, TP_STEPS, torch, cfg=cfg)
     ref = [r["loss"] for r in records]
     del records
     torch.cuda.empty_cache()
     log("phase 12b: the tensor-parallel step, --mesh 1x2 in 2 processes, "
-        "full width and depth, 3 steps")
-    from repro_torch.configs import get_config
+        f"full width with {TP_LAYERS} layers, 3 steps")
     argv = llama + ["--mesh", "1x2", "--log-every", "1"]
     t0 = time.time()
     check_port = []
@@ -3258,7 +3297,7 @@ def phase12b(torch, by_path, llama) -> dict:
         return argv, check_port[0]
 
     backend, got = spawn_ranks(torch, tp_child, args_of)
-    draws = init_draws(get_config("llama3.2-1b"))
+    draws = init_draws(cfg)
     ranks = {}
     for rank in range(2):
         res = got[rank]
@@ -3560,7 +3599,7 @@ def tensor_parallel_cards(torch) -> dict:
 TUNE_STEPS = 2
 
 
-def phase13_tuner(torch, by_path, llama) -> dict:
+def phase13_tuner(torch, by_path, llama, dry=None) -> dict:
     """Slice 9, the launch and tuning stack (``phase13a`` .. ``phase13f``):
 
     13a. ``benchmarks.tuner_decision``'s rows equal
@@ -3597,12 +3636,16 @@ def phase13_tuner(torch, by_path, llama) -> dict:
          alone at world 1 (CUDA events) and of the 4x1 step;
     13f. ``launch.dryrun`` on the meta device for all ten archs x their
          input shapes at ``4x2`` (every applicable cell ``OK``) and
-         ``benchmarks.table2_scaling``'s rows (merge rows on the card)."""
+         ``benchmarks.table2_scaling``'s rows (merge rows on the card).
+         The dry run uses no card: it runs in a process of its own,
+         ``dry`` (:func:`start_dryrun`, started after the build by a
+         whole run, so that its minutes on the host overlap the card's
+         phases; else here)."""
     out = {"13a": phase13a(), "13b": phase13b(torch)}
     out["13c"], topo_path = phase13c(torch)
     out["13d"], cost_in = phase13d(torch, by_path, llama, topo_path)
     out["13e"] = phase13e(torch, cost_in)
-    out["13f"] = phase13f()
+    out["13f"] = phase13f(dry or start_dryrun())
     return out
 
 
@@ -3900,30 +3943,65 @@ def phase13e(torch, cost_in) -> dict:
     return out
 
 
-def phase13f() -> dict:
-    import tempfile
+# 13f's dry run in a process of its own: meta tensors, no card, one thread
+# (the records to the path table2_scaling reads, the seconds to stdout)
+DRYRUN_CODE = ("import json, sys, time, torch; torch.set_num_threads(1); "
+               "from repro_torch.launch import dryrun; t = time.time(); "
+               "json.dump(dryrun.run_all(mesh='4x2'), open(sys.argv[1], 'w'));"
+               " print('dryrun seconds', time.time() - t)")
+_DRYRUNS = []   # started dry-run processes, stopped at exit
 
+
+def start_dryrun():
+    """Start 13f's ``dryrun.run_all(mesh="4x2")`` in a process of its own
+    (the card hidden from it, one thread): returns ``(process, json
+    path)``.  :func:`stop_dryruns` ends any still running."""
+    import tempfile
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"),
+                        "dryrun.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_CODE, path],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    _DRYRUNS.append(proc)
+    return proc, path
+
+
+def stop_dryruns() -> None:
+    for proc in _DRYRUNS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase13f(dry) -> dict:
     from repro_torch.benchmarks import table2_scaling
-    from repro_torch.launch import dryrun
+    proc, path = dry
     t0 = time.time()
-    recs = dryrun.run_all(mesh="4x2")
+    log_out, _ = proc.communicate(timeout=900)
+    assert proc.returncode == 0, ("13f dryrun process", proc.returncode,
+                                  log_out[-3000:])
+    seconds = [float(ln.split()[-1]) for ln in log_out.splitlines()
+               if ln.startswith("dryrun seconds ")]
+    assert len(seconds) == 1, ("13f dryrun output", log_out[-3000:])
+    with open(path) as f:
+        recs = json.load(f)
     bad = [(r["arch"], r["shape"], r.get("error")) for r in recs
            if r["status"] == "FAIL"]
     assert not bad, ("13f dryrun", bad)
     ok = sum(r["status"] == "OK" for r in recs)
     t1 = time.time()
-    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"),
-                        "dryrun.json")
-    with open(path, "w") as f:
-        json.dump(recs, f)
     rows = table2_scaling.run(smoke=False, device="cuda", dryrun_json=path)
     merge = [r for r in rows if r[0].startswith("table2/merge/")]
     eff = [r for r in rows if r[0].startswith("table2/eff/")]
     assert len(eff) == 10 and len(merge) == 2, rows
     log(f"phase 13f: dryrun at 4x2 on meta: {ok} OK, "
-        f"{len(recs) - ok} SKIP, 0 FAIL ({t1 - t0:.1f} s); table2 "
+        f"{len(recs) - ok} SKIP, 0 FAIL ({seconds[0]:.1f} s in its "
+        f"own process, {t1 - t0:.1f} s of it waited for here); table2 "
         f"{len(rows)} rows ({time.time() - t1:.1f} s); merge rows {merge}")
-    return {"ok": ok, "skip": len(recs) - ok, "dryrun_s": t1 - t0,
+    return {"ok": ok, "skip": len(recs) - ok,
+            "dryrun_s": seconds[0], "dryrun_waited_s": t1 - t0,
             "merge_rows": merge, "eff_rows": eff,
             "flops_methods": {f"{r['arch']}/{r['shape']}":
                               r["flops"]["method"] for r in recs
@@ -3941,9 +4019,16 @@ PLACED_SMOKE = (("deepseek-moe-16b", None), ("jamba-1.5-large-398b", None),
 # head with this many layers, one wave of 8 requests of up to 8 tokens
 PLACED_2D_LAYERS = 2
 PLACED_2D_TRAFFIC = ["--requests", "8", "--gen", "8"]
+# 14a's serving at full width and this depth (16 until PR 28): each
+# decode step's collectives over gloo scale with the layers
+PLACED_LAYERS = 4
 # 14c's shared-params check at full width: rank 0 holds the whole params
 # and the one-process publisher beside its own row's, so this depth
 SHARED_LAYERS = 4
+# 14c's trainers at full width and this depth: their relayout through
+# gloo's host staging scales with the layers, and at 16 they took 98.5-
+# 141.8 s of the smoke (PR 28)
+PUBLISH_LAYERS = 4
 # a near tie: the one-process logits' top two within TIE of the row's
 # largest |logit|; the placed logits within TIE of the step's
 TIE = 1e-4
@@ -4164,7 +4249,8 @@ def phase14_placed(torch, by_path) -> dict:
     counted from 0:
 
     14a. ``launch.serve.run`` at ``--mesh 1x2`` on llama3.2-1b at full
-         width and depth, 12 requests, waves of 8, prompt 64, gen 16,
+         width with ``PLACED_LAYERS`` layers, 12 requests, waves of 8,
+         prompt 64, gen 16,
          frozen and with ``--publish-every 4 --publish-ratio 0.01
          --resync-every 3``: each rank holds half of every weight and of
          the KV cache; the prefill's and first decode's logits within
@@ -4183,23 +4269,23 @@ def phase14_placed(torch, by_path) -> dict:
          step;
     14c. the tensor-parallel trainer at ``--mesh 1x2`` with
          ``--publish-every 1 --resync-every 2``, llama3.2-1b at full
-         width and depth, 4 steps (:func:`phase14c`);
+         width with ``PUBLISH_LAYERS`` layers, 4 steps
+         (:func:`phase14c`);
     14d. the smoke variants of deepseek-moe-16b, jamba-1.5-large,
          xlstm-125m and gemma3-4b (its sliding window cut to 32, so the
          ring wraps) served at ``1x2`` against their one-process card
          runs, held as 14a."""
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     t_start = time.time()
     out = {"runs": {}}
-    llama = get_config("llama3.2-1b")
+    placed = llama_layers(PLACED_LAYERS)
     refs = {}
     log("phase 14: the one-process runs the placed ones are held to "
         "(llama3.2-1b frozen and streaming, the 14d smoke variants), "
         "every step's logits kept")
     for name, argv, cfg in (
-            [("frozen", SERVE_ARGV + ["--publish-every", "0"], None),
-             ("streaming", SERVE_ARGV + STREAM_ARGV, None),
+            [("frozen", SERVE_ARGV + ["--publish-every", "0"], placed),
+             ("streaming", SERVE_ARGV + STREAM_ARGV, placed),
              ("frozen cut", SERVE_ARGV + ["--publish-every", "0"]
               + PLACED_2D_TRAFFIC, llama_layers(PLACED_2D_LAYERS))]
             + [(arch, placed_argv("1x1", arch) + ["--smoke"],
@@ -4211,10 +4297,10 @@ def phase14_placed(torch, by_path) -> dict:
             "decode_ms_median": med(got["times"]["decode"]),
             "tok_s": got["tok_s"]}
         torch.cuda.empty_cache()
-    runs = [("14a frozen 1x2", placed_argv("1x2"), None, "frozen",
-             llama),
-            ("14a streaming 1x2", placed_argv("1x2") + STREAM_ARGV, None,
-             "streaming", llama),
+    runs = [("14a frozen 1x2", placed_argv("1x2"), placed, "frozen",
+             placed),
+            ("14a streaming 1x2", placed_argv("1x2") + STREAM_ARGV, placed,
+             "streaming", placed),
             ("14b 2d 2x1", placed_argv("2x1") + PLACED_2D_TRAFFIC,
              llama_layers(PLACED_2D_LAYERS), "frozen cut",
              llama_layers(PLACED_2D_LAYERS))]
@@ -4363,7 +4449,8 @@ def tp_publish_child(rank, world, backend, port, argv, check_port, queue):
                               "expandable_segments:True")
         import torch
         _tp_env(torch, rank, world, backend, port)
-        out = tp_train(torch, argv + ["--dist-backend", backend])
+        out = tp_train(torch, argv + ["--dist-backend", backend],
+                       cfg=llama_layers(PUBLISH_LAYERS))
         torch.cuda.empty_cache()
         out["shared"] = tp_publish_shared(torch, rank, backend, check_port)
         queue.put((rank, out))
@@ -4373,26 +4460,28 @@ def tp_publish_child(rank, world, backend, port, argv, check_port, queue):
 
 
 def phase14c(torch, by_path) -> dict:
-    """14c of :func:`phase14_placed`: the one-process ``--mesh 1x2``
-    trainer with ``--publish-every 1 --resync-every 2`` (24 launches a
-    step of K1, K2 and both K3; its records' publish kinds and bits),
-    then the tensor-parallel one in two processes: 12 launches a step a
-    rank of each (and the params' draws), the losses within rtol 1e-6,
-    every record's publish kind and bits and the ``published`` line the
+    """14c of :func:`phase14_placed`, at full width with
+    ``PUBLISH_LAYERS`` layers: the one-process ``--mesh 1x2`` trainer
+    with ``--publish-every 1 --resync-every 2`` (24 launches a step of
+    K1, K2 and both K3; its records' publish kinds and bits), then the
+    tensor-parallel one in two processes: 12 launches a step a rank of
+    each (and the params' draws), the losses within rtol 1e-6, every
+    record's publish kind and bits and the ``published`` line the
     one-process run's; then :func:`tp_publish_shared`."""
     import numpy as np
 
-    from repro_torch.configs import get_config
+    cfg = llama_layers(PUBLISH_LAYERS)
     t0 = time.time()
     argv = ["--arch", "llama3.2-1b", "--density-policy", "none", "--batch",
             "8", "--seq", "128", "--publish-every", "1", "--resync-every",
             "2", "--steps", "4", "--log-every", "1"]
     log("phase 14c: the one-process --mesh 1x2 trainer with "
-        "--publish-every 1 --resync-every 2, 4 steps")
+        f"--publish-every 1 --resync-every 2, {PUBLISH_LAYERS} layers, 4 "
+        "steps")
     by_path["14c one process, mesh 1x2"], records, peak1, _, _ = train_path(
         "14c one process", argv[:-4] + ["--host-devices", "2", "--mesh",
                                         "1x2", "--log-every", "1"],
-        {n: 24 for n in MAIN_KERNELS}, 4, torch)
+        {n: 24 for n in MAIN_KERNELS}, 4, torch, cfg=cfg)
     ref_pub = [(r["publish_kind"], r["publish_bits"]) for r in records]
     ref_losses = [r["loss"] for r in records]
     assert [k for k, _ in ref_pub] == [0, 1, 0, 1], ref_pub
@@ -4411,7 +4500,7 @@ def phase14c(torch, by_path) -> dict:
         return argv + ["--mesh", "1x2"], check_port[0]
 
     backend, got = spawn_ranks(torch, tp_publish_child, args_of)
-    draws = init_draws(get_config("llama3.2-1b"))
+    draws = init_draws(cfg)
     out = {"backend": backend, "one_process_losses": ref_losses,
            "one_process_peak_gib": peak1 / 2**30, "line": line, "ranks": {}}
     for rank in range(2):
@@ -5087,6 +5176,435 @@ def phase16_long(torch, by_path) -> dict:
     return out
 
 
+# -- phase 17: bf16 operands (slice 12) --
+
+# the (g, e) dtypes of 17a; the single-operand kernels (K4a-K4d) take the
+# u of the pair in its promoted dtype, as the unfused pipeline forms it
+BF16_PAIRS = (("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+              ("bfloat16", None))
+# bytes an element of each kernel's operands and outputs at bf16/bf16
+# (K4a-K4d read a bf16 u; K3's residual writes a bf16 e')
+BF16_LEAF_BYTES = {"fused_moments": 4, "fused_moments_hist": 4,
+                   "tree_count": 4, "compact_stage": 4, "compact_resid": 6,
+                   "moments": 2, "count_gt": 2, "threshold_compact": 2,
+                   "abs_histogram": 2}
+BF16_BATCH, BF16_SEQ = 8, 512
+
+
+def bf16_cfg(cfg):
+    """``cfg`` with the reference's dry-run dtypes
+    (``launch/dryrun.py:_bf16``): bf16 params and activations."""
+    import dataclasses
+    return dataclasses.replace(cfg, param_dtype="bfloat16",
+                               activation_dtype="bfloat16")
+
+
+def phase17a(torch, rows) -> dict:
+    """17a: every EF kernel at d = 268,435,456 with ``(g, e)`` in (bf16,
+    bf16), (bf16, f32) and (bf16, None), at the geometry the table pins
+    for a bf16 ``g``: K1 (with and without its histogram), K2 and both K3
+    launches on ``(g, e)``, K4a-K4d on the pair's ``u`` in its promoted
+    dtype, each against its plain version on the card (moments within
+    tolerance; counts, histograms, staging rows and offsets, indices and
+    ``e'`` bitwise, bf16 as int16), ``e'`` in place over ``e`` where it
+    has the promoted dtype, the fused and unfused pipelines' conservation
+    in that dtype, and unfused == fused where ``u`` is f32.  At (bf16,
+    bf16) each kernel is timed (CUDA events, median) beside its plain
+    version and its bound: the bytes of its operands and outputs at the
+    memory rate."""
+    from repro_torch.core import codec
+    from repro_torch.core.compressors import gaussiank_cap
+    from repro_torch.kernels.ef_fused import compact_residual as cr
+    from repro_torch.kernels.ef_fused import fused_moments as fm
+    from repro_torch.kernels.ef_fused import ops, tuning
+    from repro_torch.kernels.ef_fused import tree_count as tc
+    from repro_torch.kernels.gaussian_topk import count_gt as cg
+    from repro_torch.kernels.gaussian_topk import threshold_compact as thc
+    from repro_torch.kernels.histk import hist
+    from repro_torch.kernels.moments import moments as mom
+
+    d = BIG_LEAF
+    k = math.ceil(RATIO * d)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    g = torch.randn(d, generator=gen, device="cuda").mul_(1e-3)
+    e32 = torch.randn(d, generator=gen, device="cuda").mul_(5e-4)
+    g = g.bfloat16()
+    operands = {"bfloat16": e32.bfloat16(), "float32": e32, None: None}
+    cfg = tuning.resolve_config(d, "cuda", torch.bfloat16)
+    sb, block, w = cfg.stats_block, cfg.block, cfg.num_warps
+    k_cap = gaussiank_cap(k, d)
+    bcap = ops.fused_default_bcap(k_cap, d, block, cfg.bcap_slack)
+    out = {"d": d, "k": k, "config": {"block": block, "stats_block": sb,
+                                      "num_warps": w, "bcap": bcap,
+                                      "source": cfg.source}}
+    t0 = time.time()
+    for gname, ename in BF16_PAIRS:
+        e = operands[ename]
+        label = f"17a g {gname} e {ename}"
+        u = g if e is None else g + e
+        sum_abs = float((g.double() if e is None else g.double()
+                         + e.double()).abs().sum())
+        errs = {}
+        # K1, with and without its histogram
+        s, sq, mx = fm.fused_moments(g, e, block=sb, num_warps=w)
+        ps, psq, pmx = fm.fused_moments_plain(g, e, block=sb)
+        errs["fused_moments"] = check_moments(label, "K1", (s, sq, mx),
+                                              (ps, psq, pmx), sum_abs)
+        hs = fm.fused_moments_hist(g, e, block=sb, num_warps=w)
+        hp = fm.fused_moments_hist_plain(g, e, block=sb)[3]
+        assert torch.equal(hs[3], hp) and int(hs[3].sum()) == d, (
+            label, "K1 histogram")
+        errs["fused_moments_hist"] = check_moments(label, "K1 hist", hs[:3],
+                                                   (ps, psq, pmx), sum_abs)
+        # K2 at the plain moments' refinement tree
+        heap, n_cnt = ops._tree_thresholds(ops.gaussian_t0(ps, psq, d, k,
+                                                           False), 4)
+        thr = torch.from_numpy(heap[:n_cnt]).cuda()
+        cnt = tc.tree_count(g, e, thr, block=sb, num_warps=w)
+        assert torch.equal(cnt, tc.tree_count_plain(g, e, thr, block=sb)), (
+            label, "K2")
+        thres = float(ops._replay_refinement(heap, cnt.cpu().numpy(), k, 4))
+        # K3: staging rows and offsets, counts, e' (in place where e has
+        # the promoted dtype)
+        stage = cr.compact_stage(g, e, thres, block=block, bcap=bcap)
+        plain = cr.compact_stage_plain(g, e, thres, block=block, bcap=bcap)
+        for a, b, what in zip(stage, plain, ("values", "offsets",
+                                             "counts")):
+            assert same_bits(a, b), (label, "K3 stage", what)
+        enc = cr.exclusive_enc(plain[2], bcap)
+        want = cr.compact_resid_plain(g, e, thres, enc, block=block,
+                                      bcap=bcap, k_cap=k_cap)
+        assert want.dtype == u.dtype, (label, want.dtype)
+        target = e.clone() if e is not None and e.dtype == u.dtype else None
+        got = cr.compact_resid(g, e, thres, enc, block=block, bcap=bcap,
+                               k_cap=k_cap, out=target)
+        if target is not None:
+            assert got.data_ptr() == target.data_ptr(), (label, "in place")
+        assert same_bits(got, want), (label, "K3 residual")
+        del target, got, want, stage, plain
+        # the fused pipeline's pair and e', and conservation in u's dtype
+        fv, fi, fne = ops.fused_compress_ef(g, e, "gaussiank", k)
+        assert fv.dtype == fne.dtype == u.dtype, (label, fv.dtype)
+        assert torch.equal(codec.decode(fv, fi, d) + fne, u), (
+            label, "fused conservation")
+        nnz = int(codec.nnz(fi))
+        # K4a-K4d on u in its promoted dtype
+        m4 = mom.moments(u, block=sb, num_warps=w)
+        errs["moments"] = check_moments(label, "K4a", m4,
+                                        fm.moments_plain(u, sb), sum_abs)
+        for t in (float(heap[0]), thres):
+            assert torch.equal(cg.count_gt(u, t, block=sb),
+                               cg.count_gt_plain(u, t, block=sb)), (
+                label, "K4b", t)
+        ubcap = ops.fused_default_bcap(k_cap, d, block, 4.0)
+        for a, b, what in zip(
+                thc.threshold_compact(u, thres, block=block, bcap=ubcap),
+                thc.threshold_compact_plain(u, thres, block=block,
+                                            bcap=ubcap),
+                ("values", "offsets", "counts")):
+            assert same_bits(a, b), (label, "K4c", what)
+        assert torch.equal(hist.abs_histogram(u, block=sb),
+                           hist.abs_histogram_plain(u, block=sb)), (
+            label, "K4d")
+        # the unfused pipeline: conservation, and == fused where u is f32
+        uv, ui, une = ops.unfused_compress_ef(g, e, "gaussiank", k,
+                                              bcap=bcap)
+        assert torch.equal(codec.decode(uv, ui, d) + une, u), (
+            label, "unfused conservation")
+        if e is None or u.dtype == torch.float32:   # the same u
+            assert all(same_bits(a, b) for a, b in ((fv, uv), (fi, ui),
+                                                    (fne, une))), (
+                label, "unfused == fused")
+        del fv, fi, fne, uv, ui, une
+        out[label] = {"max_abs_err": errs, "threshold": thres, "nnz": nnz}
+        log(f"  {label}: K1 (max error {errs['fused_moments']:.3g}), K1 "
+            f"histogram, K2, K3 stage and e' ({u.dtype}) bitwise; K4a-K4d "
+            f"on u ({u.dtype}) bitwise; fused and unfused conserve in "
+            f"{u.dtype}; {nnz}/{k_cap} slots at threshold {thres:.6g}")
+        if (gname, ename) == ("bfloat16", "bfloat16"):
+            timed = (g, e, u, thres, thr, enc, errs)
+        del u
+        torch.cuda.empty_cache()
+    checked_s = time.time() - t0
+    # times at (bf16, bf16)
+    g, e, u, thres, thr, enc, errs = timed
+    nb, nbs, nt = -(-d // block), -(-d // sb), thr.numel()
+    ubcap = ops.fused_default_bcap(k_cap, d, block, 4.0)
+    e_out = e.clone()
+    fns = {
+        "fused_moments": (
+            lambda: fm.fused_moments(g, e, block=sb, num_warps=w),
+            lambda: fm.fused_moments_plain(g, e, block=sb)),
+        "fused_moments_hist": (
+            lambda: fm.fused_moments_hist(g, e, block=sb, num_warps=w),
+            lambda: fm.fused_moments_hist_plain(g, e, block=sb)),
+        "tree_count": (
+            lambda: tc.tree_count(g, e, thr, block=sb, num_warps=w),
+            lambda: tc.tree_count_plain(g, e, thr, block=sb)),
+        "compact_stage": (
+            lambda: cr.compact_stage(g, e, thres, block=block, bcap=bcap),
+            lambda: cr.compact_stage_plain(g, e, thres, block=block,
+                                           bcap=bcap)),
+        "compact_resid": (
+            lambda: cr.compact_resid(g, e, thres, enc, block=block,
+                                     bcap=bcap, k_cap=k_cap, out=e_out),
+            lambda: cr.compact_resid_plain(g, e, thres, enc, block=block,
+                                           bcap=bcap, k_cap=k_cap)),
+        "moments": (lambda: mom.moments(u, block=sb, num_warps=w),
+                    lambda: fm.moments_plain(u, sb)),
+        "count_gt": (lambda: cg.count_gt(u, thres, block=sb),
+                     lambda: cg.count_gt_plain(u, thres, block=sb)),
+        "threshold_compact": (
+            lambda: thc.threshold_compact(u, thres, block=block, bcap=ubcap),
+            lambda: thc.threshold_compact_plain(u, thres, block=block,
+                                                bcap=ubcap)),
+        "abs_histogram": (lambda: hist.abs_histogram(u, block=sb),
+                          lambda: hist.abs_histogram_plain(u, block=sb)),
+    }
+    extra = {   # bytes beyond the leaf-sized operands and outputs
+        "fused_moments": 12, "fused_moments_hist": 12 + 8 * 128,
+        "tree_count": 8 * nt, "compact_stage": 8 * nb * bcap + 4 * nb,
+        "compact_resid": 8 * nb, "moments": 12, "count_gt": 8,
+        "threshold_compact": 8 * nb * ubcap + 4 * nb,
+        "abs_histogram": 8 * 128}
+    nops = {"fused_moments": 5, "fused_moments_hist": 20, "tree_count": 17,
+            "compact_stage": 3, "compact_resid": 3, "moments": 5,
+            "count_gt": 3, "threshold_compact": 3, "abs_histogram": 15}
+    times = {}
+    for name, (kern, plain) in fns.items():
+        k_ms, p_ms = time_ms(kern, 10), time_ms(plain, 3)
+        b_ms, b_by = bound(BF16_LEAF_BYTES[name] * d + extra[name],
+                           nops[name] * d)
+        times[name] = k_ms
+        rows[name]["bf16"] = {
+            "g": "bfloat16", "e": "bfloat16", "d": d, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": errs.get(name, 0.0),
+            "pairs_checked": [f"{a}/{b}" for a, b in BF16_PAIRS],
+            "config": out["config"]}
+    log("  17a times at d={:,}, g and e bf16 (ms, median; bound by bytes "
+        "at {:.2f} TB/s): ".format(d, HBM_BYTES_PER_S / 1e12) + "; ".join(
+            f"{n} {rows[n]['bf16']['ms']:.4f} (bound "
+            f"{rows[n]['bf16']['bound_ms']:.4f}, plain "
+            f"{rows[n]['bf16']['plain_ms']:.3f})" for n in fns))
+    out["times_ms"] = times
+    out["checked_s"] = checked_s
+    del g, e, u, e_out, operands, e32
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_runner(torch, cfg, mesh, workers, model_size, batch, seq,
+                capture):
+    """``runner`` for :func:`train_path`: the reference dry run's bf16
+    train step (``launch/dryrun.py:lower_train``) through the library
+    entry points: ``init_params`` of the bf16 ``cfg``,
+    ``init_train_state(..., resid_dtype=torch.bfloat16)``, Gaussian-k at
+    ``RATIO`` bucketed over allgather, SGD with momentum 0.9, on
+    ``mesh``'s ``LocalWire`` with remat.  Every compression must write
+    ``e'`` into the state's bf16 residual in place; ``capture`` receives
+    the layout, then row 0 of rank 0's step-0 bucket ``G``, of its
+    residual before the compression (``E``, zero) and of the card's pair
+    and ``e'``, on the host."""
+    def run(steps, probe):
+        from repro_torch.core.compression import CompressionConfig
+        from repro_torch.data import batch_for
+        from repro_torch.dist.layout import build_layout
+        from repro_torch.dist.wire import LocalWire
+        from repro_torch.launch.mesh import parse_mesh
+        from repro_torch.models import init_params
+        from repro_torch.optim import constant, sgd_momentum
+        from repro_torch.train import init_train_state, make_train_step
+        comp = CompressionConfig(compressor="gaussiank", ratio=RATIO)
+        params = init_params(cfg, 0, "cuda")
+        assert all(p.dtype == torch.bfloat16 for p in
+                   __import__("repro_torch").tree.leaves(params))
+        layout = build_layout(params, model_size, comp)
+        opt = sgd_momentum(0.9)
+        state = init_train_state(params, opt, workers=workers,
+                                 model_size=model_size, compression=comp,
+                                 layout=layout, resid_dtype=torch.bfloat16)
+        resid = state["resid"]
+        assert resid.dtype == torch.bfloat16, resid.dtype
+        step_no = [0]
+
+        def host(t):
+            return t.to("cpu", copy=True)
+
+        def watch(rank, **kw):
+            ne = kw.get("new_E")
+            if ne is not None:
+                assert ne.dtype == torch.bfloat16, ne.dtype
+                assert ne.data_ptr() == resid[rank].data_ptr(), (
+                    "e' not written into the state's residual", rank)
+                if rank == 0 and step_no[0] == 0:    # row 0 alone
+                    capture.append({"step": step_no[0], "E": capture_e[0],
+                                    **{n: host(kw[n][:1]) for n in (
+                                        "G", "values", "indices")},
+                                    "new_E": host(ne[:1])})
+            probe(rank, **kw)
+
+        step = make_train_step(cfg, mesh, opt, constant(0.1),
+                               compression=comp, layout=layout, probe=watch,
+                               wire=LocalWire(parse_mesh(mesh)), remat=True)
+        capture_e = [None]
+        capture.append({"layout": layout})
+        records = []
+        for i in range(steps):
+            step_no[0] = i
+            if i == 0:
+                capture_e[0] = host(resid[0].view(model_size, -1)[:1])
+            b = batch_for(cfg, i, global_batch=batch, seq_len=seq,
+                          device="cuda")
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            rec = {"step": i, "ms": (time.perf_counter() - t0) * 1e3}
+            rec.update({k: float(v) for k, v in m.items()})
+            records.append(rec)
+            assert state["resid"] is resid, "the residual was replaced"
+        assert all(p.dtype == torch.bfloat16 for p in
+                   __import__("repro_torch").tree.leaves(state["params"]))
+        return records
+    return run
+
+
+def phase17b(torch, by_path) -> tuple:
+    """17b: llama3.2-1b at full width and depth in bf16 (params and
+    activations), the reference dry run's train step: the trainer's
+    default mesh 4x2 in this process (4 workers, 2 bucket rows each),
+    8 x 512 with remat, Gaussian-k at 0.001 bucketed over allgather,
+    SGD momentum 0.9, a bf16 residual; 3 steps.  Finite losses, one K1,
+    K2 and K3 pair a leaf a bucket row a worker a step (96 each), ``e'``
+    written into the state's bf16 residual in place, every worker's
+    step-0 bucket conserving bitwise in bf16; step ms and peak memory
+    beside PR 25's f32 run at 8 x 512 with remat (one worker)."""
+    from repro_torch.configs import get_config
+    cfg = bf16_cfg(get_config("llama3.2-1b"))
+    label = "17b bf16 mesh 4x2"
+    capture = []
+    log(f"phase 17b: llama3.2-1b at full width and depth in bf16, --mesh "
+        f"4x2 in this process, {BF16_BATCH} x {BF16_SEQ} with remat, "
+        f"Gaussian-k at {RATIO}, a bf16 residual, 3 steps")
+    by_path[label], records, peak, bnd, extra = train_path(
+        label, [], {n: 96 for n in MAIN_KERNELS}, 3, torch, workers=4,
+        cfg=cfg, leaf_bytes=BF16_LEAF_BYTES,
+        runner=bf16_runner(torch, cfg, "4x2", 4, 2, BF16_BATCH, BF16_SEQ,
+                           capture))
+    assert peak < 80e9, (label, "peak memory", peak)
+    ms = [r["ms"] for r in records]
+    out = {"losses": [r["loss"] for r in records], "step_ms": ms,
+           "steady_ms": statistics.median(ms[1:]),
+           "compress_ms": extra["compress_ms"], "wire_ms": extra["wire_ms"],
+           "peak_gib": peak / 2 ** 30,
+           "density": [r["density"] for r in records],
+           "step_bound_ms": bnd,
+           "f32_1x1_remat_512_pr25": {"steady_ms": [905.8, 910.5],
+                                      "peak_gib": 28.14}}
+    log(f"  {label}: steady step {out['steady_ms']:.1f} ms, peak "
+        f"{out['peak_gib']:.2f} GiB (PR 25, f32, one worker, 8 x 512 with "
+        f"remat: 905.8-910.5 ms, 28.14 GiB); e' written in place into the "
+        f"bf16 residual at every compression")
+    return out, capture
+
+
+def phase17c(torch, capture) -> dict:
+    """17c: the card's compression against the CPU's: row 0 of rank 0's
+    step-0 bucket ``G`` and residual ``E`` (17b's, on the host) through
+    the plain pipeline on the CPU at the card's block geometry, segment
+    by segment, on the segments of at most 2^25 columns (the rest would
+    take minutes on the host): the pair and ``e'`` bitwise the card's.
+    Then the bf16 ``.reduced()`` variant 2 steps on the card and on the
+    CPU from the same params (drawn on the CPU), the CPU at the card's
+    block geometry: losses within rtol 2.5e-4, the tolerance of
+    ``tests/test_torch_bf16.py``'s bf16 step."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data import batch_for
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.kernels.ef_fused import segmented_compress_ef, tuning
+    from repro_torch.models import init_params
+    from repro_torch.optim import constant, sgd_momentum
+    from repro_torch.train import init_train_state, make_train_step
+    layout = capture[0]["layout"]
+    segs = [s for s in layout.segments if s.d_row <= 1 << 25]
+    out = {"segments": [s.name for s in segs],
+           "columns": sum(s.d_row for s in segs)}
+    t0 = time.time()
+    for cap in capture[1:]:
+        G, E = cap["G"][:1], cap["E"][:1].clone()
+        assert G.dtype == E.dtype == torch.bfloat16
+        with tuning.geometry_of("cuda"):
+            triples = segmented_compress_ef(
+                G, E, [(s.row_off, s.d_row) for s in segs], "gaussiank",
+                [s.k_row for s in segs], [s.k_cap for s in segs], out2d=E)
+        for s, (v, i, ne) in zip(segs, triples):
+            cols = slice(s.row_off, s.row_off + s.d_row)
+            caps = slice(s.cap_off, s.cap_off + s.k_cap)
+            ci = cap["indices"][0, caps]
+            ci = torch.where(ci >= 0, ci - s.row_off, ci)
+            assert same_bits(v[0], cap["values"][0, caps]), (
+                "17c values", cap["step"], s.name)
+            assert torch.equal(i[0], ci), ("17c indices", cap["step"],
+                                           s.name)
+            assert same_bits(ne[0], cap["new_E"][0, cols]), (
+                "17c e'", cap["step"], s.name)
+        log(f"  17c step {cap['step']}: rank 0's row 0, {len(segs)} "
+            f"segments ({out['columns']:,} columns): the CPU's pair and e' "
+            f"bitwise the card's")
+    out["compare_s"] = time.time() - t0
+    cfg = bf16_cfg(get_config("llama3.2-1b").reduced())
+    base = init_params(cfg, 0, "cpu")
+    comp = CompressionConfig(compressor="gaussiank", ratio=0.01)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        params = tree.tree_map(lambda x: x.clone().to(dev), base)
+        lay = build_layout(params, 1, comp)
+        opt = sgd_momentum(0.9)
+        state = init_train_state(params, opt, workers=1, model_size=1,
+                                 compression=comp, layout=lay,
+                                 resid_dtype=torch.bfloat16)
+        step = make_train_step(cfg, (1, 1), opt, constant(0.1),
+                               compression=comp, layout=lay)
+        ls = []
+        with tuning.geometry_of("cuda"):
+            for i in range(2):
+                b = batch_for(cfg, i, global_batch=8, seq_len=64, device=dev)
+                state, m = step(state, b)
+                ls.append(float(m["loss"]))
+        assert state["resid"].dtype == torch.bfloat16
+        losses[dev] = ls
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2.5e-4)
+    out["reduced_losses"] = losses
+    log(f"  17c reduced bf16 variant, 2 steps: card {losses['cuda']} vs CPU "
+        f"{losses['cpu']} within rtol 2.5e-4")
+    return out
+
+
+def phase17_bf16(torch, by_path, rows) -> dict:
+    """Phase 17, slice 12, bf16 operands: 17a the kernels at bf16, 17b the
+    bf16 train step at full width, 17c card against CPU."""
+    t0 = time.time()
+    log("phase 17a: the EF kernels at d = 268,435,456 with bf16 operands")
+    out = {"17a": phase17a(torch, rows)}
+    t1 = time.time()
+    out["17b"], capture = phase17b(torch, by_path)
+    torch.cuda.empty_cache()
+    t2 = time.time()
+    log("phase 17c: the card's bf16 compression and the reduced variant "
+        "against the CPU")
+    out["17c"] = phase17c(torch, capture)
+    del capture
+    out["phase17_s"] = time.time() - t0
+    log(f"phase 17 took {out['phase17_s']:.1f} s (17a {t1 - t0:.1f}, 17b "
+        f"{t2 - t1:.1f}, 17c {time.time() - t2:.1f})")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5122,8 +5640,12 @@ def main(argv) -> int:
         log(json.dumps({"phase10": phase10_serve(torch, {})}))
         log("serve-only run: phases 2-9 skipped")
         return 0
+    # the operand dtypes each kernel is checked at (phases 2 and 17;
+    # threefry_bits: its outputs')
     rows = {n: {"name": v[0], "route": v[1], "source": v[2],
-                "replaces": v[3], "library_ms": None}
+                "replaces": v[3], "library_ms": None,
+                "dtypes": (["int32", "int64"] if n == "threefry_bits"
+                           else ["float32", "bfloat16"])}
             for n, v in KERNELS.items()}
     if "--arch-only" in argv:
         by_path = {}
@@ -5176,6 +5698,14 @@ def main(argv) -> int:
                         "launches_by_path": by_path}, default=str))
         log("long-seq-only run: phases 2-15 skipped")
         return 0
+    if "--bf16-only" in argv:
+        by_path = {}
+        log(json.dumps({"phase17": phase17_bf16(torch, by_path, rows),
+                        "launches_by_path": by_path}, default=str))
+        log(json.dumps({"kernels": [dict(name=r["name"], **r.get(
+            "bf16", {})) for r in rows.values()]}, default=str))
+        log("bf16-only run: phases 2-16 skipped")
+        return 0
     if "--tensor-parallel-only" in argv:
         by_path = {}
         log(json.dumps({"phase12b": phase12b(torch, by_path, llama),
@@ -5183,6 +5713,10 @@ def main(argv) -> int:
                         "launches_by_path": by_path}))
         log("tensor-parallel-only run: phases 12b and 12c alone")
         return 0
+
+    # 13f's dry run needs no card: its minutes on the host overlap
+    # phases 2-13
+    dry = None if kernels_only else start_dryrun()
 
     # -- phase 2: kernels against their plain versions --
     sizes = (2048, 1_000_003) if kernels_only else (2048, 1_000_003,
@@ -5442,7 +5976,7 @@ def main(argv) -> int:
     phase12 = phase12_model_axis(torch, by_path, llama)
 
     # -- phase 13: the launch and tuning stack --
-    phase13 = phase13_tuner(torch, by_path, llama)
+    phase13 = phase13_tuner(torch, by_path, llama, dry)
 
     # -- phase 14: serving placed over the mesh --
     phase14 = phase14_placed(torch, by_path)
@@ -5452,6 +5986,9 @@ def main(argv) -> int:
 
     # -- phase 16: long sequences --
     phase16 = phase16_long(torch, by_path)
+
+    # -- phase 17: bf16 operands --
+    phase17 = phase17_bf16(torch, by_path, rows)
 
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
@@ -5466,6 +6003,7 @@ def main(argv) -> int:
                     "phase11": phase11, "phase12": phase12,
                     "phase13": phase13, "phase14": phase14,
                     "phase15": phase15, "phase16": phase16,
+                    "phase17": phase17,
                     "build_s": build_s,
                     "total_s": time.time() - t_start}, default=str))
     log(json.dumps({"kernels": list(rows.values())}))
@@ -5477,4 +6015,8 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    try:
+        code = main(sys.argv[1:])
+    finally:
+        stop_dryruns()
+    sys.exit(code)

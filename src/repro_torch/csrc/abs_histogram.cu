@@ -16,8 +16,9 @@
 // depend on the order they are taken in, so the result is bitwise the
 // plain version's at any block and grid.
 //
-// What bounds it on the card: bytes.  One read of x, 4 bytes an element:
-// 0.321 ms for the 268,435,456-element leaf at 3.35 TB/s.  The binning is
+// What bounds it on the card: bytes.  One read of x, 4 bytes an element
+// (2 in bf16): 0.321 ms (0.160) for the 268,435,456-element leaf at 3.35
+// TB/s.  The binning is
 // ~10 integer operations an element, far below the compute roof.  The
 // Triton design reached 36% of that bound (0.886 ms on an NVIDIA H100
 // 80GB HBM3 at 700 W): tl.histogram's per-element votes and the 33-67 MB
@@ -26,9 +27,11 @@
 //
 // What the design does about it:
 //   * a persistent grid, at most one CTA of 12 warps per SM, walks x with
-//     a grid stride in float4 loads (8 per lane in flight, 48 KB per SM),
-//     with a scalar head and tail for a view that does not start on a
-//     16-byte boundary or whose length is not a multiple of 4;
+//     a grid stride in 16-byte loads (4 f32 or 8 bf16; 8 per lane in
+//     flight, 48 KB per SM), with a scalar head and tail for a view that
+//     does not start on a 16-byte boundary or whose length is not a
+//     multiple of the load's elements; a bf16 element is binned by its
+//     f32 value, the top half of the word (exact);
 //   * every lane counts into its own 128 uint32 counters in shared memory
 //     (192 KB a CTA), counter b of lane l at word b*32 + l: no two lanes
 //     share a counter and lane l's counters all sit in bank l, so the
@@ -52,6 +55,7 @@
 // visits, about d / (CTAs * 384); it overflows 32 bits only for d above
 // 2^32 * 384 elements, far beyond any tensor this port makes.  The fold
 // sums in 64 bits.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,16 +78,34 @@ __device__ __forceinline__ void count(unsigned* h, float v) {
   atomicAdd(h + bin_of(v) * 32, 1u);
 }
 
-__device__ __forceinline__ void count4(unsigned* h, float4 v) {
-  count(h, v.x);
-  count(h, v.y);
-  count(h, v.z);
-  count(h, v.w);
+__device__ __forceinline__ void count(unsigned* h, __nv_bfloat16 v) {
+  count(h, __bfloat162float(v));
 }
 
+// the elements of one 16-byte load: 4 f32, or 8 bf16 (the lower address
+// in each word's low half; a bf16 is the top half of its f32: exact)
+__device__ __forceinline__ void count16(unsigned* h, uint4 v, float) {
+  count(h, __uint_as_float(v.x));
+  count(h, __uint_as_float(v.y));
+  count(h, __uint_as_float(v.z));
+  count(h, __uint_as_float(v.w));
+}
+
+__device__ __forceinline__ void count16(unsigned* h, uint4 v,
+                                        __nv_bfloat16) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    count(h, __uint_as_float(w[i] << 16));
+    count(h, __uint_as_float(w[i] & 0xffff0000u));
+  }
+}
+
+template <typename T>
 __global__ void __launch_bounds__(HIST_THREADS, 1)
-hist_kernel(const float* __restrict__ x, long long d, long long head,
+hist_kernel(const T* __restrict__ x, long long d, long long head,
             unsigned long long* __restrict__ out) {
+  constexpr int V = 16 / (int)sizeof(T);  // elements a 16-byte load
   extern __shared__ uint4 smem4[];
   unsigned* sh = reinterpret_cast<unsigned*>(smem4);
   const int lane = threadIdx.x & 31;
@@ -94,25 +116,26 @@ hist_kernel(const float* __restrict__ x, long long d, long long head,
   unsigned* h = sh + warp * (BINS * 32) + lane;
 
   // head elements before the first 16-byte boundary, tail after the last
-  // whole float4: at most 3 each, counted by the first CTA's threads
-  const long long n4 = (d - head) >> 2;
-  const long long tail = head + 4 * n4;
+  // whole 16-byte load: at most V - 1 each, counted by the first CTA's
+  // threads
+  const long long n4 = (d - head) / V;
+  const long long tail = head + V * n4;
   if (blockIdx.x == 0) {
     if (threadIdx.x < head) count(h, x[threadIdx.x]);
     if (threadIdx.x < d - tail) count(h, x[tail + threadIdx.x]);
   }
 
-  const float4* x4 = reinterpret_cast<const float4*>(x + head);
+  const uint4* x4 = reinterpret_cast<const uint4*>(x + head);
   const long long stride = (long long)gridDim.x * HIST_THREADS;
   long long i = (long long)blockIdx.x * HIST_THREADS + threadIdx.x;
   for (; i + (HIST_U - 1) * stride < n4; i += HIST_U * stride) {
-    float4 v[HIST_U];
+    uint4 v[HIST_U];
 #pragma unroll
     for (int u = 0; u < HIST_U; ++u) v[u] = __ldcs(x4 + i + u * stride);
 #pragma unroll
-    for (int u = 0; u < HIST_U; ++u) count4(h, v[u]);
+    for (int u = 0; u < HIST_U; ++u) count16(h, v[u], T());
   }
-  for (; i < n4; i += stride) count4(h, __ldcs(x4 + i));
+  for (; i < n4; i += stride) count16(h, __ldcs(x4 + i), T());
   __syncthreads();
 
   // fold: warp w sums bins w, w + 12, ...; lane l adds up the counters of
@@ -140,29 +163,43 @@ static cudaError_t prepare(int* sms) {
   }
   err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(hist_kernel,
+    err = cudaFuncSetAttribute(hist_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               HIST_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(hist_kernel<__nv_bfloat16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                HIST_SMEM);
   if (err == cudaSuccess && dev < 64) g_sms[dev] = *sms;
   return err;
 }
 
-// x: d f32 elements (any 4-byte aligned address); out: 128 int64 counts,
-// zeroed by the caller, to which the kernel adds.
-extern "C" int abs_histogram_f32(const void* x, long long d, void* out,
-                                 void* stream) {
-  int sms = 0;
-  const cudaError_t err = prepare(&sms);
-  if (err != cudaSuccess) return (int)err;
-  long long head = (long long)((16 - (uintptr_t)x % 16) % 16 / 4);
+template <typename T>
+static int launch(const void* x, long long d, void* out, void* stream,
+                  int sms) {
+  const int size = (int)sizeof(T);
+  long long head = (long long)((16 - (uintptr_t)x % 16) % 16 / size);
   if (head > d) head = d;
-  const long long n4 = (d - head) / 4;
+  const long long n4 = (d - head) / (16 / size);
   const long long per_cta = (long long)HIST_THREADS * HIST_U;
   long long ctas = (n4 + per_cta - 1) / per_cta;
   if (ctas > sms) ctas = sms;
   if (ctas < 1) ctas = 1;
-  hist_kernel<<<(unsigned)ctas, HIST_THREADS, HIST_SMEM,
-                (cudaStream_t)stream>>>((const float*)x, d, head,
-                                        (unsigned long long*)out);
+  hist_kernel<T><<<(unsigned)ctas, HIST_THREADS, HIST_SMEM,
+                   (cudaStream_t)stream>>>((const T*)x, d, head,
+                                           (unsigned long long*)out);
   return (int)cudaGetLastError();
+}
+
+// x: d elements, f32 (x_bf16 = 0; any 4-byte aligned address) or bf16
+// (x_bf16 = 1; any 2-byte aligned address), binned by their exact f32
+// value; out: 128 int64 counts, zeroed by the caller, to which the kernel
+// adds.
+extern "C" int abs_histogram(const void* x, int x_bf16, long long d,
+                             void* out, void* stream) {
+  int sms = 0;
+  const cudaError_t err = prepare(&sms);
+  if (err != cudaSuccess) return (int)err;
+  return x_bf16 ? launch<__nv_bfloat16>(x, d, out, stream, sms)
+                : launch<float>(x, d, out, stream, sms);
 }

@@ -18,6 +18,14 @@ Two launches, the race-free shape of the reference's GPU lowering:
 3. :func:`compact_resid` re-streams ``g``/``e``, recomputes each
    element's in-block position and writes ``e'``.
 
+Operands: ``g`` f32 or bf16, ``e`` f32, bf16 or None.  ``u = f32(g) +
+f32(e)`` is formed and compared in f32, as the reference's ``_load_u``
+does (``compact_residual.py:81-85``); the staging rows hold those f32
+values; ``e'`` is written in the promoted dtype of ``g`` and ``e``
+(:func:`~repro_torch.kernels.ef_fused.fused_moments.out_dtype`), rounded
+once to nearest even, and :func:`assemble_staging` casts the wire values
+to it: the reference's ``out_dtype = result_type(g, e)``.
+
 The plain versions (``*_plain``) compute the same with torch ops over
 the zero-padded ``(nblocks, block)`` view; the wrappers take them for
 CPU tensors only.
@@ -31,7 +39,9 @@ import torch
 from repro_torch.core.codec import SENTINEL
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.ef_fused.fused_moments import (_blocks, _check,
-                                                        _check_cuda_f32)
+                                                        check_cuda_dtypes,
+                                                        dtype_code,
+                                                        out_dtype)
 
 SOURCE = "compact_residual.cu"
 _SIGS = []
@@ -42,11 +52,12 @@ def _lib():
     if not _SIGS:
         p, f, i, ll = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                        ctypes.c_longlong)
-        lib.compact_stage_f32.argtypes = [p, p, ll, f, i, i, ll, p, p, p, p]
-        lib.compact_stage_f32.restype = i
-        lib.compact_resid_f32.argtypes = [p, p, ll, f, i, i, ll, ll, p, p,
-                                          p]
-        lib.compact_resid_f32.restype = i
+        lib.compact_stage.argtypes = [p, p, i, i, ll, f, i, i, ll, p, p, p,
+                                      p]
+        lib.compact_stage.restype = i
+        lib.compact_resid.argtypes = [p, p, i, i, ll, f, i, i, ll, ll, p, p,
+                                      p]
+        lib.compact_resid.restype = i
         _SIGS.append(True)
     return lib
 
@@ -93,17 +104,32 @@ def compact_stage_plain(g, e, thres: float, *, block: int, bcap: int):
     return vals[:, :bcap].contiguous(), offs[:, :bcap].contiguous(), cnt
 
 
+def _check_out(g, e, out):
+    """``out`` must be a contiguous tensor shaped and placed like ``g``,
+    of :func:`out_dtype` ``(g, e)``."""
+    if (out.shape != g.shape or out.device != g.device
+            or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous tensor shaped and placed "
+                         "like g")
+    if out.dtype != out_dtype(g, e):
+        raise TypeError(f"out must be {out_dtype(g, e)} (the promoted "
+                        f"dtype of g and e), got {out.dtype}")
+
+
 def compact_resid_plain(g, e, thres: float, enc_before: torch.Tensor, *,
                         block: int, bcap: int, k_cap: int, out=None):
     """Plain PyTorch version of the residual kernel: ``e' = 0`` where the
-    element survives to the wire, else ``u``; ``(d,)`` f32."""
+    element survives to the wire, else ``u`` (f32) rounded once to
+    :func:`out_dtype` ``(g, e)``; ``(d,)``."""
     d = g.shape[0]
     x = _blocks(_u(g, e), block)
     pos, keep, _ = _select(x, thres, bcap)
     on_wire = keep & (enc_before.to(torch.int64)[:, None] + pos < k_cap)
     new_e = torch.where(on_wire, torch.zeros_like(x), x).reshape(-1)[:d]
+    new_e = new_e.to(out_dtype(g, e))
     if out is None:
         return new_e
+    _check_out(g, e, out)
     out.copy_(new_e)
     return out
 
@@ -114,15 +140,16 @@ def compact_stage(g: torch.Tensor, e, thres: float, *, block: int,
     _check(g, e)
     if g.device.type != "cuda":
         return compact_stage_plain(g, e, thres, block=block, bcap=bcap)
-    _check_cuda_f32("compact_stage", g, e)
+    check_cuda_dtypes("compact_stage", g, e)
     nb = _geometry(g, block, bcap)
     vals = torch.empty((nb, bcap), dtype=torch.float32, device=g.device)
     offs = torch.empty((nb, bcap), dtype=torch.int32, device=g.device)
     cnt = torch.empty((nb,), dtype=torch.int32, device=g.device)
     lib = _lib()
     with torch.cuda.device(g.device):
-        rc = lib.compact_stage_f32(
-            g.data_ptr(), None if e is None else e.data_ptr(), g.shape[0],
+        rc = lib.compact_stage(
+            g.data_ptr(), None if e is None else e.data_ptr(),
+            dtype_code(g), dtype_code(g if e is None else e), g.shape[0],
             float(thres), block, bcap, nb, vals.data_ptr(), offs.data_ptr(),
             cnt.data_ptr(), _stream(g))
     cuda_build.check(rc, "compact_stage")
@@ -133,13 +160,14 @@ def compact_stage(g: torch.Tensor, e, thres: float, *, block: int,
 def compact_resid(g: torch.Tensor, e, thres: float,
                   enc_before: torch.Tensor, *, block: int, bcap: int,
                   k_cap: int, out=None) -> torch.Tensor:
-    """Residual launch: ``e'`` as a ``(d,)`` f32 tensor, written into
-    ``out`` when given (``out`` may be ``e`` itself — in place)."""
+    """Residual launch: ``e'`` as a ``(d,)`` tensor of :func:`out_dtype`
+    ``(g, e)``, written into ``out`` when given (``out`` may be ``e``
+    itself — in place — when ``e`` has that dtype)."""
     _check(g, e)
     if g.device.type != "cuda":
         return compact_resid_plain(g, e, thres, enc_before, block=block,
                                    bcap=bcap, k_cap=k_cap, out=out)
-    _check_cuda_f32("compact_resid", g, e, out)
+    check_cuda_dtypes("compact_resid", g, e)
     nb = _geometry(g, block, bcap)
     if (enc_before.shape != (nb,) or enc_before.dtype != torch.int64
             or enc_before.device != g.device
@@ -147,15 +175,14 @@ def compact_resid(g: torch.Tensor, e, thres: float,
         raise ValueError("enc_before must be a contiguous int64 (nblocks,) "
                          "tensor on g's device")
     if out is None:
-        out = torch.empty_like(g, dtype=torch.float32)
-    elif (out.shape != g.shape or out.device != g.device
-          or not out.is_contiguous()):
-        raise ValueError("out must be a contiguous tensor shaped and placed "
-                         "like g")
+        out = torch.empty_like(g, dtype=out_dtype(g, e))
+    else:
+        _check_out(g, e, out)
     lib = _lib()
     with torch.cuda.device(g.device):
-        rc = lib.compact_resid_f32(
-            g.data_ptr(), None if e is None else e.data_ptr(), g.shape[0],
+        rc = lib.compact_resid(
+            g.data_ptr(), None if e is None else e.data_ptr(),
+            dtype_code(g), dtype_code(g if e is None else e), g.shape[0],
             float(thres), block, bcap, int(k_cap), nb,
             enc_before.data_ptr(), out.data_ptr(), _stream(g))
     cuda_build.check(rc, "compact_resid")
@@ -175,7 +202,8 @@ def exclusive_enc(cnt: torch.Tensor, bcap: int) -> torch.Tensor:
 
 def compact_residual(g: torch.Tensor, e, thres: float, *, block: int,
                      bcap: int, k_cap: int, out=None):
-    """Both launches: ``(vals, offs, cnt, new_e)``."""
+    """Both launches: ``(vals, offs, cnt, new_e)``; the staging rows
+    ``vals`` f32 (copies of ``u``), ``new_e`` of :func:`out_dtype`."""
     vals, offs, cnt = compact_stage(g, e, thres, block=block, bcap=bcap)
     new_e = compact_resid(g, e, thres, exclusive_enc(cnt, bcap),
                           block=block, bcap=bcap, k_cap=k_cap, out=out)
@@ -183,9 +211,11 @@ def compact_residual(g: torch.Tensor, e, thres: float, *, block: int,
 
 
 def assemble_staging(vals: torch.Tensor, offs: torch.Tensor,
-                     cnts: torch.Tensor, k_cap: int, *, block: int):
+                     cnts: torch.Tensor, k_cap: int, *, block: int,
+                     out_dtype=torch.float32):
     """Staging rows into the fixed ``(k_cap,)`` codec (port of
-    ``repro/kernels/gaussian_topk/ops.py:assemble_staging``): block
+    ``repro/kernels/gaussian_topk/ops.py:assemble_staging``), the values
+    cast from the f32 rows to ``out_dtype`` at the end: block
     entries land at slot ``cumsum(min(cnt, bcap)) + j``; anything at or
     past ``k_cap`` is dropped.  Written as a GATHER over the ``k_cap``
     output slots (each finds its block by a binary search of the running
@@ -208,4 +238,4 @@ def assemble_staging(vals: torch.Tensor, offs: torch.Tensor,
                          torch.zeros((), dtype=vals.dtype, device=dev))
     gidx = row * block + offs.reshape(-1)[flat].to(torch.int64)
     indices = torch.where(valid, gidx, SENTINEL).to(torch.int32)
-    return values.to(torch.float32), indices
+    return values.to(out_dtype), indices

@@ -14,19 +14,23 @@ C++ kernel of its own (``csrc/abs_histogram.cu``, wrapped in
 ``kernels/histk/hist.py``), and K1 keeps its Triton histogram.
 
 What bounds it on the card: bytes.  It reads 8 bytes per element
-(``g`` and ``e`` in f32) and does ~5 flops on them (~15 integer
-operations more with the histogram), far below the H100's ~20 flops per
-byte of f32 balance, so the floor is ``8·d`` bytes over the memory rate
-(0.64 ms for the 268,435,456-element leaf at 3.35 TB/s).  The histogram
-adds one 512-byte row of partial counts per program: 33.5 MB at that
-leaf with 4096-element blocks, 2% of the bytes read.
+(``g`` and ``e`` in f32; 4 with both in bf16) and does ~5 flops on them
+(~15 integer operations more with the histogram), far below the H100's
+~20 flops per byte of f32 balance, so the floor is the operands' bytes
+over the memory rate (0.64 ms for the 268,435,456-element leaf at 3.35
+TB/s in f32, 0.32 ms in bf16).  The histogram adds one 512-byte row of
+partial counts per program: 33.5 MB at that leaf with 4096-element
+blocks, 2% of the bytes read.
 
 Design: a Triton streaming reduction.  Each program loads one
 ``stats_block`` of ``g`` and ``e`` with masked 16-byte vector loads
 (the ragged tail reads as 0, which is what the reference's zero padding
-contributes), forms ``u`` in registers and reduces it with ``tl.sum`` /
-``tl.max`` (warp-shuffle trees).  It writes ONE partial row ``(s, sq,
-mx)``; no float atomics.  The wrapper folds the rows with torch's
+contributes), each operand in its own dtype (f32 or bf16: 4 or 8
+elements a load), widens both to f32 and forms ``u = f32(g) + f32(e)``
+in registers, as the reference's kernel does
+(``repro/kernels/ef_fused/fused_moments.py:56-59``), and reduces it
+with ``tl.sum`` / ``tl.max`` (warp-shuffle trees).  It writes ONE
+partial row ``(s, sq, mx)``; no float atomics.  The wrapper folds the rows with torch's
 reductions, which are deterministic, so a rerun on the same inputs gives
 the same threshold.  Bit-equality with JAX is not a goal: XLA orders
 the in-block sum its own way, so ``s``/``sq`` are held within a stated
@@ -57,9 +61,9 @@ def _moments_kernel(g_ptr, e_ptr, part_ptr, hist_ptr, d,
     pid = tl.program_id(0)
     offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     m = offs < d
-    x = tl.load(g_ptr + offs, mask=m, other=0.0)
+    x = tl.load(g_ptr + offs, mask=m, other=0.0).to(tl.float32)
     if HAS_E:
-        x = x + tl.load(e_ptr + offs, mask=m, other=0.0)
+        x = x + tl.load(e_ptr + offs, mask=m, other=0.0).to(tl.float32)
     s = tl.sum(x, axis=0)
     sq = tl.sum(x * x, axis=0)
     mx = tl.max(tl.abs(x), axis=0)
@@ -101,11 +105,28 @@ def _check(g, e):
                          "like g")
 
 
-def _check_cuda_f32(name, *xs):
+# the operand dtypes the card's EF kernels load; each forms u in f32
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def out_dtype(g: torch.Tensor, e) -> torch.dtype:
+    """The dtype of ``e'`` and of the wire values: the promoted type of
+    ``g`` and ``e`` (``g``'s without ``e``), the reference's
+    ``result_type(g, e)``."""
+    return g.dtype if e is None else torch.promote_types(g.dtype, e.dtype)
+
+
+def check_cuda_dtypes(name, *xs):
+    """Raise ``TypeError`` unless every operand given is f32 or bf16."""
     for x in xs:
-        if x is not None and x.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got "
-                            f"{x.dtype}")
+        if x is not None and x.dtype not in KERNEL_DTYPES:
+            raise TypeError(f"{name}: the CUDA kernels take float32 or "
+                            f"bfloat16 operands, got {x.dtype}")
+
+
+def dtype_code(x) -> int:
+    """The C kernels' operand type: 0 f32, 1 bf16 (checked before)."""
+    return int(x.dtype == torch.bfloat16)
 
 
 def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -122,7 +143,7 @@ def launch_stats(name: str, g: torch.Tensor, e, *, block: int, hist: bool,
     ``(s, sq, mx)`` and the int64 ``(BINS,)`` histogram of the ``d`` real
     elements (or ``None``).  The wrapper that calls this counts the
     launch."""
-    _check_cuda_f32(name, g, e)
+    check_cuda_dtypes(name, g, e)
     if block < 16 or block & (block - 1):
         raise ValueError(f"stats block must be a power of two >= 16, got "
                          f"{block}")
@@ -172,9 +193,9 @@ def fused_moments_plain(g: torch.Tensor, e=None, *, block: int):
 
 def fused_moments(g: torch.Tensor, e=None, *, block: int, num_warps=None):
     """``(sum, sumsq, absmax)`` of ``u = g + e`` as 0-d f32 tensors on
-    ``g``'s device.  CUDA tensors launch the Triton kernel (f32 only,
-    ``block`` a power of two, ``num_warps`` warps a program, 4 unless
-    given); CPU tensors take the plain version."""
+    ``g``'s device.  CUDA tensors launch the Triton kernel (``g`` and
+    ``e`` each f32 or bf16, ``block`` a power of two, ``num_warps`` warps
+    a program, 4 unless given); CPU tensors take the plain version."""
     _check(g, e)
     if g.device.type != "cuda":
         return fused_moments_plain(g, e, block=block)

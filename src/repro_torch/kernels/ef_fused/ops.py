@@ -27,9 +27,11 @@ it): ``u = g + e`` written out, K4a ``moments`` and four K4b
 ``count_gt`` launches (or K4d ``abs_histogram`` for hist-k), K4c
 ``threshold_compact``, the assembly, a dense decode and ``e' = u −
 decode``.  Same block policy, same threshold, same staging rows; for
-f32 operands both pipelines return the same pair and residual bit for
-bit wherever their staging widths (2× and 4× the expected per-block
-selection) truncate nothing.
+f32 operands (and a bf16 ``g`` with an f32 ``e``: the same f32 ``u``)
+both pipelines return the same pair and residual bit for bit wherever
+their staging widths (2× and 4× the expected per-block selection)
+truncate nothing.  With both operands bf16 the unfused ``u`` is rounded
+to bf16 before it is selected from, as the reference's is.
 
 Conservation ``decode(values, indices, d) + e' == g + e`` holds bit for
 bit: every element is either on the wire (``e' = 0``, its value a copy
@@ -51,7 +53,8 @@ from repro_torch.kernels.ef_fused import passes, tuning
 from repro_torch.kernels.ef_fused.compact_residual import (
     assemble_staging, compact_residual)
 from repro_torch.kernels.ef_fused.fused_moments import (fused_moments,
-                                                        fused_moments_hist)
+                                                        fused_moments_hist,
+                                                        out_dtype)
 from repro_torch.kernels.ef_fused.tree_count import tree_count
 
 # compressor names whose selection the fused pipeline implements here
@@ -173,7 +176,7 @@ def _resolve(g, e, name, k, k_cap, block, stats_block, bcap,
                          f"{tuple(g.shape)}")
     backend = tuning.resolve_backend(g)
     if block is None or stats_block is None:
-        cfg = tuning.resolve_config(d, backend)
+        cfg = tuning.resolve_config(d, backend, g.dtype)
     else:
         cfg = tuning.KernelConfig(backend=backend, block=block,
                                   stats_block=stats_block,
@@ -192,14 +195,16 @@ def _resolve(g, e, name, k, k_cap, block, stats_block, bcap,
 def compress_at_threshold(g, e, thres, *, k_cap: int, block: int, bcap: int,
                           out: Optional[torch.Tensor] = None):
     """K3 at a given threshold plus the staging assembly: ``(values,
-    indices, new_e)``.  ``out`` receives ``e'`` (may be ``e`` — in
+    indices, new_e)``, ``values`` and ``new_e`` in the promoted dtype of
+    ``g`` and ``e``.  ``out`` receives ``e'`` (may be ``e`` — in
     place)."""
     thres = float(np.float32(max(float(thres), 0.0)))
     vals, offs, cnt, new_e = compact_residual(g, e, thres, block=block,
                                               bcap=bcap, k_cap=k_cap, out=out)
     passes.record("compact", 1)
     passes.record("residual_write", 1)
-    values, indices = assemble_staging(vals, offs, cnt, k_cap, block=block)
+    values, indices = assemble_staging(vals, offs, cnt, k_cap, block=block,
+                                       out_dtype=out_dtype(g, e))
     return values, indices, new_e
 
 
@@ -233,11 +238,15 @@ def fused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor], name: str,
                       num_warps: Optional[int] = None):
     """One EF compression step on ``u = g + e`` (``e=None``: ``u = g``).
 
-    Returns ``(values, indices, new_e)``: a ``(k_cap,)`` f32/int32 codec
-    pair and the ``(d,)`` f32 residual, with ``decode(values, indices,
-    d) + new_e == g + e`` bit for bit.  CUDA tensors run the Hopper
-    kernels (f32 only), CPU tensors their plain versions; the backend is
-    the tensor's device.  ``out`` receives ``new_e`` — pass ``e`` to update the
+    Returns ``(values, indices, new_e)``: a ``(k_cap,)`` codec pair
+    (int32 indices) and the ``(d,)`` residual, ``values`` and ``new_e``
+    in the promoted dtype of ``g`` and ``e`` (``g``'s without ``e``;
+    the reference's ``result_type(g, e)``), with ``decode(values,
+    indices, d) + new_e == g + e`` bit for bit (``u`` formed in f32 and
+    rounded once to that dtype, as torch's ``g + e`` rounds it).  CUDA
+    tensors run the Hopper kernels (``g`` f32 or bf16, ``e`` f32, bf16
+    or None), CPU tensors their plain versions; the backend is the
+    tensor's device.  ``out`` receives ``new_e`` — pass ``e`` to update the
     residual in place (the residual launch reads each element before it
     writes it), or ``g`` when ``e`` is None.
 
@@ -273,7 +282,9 @@ def unfused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor],
     """The pre-fusion pipeline over the K4 kernels: the fused pipeline's
     baseline and bit-exactness oracle.
 
-    Writes ``u = g + e``, runs the unfused threshold (K4a moments and
+    Writes ``u = g + e`` in the promoted dtype of ``g`` and ``e`` (bf16
+    rounds it, as the reference's ``g.astype(result_type) + e`` does),
+    runs the unfused threshold (K4a moments and
     ``refine_iters`` sequential K4b counts, or the K4d histogram for
     ``histk``), K4c block compaction, then pays the dense ``decode`` and
     the ``u − decode`` subtract for the residual: ~8 leaf-sized passes
@@ -281,16 +292,20 @@ def unfused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor],
     at K1/K2's warps) as :func:`fused_compress_ef`; the staging width
     defaults to the unfused 4× slack (``gaussian_topk.ops.default_bcap``),
     so the comparison measures both pipelines as shipped.  Returns ``(values, indices,
-    new_e)`` like :func:`fused_compress_ef`."""
+    new_e)`` like :func:`fused_compress_ef`; the decode and ``u −
+    decode`` run in ``u``'s dtype.  With f32 operands, or a bf16 ``g``
+    and an f32 ``e``, ``u`` is the fused pipeline's f32 ``u`` and the two
+    agree bitwise; with both bf16 the rounded ``u`` can select other
+    elements."""
     # the K4 modules build on this package's kernels: imported at the call
     from repro_torch.kernels.gaussian_topk.ops import (
         gaussian_threshold_kernel, select_by_threshold)
     from repro_torch.kernels.histk.ops import histk_threshold
     d, k_cap, block, stats_block, bcap, cfg = _resolve(
         g, e, name, k, k_cap, block, stats_block, bcap, UNFUSED_BCAP_SLACK)
-    u = g.to(torch.float32)
+    u = g
     if e is not None:
-        u = u + e.to(torch.float32)
+        u = g.to(out_dtype(g, e)) + e
         passes.record("residual_add", 1)
     if name == "histk":
         thres = histk_threshold(u, k, block=stats_block)
@@ -304,7 +319,7 @@ def unfused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor],
     values, indices = select_by_threshold(u, thres, k_cap, block=block,
                                           bcap=bcap)
     passes.record("compact", 1)
-    dec = codec.decode(values, indices, d)
+    dec = codec.decode(values.to(u.dtype), indices, d)
     passes.record("dense_decode", 1)
     new_e = u - dec
     passes.record("residual_subtract", 1)

@@ -10,9 +10,12 @@ threshold is the unfused pipeline's K4b ``count_gt``
 (``kernels/gaussian_topk/count_gt.py``).
 
 What bounds it on the card: bytes.  Each element is read once
-(``8·d`` bytes of f32 ``g`` and ``e``) and compared with 15 thresholds —
-~17 operations on 8 bytes, below the f32 balance point, so the floor is
-the same 0.64 ms as K1 for the largest leaf at 3.35 TB/s.
+(``8·d`` bytes of f32 ``g`` and ``e``, ``4·d`` of bf16) and compared with
+15 thresholds — ~17 operations on 8 bytes, below the f32 balance point,
+so the floor is the same as K1's for the largest leaf: 0.64 ms at 3.35
+TB/s in f32, 0.32 ms in bf16.  Either operand may be f32 or bf16; both
+are widened to f32 before the add and the comparisons, as the
+reference's ``_load_u`` does (``tree_count.py:36-38``).
 
 Design: a Triton reduction.  The thresholds (padded to a power of two
 with ``+inf``, which no finite ``|u|`` exceeds) live in registers; each
@@ -33,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.ef_fused.fused_moments import (_blocks, _check,
-                                                        _check_cuda_f32)
+                                                        check_cuda_dtypes)
 
 tl = None      # triton.language, bound at the first launch
 _KERNEL = []
@@ -53,9 +56,10 @@ def _tree_count_kernel(g_ptr, e_ptr, t_ptr, part_ptr, d,
         # register-layout conversion through shared memory per tile
         offs = base + start + tl.arange(0, TILE)[None, :]   # (1, TILE)
         m = offs < d
-        x = tl.load(g_ptr + offs, mask=m, other=0.0)
+        x = tl.load(g_ptr + offs, mask=m, other=0.0).to(tl.float32)
         if HAS_E:
-            x = x + tl.load(e_ptr + offs, mask=m, other=0.0)
+            x = x + tl.load(e_ptr + offs, mask=m,
+                            other=0.0).to(tl.float32)
         acc += ((tl.abs(x) > t) & m).to(tl.int32)
     # one cross-thread reduction per program, not one per tile
     tl.store(part_ptr + pid.to(tl.int64) * NT + tj, tl.sum(acc, axis=1))
@@ -91,7 +95,7 @@ def launch_counts(name: str, g: torch.Tensor, e, thresholds: torch.Tensor,
     blocks of 4096 and more, else 4): the ``(n_t,)`` int32 counts,
     summed over the blocks.  The wrapper that calls this counts the
     launch."""
-    _check_cuda_f32(name, g, e)
+    check_cuda_dtypes(name, g, e)
     n_t = int(thresholds.shape[0])
     nt = max(2, 1 << (n_t - 1).bit_length())
     tile = min(TILE, 8192 // nt)     # accumulator: <= 8192 int32 a program

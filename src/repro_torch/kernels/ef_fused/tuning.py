@@ -20,9 +20,11 @@ Each leaf's geometry is a :class:`KernelConfig`, resolved per
    (``ops._resolve`` skips the ladder);
 2. else the checked-in table ``kernelconfig.<backend>.json`` beside this
    module (``REPRO_KERNELCONFIG_DIR`` names another directory), schema
-   ``kernelconfig/v1``, keyed ``"cuda/float32/<shape class>"``: the
-   configs the card's measurement kept (:func:`write_table`), written
-   by ``python -m repro_torch.kernels.ef_fused.tuning`` on the card;
+   ``kernelconfig/v1``, keyed ``"cuda/<dtype>/<shape class>"`` with the
+   dtype of ``g`` (``float32`` or ``bfloat16``, :data:`TABLE_DTYPES`):
+   the configs the card's measurement kept (:func:`write_table`),
+   written by ``python -m repro_torch.kernels.ef_fused.tuning`` on the
+   card;
 3. else the in-process cache of what the ladder resolved before;
 4. else, on ``cuda`` and only when the caller asks (``measure=True``),
    a measured autotune over the reference's candidate grid
@@ -31,15 +33,15 @@ Each leaf's geometry is a :class:`KernelConfig`, resolved per
    ``fused_compress_ef`` timed with CUDA events, the median of 5;
 5. else the heuristic:
 
-   * ``cuda``: ``block = 1024`` (the f32 Triton minimum of the
-     reference, ``tuning.py:230``), ``stats_block = max(1024, min(4096,
-     shape_class(d)))`` (``tuning.py:261``) and each Triton kernel's own
-     ``num_warps``;
-   * ``torch``: the reference's ``interpret`` heuristic — a 2048 floor,
-     at most 64 compaction blocks and at most 4 stats blocks
-     (``tuning.py:225,247,260``) — so CPU geometry, and with it every
-     staging truncation, equals the JAX reference run on the CPU.  The
-     ``torch`` backend has no table and never measures.
+   * ``cuda``: ``block`` the reference's Triton minimum of 4 KiB of
+     operand a block (``tuning.py:228-231``: 1024 in f32, 2048 in bf16),
+     ``stats_block = max(block, min(4·block, shape_class(d)))``
+     (``tuning.py:261``) and each Triton kernel's own ``num_warps``;
+   * ``torch``: the reference's ``interpret`` heuristic — a 2048 floor
+     for every dtype, at most 64 compaction blocks and at most 4 stats
+     blocks (``tuning.py:219-225,247,260``) — so CPU geometry, and with
+     it every staging truncation, equals the JAX reference run on the
+     CPU.  The ``torch`` backend has no table and never measures.
 
 The geometry follows the backend, so a CPU run and a card run of the
 same call may stage differently: where a block selects more than its
@@ -83,8 +85,8 @@ import torch
 BACKENDS = ("cuda", "torch")
 ENV_TABLE_DIR = "REPRO_KERNELCONFIG_DIR"
 TABLE_SCHEMA = "kernelconfig/v1"
-# the CUDA kernels take float32 alone (fused_moments._check_cuda_f32)
-DTYPE = "float32"
+# the dtypes of g the table pins (fused_moments.KERNEL_DTYPES)
+TABLE_DTYPES = ("float32", "bfloat16")
 # every shape class the table pins: 2^0 .. 2^30
 TABLE_CLASSES = tuple(2 ** i for i in range(31))
 
@@ -92,7 +94,6 @@ TABLE_CLASSES = tuple(2 ** i for i in range(31))
 MAX_INTERPRET_BLOCKS = 64
 MAX_INTERPRET_STATS_BLOCKS = 4
 INTERPRET_MIN_BLOCK = 2048
-CUDA_BLOCK = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,26 +148,45 @@ def bounded_block(d: int, max_blocks: int, base: int) -> int:
     return block
 
 
-def choose_block(d: int, backend: str) -> int:
+def dtype_name(dtype) -> str:
+    """The name of a torch dtype (``"float32"``, ``"bfloat16"``), or the
+    name itself."""
+    return dtype if isinstance(dtype, str) else str(dtype).replace(
+        "torch.", "")
+
+
+def min_block(backend: str, dtype="float32") -> int:
+    """Smallest block of ``backend`` at ``dtype`` (the reference's
+    ``min_block``, ``tuning.py:213-231``): ``torch`` the interpret floor
+    of 2048 for every dtype, ``cuda`` the Triton rule of 4 KiB of
+    operand a block (1024 f32, 2048 bf16)."""
+    if backend == "torch":
+        return INTERPRET_MIN_BLOCK
+    _check(backend)
+    itemsize = getattr(torch, dtype_name(dtype)).itemsize
+    return 4096 // max(1, min(4, itemsize))
+
+
+def choose_block(d: int, backend: str, dtype="float32") -> int:
     """Heuristic compaction (K3) block size for a ``d``-element leaf."""
+    base = min_block(backend, dtype)
     if backend == "torch":
-        return bounded_block(d, MAX_INTERPRET_BLOCKS, INTERPRET_MIN_BLOCK)
-    _check(backend)
-    return CUDA_BLOCK
+        return bounded_block(d, MAX_INTERPRET_BLOCKS, base)
+    return base
 
 
-def choose_stats_block(d: int, backend: str) -> int:
+def choose_stats_block(d: int, backend: str, dtype="float32") -> int:
     """Heuristic reduction (K1/K2) block size for a ``d``-element leaf."""
+    base = min_block(backend, dtype)
     if backend == "torch":
-        return bounded_block(d, MAX_INTERPRET_STATS_BLOCKS,
-                             INTERPRET_MIN_BLOCK)
-    _check(backend)
-    return max(CUDA_BLOCK, min(4 * CUDA_BLOCK, shape_class(d)))
+        return bounded_block(d, MAX_INTERPRET_STATS_BLOCKS, base)
+    return max(base, min(4 * base, shape_class(d)))
 
 
-def heuristic_config(backend: str, d: int) -> KernelConfig:
-    return KernelConfig(backend=backend, block=choose_block(d, backend),
-                        stats_block=choose_stats_block(d, backend))
+def heuristic_config(backend: str, d: int, dtype="float32") -> KernelConfig:
+    return KernelConfig(backend=backend,
+                        block=choose_block(d, backend, dtype),
+                        stats_block=choose_stats_block(d, backend, dtype))
 
 
 def _check(backend: str) -> None:
@@ -203,8 +223,8 @@ def geometry_of(backend: str):
 _CACHE: Dict[tuple, KernelConfig] = {}   # (table path, config key) -> cfg
 
 
-def config_key(backend: str, d: int) -> str:
-    return f"{backend}/{DTYPE}/{shape_class(d)}"
+def config_key(backend: str, d: int, dtype="float32") -> str:
+    return f"{backend}/{dtype_name(dtype)}/{shape_class(d)}"
 
 
 def clear_cache() -> None:
@@ -246,14 +266,16 @@ def _table_config(path: str, key: str, backend: str
     return None
 
 
-def candidates(d: int) -> list:
+def candidates(d: int, dtype="float32") -> list:
     """The reference's candidate grid (``tuning.py:325-343``): K3 blocks
-    {1024, 2048, 4096, 8192} within the leaf's pow2 envelope (at least
-    1024), K1/K2's ``stats_block = max(block, min(4·block, class))``,
-    and ``num_warps`` 4 and 8."""
-    hi = max(CUDA_BLOCK, shape_class(d))
+    1, 2, 4 and 8 times the dtype's minimum (:func:`min_block`: 1024 f32,
+    2048 bf16) within the leaf's pow2 envelope (at least the minimum),
+    K1/K2's ``stats_block = max(block, min(4·block, class))``, and
+    ``num_warps`` 4 and 8."""
+    base = min_block("cuda", dtype)
+    hi = max(base, shape_class(d))
     out = []
-    for block in (CUDA_BLOCK * m for m in (1, 2, 4, 8)):
+    for block in (base * m for m in (1, 2, 4, 8)):
         if block > hi:
             break
         stats = max(block, min(4 * block, hi))
@@ -262,14 +284,17 @@ def candidates(d: int) -> list:
     return out
 
 
-def _operands(d: int, seed: int = 0):
+def _operands(d: int, seed: int = 0, dtype="float32"):
     """``(g, e, k)`` on the card: the reference's timing inputs,
     ``0.02·N(0,1)`` and ``0.01·N(0,1)`` (torch's generator, not
-    jax's), at budget ``max(1, d // 1000)``."""
+    jax's) drawn in f32 and cast to ``dtype`` (both operands, as the
+    reference's ``_time_config`` casts them), at budget ``max(1, d //
+    1000)``."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    g = torch.randn(d, generator=gen, device="cuda").mul_(0.02)
-    e = torch.randn(d, generator=gen, device="cuda").mul_(0.01)
+    dt = getattr(torch, dtype_name(dtype))
+    g = torch.randn(d, generator=gen, device="cuda").mul_(0.02).to(dt)
+    e = torch.randn(d, generator=gen, device="cuda").mul_(0.01).to(dt)
     return g, e, max(1, d // 1000)
 
 
@@ -299,13 +324,14 @@ def _time_config(cfg: KernelConfig, d: int, iters: int = 5, *,
     return statistics.median(times)
 
 
-def autotune_measure(d: int, timer=None) -> KernelConfig:
+def autotune_measure(d: int, timer=None, dtype="float32") -> KernelConfig:
     """Time the candidate grid once (``timer(cfg, d)``, default
-    :func:`_time_config` on one set of operands) and return the
-    fastest, the first of equals."""
-    cands = candidates(d)
+    :func:`_time_config` on one set of operands of ``dtype``) and return
+    the fastest, the first of equals."""
+    cands = candidates(d, dtype)
     if timer is None:
-        timer = functools.partial(_time_config, operands=_operands(d))
+        timer = functools.partial(_time_config,
+                                  operands=_operands(d, dtype=dtype))
     timed = [(timer(c, d), i) for i, c in enumerate(cands)]
     return cands[min(timed)[1]]
 
@@ -317,12 +343,13 @@ def _world() -> int:
     return 1
 
 
-def resolve_config(d: int, backend: str, *, measure: bool = False,
-                   timer=None) -> KernelConfig:
-    """The :class:`KernelConfig` of a ``d``-element leaf on ``backend``
-    (the innermost :func:`geometry_of` backend's, when one is active):
-    the table, the cache, a measurement, the heuristic — the module
-    docstring's ladder.
+def resolve_config(d: int, backend: str, dtype="float32", *,
+                   measure: bool = False, timer=None) -> KernelConfig:
+    """The :class:`KernelConfig` of a ``d``-element leaf of ``dtype``
+    (``g``'s: ``float32`` or ``bfloat16``, a torch dtype or its name) on
+    ``backend`` (the innermost :func:`geometry_of` backend's, when one is
+    active): the table, the cache, a measurement, the heuristic — the
+    module docstring's ladder.
 
     ``measure=True`` measures a class missing from the table on
     ``cuda`` (tests pass a stub ``timer(cfg, d)``), but never under
@@ -331,7 +358,7 @@ def resolve_config(d: int, backend: str, *, measure: bool = False,
     if _GEOMETRY:
         backend, measure = _GEOMETRY[-1], False
     _check(backend)
-    key = config_key(backend, d)
+    key = config_key(backend, d, dtype)
     path = table_path(backend)
     hit = _CACHE.get((path, key))
     if hit is not None:
@@ -339,9 +366,9 @@ def resolve_config(d: int, backend: str, *, measure: bool = False,
     cfg = _table_config(path, key, backend)
     if cfg is None:
         if measure and backend == "cuda" and _world() == 1:
-            cfg = autotune_measure(d, timer)
+            cfg = autotune_measure(d, timer, dtype)
         else:
-            cfg = heuristic_config(backend, d)
+            cfg = heuristic_config(backend, d, dtype)
     _CACHE[(path, key)] = cfg
     return cfg
 
@@ -352,11 +379,14 @@ def resolve_config(d: int, backend: str, *, measure: bool = False,
 
 
 def _same_bits(a, b) -> bool:
-    """Same shape and dtype and the same bits (f32 compared as int32)."""
+    """Same shape and dtype and the same bits (f32 compared as int32,
+    bf16 as int16)."""
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return torch.equal(a, b)
 
 
@@ -380,7 +410,7 @@ def hold_config(cfg: KernelConfig, g, e, k: int) -> str:
     bcap = ops.fused_default_bcap(k_cap, d, block, cfg.bcap_slack)
     got = fm.fused_moments(g, e, block=sb, num_warps=w)
     want = fm.fused_moments_plain(g, e, block=sb)
-    sum_abs = float((g + e).abs().double().sum())
+    sum_abs = float((g.double() + e.double()).abs().sum())
     (s, sq, mx), (ps, psq, pmx) = ([float(x) for x in t]
                                    for t in (got, want))
     if not (abs(s - ps) <= 1e-5 * sum_abs and abs(sq - psq) <= 1e-5 * psq
@@ -415,7 +445,7 @@ ROUNDS = 5   # alternating rounds of the heuristic against the winner
 
 
 def confirm(winner: KernelConfig, d: int, operands, rounds: int = ROUNDS,
-            timer=None) -> tuple:
+            timer=None, dtype="float32") -> tuple:
     """Keep ``winner`` over the heuristic only if it is faster by more
     than the spread: ``rounds`` rounds of both (``timer(cfg, d)``,
     default one :func:`_time_config` median on ``operands``), in
@@ -423,7 +453,7 @@ def confirm(winner: KernelConfig, d: int, operands, rounds: int = ROUNDS,
     first in odd ones); the winner stays if the heuristic's median less
     its own exceeds the larger of the two ranges of their rounds.
     Returns ``(config, record)``."""
-    base = heuristic_config("cuda", d)
+    base = heuristic_config("cuda", d, dtype)
     if timer is None:
         timer = functools.partial(_time_config, operands=operands)
     ms = {"heuristic": [], "winner": []}
@@ -441,63 +471,91 @@ def confirm(winner: KernelConfig, d: int, operands, rounds: int = ROUNDS,
     return (winner if margin > spread else base), record
 
 
-def write_table(path: Optional[str] = None, *, classes=TABLE_CLASSES,
-                measure: bool = True) -> str:
-    """Resolve every shape class of ``classes`` on the card — the grid's
-    fastest candidate where :func:`confirm` keeps it, else the
-    heuristic; the heuristic alone with ``measure=False`` — hold each
-    chosen config against the plain versions (:func:`hold_config`), and
-    write the table the ladder reads first.  Needs a GPU; ignores the
-    table already in place."""
+def _run_meta() -> dict:
+    """The card, its power limit and the software of this run."""
     import subprocess
 
-    from repro_torch.devices import resolve_device
     from repro_torch.launch.env import describe_env
-    resolve_device("cuda")
-    configs, timings = {}, {}
-    for c in classes:
-        key = config_key("cuda", c)
-        g, e, k = _operands(c)
-        cfg = heuristic_config("cuda", c)
-        if measure:
-            ms = {}
-
-            def timer(cand, d):
-                ms[cand] = _time_config(cand, d, operands=(g, e, k))
-                return ms[cand]
-
-            cfg, record = confirm(autotune_measure(c, timer), c, (g, e, k))
-            grid = [dict(block=x.block, stats_block=x.stats_block,
-                         num_warps=x.num_warps, ms=t)
-                    for x, t in ms.items()]
-            timings[key] = {"grid": grid, **record}
-        summary = hold_config(cfg, g, e, k)
-        configs[key] = cfg.to_dict()
-        print(f"{key}: block {cfg.block}, stats_block {cfg.stats_block}, "
-              f"num_warps {cfg.num_warps} ({cfg.source}); {summary}",
-              flush=True)
-        if key in timings:
-            t = timings[key]
-            for x in t["grid"]:
-                print(f"    block {x['block']:>5} stats "
-                      f"{x['stats_block']:>6} warps {x['num_warps']}: "
-                      f"{x['ms']:.4f} ms", flush=True)
-            print(f"    heuristic {t['heuristic_ms']} ms, winner "
-                  f"{t['winner_ms']} ms: margin {t['margin_ms']:.4f}, "
-                  f"spread {t['spread_ms']:.4f}", flush=True)
-        del g, e
-        torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()
+    return {"device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi[0] if smi else "",
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "env": describe_env()}
+
+
+def write_table(path: Optional[str] = None, *, classes=TABLE_CLASSES,
+                measure: bool = True, dtypes=TABLE_DTYPES) -> str:
+    """Resolve every shape class of ``classes`` at every dtype of
+    ``dtypes`` on the card — the grid's fastest candidate where
+    :func:`confirm` keeps it, else the heuristic; the heuristic alone
+    with ``measure=False`` — hold each chosen config against the plain
+    versions (:func:`hold_config`), and write the table the ladder reads
+    first.  The rows of the other dtypes come unchanged from the
+    checked-in table (``runs`` keeps each dtype's card and software;
+    the top-level ``device`` and ``nvidia_smi`` are this run's).  Needs
+    a GPU."""
+    from repro_torch.devices import resolve_device
+    resolve_device("cuda")
+    dtypes = tuple(dtype_name(dt) for dt in dtypes)
+    meta = _run_meta()
+    configs, timings, runs = {}, {}, {}
+    old_path = table_path("cuda")
+    if os.path.exists(old_path):
+        with open(old_path) as f:
+            old = json.load(f)
+        if old.get("schema") == TABLE_SCHEMA:
+            keep = {k for k in old.get("configs", {})
+                    if k.split("/")[1] not in dtypes}
+            configs = {k: old["configs"][k] for k in keep}
+            timings = {k: v for k, v in old.get("timings_ms", {}).items()
+                       if k in keep}
+            runs = {dt: r for dt, r in old.get("runs", {}).items()
+                    if dt not in dtypes}
+            if "runs" not in old and keep:
+                # a table written before the dtype axis: its run is f32's
+                runs["float32"] = {n: old.get(n) for n in meta}
+    for dt in dtypes:
+        runs[dt] = meta
+        for c in classes:
+            key = config_key("cuda", c, dt)
+            g, e, k = _operands(c, dtype=dt)
+            cfg = heuristic_config("cuda", c, dt)
+            if measure:
+                ms = {}
+
+                def timer(cand, d):
+                    ms[cand] = _time_config(cand, d, operands=(g, e, k))
+                    return ms[cand]
+
+                cfg, record = confirm(autotune_measure(c, timer, dt), c,
+                                      (g, e, k), dtype=dt)
+                grid = [dict(block=x.block, stats_block=x.stats_block,
+                             num_warps=x.num_warps, ms=t)
+                        for x, t in ms.items()]
+                timings[key] = {"grid": grid, **record}
+            summary = hold_config(cfg, g, e, k)
+            configs[key] = cfg.to_dict()
+            print(f"{key}: block {cfg.block}, stats_block "
+                  f"{cfg.stats_block}, num_warps {cfg.num_warps} "
+                  f"({cfg.source}); {summary}", flush=True)
+            if key in timings and measure:
+                t = timings[key]
+                for x in t["grid"]:
+                    print(f"    block {x['block']:>5} stats "
+                          f"{x['stats_block']:>6} warps {x['num_warps']}: "
+                          f"{x['ms']:.4f} ms", flush=True)
+                print(f"    heuristic {t['heuristic_ms']} ms, winner "
+                      f"{t['winner_ms']} ms: margin {t['margin_ms']:.4f}, "
+                      f"spread {t['spread_ms']:.4f}", flush=True)
+            del g, e
+            torch.cuda.empty_cache()
     path = path or os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "kernelconfig.cuda.json")
     data = {"schema": TABLE_SCHEMA, "platform": "cuda",
-            "device": torch.cuda.get_device_name(0),
-            "nvidia_smi": smi[0] if smi else "",
-            "torch": torch.__version__, "cuda": torch.version.cuda,
-            "env": describe_env(), "configs": configs,
-            "timings_ms": timings}
+            "device": meta["device"], "nvidia_smi": meta["nvidia_smi"],
+            "runs": runs, "configs": configs, "timings_ms": timings}
     with open(path, "w") as f:
         json.dump(data, f, indent=1, sort_keys=True)
         f.write("\n")
@@ -513,8 +571,13 @@ def main(argv=None) -> int:
                          "beside this module)")
     ap.add_argument("--heuristic", action="store_true",
                     help="write the heuristic configs instead of measuring")
+    ap.add_argument("--dtype", action="append", choices=TABLE_DTYPES,
+                    help="the dtypes to measure (repeatable; default all); "
+                         "the other dtypes' rows are kept from the "
+                         "checked-in table")
     args = ap.parse_args(argv)
-    path = write_table(args.out or None, measure=not args.heuristic)
+    path = write_table(args.out or None, measure=not args.heuristic,
+                       dtypes=tuple(args.dtype or TABLE_DTYPES))
     print(f"wrote {path}")
     return 0
 

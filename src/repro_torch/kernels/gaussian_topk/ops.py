@@ -65,13 +65,15 @@ def gaussian_threshold_kernel(u: torch.Tensor, k, *, block: int = 2048,
 def select_by_threshold(u: torch.Tensor, thres, k_cap: int, *,
                         block: int = 2048, bcap=None):
     """Compact ``|u| > max(thres, 0)`` into the ``(k_cap,)`` codec pair
-    through K4c and the staging assembly."""
+    through K4c and the staging assembly; the values in ``u``'s dtype
+    (f32 or bf16)."""
     d = u.shape[0]
     if bcap is None:
         bcap = default_bcap(k_cap, d, block)
     thres = float(np.float32(max(float(thres), 0.0)))
     vals, offs, cnts = threshold_compact(u, thres, block=block, bcap=bcap)
-    return assemble_staging(vals, offs, cnts, k_cap, block=block)
+    return assemble_staging(vals, offs, cnts, k_cap, block=block,
+                            out_dtype=u.dtype)
 
 
 def gaussiank_select_kernel(u: torch.Tensor, k: int, *, block: int = 2048,

@@ -11,10 +11,11 @@ The TPU built each row with a one-hot ``(bcap, block)`` MXU matmul.  The
 card has no reason to: the kernel is K3's CUDA ``stage_kernel``
 (``csrc/compact_residual.cu``, which also replaces the K3 stage launch
 ``ef_fused/compact_residual.py:191``) instantiated with ``HAS_E =
-false``, with exact integer offsets.  Bound: bytes, one read of ``x`` (4
-bytes per element) plus the staging rows (8 bytes per slot) and counts:
-0.361 ms for the 268,435,456-element leaf with block 1024 and ``bcap``
-64 at 3.35 TB/s.  The first port (one CTA of 256 threads per block, a
+false``, with exact integer offsets.  Bound: bytes, one read of ``x``
+(4 bytes per element in f32, 2 in bf16) plus the staging rows (8 bytes
+per slot) and counts: 0.361 ms for the 268,435,456-element f32 leaf
+with block 1024 and ``bcap`` 64 at 3.35 TB/s (0.180 ms in bf16 at block
+2048).  The first port (one CTA of 256 threads per block, a
 ballot scan with two barriers per chunk) ran at 0.852 ms, 42% of it
 (NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py``): reading half the
 bytes of the K3 stage launch made it only 15% faster, so short CTAs,
@@ -36,7 +37,8 @@ from repro_torch.kernels import cuda_build
 from repro_torch.kernels.ef_fused.compact_residual import (
     _geometry, _lib, _stream, compact_stage_plain)
 from repro_torch.kernels.ef_fused.fused_moments import (_check,
-                                                        _check_cuda_f32)
+                                                        check_cuda_dtypes,
+                                                        dtype_code)
 
 __all__ = ["threshold_compact", "threshold_compact_plain"]
 
@@ -58,12 +60,12 @@ def threshold_compact_plain(x: torch.Tensor, thres: float, *, block: int,
 def threshold_compact(x: torch.Tensor, thres: float, *, block: int = 2048,
                       bcap: int):
     """Per-block staging rows of ``|x| > thres`` for flat ``x``.  CUDA
-    tensors launch the CUDA kernel (f32 only); CPU tensors take the
-    plain version."""
+    tensors launch the CUDA kernel (``x`` f32 or bf16, compared in f32;
+    the staged values f32); CPU tensors take the plain version."""
     _check(x, None)
     if x.device.type != "cuda":
         return threshold_compact_plain(x, thres, block=block, bcap=bcap)
-    _check_cuda_f32("threshold_compact", x)
+    check_cuda_dtypes("threshold_compact", x)
     _check_bcap(bcap)
     nb = _geometry(x, block, bcap)
     vals = torch.empty((nb, bcap), dtype=torch.float32, device=x.device)
@@ -71,9 +73,10 @@ def threshold_compact(x: torch.Tensor, thres: float, *, block: int = 2048,
     cnt = torch.empty((nb,), dtype=torch.int32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
-        rc = lib.compact_stage_f32(
-            x.data_ptr(), None, x.shape[0], float(thres), block, bcap, nb,
-            vals.data_ptr(), offs.data_ptr(), cnt.data_ptr(), _stream(x))
+        rc = lib.compact_stage(
+            x.data_ptr(), None, dtype_code(x), dtype_code(x), x.shape[0],
+            float(thres), block, bcap, nb, vals.data_ptr(), offs.data_ptr(),
+            cnt.data_ptr(), _stream(x))
     cuda_build.check(rc, "threshold_compact")
     threshold_compact.launches += 1
     return vals, offs, cnt

@@ -20,9 +20,9 @@ same on the card and on the CPU.
 
 The kernel is CUDA C++, ``repro_torch/csrc/abs_histogram.cu`` (its
 header has the design in full).  Bound: bytes, one read of ``x`` (4
-bytes per element, 0.321 ms for the 268,435,456-element leaf at 3.35
-TB/s).  The first port of K4d was K1's Triton statistics kernel with the
-histogram switched on: one ``tl.histogram`` into a 512-byte int32 row
+bytes per element in f32, 2 in bf16: 0.321 and 0.160 ms for the
+268,435,456-element leaf at 3.35 TB/s).  The first port of K4d was
+K1's Triton statistics kernel with the histogram switched on: one ``tl.histogram`` into a 512-byte int32 row
 per block, the rows summed by torch.  It ran at 0.886 ms, 36% of the
 bound (NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py``): the per-element
 votes and the 33-67 MB of rows, not the read of ``x``, set its time.
@@ -52,7 +52,8 @@ import torch
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.ef_fused.fused_moments import (BINS, _blocks,
                                                         _check,
-                                                        _check_cuda_f32)
+                                                        check_cuda_dtypes,
+                                                        dtype_code)
 
 SOURCE = "abs_histogram.cu"
 _SIGS = []
@@ -97,26 +98,28 @@ def _lib():
     lib = cuda_build.load(SOURCE)
     if not _SIGS:
         p = ctypes.c_void_p
-        lib.abs_histogram_f32.argtypes = [p, ctypes.c_longlong, p, p]
-        lib.abs_histogram_f32.restype = ctypes.c_int
+        lib.abs_histogram.argtypes = [p, ctypes.c_int, ctypes.c_longlong,
+                                      p, p]
+        lib.abs_histogram.restype = ctypes.c_int
         _SIGS.append(True)
     return lib
 
 
 def abs_histogram(x: torch.Tensor, *, block: int = 2048) -> torch.Tensor:
     """``(BINS,)`` int64 histogram of ``|x|`` over the ``d`` elements of
-    flat ``x``.  CUDA tensors launch the CUDA kernel (f32 only; its
-    geometry does not depend on ``block``); CPU tensors take the plain
-    version, blocked by ``block``."""
+    flat ``x``.  CUDA tensors launch the CUDA kernel (``x`` f32 or bf16,
+    binned by its exact f32 value; its geometry does not depend on
+    ``block``); CPU tensors take the plain version, blocked by
+    ``block``."""
     _check(x, None)
     if x.device.type != "cuda":
         return abs_histogram_plain(x, block=block)
-    _check_cuda_f32("abs_histogram", x)
+    check_cuda_dtypes("abs_histogram", x)
     h = torch.zeros(BINS, dtype=torch.int64, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
-        rc = lib.abs_histogram_f32(
-            x.data_ptr(), x.shape[0], h.data_ptr(),
+        rc = lib.abs_histogram(
+            x.data_ptr(), dtype_code(x), x.shape[0], h.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(rc, "abs_histogram")
     abs_histogram.launches += 1

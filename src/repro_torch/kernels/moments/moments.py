@@ -10,9 +10,10 @@ that K1 applies to ``g + e`` in registers, applied to a ``u`` that was
 written to memory first.  So at the same block size the unfused
 pipeline's ``(s, sq)`` are bitwise the fused pipeline's, and so is the
 threshold built from them, when both launch with the same ``num_warps``
-(the unfused pipeline passes the config's).  Bound: bytes, one read of ``x`` (4 bytes per
-element, 0.32 ms for the 268,435,456-element leaf at 3.35 TB/s) plus a
-12-byte partial row per block, folded by torch in a fixed order.
+(the unfused pipeline passes the config's).  Bound: bytes, one read of
+``x`` (4 bytes per element in f32, 2 in bf16: 0.32 and 0.16 ms for the
+268,435,456-element leaf at 3.35 TB/s) plus a 12-byte partial row per
+block, folded by torch in a fixed order.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ __all__ = ["moments", "moments_plain"]
 
 def moments(x: torch.Tensor, *, block: int = 2048, num_warps=None):
     """``(sum, sumsq, absmax)`` of flat ``x`` as 0-d f32 tensors on
-    ``x``'s device.  CUDA tensors launch the Triton kernel (f32 only,
+    ``x``'s device.  CUDA tensors launch the Triton kernel (f32 or bf16,
     ``block`` a power of two, ``num_warps`` as K1's: the in-block sum
     order follows it, so K1's bits need K1's warps); CPU tensors take
     the plain version."""

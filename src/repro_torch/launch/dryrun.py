@@ -31,8 +31,12 @@ here, so a record is assembled from the port's own pieces:
 * the roofline (``launch.roofline``) under ``--hardware`` (default the
   H100's) or the ``--topology`` descriptor's.
 
-Params, activations and the residual take the config's dtypes (f32, what
-the port trains in; the reference's dry run casts to bf16).  The layout's
+Params, activations and the residual take the config's dtypes: f32
+here, where the reference's dry run casts to bf16 (its ``_bf16`` and
+``resid_dtype=jnp.bfloat16``).  The port trains in either: bf16 params
+and activations through the config, a bf16 residual through
+``init_train_state(resid_dtype=)``; counting at the reference's bf16
+dtypes is still to port (ROADMAP).  The layout's
 totals are computed leaf by leaf as ``build_layout`` computes them,
 without its int32 limit on the bucket's width, which a row of a model
 above 2**31 parameters at a small model axis exceeds.  A record has

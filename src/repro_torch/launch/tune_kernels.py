@@ -157,9 +157,10 @@ def main(argv=None) -> int:
 
     def stage(lib, with_e):
         def run():
-            cuda_build.check(lib.compact_stage_f32(
+            cuda_build.check(lib.compact_stage(
                 g.data_ptr() if with_e else u.data_ptr(),
-                e.data_ptr() if with_e else None, d, thres, block, bcap, nb,
+                e.data_ptr() if with_e else None, 0, 0, d, thres, block,
+                bcap, nb,
                 vals.data_ptr(), offs.data_ptr(), cnt.data_ptr(), stream),
                 "stage variant")
         return run
@@ -167,8 +168,9 @@ def main(argv=None) -> int:
     def histogram(lib):
         def run():
             h.zero_()
-            cuda_build.check(lib.abs_histogram_f32(
-                u.data_ptr(), d, h.data_ptr(), stream), "histogram variant")
+            cuda_build.check(lib.abs_histogram(
+                u.data_ptr(), 0, d, h.data_ptr(), stream),
+                "histogram variant")
         return run
 
     want = {True: cr.compact_stage_plain(g, e, thres, block=block,
@@ -180,9 +182,9 @@ def main(argv=None) -> int:
     runs = {}
     for n, lib in libs.items():
         if n.startswith("stage"):
-            lib.compact_stage_f32.argtypes = [p, p, ll, f, i32, i32, ll, p,
-                                              p, p, p]
-            lib.compact_stage_f32.restype = i32
+            lib.compact_stage.argtypes = [p, p, i32, i32, ll, f, i32, i32,
+                                          ll, p, p, p, p]
+            lib.compact_stage.restype = i32
             for with_e in (True, False):
                 stage(lib, with_e)()
                 got = (vals, offs, cnt)
@@ -192,8 +194,8 @@ def main(argv=None) -> int:
                     assert same, (n, with_e)
                 runs[(n, with_e)] = stage(lib, with_e)
         else:
-            lib.abs_histogram_f32.argtypes = [p, ll, p, p]
-            lib.abs_histogram_f32.restype = i32
+            lib.abs_histogram.argtypes = [p, i32, ll, p, p]
+            lib.abs_histogram.restype = i32
             histogram(lib)()
             assert torch.equal(h, want_h), n
             runs[(n, None)] = histogram(lib)

@@ -63,6 +63,7 @@ rank's serve cache holds its own heads and channels.
 """
 from __future__ import annotations
 
+import sys
 from typing import Any, Dict
 
 import numpy as np
@@ -591,16 +592,40 @@ def decode_step(params, cfg: ModelConfig, cache, pos: int, tokens=None, *,
     return _serve_head(params, cfg, h, axis, constrain), cache
 
 
+def _from_numpy(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor; a bf16 array (``ml_dtypes``'
+    ``bfloat16``, which numpy knows only by name) through its 16-bit
+    pattern, bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a, copy=True).view(np.uint16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; a bf16 tensor through its 16-bit
+    pattern, as ``ml_dtypes.bfloat16`` when the caller has loaded that
+    module (JAX does), else as the ``np.uint16`` bits.  The port never
+    imports it: the card's machine may not have it."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    bits = t.view(torch.uint16).numpy()
+    bf16 = getattr(sys.modules.get("ml_dtypes"), "bfloat16", None)
+    return bits if bf16 is None else bits.view(bf16)
+
+
 def from_jax_params(np_tree, device="cuda") -> Dict[str, Any]:
     """The JAX param tree as numpy arrays (``jax.tree.map(np.asarray,
     params)``) -> the port's params on ``device``: same leaves, shapes,
-    names.  The card unless told ``"cpu"``; raises without a GPU."""
+    names and dtypes, bf16 leaves bit for bit.  The card unless told
+    ``"cpu"``; raises without a GPU."""
     device = resolve_device(device)
-    return tree.tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device),
-        np_tree)
+    return tree.tree_map(lambda a: _from_numpy(a).to(device), np_tree)
 
 
 def to_numpy_tree(params) -> Dict[str, Any]:
-    """The port's params -> the same tree of numpy arrays."""
-    return tree.tree_map(lambda t: t.detach().cpu().numpy(), params)
+    """The port's params -> the same tree of numpy arrays (bf16 leaves as
+    :func:`_to_numpy` gives them)."""
+    return tree.tree_map(_to_numpy, params)

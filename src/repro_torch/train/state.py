@@ -25,6 +25,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import torch
+
 from repro_torch import tree
 from repro_torch.core import adaptk
 from repro_torch.core.compression import CompressionConfig, as_config
@@ -36,17 +38,24 @@ from repro_torch.optim import Optimizer
 def init_train_state(params, optimizer: Optimizer, *, workers: int,
                      model_size: int,
                      compression: Optional[CompressionConfig] = None,
+                     with_residual: bool = True,
+                     resid_dtype: torch.dtype = torch.float32,
                      layout: Optional[BucketLayout] = None,
                      rows: Optional[int] = None,
                      whole=None) -> Dict[str, Any]:
     """``{"params", "opt", "step"[, "resid"[, "resid2"]][, "adaptk"]}``.
-    A sparse compressor allocates the zero residuals ``resid`` on the
-    params' device (flat buckets with ``layout``, the per-leaf tree
-    without), and ``resid2`` too for the two-level strategies
-    (``hierarchical``, ``hier_gtopk``) and for momentum correction (the
-    DGC velocities); Dense-SGD allocates none.  A ``density_policy`` adds
-    the zero controller state ``adaptk`` (``signal``, ``count``, and
-    ``gnorm``/``gnorm0`` under a global-k policy).  ``rows=1`` allocates
+    A sparse compressor allocates the zero residuals ``resid`` of
+    ``resid_dtype`` on the params' device (flat buckets with ``layout``,
+    the per-leaf tree without), and ``resid2`` too for the two-level
+    strategies (``hierarchical``, ``hier_gtopk``) and for momentum
+    correction (the DGC velocities); Dense-SGD allocates none.  A
+    ``density_policy`` adds the zero controller state ``adaptk``
+    (``signal``, ``count``, and ``gnorm``/``gnorm0`` under a global-k
+    policy).  ``with_residual=False`` allocates none of these three, as
+    the reference's does (``repro/train/state.py:54-127``: a state for
+    lowering only).  The bucketed step packs the gradients in the
+    residual's dtype (``resid.dtype``): a bf16 residual compresses bf16
+    buckets, whose wire values and ``e'`` are bf16.  ``rows=1`` allocates
     one row of the buckets (with a layout) or of each leaf (without one,
     sized from ``whole``, the whole params' shapes): a tensor-parallel
     rank's."""
@@ -57,7 +66,7 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
         raise ValueError(f"model_size must be >= 1, got {model_size}")
     state: Dict[str, Any] = {"params": params,
                              "opt": optimizer.init(params), "step": 0}
-    if not compression.dense:
+    if with_residual and not compression.dense:
         leaves = tree.leaves(params)
         if layout is None:
             if (rows is None) != (whole is None):
@@ -66,10 +75,11 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
 
             def zeros():
                 if rows is None:
-                    return init_residuals(params, model_size,
+                    return init_residuals(params, model_size, resid_dtype,
                                           workers=workers)
-                return init_residuals(whole, model_size, workers=workers,
-                                      rows=rows, device=leaves[0].device)
+                return init_residuals(whole, model_size, resid_dtype,
+                                      workers=workers, rows=rows,
+                                      device=leaves[0].device)
         else:
             if layout.model_size != model_size:
                 raise ValueError(
@@ -82,7 +92,8 @@ def init_train_state(params, optimizer: Optimizer, *, workers: int,
                     "params")
 
             def zeros():
-                return init_flat_residual(layout, workers=workers,
+                return init_flat_residual(layout, resid_dtype,
+                                          workers=workers,
                                           device=leaves[0].device,
                                           rows=rows)
         state["resid"] = zeros()

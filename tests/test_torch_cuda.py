@@ -42,7 +42,13 @@ tensor-parallel breakdown (two ranks of smoke deepseek-moe-16b under
 7.2: serving placed at ``1x2`` on the card (two ranks under
 ``torchrun``, gloo on one card), its tokens and counters those of the
 one-process run on the card.  Slice 11: query-chunked attention at
-T = 2048 on the card against the one-block run there.
+T = 2048 on the card against the one-block run there.  Slice 12: every
+EF kernel at (f32, f32), (bf16, bf16), (bf16, f32) and (f32, bf16)
+operands (K4a-K4d on ``u`` in the promoted dtype; the K3 stage and K4c
+at storage offsets that break the bf16 vector path's 16-byte
+alignment, K4d on bf16 heads of up to 7 elements), bitwise its plain
+version with ``e'`` and the wire values in the promoted dtype (bf16
+compared as int16), and a ``TypeError`` on f16 or f64 operands.
 """
 import math
 
@@ -74,23 +80,32 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(d, dev, seed=0):
+# operand dtypes (g, e) the EF kernels take: each forms u in f32
+BF16 = torch.bfloat16
+F32 = torch.float32
+PAIRS = [(F32, F32), (BF16, BF16), (BF16, F32), (F32, BF16)]
+PAIR_IDS = ["f32-f32", "bf16-bf16", "bf16-f32", "f32-bf16"]
+
+
+def _inputs(d, dev, seed=0, pair=(F32, F32)):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + d)
     g = torch.randn(d, generator=gen, device=dev)
     e = torch.randn(d, generator=gen, device=dev).mul_(0.3)
-    return g, e
+    return g.to(pair[0]), e.to(pair[1])
 
 
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
 @pytest.mark.parametrize("d", DS)
-def test_kernels_match_plain_versions(dev, d):
-    g, e = _inputs(d, dev)
-    cfg = tuning.resolve_config(d, "cuda")
+def test_kernels_match_plain_versions(dev, d, pair):
+    g, e = _inputs(d, dev, pair=pair)
+    cfg = tuning.resolve_config(d, "cuda", g.dtype)
     n0 = (fm.fused_moments.launches, tc.tree_count.launches,
           cr.compact_stage.launches, cr.compact_resid.launches)
     s, sq, mx = fm.fused_moments(g, e, block=cfg.stats_block)
     ps, psq, pmx = fm.fused_moments_plain(g, e, block=cfg.stats_block)
-    assert abs(float(s) - float(ps)) <= 1e-5 * float((g + e).abs().sum())
+    assert abs(float(s) - float(ps)) <= 1e-5 * float(
+        (g.double() + e.double()).abs().sum())
     assert math.isclose(float(sq), float(psq), rel_tol=1e-5)
     assert float(mx) == float(pmx)
     k = max(1, d // 1000)
@@ -109,16 +124,20 @@ def test_kernels_match_plain_versions(dev, d):
                                         bcap=bcap)
     rp = cr.compact_resid_plain(g, e, thres, cr.exclusive_enc(cp, bcap),
                                 block=cfg.block, bcap=bcap, k_cap=k_cap)
+    assert got[3].dtype == torch.promote_types(g.dtype, e.dtype)
     for a, b in zip(got, (vp, op, cp, rp)):
-        assert torch.equal(a, b)
+        assert _same_bits(a, b)
     n1 = (fm.fused_moments.launches, tc.tree_count.launches,
           cr.compact_stage.launches, cr.compact_resid.launches)
     assert [b - a for a, b in zip(n0, n1)] == [1, 1, 1, 1]
 
 
+@pytest.mark.parametrize("pair", PAIRS[:3], ids=PAIR_IDS[:3])
 @pytest.mark.parametrize("d", DS)
-def test_pipeline_conserves_in_place(dev, d):
-    g, e = _inputs(d, dev, seed=1)
+def test_pipeline_conserves_in_place(dev, d, pair):
+    """In place over ``e`` (of the promoted dtype): ``decode + e' == g +
+    e`` bitwise, in bf16 for bf16 operands (the f32 sum rounded once)."""
+    g, e = _inputs(d, dev, seed=1, pair=pair)
     u = g + e
     v, i, ne = ops.fused_compress_ef(g, e, "gaussiank",
                                      max(1, d // 1000), out=e)
@@ -171,41 +190,53 @@ def test_pass_a_and_stats_match_plain_and_one_k1(dev, d, name):
     assert torch.equal(codec.decode(v, i, d) + ne, u)
 
 
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
 @pytest.mark.parametrize("d", DS)
-def test_k4_kernels_match_plain_versions(dev, d):
-    g, e = _inputs(d, dev, seed=2)
+def test_k4_kernels_match_plain_versions(dev, d, pair):
+    """K1 with its histogram on ``(g, e)`` and K4a-K4d on ``u = g + e`` in
+    the promoted dtype (bf16 for bf16 operands)."""
+    g, e = _inputs(d, dev, seed=2, pair=pair)
     u = g + e
-    cfg = tuning.resolve_config(d, "cuda")
+    cfg = tuning.resolve_config(d, "cuda", g.dtype)
     sb, block = cfg.stats_block, cfg.block
     wrappers = (fm.fused_moments_hist, mom.moments, cg.count_gt,
                 thc.threshold_compact, hist.abs_histogram)
     n0 = [f.launches for f in wrappers]
     s, sq, mx, h = fm.fused_moments_hist(g, e, block=sb)
+    assert torch.equal(h, fm.fused_moments_hist_plain(g, e, block=sb)[3])
+    assert int(h.sum()) == d
     hp = hist.abs_histogram_plain(u, block=sb)
-    assert torch.equal(h, hp) and int(h.sum()) == d
+    pk1 = fm.fused_moments_plain(g, e, block=sb)
     ps, psq, pmx = fm.moments_plain(u, sb)
-    for got in ((s, sq, mx), mom.moments(u, block=sb)):
-        assert abs(float(got[0]) - float(ps)) <= 1e-5 * float(
-            u.abs().sum())
-        assert math.isclose(float(got[1]), float(psq), rel_tol=1e-5)
-        assert float(got[2]) == float(pmx)
-    t = float(u.abs().kthvalue(max(1, d - max(1, d // 1000))).values)
+    for got, want in (((s, sq, mx), pk1), (mom.moments(u, block=sb),
+                                           (ps, psq, pmx))):
+        assert abs(float(got[0]) - float(want[0])) <= 1e-5 * float(
+            u.double().abs().sum())
+        assert math.isclose(float(got[1]), float(want[1]), rel_tol=1e-5)
+        assert float(got[2]) == float(want[2])
+    t = float(u.float().abs().kthvalue(
+        max(1, d - max(1, d // 1000))).values)
     assert torch.equal(cg.count_gt(u, t, block=sb),
                        cg.count_gt_plain(u, t, block=sb))
     bcap = gops.default_bcap(gaussiank_cap(max(1, d // 1000), d), d, block)
     for a, b in zip(thc.threshold_compact(u, t, block=block, bcap=bcap),
                     thc.threshold_compact_plain(u, t, block=block,
                                                 bcap=bcap)):
-        assert torch.equal(a, b)
+        assert _same_bits(a, b)
     assert torch.equal(hist.abs_histogram(u, block=sb), hp)
     n1 = [f.launches for f in wrappers]
     assert [b - a for a, b in zip(n0, n1)] == [1, 1, 1, 1, 1]
 
 
+@pytest.mark.parametrize("pair", [PAIRS[0], PAIRS[2], PAIRS[3]],
+                         ids=[PAIR_IDS[0], PAIR_IDS[2], PAIR_IDS[3]])
 @pytest.mark.parametrize("name", ["gaussiank", "gaussiank2", "histk"])
 @pytest.mark.parametrize("d", DS)
-def test_unfused_equals_fused(dev, d, name):
-    g, e = _inputs(d, dev, seed=3)
+def test_unfused_equals_fused(dev, d, name, pair):
+    """Bitwise wherever both pipelines select on the same f32 ``u`` (one
+    operand f32); at bf16/bf16 the unfused ``u`` is rounded to bf16
+    first, as the reference's is."""
+    g, e = _inputs(d, dev, seed=3, pair=pair)
     k = max(1, d // 1000)
     f = ops.fused_compress_ef(g, e, name, k)
     u = ops.unfused_compress_ef(g, e, name, k)
@@ -216,25 +247,32 @@ def test_unfused_equals_fused(dev, d, name):
 
 
 def _same_bits(a, b):
+    if a.dtype != b.dtype:
+        return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return a.shape == b.shape and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("off", [0, 1, 3])
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
+@pytest.mark.parametrize("off", [0, 1, 3, 4])
 @pytest.mark.parametrize("block", [1024, 2048, 4096, 1001])
 @pytest.mark.parametrize("d", [33, 4097, 1_000_003])
-def test_stage_kernels_edge_cases(dev, d, block, off):
+def test_stage_kernels_edge_cases(dev, d, block, off, pair):
     """The K3 stage and K4c, bitwise their plain versions, on views at
-    storage offsets 1 and 3 (the scalar-load path), at blocks that are
-    and are not multiples of 4, at a mid threshold, at 0 (every full
-    block overflows bcap) and just above ``max|u|`` (nothing staged)."""
-    g, e = _inputs(d + off, dev, seed=4)
+    storage offsets 1 and 3 (the scalar-load path) and 4 (16-byte
+    aligned for f32, not for bf16), at blocks that are and are not
+    multiples of the vector group (4 f32, 8 bf16), at a mid threshold,
+    at 0 (every full block overflows bcap) and just above ``max|u|``
+    (nothing staged)."""
+    g, e = _inputs(d + off, dev, seed=4, pair=pair)
     gv, ev = g[off:], e[off:]
     uv = gv + ev
-    top = uv.abs().max()
+    top = uv.float().abs().max()
     above = float(torch.nextafter(top, torch.full_like(top, math.inf)))
-    mid = float(uv.abs().kthvalue(max(1, d * 9 // 10)).values)
+    mid = float(uv.float().abs().kthvalue(max(1, d * 9 // 10)).values)
     n0 = (cr.compact_stage.launches, thc.threshold_compact.launches)
     for t in (mid, 0.0, above):
         for a, b in zip(cr.compact_stage(gv, ev, t, block=block, bcap=64),
@@ -266,15 +304,18 @@ def _hist_input(kind, n, dev):
     return x
 
 
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("kind", ["gaussian", "one magnitude", "zeros",
                                   "mixed"])
-@pytest.mark.parametrize("off", [0, 1, 3])
+@pytest.mark.parametrize("off", [0, 1, 3, 5])
 @pytest.mark.parametrize("d", [1, 33, 4097, 1_000_003])
-def test_abs_histogram_edge_cases(dev, d, off, kind):
+def test_abs_histogram_edge_cases(dev, d, off, kind, dtype):
     """K4d bitwise its plain version at any block, on views at storage
-    offsets 1 and 3 (the scalar head), on one bin, all zeros, and zeros,
-    subnormals, infinities and values at or above ``edge[127]``."""
-    x = _hist_input(kind, d + off, dev)[off:]
+    offsets 1, 3 and 5 (the scalar head: up to 3 f32 or 7 bf16
+    elements), on one bin, all zeros, and zeros, subnormals, infinities
+    and values at or above ``edge[127]``; a bf16 element binned by its
+    exact f32 value."""
+    x = _hist_input(kind, d + off, dev).to(dtype)[off:]
     n0 = hist.abs_histogram.launches
     h = hist.abs_histogram(x)
     assert hist.abs_histogram.launches - n0 == 1
@@ -283,14 +324,60 @@ def test_abs_histogram_edge_cases(dev, d, off, kind):
     assert int(h.sum()) == d
 
 
-def test_cuda_kernels_take_float32_only(dev):
-    g = torch.zeros(64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="float32"):
-        fm.fused_moments(g, None, block=1024)
-    with pytest.raises(TypeError, match="float32"):
-        cr.compact_stage(g, None, 0.0, block=1024, bcap=64)
-    with pytest.raises(TypeError, match="float32"):
-        hist.abs_histogram(g)
+def test_cuda_kernels_take_float32_and_bfloat16_only(dev):
+    """Every EF kernel launches on bf16 operands (and no e) and equals its
+    plain version there; each raises ``TypeError`` on f16 (or f64), and
+    the residual launch on an ``out`` of another dtype than the promoted
+    one."""
+    g, e = _inputs(4097, dev, seed=6, pair=(BF16, BF16))
+    t = float(g.float().abs().median())
+    thr = torch.tensor([t, 2 * t], device=dev)
+    n0 = {f: f.launches for f in (fm.fused_moments, fm.fused_moments_hist,
+                                  tc.tree_count, cr.compact_stage,
+                                  cr.compact_resid, mom.moments,
+                                  cg.count_gt, thc.threshold_compact,
+                                  hist.abs_histogram)}
+    assert float(fm.fused_moments(g, None, block=2048)[2]) == float(
+        fm.fused_moments_plain(g, None, block=2048)[2])
+    assert torch.equal(fm.fused_moments_hist(g, None, block=2048)[3],
+                       fm.fused_moments_hist_plain(g, None, block=2048)[3])
+    assert torch.equal(tc.tree_count(g, None, thr, block=2048),
+                       tc.tree_count_plain(g, None, thr, block=2048))
+    got = cr.compact_residual(g, None, t, block=2048, bcap=64, k_cap=500)
+    vp, op, cp = cr.compact_stage_plain(g, None, t, block=2048, bcap=64)
+    rp = cr.compact_resid_plain(g, None, t, cr.exclusive_enc(cp, 64),
+                                block=2048, bcap=64, k_cap=500)
+    assert got[3].dtype == BF16
+    for a, b in zip(got, (vp, op, cp, rp)):
+        assert _same_bits(a, b)
+    assert float(mom.moments(g, block=2048)[2]) == float(
+        fm.moments_plain(g, 2048)[2])
+    assert torch.equal(cg.count_gt(g, t, block=2048),
+                       cg.count_gt_plain(g, t, block=2048))
+    for a, b in zip(thc.threshold_compact(g, t, block=2048, bcap=64),
+                    thc.threshold_compact_plain(g, t, block=2048, bcap=64)):
+        assert _same_bits(a, b)
+    assert torch.equal(hist.abs_histogram(g),
+                       hist.abs_histogram_plain(g, block=2048))
+    assert all(f.launches == n + 1 for f, n in n0.items())
+    for bad in (torch.float16, torch.float64):
+        x = g.to(bad)
+        calls = (lambda: fm.fused_moments(x, None, block=1024),
+                 lambda: fm.fused_moments_hist(g, x, block=1024),
+                 lambda: tc.tree_count(x, None, thr, block=1024),
+                 lambda: cr.compact_stage(x, None, t, block=1024, bcap=64),
+                 lambda: cr.compact_stage(g, x, t, block=1024, bcap=64),
+                 lambda: mom.moments(x, block=1024),
+                 lambda: cg.count_gt(x, t, block=1024),
+                 lambda: thc.threshold_compact(x, t, block=1024, bcap=64),
+                 lambda: hist.abs_histogram(x))
+        for call in calls:
+            with pytest.raises(TypeError, match="float32 or bfloat16"):
+                call()
+    enc = torch.zeros(3, dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError, match="promoted"):
+        cr.compact_resid(g, e, t, enc, block=2048, bcap=64, k_cap=500,
+                         out=torch.empty_like(g, dtype=F32))
 
 
 def test_decode_sum_deterministic_on_card(dev):

@@ -1,8 +1,10 @@
-"""The PyTorch port imports neither jax nor the JAX package.
+"""The PyTorch port imports neither jax nor the JAX package, nor
+``ml_dtypes`` (the card's machine may not have it).
 
-Each check runs in a fresh interpreter with ``sys.modules["jax"]`` and
-``sys.modules["repro"]`` set to ``None``, so any ``import jax...`` or
-``import repro...`` anywhere in the imported code raises ImportError.
+Each check runs in a fresh interpreter with ``sys.modules["jax"]``,
+``sys.modules["repro"]`` and ``sys.modules["ml_dtypes"]`` set to
+``None``, so any ``import jax...``, ``import repro...`` or ``import
+ml_dtypes`` anywhere in the imported code raises ImportError.
 """
 import os
 import subprocess
@@ -16,6 +18,7 @@ _PRELUDE = """
 import importlib, importlib.util, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
+sys.modules["ml_dtypes"] = None
 """
 
 _PACKAGE = _PRELUDE + """
@@ -25,7 +28,8 @@ names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = [m for m, mod in sys.modules.items() if mod is not None
-       and (m in ("jax", "repro") or m.startswith(("jax.", "repro.")))]
+       and (m in ("jax", "repro", "ml_dtypes")
+            or m.startswith(("jax.", "repro.", "ml_dtypes.")))]
 assert not bad, bad
 assert len(names) >= 30, names
 assert {"repro_torch.dist.wire", "repro_torch.launch.mesh",

@@ -149,37 +149,44 @@ def test_table_schema_mismatch_is_loud(no_table):
 
 def test_checked_in_cuda_table_is_valid():
     """The committed table parses, carries the schema and pins every
-    class 2^0..2^30, measured on an H100: each row the class's
-    heuristic config, or the fastest of its candidate grid where that
-    beat the heuristic by more than the spread of their alternating
-    rounds (``tuning.confirm``), and resolves as ``table``."""
+    class 2^0..2^30 at each dtype of ``TABLE_DTYPES`` (f32 and bf16),
+    measured on an H100 (each dtype's run recorded under ``runs``): each
+    row the class's heuristic config at its dtype, or the fastest of its
+    candidate grid where that beat the heuristic by more than the spread
+    of their alternating rounds (``tuning.confirm``), and resolves as
+    ``table``."""
     path = tuning.table_path("cuda")
     assert os.path.dirname(path) == os.path.dirname(tuning.__file__)
     with open(path) as f:
         data = json.load(f)
     assert data["schema"] == tuning.TABLE_SCHEMA
     assert data["platform"] == "cuda" and "H100" in data["device"]
+    assert tuning.TABLE_DTYPES == ("float32", "bfloat16")
+    assert sorted(data["runs"]) == sorted(tuning.TABLE_DTYPES)
+    assert all("H100" in r["device"] for r in data["runs"].values())
     assert sorted(data["configs"]) == sorted(
-        tuning.config_key("cuda", c) for c in tuning.TABLE_CLASSES)
+        tuning.config_key("cuda", c, dt) for dt in tuning.TABLE_DTYPES
+        for c in tuning.TABLE_CLASSES)
     for key, row in data["configs"].items():
         backend, dtype, sclass = key.split("/")
-        assert (backend, dtype) == ("cuda", "float32")
+        assert backend == "cuda" and dtype in tuning.TABLE_DTYPES
         d = int(sclass)
         cfg = KernelConfig.from_dict(row)
         timed = data["timings_ms"][key]
-        assert len(timed["grid"]) == len(candidates(d))
+        assert len(timed["grid"]) == len(candidates(d, dtype))
         assert len(timed["heuristic_ms"]) == len(timed["winner_ms"]) == (
             tuning.ROUNDS)
         kept = timed["margin_ms"] > timed["spread_ms"]
         if kept:
             best = min(timed["grid"], key=lambda t: t["ms"])
-            assert cfg.source == "autotune" and cfg in candidates(d), key
+            assert cfg.source == "autotune" and cfg in candidates(
+                d, dtype), key
             assert (best["block"], best["stats_block"],
                     best["num_warps"]) == (cfg.block, cfg.stats_block,
                                            cfg.num_warps), key
         else:
-            assert cfg == tuning.heuristic_config("cuda", d), key
-        got = resolve_config(d, "cuda")
+            assert cfg == tuning.heuristic_config("cuda", d, dtype), key
+        got = resolve_config(d, "cuda", dtype)
         assert got.source == "table"
         assert (got.block, got.stats_block, got.num_warps) == (
             cfg.block, cfg.stats_block, cfg.num_warps)
