@@ -36,11 +36,12 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    offsets 1 and 3 (the scalar-load path), blocks 1024/2048/4096/1001,
    thresholds 0 (blocks overflow) and above ``max|u|`` (nothing
    selected), and K4d on one-bin, all-zero and zero/subnormal/inf/
-   ``>= edge[127]`` inputs; K1, K2 and both K3 launches on every row of
-   an ``(M, d_row_total)`` bucket at M = 2 (the 1,000,003- and the
-   268,435,456-element leaves' rows, at ``ceil(k / 2)`` each, as segment
-   windows at their storage offsets).  At the largest size each kernel is timed
-   with CUDA events (median after warm-up), K4c at block 2048 too, and
+   ``>= edge[127]`` inputs; K1, K2, the K3 sweep and both K3 launches
+   on every row of an ``(M, d_row_total)`` bucket at M = 2 (the
+   1,000,003- and the 268,435,456-element leaves' rows, at ``ceil(k /
+   2)`` each, as segment windows at their storage offsets).  At the
+   largest size each kernel is timed with CUDA events (median after
+   warm-up), K4c at block 2048 too, and
    so are the whole pipelines beside exact top-k (``torch.topk``, the
    paper's yardstick): fused Gaussian-k, fused hist-k, unfused
    Gaussian-k, unfused hist-k and the registry's ``histk_select_kernel``
@@ -67,7 +68,7 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    just before it and read just after:
    5a. ``train.run`` with ``--host-devices 4 --mesh 4x1 --strategy
        allgather`` at full llama3.2-1b width and depth, 3 steps (48
-       launches a step of K1, K2, the K3 stage and the K3 residual;
+       launches a step of K1, K2 and the K3 sweep;
        every worker's step-0 bucket conserves bitwise; peak memory, step
        ms and the wire's ms by CUDA events);
    5b. ``gtopk`` (``--mesh 4x1``), ``hierarchical`` and ``hier_gtopk``
@@ -116,7 +117,7 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
 9. slices 6 and 2b, the chunked schedule and the per-leaf loop
    (``phase9_chunked``): 9a llama3.2-1b at full width and depth, 3
    steps each of chunks 1, 4 and 12 and per leaf (states bitwise chunks
-   1's, compared on the card; 12 launches a step of K1, K2 and both K3;
+   1's, compared on the card; 12 launches a step of K1, K2 and the K3 sweep;
    step ms, peak memory, each chunk's release as a fraction of the
    backward); 9b ``variance`` at chunks 4 (one allocation a step); 9c
    four workers on the card, each strategy at chunks 3 and per leaf
@@ -143,13 +144,13 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    equal, both publishers bitwise); 10e the ``serve_staleness`` driver's
    deterministic rows against ``benchmarks/baselines/serve.json``;
 11. slice 8, the MoE, Mamba-hybrid and xLSTM blocks and the ``embeds``
-   frontend (``phase11_archs``): 11a K1, K2 and both K3 launches at
+   frontend (``phase11_archs``): 11a K1, K2 and the K3 sweep launches at
    d = 536,870,912 (jamba-1.5-large's ``embed``, the largest leaf the
    kernels meet) bitwise their plain versions (moments within
    tolerance), timed; 11b ``launch.train.run`` at full width,
    Gaussian-k fused, batch 8 x 128, on deepseek-moe-16b (2 layers),
    jamba-1.5-large (1 layer: Mamba + MLP), musicgen-medium and
-   xlstm-125m, one K1, K2 and K3 pair a leaf a step; 11c
+   xlstm-125m, one K1, K2 and K3 sweep a leaf a step; 11c
    ``launch.serve.run`` on the same four (8 sequences, prompt 64, 8 new
    tokens); 11d the smoke variants card against CPU (losses, prefill
    and decode logits, greedy tokens) and jamba-smoke at chunks 3 and per
@@ -170,7 +171,7 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    width, ``--mesh 1x2``, 2 steps: deepseek-moe-16b (2 layers),
    jamba-1.5-large (1 layer) and xlstm-125m (4 layers), each against
    its one-process ``--mesh 1x2`` run (losses within rtol 1e-6, the wire
-   accounting equal, one K1, K2 and K3 pair a leaf a step a rank), and
+   accounting equal, one K1, K2 and K3 sweep a leaf a step a rank), and
    xlstm-125m's per-leaf loop bitwise its bucketed TP run; step ms,
    relayout ms and its share of the step, peak memory a rank;
 13. slice 9, the launch and tuning stack (``phase13_tuner``): 13a the
@@ -202,7 +203,7 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    tensor-parallel trainer at ``1x2`` with ``--publish-every 1
    --resync-every 2``, 4 steps at full width with 4 layers (16 until
    PR 28, cut to keep the smoke inside its time; 12 launches a
-   step a rank of K1, K2 and both K3; its records' publish kinds and bits
+   step a rank of K1, K2 and the K3 sweep; its records' publish kinds and bits
    and the ``published`` line the one-process ``1x2`` run's; on shared
    params the rows bitwise the one-process publisher's); 14d the smoke
    variants of deepseek-moe-16b, jamba-1.5-large, xlstm-125m and
@@ -247,7 +248,7 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    the plain versions and the bytes' bound; 17b llama3.2-1b at full
    width and depth in bf16 (params, activations, residual: the
    reference dry run's train step) at ``4x2`` in this process, 8 x 512
-   with remat, 3 steps: 96 launches a step of K1, K2 and both K3, ``e'``
+   with remat, 3 steps: 96 launches a step of K1, K2 and the K3 sweep, ``e'``
    written into the state's bf16 residual in place, every worker's
    step-0 bucket conserving bitwise in bf16, step ms and peak memory;
    17c row 0 of that step-0 bucket compressed on the CPU at the card's
@@ -336,8 +337,8 @@ KERNELS = {   # key: (name, route, source, replaces)
                            "src/repro_torch/kernels/ef_fused/"
                            "fused_moments.py",
                            "src/repro/kernels/ef_fused/fused_moments.py:144"),
-    "tree_count": ("tree_count (K2)", "triton",
-                   "src/repro_torch/kernels/ef_fused/tree_count.py",
+    "tree_count": ("tree_count (K2)", "cuda",
+                   "src/repro_torch/csrc/tree_count.cu",
                    "src/repro/kernels/ef_fused/tree_count.py:93"),
     "compact_stage": ("compact_residual stage (K3)", "cuda",
                       "src/repro_torch/csrc/compact_residual.cu",
@@ -345,11 +346,14 @@ KERNELS = {   # key: (name, route, source, replaces)
     "compact_resid": ("compact_residual residual (K3)", "cuda",
                       "src/repro_torch/csrc/compact_residual.cu",
                       "src/repro/kernels/ef_fused/compact_residual.py:208"),
+    "compact_sweep": ("compact_residual one sweep (K3)", "cuda",
+                      "src/repro_torch/csrc/compact_residual.cu",
+                      "src/repro/kernels/ef_fused/compact_residual.py:237"),
     "moments": ("moments (K4a)", "triton",
                 "src/repro_torch/kernels/moments/moments.py",
                 "src/repro/kernels/moments/moments.py:48"),
-    "count_gt": ("count_gt (K4b)", "triton",
-                 "src/repro_torch/kernels/gaussian_topk/count_gt.py",
+    "count_gt": ("count_gt (K4b)", "cuda",
+                 "src/repro_torch/csrc/tree_count.cu",
                  "src/repro/kernels/gaussian_topk/count_gt.py:34"),
     "threshold_compact": ("threshold_compact (K4c)", "cuda",
                           "src/repro_torch/csrc/compact_residual.cu",
@@ -367,8 +371,10 @@ KERNELS = {   # key: (name, route, source, replaces)
 
 
 # the kernels of the Gaussian-k fused path, one launch per leaf each
-MAIN_KERNELS = ("fused_moments", "tree_count", "compact_stage",
-                "compact_resid")
+MAIN_KERNELS = ("fused_moments", "tree_count", "compact_sweep")
+# the sweep's cross-check: the stage and residual launches (the
+# reference's GPU lowering) run in phases 2, 11a, 15b and 17a, on no path
+CROSS_CHECK_KERNELS = ("compact_stage", "compact_resid")
 
 
 def counters():
@@ -386,6 +392,7 @@ def counters():
             "tree_count": tc.tree_count,
             "compact_stage": cr.compact_stage,
             "compact_resid": cr.compact_resid,
+            "compact_sweep": cr.compact_sweep,
             "moments": mom.moments,
             "count_gt": cg.count_gt,
             "threshold_compact": thc.threshold_compact,
@@ -396,7 +403,8 @@ def counters():
 def build(cuda_build, torch) -> float:
     """Build the CUDA libraries (one nvcc per source, all started
     together, from a thread) while Triton compiles every specialisation
-    of the Triton kernels on tiny inputs; returns the seconds taken."""
+    of the Triton kernels (K1 and K4a, ``threefry_bits``) on tiny
+    inputs; returns the seconds taken."""
     t0 = time.time()
     err, reports = [], {}
 
@@ -419,11 +427,8 @@ def build(cuda_build, torch) -> float:
                                block=1024)
             k["fused_moments_hist"](g[:d], None if e is None else e[:d],
                                     block=1024)
-            k["tree_count"](g[:d], None if e is None else e[:d],
-                            torch.ones(15, device="cuda"), block=1024)
         for u in (x, xb):
             k["moments"](u[:d], block=1024)
-            k["count_gt"](u[:d], 0.5, block=1024)
         for dt in (torch.int32, torch.int64):
             k["threefry_bits"]((1, 2), torch.empty(d, dtype=dt,
                                                    device="cuda"))
@@ -532,10 +537,12 @@ def check_edge_cases(d, g, e, u, thres, bcap, ubcap) -> str:
 
 
 def check_main_kernels(g, e, k: int, label):
-    """K1, K2 and both K3 launches of the Gaussian-k path on ``(g, e)``
-    (views allowed) at budget ``k`` against their plain versions on the
-    card: moments within tolerance, counts, staging and residual
-    bitwise, and the fused pipeline's conservation bitwise.  Returns
+    """K1, K2, the K3 sweep and both K3 launches of the Gaussian-k path
+    on ``(g, e)`` (views allowed) at budget ``k`` against their plain
+    versions on the card: moments within tolerance, counts, staging and
+    residual bitwise, the sweep bitwise the two launches and the
+    assembly (:func:`check_sweep`), and the fused pipeline's
+    conservation bitwise.  Returns
     what the further checks and the timings reuse."""
     import types
 
@@ -563,8 +570,8 @@ def check_main_kernels(g, e, k: int, label):
     # K2 at the refinement tree of the plain moments
     t0 = ops.gaussian_t0(ps, psq, d, k, False)
     heap, n_cnt = ops._tree_thresholds(t0, 4)
-    thr = torch.from_numpy(heap[:n_cnt]).cuda()
-    cnt_k = tc.tree_count(g, e, thr, block=sb, num_warps=w)
+    thr = torch.from_numpy(heap[:n_cnt])   # on the host, as ops passes it
+    cnt_k = tc.tree_count(g, e, thr, block=sb)
     cnt_p = tc.tree_count_plain(g, e, thr, block=sb)
     assert torch.equal(cnt_k, cnt_p), (label, "K2", cnt_k, cnt_p)
     thres = float(ops._replay_refinement(heap, cnt_p.cpu().numpy(), k, 4))
@@ -580,6 +587,7 @@ def check_main_kernels(g, e, k: int, label):
     rp = cr.compact_resid_plain(g, e, thres, enc, block=block, bcap=bcap,
                                 k_cap=k_cap)
     assert same_bits(rk, rp), (label, "K3 residual")
+    check_sweep(torch, g, e, thres, block, bcap, k_cap, label)
     # the pipeline: conservation decode(v, i) + e' == g + e, bitwise
     v, i, ne = ops.fused_compress_ef(g, e, "gaussiank", k)
     assert torch.equal(codec.decode(v, i, d) + ne, g + e), (label,
@@ -588,8 +596,10 @@ def check_main_kernels(g, e, k: int, label):
     log(f"  {label}: K1 max error {k1_err:.3g}, absmax exact; K2 counts "
         f"exact {cnt_k.tolist()[:3]}...; K3 staging + residual bitwise "
         f"(block {block}, bcap {bcap}, {int(ck.sum())} over threshold "
-        f"{thres:.6g}); pipeline conserves bitwise, {nnz}/{k_cap} slots "
-        f"for k={k}; K1/K2 at stats block {sb}, {w} warps ({cfg.source})")
+        f"{thres:.6g}); the K3 sweep bitwise the two launches and the "
+        f"assembly, in place too; pipeline conserves bitwise, "
+        f"{nnz}/{k_cap} slots for k={k}; K1/K2 at stats block {sb}, K1 "
+        f"{w} warps ({cfg.source})")
     return types.SimpleNamespace(
         sb=sb, block=block, k_cap=k_cap, bcap=bcap, warps=w, cfg=cfg,
         ubcap=gops.default_bcap(k_cap, d, block), s=s, sq=sq, ps=ps,
@@ -597,9 +607,67 @@ def check_main_kernels(g, e, k: int, label):
         thr=thr, cnt_k=cnt_k, thres=thres, vk=vk, ok=ok, ck=ck, enc=enc)
 
 
+SWEEP_OUTS = ("vals", "offs", "cnt", "e'", "wire values", "wire indices")
+
+
+def check_sweep(torch, g, e, thres, block, bcap, k_cap, label):
+    """The K3 one sweep bitwise the stage and residual launches plus
+    ``assemble_staging``: the staging rows, the counts, ``e'`` and the
+    wire pair compared as integer bits; then again with ``e'`` written
+    in place over (a copy of) ``e``, or of ``g`` without ``e``.  Returns
+    the two-launch form's outputs."""
+    from repro_torch.kernels.ef_fused import compact_residual as cr
+    vk, ok, ck = cr.compact_stage(g, e, thres, block=block, bcap=bcap)
+    rk = cr.compact_resid(g, e, thres, cr.exclusive_enc(ck, bcap),
+                          block=block, bcap=bcap, k_cap=k_cap)
+    want = (vk, ok, ck, rk) + cr.assemble_staging(
+        vk, ok, ck, k_cap, block=block, out_dtype=rk.dtype)
+    got = cr.compact_sweep(g, e, thres, block=block, bcap=bcap,
+                           k_cap=k_cap)
+    for a, b, what in zip(got, want, SWEEP_OUTS):
+        assert same_bits(a, b), (label, "K3 sweep", what)
+    del got
+    inplace = e if e is not None and e.dtype == rk.dtype else (
+        g if e is None else None)
+    if inplace is not None:
+        dst = inplace.clone()
+        got = cr.compact_sweep(dst if e is None else g,
+                               None if e is None else dst, thres,
+                               block=block, bcap=bcap, k_cap=k_cap, out=dst)
+        assert got[3].data_ptr() == dst.data_ptr(), (label, "in place")
+        for a, b, what in zip(got, want, SWEEP_OUTS):
+            assert same_bits(a, b), (label, "K3 sweep in place", what)
+        del got, dst
+    return want
+
+
+def two_launch_times(torch, g, e, thres, block, bcap, k_cap, out, it):
+    """CUDA-event medians of the K3 sweep and of the form it replaced on
+    the path (the stage and residual launches, the exact cumsum between
+    them and ``assemble_staging``), in turns: two-launch, sweep, sweep,
+    two-launch.  Returns ``(sweep ms, two-launch ms)``, two runs each."""
+    from repro_torch.kernels.ef_fused import compact_residual as cr
+
+    def two():
+        v, o, c, ne = cr.compact_residual(g, e, thres, block=block,
+                                          bcap=bcap, k_cap=k_cap, out=out)
+        return cr.assemble_staging(v, o, c, k_cap, block=block,
+                                   out_dtype=ne.dtype)
+
+    def sweep():
+        return cr.compact_sweep(g, e, thres, block=block, bcap=bcap,
+                                k_cap=k_cap, out=out)
+
+    runs = {"two": [], "sweep": []}
+    for name in ("two", "sweep", "sweep", "two"):
+        runs[name].append(time_ms(two if name == "two" else sweep, it))
+    return runs["sweep"], runs["two"]
+
+
 def check_model_rows(torch, model_size: int = 2) -> None:
-    """Phase 2 at a model axis of ``model_size``: K1, K2 and both K3
-    launches against their plain versions on every row of an ``(M,
+    """Phase 2 at a model axis of ``model_size``: K1, K2, both K3
+    launches and the K3 sweep against their plain versions on every row
+    of an ``(M,
     d_row_total)`` bucket of two segments, the 1,000,003- and the
     268,435,456-element leaf (``layout.flat_dims``: 500,002 and
     134,217,728 columns a row at M = 2), each row at its own budget
@@ -740,7 +808,7 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
             lambda: fm.fused_moments_hist(g, e, block=sb, num_warps=w),
             lambda: fm.fused_moments_hist_plain(g, e, block=sb)),
         "tree_count": (
-            lambda: tc.tree_count(g, e, thr, block=sb, num_warps=w),
+            lambda: tc.tree_count(g, e, thr, block=sb),
             lambda: tc.tree_count_plain(g, e, thr, block=sb)),
         "compact_stage": (
             lambda: cr.compact_stage(g, e, thres, block=block, bcap=bcap),
@@ -750,6 +818,11 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
             lambda: cr.compact_resid(g, e, thres, enc, block=block,
                                      bcap=bcap, k_cap=k_cap, out=out),
             lambda: cr.compact_resid_plain(g, e, thres, enc, block=block,
+                                           bcap=bcap, k_cap=k_cap)),
+        "compact_sweep": (
+            lambda: cr.compact_sweep(g, e, thres, block=block, bcap=bcap,
+                                     k_cap=k_cap, out=out),
+            lambda: cr.compact_sweep_plain(g, e, thres, block=block,
                                            bcap=bcap, k_cap=k_cap)),
         "moments": (lambda: mom.moments(u, block=sb, num_warps=w),
                     lambda: fm.moments_plain(u, sb)),
@@ -763,6 +836,9 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
                           lambda: hist.abs_histogram_plain(u, block=sb)),
     }
     ms = {n: (time_ms(a, it), time_ms(b, pit)) for n, (a, b) in ms.items()}
+    # the sweep beside the form it replaces on the path, timed in turns
+    sweep_ms, two_ms = two_launch_times(torch, g, e, thres, block, bcap,
+                                        k_cap, out, it)
     nt = thr.numel()
     # (bytes: each input of the function read once and each of its
     # outputs written once; ops; bytes of the per-program partial rows
@@ -774,12 +850,17 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
         "fused_moments": (8 * d + 12, 5 * d, 12 * nbs),
         "fused_moments_hist": (8 * d + 12 + 8 * 128, 20 * d,
                                (12 + 4 * 128) * nbs),
-        "tree_count": (8 * d + 8 * nt, 17 * d,
-                       4 * max(2, 1 << (nt - 1).bit_length()) * nbs),
+        # the counts: one int32 atomic a CTA and threshold, folded into
+        # the output (the bound counts the output once)
+        "tree_count": (8 * d + 8 * nt, 17 * d, 0),
         "compact_stage": (8 * d + 8 * nb * bcap + 4 * nb, 3 * d, 0),
         "compact_resid": (12 * d + 8 * nb, 3 * d, 0),
+        # g, e read; e', the rows, the counts and the pair written (the
+        # status words, 8 bytes a group of blocks, are its design's)
+        "compact_sweep": (12 * d + 8 * nb * bcap + 4 * nb + 8 * k_cap,
+                          3 * d, 0),
         "moments": (4 * d + 12, 5 * d, 12 * nbs),
-        "count_gt": (4 * d + 8, 3 * d, 4 * 2 * nbs),
+        "count_gt": (4 * d + 8, 3 * d, 0),
         "threshold_compact": (4 * d + 8 * nb * ubcap + 4 * nb, 3 * d, 0),
         "abs_histogram": (4 * d + 8 * 128, 15 * d, 8 * 128 * sms),
     }
@@ -795,6 +876,10 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
             rows[name]["config"] = {
                 "block": block, "stats_block": sb, "num_warps": w,
                 "bcap": bcap, "source": cfg.source}
+    rows["compact_sweep"].update(
+        turns_ms=sweep_ms, two_launch_ms=two_ms,
+        two_launch_bound_share=rows["compact_sweep"]["bound_ms"]
+        / statistics.median(two_ms))
     log(f"  times at d={d:,} (ms, median): " + ", ".join(
         f"{n} {a:.4f} (plain {b:.3f})" for n, (a, b) in ms.items()))
     # K4c at the registry's hist-k block (path B's geometry) as well
@@ -815,10 +900,10 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
     ef, sel = 12 * d + 8 * k_cap, 4 * d + 8 * k_cap
     pipes = {   # name: (call, bytes of the function's own inputs and
         #               outputs, bytes per element of its passes)
-        "fused gaussiank (K1, K2, K3 stage, K3 residual)": (
-            lambda: ops.fused_compress_ef(g, e, "gaussiank", k), ef, 36),
-        "fused histk (K1 with histogram, K3 stage, K3 residual)": (
-            lambda: ops.fused_compress_ef(g, e, "histk", k), ef, 28),
+        "fused gaussiank (K1, K2, K3 sweep)": (
+            lambda: ops.fused_compress_ef(g, e, "gaussiank", k), ef, 28),
+        "fused histk (K1 with histogram, K3 sweep)": (
+            lambda: ops.fused_compress_ef(g, e, "histk", k), ef, 20),
         "unfused gaussiank (add, K4a, K4b x4, K4c, decode, subtract)": (
             lambda: ops.unfused_compress_ef(g, e, "gaussiank", k), ef, 52),
         "unfused histk (add, K4d, K4c, decode, subtract)": (
@@ -848,13 +933,14 @@ def check_kernels(d: int, seed: int, rows: dict, timed: bool):
 # (staging rows and partial rows not counted): the per-step bound of a
 # path is these over all the step's elements at the memory rate
 LEAF_BYTES = {"fused_moments": 8, "fused_moments_hist": 8, "tree_count": 8,
-              "compact_stage": 8, "compact_resid": 12, "moments": 4,
+              "compact_stage": 8, "compact_resid": 12, "compact_sweep": 12,
+              "moments": 4,
               "count_gt": 4, "threshold_compact": 4, "abs_histogram": 4,
               "threefry_bits": 8}
 # adaptive density compresses u = G + E in place: the kernels read u alone
 ADAPTIVE_LEAF_BYTES = {"fused_moments": 4, "fused_moments_hist": 4,
                        "tree_count": 4, "compact_stage": 4,
-                       "compact_resid": 8}
+                       "compact_resid": 8, "compact_sweep": 8}
 
 
 def init_draws(cfg) -> int:
@@ -1439,8 +1525,7 @@ def phase6_adaptive(torch, by_path, llama_adaptive, fixed_step_ms,
         train_path("6b adaptive histk absmax", llama_adaptive + [
             "--compressor", "histk", "--density-policy", "absmax",
             "--density-ema", "0.5"],
-            {"fused_moments_hist": 12, "compact_stage": 12,
-             "compact_resid": 12}, 3, torch,
+            {"fused_moments_hist": 12, "compact_sweep": 12}, 3, torch,
             leaf_bytes=ADAPTIVE_LEAF_BYTES, bounds=bounds_of(lay))
     out["6b"] = summary(records, peak, extra, bnd)
     del records
@@ -1894,7 +1979,7 @@ PAPER_SIM = (   # phase 8a: (compressor, density policy?) card vs CPU
 EXACT_COMM = ("none", "topk", "randk", "rtopk")
 # phase 8c: the TPU kernels' counterparts the fig4 benchmark must launch
 FIG4_KERNELS = ("fused_moments", "fused_moments_hist", "tree_count",
-                "compact_stage", "compact_resid", "moments", "count_gt",
+                "compact_sweep", "moments", "count_gt",
                 "threshold_compact", "abs_histogram")
 
 
@@ -2028,13 +2113,13 @@ def phase8_paper(torch, by_path) -> dict:
     for r in data["rows"]:
         want = base[(r["shape"], r["method"])]
         if r["method"].endswith("-fused"):
-            want -= 1
+            want -= 2
         assert r["passes"] == want, ("8c passes", r, want)
     out["8c"] = {"rows": rows, "bench": data["rows"]}
     log(f"phase 8c: fig4 smoke launched {launched}; passes "
         f"{[(r['method'], r['passes']) for r in data['rows'][:5]]} "
-        "(baseline: unfused equal, fused one more for the interpret "
-        "backend's operand add)")
+        "(baseline: unfused equal, fused two more for the interpret "
+        "backend's operand add and residual scatter)")
     out["8c_s"] = time.time() - t8c
     out["phase8_s"] = time.time() - t_start
     log(f"phase 8 took {out['phase8_s']:.1f} s (8a {out['8a_s']:.1f}, "
@@ -2213,7 +2298,7 @@ def phase9_chunked(torch, by_path, ref5c, small_cfg, small_base) -> dict:
         chunks L (one a leaf) and the per-leaf loop: params, momentum and
         residuals bitwise chunks 1's (``torch.equal`` of the int32 views
         on the card), the metrics equal, ``collectives_per_step`` N (or
-        L), K1, K2 and both K3 launches 12 a step; step ms, peak GiB and
+        L), K1, K2 and the K3 sweep launches 12 a step; step ms, peak GiB and
         each chunk's release as a fraction of the backward's span;
     9b. the same at llama3.2-1b's default ``variance``, chunks 1 and 4:
         one allocation a step, equal, ``sum(k) == K_eff == k_total``, the
@@ -2443,14 +2528,14 @@ def phase10_serve(torch, by_path) -> dict:
          (``--publish-every 0``) and streaming for their tokens/s;
     10b. ``train.run`` at full width and depth, Gaussian-k fixed-k at
          0.001, ``--publish-every 1 --resync-every 2``, 4 steps: 12
-         launches a step of K1, K2 and both K3 (the ``topk`` publisher
+         launches a step of K1, K2 and the K3 sweep (the ``topk`` publisher
          launches none), 2 deltas + 2 resyncs of the layout's bits; the
          checkpoint and resume on the small config on the card: 3 steps
          and a resumed fourth save what 4 straight steps save, bitwise
          (a full-width checkpoint of params, momentum, residual and the
          publisher's two buckets would be ~30 GB);
     10c. a ``gaussiank`` publisher through the library on llama3.2-1b,
-         3 ticks (resync, delta, delta): K1, K2 and both K3 launched 12
+         3 ticks (resync, delta, delta): K1, K2 and the K3 sweep launched 12
          times a delta, the invariants of 10a;
     10d. the small config with a sliding-window layer (window 4 below
          the prompt's 8) card against CPU: prefill and decode logits
@@ -2583,7 +2668,7 @@ def phase10_serve(torch, by_path) -> dict:
             assert int(r["publish/seq"]) == 4
             for k in s.files:
                 assert np.array_equal(s[k], r[k]), ("10b resume", k)
-    log(f"  10b: K1, K2 and both K3 12 a step; published 2 deltas + 2 "
+    log(f"  10b: K1, K2 and the K3 sweep 12 a step; published 2 deltas + 2 "
         f"resyncs ({mib:.3f} MiB, the layout's); steps ms "
         f"{[round(v, 1) for v in b['step_ms']]}; peak {b['peak_gib']:.2f} "
         f"GiB; small config on the card: 3 steps + a resumed fourth save "
@@ -2737,12 +2822,14 @@ def full_width(arch, layers):
 
 
 def phase11a_huge_leaf(torch, rows) -> dict:
-    """11a: K1, K2 and both K3 launches at d = ``HUGE_LEAF`` (jamba's
-    ``embed``, the largest leaf the kernels meet) against their plain
-    versions on the card — counts, staging and residual bitwise, the
-    moments within tolerance, the pipeline conserving — then each timed
-    with CUDA events beside its plain version and its bound; the times go
-    into the kernel rows as ``*_536m``."""
+    """11a: K1, K2, both K3 launches and the K3 sweep at d = ``HUGE_LEAF``
+    (jamba's ``embed``, the largest leaf the kernels meet) against their
+    plain versions on the card — counts, staging and residual bitwise,
+    the sweep bitwise the two launches and the assembly (in place too),
+    the moments within tolerance, the pipeline conserving — then each
+    timed with CUDA events beside its plain version and its bound, the
+    sweep in turns with the two-launch form; the times go into the
+    kernel rows as ``*_536m``."""
     from repro_torch.core import codec
     from repro_torch.core.compressors import gaussiank_cap
     from repro_torch.kernels.ef_fused import compact_residual as cr
@@ -2768,8 +2855,8 @@ def phase11a_huge_leaf(torch, rows) -> dict:
     k1_err = check_moments(d, "K1", (s, sq, mx), (ps, psq, pmx), sum_abs)
     t0 = ops.gaussian_t0(ps, psq, d, k, False)
     heap, n_cnt = ops._tree_thresholds(t0, 4)
-    thr = torch.from_numpy(heap[:n_cnt]).cuda()
-    cnt_k = tc.tree_count(g, e, thr, block=sb, num_warps=w)
+    thr = torch.from_numpy(heap[:n_cnt])
+    cnt_k = tc.tree_count(g, e, thr, block=sb)
     assert torch.equal(cnt_k, tc.tree_count_plain(g, e, thr, block=sb)), (
         d, "K2")
     thres = float(ops._replay_refinement(heap, cnt_k.cpu().numpy(), k, 4))
@@ -2785,6 +2872,8 @@ def phase11a_huge_leaf(torch, rows) -> dict:
                                 k_cap=k_cap)
     assert same_bits(rk, rp), (d, "K3 residual")
     del rk, rp
+    check_sweep(torch, g, e, thres, block, bcap, k_cap, f"11a d={d:,}")
+    torch.cuda.empty_cache()
     v, i, ne = ops.fused_compress_ef(g, e, "gaussiank", k)
     assert torch.equal(codec.decode(v, i, d) + ne, g + e), (d, "conserve")
     nnz = int(codec.nnz(i))
@@ -2793,8 +2882,10 @@ def phase11a_huge_leaf(torch, rows) -> dict:
     log(f"  d={d:,}: K1 max error {k1_err:.3g}, absmax exact; K2 counts "
         f"exact {cnt_k.tolist()[:3]}...; K3 staging + residual bitwise "
         f"(block {block}, bcap {bcap}, {int(ck.sum())} over threshold "
-        f"{thres:.6g}); pipeline conserves bitwise, {nnz}/{k_cap} slots; "
-        f"K1/K2 at stats block {sb}, {w} warps ({cfg.source})")
+        f"{thres:.6g}); the K3 sweep bitwise the two launches and the "
+        f"assembly, in place too; pipeline conserves bitwise, "
+        f"{nnz}/{k_cap} slots; K1/K2 at stats block {sb}, K1 {w} warps "
+        f"({cfg.source})")
 
     out = torch.empty_like(g)
     ms = {
@@ -2802,7 +2893,7 @@ def phase11a_huge_leaf(torch, rows) -> dict:
             lambda: fm.fused_moments(g, e, block=sb, num_warps=w),
             lambda: fm.fused_moments_plain(g, e, block=sb)),
         "tree_count": (
-            lambda: tc.tree_count(g, e, thr, block=sb, num_warps=w),
+            lambda: tc.tree_count(g, e, thr, block=sb),
             lambda: tc.tree_count_plain(g, e, thr, block=sb)),
         "compact_stage": (
             lambda: cr.compact_stage(g, e, thres, block=block, bcap=bcap),
@@ -2813,13 +2904,22 @@ def phase11a_huge_leaf(torch, rows) -> dict:
                                      bcap=bcap, k_cap=k_cap, out=out),
             lambda: cr.compact_resid_plain(g, e, thres, enc, block=block,
                                            bcap=bcap, k_cap=k_cap)),
+        "compact_sweep": (
+            lambda: cr.compact_sweep(g, e, thres, block=block, bcap=bcap,
+                                     k_cap=k_cap, out=out),
+            lambda: cr.compact_sweep_plain(g, e, thres, block=block,
+                                           bcap=bcap, k_cap=k_cap)),
     }
     ms = {n: (time_ms(a, 10), time_ms(b, 3)) for n, (a, b) in ms.items()}
+    sweep_ms, two_ms = two_launch_times(torch, g, e, thres, block, bcap,
+                                        k_cap, out, 10)
     nt = thr.numel()
     work = {"fused_moments": (8 * d + 12, 5 * d),
             "tree_count": (8 * d + 8 * nt, 17 * d),
             "compact_stage": (8 * d + 8 * nb * bcap + 4 * nb, 3 * d),
-            "compact_resid": (12 * d + 8 * nb, 3 * d)}
+            "compact_resid": (12 * d + 8 * nb, 3 * d),
+            "compact_sweep": (12 * d + 8 * nb * bcap + 4 * nb + 8 * k_cap,
+                              3 * d)}
     res = {}
     for name, (k_ms, p_ms) in ms.items():
         b_ms, b_by = bound(*work[name])
@@ -2828,15 +2928,9 @@ def phase11a_huge_leaf(torch, rows) -> dict:
         rows[name].update(ms_536m=k_ms, plain_ms_536m=p_ms,
                           bound_ms_536m=b_ms, d_536m=d)
     rows["fused_moments"]["max_abs_err_536m"] = k1_err
-    # the TPU's one-sweep pass B (compact_residual.py:237) as the stage
-    # and residual launches, against the bound of one sweep: g and e
-    # read once, e' and the staging rows written once
-    b_ms, b_by = bound(12 * d + 8 * nb * bcap + 4 * nb, 3 * d)
-    res["one_sweep"] = {
-        "ms": res["compact_stage"]["ms"] + res["compact_resid"]["ms"],
-        "plain_ms": (res["compact_stage"]["plain_ms"]
-                     + res["compact_resid"]["plain_ms"]),
-        "bound_ms": b_ms, "bound_by": b_by}
+    res["compact_sweep"].update(turns_ms=sweep_ms, two_launch_ms=two_ms)
+    rows["compact_sweep"].update(turns_ms_536m=sweep_ms,
+                                 two_launch_ms_536m=two_ms)
     log(f"  times at d={d:,} (ms, median): " + ", ".join(
         f"{n} {r['ms']:.4f} (plain {r['plain_ms']:.3f}, bound "
         f"{r['bound_ms']:.4f})" for n, r in res.items()))
@@ -2853,8 +2947,8 @@ def phase11_archs(torch, by_path, rows) -> dict:
     ``embeds`` frontend, each path with the launch counters set to 0
     just before it and read just after.
 
-    11a. K1, K2 and both K3 launches at d = 536,870,912 against their
-         plain versions, timed (``phase11a_huge_leaf``);
+    11a. K1, K2, the K3 sweep and both K3 launches at d = 536,870,912
+         against their plain versions, timed (``phase11a_huge_leaf``);
     11b. ``launch.train.run`` at full width, Gaussian-k fused at 0.001
          (the CLI's default), world 1, batch 8 x 128: deepseek-moe-16b
          with 2 layers, jamba-1.5-large with 1 (layer 0: Mamba + MLP),
@@ -2886,8 +2980,8 @@ def phase11_archs(torch, by_path, rows) -> dict:
     t_start = time.time()
     out = {}
 
-    log(f"phase 11a: K1, K2 and both K3 launches at d={HUGE_LEAF:,} (jamba "
-        "embed) against their plain versions")
+    log(f"phase 11a: K1, K2, the K3 sweep and both K3 launches at "
+        f"d={HUGE_LEAF:,} (jamba embed) against their plain versions")
     out["11a"] = phase11a_huge_leaf(torch, rows)
     out["11a_s"] = time.time() - t_start
 
@@ -3221,7 +3315,7 @@ def phase12_model_axis(torch, by_path, llama) -> dict:
     12a. ``train.run`` at ``--mesh 4x2 --host-devices 8`` (the
          reference's default mesh, in this process) on llama3.2-1b at
          full width and depth, Gaussian-k fixed-k at 0.001, 8 x 128, 3
-         steps: 96 launches a step of K1, K2 and both K3 (4 workers x 12
+         steps: 96 launches a step of K1, K2 and the K3 sweep (4 workers x 12
          leaves x 2 rows), every worker's step-0 ``(2, d_row_total)``
          bucket conserving bitwise; step ms and peak memory;
     12b. the tensor-parallel step at ``--mesh 1x2``: two processes
@@ -3351,7 +3445,7 @@ def phase12c(torch, by_path) -> dict:
     each worker's step-0 bucket conserving bitwise), then in two
     processes (``tp_blocks_child``; NCCL with a card each when two are
     visible, else gloo on the one card), each rank holding its shards:
-    one K1, K2 and K3 pair a leaf a step a rank (and the params' draws),
+    one K1, K2 and K3 sweep a leaf a step a rank (and the params' draws),
     the losses the one-process run's within rtol 1e-6, the wire
     accounting equal; the per-leaf run's losses, densities and wire
     bits bitwise the bucketed TP run's, one collective a leaf.  Step
@@ -3500,7 +3594,7 @@ def tensor_parallel_cards(torch) -> dict:
     Gaussian-k fixed-k at 0.001, 8 x 128, ``TP_CARD_STEPS`` steps:
     deepseek-moe-16b at 8 of its 28 layers (5.1 B params, ~19 GiB of
     state a rank) and jamba-1.5-large at 1 of its 72, each rank holding a
-    quarter of every split leaf: one K1, K2 and K3 pair a leaf a step a
+    quarter of every split leaf: one K1, K2 and K3 sweep a leaf a step a
     rank, the same losses on every rank; jamba's losses within rtol 1e-6
     of its one-process ``--mesh 1x4`` run on card 0 (deepseek's 8 layers
     do not fit one card).  Step ms, relayout ms and its share, peak a
@@ -3619,7 +3713,7 @@ def phase13_tuner(torch, by_path, llama, dry=None) -> dict:
          fixed-k at 0.001, fused, 8 x 128, ``--strategy auto`` against
          the strategy it chose, 2 steps each: ``--mesh 4x1
          --host-devices 4 --topology <13c's>`` at 16 layers (48
-         launches a step of K1, K2 and both K3), and ``--mesh 2x2x1
+         launches a step of K1, K2 and the K3 sweep), and ``--mesh 2x2x1
          --host-devices 4 --topology <the reference's asym>`` at 4
          layers (5b's cut: the per-worker gTop-k buffers of 16 layers
          exceed the card), which must choose ``hier_gtopk`` (96 a step:
@@ -4463,7 +4557,7 @@ def phase14c(torch, by_path) -> dict:
     """14c of :func:`phase14_placed`, at full width with
     ``PUBLISH_LAYERS`` layers: the one-process ``--mesh 1x2`` trainer
     with ``--publish-every 1 --resync-every 2`` (24 launches a step of
-    K1, K2 and both K3; its records' publish kinds and bits), then the
+    K1, K2 and the K3 sweep; its records' publish kinds and bits), then the
     tensor-parallel one in two processes: 12 launches a step a rank of
     each (and the params' draws), the losses within rtol 1e-6, every
     record's publish kind and bits and the ``published`` line the
@@ -4684,7 +4778,7 @@ def remat_run(torch, label, argv, cfg, remat, by_path,
               step_memory=False) -> dict:
     """One ``train.run`` of ``argv`` on ``cfg`` for ``REMAT_STEPS`` steps,
     its launch counters set to 0 just before it and read just after
-    (12 a step of K1, K2 and both K3; the params' draws once), with
+    (12 a step of K1, K2 and the K3 sweep; the params' draws once), with
     rematerialisation (the trainer's default) or without it (the
     trainer's own switch, ``--smoke``, which with ``cfg`` given changes
     nothing else).  ``--checkpoint`` hands the final state to
@@ -4801,11 +4895,11 @@ def phase15b(torch) -> dict:
     """15b: the kernel-configuration ladder on the card against the
     checked-in table (``kernels/ef_fused/kernelconfig.cuda.json``): every
     leaf of phase 3's path (llama3.2-1b's 12 bucket segments) resolves
-    with ``source == "table"``; at the 268,435,456-element leaf K1, K2
-    and both K3 launches at the table's config are held against their
-    plain versions (:func:`check_main_kernels`) and timed with CUDA
-    events beside the heuristic config (block 1024, stats block 4096,
-    each kernel's own warps), in the order heuristic, table, table,
+    with ``source == "table"``; at the 268,435,456-element leaf K1, K2,
+    both K3 launches and the K3 sweep at the table's config are held
+    against their plain versions (:func:`check_main_kernels`) and timed
+    with CUDA events beside the heuristic config (block 1024, stats
+    block 4096, K1's own warps), in the order heuristic, table, table,
     heuristic; so is the whole fused pipeline."""
     from repro_torch.configs import get_config
     from repro_torch.core.compressors import gaussiank_cap, get_compressor
@@ -4850,13 +4944,14 @@ def phase15b(torch) -> dict:
         return bcap, {
             "fused_moments": lambda: fm.fused_moments(g, e, block=sb,
                                                       num_warps=w),
-            "tree_count": lambda: tc.tree_count(g, e, thr, block=sb,
-                                                num_warps=w),
+            "tree_count": lambda: tc.tree_count(g, e, thr, block=sb),
             "compact_stage": lambda: cr.compact_stage(
                 g, e, thres, block=block, bcap=bcap),
             "compact_resid": lambda: cr.compact_resid(
                 g, e, thres, enc, block=block, bcap=bcap, k_cap=k_cap,
                 out=out),
+            "compact_sweep": lambda: cr.compact_sweep(
+                g, e, thres, block=block, bcap=bcap, k_cap=k_cap, out=out),
             "pipeline": lambda: ops.fused_compress_ef(
                 g, e, "gaussiank", k, block=block, stats_block=sb,
                 num_warps=w)}
@@ -4869,16 +4964,15 @@ def phase15b(torch) -> dict:
     res = {}
     for name, cfg in configs.items():
         ms = {n: statistics.mean(t) for n, t in times[name].items()}
-        ms["one_sweep"] = ms["compact_stage"] + ms["compact_resid"]
         res[name] = {"block": cfg.block, "stats_block": cfg.stats_block,
                      "num_warps": cfg.num_warps, "bcap": fns[name][0],
                      "ms": ms, "runs_ms": times[name]}
     nb = -(-d // configs["table"].block)
-    sweep_bound = bound(12 * d + 8 * nb * fns["table"][0] + 4 * nb,
-                        3 * d)[0]
+    sweep_bound = bound(12 * d + 8 * nb * fns["table"][0] + 4 * nb
+                        + 8 * k_cap, 3 * d)[0]
     res["table"]["one_sweep_bound_ms"] = sweep_bound
     res["table"]["one_sweep_share_of_bound"] = (
-        sweep_bound / res["table"]["ms"]["one_sweep"])
+        sweep_bound / res["table"]["ms"]["compact_sweep"])
     log(f"phase 15b: d={d:,}, ms (mean of two medians): " + "; ".join(
         f"{name} (block {r['block']}, stats {r['stats_block']}, warps "
         f"{r['num_warps']}): " + ", ".join(
@@ -4970,7 +5064,7 @@ def phase16a(torch) -> dict:
 def phase16b(torch, by_path) -> dict:
     """16b: the trainer (``train.run``, remat on) on llama3.2-1b at full
     width and depth, Gaussian-k fused at 0.001, fixed-k, 3 steps at
-    each of ``LONG_TRAIN`` (12 launches a step of K1, K2 and both K3),
+    each of ``LONG_TRAIN`` (12 launches a step of K1, K2 and the K3 sweep),
     each step's memory recorded; at 8 x 2048 also with the one-block
     attention (``layers._SDPA_CHUNK`` raised above T for that run):
     both peaks and whether the losses are bitwise equal."""
@@ -5186,6 +5280,7 @@ BF16_PAIRS = (("bfloat16", "bfloat16"), ("bfloat16", "float32"),
 # (K4a-K4d read a bf16 u; K3's residual writes a bf16 e')
 BF16_LEAF_BYTES = {"fused_moments": 4, "fused_moments_hist": 4,
                    "tree_count": 4, "compact_stage": 4, "compact_resid": 6,
+                   "compact_sweep": 6,
                    "moments": 2, "count_gt": 2, "threshold_compact": 2,
                    "abs_histogram": 2}
 BF16_BATCH, BF16_SEQ = 8, 512
@@ -5202,9 +5297,11 @@ def bf16_cfg(cfg):
 def phase17a(torch, rows) -> dict:
     """17a: every EF kernel at d = 268,435,456 with ``(g, e)`` in (bf16,
     bf16), (bf16, f32) and (bf16, None), at the geometry the table pins
-    for a bf16 ``g``: K1 (with and without its histogram), K2 and both K3
-    launches on ``(g, e)``, K4a-K4d on the pair's ``u`` in its promoted
-    dtype, each against its plain version on the card (moments within
+    for a bf16 ``g``: K1 (with and without its histogram), K2, both K3
+    launches and the K3 sweep (bitwise the two launches and the
+    assembly, in place too) on ``(g, e)``, K4a-K4d on the pair's ``u``
+    in its promoted dtype, each against its plain version on the card
+    (moments within
     tolerance; counts, histograms, staging rows and offsets, indices and
     ``e'`` bitwise, bf16 as int16), ``e'`` in place over ``e`` where it
     has the promoted dtype, the fused and unfused pipelines' conservation
@@ -5260,8 +5357,8 @@ def phase17a(torch, rows) -> dict:
         # K2 at the plain moments' refinement tree
         heap, n_cnt = ops._tree_thresholds(ops.gaussian_t0(ps, psq, d, k,
                                                            False), 4)
-        thr = torch.from_numpy(heap[:n_cnt]).cuda()
-        cnt = tc.tree_count(g, e, thr, block=sb, num_warps=w)
+        thr = torch.from_numpy(heap[:n_cnt])
+        cnt = tc.tree_count(g, e, thr, block=sb)
         assert torch.equal(cnt, tc.tree_count_plain(g, e, thr, block=sb)), (
             label, "K2")
         thres = float(ops._replay_refinement(heap, cnt.cpu().numpy(), k, 4))
@@ -5283,6 +5380,7 @@ def phase17a(torch, rows) -> dict:
             assert got.data_ptr() == target.data_ptr(), (label, "in place")
         assert same_bits(got, want), (label, "K3 residual")
         del target, got, want, stage, plain
+        check_sweep(torch, g, e, thres, block, bcap, k_cap, label)
         # the fused pipeline's pair and e', and conservation in u's dtype
         fv, fi, fne = ops.fused_compress_ef(g, e, "gaussiank", k)
         assert fv.dtype == fne.dtype == u.dtype, (label, fv.dtype)
@@ -5319,7 +5417,8 @@ def phase17a(torch, rows) -> dict:
         del fv, fi, fne, uv, ui, une
         out[label] = {"max_abs_err": errs, "threshold": thres, "nnz": nnz}
         log(f"  {label}: K1 (max error {errs['fused_moments']:.3g}), K1 "
-            f"histogram, K2, K3 stage and e' ({u.dtype}) bitwise; K4a-K4d "
+            f"histogram, K2, K3 stage and e' ({u.dtype}), the K3 sweep "
+            f"(rows, e', pair, in place) bitwise; K4a-K4d "
             f"on u ({u.dtype}) bitwise; fused and unfused conserve in "
             f"{u.dtype}; {nnz}/{k_cap} slots at threshold {thres:.6g}")
         if (gname, ename) == ("bfloat16", "bfloat16"):
@@ -5340,7 +5439,7 @@ def phase17a(torch, rows) -> dict:
             lambda: fm.fused_moments_hist(g, e, block=sb, num_warps=w),
             lambda: fm.fused_moments_hist_plain(g, e, block=sb)),
         "tree_count": (
-            lambda: tc.tree_count(g, e, thr, block=sb, num_warps=w),
+            lambda: tc.tree_count(g, e, thr, block=sb),
             lambda: tc.tree_count_plain(g, e, thr, block=sb)),
         "compact_stage": (
             lambda: cr.compact_stage(g, e, thres, block=block, bcap=bcap),
@@ -5350,6 +5449,11 @@ def phase17a(torch, rows) -> dict:
             lambda: cr.compact_resid(g, e, thres, enc, block=block,
                                      bcap=bcap, k_cap=k_cap, out=e_out),
             lambda: cr.compact_resid_plain(g, e, thres, enc, block=block,
+                                           bcap=bcap, k_cap=k_cap)),
+        "compact_sweep": (
+            lambda: cr.compact_sweep(g, e, thres, block=block, bcap=bcap,
+                                     k_cap=k_cap, out=e_out),
+            lambda: cr.compact_sweep_plain(g, e, thres, block=block,
                                            bcap=bcap, k_cap=k_cap)),
         "moments": (lambda: mom.moments(u, block=sb, num_warps=w),
                     lambda: fm.moments_plain(u, sb)),
@@ -5365,11 +5469,14 @@ def phase17a(torch, rows) -> dict:
     extra = {   # bytes beyond the leaf-sized operands and outputs
         "fused_moments": 12, "fused_moments_hist": 12 + 8 * 128,
         "tree_count": 8 * nt, "compact_stage": 8 * nb * bcap + 4 * nb,
-        "compact_resid": 8 * nb, "moments": 12, "count_gt": 8,
+        "compact_resid": 8 * nb,
+        "compact_sweep": 8 * nb * bcap + 4 * nb + 6 * k_cap,
+        "moments": 12, "count_gt": 8,
         "threshold_compact": 8 * nb * ubcap + 4 * nb,
         "abs_histogram": 8 * 128}
     nops = {"fused_moments": 5, "fused_moments_hist": 20, "tree_count": 17,
-            "compact_stage": 3, "compact_resid": 3, "moments": 5,
+            "compact_stage": 3, "compact_resid": 3, "compact_sweep": 3,
+            "moments": 5,
             "count_gt": 3, "threshold_compact": 3, "abs_histogram": 15}
     times = {}
     for name, (kern, plain) in fns.items():
@@ -5388,6 +5495,12 @@ def phase17a(torch, rows) -> dict:
             f"{n} {rows[n]['bf16']['ms']:.4f} (bound "
             f"{rows[n]['bf16']['bound_ms']:.4f}, plain "
             f"{rows[n]['bf16']['plain_ms']:.3f})" for n in fns))
+    sweep_ms, two_ms = two_launch_times(torch, g, e, thres, block, bcap,
+                                        k_cap, e_out, 10)
+    rows["compact_sweep"]["bf16"].update(turns_ms=sweep_ms,
+                                         two_launch_ms=two_ms)
+    log(f"  17a K3 at bf16: the sweep {sweep_ms} ms against the two "
+        f"launches and the assembly {two_ms} ms, in turns")
     out["times_ms"] = times
     out["checked_s"] = checked_s
     del g, e, u, e_out, operands, e32
@@ -5739,9 +5852,7 @@ def main(argv) -> int:
     by_path = {}
     log("phase 3: llama3.2-1b at full width, Gaussian-k (fused), 3 steps")
     by_path["gaussiank fused"], records, peak, bnd, _ = train_path(
-        "gaussiank fused", llama,
-        {"fused_moments": 12, "tree_count": 12, "compact_stage": 12,
-         "compact_resid": 12}, 3, torch)
+        "gaussiank fused", llama, {n: 12 for n in MAIN_KERNELS}, 3, torch)
     step_ms = [r["ms"] for r in records]
     tok_s = 8 * 128 / (statistics.median(step_ms[1:]) / 1e3)
     main_path = {"arch": "llama3.2-1b", "steps": 3, "batch": 8, "seq": 128,
@@ -5757,8 +5868,7 @@ def main(argv) -> int:
     log("phase 3b: path A, hist-k on the fused backend, 3 steps")
     by_path["histk fused"], records, peak, bnd, _ = train_path(
         "histk fused", llama + ["--compressor", "histk"],
-        {"fused_moments_hist": 12, "compact_stage": 12,
-         "compact_resid": 12}, 3, torch)
+        {"fused_moments_hist": 12, "compact_sweep": 12}, 3, torch)
     path_a = {"losses": [r["loss"] for r in records],
               "step_ms": [r["ms"] for r in records],
               "peak_mem_gib": peak / 2**30,
@@ -5994,7 +6104,10 @@ def main(argv) -> int:
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
         row["launches"] = sum(row["launches_by_path"].values())
-        assert row["launches"] > 0, (n, "never launched on a path")
+        # the two K3 launches are the sweep's cross-check alone: no
+        # path may launch them (drive() holds each path to its kernels)
+        assert (row["launches"] == 0) == (n in CROSS_CHECK_KERNELS), (
+            n, "launches on the paths", row["launches"])
     log(json.dumps({"pipelines": pipelines, "main_path": main_path,
                     "path_a": path_a, "path_b": path_b, "path_d": path_d,
                     "small": small, "phase5": phase5, "phase6": phase6,

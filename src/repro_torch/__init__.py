@@ -12,11 +12,13 @@ the reference is hand-written for ``sm_90a``:
 
 * ``kernels/ef_fused/fused_moments.py``  K1, Triton: sum, sum of squares
   and abs-max of ``u = g + e`` and, for hist-k, its ``|u|`` histogram;
-* ``kernels/ef_fused/tree_count.py``     K2, Triton: counts of
-  ``|u| > t_j`` over the refinement tree's thresholds;
+* ``kernels/ef_fused/tree_count.py`` + ``csrc/tree_count.cu``  K2,
+  CUDA C++: counts of ``|u| > t_j`` over the refinement tree's
+  thresholds;
 * ``kernels/ef_fused/compact_residual.py`` + ``csrc/compact_residual.cu``
-  K3, CUDA C++: threshold compaction into per-block staging rows, then
-  the residual write;
+  K3, CUDA C++: threshold compaction into per-block staging rows, the
+  residual write and the codec pair in one sweep (the stage and
+  residual launches of the reference's GPU lowering beside it);
 * ``kernels/moments``, ``kernels/gaussian_topk/{count_gt,
   threshold_compact}.py``, ``kernels/histk/hist.py``: the unfused
   pipeline's K4a-d, specialisations of the K1-K3 kernels.

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import codec
-from repro_torch.core.compressors import CompressorSpec, gaussian_threshold
+from repro_torch.core.compressors import (CompressorSpec, above,
+                                         gaussian_threshold)
 
 F32 = np.float32
 
@@ -332,7 +333,7 @@ def select_dynamic(spec: CompressorSpec, u: torch.Tensor, k, k_cap: int,
         return values, indices
     if name in ("gaussiank", "gaussiank2"):
         thres = gaussian_threshold(u, k, two_sided=(name == "gaussiank2"))
-        return codec.compact_by_mask(u, torch.abs(u) > thres, k_cap)
+        return codec.compact_by_mask(u, above(u, thres), k_cap)
     # histk: the histogram in plain torch ops over the port's integer
     # bins (the reference's is plain jnp too; the fused pipeline reads
     # K1's histogram instead)

@@ -93,7 +93,17 @@ def gaussian_threshold(u: torch.Tensor, k, refine_iters: int = 4,
                        two_sided: bool = False) -> torch.Tensor:
     """The ``|u|`` threshold selecting ~k elements (Algorithm 1 lines
     2-13), with the POPULATION std as in the reference.  ``k`` is a
-    static int or an allocator's ``np.int32`` (f32 threshold math)."""
+    static int or an allocator's ``np.int32`` (f32 threshold math).
+
+    A bf16 ``u`` follows the reference at bf16: its mean and population
+    variance summed in f32 and rounded to bf16, the std a bf16 square
+    root plus ``1e-12`` in bf16, ``ndtri`` of the f32 ``p`` in f32 (the
+    CPU has no bf16 ``ndtri``; the reference's ``norm.ppf`` takes the
+    f32 path too) and the threshold ``|q·sigma + mu|`` in f32 from the
+    bf16 ``mu`` and ``sigma``; the refinement compares ``f32(|u|)`` with
+    that f32 threshold against bf16 band edges."""
+    if u.dtype == torch.bfloat16:
+        return _gaussian_threshold_bf16(u, k, refine_iters, two_sided)
     mu = torch.mean(u)
     sigma = torch.std(u, unbiased=False) + 1e-12
     p = gaussian_ppf_p(k, u.shape[0], two_sided)
@@ -102,8 +112,13 @@ def gaussian_threshold(u: torch.Tensor, k, refine_iters: int = 4,
     thres = torch.abs(q * sigma + mu)
     lo, hi = (torch.tensor(float(x), dtype=u.dtype, device=u.device)
               for x in accept_band(k))
-    abs_u = torch.abs(u)
-    done = torch.zeros((), dtype=torch.bool, device=u.device)
+    return _refine(torch.abs(u), thres, lo, hi, refine_iters)
+
+
+def _refine(abs_u, thres, lo, hi, refine_iters: int) -> torch.Tensor:
+    """Algorithm 1's refinement loop: halve below the band ``[lo, hi]``,
+    ×1.5 above it, freeze once inside."""
+    done = torch.zeros((), dtype=torch.bool, device=abs_u.device)
     for _ in range(refine_iters):
         est = torch.sum(abs_u > thres).to(torch.float32)
         new = torch.where(est < lo, 0.5 * thres,
@@ -114,13 +129,43 @@ def gaussian_threshold(u: torch.Tensor, k, refine_iters: int = 4,
     return thres
 
 
+def _gaussian_threshold_bf16(u: torch.Tensor, k, refine_iters: int,
+                             two_sided: bool) -> torch.Tensor:
+    """:func:`gaussian_threshold` of a bf16 ``u``: an f32 threshold."""
+    d = u.shape[0]
+    x = u.to(torch.float32)
+    m32 = torch.sum(x) / d
+    mu = m32.to(u.dtype)
+    var = (torch.sum(torch.square(x - m32)) / d).to(u.dtype)
+    sigma = torch.sqrt(var) + 1e-12
+    p = gaussian_ppf_p(k, d, two_sided)
+    q = torch.special.ndtri(torch.tensor(float(p), dtype=torch.float32,
+                                         device=u.device))
+    thres = torch.abs(q * sigma.to(torch.float32) + mu.to(torch.float32))
+    lo, hi = (torch.tensor(float(b), dtype=u.dtype,
+                           device=u.device).to(torch.float32)
+              for b in accept_band(k))
+    return _refine(torch.abs(u).to(torch.float32), thres, lo, hi,
+                   refine_iters)
+
+
+def above(u: torch.Tensor, thres) -> torch.Tensor:
+    """``|u| > thres`` compared as the reference compares it: a bf16
+    ``u`` against an f32 threshold in f32 (torch would round a 0-d f32
+    threshold to ``u``'s dtype first)."""
+    a = torch.abs(u)
+    if isinstance(thres, torch.Tensor) and thres.dtype != a.dtype:
+        a = a.to(torch.promote_types(a.dtype, thres.dtype))
+    return a > thres
+
+
 def gaussiank_select(u: torch.Tensor, k: int, key=None,
                      refine_iters: int = 4, two_sided: bool = False):
     """``Gaussian_k`` (paper Algorithm 1): threshold + fixed-capacity
     compaction."""
     k_cap = gaussiank_cap(k, u.shape[0])
     thres = gaussian_threshold(u, k, refine_iters, two_sided)
-    return codec.compact_by_mask(u, torch.abs(u) > thres, k_cap)
+    return codec.compact_by_mask(u, above(u, thres), k_cap)
 
 
 def gaussiank_cap(k: int, d: int) -> int:

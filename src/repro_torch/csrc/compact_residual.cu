@@ -1,7 +1,10 @@
 // K3 — pass B of the fused EF pipeline on Hopper: threshold compaction
-// into per-block staging rows, then the residual write.  The stage
-// kernel with HAS_E = false is also K4c, the unfused pipeline's
-// threshold compaction of a materialised u.
+// into per-block staging rows, the residual write and the codec pair.
+// The fused pipeline runs the one sweep (sweep_kernel: rows, e' and the
+// pair in one launch, the TPU kernel's sequential sweep); the stage and
+// residual launches are the reference's GPU lowering, kept as the
+// sweep's cross-check.  The stage kernel with HAS_E = false is also K4c,
+// the unfused pipeline's threshold compaction of a materialised u.
 //
 // Replaces the TPU kernels repro/kernels/ef_fused/compact_residual.py:
 // compact_residual (pallas_call sites at lines 191 (stage), 208
@@ -19,7 +22,37 @@
 //             0 / SENTINEL; cnt = the uncapped count;
 //   residual: e' = 0 where keep & enc_before + pos < k_cap, else u, with
 //             enc_before the exclusive cumsum of min(cnt, bcap) over the
-//             preceding blocks (computed between the two launches).
+//             preceding blocks (computed between the two launches);
+//   sweep:    both, and the pair: slot enc_before + pos < k_cap of the
+//             (k_cap,) values and indices holds the kept element (its
+//             value in e''s type, its global index), every other slot
+//             0 / SENTINEL — bitwise assemble_staging of the rows.
+//
+// The one sweep (sweep_kernel) and what bounds it: bytes, g and e read
+// once and e' written once (12 B/element at f32, 6 at bf16), plus the
+// rows, the pair and one status word a group of blocks: at the
+// 268,435,456-element leaf 1.003 ms at f32, 0.503 ms at bf16.  Blocks
+// run in no order, so enc_before cannot be carried from block to block
+// as on the TPU.  The design:
+//   * one warp takes SWEEP_BLOCKS consecutive selection blocks (a group)
+//     from an atomic ticket, so the groups before it are always running;
+//     it streams each block as the stage kernel does (the same loads,
+//     ballots and rows) and writes e' = u for every element while it
+//     streams, vectorised 16 bytes a lane;
+//   * then it publishes its group's sum of min(cnt, bcap) in the group's
+//     64-bit status word (flag and count in one word) and finds the
+//     group's enc_before by decoupled look-back over its predecessors'
+//     words, 32 at a time, stopping at the nearest inclusive prefix
+//     (Merrill and Garland, "Single-pass Parallel Prefix Scan with
+//     Decoupled Look-back", 2016), and publishes its inclusive prefix;
+//   * only the kept elements (at most bcap a block) depend on
+//     enc_before: after a __syncwarp the warp rereads its rows, zeroes
+//     e' at the elements that reach the wire and writes their pair
+//     slots; the streaming never waits on the look-back;
+//   * the entry point zeroes the ticket and the status words and
+//     pre-fills the pair with 0 / SENTINEL (three cudaMemsetAsync);
+//   * e' may be written over e (or over g without e): each element is
+//     read by the warp that owns its block before that warp writes it.
 //
 // What bounds it on the card: bytes.  Stage reads g and e (8 B/element)
 // and writes only the staging rows; residual reads them again and writes
@@ -96,6 +129,13 @@
 // path at f32; a bf16 g takes half as many groups of 8)
 #define STAGE_WARPS 8
 #define STAGE_VPL 8
+// sweep: selection blocks a warp takes with one ticket (one status word
+// and one look-back for all of them).  Measured on an H100 at the
+// 268,435,456-element leaf (launch/compare_kernels.py --sweep-blocks):
+// 1, 2, 4 and 8 took 1.51, 1.37, 1.30 and 1.29 ms at f32 and 0.83,
+// 0.73, 0.70 and 0.69 ms at bf16: the look-back's latency, paid once a
+// group, bounds the small groups
+#define SWEEP_BLOCKS 8
 // tiles of THREADS elements each residual thread loads before it scans:
 // measured on an H100 at the 268M-element leaf, ~5% faster with 1 than 4
 #define RESID_TILES 1
@@ -236,6 +276,52 @@ __device__ __forceinline__ void stage_load(
     }
 }
 
+// The chunk's masked elements in index order: each one's in-block
+// position from the ballots, the kept ones (position < bcap) written to
+// the block's staging row; `run` counts the block's masked elements.
+template <typename TG>
+__device__ __forceinline__ void stage_scan(
+    const float (&x)[Stage<TG>::VPL][Stage<TG>::GS], int c0, float thres,
+    int bcap, float* __restrict__ vrow, int* __restrict__ orow, int& run) {
+  constexpr int GS = Stage<TG>::GS, VPL = Stage<TG>::VPL;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    bool m[GS];
+    int p = run, tot = 0;
+#pragma unroll
+    for (int c = 0; c < GS; ++c) {
+      m[c] = fabsf(x[j][c]) > thres;
+      const unsigned bal = __ballot_sync(0xffffffffu, m[c]);
+      p += __popc(bal & below);
+      tot += __popc(bal);
+    }
+    const int off = c0 + j * 32 * GS + GS * lane;
+#pragma unroll
+    for (int c = 0; c < GS; ++c) {
+      if (m[c]) {
+        if (p < bcap) {
+          vrow[p] = x[j][c];
+          orow[p] = off + c;
+        }
+        ++p;
+      }
+    }
+    run += tot;
+  }
+}
+
+// The row's slots past min(run, bcap): 0 / SENTINEL.
+__device__ __forceinline__ void stage_pad(int run, int bcap, float* vrow,
+                                          int* orow) {
+  const int enc = run < bcap ? run : bcap;
+  for (int s = enc + (threadIdx.x & 31); s < bcap; s += 32) {
+    vrow[s] = 0.0f;
+    orow[s] = SENTINEL;
+  }
+}
+
 template <typename TG, typename TE, bool HAS_E, bool VEC>
 __global__ void __launch_bounds__(STAGE_WARPS * 32)
 stage_kernel(const TG* __restrict__ g, const TE* __restrict__ e, long long d,
@@ -252,41 +338,13 @@ stage_kernel(const TG* __restrict__ g, const TE* __restrict__ e, long long d,
   const TE* eb = HAS_E ? e + base : nullptr;
   float* vrow = vals + b * bcap;
   int* orow = offs + b * bcap;
-  const unsigned below = (1u << lane) - 1u;
-  int run = 0;  // masked elements before the current group, in the block
+  int run = 0;  // masked elements before the current chunk, in the block
   for (int c0 = 0; c0 < block; c0 += Stage<TG>::CHUNK) {
     float x[VPL][GS];
     stage_load<TG, TE, HAS_E, VEC>(gb, eb, lim, c0, x);
-#pragma unroll
-    for (int j = 0; j < VPL; ++j) {
-      bool m[GS];
-      int p = run, tot = 0;
-#pragma unroll
-      for (int c = 0; c < GS; ++c) {
-        m[c] = fabsf(x[j][c]) > thres;
-        const unsigned bal = __ballot_sync(0xffffffffu, m[c]);
-        p += __popc(bal & below);
-        tot += __popc(bal);
-      }
-      const int off = c0 + j * 32 * GS + GS * lane;
-#pragma unroll
-      for (int c = 0; c < GS; ++c) {
-        if (m[c]) {
-          if (p < bcap) {
-            vrow[p] = x[j][c];
-            orow[p] = off + c;
-          }
-          ++p;
-        }
-      }
-      run += tot;
-    }
+    stage_scan<TG>(x, c0, thres, bcap, vrow, orow, run);
   }
-  const int enc = run < bcap ? run : bcap;
-  for (int s = enc + lane; s < bcap; s += 32) {
-    vrow[s] = 0.0f;
-    orow[s] = SENTINEL;
-  }
+  stage_pad(run, bcap, vrow, orow);
   if (lane == 0) cnt[b] = run;
 }
 
@@ -390,6 +448,193 @@ resid_kernel(const TG* __restrict__ g, const TE* e, long long d, float thres,
   }
 }
 
+// ---- sweep: the TPU kernel's one sweep, one warp a selection block -------
+//
+// A block's status word: its flag in the top two bits (0 not published
+// yet; ST_AGG: the block's own min(cnt, bcap); ST_INC: the inclusive
+// prefix of min(cnt, bcap) over the blocks up to it) and the count below.
+// The word carries its own value, so relaxed loads and stores suffice.
+#define ST_AGG (1ull << 62)
+#define ST_INC (2ull << 62)
+#define ST_VAL ((1ull << 62) - 1)
+
+__device__ __forceinline__ unsigned long long ld_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_status(unsigned long long* p,
+                                          unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// N consecutive values at p (aligned to their bytes, at most 16 a store)
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float* x) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4)
+    *reinterpret_cast<float4*>(p + i) =
+        make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo: low half
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(bf16* p, const float* x) {
+#pragma unroll
+  for (int i = 0; i < N; i += 8) {
+    if (N - i >= 8) {
+      *reinterpret_cast<uint4*>(p + i) =
+          make_uint4(bf16x2_bits(x[i], x[i + 1]), bf16x2_bits(x[i + 2], x[i + 3]),
+                     bf16x2_bits(x[i + 4], x[i + 5]),
+                     bf16x2_bits(x[i + 6], x[i + 7]));
+    } else {
+      *reinterpret_cast<uint2*>(p + i) = make_uint2(
+          bf16x2_bits(x[i], x[i + 1]), bf16x2_bits(x[i + 2], x[i + 3]));
+    }
+  }
+}
+
+// e' = u for the chunk's elements of this lane, in stage_load's layout
+// (the elements at or past lim are not written).  VEC: o is aligned to a
+// group's bytes of TO (at most 16).
+template <typename TG, typename TO, bool VEC>
+__device__ __forceinline__ void sweep_store(
+    TO* o, long long lim, int c0,
+    const float (&x)[Stage<TG>::VPL][Stage<TG>::GS]) {
+  constexpr int GS = Stage<TG>::GS, VPL = Stage<TG>::VPL;
+  const int lg = GS * (threadIdx.x & 31);
+  if (VEC && c0 + Stage<TG>::CHUNK <= lim) {
+#pragma unroll
+    for (int j = 0; j < VPL; ++j)
+      store_vec<GS>(o + c0 + j * 32 * GS + lg, x[j]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < VPL; ++j)
+#pragma unroll
+    for (int c = 0; c < GS; ++c) {
+      const int i = c0 + j * 32 * GS + lg + c;
+      if (i < lim) store(o + i, x[j][c]);
+    }
+}
+
+// The exclusive prefix of min(cnt, bcap) over the blocks before b: the
+// warp reads 32 predecessors' status words at once (lane l block
+// top - l), waits until each is published, adds the aggregates up to the
+// nearest inclusive prefix and stops there, else moves 32 blocks back.
+__device__ long long look_back(const unsigned long long* status, long long b) {
+  const int lane = threadIdx.x & 31;
+  long long sum = 0;
+  for (long long top = b - 1;; top -= 32) {
+    const long long j = top - lane;
+    unsigned long long w = ST_INC;  // before block 0: an inclusive 0
+    if (j >= 0) {
+      do {
+        w = ld_status(status + j);
+      } while ((w >> 62) == 0);
+    }
+    const unsigned inc = __ballot_sync(0xffffffffu, (w >> 62) == 2);
+    const int stop = inc ? __ffs(inc) - 1 : 31;
+    long long v = lane <= stop ? (long long)(w & ST_VAL) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    sum += v;
+    if (inc) return sum;
+  }
+}
+
+// The stage kernel's selection and rows, e', and the codec pair in one
+// launch.  A warp takes SWEEP_BLOCKS consecutive selection blocks (a
+// group) from the ticket, so every group before it has a running warp:
+// the look-back always ends.  g and e are read once, by the warp that
+// owns the block, before it writes e' over them (out may be e, or g
+// without e).
+template <typename TG, typename TE, bool HAS_E, bool VEC>
+__global__ void __launch_bounds__(STAGE_WARPS * 32)
+sweep_kernel(const TG* __restrict__ g, const TE* __restrict__ e, long long d,
+             float thres, int block, int bcap, long long k_cap,
+             long long nblocks, float* __restrict__ vals,
+             int* __restrict__ offs, int* __restrict__ cnt,
+             typename Promote<TG, TE>::type* out,
+             typename Promote<TG, TE>::type* __restrict__ wv,
+             int* __restrict__ wi, unsigned long long* status,
+             unsigned long long* ticket) {
+  typedef typename Promote<TG, TE>::type TO;
+  constexpr int GS = Stage<TG>::GS, VPL = Stage<TG>::VPL;
+  const int lane = threadIdx.x & 31;
+  unsigned long long tk = 0;
+  if (lane == 0) tk = atomicAdd(ticket, 1ull);
+  const long long grp = (long long)__shfl_sync(0xffffffffu, tk, 0);
+  const long long b0 = grp * SWEEP_BLOCKS;
+  if (b0 >= nblocks) return;  // the whole warp
+  const int nb = nblocks - b0 < SWEEP_BLOCKS ? (int)(nblocks - b0)
+                                             : SWEEP_BLOCKS;
+  int agg = 0;  // the group's min(cnt, bcap), summed
+#pragma unroll 1
+  for (int q = 0; q < nb; ++q) {
+    const long long b = b0 + q;
+    const long long base = b * (long long)block;
+    const long long lim = d - base < block ? d - base : block;
+    const TG* gb = g + base;
+    const TE* eb = HAS_E ? e + base : nullptr;
+    TO* ob = out + base;
+    float* vrow = vals + b * bcap;
+    int* orow = offs + b * bcap;
+    int run = 0;
+    for (int c0 = 0; c0 < block; c0 += Stage<TG>::CHUNK) {
+      float x[VPL][GS];
+      stage_load<TG, TE, HAS_E, VEC>(gb, eb, lim, c0, x);
+      // e' = u everywhere while streaming; after the look-back the
+      // kept elements that go on the wire, and those alone, are zeroed
+      sweep_store<TG, TO, VEC>(ob, lim, c0, x);
+      stage_scan<TG>(x, c0, thres, bcap, vrow, orow, run);
+    }
+    stage_pad(run, bcap, vrow, orow);
+    if (lane == 0) cnt[b] = run;
+    agg += run < bcap ? run : bcap;
+  }
+  if (lane == 0)
+    st_status(status + grp,
+              (grp == 0 ? ST_INC : ST_AGG) | (unsigned long long)agg);
+  long long before = 0;  // the group's enc_before
+  if (grp > 0) {
+    before = look_back(status, grp);
+    if (lane == 0)
+      st_status(status + grp, ST_INC | (unsigned long long)(before + agg));
+  }
+  // every lane's row, count and e' stores ordered before the reads and
+  // the zeroing stores below, which other lanes of the warp make
+  __syncwarp();
+#pragma unroll 1
+  for (int q = 0; q < nb && before < k_cap; ++q) {
+    const long long b = b0 + q;
+    const int c = cnt[b];
+    const int enc = c < bcap ? c : bcap;
+    const long long room = k_cap - before;
+    const int wire = room < enc ? (int)room : enc;
+    const float* vrow = vals + b * bcap;
+    const int* orow = offs + b * bcap;
+    TO* ob = out + b * (long long)block;
+    for (int s = lane; s < wire; s += 32) {
+      const int off = orow[s];
+      store(ob + off, 0.0f);
+      store(wv + before + s, vrow[s]);
+      wi[before + s] = (int)(b * (long long)block + off);
+    }
+    before += enc;
+  }
+}
+
 template <typename TG, typename TE, bool HAS_E, bool VEC>
 static int launch_stage(const void* g, const void* e, long long d,
                         float thres, int block, int bcap, long long nblocks,
@@ -437,6 +682,44 @@ static int resid_typed(const void* g, const void* e, long long d, float thres,
   return (int)cudaGetLastError();
 }
 
+// The pair is pre-filled with 0 / SENTINEL (slots at or past the number
+// of staged elements keep it), the ticket and the status words zeroed;
+// then one launch.  The vector instantiation needs stage_typed's
+// alignment and out aligned to a group's bytes of its type (at most 16).
+template <typename TG, typename TE, bool HAS_E>
+static int sweep_typed(const void* g, const void* e, long long d, float thres,
+                       int block, int bcap, long long k_cap,
+                       long long nblocks, void* vals, void* offs, void* cnt,
+                       void* out, void* wv, void* wi, void* scratch,
+                       void* stream) {
+  typedef typename Promote<TG, TE>::type TO;
+  constexpr int GS = Group<TG>::n;
+  constexpr uintptr_t EALIGN = GS * sizeof(TE) < 16 ? GS * sizeof(TE) : 16;
+  constexpr uintptr_t OALIGN = GS * sizeof(TO) < 16 ? GS * sizeof(TO) : 16;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t rc = cudaMemsetAsync(wv, 0, (size_t)k_cap * sizeof(TO), s);
+  if (rc == cudaSuccess)
+    rc = cudaMemsetAsync(wi, 0xff, (size_t)k_cap * sizeof(int), s);
+  if (rc == cudaSuccess)
+    rc = cudaMemsetAsync(scratch, 0,
+                         (size_t)(nblocks + 1) * sizeof(unsigned long long),
+                         s);  // at least the ticket and a word a group
+  if (rc != cudaSuccess) return (int)rc;
+  unsigned long long* ticket = (unsigned long long*)scratch;
+  const bool vec = block % GS == 0 && (uintptr_t)g % 16 == 0 &&
+                   (!HAS_E || (uintptr_t)e % EALIGN == 0) &&
+                   (uintptr_t)out % OALIGN == 0;
+  const long long groups = (nblocks + SWEEP_BLOCKS - 1) / SWEEP_BLOCKS;
+  const long long ctas = (groups + STAGE_WARPS - 1) / STAGE_WARPS;
+  auto kern = vec ? sweep_kernel<TG, TE, HAS_E, true>
+                  : sweep_kernel<TG, TE, HAS_E, false>;
+  kern<<<(unsigned)ctas, STAGE_WARPS * 32, 0, s>>>(
+      (const TG*)g, (const TE*)e, d, thres, block, bcap, k_cap, nblocks,
+      (float*)vals, (int*)offs, (int*)cnt, (TO*)out, (TO*)wv, (int*)wi,
+      ticket + 1, ticket);
+  return (int)cudaGetLastError();
+}
+
 // g_bf16 / e_bf16: 1 when the operand is bf16, 0 when f32 (e_bf16 is
 // ignored without e).  e may be null (u = g).
 #define DISPATCH(fn, ...)                                                  \
@@ -464,4 +747,19 @@ extern "C" int compact_resid(const void* g, const void* e, int g_bf16,
                              void* stream) {
   return DISPATCH(resid_typed, g, e, d, thres, block, bcap, k_cap, nblocks,
                   enc_before, out, stream);
+}
+
+// The one sweep: the staging rows (vals, offs, cnt), e' into out (of the
+// promoted type; may be e itself, or g without e) and the codec pair
+// (wv: k_cap values of the promoted type, wi: k_cap int32 indices).
+// scratch: nblocks + 1 64-bit words, zeroed here (the ticket, then one
+// status word a group of SWEEP_BLOCKS blocks).
+extern "C" int compact_sweep(const void* g, const void* e, int g_bf16,
+                             int e_bf16, long long d, float thres, int block,
+                             int bcap, long long k_cap, long long nblocks,
+                             void* vals, void* offs, void* cnt, void* out,
+                             void* wv, void* wi, void* scratch,
+                             void* stream) {
+  return DISPATCH(sweep_typed, g, e, d, thres, block, bcap, k_cap, nblocks,
+                  vals, offs, cnt, out, wv, wi, scratch, stream);
 }

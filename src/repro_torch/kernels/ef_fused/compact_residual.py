@@ -1,22 +1,28 @@
 """K3 — pass B of the fused EF pipeline: threshold compaction into
-per-block staging rows, then the residual write; plus the staging
-assembly into the fixed ``(k_cap,)`` codec.
+per-block staging rows, the residual write and the staging assembly into
+the fixed ``(k_cap,)`` codec.
 
 Replaces the TPU kernel ``repro/kernels/ef_fused/compact_residual.py:
 compact_residual`` (``pallas_call`` at lines 191, 208 and 237) and
-ports ``repro/kernels/gaussian_topk/ops.py:assemble_staging`` as torch
-glue.  The kernels are CUDA C++ in ``repro_torch/csrc/compact_residual.cu``
-(its header says what bounds them and how the design answers); this
-module builds them at first use (``kernels/cuda_build.py``), checks the
+ports ``repro/kernels/gaussian_topk/ops.py:assemble_staging``.  The
+kernels are CUDA C++ in ``repro_torch/csrc/compact_residual.cu`` (its
+header says what bounds them and how the design answers); this module
+builds them at first use (``kernels/cuda_build.py``), checks the
 operands, launches on the current stream and counts launches.
 
-Two launches, the race-free shape of the reference's GPU lowering:
+The fused pipeline runs :func:`compact_sweep`, the TPU kernel's one
+sequential sweep (``_kernel``, ``pallas_call`` at line 237) in one
+launch: the staging rows, ``e'`` and the codec pair, each warp finding
+the staged slots before its blocks by a decoupled look-back.  The two
+launches of the reference's GPU lowering stay as its counterparts of
+lines 191 and 208 and as the sweep's cross-check on the card:
 
 1. :func:`compact_stage` writes each block's ``(vals, offs, cnt)``;
-2. the wrapper takes the exact int64 exclusive cumsum of
+2. :func:`exclusive_enc`, the exact int64 exclusive cumsum of
    ``min(cnt, bcap)`` (``enc_before``);
 3. :func:`compact_resid` re-streams ``g``/``e``, recomputes each
-   element's in-block position and writes ``e'``.
+   element's in-block position and writes ``e'``;
+4. :func:`assemble_staging` gathers the pair from the rows.
 
 Operands: ``g`` f32 or bf16, ``e`` f32, bf16 or None.  ``u = f32(g) +
 f32(e)`` is formed and compared in f32, as the reference's ``_load_u``
@@ -58,6 +64,9 @@ def _lib():
         lib.compact_resid.argtypes = [p, p, i, i, ll, f, i, i, ll, ll, p, p,
                                       p]
         lib.compact_resid.restype = i
+        lib.compact_sweep.argtypes = [p, p, i, i, ll, f, i, i, ll, ll, p, p,
+                                      p, p, p, p, p, p]
+        lib.compact_sweep.restype = i
         _SIGS.append(True)
     return lib
 
@@ -239,3 +248,63 @@ def assemble_staging(vals: torch.Tensor, offs: torch.Tensor,
     gidx = row * block + offs.reshape(-1)[flat].to(torch.int64)
     indices = torch.where(valid, gidx, SENTINEL).to(torch.int32)
     return values.to(out_dtype), indices
+
+
+def compact_sweep_plain(g, e, thres: float, *, block: int, bcap: int,
+                        k_cap: int, out=None):
+    """Plain PyTorch version of the one sweep: the stage rows, their
+    exact exclusive cumsum, the residual and the staging assembly,
+    composed: ``(vals, offs, cnt, new_e, values, indices)``."""
+    vals, offs, cnt = compact_stage_plain(g, e, thres, block=block,
+                                          bcap=bcap)
+    new_e = compact_resid_plain(g, e, thres, exclusive_enc(cnt, bcap),
+                                block=block, bcap=bcap, k_cap=k_cap, out=out)
+    values, indices = assemble_staging(vals, offs, cnt, k_cap, block=block,
+                                       out_dtype=out_dtype(g, e))
+    return vals, offs, cnt, new_e, values, indices
+
+
+def compact_sweep(g: torch.Tensor, e, thres: float, *, block: int,
+                  bcap: int, k_cap: int, out=None):
+    """The TPU kernel's one sweep (``compact_residual.py:237``, ``_kernel``)
+    in one launch: ``(vals, offs, cnt, new_e, values, indices)``, the
+    staging rows, ``e'`` of :func:`out_dtype` ``(g, e)`` (written into
+    ``out`` when given; ``out`` may be ``e`` itself — in place — or ``g``
+    without ``e``) and the ``(k_cap,)`` codec pair, bitwise the stage and
+    residual launches and :func:`assemble_staging`.  Each warp finds its
+    ``enc_before`` by a decoupled look-back over its predecessors' status
+    words; the wrapper allocates them (and the ticket) with the outputs
+    and the kernel's entry point zeroes them and pre-fills the pair with
+    0 / ``SENTINEL``.  CPU tensors take :func:`compact_sweep_plain`."""
+    _check(g, e)
+    if g.device.type != "cuda":
+        return compact_sweep_plain(g, e, thres, block=block, bcap=bcap,
+                                   k_cap=k_cap, out=out)
+    check_cuda_dtypes("compact_sweep", g, e)
+    nb = _geometry(g, block, bcap)
+    if out is None:
+        out = torch.empty_like(g, dtype=out_dtype(g, e))
+    else:
+        _check_out(g, e, out)
+    dev = g.device
+    vals = torch.empty((nb, bcap), dtype=torch.float32, device=dev)
+    offs = torch.empty((nb, bcap), dtype=torch.int32, device=dev)
+    cnt = torch.empty((nb,), dtype=torch.int32, device=dev)
+    values = torch.empty((k_cap,), dtype=out.dtype, device=dev)
+    indices = torch.empty((k_cap,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((nb + 1,), dtype=torch.int64, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.compact_sweep(
+            g.data_ptr(), None if e is None else e.data_ptr(),
+            dtype_code(g), dtype_code(g if e is None else e), g.shape[0],
+            float(thres), block, bcap, int(k_cap), nb, vals.data_ptr(),
+            offs.data_ptr(), cnt.data_ptr(), out.data_ptr(),
+            values.data_ptr(), indices.data_ptr(), scratch.data_ptr(),
+            _stream(g))
+    cuda_build.check(rc, "compact_sweep")
+    compact_sweep.launches += 1
+    return vals, offs, cnt, out, values, indices
+
+
+compact_sweep.launches = 0

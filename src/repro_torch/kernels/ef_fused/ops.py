@@ -4,20 +4,22 @@
 ``_gaussian_threshold_fused``, ``_hist_threshold_fused``, ``_resolve``,
 ``fused_pass_a``, ``fused_compress_ef``, ``unfused_compress_ef``).
 
-Fused, per leaf, four launches on the card for Gaussian-k:
+Fused, per leaf, three launches on the card for Gaussian-k:
 
   K1 ``fused_moments``  → ``(s, sq)`` → Gaussian ppf threshold ``t0``
   K2 ``tree_count``     → counts at the 15 thresholds the refinement
                           loop can reach → replayed final threshold
-  K3 ``compact_stage``  → per-block staging rows
-  K3 ``compact_resid``  → the new residual ``e'``
+  K3 ``compact_sweep``  → the staging rows, the new residual ``e'`` and
+                          the ``(k_cap,)`` codec pair, in one sweep
 
-and three for hist-k, where K1 with its histogram
+and two for hist-k, where K1 with its histogram
 (``fused_moments_hist``) gives the threshold and K2 is not run.  Under
 adaptive density K1 runs before the rest, on its own
 (:func:`fused_pass_a`), and its statistics come back through
-``fused_compress_ef(..., stats=)``, which then skips its own K1.  Then
-the staging assembly into the ``(k_cap,)`` codec pair.  The threshold
+``fused_compress_ef(..., stats=)``, which then skips its own K1.  The
+K3 stage and residual launches (``compact_residual``) stay as the
+counterparts of the reference's GPU lowering and the sweep's
+cross-check on the card.  The threshold
 glue between the launches (ppf, tree, replay, the histogram read-off)
 runs on the host on a handful of scalars, so the card and the CPU path
 derive the same threshold from the same statistics.
@@ -50,8 +52,7 @@ from repro_torch.core import codec
 from repro_torch.core.compressors import (accept_band, gaussian_ppf_p,
                                           gaussiank_cap)
 from repro_torch.kernels.ef_fused import passes, tuning
-from repro_torch.kernels.ef_fused.compact_residual import (
-    assemble_staging, compact_residual)
+from repro_torch.kernels.ef_fused.compact_residual import compact_sweep
 from repro_torch.kernels.ef_fused.fused_moments import (fused_moments,
                                                         fused_moments_hist,
                                                         out_dtype)
@@ -138,8 +139,9 @@ def _gaussian_threshold_fused(g, e, d: int, k, *, stats_block: int,
         s, sq = moments
     t0 = gaussian_t0(s, sq, d, k, two_sided)
     heap, n_cnt = _tree_thresholds(t0, refine_iters)
-    counts = tree_count(g, e, torch.from_numpy(heap[:n_cnt]).to(g.device),
-                        block=stats_block, num_warps=num_warps)
+    # the heap stays on the host: K2 sorts it there, with no sync
+    counts = tree_count(g, e, torch.from_numpy(heap[:n_cnt]),
+                        block=stats_block)
     passes.record("tree_count", 1)
     return _replay_refinement(heap, counts.cpu().numpy(), k, refine_iters)
 
@@ -164,7 +166,7 @@ def _resolve(g, e, name, k, k_cap, block, stats_block, bcap,
     the table, the cache, a measurement on the card, the heuristic —
     fills the rest; the default staging width takes ``slack`` (``None``:
     the config's).  Returns ``(d, k_cap, block, stats_block, bcap,
-    cfg)``, ``cfg.num_warps`` what K1 and K2 launch with."""
+    cfg)``, ``cfg.num_warps`` what K1 launches with."""
     if not supports_fused(name):
         raise ValueError(f"compressor {name!r} has no fused pipeline; "
                          f"supported: {FUSED_COMPRESSORS}")
@@ -194,17 +196,16 @@ def _resolve(g, e, name, k, k_cap, block, stats_block, bcap,
 
 def compress_at_threshold(g, e, thres, *, k_cap: int, block: int, bcap: int,
                           out: Optional[torch.Tensor] = None):
-    """K3 at a given threshold plus the staging assembly: ``(values,
-    indices, new_e)``, ``values`` and ``new_e`` in the promoted dtype of
-    ``g`` and ``e``.  ``out`` receives ``e'`` (may be ``e`` — in
-    place)."""
+    """K3's one sweep at a given threshold: the staging rows, the
+    residual and the ``(k_cap,)`` codec pair in one pass, as the
+    reference's sequential lowering makes them (``ops.py:365``:
+    ``compact+residual``).  ``(values, indices, new_e)``, ``values`` and
+    ``new_e`` in the promoted dtype of ``g`` and ``e``.  ``out`` receives
+    ``e'`` (may be ``e`` — in place)."""
     thres = float(np.float32(max(float(thres), 0.0)))
-    vals, offs, cnt, new_e = compact_residual(g, e, thres, block=block,
-                                              bcap=bcap, k_cap=k_cap, out=out)
-    passes.record("compact", 1)
-    passes.record("residual_write", 1)
-    values, indices = assemble_staging(vals, offs, cnt, k_cap, block=block,
-                                       out_dtype=out_dtype(g, e))
+    *_, new_e, values, indices = compact_sweep(
+        g, e, thres, block=block, bcap=bcap, k_cap=k_cap, out=out)
+    passes.record("compact+residual", 1)
     return values, indices, new_e
 
 
@@ -256,7 +257,7 @@ def fused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor], name: str,
     threshold arithmetic is f32 as in the reference; ``k_cap`` sizes
     the pair either way.  The geometry not given comes from
     :func:`_resolve` (``tuning``'s ladder); ``num_warps`` overrides
-    K1's and K2's."""
+    K1's."""
     d, k_cap, block, stats_block, bcap, cfg = _resolve(
         g, e, name, k, k_cap, block, stats_block, bcap, None, num_warps)
     if name == "histk":

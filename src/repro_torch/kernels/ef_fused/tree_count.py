@@ -9,70 +9,51 @@ exactly without touching device memory again.  The same kernel with one
 threshold is the unfused pipeline's K4b ``count_gt``
 (``kernels/gaussian_topk/count_gt.py``).
 
-What bounds it on the card: bytes.  Each element is read once
-(``8·d`` bytes of f32 ``g`` and ``e``, ``4·d`` of bf16) and compared with
-15 thresholds — ~17 operations on 8 bytes, below the f32 balance point,
-so the floor is the same as K1's for the largest leaf: 0.64 ms at 3.35
-TB/s in f32, 0.32 ms in bf16.  Either operand may be f32 or bf16; both
-are widened to f32 before the add and the comparisons, as the
-reference's ``_load_u`` does (``tree_count.py:36-38``).
+The kernel is CUDA C++ in ``repro_torch/csrc/tree_count.cu`` (its
+header says what bounds it, 0.64 ms at f32 and 0.32 ms at bf16 for the
+268,435,456-element leaf, and how the design answers); this module
+builds it at first use (``kernels/cuda_build.py``), sorts the
+thresholds and removes their duplicates on the host (the kernel takes
+them in its parameters and maps its counts back to the caller's order),
+launches on the current stream and counts launches.  Either operand may
+be f32 or bf16; both are widened to f32 before the add and the
+comparisons, as the reference's ``_load_u`` does (``tree_count.py:
+36-38``).  The count is an exact integer in any order, so the kernel's
+grid is its own: the stats block reaches only the plain version, whose
+per-block sums it shapes.
 
-Design: a Triton reduction.  The thresholds (padded to a power of two
-with ``+inf``, which no finite ``|u|`` exceeds) live in registers; each
-program walks its ``stats_block`` in tiles of ``TILE`` elements, loads
-each tile straight into the 2-D ``(NT, TILE)`` layout of the comparison
-(a 1-D load broadcast to 2-D costs a layout conversion through shared
-memory per tile) and adds the comparison into a register accumulator of
-that shape, so the cross-thread reduction to ``NT`` counts happens once
-per program rather than once per tile: with 15 thresholds the
-compare-and-add work per element is what competes with the loads.  Each program writes its own row of counts; the wrapper sums
-the rows in integers, which is exact in any order.
+Thresholds given on the host cost no sync; a CUDA tensor of thresholds
+is copied to the host first (the fused pipeline passes its heap from
+the host).
 
 The plain version, :func:`tree_count_plain`, counts with torch ops block
 by block; the wrapper takes it for CPU tensors only.
 """
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
+from repro_torch.kernels import cuda_build
 from repro_torch.kernels.ef_fused.fused_moments import (_blocks, _check,
-                                                        check_cuda_dtypes)
+                                                        check_cuda_dtypes,
+                                                        dtype_code)
 
-tl = None      # triton.language, bound at the first launch
-_KERNEL = []
-TILE = 512
-
-
-def _tree_count_kernel(g_ptr, e_ptr, t_ptr, part_ptr, d,
-                       HAS_E: "tl.constexpr", BLOCK: "tl.constexpr",
-                       TILE: "tl.constexpr", NT: "tl.constexpr"):
-    pid = tl.program_id(0)
-    tj = tl.arange(0, NT)
-    t = tl.load(t_ptr + tj[:, None])                 # (NT, 1)
-    acc = tl.zeros((NT, TILE), dtype=tl.int32)
-    base = pid.to(tl.int64) * BLOCK
-    for start in range(0, BLOCK, TILE):
-        # loaded straight into the 2-D layout of the comparison: no
-        # register-layout conversion through shared memory per tile
-        offs = base + start + tl.arange(0, TILE)[None, :]   # (1, TILE)
-        m = offs < d
-        x = tl.load(g_ptr + offs, mask=m, other=0.0).to(tl.float32)
-        if HAS_E:
-            x = x + tl.load(e_ptr + offs, mask=m,
-                            other=0.0).to(tl.float32)
-        acc += ((tl.abs(x) > t) & m).to(tl.int32)
-    # one cross-thread reduction per program, not one per tile
-    tl.store(part_ptr + pid.to(tl.int64) * NT + tj, tl.sum(acc, axis=1))
+SOURCE = "tree_count.cu"
+MAX_THRESHOLDS = 128
+_SIGS = []
 
 
-def _kernel():
-    if not _KERNEL:
-        global tl
-        import triton
-        import triton.language
-        tl = triton.language
-        _KERNEL.append(triton.jit(_tree_count_kernel))
-    return _KERNEL[0]
+def _lib():
+    lib = cuda_build.load(SOURCE)
+    if not _SIGS:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.tree_count.argtypes = [p, p, i, i, ll, p, i, p, i, p, p]
+        lib.tree_count.restype = i
+        _SIGS.append(True)
+    return lib
 
 
 def tree_count_plain(g: torch.Tensor, e, thresholds: torch.Tensor, *,
@@ -83,53 +64,54 @@ def tree_count_plain(g: torch.Tensor, e, thresholds: torch.Tensor, *,
     if e is not None:
         u = u + e.to(torch.float32)
     a = _blocks(u, block).abs()
-    t = thresholds.to(device=a.device, dtype=torch.float32)
+    t = torch.as_tensor(thresholds).to(device=a.device, dtype=torch.float32)
     counts = [(a > t[j]).sum(dim=1).sum() for j in range(t.shape[0])]
     return torch.stack(counts).to(torch.int32)
 
 
-def launch_counts(name: str, g: torch.Tensor, e, thresholds: torch.Tensor,
-                  *, block: int, num_warps=None) -> torch.Tensor:
+def _host_thresholds(thresholds) -> np.ndarray:
+    if isinstance(thresholds, torch.Tensor):
+        thresholds = thresholds.detach().to("cpu", torch.float32).numpy()
+    return np.ascontiguousarray(thresholds, dtype=np.float32).reshape(-1)
+
+
+def launch_counts(name: str, g: torch.Tensor, e, thresholds) -> torch.Tensor:
     """Launch the count kernel on CUDA ``g`` (and ``e``) for 1..128
-    thresholds with ``num_warps`` warps a program (``None``: 8 for
-    blocks of 4096 and more, else 4): the ``(n_t,)`` int32 counts,
-    summed over the blocks.  The wrapper that calls this counts the
-    launch."""
+    thresholds (a tensor on either device or an array): the ``(n_t,)``
+    int32 counts in the thresholds' order.  The wrapper that calls this
+    counts the launch."""
     check_cuda_dtypes(name, g, e)
-    n_t = int(thresholds.shape[0])
-    nt = max(2, 1 << (n_t - 1).bit_length())
-    tile = min(TILE, 8192 // nt)     # accumulator: <= 8192 int32 a program
-    if block < tile or block & (block - 1):
-        raise ValueError(f"stats block must be a power of two >= {tile}, "
-                         f"got {block}")
-    t = torch.full((nt,), float("inf"), dtype=torch.float32, device=g.device)
-    t[:n_t] = thresholds.to(device=g.device, dtype=torch.float32)
-    d = g.shape[0]
-    nb = max(1, -(-d // block))
-    parts = torch.empty((nb, nt), dtype=torch.int32, device=g.device)
-    kern = _kernel()
+    t = _host_thresholds(thresholds)
+    n_t = t.shape[0]
+    if not 0 < n_t <= MAX_THRESHOLDS:
+        raise ValueError(f"need 1..{MAX_THRESHOLDS} thresholds, got {n_t}")
+    uniq, slot = np.unique(t, return_inverse=True)
+    uniq = np.ascontiguousarray(uniq, dtype=np.float32)
+    slot = np.ascontiguousarray(slot.reshape(-1), dtype=np.int32)
+    out = torch.empty((n_t,), dtype=torch.int32, device=g.device)
+    lib = _lib()
     with torch.cuda.device(g.device):
-        kern[(nb,)](g, g if e is None else e, t, parts, d,
-                    HAS_E=e is not None, BLOCK=block, TILE=tile, NT=nt,
-                    num_warps=num_warps or (8 if block >= 4096 else 4))
-    return parts[:, :n_t].sum(dim=0).to(torch.int32)
+        rc = lib.tree_count(
+            g.data_ptr(), None if e is None else e.data_ptr(),
+            dtype_code(g), dtype_code(g if e is None else e), g.shape[0],
+            uniq.ctypes.data, uniq.shape[0], slot.ctypes.data, n_t,
+            out.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
+    cuda_build.check(rc, name)
+    return out
 
 
-def tree_count(g: torch.Tensor, e, thresholds: torch.Tensor, *,
-               block: int, num_warps=None) -> torch.Tensor:
+def tree_count(g: torch.Tensor, e, thresholds, *,
+               block: int) -> torch.Tensor:
     """Counts of ``|g + e| > thresholds[j]``, an ``(n_t,)`` int32 tensor on
-    ``g``'s device.  CUDA tensors launch the Triton kernel with
-    ``num_warps`` warps or, unless given, 8 for blocks of 4096 and more,
-    else 4 (the faster of the two on an H100 for each); CPU tensors take
-    the plain version."""
+    ``g``'s device.  CUDA tensors launch the CUDA kernel (``block`` does
+    not reach it); CPU tensors take the plain version."""
     _check(g, e)
-    n_t = int(thresholds.shape[0])
-    if not 0 < n_t <= 128:
-        raise ValueError(f"need 1..128 thresholds, got {n_t}")
+    n_t = int(np.shape(thresholds)[0])
+    if not 0 < n_t <= MAX_THRESHOLDS:
+        raise ValueError(f"need 1..{MAX_THRESHOLDS} thresholds, got {n_t}")
     if g.device.type != "cuda":
         return tree_count_plain(g, e, thresholds, block=block)
-    counts = launch_counts("tree_count", g, e, thresholds, block=block,
-                           num_warps=num_warps)
+    counts = launch_counts("tree_count", g, e, thresholds)
     tree_count.launches += 1
     return counts
 

@@ -28,7 +28,7 @@ Each leaf's geometry is a :class:`KernelConfig`, resolved per
 3. else the in-process cache of what the ladder resolved before;
 4. else, on ``cuda`` and only when the caller asks (``measure=True``),
    a measured autotune over the reference's candidate grid
-   (:func:`candidates`: K3's block, K1/K2's stats block and their
+   (:func:`candidates`: K3's block, K1/K2's stats block and K1's
    Triton ``num_warps``), each candidate one
    ``fused_compress_ef`` timed with CUDA events, the median of 5;
 5. else the heuristic:
@@ -36,7 +36,7 @@ Each leaf's geometry is a :class:`KernelConfig`, resolved per
    * ``cuda``: ``block`` the reference's Triton minimum of 4 KiB of
      operand a block (``tuning.py:228-231``: 1024 in f32, 2048 in bf16),
      ``stats_block = max(block, min(4·block, shape_class(d)))``
-     (``tuning.py:261``) and each Triton kernel's own ``num_warps``;
+     (``tuning.py:261``) and K1's own ``num_warps``;
    * ``torch``: the reference's ``interpret`` heuristic — a 2048 floor
      for every dtype, at most 64 compaction blocks and at most 4 stats
      blocks (``tuning.py:219-225,247,260``) — so CPU geometry, and with
@@ -101,9 +101,10 @@ class KernelConfig:
     """One resolved configuration of the fused EF pipeline.
 
     ``block`` drives K3 (compaction + residual), ``stats_block`` the
-    reductions K1/K2, ``bcap_slack`` the staging-width multiplier of
-    ``ops.fused_default_bcap``, ``num_warps`` K1's and K2's Triton
-    launches (``None``: each kernel's own choice).  ``source`` records
+    reduction K1 (and K2's plain version on the CPU: the CUDA count
+    kernel's grid is its own), ``bcap_slack`` the staging-width
+    multiplier of ``ops.fused_default_bcap``, ``num_warps`` K1's Triton
+    launch (``None``: its own choice).  ``source`` records
     where it came from: ``heuristic``, ``table``, ``autotune`` (a
     cached config keeps its first source) or ``explicit`` (the call
     site's, ``ops._resolve``)."""
@@ -391,10 +392,11 @@ def _same_bits(a, b) -> bool:
 
 
 def hold_config(cfg: KernelConfig, g, e, k: int) -> str:
-    """K1, K2 and both K3 launches at ``cfg`` on the card against their
+    """K1, K2 and the K3 sweep at ``cfg`` on the card against their
     plain versions on the same operands: the moments within ``1e-5·Σ|u|``
     (sum) and rtol 1e-5 (sum of squares), absmax exact; the counts, the
-    staging rows and the residual bitwise; the pipeline's conservation
+    staging rows, the residual and the wire pair bitwise; the pipeline's
+    conservation
     ``decode + e' == g + e`` bitwise.  Raises on a difference; returns a
     summary."""
     from repro_torch.core import codec
@@ -419,25 +421,23 @@ def hold_config(cfg: KernelConfig, g, e, k: int) -> str:
     heap, n_cnt = ops._tree_thresholds(
         ops.gaussian_t0(want[0], want[1], d, k, False), 4)
     thr = torch.from_numpy(heap[:n_cnt]).to(g.device)
-    cnt = tc.tree_count(g, e, thr, block=sb, num_warps=w)
+    cnt = tc.tree_count(g, e, thr, block=sb)
     if not torch.equal(cnt, tc.tree_count_plain(g, e, thr, block=sb)):
         raise AssertionError(f"{cfg}: K2 counts")
     t = float(ops._replay_refinement(heap, cnt.cpu().numpy(), k, 4))
-    stage = cr.compact_stage(g, e, t, block=block, bcap=bcap)
-    plain = cr.compact_stage_plain(g, e, t, block=block, bcap=bcap)
-    for a, b, what in zip(stage, plain, ("values", "offsets", "counts")):
+    got = cr.compact_sweep(g, e, t, block=block, bcap=bcap, k_cap=k_cap)
+    want = cr.compact_sweep_plain(g, e, t, block=block, bcap=bcap,
+                                  k_cap=k_cap)
+    for a, b, what in zip(got, want, ("values", "offsets", "counts",
+                                      "residual", "wire values",
+                                      "wire indices")):
         if not _same_bits(a, b):
-            raise AssertionError(f"{cfg}: K3 stage {what}")
-    enc = cr.exclusive_enc(plain[2], bcap)
-    r = cr.compact_resid(g, e, t, enc, block=block, bcap=bcap, k_cap=k_cap)
-    if not _same_bits(r, cr.compact_resid_plain(g, e, t, enc, block=block,
-                                                bcap=bcap, k_cap=k_cap)):
-        raise AssertionError(f"{cfg}: K3 residual")
+            raise AssertionError(f"{cfg}: K3 sweep {what}")
     v, i, ne = ops.fused_compress_ef(g, e, "gaussiank", k, block=block,
                                      stats_block=sb, num_warps=w)
     if not torch.equal(codec.decode(v, i, d) + ne, g + e):
         raise AssertionError(f"{cfg}: conservation")
-    return (f"K1 within tolerance, K2, K3 stage and residual bitwise, "
+    return (f"K1 within tolerance, K2 and the K3 sweep bitwise, "
             f"conserves (bcap {bcap}, {int(codec.nnz(i))}/{k_cap} slots)")
 
 

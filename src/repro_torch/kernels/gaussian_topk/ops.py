@@ -45,7 +45,8 @@ def gaussian_threshold_kernel(u: torch.Tensor, k, *, block: int = 2048,
     K4a's moments, then ``refine_iters`` K4b counts — every one is made,
     also after the threshold froze inside the band ``[2k/3, 4k/3]``, as
     the reference's ``fori_loop`` makes them.  Halve below the band,
-    ×1.5 above it, in f32.  ``num_warps`` reaches K4a and K4b."""
+    ×1.5 above it, in f32.  ``num_warps`` reaches K4a (K4b's CUDA
+    kernel takes no launch width)."""
     d = u.shape[0]
     s, sq, _ = moments(u, block=block, num_warps=num_warps)
     thres = gaussian_t0(s, sq, d, k, two_sided)
@@ -53,8 +54,7 @@ def gaussian_threshold_kernel(u: torch.Tensor, k, *, block: int = 2048,
     half, three_halves = np.float32(0.5), np.float32(1.5)
     done = False
     for _ in range(refine_iters):
-        est = np.float32(int(count_gt(u, float(thres), block=block,
-                                      num_warps=num_warps)))
+        est = np.float32(int(count_gt(u, float(thres), block=block)))
         in_band = bool(lo <= est <= hi)
         if not (done or in_band):
             thres = half * thres if est < lo else three_halves * thres

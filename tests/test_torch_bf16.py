@@ -409,6 +409,86 @@ def test_bucket_compress_bf16_matches_reference(name, monkeypatch, tmp_path):
     assert torch.equal(codec.decode(v[0], i[0], D) + E2[0], (G + E_in)[0])
 
 
+@pytest.mark.parametrize("k", [3, 41, np.int32(97)], ids=["3", "41",
+                                                          "int32-97"])
+@pytest.mark.parametrize("two_sided", [False, True])
+def test_gaussian_threshold_bf16_matches_reference(two_sided, k):
+    """``gaussian_threshold`` of a bf16 ``u`` runs on the CPU (it raised
+    ``NotImplementedError`` for a bf16 ``ndtri``) and gives the
+    reference's threshold at bf16: an f32 threshold within rtol 1e-5
+    (the f32 test's tolerance: torch's ``ndtri`` and sums part from
+    XLA's in the last f32 bits), and the same selection."""
+    from repro.core import compressors as jc
+    from repro_torch.core import compressors as tc
+    rng = np.random.default_rng(7 + two_sided)
+    x = (rng.standard_normal(4097) * 0.02 + 0.001).astype(np.float32)
+    u = torch.from_numpy(x).to(torch.bfloat16)
+    ju = _jax(u)
+    jt = np.asarray(jc.gaussian_threshold(ju, k, 4, two_sided))
+    tt = tc.gaussian_threshold(u, k, 4, two_sided)
+    assert tt.dtype == torch.float32 and jt.dtype == np.float32
+    np.testing.assert_allclose(float(tt), float(jt), rtol=1e-5)
+    name = "gaussiank2" if two_sided else "gaussiank"
+    jv, ji = jc.get_compressor(name).select(ju, int(k), None)
+    tv, ti = tc.get_compressor(name).select(u, int(k), None)
+    _same(ji, ti, "indices")
+    _same(jv, tv, "values")
+
+
+def test_gaussian_threshold_f32_unchanged():
+    """The f32 threshold is the mean/std/``ndtri`` arithmetic it always
+    was, bit for bit."""
+    from repro_torch.core import compressors as tc
+    rng = np.random.default_rng(3)
+    u = torch.from_numpy((rng.standard_normal(5000) * 0.01).astype(
+        np.float32))
+    mu = torch.mean(u)
+    sigma = torch.std(u, unbiased=False) + 1e-12
+    q = torch.special.ndtri(torch.tensor(float(np.float32(1.0 - 5 / 5000)),
+                                         dtype=torch.float32))
+    thres = torch.abs(q * sigma + mu)
+    lo, hi = (torch.tensor(float(b), dtype=torch.float32)
+              for b in tc.accept_band(5))
+    done = torch.zeros((), dtype=torch.bool)
+    for _ in range(4):
+        est = torch.sum(torch.abs(u) > thres).to(torch.float32)
+        new = torch.where(est < lo, 0.5 * thres,
+                          torch.where(est > hi, 1.5 * thres, thres))
+        thres = torch.where(done, thres, new)
+        done = done | ((est >= lo) & (est <= hi))
+    got = tc.gaussian_threshold(u, 5)
+    assert got.dtype == torch.float32
+    assert got.view(torch.int32).item() == thres.view(torch.int32).item()
+
+
+@pytest.mark.parametrize("name", ["gaussiank", "gaussiank2"])
+def test_bucket_compress_bf16_reference_backend_matches_reference(name):
+    """``bucket_compress(backend="reference")`` on a bf16 bucket (G and E
+    bf16, the bf16 llama3.2-1b smoke model's leaves) against the
+    reference's on the same bits: values, indices and the new bf16
+    residual bitwise."""
+    jcfg, _ = _bf16_cfgs()
+    jparams = j_init(jcfg, jax.random.PRNGKey(0))
+    spec = j_get(name)
+    jlay = jl.build_layout(jparams, 1, 0.01, spec)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), "cpu")
+    tlay = build_layout(params, 1, 0.01, get_compressor(name))
+    D = jlay.d_row_total
+    rng = np.random.default_rng(5)
+    G = torch.from_numpy((0.02 * rng.standard_normal((1, D))).astype(
+        np.float32)).to(torch.bfloat16)
+    E = torch.from_numpy((0.01 * rng.standard_normal((1, D))).astype(
+        np.float32)).to(torch.bfloat16)
+    jv, ji, jE, _ = jagg.bucket_compress(_jax(G), _jax(E), jlay, spec,
+                                         None, backend="reference")
+    v, i, E2 = tagg.bucket_compress(G, E, tlay, get_compressor(name),
+                                    backend="reference")
+    assert E2.dtype == torch.bfloat16
+    _same(ji, i, "indices")
+    _same(jv, v, "values")
+    _same(jE, E2, "E'")
+
+
 @pytest.mark.parametrize("strategy,with_residual", [
     ("allgather", True), ("hierarchical", True), ("allgather", False)])
 def test_init_train_state_resid_dtype_matches_reference(strategy,

@@ -49,9 +49,15 @@ at storage offsets that break the bf16 vector path's 16-byte
 alignment, K4d on bf16 heads of up to 7 elements), bitwise its plain
 version with ``e'`` and the wire values in the promoted dtype (bf16
 compared as int16), and a ``TypeError`` on f16 or f64 operands.
+Slice 13: the CUDA K2 and K4b bitwise their plain versions at 1 to 128
+thresholds with duplicates and ``+inf``, on views at storage offsets;
+the K3 one sweep bitwise the stage and residual launches plus
+``assemble_staging``, in place too; the fused path launching one K1,
+one K2 and one sweep and no stage or residual launch.
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -130,6 +136,19 @@ def test_kernels_match_plain_versions(dev, d, pair):
     n1 = (fm.fused_moments.launches, tc.tree_count.launches,
           cr.compact_stage.launches, cr.compact_resid.launches)
     assert [b - a for a, b in zip(n0, n1)] == [1, 1, 1, 1]
+    # the one sweep: bitwise the two launches plus the assembly
+    sw = cr.compact_sweep(g, e, thres, block=cfg.block, bcap=bcap,
+                          k_cap=k_cap)
+    pair = cr.assemble_staging(vp, op, cp, k_cap, block=cfg.block,
+                               out_dtype=rp.dtype)
+    for a, b in zip(sw, (vp, op, cp, rp) + pair):
+        assert _same_bits(a, b)
+    # the fused path: one K1, one K2 and one sweep; no stage or residual
+    main = (fm.fused_moments, tc.tree_count, cr.compact_sweep,
+            cr.compact_stage, cr.compact_resid)
+    n0 = [f.launches for f in main]
+    ops.fused_compress_ef(g, e, "gaussiank", k)
+    assert [f.launches - n for f, n in zip(main, n0)] == [1, 1, 1, 0, 0]
 
 
 @pytest.mark.parametrize("pair", PAIRS[:3], ids=PAIR_IDS[:3])
@@ -176,12 +195,12 @@ def test_pass_a_and_stats_match_plain_and_one_k1(dev, d, name):
     want = ops.fused_compress_ef(g, e.clone(), name, k, k_cap=k_cap,
                                  stats=None)
     counts = (fm.fused_moments.launches, fm.fused_moments_hist.launches,
-              tc.tree_count.launches, cr.compact_stage.launches)
+              tc.tree_count.launches, cr.compact_sweep.launches)
     uu = u.clone()
     v, i, ne = ops.fused_compress_ef(uu, None, name, k, k_cap=k_cap,
                                      out=uu, stats=host)
     after = (fm.fused_moments.launches, fm.fused_moments_hist.launches,
-             tc.tree_count.launches, cr.compact_stage.launches)
+             tc.tree_count.launches, cr.compact_sweep.launches)
     assert [b - a for a, b in zip(counts, after)] == [
         0, 0, 0 if name == "histk" else 1, 1]
     assert ne.data_ptr() == uu.data_ptr()
@@ -287,6 +306,100 @@ def test_stage_kernels_edge_cases(dev, d, block, off, pair):
     assert [b - a for a, b in zip(n0, n1)] == [3, 3]
 
 
+COUNT_DS = [1, 4095, 4096, (1 << 20) + 3]
+COUNT_PAIRS = PAIRS + [(BF16, None), (F32, None)]
+COUNT_IDS = PAIR_IDS + ["bf16-none", "f32-none"]
+
+
+def _thresholds(n, a, dev):
+    """``n`` thresholds in heap order over ``|u| = a``: the refinement
+    tree's own 15 (which repeat values) for n = 15, else quantiles of
+    ``a`` each repeated twice, the last one ``+inf`` (the heap's
+    padding)."""
+    if n == 15:
+        heap, _ = ops._tree_thresholds(np.float32(float(a.max())) * 0.25, 4)
+        return torch.from_numpy(heap[:15])
+    q = torch.linspace(0.05, 0.999, max(1, (n + 1) // 2))
+    t = torch.quantile(a.float().cpu()[:1 << 16], q).repeat_interleave(2)
+    t = t[:n].contiguous()
+    if n > 1:
+        t[-1] = math.inf
+    return t
+
+
+@pytest.mark.parametrize("pair", COUNT_PAIRS, ids=COUNT_IDS)
+@pytest.mark.parametrize("d", COUNT_DS)
+def test_count_kernels_match_plain(dev, d, pair):
+    """K2 (and K4b on ``u`` with no ``e``) bitwise its plain version at
+    1, 2, 15, 16, 127 and 128 thresholds with duplicates and ``+inf``,
+    on contiguous tensors, on views at storage offsets 1 and 3 (the
+    scalar head) and on a ``g`` and an ``e`` at offsets 0 and 1 (no
+    common alignment: every element scalar); thresholds given on the
+    host or on the card."""
+    for off, eoff in ((0, 0), (1, 1), (3, 3), (0, 1)):
+        g, e = _inputs(d + 1 + off, dev, seed=8,
+                       pair=(pair[0], pair[1] or F32))
+        gv = g[off:off + d]
+        ev = None if pair[1] is None else e[eoff:eoff + d]
+        a = (gv.float() if ev is None else gv.float() + ev.float()).abs()
+        for n in (1, 2, 15, 16, 127, 128):
+            t = _thresholds(n, a, dev)
+            n0 = tc.tree_count.launches
+            got = tc.tree_count(gv, ev, t, block=4096)
+            assert tc.tree_count.launches == n0 + 1
+            want = tc.tree_count_plain(gv, ev, t, block=4096)
+            assert torch.equal(got, want), (off, n)
+            assert torch.equal(tc.tree_count(gv, ev, t.to(dev), block=4096),
+                               want)
+        if ev is None:
+            for t in (0.0, float(a.median()), math.inf):
+                assert torch.equal(cg.count_gt(gv, t, block=2048),
+                                   cg.count_gt_plain(gv, t, block=2048)), t
+
+
+@pytest.mark.parametrize("pair", COUNT_PAIRS[:5], ids=COUNT_IDS[:5])
+@pytest.mark.parametrize("d", COUNT_DS)
+def test_sweep_matches_two_launches(dev, d, pair):
+    """The one sweep bitwise the stage and residual launches plus
+    ``assemble_staging`` (rows, ``e'``, the pair), in place over ``e``
+    (or ``g`` without ``e``) too where it has ``e'``'s dtype: at blocks 1024, 2048 and 1001, on views
+    at storage offsets 1 and 3, at a mid threshold with ``k_cap`` below
+    the staged count (the global cut), at 0 (every block overflows
+    bcap) and just above ``max|u|`` (nothing staged)."""
+    for off in (0, 1, 3):
+        g, e = _inputs(d + off, dev, seed=9, pair=(pair[0], pair[1] or F32))
+        gv, ev = g[off:], None if pair[1] is None else e[off:]
+        a = (gv.float() if ev is None else gv.float() + ev.float()).abs()
+        top = a.max()
+        above = float(torch.nextafter(top, torch.full_like(top, math.inf)))
+        mid = float(a.kthvalue(max(1, d * 99 // 100)).values)
+        for block in (1024, 2048, 1001):
+            for t, k_cap in ((mid, max(1, d // 200)), (0.0, d), (above, 5)):
+                vp, op, cp = cr.compact_stage(gv, ev, t, block=block,
+                                              bcap=64)
+                rp = cr.compact_resid(gv, ev, t, cr.exclusive_enc(cp, 64),
+                                      block=block, bcap=64, k_cap=k_cap)
+                want = (vp, op, cp, rp) + cr.assemble_staging(
+                    vp, op, cp, k_cap, block=block, out_dtype=rp.dtype)
+                got = cr.compact_sweep(gv, ev, t, block=block, bcap=64,
+                                       k_cap=k_cap)
+                for x, y, what in zip(got, want, ("vals", "offs", "cnt",
+                                                  "e'", "values",
+                                                  "indices")):
+                    assert _same_bits(x, y), (off, block, t, what)
+                src = gv if ev is None else ev
+                if src.dtype != rp.dtype:
+                    continue   # e' is not e's dtype: no in-place form
+                dst = src.clone()
+                ins = cr.compact_sweep(gv if ev is not None else dst,
+                                       ev if ev is None else dst, t,
+                                       block=block, bcap=64, k_cap=k_cap,
+                                       out=dst)
+                assert ins[3].data_ptr() == dst.data_ptr()
+                for x, y in zip(ins, want):
+                    assert _same_bits(x, y), (off, block, t, "in place")
+
+
 def _hist_input(kind, n, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(n)
@@ -334,7 +447,8 @@ def test_cuda_kernels_take_float32_and_bfloat16_only(dev):
     thr = torch.tensor([t, 2 * t], device=dev)
     n0 = {f: f.launches for f in (fm.fused_moments, fm.fused_moments_hist,
                                   tc.tree_count, cr.compact_stage,
-                                  cr.compact_resid, mom.moments,
+                                  cr.compact_resid, cr.compact_sweep,
+                                  mom.moments,
                                   cg.count_gt, thc.threshold_compact,
                                   hist.abs_histogram)}
     assert float(fm.fused_moments(g, None, block=2048)[2]) == float(
@@ -349,6 +463,10 @@ def test_cuda_kernels_take_float32_and_bfloat16_only(dev):
                                 block=2048, bcap=64, k_cap=500)
     assert got[3].dtype == BF16
     for a, b in zip(got, (vp, op, cp, rp)):
+        assert _same_bits(a, b)
+    sw = cr.compact_sweep(g, None, t, block=2048, bcap=64, k_cap=500)
+    for a, b in zip(sw, (vp, op, cp, rp) + cr.assemble_staging(
+            vp, op, cp, 500, block=2048, out_dtype=BF16)):
         assert _same_bits(a, b)
     assert float(mom.moments(g, block=2048)[2]) == float(
         fm.moments_plain(g, 2048)[2])
@@ -367,6 +485,8 @@ def test_cuda_kernels_take_float32_and_bfloat16_only(dev):
                  lambda: tc.tree_count(x, None, thr, block=1024),
                  lambda: cr.compact_stage(x, None, t, block=1024, bcap=64),
                  lambda: cr.compact_stage(g, x, t, block=1024, bcap=64),
+                 lambda: cr.compact_sweep(x, None, t, block=1024, bcap=64,
+                                          k_cap=10),
                  lambda: mom.moments(x, block=1024),
                  lambda: cg.count_gt(x, t, block=1024),
                  lambda: thc.threshold_compact(x, t, block=1024, bcap=64),

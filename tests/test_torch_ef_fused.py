@@ -52,9 +52,11 @@ def _port_threshold(g, e, d, k, name, sb):
         two_sided=name == "gaussiank2")
 
 
-PASSES = {"gaussiank": {"moments": 1, "tree_count": 1, "compact": 1,
-                        "residual_write": 1},
-          "histk": {"moments+hist": 1, "compact": 1, "residual_write": 1}}
+# K3 is one sweep (staging rows, residual and the pair), labelled as the
+# reference's sequential lowering labels it
+PASSES = {"gaussiank": {"moments": 1, "tree_count": 1,
+                        "compact+residual": 1},
+          "histk": {"moments+hist": 1, "compact+residual": 1}}
 
 
 CASES = [  # (d, k, scale, bcap)

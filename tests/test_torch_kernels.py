@@ -124,6 +124,95 @@ def test_compact_residual_staging_overflow():
     assert int(cnt.max()) > 8
 
 
+def _jax_bits(t):
+    """A tensor's bits as a jax array (bf16 through its 16-bit pattern)."""
+    if t is None:
+        return None
+    if t.dtype == torch.bfloat16:
+        return jnp.asarray(t.view(torch.uint16).numpy().view(jnp.bfloat16))
+    return jnp.asarray(t.numpy())
+
+
+def _bits(x):
+    """numpy bits of a jax array or a tensor: 4-byte types as uint32,
+    bf16 as uint16."""
+    if isinstance(x, torch.Tensor):
+        x = x.view(torch.uint16) if x.dtype == torch.bfloat16 else x
+        a = x.numpy()
+    else:
+        a = np.asarray(x)
+    return a.view(np.uint16) if a.dtype.itemsize == 2 else a.view(np.uint32)
+
+
+SWEEP_PAIRS = [(torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32), (torch.bfloat16, None)]
+SWEEP_IDS = ["f32-f32", "bf16-bf16", "bf16-f32", "bf16-none"]
+SWEEP_CASES = [  # (d, block, bcap, k_cap or None, quantile of |u|)
+    (5001, 2048, 64, None, 0.99),    # d not a multiple of the block
+    (5000, 2048, 8, 12, 0.9),        # blocks over bcap; k_cap cut mid-block
+    (65536, 4096, 64, None, 0.999),
+]
+
+
+@pytest.mark.parametrize("case", SWEEP_CASES,
+                         ids=["ragged", "overflow-kcap", "whole"])
+@pytest.mark.parametrize("pair", SWEEP_PAIRS, ids=SWEEP_IDS)
+def test_compact_sweep_plain_matches_sequential_pallas(pair, case):
+    """The one sweep's plain version (the stage rows, their exclusive
+    cumsum, the residual and the assembly, composed) against the
+    reference's sequential ``_kernel`` (``compact_residual.py:237``, on
+    its mosaic lowering in interpret mode): ``vals``, ``offs``, ``cnt``
+    and ``e'`` bitwise, and the pair bitwise the reference's
+    ``gaussian_topk.ops.assemble_staging`` of those rows; also in place
+    over ``e`` (or ``g`` without ``e``)."""
+    from repro.kernels.gaussian_topk.ops import \
+        assemble_staging as j_assemble
+    d, block, bcap, k_cap, q = case
+    g32, e32 = _inputs(d, True, seed=11)
+    g = torch.from_numpy(g32).to(pair[0])
+    e = None if pair[1] is None else torch.from_numpy(e32).to(pair[1])
+    u = g.float() if e is None else g.float() + e.float()
+    thres = float(np.float32(np.quantile(u.abs().numpy(), q)))
+    if k_cap is None:
+        k_cap = -(-4 * int(round((1 - q) * d)) // 3)
+    odt = fm.out_dtype(g, e)
+    jname = "bfloat16" if odt == torch.bfloat16 else "float32"
+    jv, jo, jn, je = j_compact(
+        _pad2d_bits(g, block), _pad2d_bits(e, block), jnp.float32(thres),
+        bcap=bcap, k_cap=k_cap, block=block, out_dtype=jname,
+        with_resid=True, backend="mosaic", interpret=True)
+    jwv, jwi = j_assemble(jv, jo, jn, d, k_cap, block=block,
+                          out_dtype=jname)
+    got = cr.compact_sweep(g, e, thres, block=block, bcap=bcap, k_cap=k_cap)
+    want = (jv, jo, jn, np.asarray(je).reshape(-1)[:d], jwv, jwi)
+    for a, b, what in zip(want, got, ("vals", "offs", "cnt", "e'",
+                                      "values", "indices")):
+        assert str(np.asarray(a).dtype) == {
+            torch.float32: "float32", torch.int32: "int32",
+            torch.bfloat16: "bfloat16"}[b.dtype], what
+        np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=what)
+    if bcap == 8:
+        assert int(got[2].max()) > bcap and int(
+            torch.clamp(got[2], max=bcap).sum()) > k_cap
+    inplace = (e if e is not None else g).clone()
+    again = cr.compact_sweep(g if e is not None else inplace,
+                             inplace if e is not None else None, thres,
+                             block=block, bcap=bcap, k_cap=k_cap, out=inplace)
+    assert again[3].data_ptr() == inplace.data_ptr()
+    for a, b in zip(got, again):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert cr.compact_sweep.launches == 0
+
+
+def _pad2d_bits(t, block):
+    """``t``'s bits zero-padded to whole blocks, as a jax array."""
+    if t is None:
+        return None
+    pad = (-t.shape[0]) % block
+    return _jax_bits(torch.nn.functional.pad(t, (0, pad))).reshape(-1, block)
+
+
 @pytest.mark.parametrize("kernel,i", [("stage", i) for i in range(5)]
                          + [("hist", i) for i in range(5)])
 def test_tune_kernels_variants_apply(kernel, i):
