@@ -11,7 +11,8 @@ unfused pipeline of the paper's Algorithm 1.  Every TPU kernel of
 the reference is hand-written for ``sm_90a``:
 
 * ``kernels/ef_fused/fused_moments.py``  K1, Triton: sum, sum of squares
-  and abs-max of ``u = g + e`` and, for hist-k, its ``|u|`` histogram;
+  and abs-max of ``u = g + e``; for hist-k with its ``|u|`` histogram,
+  CUDA C++ (``csrc/abs_histogram.cu``);
 * ``kernels/ef_fused/tree_count.py`` + ``csrc/tree_count.cu``  K2,
   CUDA C++: counts of ``|u| > t_j`` over the refinement tree's
   thresholds;

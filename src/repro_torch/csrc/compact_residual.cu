@@ -60,7 +60,7 @@
 // and a popcount, far below the compute roof.  At the 268,435,456-element
 // leaf (block 1024, bcap 64) the stage launch's bound is 0.681 ms and
 // K4c's (no e) 0.361 ms at 3.35 TB/s; with bf16 operands (block 2048)
-// 0.341 and 0.180 ms, and the residual's 0.481 ms.
+// 0.341 and 0.180 ms, and the residual's 0.962 and 0.481 ms.
 //
 // What the design does about it:
 //   * stage (redesigned for Hopper): one WARP per block, 8 blocks per CTA
@@ -84,10 +84,16 @@
 //     and 4 float4 a lane are within 3%; 16 float4 a lane is 46% slower
 //     at block 1024, where its 2048-element chunk is never full and every
 //     load takes the guarded scalar path;
-//   * residual: one CTA of 256 threads per block; neighbouring threads
-//     read neighbouring elements (coalesced 128-byte warp transactions);
-//     the prefix count is a warp __ballot_sync + __popc of the lanes
-//     below, plus the totals of the warps before it (in shared memory);
+//   * residual (redesigned the same way): the stage kernel's warp a block,
+//     its loads and its ballot positions, then e' written 16 bytes a lane
+//     (as the sweep writes it) with the elements on the wire zeroed.  The
+//     first design (one CTA of 256 threads a block, one element a thread
+//     a tile in scalar loads, a __syncthreads pair every 256 elements to
+//     add up its warps' counts) ran at 1.109 ms at f32 and 1.003 ms at
+//     bf16 (87% and 48% of its bound, NVIDIA H100 80GB HBM3 at 700 W): at
+//     bf16 every load was 2 bytes wide.  It takes enc_before from the
+//     wrapper's exact cumsum of the stage's counts, never from the sweep's
+//     look-back, so it stays the sweep's independent cross-check;
 //   * the staging write is a scatter of the kept elements into a row that
 //     stays in L2;
 //   * the two launches are the race-free shape of the reference's GPU
@@ -97,8 +103,9 @@
 //     scan and the stage launch's give every element the same position;
 //   * nothing goes through a tensor-core dot: offsets up to 8191 are not
 //     exact in TF32 (compact_residual.py:30-33); integers stay integers;
-//   * the residual may be written in place over e: each thread reads its
-//     own element before it writes it, and no other thread reads it.
+//   * the residual and the sweep may write e' in place over e (or over g
+//     without e): each element is read by the lane that writes it, before
+//     it writes it, and by no other lane.
 //
 // Operand types: g f32 or bf16, e f32, bf16 or none.  Each kernel widens
 // both to f32 (a bf16 is the top half of an f32: exact) and forms
@@ -121,8 +128,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define THREADS 256
-#define WARPS (THREADS / 32)
 #define SENTINEL (-1)
 // stage: blocks per CTA (one warp each) and 4-element f32 groups per lane
 // per chunk (STAGE_VPL * 128 = 1024 elements, a whole block on the main
@@ -136,9 +141,6 @@
 // 0.73, 0.70 and 0.69 ms at bf16: the look-back's latency, paid once a
 // group, bounds the small groups
 #define SWEEP_BLOCKS 8
-// tiles of THREADS elements each residual thread loads before it scans:
-// measured on an H100 at the 268M-element leaf, ~5% faster with 1 than 4
-#define RESID_TILES 1
 
 typedef __nv_bfloat16 bf16;
 
@@ -348,131 +350,7 @@ stage_kernel(const TG* __restrict__ g, const TE* __restrict__ e, long long d,
   if (lane == 0) cnt[b] = run;
 }
 
-// ---- residual: one CTA of THREADS per block ------------------------------
-
-// e is __restrict__ here though the residual may be written over it:
-// each thread reads its own element before it writes it and no thread
-// reads another's, so e's loads may take the read-only path (without
-// it the f32 launch ran ~12% longer on an H100 at the 268M leaf,
-// chip_smoke.py phase 2).
-template <typename TG, typename TE, bool HAS_E>
-__device__ __forceinline__ float load_u(const TG* __restrict__ g,
-                                        const TE* __restrict__ e,
-                                        long long i, long long d) {
-  if (i >= d) return 0.0f;  // the reference's zero padding
-  float x = to_f32(g[i]);
-  if (HAS_E) x = x + to_f32(e[i]);
-  return x;
-}
-
-// One chunk is TILES tiles of THREADS consecutive elements; thread t
-// owns element c0 + i*THREADS + t of tile i.  All TILES loads of a chunk
-// are issued before the first scan, so each thread keeps TILES loads of
-// g and e in flight (the bytes in flight, not the arithmetic, bound
-// these kernels).  chunk_scan gives each element its position among the
-// chunk's masked elements in index order — tiles in order, warps in
-// order inside a tile, lanes in order inside a warp — and the chunk's
-// total.  All threads of the block call it (it synchronises twice).
-template <int TILES>
-__device__ __forceinline__ void chunk_scan(const bool (&m)[TILES],
-                                           int (*warp_tot)[WARPS],
-                                           int (&pos)[TILES], int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  unsigned bal[TILES];
-#pragma unroll
-  for (int i = 0; i < TILES; ++i) {
-    bal[i] = __ballot_sync(0xffffffffu, m[i]);
-    if (lane == 0) warp_tot[i][warp] = __popc(bal[i]);
-  }
-  __syncthreads();
-  int run = 0;
-#pragma unroll
-  for (int i = 0; i < TILES; ++i) {
-    int before = 0, tile = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const int c = warp_tot[i][w];
-      before += (w < warp) ? c : 0;
-      tile += c;
-    }
-    pos[i] = run + before + __popc(bal[i] & below);
-    run += tile;
-  }
-  __syncthreads();  // warp_tot is rewritten by the next chunk
-  *total = run;
-}
-
-// The chunk's TILES elements of this thread: u and its mask.
-template <int TILES, typename TG, typename TE, bool HAS_E>
-__device__ __forceinline__ void load_chunk(const TG* __restrict__ g,
-                                           const TE* e, long long base,
-                                           long long d, int c0, int block,
-                                           float thres, float (&x)[TILES],
-                                           bool (&m)[TILES]) {
-#pragma unroll
-  for (int i = 0; i < TILES; ++i) {
-    const int j = c0 + i * THREADS + threadIdx.x;
-    x[i] = j < block ? load_u<TG, TE, HAS_E>(g, e, base + j, d) : 0.0f;
-    m[i] = j < block && fabsf(x[i]) > thres;
-  }
-}
-
-template <int TILES, typename TG, typename TE, bool HAS_E>
-__global__ void __launch_bounds__(THREADS)
-resid_kernel(const TG* __restrict__ g, const TE* e, long long d, float thres,
-             int block, int bcap, long long k_cap,
-             const long long* __restrict__ enc_before,
-             typename Promote<TG, TE>::type* out) {
-  __shared__ int warp_tot[TILES][WARPS];
-  const long long b = blockIdx.x;
-  const long long base = b * (long long)block;
-  const long long eb = enc_before[b];
-  int run = 0;
-  for (int c0 = 0; c0 < block; c0 += THREADS * TILES) {
-    float x[TILES];
-    bool m[TILES];
-    int pos[TILES], total;
-    load_chunk<TILES, TG, TE, HAS_E>(g, e, base, d, c0, block, thres, x, m);
-    chunk_scan(m, warp_tot, pos, &total);
-#pragma unroll
-    for (int i = 0; i < TILES; ++i) {
-      const int j = c0 + i * THREADS + threadIdx.x;
-      const int p = run + pos[i];
-      const bool on_wire = m[i] && p < bcap && eb + p < k_cap;
-      if (j < block && base + j < d)
-        store(out + base + j, on_wire ? 0.0f : x[i]);
-    }
-    run += total;
-  }
-}
-
-// ---- sweep: the TPU kernel's one sweep, one warp a selection block -------
-//
-// A block's status word: its flag in the top two bits (0 not published
-// yet; ST_AGG: the block's own min(cnt, bcap); ST_INC: the inclusive
-// prefix of min(cnt, bcap) over the blocks up to it) and the count below.
-// The word carries its own value, so relaxed loads and stores suffice.
-#define ST_AGG (1ull << 62)
-#define ST_INC (2ull << 62)
-#define ST_VAL ((1ull << 62) - 1)
-
-__device__ __forceinline__ unsigned long long ld_status(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_status(unsigned long long* p,
-                                          unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
+// ---- e' stores ------------------------------------------------------------
 
 // N consecutive values at p (aligned to their bytes, at most 16 a store)
 template <int N>
@@ -508,7 +386,7 @@ __device__ __forceinline__ void store_vec(bf16* p, const float* x) {
 // (the elements at or past lim are not written).  VEC: o is aligned to a
 // group's bytes of TO (at most 16).
 template <typename TG, typename TO, bool VEC>
-__device__ __forceinline__ void sweep_store(
+__device__ __forceinline__ void store_chunk(
     TO* o, long long lim, int c0,
     const float (&x)[Stage<TG>::VPL][Stage<TG>::GS]) {
   constexpr int GS = Stage<TG>::GS, VPL = Stage<TG>::VPL;
@@ -526,6 +404,96 @@ __device__ __forceinline__ void sweep_store(
       const int i = c0 + j * 32 * GS + lg + c;
       if (i < lim) store(o + i, x[j][c]);
     }
+}
+
+// ---- residual: one warp per selection block -----------------------------
+//
+// The stage kernel's structure (a warp a block, STAGE_WARPS blocks a CTA,
+// the same loads and ballot positions; no shared memory, no barrier);
+// each chunk is loaded, its on-wire elements zeroed and written back as
+// e' by the lane that loaded it.
+
+// The chunk's masked elements in index order: the ones at an in-block
+// position below cut (min(bcap, k_cap - enc_before), at least 0) go on
+// the wire and become 0; `run` counts the block's masked elements.
+template <typename TG>
+__device__ __forceinline__ void resid_scan(
+    float (&x)[Stage<TG>::VPL][Stage<TG>::GS], float thres, int cut,
+    int& run) {
+  constexpr int GS = Stage<TG>::GS, VPL = Stage<TG>::VPL;
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    bool m[GS];
+    int p = run, tot = 0;
+#pragma unroll
+    for (int c = 0; c < GS; ++c) {
+      m[c] = fabsf(x[j][c]) > thres;
+      const unsigned bal = __ballot_sync(0xffffffffu, m[c]);
+      p += __popc(bal & below);
+      tot += __popc(bal);
+    }
+#pragma unroll
+    for (int c = 0; c < GS; ++c) {
+      if (m[c]) {
+        if (p < cut) x[j][c] = 0.0f;
+        ++p;
+      }
+    }
+    run += tot;
+  }
+}
+
+template <typename TG, typename TE, bool HAS_E, bool VEC>
+__global__ void __launch_bounds__(STAGE_WARPS * 32)
+resid_kernel(const TG* __restrict__ g, const TE* __restrict__ e, long long d,
+             float thres, int block, int bcap, long long k_cap,
+             long long nblocks, const long long* __restrict__ enc_before,
+             typename Promote<TG, TE>::type* out) {
+  typedef typename Promote<TG, TE>::type TO;
+  constexpr int GS = Stage<TG>::GS, VPL = Stage<TG>::VPL;
+  const long long b = (long long)blockIdx.x * STAGE_WARPS + (threadIdx.x >> 5);
+  if (b >= nblocks) return;  // the whole warp: b is uniform across it
+  const long long base = b * (long long)block;
+  const long long lim = d - base < block ? d - base : block;
+  const long long room = k_cap - enc_before[b];
+  const int cut = room <= 0 ? 0 : (room < bcap ? (int)room : bcap);
+  const TG* gb = g + base;
+  const TE* eb = HAS_E ? e + base : nullptr;
+  TO* ob = out + base;
+  int run = 0;  // masked elements before the current chunk, in the block
+  for (int c0 = 0; c0 < block; c0 += Stage<TG>::CHUNK) {
+    float x[VPL][GS];
+    stage_load<TG, TE, HAS_E, VEC>(gb, eb, lim, c0, x);
+    resid_scan<TG>(x, thres, cut, run);
+    store_chunk<TG, TO, VEC>(ob, lim, c0, x);
+  }
+}
+
+// ---- sweep: the TPU kernel's one sweep, one warp a selection block -------
+//
+// A block's status word: its flag in the top two bits (0 not published
+// yet; ST_AGG: the block's own min(cnt, bcap); ST_INC: the inclusive
+// prefix of min(cnt, bcap) over the blocks up to it) and the count below.
+// The word carries its own value, so relaxed loads and stores suffice.
+#define ST_AGG (1ull << 62)
+#define ST_INC (2ull << 62)
+#define ST_VAL ((1ull << 62) - 1)
+
+__device__ __forceinline__ unsigned long long ld_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_status(unsigned long long* p,
+                                          unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
 }
 
 // The exclusive prefix of min(cnt, bcap) over the blocks before b: the
@@ -596,7 +564,7 @@ sweep_kernel(const TG* __restrict__ g, const TE* __restrict__ e, long long d,
       stage_load<TG, TE, HAS_E, VEC>(gb, eb, lim, c0, x);
       // e' = u everywhere while streaming; after the look-back the
       // kept elements that go on the wire, and those alone, are zeroed
-      sweep_store<TG, TO, VEC>(ob, lim, c0, x);
+      store_chunk<TG, TO, VEC>(ob, lim, c0, x);
       stage_scan<TG>(x, c0, thres, bcap, vrow, orow, run);
     }
     stage_pad(run, bcap, vrow, orow);
@@ -635,38 +603,38 @@ sweep_kernel(const TG* __restrict__ g, const TE* __restrict__ e, long long d,
   }
 }
 
-template <typename TG, typename TE, bool HAS_E, bool VEC>
-static int launch_stage(const void* g, const void* e, long long d,
-                        float thres, int block, int bcap, long long nblocks,
-                        void* vals, void* offs, void* cnt, void* stream) {
-  const long long ctas = (nblocks + STAGE_WARPS - 1) / STAGE_WARPS;
-  stage_kernel<TG, TE, HAS_E, VEC>
-      <<<(unsigned)ctas, STAGE_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const TG*)g, (const TE*)e, d, thres, block, bcap, nblocks,
-      (float*)vals, (int*)offs, (int*)cnt);
-  return (int)cudaGetLastError();
+// The vector instantiation needs every block to start on a 16-byte
+// boundary of g and on its group's bytes (at most 16) of e, and of out
+// where the kernel writes e'; any other view (a storage offset that
+// breaks that, a block not a multiple of the group) takes the scalar-load
+// instantiation of the same kernel: the same rows and the same e'.
+template <typename TG, typename TE, bool HAS_E>
+static bool vec_ok(const void* g, const void* e, int block, const void* out) {
+  typedef typename Promote<TG, TE>::type TO;
+  constexpr int GS = Group<TG>::n;
+  constexpr uintptr_t EALIGN = GS * sizeof(TE) < 16 ? GS * sizeof(TE) : 16;
+  constexpr uintptr_t OALIGN = GS * sizeof(TO) < 16 ? GS * sizeof(TO) : 16;
+  return block % GS == 0 && (uintptr_t)g % 16 == 0 &&
+         (!HAS_E || (uintptr_t)e % EALIGN == 0) &&
+         (uintptr_t)out % OALIGN == 0;
 }
 
-// The vector instantiation needs every block to start on a 16-byte
-// boundary of g and on its group's bytes (at most 16) of e; any other
-// view (a storage offset that breaks that, a block not a multiple of the
-// group) takes the scalar-load instantiation of the same kernel: the
-// same rows.
+// a CTA of STAGE_WARPS warps for every STAGE_WARPS selection blocks
+static unsigned warp_ctas(long long warps) {
+  return (unsigned)((warps + STAGE_WARPS - 1) / STAGE_WARPS);
+}
+
 template <typename TG, typename TE, bool HAS_E>
 static int stage_typed(const void* g, const void* e, long long d, float thres,
                        int block, int bcap, long long nblocks, void* vals,
                        void* offs, void* cnt, void* stream) {
-  constexpr int GS = Group<TG>::n;
-  constexpr uintptr_t EALIGN =
-      GS * sizeof(TE) < 16 ? GS * sizeof(TE) : 16;
-  const bool vec = block % GS == 0 && (uintptr_t)g % 16 == 0 &&
-                   (!HAS_E || (uintptr_t)e % EALIGN == 0);
-  return vec ? launch_stage<TG, TE, HAS_E, true>(g, e, d, thres, block, bcap,
-                                                 nblocks, vals, offs, cnt,
-                                                 stream)
-             : launch_stage<TG, TE, HAS_E, false>(g, e, d, thres, block, bcap,
-                                                  nblocks, vals, offs, cnt,
-                                                  stream);
+  auto kern = vec_ok<TG, TE, HAS_E>(g, e, block, nullptr)
+                  ? stage_kernel<TG, TE, HAS_E, true>
+                  : stage_kernel<TG, TE, HAS_E, false>;
+  kern<<<warp_ctas(nblocks), STAGE_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const TG*)g, (const TE*)e, d, thres, block, bcap, nblocks,
+      (float*)vals, (int*)offs, (int*)cnt);
+  return (int)cudaGetLastError();
 }
 
 template <typename TG, typename TE, bool HAS_E>
@@ -674,18 +642,19 @@ static int resid_typed(const void* g, const void* e, long long d, float thres,
                        int block, int bcap, long long k_cap,
                        long long nblocks, const void* enc_before, void* out,
                        void* stream) {
-  resid_kernel<RESID_TILES, TG, TE, HAS_E>
-      <<<(unsigned)nblocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const TG*)g, (const TE*)e, d, thres, block, bcap, k_cap,
-      (const long long*)enc_before,
-      (typename Promote<TG, TE>::type*)out);
+  typedef typename Promote<TG, TE>::type TO;
+  auto kern = vec_ok<TG, TE, HAS_E>(g, e, block, out)
+                  ? resid_kernel<TG, TE, HAS_E, true>
+                  : resid_kernel<TG, TE, HAS_E, false>;
+  kern<<<warp_ctas(nblocks), STAGE_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const TG*)g, (const TE*)e, d, thres, block, bcap, k_cap, nblocks,
+      (const long long*)enc_before, (TO*)out);
   return (int)cudaGetLastError();
 }
 
 // The pair is pre-filled with 0 / SENTINEL (slots at or past the number
 // of staged elements keep it), the ticket and the status words zeroed;
-// then one launch.  The vector instantiation needs stage_typed's
-// alignment and out aligned to a group's bytes of its type (at most 16).
+// then one launch.
 template <typename TG, typename TE, bool HAS_E>
 static int sweep_typed(const void* g, const void* e, long long d, float thres,
                        int block, int bcap, long long k_cap,
@@ -693,9 +662,6 @@ static int sweep_typed(const void* g, const void* e, long long d, float thres,
                        void* out, void* wv, void* wi, void* scratch,
                        void* stream) {
   typedef typename Promote<TG, TE>::type TO;
-  constexpr int GS = Group<TG>::n;
-  constexpr uintptr_t EALIGN = GS * sizeof(TE) < 16 ? GS * sizeof(TE) : 16;
-  constexpr uintptr_t OALIGN = GS * sizeof(TO) < 16 ? GS * sizeof(TO) : 16;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t rc = cudaMemsetAsync(wv, 0, (size_t)k_cap * sizeof(TO), s);
   if (rc == cudaSuccess)
@@ -706,14 +672,11 @@ static int sweep_typed(const void* g, const void* e, long long d, float thres,
                          s);  // at least the ticket and a word a group
   if (rc != cudaSuccess) return (int)rc;
   unsigned long long* ticket = (unsigned long long*)scratch;
-  const bool vec = block % GS == 0 && (uintptr_t)g % 16 == 0 &&
-                   (!HAS_E || (uintptr_t)e % EALIGN == 0) &&
-                   (uintptr_t)out % OALIGN == 0;
-  const long long groups = (nblocks + SWEEP_BLOCKS - 1) / SWEEP_BLOCKS;
-  const long long ctas = (groups + STAGE_WARPS - 1) / STAGE_WARPS;
-  auto kern = vec ? sweep_kernel<TG, TE, HAS_E, true>
+  auto kern = vec_ok<TG, TE, HAS_E>(g, e, block, out)
+                  ? sweep_kernel<TG, TE, HAS_E, true>
                   : sweep_kernel<TG, TE, HAS_E, false>;
-  kern<<<(unsigned)ctas, STAGE_WARPS * 32, 0, s>>>(
+  const long long groups = (nblocks + SWEEP_BLOCKS - 1) / SWEEP_BLOCKS;
+  kern<<<warp_ctas(groups), STAGE_WARPS * 32, 0, s>>>(
       (const TG*)g, (const TE*)e, d, thres, block, bcap, k_cap, nblocks,
       (float*)vals, (int*)offs, (int*)cnt, (TO*)out, (TO*)wv, (int*)wi,
       ticket + 1, ticket);

@@ -3,7 +3,11 @@
 Each ``.cu`` source is compiled by ``nvcc`` on its own into a shared
 library with a plain C interface (``-gencode arch=compute_90a,
 code=sm_90a -O3 -shared -Xcompiler -fPIC``) and loaded with
-:mod:`ctypes`; pointers and the stream travel as ``c_void_p``.  A
+:mod:`ctypes`; pointers and the stream travel as ``c_void_p``.  The
+parameter types of every ``extern "C"`` entry point are in
+:data:`SIGNATURES`, which :func:`load` (and :func:`bind`, for a library
+built another way) sets on the library; ``tests/test_torch_csrc.py``
+holds them against the sources' declarations.  A
 library is built at first use into the build directory
 (``REPRO_TORCH_BUILD_DIR``, default ``build/kernels`` beside ``src/``,
 which ``.gitignore`` lists) under a name that carries a hash of its
@@ -29,6 +33,25 @@ ENV_BUILD_DIR = "REPRO_TORCH_BUILD_DIR"
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+# every extern "C" entry point of csrc/ by source: its parameters' ctypes
+# in order (each returns its cudaError_t as an int)
+SIGNATURES = {
+    "abs_histogram.cu": {
+        "abs_histogram": (_P, _I, _LL, _P, _P),
+        "fused_moments_hist": (_P, _P, _I, _I, _LL, _P, _P, _I, _P)},
+    "compact_residual.cu": {
+        "compact_stage": (_P, _P, _I, _I, _LL, _F, _I, _I, _LL, _P, _P, _P,
+                          _P),
+        "compact_resid": (_P, _P, _I, _I, _LL, _F, _I, _I, _LL, _LL, _P, _P,
+                          _P),
+        "compact_sweep": (_P, _P, _I, _I, _LL, _F, _I, _I, _LL, _LL, _P, _P,
+                          _P, _P, _P, _P, _P, _P)},
+    "tree_count.cu": {
+        "tree_count": (_P, _P, _I, _I, _LL, _P, _I, _P, _I, _P, _P)},
+}
 
 
 def build_dir() -> str:
@@ -91,13 +114,25 @@ def build_all(sources=None) -> dict:
     return reports
 
 
+def bind(lib, source: str):
+    """Set the argument and return types of ``source``'s entry points
+    (:data:`SIGNATURES`) on ``lib``, a library built from it (or from
+    another version of it with the same interface); returns ``lib``."""
+    for name, args in SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source`` (built first if missing)."""
+    """The loaded library of ``source`` (built first if missing), its
+    entry points typed."""
     with _LOCK:
         lib = _LIBS.get(source)
         if lib is None:
             build_all([source])
-            lib = ctypes.CDLL(_lib_path(source))
+            lib = bind(ctypes.CDLL(_lib_path(source)), source)
             _LIBS[source] = lib
         return lib
 

@@ -1,9 +1,9 @@
 """Fused error-feedback compression pipeline (port of
-``repro.kernels.ef_fused``): K1 ``fused_moments`` (with the hist-k
-histogram) in Triton, K2 ``tree_count`` and K3 ``compact_residual`` (the
-one sweep, and the stage and residual launches) in CUDA C++, the
-threshold glue and the segmented bucket walk in torch; and the unfused
-pipeline over the K4 kernels."""
+``repro.kernels.ef_fused``): K1 ``fused_moments`` in Triton, K1 with the
+hist-k histogram, K2 ``tree_count`` and K3 ``compact_residual`` (the one
+sweep, and the stage and residual launches) in CUDA C++, the threshold
+glue and the segmented bucket walk in torch; and the unfused pipeline
+over the K4 kernels."""
 from repro_torch.kernels.ef_fused.ops import (FUSED_COMPRESSORS,
                                               compress_at_threshold,
                                               fused_compress_ef,

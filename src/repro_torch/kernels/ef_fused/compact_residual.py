@@ -38,8 +38,6 @@ CPU tensors only.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core.codec import SENTINEL
@@ -50,25 +48,6 @@ from repro_torch.kernels.ef_fused.fused_moments import (_blocks, _check,
                                                         out_dtype)
 
 SOURCE = "compact_residual.cu"
-_SIGS = []
-
-
-def _lib():
-    lib = cuda_build.load(SOURCE)
-    if not _SIGS:
-        p, f, i, ll = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_longlong)
-        lib.compact_stage.argtypes = [p, p, i, i, ll, f, i, i, ll, p, p, p,
-                                      p]
-        lib.compact_stage.restype = i
-        lib.compact_resid.argtypes = [p, p, i, i, ll, f, i, i, ll, ll, p, p,
-                                      p]
-        lib.compact_resid.restype = i
-        lib.compact_sweep.argtypes = [p, p, i, i, ll, f, i, i, ll, ll, p, p,
-                                      p, p, p, p, p, p]
-        lib.compact_sweep.restype = i
-        _SIGS.append(True)
-    return lib
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -154,7 +133,7 @@ def compact_stage(g: torch.Tensor, e, thres: float, *, block: int,
     vals = torch.empty((nb, bcap), dtype=torch.float32, device=g.device)
     offs = torch.empty((nb, bcap), dtype=torch.int32, device=g.device)
     cnt = torch.empty((nb,), dtype=torch.int32, device=g.device)
-    lib = _lib()
+    lib = cuda_build.load(SOURCE)
     with torch.cuda.device(g.device):
         rc = lib.compact_stage(
             g.data_ptr(), None if e is None else e.data_ptr(),
@@ -187,7 +166,7 @@ def compact_resid(g: torch.Tensor, e, thres: float,
         out = torch.empty_like(g, dtype=out_dtype(g, e))
     else:
         _check_out(g, e, out)
-    lib = _lib()
+    lib = cuda_build.load(SOURCE)
     with torch.cuda.device(g.device):
         rc = lib.compact_resid(
             g.data_ptr(), None if e is None else e.data_ptr(),
@@ -293,7 +272,7 @@ def compact_sweep(g: torch.Tensor, e, thres: float, *, block: int,
     values = torch.empty((k_cap,), dtype=out.dtype, device=dev)
     indices = torch.empty((k_cap,), dtype=torch.int32, device=dev)
     scratch = torch.empty((nb + 1,), dtype=torch.int64, device=dev)
-    lib = _lib()
+    lib = cuda_build.load(SOURCE)
     with torch.cuda.device(dev):
         rc = lib.compact_sweep(
             g.data_ptr(), None if e is None else e.data_ptr(),

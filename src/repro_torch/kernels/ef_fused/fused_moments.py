@@ -5,58 +5,66 @@ of the operands, ``u`` never written.
 Replaces the TPU kernel ``repro/kernels/ef_fused/fused_moments.py:
 fused_moments`` (``pallas_call`` at line 144; ``_kernel`` /
 ``_partials_kernel``), its ``with_hist`` branch included
-(:func:`fused_moments_hist`).  The same Triton kernel, specialised by
-its ``constexpr`` switches, is also the unfused pipeline's K4a
-``moments`` (``HAS_E=False``), whose wrapper lives at the reference's
-path (``kernels/moments``).  K4d ``abs_histogram``, the histogram of a
-materialised ``u``, was this kernel too in the first port; it is now a CUDA
-C++ kernel of its own (``csrc/abs_histogram.cu``, wrapped in
-``kernels/histk/hist.py``), and K1 keeps its Triton histogram.
+(:func:`fused_moments_hist`).  Two kernels: the moments alone are a
+Triton kernel, which specialised by its ``constexpr`` switches is also
+the unfused pipeline's K4a ``moments`` (``HAS_E=False``, wrapper at the
+reference's path, ``kernels/moments``); the moments with the histogram
+are CUDA C++, one template with K4d ``abs_histogram`` in
+``csrc/abs_histogram.cu`` (its header has the design), built at first use
+by ``kernels/cuda_build.py``.
 
-What bounds it on the card: bytes.  It reads 8 bytes per element
-(``g`` and ``e`` in f32; 4 with both in bf16) and does ~5 flops on them
-(~15 integer operations more with the histogram), far below the H100's
+What bounds both on the card: bytes.  They read 8 bytes per element
+(``g`` and ``e`` in f32; 4 with both in bf16) and do ~5 flops on them
+(~10 integer operations more with the histogram), far below the H100's
 ~20 flops per byte of f32 balance, so the floor is the operands' bytes
 over the memory rate (0.64 ms for the 268,435,456-element leaf at 3.35
-TB/s in f32, 0.32 ms in bf16).  The histogram adds one 512-byte row of
-partial counts per program: 33.5 MB at that leaf with 4096-element
-blocks, 2% of the bytes read.
+TB/s in f32, 0.32 ms in bf16).
 
-Design: a Triton streaming reduction.  Each program loads one
-``stats_block`` of ``g`` and ``e`` with masked 16-byte vector loads
-(the ragged tail reads as 0, which is what the reference's zero padding
-contributes), each operand in its own dtype (f32 or bf16: 4 or 8
-elements a load), widens both to f32 and forms ``u = f32(g) + f32(e)``
-in registers, as the reference's kernel does
-(``repro/kernels/ef_fused/fused_moments.py:56-59``), and reduces it
-with ``tl.sum`` / ``tl.max`` (warp-shuffle trees).  It writes ONE
-partial row ``(s, sq, mx)``; no float atomics.  The wrapper folds the rows with torch's
-reductions, which are deterministic, so a rerun on the same inputs gives
-the same threshold.  Bit-equality with JAX is not a goal: XLA orders
-the in-block sum its own way, so ``s``/``sq`` are held within a stated
-tolerance (``tests/test_torch_kernels.py``).
+The Triton kernel (:func:`fused_moments`): a streaming reduction.  Each
+program loads one ``stats_block`` of ``g`` and ``e`` with masked 16-byte
+vector loads (the ragged tail reads as 0, which is what the reference's
+zero padding contributes), each operand in its own dtype (f32 or bf16: 4
+or 8 elements a load), widens both to f32 and forms ``u = f32(g) +
+f32(e)`` in registers, as the reference's kernel does
+(``repro/kernels/ef_fused/fused_moments.py:56-59``), and reduces it with
+``tl.sum`` / ``tl.max`` (warp-shuffle trees) with ``num_warps`` warps.
+It writes ONE partial row ``(s, sq, mx)``; no float atomics.
 
-With ``WITH_HIST`` each program bins its elements with the integer bin
-function of ``kernels/histk/hist.py`` (exponent and mantissa bits of
-``|u|`` against the f32 bin edges; no ``log2``, so the card and the CPU
-bin every element alike) and reduces them with ``tl.histogram`` into one
-int32 row of 128 counts.  The wrapper sums the rows in int64 (exact in
-any order) and takes the padding zeros, which land in bin 0, back out.
+The CUDA kernel (:func:`fused_moments_hist`): a persistent grid of at
+most one CTA per SM walks ``g`` and ``e`` in 16-byte loads, bins each
+``u`` by the integer bin function of ``kernels/histk/hist.py`` into
+per-lane shared-memory counters (the exact position of ``|u|`` among the
+f32 bin edges; no ``log2``, so the card and the CPU bin every element
+alike), adds each CTA's 128 sums into the int64 histogram with integer
+atomics, and writes one f64 ``(s, sq, mx)`` row a CTA.  There are no
+per-block rows and no padding in bin 0.  Its grid is its own: the stats
+block reaches only the plain version, and ``num_warps`` only the Triton
+kernel.  Its first design was the Triton kernel with a ``tl.histogram``
+of each block into a 512-byte row: at bf16 it ran at 32% of its bound
+(``PERF.md``).
 
-The plain versions (``*_plain``) run the same blocks with torch ops; the
-wrappers take them for CPU tensors only.
+Either way the wrapper folds the rows with torch's reductions, which are
+deterministic, so a rerun on the same inputs gives the same threshold.
+Bit-equality with JAX is not a goal: XLA orders the in-block sum its own
+way, so ``s``/``sq`` are held within a stated tolerance
+(``tests/test_torch_kernels.py``); ``mx`` and the histogram are exact.
+
+The plain versions (``*_plain``) run the reference's blocks with torch
+ops; the wrappers take them for CPU tensors only.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cuda_build
+
 tl = None      # triton.language, bound at the first launch
 _KERNEL = []   # the jitted kernel, built once at the first launch
 BINS = 128     # hist-k bins (kernels/histk/hist.py)
+SOURCE = "abs_histogram.cu"   # K1 with its histogram, beside K4d
 
 
-def _moments_kernel(g_ptr, e_ptr, part_ptr, hist_ptr, d,
-                    HAS_E: "tl.constexpr", WITH_HIST: "tl.constexpr",
+def _moments_kernel(g_ptr, e_ptr, part_ptr, d, HAS_E: "tl.constexpr",
                     BLOCK: "tl.constexpr"):
     pid = tl.program_id(0)
     offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
@@ -71,18 +79,6 @@ def _moments_kernel(g_ptr, e_ptr, part_ptr, hist_ptr, d,
     tl.store(row, s)
     tl.store(row + 1, sq)
     tl.store(row + 2, mx)
-    if WITH_HIST:
-        # histk/hist.py:bin_of — 4·(biased exponent − 111) plus the
-        # number of the f32 edge mantissas of 2^(1/4), 2^(1/2), 2^(3/4)
-        # at or below the mantissa, clamped to [0, 127]
-        bits = tl.abs(x).to(tl.int32, bitcast=True)
-        man = bits & 0x7FFFFF
-        q = ((man >= 0x1837F0).to(tl.int32) + (man >= 0x3504F3).to(tl.int32)
-             + (man >= 0x5744FD).to(tl.int32))
-        b = (bits >> 23) * 4 - 444 + q
-        b = tl.minimum(tl.maximum(b, 0), 127)
-        h = tl.histogram(b, 128)
-        tl.store(hist_ptr + pid.to(tl.int64) * 128 + tl.arange(0, 128), h)
 
 
 def _kernel():
@@ -136,13 +132,11 @@ def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, nb * block - d)).view(nb, block)
 
 
-def launch_stats(name: str, g: torch.Tensor, e, *, block: int, hist: bool,
+def launch_stats(name: str, g: torch.Tensor, e, *, block: int,
                  num_warps=None):
-    """Launch the statistics kernel on CUDA ``g`` (and ``e``) with
+    """Launch the Triton statistics kernel on CUDA ``g`` (and ``e``) with
     ``num_warps`` warps a program (``None``: 4): returns the folded
-    ``(s, sq, mx)`` and the int64 ``(BINS,)`` histogram of the ``d`` real
-    elements (or ``None``).  The wrapper that calls this counts the
-    launch."""
+    ``(s, sq, mx)``.  The wrapper that calls this counts the launch."""
     check_cuda_dtypes(name, g, e)
     if block < 16 or block & (block - 1):
         raise ValueError(f"stats block must be a power of two >= 16, got "
@@ -150,20 +144,13 @@ def launch_stats(name: str, g: torch.Tensor, e, *, block: int, hist: bool,
     d = g.shape[0]
     nb = max(1, -(-d // block))
     parts = torch.empty((nb, 3), dtype=torch.float32, device=g.device)
-    hparts = (torch.empty((nb, BINS), dtype=torch.int32, device=g.device)
-              if hist else g)
     kern = _kernel()
     with torch.cuda.device(g.device):
-        kern[(nb,)](g, g if e is None else e, parts, hparts, d,
-                    HAS_E=e is not None, WITH_HIST=hist, BLOCK=block,
+        kern[(nb,)](g, g if e is None else e, parts, d,
+                    HAS_E=e is not None, BLOCK=block,
                     num_warps=num_warps or 4)
     # deterministic folds of the per-block rows (no float atomics)
-    stats = parts[:, 0].sum(), parts[:, 1].sum(), parts[:, 2].amax()
-    h = None
-    if hist:
-        h = hparts.sum(dim=0, dtype=torch.int64)
-        h[0] -= nb * block - d        # the padding zeros landed in bin 0
-    return stats, h
+    return parts[:, 0].sum(), parts[:, 1].sum(), parts[:, 2].amax()
 
 
 def moments_plain(x: torch.Tensor, block: int):
@@ -199,8 +186,8 @@ def fused_moments(g: torch.Tensor, e=None, *, block: int, num_warps=None):
     _check(g, e)
     if g.device.type != "cuda":
         return fused_moments_plain(g, e, block=block)
-    stats, _ = launch_stats("fused_moments", g, e, block=block, hist=False,
-                            num_warps=num_warps)
+    stats = launch_stats("fused_moments", g, e, block=block,
+                         num_warps=num_warps)
     fused_moments.launches += 1
     return stats
 
@@ -215,21 +202,34 @@ def fused_moments_hist_plain(g: torch.Tensor, e=None, *, block: int):
     return (*moments_plain(u, block), abs_histogram_plain(u, block=block))
 
 
-def fused_moments_hist(g: torch.Tensor, e=None, *, block: int,
-                       num_warps=None):
+def fused_moments_hist(g: torch.Tensor, e=None, *, block: int):
     """``(sum, sumsq, absmax, hist)`` of ``u = g + e`` in one pass:
     the reference's ``fused_moments(..., with_hist=True)``.  ``hist`` is
-    the int64 ``(BINS,)`` histogram of the ``d`` real elements (padding
-    already taken out of bin 0).  CUDA tensors launch the Triton kernel
-    (``num_warps`` as in :func:`fused_moments`); CPU tensors take the
-    plain version."""
+    the int64 ``(BINS,)`` histogram of the ``d`` real elements.  CUDA
+    tensors launch the CUDA kernel (``g`` and ``e`` each f32 or bf16; its
+    grid is its own, ``block`` does not reach it); CPU tensors take the
+    plain version, blocked by ``block``."""
     _check(g, e)
     if g.device.type != "cuda":
         return fused_moments_hist_plain(g, e, block=block)
-    stats, h = launch_stats("fused_moments_hist", g, e, block=block,
-                            hist=True, num_warps=num_warps)
+    check_cuda_dtypes("fused_moments_hist", g, e)
+    dev = g.device
+    h = torch.zeros(BINS, dtype=torch.int64, device=dev)
+    # one f64 (s, sq, mx) row a CTA, at most one CTA an SM; the kernel
+    # writes every row (zeros past its grid)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = torch.empty((sms, 3), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = cuda_build.load(SOURCE).fused_moments_hist(
+            g.data_ptr(), None if e is None else e.data_ptr(),
+            dtype_code(g), dtype_code(g if e is None else e), g.shape[0],
+            h.data_ptr(), rows.data_ptr(), sms,
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "fused_moments_hist")
     fused_moments_hist.launches += 1
-    return (*stats, h)
+    # deterministic folds of the rows, rounded once to f32
+    sums = rows[:, :2].sum(dim=0).to(torch.float32)
+    return sums[0], sums[1], rows[:, 2].amax().to(torch.float32), h
 
 
 fused_moments.launches = 0

@@ -147,12 +147,11 @@ def _gaussian_threshold_fused(g, e, d: int, k, *, stats_block: int,
 
 
 def _hist_threshold_fused(g, e, d: int, k, *, stats_block: int,
-                          hist=None, num_warps=None) -> np.float32:
+                          hist=None) -> np.float32:
     # the histogram K1 returns already counts only the d real elements
     from repro_torch.kernels.histk.ops import threshold_from_histogram
     if hist is None:
-        _, _, _, hist = fused_moments_hist(g, e, block=stats_block,
-                                           num_warps=num_warps)
+        _, _, _, hist = fused_moments_hist(g, e, block=stats_block)
         passes.record("moments+hist", 1)
     return threshold_from_histogram(hist, k)
 
@@ -220,8 +219,7 @@ def fused_pass_a(g: torch.Tensor, e: Optional[torch.Tensor], name: str):
     _, _, _, stats_block, _, cfg = _resolve(g, e, name, 1, None, None,
                                             None, None)
     if name == "histk":
-        out = fused_moments_hist(g, e, block=stats_block,
-                                 num_warps=cfg.num_warps)
+        out = fused_moments_hist(g, e, block=stats_block)
         passes.record("moments+hist", 1)
         return out
     s, sq, mx = fused_moments(g, e, block=stats_block,
@@ -257,14 +255,14 @@ def fused_compress_ef(g: torch.Tensor, e: Optional[torch.Tensor], name: str,
     threshold arithmetic is f32 as in the reference; ``k_cap`` sizes
     the pair either way.  The geometry not given comes from
     :func:`_resolve` (``tuning``'s ladder); ``num_warps`` overrides
-    K1's."""
+    the Triton K1's (Gaussian-k; hist-k's K1 is a CUDA kernel with a grid
+    of its own)."""
     d, k_cap, block, stats_block, bcap, cfg = _resolve(
         g, e, name, k, k_cap, block, stats_block, bcap, None, num_warps)
     if name == "histk":
         thres = _hist_threshold_fused(
             g, e, d, k, stats_block=stats_block,
-            hist=None if stats is None else stats[3],
-            num_warps=cfg.num_warps)
+            hist=None if stats is None else stats[3])
     else:
         thres = _gaussian_threshold_fused(
             g, e, d, k, stats_block=stats_block, refine_iters=refine_iters,

@@ -31,8 +31,6 @@ by block; the wrapper takes it for CPU tensors only.
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -43,17 +41,6 @@ from repro_torch.kernels.ef_fused.fused_moments import (_blocks, _check,
 
 SOURCE = "tree_count.cu"
 MAX_THRESHOLDS = 128
-_SIGS = []
-
-
-def _lib():
-    lib = cuda_build.load(SOURCE)
-    if not _SIGS:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.tree_count.argtypes = [p, p, i, i, ll, p, i, p, i, p, p]
-        lib.tree_count.restype = i
-        _SIGS.append(True)
-    return lib
 
 
 def tree_count_plain(g: torch.Tensor, e, thresholds: torch.Tensor, *,
@@ -89,7 +76,7 @@ def launch_counts(name: str, g: torch.Tensor, e, thresholds) -> torch.Tensor:
     uniq = np.ascontiguousarray(uniq, dtype=np.float32)
     slot = np.ascontiguousarray(slot.reshape(-1), dtype=np.int32)
     out = torch.empty((n_t,), dtype=torch.int32, device=g.device)
-    lib = _lib()
+    lib = cuda_build.load(SOURCE)
     with torch.cuda.device(g.device):
         rc = lib.tree_count(
             g.data_ptr(), None if e is None else e.data_ptr(),

@@ -3,8 +3,8 @@
 
 Two backends, resolved from the DEVICE OF THE TENSOR and nothing else:
 
-* ``cuda``  — the hand-written Hopper kernels (K1/K2 in Triton, K3 in
-  CUDA C++) for tensors on the card;
+* ``cuda``  — the hand-written Hopper kernels (K1 in Triton, K1 with
+  its histogram, K2 and K3 in CUDA C++) for tensors on the card;
 * ``torch`` — the kernels' plain PyTorch versions, for tensors on the
   CPU.  They repeat each kernel's block structure, so the CPU path is
   the arithmetic the card runs.

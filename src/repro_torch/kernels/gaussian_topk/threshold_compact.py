@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.ef_fused.compact_residual import (
-    _geometry, _lib, _stream, compact_stage_plain)
+    SOURCE, _geometry, _stream, compact_stage_plain)
 from repro_torch.kernels.ef_fused.fused_moments import (_check,
                                                         check_cuda_dtypes,
                                                         dtype_code)
@@ -71,7 +71,7 @@ def threshold_compact(x: torch.Tensor, thres: float, *, block: int = 2048,
     vals = torch.empty((nb, bcap), dtype=torch.float32, device=x.device)
     offs = torch.empty((nb, bcap), dtype=torch.int32, device=x.device)
     cnt = torch.empty((nb,), dtype=torch.int32, device=x.device)
-    lib = _lib()
+    lib = cuda_build.load(SOURCE)
     with torch.cuda.device(x.device):
         rc = lib.compact_stage(
             x.data_ptr(), None, dtype_code(x), dtype_code(x), x.shape[0],

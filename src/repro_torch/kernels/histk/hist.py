@@ -19,9 +19,10 @@ to [0, 127] — the exact position of ``|x|`` among the f32 edges, the
 same on the card and on the CPU.
 
 The kernel is CUDA C++, ``repro_torch/csrc/abs_histogram.cu`` (its
-header has the design in full).  Bound: bytes, one read of ``x`` (4
-bytes per element in f32, 2 in bf16: 0.321 and 0.160 ms for the
-268,435,456-element leaf at 3.35 TB/s).  The first port of K4d was
+header has the design in full; K1 with its histogram is the same
+template with ``e`` and the moments switched on).  Bound: bytes, one
+read of ``x`` (4 bytes per element in f32, 2 in bf16: 0.321 and 0.160
+ms for the 268,435,456-element leaf at 3.35 TB/s).  The first port of K4d was
 K1's Triton statistics kernel with the histogram switched on: one ``tl.histogram`` into a 512-byte int32 row
 per block, the rows summed by torch.  It ran at 0.886 ms, 36% of the
 bound (NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py``): the per-element
@@ -44,8 +45,6 @@ them in ``threshold_from_histogram``).
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -56,7 +55,6 @@ from repro_torch.kernels.ef_fused.fused_moments import (BINS, _blocks,
                                                         dtype_code)
 
 SOURCE = "abs_histogram.cu"
-_SIGS = []
 
 _LO_EXP = -16
 _SCALE = 4            # bins per octave
@@ -94,17 +92,6 @@ def abs_histogram_plain(x: torch.Tensor, *, block: int) -> torch.Tensor:
     return h
 
 
-def _lib():
-    lib = cuda_build.load(SOURCE)
-    if not _SIGS:
-        p = ctypes.c_void_p
-        lib.abs_histogram.argtypes = [p, ctypes.c_int, ctypes.c_longlong,
-                                      p, p]
-        lib.abs_histogram.restype = ctypes.c_int
-        _SIGS.append(True)
-    return lib
-
-
 def abs_histogram(x: torch.Tensor, *, block: int = 2048) -> torch.Tensor:
     """``(BINS,)`` int64 histogram of ``|x|`` over the ``d`` elements of
     flat ``x``.  CUDA tensors launch the CUDA kernel (``x`` f32 or bf16,
@@ -116,7 +103,7 @@ def abs_histogram(x: torch.Tensor, *, block: int = 2048) -> torch.Tensor:
         return abs_histogram_plain(x, block=block)
     check_cuda_dtypes("abs_histogram", x)
     h = torch.zeros(BINS, dtype=torch.int64, device=x.device)
-    lib = _lib()
+    lib = cuda_build.load(SOURCE)
     with torch.cuda.device(x.device):
         rc = lib.abs_histogram(
             x.data_ptr(), dtype_code(x), x.shape[0], h.data_ptr(),

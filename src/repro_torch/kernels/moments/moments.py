@@ -34,8 +34,8 @@ def moments(x: torch.Tensor, *, block: int = 2048, num_warps=None):
     _check(x, None)
     if x.device.type != "cuda":
         return moments_plain(x, block)
-    stats, _ = launch_stats("moments", x, None, block=block, hist=False,
-                            num_warps=num_warps)
+    stats = launch_stats("moments", x, None, block=block,
+                         num_warps=num_warps)
     moments.launches += 1
     return stats
 

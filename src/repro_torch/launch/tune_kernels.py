@@ -148,8 +148,6 @@ def main(argv=None) -> int:
                    **{f"hist{i}": _variant("abs_histogram.cu", dfn, count)
                       for i, (_, dfn, count) in enumerate(HIST)}})
     stream = torch.cuda.current_stream().cuda_stream
-    p, f, i32, ll = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                     ctypes.c_longlong)
     vals = torch.empty((nb, bcap), dtype=torch.float32, device="cuda")
     offs = torch.empty((nb, bcap), dtype=torch.int32, device="cuda")
     cnt = torch.empty((nb,), dtype=torch.int32, device="cuda")
@@ -182,9 +180,7 @@ def main(argv=None) -> int:
     runs = {}
     for n, lib in libs.items():
         if n.startswith("stage"):
-            lib.compact_stage.argtypes = [p, p, i32, i32, ll, f, i32, i32,
-                                          ll, p, p, p, p]
-            lib.compact_stage.restype = i32
+            cuda_build.bind(lib, "compact_residual.cu")
             for with_e in (True, False):
                 stage(lib, with_e)()
                 got = (vals, offs, cnt)
@@ -194,8 +190,7 @@ def main(argv=None) -> int:
                     assert same, (n, with_e)
                 runs[(n, with_e)] = stage(lib, with_e)
         else:
-            lib.abs_histogram.argtypes = [p, i32, ll, p, p]
-            lib.abs_histogram.restype = i32
+            cuda_build.bind(lib, "abs_histogram.cu")
             histogram(lib)()
             assert torch.equal(h, want_h), n
             runs[(n, None)] = histogram(lib)

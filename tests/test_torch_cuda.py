@@ -53,7 +53,12 @@ Slice 13: the CUDA K2 and K4b bitwise their plain versions at 1 to 128
 thresholds with duplicates and ``+inf``, on views at storage offsets;
 the K3 one sweep bitwise the stage and residual launches plus
 ``assemble_staging``, in place too; the fused path launching one K1,
-one K2 and one sweep and no stage or residual launch.
+one K2 and one sweep and no stage or residual launch.  Slice 14: K1
+with its histogram (CUDA) at every operand pair, on views at storage
+offsets, on one-bin, all-zero, zero/subnormal/inf/``>= edge[127]`` and
+NaN inputs, its histogram bitwise, absmax exact and the same bits on a
+second launch; the K3 residual launch (a warp a block) bitwise its
+plain version and the sweep's ``e'``, in place too.
 """
 import math
 
@@ -435,6 +440,110 @@ def test_abs_histogram_edge_cases(dev, d, off, kind, dtype):
     for block in (16, 2048, 4096):
         assert torch.equal(h, hist.abs_histogram_plain(x, block=block))
     assert int(h.sum()) == d
+
+
+K1_DS = [1, 7, 4095, 4096, (1 << 20) + 3]
+
+
+def _k1_input(kind, n, dev):
+    """:func:`_hist_input`'s kinds, and ``nan``: ``mixed`` with a NaN at
+    every twelfth element."""
+    if kind != "nan":
+        return _hist_input(kind, n, dev)
+    x = _hist_input("mixed", n, dev)
+    x[5::12] = math.nan
+    return x
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "one magnitude", "zeros",
+                                  "mixed", "nan"])
+@pytest.mark.parametrize("pair", COUNT_PAIRS, ids=COUNT_IDS)
+@pytest.mark.parametrize("d", K1_DS)
+def test_fused_moments_hist_matches_plain(dev, d, pair, kind):
+    """K1 with its histogram (the CUDA kernel) at every operand pair, on
+    contiguous tensors and views at storage offsets 1 and 3 (the scalar
+    head), and on one bin, all zeros, zeros/subnormals/inf/``>=
+    edge[127]`` and NaN: the histogram bitwise the plain version's and
+    summing to ``d``, absmax exact, ``s`` within ``1e-5·Σ|u|`` and
+    ``sq`` within rtol 1e-5, the same bits on a second launch, one
+    launch counted a call.  Where a plain moment is not finite: ``sq``
+    (a sum of non-negative terms) the same inf or NaN, ``s`` NaN where
+    ``u`` holds a NaN and else not finite (an inf that meets f32
+    overflow of the ``-3e38`` elements gives inf or NaN by the order of
+    the sum); absmax always exact."""
+    for off in (0, 1, 3):
+        g = _k1_input(kind, d + off, dev).to(pair[0])[off:]
+        e = None if pair[1] is None else _hist_input(
+            "gaussian", d + off + 1, dev)[1 + off:].mul_(0.5).to(pair[1])
+        n0 = fm.fused_moments_hist.launches
+        got = fm.fused_moments_hist(g, e, block=4096)
+        assert fm.fused_moments_hist.launches == n0 + 1
+        want = fm.fused_moments_hist_plain(g, e, block=4096)
+        assert torch.equal(got[3], want[3]), off
+        assert int(got[3].sum()) == d
+        again = fm.fused_moments_hist(g, e, block=4096)
+        for a, b in zip(got, again):
+            assert _same_bits(a, b), (off, "rerun")
+        (s, sq, mx), (ps, psq, pmx) = ([float(x) for x in t[:3]]
+                                       for t in (got, want))
+        u = g.double() if e is None else g.double() + e.double()
+        assert mx == pmx or (math.isnan(mx) and math.isnan(pmx)), off
+        if math.isfinite(psq):
+            assert math.isclose(sq, psq, rel_tol=1e-5), off
+        else:
+            assert sq == psq or (math.isnan(sq) and math.isnan(psq)), off
+        if math.isfinite(ps):
+            assert abs(s - ps) <= 1e-5 * float(u.abs().sum()), off
+        elif bool(u.isnan().any()):
+            assert math.isnan(s) and math.isnan(ps), off
+        else:
+            assert not math.isfinite(s), (off, s, ps)
+
+
+@pytest.mark.parametrize("pair", COUNT_PAIRS[:5], ids=COUNT_IDS[:5])
+@pytest.mark.parametrize("d", COUNT_DS)
+def test_residual_launch_matches_plain_and_sweep(dev, d, pair):
+    """The K3 residual launch (a warp a selection block) bitwise its plain
+    version and the one sweep's ``e'``: at blocks 1024, 2048 and 1001, on
+    views at storage offsets 1 and 3, at a mid threshold with ``k_cap``
+    below the staged count and above it, at 0 (every block overflows
+    bcap) and just above ``max|u|``; in place over ``e`` (or ``g``
+    without ``e``) where it has ``e'``'s dtype; one launch counted a
+    call."""
+    for off in (0, 1, 3):
+        g, e = _inputs(d + off, dev, seed=10,
+                       pair=(pair[0], pair[1] or F32))
+        gv, ev = g[off:], None if pair[1] is None else e[off:]
+        a = (gv.float() if ev is None else gv.float() + ev.float()).abs()
+        top = a.max()
+        above = float(torch.nextafter(top, torch.full_like(top, math.inf)))
+        mid = float(a.kthvalue(max(1, d * 99 // 100)).values)
+        for block in (1024, 2048, 1001):
+            for t, k_cap in ((mid, max(1, d // 200)), (mid, d), (0.0, d),
+                             (above, 5)):
+                cnt = cr.compact_stage_plain(gv, ev, t, block=block,
+                                             bcap=64)[2]
+                enc = cr.exclusive_enc(cnt, 64)
+                n0 = cr.compact_resid.launches
+                got = cr.compact_resid(gv, ev, t, enc, block=block, bcap=64,
+                                       k_cap=k_cap)
+                assert cr.compact_resid.launches == n0 + 1
+                want = cr.compact_resid_plain(gv, ev, t, enc, block=block,
+                                              bcap=64, k_cap=k_cap)
+                assert _same_bits(got, want), (off, block, t, k_cap)
+                sweep = cr.compact_sweep(gv, ev, t, block=block, bcap=64,
+                                         k_cap=k_cap)
+                assert _same_bits(got, sweep[3]), (off, block, t, "sweep")
+                src = gv if ev is None else ev
+                if src.dtype != want.dtype:
+                    continue   # e' is not e's dtype: no in-place form
+                dst = src.clone()
+                ins = cr.compact_resid(dst if ev is None else gv,
+                                       None if ev is None else dst, t, enc,
+                                       block=block, bcap=64, k_cap=k_cap,
+                                       out=dst)
+                assert ins.data_ptr() == dst.data_ptr()
+                assert _same_bits(ins, want), (off, block, t, "in place")
 
 
 def test_cuda_kernels_take_float32_and_bfloat16_only(dev):
