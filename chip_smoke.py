@@ -15,7 +15,7 @@
     python3 chip_smoke.py --remat-table-only  # phases 1 and 15
     python3 chip_smoke.py --long-seq-only  # phases 1 and 16 (with four
                                           # cards visible, 16c at 1x4)
-    python3 chip_smoke.py --bf16-only     # phases 1 and 17
+    python3 chip_smoke.py --bf16-only     # phases 1, 17 and 18
 
 Phases (any failure exits non-zero; nothing is wrapped to pass):
 
@@ -258,6 +258,27 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    17c row 0 of that step-0 bucket compressed on the CPU at the card's
    geometry, bitwise the card's pair and ``e'``, and the bf16 smoke
    variant 2 steps card against CPU (losses within rtol 2.5e-4).
+18. slice 15, bf16 state end to end (``phase18_bf16_state``): 18a the
+   dry run's count at the reference's bf16 dtypes
+   (``step_cost.count_temp_bytes`` on the bf16 config, the dry run's
+   ``_bf16``) within 25% of the card's peak above the memory allocated
+   before: llama3.2-1b in bf16 at full width and depth, one worker, 8 x
+   2048 with remat, 2 steps (12 launches a step of K1, K2 and the K3
+   sweep), and a bf16 prefill of 1 x 32,768; 18b a bf16 train state
+   (params, momentum, residual) of llama3.2-1b at full width with 2
+   layers saved and loaded on the card (a temporary file, removed
+   after): the loaded state bitwise the saved one, its next step
+   bitwise the straight run's; 18c ``launch.serve.run`` in bf16 at full
+   width and depth (8 requests, prompt 64, gen 16, the bf16 KV cache;
+   the CLI's ``topk`` publisher, 1 resync and 3 deltas; tokens/s,
+   prefill, decode, publish and apply ms), bf16-stream ``topk`` and
+   ``gaussiank`` publishers through the library (``pub`` bitwise the
+   packed replica after every message; K1, K2 and the K3 sweep 12 a
+   ``gaussiank`` delta at bf16), and the bf16 smoke variant card
+   against CPU (logits within 4 bf16 ulps of the largest |logit|,
+   greedy tokens equal but near ties).  Each of its numbers is logged
+   beside the card's name and power limit, and so is the whole smoke's
+   time.
 
 Every trainer path at full width trains as ``launch.train`` does
 without ``--smoke``: each layer-pattern period rematerialised in the
@@ -5796,6 +5817,410 @@ def phase17_bf16(torch, by_path, rows) -> dict:
     return out
 
 
+# -- phase 18: bf16 state end to end (slice 15) --
+
+BF16_LONG = (8, 2048)        # 18a: the bf16 train step's batch x seq
+BF16_STATE_LAYERS = 2        # 18b: llama3.2-1b at full width, 2 layers
+# 18c: the serve CLI's default traffic (8 requests of 64 prompt tokens,
+# up to 16 generated), a topk delta every 4 decode steps, no resync after
+# the first: 1 resync + 3 deltas (the one wave decodes 14 steps)
+BF16_SERVE_ARGV = ["--arch", "llama3.2-1b", "--mesh", "1x1", "--requests",
+                   "8", "--max-batch", "8", "--prompt-len", "64", "--gen",
+                   "16", "--publish-every", "4", "--publish-ratio", "0.01",
+                   "--resync-every", "0"]
+
+
+def bf16_tol(ref) -> float:
+    """4 bf16 ulps of the largest magnitude of ``ref`` (a float32 numpy
+    array): the tolerance ``tests/test_torch_bf16_state.py`` holds bf16
+    logits to (``_bf16_tol``)."""
+    import numpy as np
+    top = float(np.abs(ref).max())
+    return 4 * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def bf16_train_state(torch, cfg, comp, device):
+    """llama's bf16 train state as the reference's dry run builds it: the
+    bf16 ``cfg``'s params drawn on ``device``, SGD momentum 0.9, a bf16
+    residual bucket; ``(state, step, layout)``, the step rematerialised."""
+    from repro_torch.dist.layout import build_layout
+    from repro_torch.models import init_params
+    from repro_torch.optim import constant, sgd_momentum
+    from repro_torch.train import init_train_state, make_train_step
+    params = init_params(cfg, 0, device)
+    layout = build_layout(params, 1, comp)
+    opt = sgd_momentum(0.9)
+    state = init_train_state(params, opt, workers=1, model_size=1,
+                             compression=comp, layout=layout,
+                             resid_dtype=torch.bfloat16)
+    step = make_train_step(cfg, "1x1", opt, constant(0.1), compression=comp,
+                           layout=layout, remat=True)
+    return state, step, layout
+
+
+def phase18a(torch, by_path, smi) -> dict:
+    """18a: the dry run's count at the reference's bf16 dtypes against the
+    card.  llama3.2-1b at full width and depth in bf16 (params,
+    activations, residual), one worker, ``BF16_LONG`` with remat, 2 steps
+    (12 launches a step of K1, K2 and the K3 sweep): each step's peak
+    above the memory allocated before it; then a bf16 prefill of 1 x
+    32,768, its peak above the params and prompt.  Each within
+    ``COUNT_TOLERANCE`` of ``step_cost.count_temp_bytes`` on the bf16
+    config (:func:`bf16_cfg`, the dry run's ``_bf16``), as 16d holds the
+    f32 count."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data import batch_for
+    from repro_torch.launch import step_cost
+    from repro_torch.models import init_params, prefill
+    cfg = bf16_cfg(get_config("llama3.2-1b"))
+    B, T = BF16_LONG
+    comp = CompressionConfig(compressor="gaussiank", ratio=RATIO)
+    mem, ms, losses = [], [], []
+
+    def run():
+        state, step, _ = bf16_train_state(torch, cfg, comp, "cuda")
+        for i in range(2):
+            b = batch_for(cfg, i, global_batch=B, seq_len=T, device="cuda")
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            mem.append((before, torch.cuda.max_memory_allocated()))
+            losses.append(float(m["loss"]))
+        assert state["resid"].dtype == torch.bfloat16
+        del state, step
+
+    label = f"18a bf16 train {B} x {T}"
+    log(f"phase 18a: llama3.2-1b in bf16 at full width and depth, {B} x "
+        f"{T} with remat, 2 steps, a bf16 residual")
+    by_path[label], _ = drive(label, run, {n: 12 for n in MAIN_KERNELS}, 2,
+                              {"threefry_bits": init_draws(cfg)})
+    assert all(math.isfinite(x) for x in losses), (label, losses)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, 0, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    toks = torch.randint(0, cfg.vocab_size, (1, LONG_PREFILL),
+                         generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    logits, cache, _ = prefill(params, cfg, toks, s_max=LONG_PREFILL)
+    ev[1].record()
+    torch.cuda.synchronize()
+    pre_peak = torch.cuda.max_memory_allocated() - before
+    assert logits.dtype == torch.bfloat16 and all(
+        c.dtype == torch.bfloat16 for c in tree.leaves(cache))
+    assert bool(torch.isfinite(logits).all()), "18a prefill logits"
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    del params, cache, logits, toks
+    torch.cuda.empty_cache()
+    rows = {
+        f"train {B} x {T}": (step_cost.count_temp_bytes(
+            cfg, B, T, remat=True)["temp_bytes"],
+            max(peak - b for b, peak in mem)),
+        f"prefill 1 x {LONG_PREFILL}": (step_cost.count_temp_bytes(
+            cfg, 1, LONG_PREFILL, kind="prefill")["temp_bytes"], pre_peak)}
+    out = {"losses": losses, "step_ms": ms, "prefill_ms": prefill_ms,
+           "step_memory": mem, "peak_gib": max(p for _, p in mem) / 2 ** 30,
+           "counts": {}}
+    for name, (counted, measured) in rows.items():
+        ratio = counted / measured
+        out["counts"][name] = {"counted": counted, "measured": measured,
+                               "ratio": ratio}
+        log(f"  18a {name} bf16: counted {counted / 2 ** 30:.3f} GiB, "
+            f"measured {measured / 2 ** 30:.3f} GiB on the card (count / "
+            f"card {ratio:.3f}) [{smi}]")
+        assert abs(ratio - 1) <= COUNT_TOLERANCE, ("18a", name, ratio)
+    log(f"  18a: train losses {losses}, step ms "
+        f"{[round(x, 1) for x in ms]}, peak {out['peak_gib']:.2f} GiB; "
+        f"prefill 1 x {LONG_PREFILL} {prefill_ms:.1f} ms [{smi}]")
+    return out
+
+
+def phase18b(torch, by_path, smi) -> dict:
+    """18b: a bf16 train state through a checkpoint on the card.
+    llama3.2-1b at full width with ``BF16_STATE_LAYERS`` layers, bf16
+    params, momentum and residual, Gaussian-k at 0.001, 8 x 128: one
+    step, ``save_state`` into a temporary directory (removed after),
+    then a second step of the straight run; a fresh state loads the file
+    (every leaf bitwise the saved state's) and takes that second step:
+    its loss, params, momentum and residual bitwise the straight run's.
+    12 launches a step of K1, K2 and the K3 sweep at bf16 (3 steps)."""
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import load_state, save_state
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.data import batch_for
+    cfg = bf16_cfg(llama_layers(BF16_STATE_LAYERS))
+    comp = CompressionConfig(compressor="gaussiank", ratio=RATIO)
+    batches = [batch_for(cfg, i, global_batch=8, seq_len=128,
+                         device="cuda") for i in range(2)]
+    out = {}
+
+    def host(state):
+        return [(tree.path_name(p), x.to("cpu", copy=True)
+                 if torch.is_tensor(x) else x)
+                for p, x in tree.flatten_with_path(state)[0]]
+
+    def run():
+        state, step, _ = bf16_train_state(torch, cfg, comp, "cuda")
+        state, _ = step(state, batches[0])
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "bf16.npz")
+            t0 = time.perf_counter()
+            save_state(path, state)
+            out["save_s"] = time.perf_counter() - t0
+            out["file_gib"] = os.path.getsize(path) / 2 ** 30
+            saved = host(state)
+            state, m = step(state, batches[1])
+            straight = float(m["loss"])
+            torch.cuda.synchronize()
+            want = host(state)
+            del state, step
+            torch.cuda.empty_cache()
+            fresh, step, _ = bf16_train_state(torch, cfg, comp, "cuda")
+            t0 = time.perf_counter()
+            fresh = load_state(path, fresh)
+            out["load_s"] = time.perf_counter() - t0
+        for (name, a), (_, b) in zip(saved, host(fresh)):
+            assert (same_bits(a, b) if torch.is_tensor(a) else a == b), (
+                "18b loaded", name)
+        fresh, m = step(fresh, batches[1])
+        assert float(m["loss"]) == straight, ("18b loss", m["loss"],
+                                              straight)
+        for (name, a), (_, b) in zip(want, host(fresh)):
+            if torch.is_tensor(a):
+                assert a.dtype == torch.bfloat16 or name == "step", name
+                assert same_bits(a, b), ("18b resumed step", name)
+            else:
+                assert a == b, ("18b resumed step", name)
+        out["loss"] = straight
+
+    label = f"18b bf16 checkpoint {BF16_STATE_LAYERS} layers"
+    log(f"phase 18b: a bf16 train state of llama3.2-1b at full width with "
+        f"{BF16_STATE_LAYERS} layers saved, loaded and stepped on the card")
+    t0 = time.time()
+    by_path[label], _ = drive(label, run, {n: 12 for n in MAIN_KERNELS}, 3,
+                              {"threefry_bits": 2 * init_draws(cfg)})
+    out["seconds"] = time.time() - t0
+    log(f"  18b: {out['file_gib']:.2f} GiB file (save {out['save_s']:.1f} "
+        f"s, load {out['load_s']:.1f} s); the loaded state bitwise the "
+        f"saved one, the resumed step (loss {out['loss']!r}) bitwise the "
+        f"straight run's; launches {by_path[label]} [{smi}]")
+    return out
+
+
+def bf16_stream_checker(torch, counts):
+    """A probe for 18c's CLI run (a bf16 replica, the CLI's f32 stream):
+    at a resync the replica equals the trainer bitwise; at every publish
+    the message is the layout's size and the largest difference between
+    the replica and ``pub`` (bf16 leaves against an f32 view, which do not
+    round alike) is recorded."""
+    from repro_torch import tree
+    from repro_torch.dist.layout import pack_grads
+    from repro_torch.serve import RESYNC, message_bits
+
+    def probe(event, msg, layout, state, trainer, replica):
+        assert all(x.dtype == torch.bfloat16 for x in tree.leaves(replica))
+        assert state["pub"].dtype == torch.float32
+        if msg.kind == RESYNC:
+            for a, b in zip(tree.leaves(replica), tree.leaves(trainer)):
+                assert same_bits(a, b), ("18c resync", msg.seq)
+            assert message_bits(msg) == layout.d_row_total * 32
+        else:
+            assert message_bits(msg) == layout.pair_bits()
+        gap = pack_grads(layout, replica, torch.float32).sub_(
+            state["pub"]).abs_().max().item()
+        counts.setdefault("gaps", []).append(gap)
+        counts.setdefault("kinds", []).append(msg.kind)
+
+    return probe
+
+
+def bf16_publisher(torch, trainer, compressor, ticks):
+    """``ticks`` publishes of a bf16-stream publisher (``compressor`` at
+    0.01) from the bf16 ``trainer`` (drifted a tick) into a bf16
+    replica: after each, ``pub`` bitwise the packed replica (leaf and
+    stream dtypes match).  Returns the kinds, the launches a tick and the
+    publish and apply ms (CUDA events)."""
+    from repro_torch import prng, tree
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.dist.layout import build_layout, pack_grads
+    from repro_torch.launch import serve
+    from repro_torch.serve import apply_message, init_publisher_state, \
+        publish
+    config = CompressionConfig(compressor=compressor, ratio=0.01)
+    layout = build_layout(trainer, 1, config)
+    state = init_publisher_state(layout, dtype=torch.bfloat16)
+    replica = tree.tree_map(torch.zeros_like, trainer)
+    kinds, per, ms = [], [], []
+    for t in range(ticks):
+        trainer = serve.drift(trainer, 4 * t)
+        before = {n: f.launches for n, f in counters().items()}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        state, msg = publish(state, trainer, layout, config,
+                             prng.PRNGKey(5), resync_every=0)
+        ev[1].record()
+        replica = apply_message(replica, layout, msg)
+        ev[2].record()
+        torch.cuda.synchronize()
+        per.append({n: f.launches - before[n]
+                    for n, f in counters().items()})
+        assert state["pub"].dtype == torch.bfloat16
+        assert same_bits(state["pub"], pack_grads(layout, replica,
+                                                  torch.bfloat16)), (
+            "18c pub == pack(replica)", compressor, t)
+        kinds.append(msg.kind)
+        ms.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    return kinds, per, ms
+
+
+def phase18c(torch, by_path, smi) -> dict:
+    """18c: bf16 serving.  ``launch.serve.run`` on llama3.2-1b at full
+    width and depth in bf16 (params, activations and the KV cache) with
+    ``BF16_SERVE_ARGV``: 1 resync and 3 deltas of the CLI's ``topk``
+    publisher (f32 stream), the replica equal to the trainer at the
+    resync; tokens/s, prefill, decode, publish and apply ms.  Then
+    through the library at full width, bf16 streams: ``topk`` (1 resync
+    + 3 deltas) and ``gaussiank`` (1 resync + 2 deltas, each delta 12
+    launches of K1, K2 and the K3 sweep at bf16), ``pub`` bitwise the
+    packed replica after every message.  Then the bf16 smoke variant
+    card against CPU from the same params: prefill of 2 x 8 and 8 greedy
+    decode steps, both fed the CPU's tokens: logits within
+    :func:`bf16_tol` of the step's largest CPU |logit|, the card's greedy
+    token the CPU's (or a near tie: the CPU's top two within that
+    tolerance, counted)."""
+    import numpy as np
+
+    from repro_torch import prng, tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = bf16_cfg(get_config("llama3.2-1b"))
+    out = {}
+    counts = {}
+    log("phase 18c: launch.serve.run on llama3.2-1b in bf16 at full width "
+        "and depth, 8 requests, prompt 64, gen 16, a topk delta every 4 "
+        "decode steps")
+    torch.cuda.reset_peak_memory_stats()
+    launches, got = zeroed(lambda: serve.run(
+        BF16_SERVE_ARGV, probe=bf16_stream_checker(torch, counts), cfg=cfg))
+    want = {n: 0 for n in launches}
+    want["threefry_bits"] = init_draws(cfg) + 2 * got["waves"]
+    assert launches == want, ("18c launches", launches, want)
+    by_path["18c serve bf16, topk stream"] = launches
+    assert counts["kinds"] == [0, 1, 1, 1], counts["kinds"]
+    assert got["done"] == 8 and (got["resyncs"], got["deltas"]) == (1, 3)
+    assert all(t.shape[0] == 8 for t in got["tokens"])
+    times = got["times"]
+    out["serve"] = {
+        "tok_s": got["tok_s"], "prefill_ms": times["prefill"],
+        "decode_ms_median": med(times["decode"]),
+        "publish_delta_ms": times.get("publish_delta", []),
+        "apply_delta_ms": times.get("apply_delta", []),
+        "publish_resync_ms": times.get("publish_resync", []),
+        "apply_resync_ms": times.get("apply_resync", []),
+        "replica_vs_pub": counts["gaps"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    s = out["serve"]
+    log(f"  18c serve bf16: {s['tok_s']:.1f} tokens/s, prefill ms "
+        f"{[round(x, 2) for x in s['prefill_ms']]}, decode step median "
+        f"{s['decode_ms_median']:.3f} ms, publish ms delta "
+        f"{[round(x, 1) for x in s['publish_delta_ms']]} resync "
+        f"{[round(x, 1) for x in s['publish_resync_ms']]}, apply ms delta "
+        f"{[round(x, 2) for x in s['apply_delta_ms']]} resync "
+        f"{[round(x, 2) for x in s['apply_resync_ms']]}; peak "
+        f"{s['peak_gib']:.2f} GiB; replica == trainer at the resync; "
+        f"|replica - pub| {[float(f'{g:.3g}') for g in counts['gaps']]} "
+        f"(bf16 leaves, f32 stream) [{smi}]")
+    del got
+    torch.cuda.empty_cache()
+
+    trainer = init_params(cfg, 0, "cuda")
+    for compressor, ticks in (("topk", 4), ("gaussiank", 3)):
+        label = f"18c {compressor} publisher bf16 stream"
+        launches, (kinds, per, ms) = zeroed(
+            lambda: bf16_publisher(torch, trainer, compressor, ticks))
+        by_path[label] = launches
+        assert kinds == [0] + [1] * (ticks - 1), (label, kinds)
+        want = {n: (12 if compressor == "gaussiank" and n in MAIN_KERNELS
+                    else 0) for n in per[0]}
+        assert per[0] == {n: 0 for n in per[0]}, (label, per[0])
+        for p in per[1:]:
+            assert p == want, (label, p, want)
+        out[compressor] = {"publish_ms": [m[0] for m in ms],
+                           "apply_ms": [m[1] for m in ms]}
+        log(f"  {label}: pub bitwise the packed bf16 replica after each "
+            f"of {ticks} messages; launches a tick {per[1]}; publish ms "
+            f"{[round(m[0], 1) for m in ms]}, apply ms "
+            f"{[round(m[1], 2) for m in ms]} [{smi}]")
+    del trainer
+    torch.cuda.empty_cache()
+
+    small = bf16_cfg(get_config("llama3.2-1b").reduced())
+    base = init_params(small, 0, "cpu")
+    prompt = prng.randint(prng.PRNGKey(4), (2, 8), 0, small.vocab_size,
+                          device="cpu")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = tree.tree_map(lambda v: v.to(dev), base)
+        logits, cache, _ = prefill(p, small, prompt.to(dev), s_max=16)
+        steps = [logits[:, -1].float().cpu().numpy()]
+        for pos in range(8, 16):
+            # both fed the CPU's greedy tokens (the CPU runs first)
+            tok = (steps[-1].argmax(-1) if dev == "cpu"
+                   else res["cpu"][pos - 8].argmax(-1))
+            logits, cache = decode_step(
+                p, small, cache, pos,
+                torch.from_numpy(tok[:, None]).long().to(dev))
+            steps.append(logits[:, -1].float().cpu().numpy())
+        res[dev] = steps
+    worst, ties = 0.0, []
+    for i, (a, b) in enumerate(zip(res["cpu"], res["cuda"])):
+        tol = bf16_tol(a)
+        err = float(np.abs(a - b).max())
+        assert err <= tol, ("18c card vs CPU logits", i, err, tol)
+        worst = max(worst, err / tol)
+        for row in range(a.shape[0]):
+            if a[row].argmax() != b[row].argmax():
+                top = np.sort(a[row])[-2:]
+                assert top[1] - top[0] <= tol, ("18c token", i, row)
+                ties.append((i, row))
+    out["reduced"] = {"largest_err_over_tol": worst, "near_ties": ties}
+    log(f"  18c bf16 smoke variant card vs CPU: prefill + 8 decode steps' "
+        f"logits within 4 bf16 ulps of the largest |logit| (largest "
+        f"error {worst:.2f} of it), greedy tokens equal but {len(ties)} "
+        f"near ties")
+    return out
+
+
+def phase18_bf16_state(torch, by_path, smi) -> dict:
+    """Phase 18, slice 15, bf16 state end to end: 18a the dry run's bf16
+    count against the card, 18b a bf16 checkpoint, 18c bf16 serving."""
+    t0 = time.time()
+    out = {"18a": phase18a(torch, by_path, smi)}
+    t1 = time.time()
+    out["18b"] = phase18b(torch, by_path, smi)
+    t2 = time.time()
+    out["18c"] = phase18c(torch, by_path, smi)
+    out["phase18_s"] = time.time() - t0
+    out["sub_s"] = {"18a": t1 - t0, "18b": t2 - t1, "18c": time.time() - t2}
+    log(f"phase 18 took {out['phase18_s']:.1f} s (18a {t1 - t0:.1f}, 18b "
+        f"{t2 - t1:.1f}, 18c {time.time() - t2:.1f})")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5892,10 +6317,12 @@ def main(argv) -> int:
     if "--bf16-only" in argv:
         by_path = {}
         log(json.dumps({"phase17": phase17_bf16(torch, by_path, rows),
+                        "phase18": phase18_bf16_state(torch, by_path, smi),
                         "launches_by_path": by_path}, default=str))
         log(json.dumps({"kernels": [dict(name=r["name"], **r.get(
             "bf16", {})) for r in rows.values()]}, default=str))
-        log("bf16-only run: phases 2-16 skipped")
+        log(f"bf16-only run: phases 2-16 skipped; "
+            f"{time.time() - t_start:.1f} s in all [{smi}]")
         return 0
     if "--tensor-parallel-only" in argv:
         by_path = {}
@@ -6178,6 +6605,9 @@ def main(argv) -> int:
     # -- phase 17: bf16 operands --
     phase17 = phase17_bf16(torch, by_path, rows)
 
+    # -- phase 18: bf16 state end to end --
+    phase18 = phase18_bf16_state(torch, by_path, smi)
+
     for n, row in rows.items():
         row["launches_by_path"] = {p: c[n] for p, c in by_path.items()
                                    if c[n]}
@@ -6194,9 +6624,10 @@ def main(argv) -> int:
                     "phase11": phase11, "phase12": phase12,
                     "phase13": phase13, "phase14": phase14,
                     "phase15": phase15, "phase16": phase16,
-                    "phase17": phase17,
+                    "phase17": phase17, "phase18": phase18,
                     "build_s": build_s,
                     "total_s": time.time() - t_start}, default=str))
+    log(f"the whole smoke took {time.time() - t_start:.1f} s [{smi}]")
     log(json.dumps({"kernels": list(rows.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

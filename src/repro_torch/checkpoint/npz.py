@@ -9,7 +9,12 @@ publisher's ``publish/pub``, ``publish/resid``, ``publish/seq``).
 Tensors and the adaptive controller's numpy arrays are stored as numpy
 arrays and Python integers (the step counter, AdamW's ``t``, the
 publisher's ``seq``) as int32 scalars, so a state saved by the JAX
-package loads into the port with numpy alone, and the other way round.  The flat residuals are the ``(workers, model_size *
+package loads into the port with numpy alone, and the other way round.
+A bf16 tensor is stored as the reference stores one: numpy has no bf16,
+so the entry is its 16-bit patterns as ``|V2`` with no dtype named; it
+loads bit for bit into a bf16 leaf only (any other leaf raises), and an
+f32 entry into a bf16 leaf is rounded to nearest even, as the
+reference's ``astype``.  The flat residuals are the ``(workers, model_size *
 d_row_total)`` buckets (``resid``, ``resid2``); the per-leaf pipeline's
 are ``(workers, d_pad)`` leaves (``resid/<leaf path>``).  With
 ``layout=``, a per-leaf checkpoint loads into a state with flat buckets
@@ -39,6 +44,8 @@ _GLOBALK_KEYS = ("adaptk/gnorm", "adaptk/gnorm0")
 _PUBLISH_PREFIX = "publish" + _SEP
 # the residuals: a flat bucket each, or a tree of per-leaf entries below
 _RESID_KEYS = ("resid", "resid2")
+# how numpy stores a bf16 leaf, which it has no dtype for: raw 16 bits
+_BF16_ENTRY = np.dtype("V2")
 
 
 def _key(path) -> str:
@@ -47,7 +54,12 @@ def _key(path) -> str:
 
 def _to_numpy(leaf):
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            # the reference's np.asarray of a bf16 leaf: its 16-bit
+            # patterns, saved with no dtype named (|V2)
+            return leaf.view(torch.int16).numpy().view(_BF16_ENTRY)
+        return leaf.numpy()
     if isinstance(leaf, (bool, int)):
         return np.asarray(leaf, np.int32)
     return np.asarray(leaf)
@@ -123,12 +135,22 @@ def load_state(path: str, like: Any, *,
             arr = arr[list(worker_rows)]
         if shard is not None and not filled:
             arr = shard(key, arr)
+        bf16 = arr.dtype == _BF16_ENTRY
+        if bf16 and not (isinstance(leaf, torch.Tensor)
+                         and leaf.dtype == torch.bfloat16):
+            raise ValueError(
+                f"{key}: the checkpoint holds bf16 bits (|V2), the state "
+                f"a {getattr(leaf, 'dtype', type(leaf).__name__)} leaf; "
+                "a |V2 entry loads only into a bf16 tensor")
         if isinstance(leaf, torch.Tensor):
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                                  f"state shape {tuple(leaf.shape)}")
+            arr = np.ascontiguousarray(arr)
+            src = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                   if bf16 else torch.from_numpy(arr))
             with torch.no_grad():
-                leaf.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+                leaf.copy_(src)
             out.append(leaf)
         elif isinstance(leaf, np.ndarray):
             if arr.shape != leaf.shape:

@@ -31,12 +31,16 @@ here, so a record is assembled from the port's own pieces:
 * the roofline (``launch.roofline``) under ``--hardware`` (default the
   H100's) or the ``--topology`` descriptor's.
 
-Params, activations and the residual take the config's dtypes: f32
-here, where the reference's dry run casts to bf16 (its ``_bf16`` and
-``resid_dtype=jnp.bfloat16``).  The port trains in either: bf16 params
-and activations through the config, a bf16 residual through
-``init_train_state(resid_dtype=)``; counting at the reference's bf16
-dtypes is still to port (ROADMAP).  The layout's
+Every cell counts at the reference's dtypes (its ``DTYPE``): the
+config goes through :func:`_bf16` (bf16 params and activations), so
+the params and the momentum (``sgd_momentum``'s ``zeros_like``) are
+bf16, the residual row is :data:`RESID_DTYPE`'s 2 bytes an element
+(the reference's ``resid_dtype=jnp.bfloat16``), an embeds frontend's
+batch or prompt and the decode cache are bf16, and ``temp_bytes`` and
+the FLOPs are counted on the bf16 config.  The wire stays the layout's
+closed form (``pair_bits``: f32 values unless ``--codec-dtype``), as
+the reference's ``pair_bits``.  An f32 count is
+``launch.step_cost.step_cost`` called on an f32 config.  The layout's
 totals are computed leaf by leaf as ``build_layout`` computes them,
 without its int32 limit on the bucket's width, which a row of a model
 above 2**31 parameters at a small model axis exceeds.  A record has
@@ -56,10 +60,24 @@ import json
 import os
 import traceback
 
+import torch
+
 from repro_torch.launch import topo as topo_mod
 
 # --hardware: the card's spec, or the reference's default (parity)
 HARDWARE = {"h100-sxm": topo_mod.H100_SXM, "tpu-v5e": topo_mod.DEFAULT_HW}
+
+# the reference dry run's dtype: params, activations, the residual, an
+# embeds batch and the decode cache
+DTYPE = "bfloat16"
+RESID_DTYPE = torch.bfloat16
+
+
+def _bf16(cfg):
+    """``cfg`` with bf16 params and activations (the reference's
+    ``_bf16``)."""
+    return dataclasses.replace(cfg, param_dtype=DTYPE,
+                               activation_dtype=DTYPE)
 
 
 def _layout_totals(params, model_size: int, ratio: float, spec) -> tuple:
@@ -123,7 +141,7 @@ def run_one(arch: str, shape_name: str, mesh="4x2",
     strategy = resolve_strategy(strategy, hierarchical)
     topo = topology_of() if topo is None else topo
     mesh = parse_mesh(mesh)
-    cfg = get_config(arch).reduced() if smoke else get_config(arch)
+    cfg = _bf16(get_config(arch).reduced() if smoke else get_config(arch))
     if shard_activations:
         cfg = dataclasses.replace(cfg, shard_activations=True)
     shape = INPUT_SHAPES[shape_name]
@@ -156,9 +174,11 @@ def run_one(arch: str, shape_name: str, mesh="4x2",
                                           get_compressor(compressor))
             pbytes = _sharded_bytes(params, shd.param_specs(
                 params, "model", M), M)
-            # one f32 residual row a card
+            psize = getattr(torch, DTYPE).itemsize
+            rsize = RESID_DTYPE.itemsize
+            # the momentum is zeros_like(params); one residual row a card
             memory.update(param_bytes=pbytes, momentum_bytes=pbytes,
-                          resid_bytes=float(d_row * 4))
+                          resid_bytes=float(d_row * rsize))
             # a card sends its row's share of each pair: k_cap values in
             # the codec dtype and int32 indices, strategy_wire_pairs
             # times a step
@@ -168,14 +188,17 @@ def run_one(arch: str, shape_name: str, mesh="4x2",
                          * pair / M / 8)
             msgs = float(collective_count(strategy, W, n_pods)
                          * MSGS_PER_PAIR)
-            bytes_chip = step_cost.state_bytes(pbytes / 4, d_row)["total"]
+            bytes_chip = step_cost.state_bytes(
+                pbytes / psize, d_row, param_bytes=psize,
+                bucket_bytes=rsize)["total"]
         else:
             pbytes = _sharded_bytes(params, serve_param_specs(
                 params, mesh, serve_mode), M, W)
             memory.update(param_bytes=pbytes)
             bytes_chip = pbytes
             if shape.kind == "decode":
-                cache = init_cache(cfg, B, S, device="meta")
+                cache = init_cache(cfg, B, S, getattr(torch, DTYPE),
+                                   device="meta")
                 cbytes = _sharded_bytes(cache, shd.cache_specs(
                     cache, axes, W, "model", M), M, W)
                 memory.update(cache_bytes=cbytes)

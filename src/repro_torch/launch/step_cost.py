@@ -496,12 +496,15 @@ def count_temp_bytes(cfg, batch: int, seq: int, *, kind: str = "train",
 
 
 def state_bytes(n_params: int, bucket_elems: int = 0, *, workers: int = 1,
-                param_bytes: int = 4) -> Dict[str, float]:
+                param_bytes: int = 4, bucket_bytes: int = 4
+                ) -> Dict[str, float]:
     """Bytes a training step moves on one card for its state, declared:
-    the forward reads the params; the backward writes the gradient, which
-    the pack reads into a bucket of ``bucket_elems`` f32 elements a
-    worker (one write); the compression moves
-    :data:`COMPRESS_BYTES_PER_ELEM` an element of the bucket; the update
+    the forward reads the params (``param_bytes`` an element, as are the
+    gradient, the momentum and the mean); the backward writes the
+    gradient, which the pack reads into a bucket of ``bucket_elems``
+    elements of ``bucket_bytes`` (the residual's dtype) a worker (one
+    write); the compression moves :data:`COMPRESS_BYTES_PER_ELEM` an f32
+    element of the bucket, in proportion at another size; the update
     reads the mean and the params, writes the params, and reads and
     writes the momentum.  ``workers`` workers share the card
     (``LocalWire``).  Activations are not counted."""
@@ -510,9 +513,9 @@ def state_bytes(n_params: int, bucket_elems: int = 0, *, workers: int = 1,
            "grads": 2 * P * workers,           # backward writes, pack reads
            "momentum": 2 * P,
            "update_mean": P,
-           "bucket": float(bucket_elems) * 4 * workers,
+           "bucket": float(bucket_elems) * bucket_bytes * workers,
            "compress": (float(bucket_elems) * COMPRESS_BYTES_PER_ELEM
-                        * workers)}
+                        * bucket_bytes / 4 * workers)}
     out["total"] = sum(out.values())
     return out
 
@@ -524,18 +527,20 @@ def step_cost(cfg, *, batch: int, seq: int, layout=None, workers: int = 1,
     card running ``workers`` workers, each on ``batch // workers`` of the
     global ``batch``: FLOPs (:func:`count_flops` of one worker, times the
     workers; ``remat`` as the step is trained), bytes
-    (:func:`state_bytes`) and, when given, the counted wire
+    (:func:`state_bytes`, the params at their element size and an f32
+    bucket) and, when given, the counted wire
     (``wire_counts`` from :func:`count_wire_collectives`)."""
     from repro_torch import tree
     from repro_torch.models import init_params
 
     if params is None:
         params = init_params(cfg, 0, "meta")
-    n = sum(int(x.numel()) for x in tree.leaves(params))
+    leaves = tree.leaves(params)
+    n = sum(int(x.numel()) for x in leaves)
     per = count_flops(cfg, batch // workers, seq, params=params,
                       remat=remat)
     sb = state_bytes(n, layout.flat_size if layout is not None else 0,
-                     workers=workers)
+                     workers=workers, param_bytes=leaves[0].element_size())
     wc = wire_counts or {"messages": 0.0, "bytes": 0.0}
     return {"flops": per["flops"] * workers,
             "flops_per_worker": per["flops"],

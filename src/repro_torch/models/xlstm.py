@@ -157,7 +157,10 @@ def slstm_forward(p, x, cfg: ModelConfig, state=None, axis=None):
     s = state
     hs = []
     for pi, pf, pz, po in zip(*pre):
-        rec = {g: torch.einsum("bhk,hkj->bhj", s["h"], p[f"r{g}"])
+        # the f32 state times the recurrent weights promoted to it, as
+        # the reference's einsum promotes a bf16 operand
+        rec = {g: torch.einsum("bhk,hkj->bhj", s["h"],
+                               p[f"r{g}"].to(s["h"].dtype))
                .to(torch.float32) for g in _GATES}
         it = pi + rec["i"]
         ft = pf + rec["f"]

@@ -27,9 +27,9 @@ reference (``repro.models``) and against itself.
   ``pairs x k_cap x 6`` bytes; every OK record's
   ``memory.temp_bytes`` is in ``total_per_device``; a chunked
   prefill's ``temp_bytes`` is below the one-block count, and
-  ``--shard-activations`` lowers a tensor-parallel train cell's by the
-  carries it no longer keeps whole, less the one whole input the
-  recompute of the period at the peak gathers; the dispatch-mode
+  ``--shard-activations`` lowers a tensor-parallel train cell's (at
+  the dry run's bf16) by the carries it no longer keeps whole; the
+  dispatch-mode
   counter behind it counts each new storage once, views and in-place
   results not again, the caller's storages not at all.
 """
@@ -233,12 +233,15 @@ def test_dryrun_shard_activations_lowers_the_train_temp():
                               shard_activations=s) for s in (False, True))
     cfg = get_config("llama3.2-1b").reduced()
     reps, M = cfg.num_layers, 4
-    h = 256 * 4096 * cfg.d_model * 4        # one (B/D, T, D) f32 carry
-    # the peak falls in the last period's backward: each of the reps
-    # periods keeps a quarter of its input, and the recompute holds its
-    # gathered whole input beside them
+    h = 256 * 4096 * cfg.d_model * 2        # one (B/D, T, D) bf16 carry
+    # the dry run counts at bf16; the peak falls in the last period's
+    # backward, where each of the reps periods keeps a quarter of its
+    # input.  The recompute's RMSNorm keeps its own f32 copy of the
+    # period's input in both runs, so the gathered bf16 input is dead by
+    # then (at f32 the norm's input IS the gathered tensor, and the
+    # difference was h * (reps * (M - 1) - M) // M)
     assert off["memory"]["temp_bytes"] - on["memory"]["temp_bytes"] == \
-        h * (reps * (M - 1) - M) // M
+        h * reps * (M - 1) // M
 
 
 def test_live_bytes_counts_each_new_storage_once():
