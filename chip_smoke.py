@@ -24,8 +24,11 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    C++, Triton's JIT for the rest) and the build time;
 2. every kernel against its plain PyTorch version on the card, at d in
    {2048, 1,000,003, 268,435,456} (the last is the largest llama3.2-1b
-   leaf, ``stack/0/ffn/w_gate``; the largest leaf the kernels meet,
-   jamba-1.5-large's 536,870,912-element ``embed``, is phase 11a's):
+   leaf, ``stack/0/ffn/w_gate``; jamba-1.5-large's 536,870,912-element
+   ``embed`` is phase 11a's, and the largest one-card leaf, gemma3-4b's
+   671,088,640-element ``embed`` and ``lm_head``, phase 11b's; command-r-
+   35b's 2,097,152,000-element ``embed`` runs as rows of 524,288,000 at
+   M = 4 on four cards):
    K1 ``fused_moments`` with and without
    its histogram, K2 ``tree_count``, the K3 stage and residual launches,
    and the unfused pipeline's K4a ``moments``, K4b ``count_gt``, K4c
@@ -146,34 +149,46 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    sliding-window ring card against CPU (logits within rtol 1e-4, tokens
    equal, both publishers bitwise); 10e the ``serve_staleness`` driver's
    deterministic rows against ``benchmarks/baselines/serve.json``;
-11. slice 8, the MoE, Mamba-hybrid and xLSTM blocks and the ``embeds``
-   frontend (``phase11_archs``): 11a K1 (with and without its
-   histogram), K2, the K3 sweep and both K3 launches at
-   d = 536,870,912 (jamba-1.5-large's ``embed``, the largest leaf the
-   kernels meet) bitwise their plain versions (moments within
-   tolerance), timed; 11b ``launch.train.run`` at full width,
-   Gaussian-k fused, batch 8 x 128, on deepseek-moe-16b (2 layers),
-   jamba-1.5-large (1 layer: Mamba + MLP), musicgen-medium and
-   xlstm-125m, one K1, K2 and K3 sweep a leaf a step; 11c
-   ``launch.serve.run`` on the same four (8 sequences, prompt 64, 8 new
-   tokens); 11d the smoke variants card against CPU (losses, prefill
-   and decode logits, greedy tokens) and jamba-smoke at chunks 3 and per
-   leaf bitwise its bucketed run;
+11. slices 8 and 16, the MoE, Mamba-hybrid, xLSTM, sliding-window and
+   parallel blocks and the ``embeds`` frontend (``phase11_archs``): 11a
+   K1 (with and without its histogram), K2, the K3 sweep and both K3
+   launches at d = 536,870,912 (jamba-1.5-large's ``embed``) bitwise
+   their plain versions (moments within tolerance), timed; 11b
+   ``launch.train.run`` at full width, Gaussian-k fused, on
+   deepseek-moe-16b (2 layers), jamba-1.5-large (1 layer: Mamba + MLP),
+   musicgen-medium, xlstm-125m and stablelm-1.6b whole, phi3.5-moe (1
+   layer, its config's ``absmax`` adaptive density) and llava-next-34b
+   (2 layers, the ``embeds`` batch's three draws a step), 8 x 128, and
+   gemma3-4b (6 layers: its 5:1 window pattern) at 2 x 2048 (the
+   1024-token window masking keys, the query-chunked attention): one
+   K1, K2 and K3 sweep a leaf a step, every step-0 bucket conserving
+   bitwise, and gemma3-4b's 671,088,640-element ``embed`` row (the
+   largest one-card leaf) through K1, K2 and the K3 launches bitwise
+   their plain versions on the card; 11c ``launch.serve.run`` on the
+   same eight, each at the deepest depth whose params fit the card
+   twice (8 sequences, prompt 64, 8 new tokens), and one gemma3-4b
+   request past its window (the ring cache wrapping; every step's logits
+   against the whole sequence's forward); 11d the smoke variants card
+   against CPU (losses, prefill and decode logits, greedy tokens; nine
+   archs, gemma3-4b's window cut to 4) and jamba-smoke at chunks 3 and
+   per leaf bitwise its bucketed run; 11e the dry run's count of each
+   11b step (``step_cost.count_temp_bytes`` with the gradients' pack)
+   within 25% of the card's;
 12. slice 2c, the model axis (``phase12_model_axis``): 12a
    ``train.run`` at ``--mesh 4x2 --host-devices 8``, the reference's
    default mesh, at full llama3.2-1b width and depth (96 launches a
    step of each Gaussian-k kernel, every worker's two-row bucket
    conserving bitwise; step ms, peak memory); 12b the tensor-parallel
    step at ``--mesh 1x2`` in two processes (NCCL with a card each, else
-   gloo on the one card) at full width with 4 layers (16 until PR 28),
-   each rank holding its shards: 12 launches a
+   gloo on the one card) at full width with 2 layers (cut from 16 for
+   the smoke's time), each rank holding its shards: 12 launches a
    step a rank of each kernel, the losses the one-process ``--mesh
    1x2`` run's within rtol 1e-6, step ms, relayout ms and each rank's
    peak memory; on one shared random gradient, the relayout both ways
    and each row's compression bitwise the one-process bucket's row; 12c
    the tensor-parallel step of the MoE, Mamba and xLSTM blocks at full
-   width, ``--mesh 1x2``, 2 steps: deepseek-moe-16b (2 layers),
-   jamba-1.5-large (1 layer) and xlstm-125m (4 layers), each against
+   width, ``--mesh 1x2``, 2 steps: deepseek-moe-16b (1 layer),
+   jamba-1.5-large (1 layer) and xlstm-125m (2 layers), each against
    its one-process ``--mesh 1x2`` run (losses within rtol 1e-6, the wire
    accounting equal, one K1, K2 and K3 sweep a leaf a step a rank), and
    xlstm-125m's per-leaf loop bitwise its bucketed TP run; step ms,
@@ -195,9 +210,8 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
 14. slice 7.2, serving placed over the mesh and the tensor-parallel
    publisher (``phase14_placed``; two processes on the card, gloo): 14a
    ``launch.serve.run`` at ``--mesh 1x2`` on llama3.2-1b at full width
-   with 4 layers (16 until PR 28), 10a's traffic, frozen and streaming,
-   each rank holding
-   half of every weight and of the KV cache: the prefill's and first
+   with 2 layers (cut from 16 for the smoke's time), 10a's traffic,
+   frozen and streaming, each rank holding half of every weight and of the KV cache: the prefill's and first
    decode's logits within 1e-4 of the largest one-process |logit|, the
    greedy tokens the one-process run's or near ties, at every publish
    each rank's pieces the cut of ``pub`` bitwise; prefill, decode-step,
@@ -205,8 +219,8 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    2x1`` in mode ``2d`` (half of every weight at rest a rank, half the
    batch) at 2 layers, the gathers' share of the decode step; 14c the
    tensor-parallel trainer at ``1x2`` with ``--publish-every 1
-   --resync-every 2``, 4 steps at full width with 4 layers (16 until
-   PR 28, cut to keep the smoke inside its time; 12 launches a
+   --resync-every 2``, 4 steps at full width with 2 layers (cut from 16
+   to keep the smoke inside its time; 12 launches a
    step a rank of K1, K2 and the K3 sweep; its records' publish kinds and bits
    and the ``published`` line the one-process ``1x2`` run's; on shared
    params the rows bitwise the one-process publisher's); 14d the smoke
@@ -215,7 +229,11 @@ Phases (any failure exits non-zero; nothing is wrapped to pass):
    one-process card runs.  ``--tensor-parallel-cards`` (four cards,
    NCCL) adds serving at ``1x4`` and ``2x2`` (llama3.2-1b,
    deepseek-moe-16b at 8 layers, command-r-35b at full width and depth)
-   and the TP trainer's publisher at ``2x2`` (data replicas' rows equal);
+   and the TP trainer's publisher at ``2x2`` (data replicas' rows
+   equal), and trains command-r-35b at full width with 4 layers at
+   ``1x4`` (its bucket fits int32 indices only in rows of a quarter;
+   each rank's row and its compression bitwise the one-process bucket's
+   on a shared random gradient);
 15. slice 10, rematerialised training and the kernel-configuration
    table (``phase15_remat_table``): 15a ``train.run`` on llama3.2-1b at
    full width and depth, batch 8: at ``--seq 512`` 3 steps without and
@@ -1132,9 +1150,44 @@ class CompressTimer:
         return [sum(ms[i:i + per]) for i in range(0, per * steps, per)]
 
 
+class StepMemory:
+    """Wraps ``repro_torch.train.make_train_step`` while active: each
+    step synchronised before and after, and its ``(memory allocated
+    before it, the peak since the last reset before it, its own peak)``
+    appended to ``steps`` (the peak counters reset at its start)."""
+
+    def __init__(self, torch):
+        self.torch, self.steps = torch, []
+
+    def __enter__(self):
+        from repro_torch import train
+        self.mod, self.orig = train, train.make_train_step
+        cuda = self.torch.cuda
+
+        def measured(*a, **k):
+            step = self.orig(*a, **k)
+
+            def run(state, batch):
+                cuda.synchronize()
+                mem = [cuda.memory_allocated(), cuda.max_memory_allocated()]
+                cuda.reset_peak_memory_stats()
+                out = step(state, batch)
+                cuda.synchronize()
+                self.steps.append((*mem, cuda.max_memory_allocated()))
+                return out
+            return run
+
+        train.make_train_step = measured
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_train_step = self.orig
+
+
 def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
                global_check=False, levels=1, leaf_bytes=None, bounds=None,
-               runner=None, mc_check="", leaves=12):
+               runner=None, mc_check="", leaves=12, step_memory=False,
+               keep=None):
     """One trainer path at full width (``workers`` of them in this
     process): returns its launches, records, peak memory, each launched
     kernel's bound per step (``leaf_bytes``, default ``LEAF_BYTES``,
@@ -1161,7 +1214,16 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
     worker sent: ``"v"`` of the velocities ``resid2``, ``"ev"`` of the
     residual too (not under gTop-k, whose merge drops land in it).
     The per-step ``bucket_compress`` ms (CUDA events) come back in
-    ``extra["compress_ms"]``."""
+    ``extra["compress_ms"]``.
+
+    ``step_memory`` wraps the train step (:class:`StepMemory`) and
+    returns each step's ``(memory allocated before it, its own peak)``
+    in ``extra["step_memory"]`` (step 0's own peak starts at the
+    probe's reset, after its checks); ``keep`` (a column range ``(a,
+    b)`` of row 0, fixed-k) returns worker 0's step-0 gradient and
+    ``e'`` in it, copied to the host, as ``extra["kept"]``."""
+    import contextlib
+
     import numpy as np
 
     from repro_torch.launch import train
@@ -1221,6 +1283,10 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
             if G is None:
                 G = u_host.pop(rank)
             conserves(G, values, indices, new_E, label, torch)
+            if keep is not None and rank == 0:
+                a, b = keep
+                acc["kept"] = tuple(x[0, a:b].to("cpu", copy=True)
+                                    for x in (G, new_E))
             if mc_check:
                 i = indices.reshape(-1).long()
                 acc.setdefault("sel", {})[rank] = i[i >= 0]
@@ -1237,12 +1303,13 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
     once = {"threefry_bits": init_draws(cfg or get_config("llama3.2-1b"))}
     torch.cuda.reset_peak_memory_stats()
     timer = CompressTimer(torch)
-    with timer:
+    mem = StepMemory(torch)
+    with timer, mem if step_memory else contextlib.nullcontext():
         launches, records = drive(
             label, (lambda: runner(steps, probe)) if runner else
             (lambda: train.run(argv + ["--steps", str(steps),
                                        "--log-every", "1"], probe=probe,
-                                   cfg=cfg)),
+                               cfg=cfg)),
             expect, steps, once)
     peaks["after0"] = torch.cuda.max_memory_allocated()
     torch.cuda.synchronize()
@@ -1267,7 +1334,12 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
     # each leaf's launches read and write its columns once
     step_bound = {n: (leaf_bytes or LEAF_BYTES)[n] * cols * (c // leaves)
                   / HBM_BYTES_PER_S * 1e3 for n, c in expect.items()}
-    peak = max(peaks["after0"], peaks["step0"])
+    peak = max([peaks["after0"], peaks["step0"]]
+               + [x for m in mem.steps for x in m[1:]])
+    if step_memory:
+        assert len(mem.steps) == steps, (label, mem.steps)
+        peaks["after0"] = max([peaks["after0"]]
+                              + [m[2] for m in mem.steps[1:]])
     log(f"  {label}: losses {losses}; step ms "
         f"{[round(x, 1) for x in step_ms]}; wire ms "
         f"{[round(x, 2) for x in wire_ms]}; peak memory "
@@ -1284,7 +1356,9 @@ def train_path(label, argv, expect, steps, torch, workers=1, cfg=None,
     extra = {"wire_ms": wire_ms, "compress_ms": timer.per_step(steps),
              "conservation": dict(
         (k, acc[k]) for k in ("err", "tol") if k in acc),
-        "allocs": allocs, "peak_after0": peaks["after0"]}
+        "allocs": allocs, "peak_after0": peaks["after0"],
+        "step_memory": [(m[0], m[2]) for m in mem.steps],
+        "kept": acc.get("kept")}
     return launches, records, peak, step_bound, extra
 
 
@@ -2894,12 +2968,36 @@ def phase10_serve(torch, by_path) -> dict:
     return out
 
 
-# the configs of phase 11 at full width: (arch, num_layers kept or None
-# for the whole model, train steps)
-ARCH_PATHS = (("deepseek-moe-16b", 2, 3), ("jamba-1.5-large-398b", 1, 2),
-              ("musicgen-medium", None, 3), ("xlstm-125m", None, 3))
-SMOKE_ARCHS = ("deepseek-moe-16b", "phi3.5-moe-42b-a6.6b",
-               "jamba-1.5-large-398b", "xlstm-125m", "musicgen-medium")
+# the configs of phase 11b at full width: (arch, num_layers kept or None
+# for the whole model, train steps, batch, seq).  The depths keep each
+# bucket below 2**31 columns and the one-worker f32 state on one card;
+# gemma3-4b's 2 x 2048 passes its 1024-token window, so the window masks
+# keys and the query-chunked attention runs; phi3.5-moe trains under its
+# config's own density policy (absmax), as the CLI does by default
+ARCH_PATHS = (("deepseek-moe-16b", 2, 3, 8, 128),
+              ("jamba-1.5-large-398b", 1, 2, 8, 128),
+              ("musicgen-medium", None, 3, 8, 128),
+              ("xlstm-125m", None, 3, 8, 128),
+              ("stablelm-1.6b", None, 3, 8, 128),
+              ("gemma3-4b", 6, 3, 2, 2048),
+              ("phi3.5-moe-42b-a6.6b", 1, 3, 8, 128),
+              ("llava-next-34b", 2, 3, 8, 128))
+# 11c serves each arch at the deepest depth (at most its own) whose f32
+# params, twice over (``serve.run``'s trainer and its replica), fit this
+SERVE_PARAM_BYTES = 60 * 2 ** 30
+# 11c: gemma3-4b's one request whose prompt and generated tokens pass its
+# 1024-token window, so that the decode cache's ring (``pos % window``)
+# wraps at full width
+WRAP_PROMPT, WRAP_GEN = 1020, 16
+# 11d: the smoke variants (arch, sliding window cut so that the prefill
+# of 8 tokens and 4 decode steps wrap the ring, or None)
+SMOKE_ARCHS = (("deepseek-moe-16b", None), ("phi3.5-moe-42b-a6.6b", None),
+               ("jamba-1.5-large-398b", None), ("xlstm-125m", None),
+               ("musicgen-medium", None), ("gemma3-4b", 4),
+               ("stablelm-1.6b", None), ("llava-next-34b", None),
+               ("command-r-35b", None))
+# the largest one-card leaf: gemma3-4b's embed and lm_head (262144 x 2560)
+GEMMA_EMBED = 671_088_640
 
 
 def full_width(arch, layers):
@@ -2914,10 +3012,139 @@ def full_width(arch, layers):
     return cfg
 
 
+def serve_layers(arch) -> int:
+    """The deepest ``num_layers`` of ``arch`` (at most its own) whose f32
+    params, twice over, fit ``SERVE_PARAM_BYTES`` (counted on meta)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    best = None
+    for n in range(1, get_config(arch).num_layers + 1):
+        meta = init_params(full_width(arch, n), 0, "meta")
+        if 2 * 4 * sum(x.numel() for x in tree.leaves(meta)) > \
+                SERVE_PARAM_BYTES:
+            break
+        best = n
+    assert best, (arch, "no layer fits")
+    return best
+
+
+def embed_row_check(torch, kept, seg, label) -> dict:
+    """11b's direct check of gemma3-4b's ``embed`` row at step 0
+    (``GEMMA_EMBED`` elements, the largest one-card leaf): the row's
+    gradient and the residual it met (zero before step 0) through K1,
+    K2, the K3 sweep and both K3 launches against their plain versions
+    on the card (:func:`check_main_kernels`: counts, staging and ``e'``
+    bitwise, the moments within tolerance, conservation), then the
+    fused pipeline on the row alone bitwise the path's step-0 ``e'``."""
+    from repro_torch.kernels.ef_fused import ops
+    g_host, e_path = kept
+    assert g_host.numel() == seg.size == GEMMA_EMBED, (label, seg)
+    g = g_host.to("cuda")
+    del g_host
+    e = torch.zeros_like(g)
+    got = check_main_kernels(g, e, seg.k_row, f"{label} embed row")
+    assert got.k_cap == seg.k_cap, (label, got.k_cap, seg.k_cap)
+    k1_err = got.k1_err
+    del got
+    _, _, ne = ops.fused_compress_ef(g, e, "gaussiank", seg.k_row,
+                                     k_cap=seg.k_cap)
+    assert same_bits(ne, e_path.to("cuda")), (label, "the path's e'")
+    del g, e, ne
+    torch.cuda.empty_cache()
+    log(f"  {label}: the {GEMMA_EMBED:,}-element embed row's step-0 e' "
+        f"bitwise the fused pipeline on the row alone")
+    return {"d": GEMMA_EMBED, "k": seg.k_row, "k_cap": seg.k_cap,
+            "k1_max_err": k1_err}
+
+
+def gemma_wrap(torch) -> dict:
+    """11c: one request to ``launch.serve.run`` on the whole gemma3-4b at
+    full width, a prompt of ``WRAP_PROMPT`` tokens and up to
+    ``WRAP_GEN`` new ones, so that the decode steps pass its 1024-token
+    window and write its ring's slots ``pos % window`` over the
+    prompt's; each step's logits held against ``models.forward`` of the
+    whole sequence on the same weights (the prompt redrawn from the
+    CLI's key) within ``TIE`` of its largest |logit|."""
+    from repro_torch import prng
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, init_params
+    cfg = full_width("gemma3-4b", None)
+    steps = {}
+
+    def keep(wave, step, logits):
+        steps[step] = logits[:, -1].clone()
+
+    launches, got = zeroed(lambda: serve.run(
+        ["--arch", "gemma3-4b", "--mesh", "1x1", "--requests", "1",
+         "--max-batch", "1", "--prompt-len", str(WRAP_PROMPT), "--gen",
+         str(WRAP_GEN)], cfg=cfg, on_logits=keep))
+    want = {n: 0 for n in launches}
+    want["threefry_bits"] = init_draws(cfg) + 2
+    assert launches == want, ("11c wrap", launches, want)
+    toks = got["tokens"][0]
+    last = WRAP_PROMPT + toks.shape[1] - 2      # the last decode position
+    assert last >= cfg.sliding_window, ("11c wrap", last)
+    assert sorted(steps) == list(range(toks.shape[1])), sorted(steps)
+    params = init_params(cfg, 0, "cuda")
+    _, pk = prng.split(prng.PRNGKey(0))
+    prompt = prng.randint(pk, (1, WRAP_PROMPT), 0, cfg.vocab_size,
+                          device="cuda")
+    seq = torch.cat([prompt, toks[:, :-1].cuda()], dim=1)
+    with torch.no_grad():
+        full = forward(params, cfg, seq, remat=False)[0]
+    err = scale = 0.0
+    for step, lg in steps.items():
+        ref = full[WRAP_PROMPT - 1 + step]
+        scale = max(scale, float(ref.abs().max()))
+        err = max(err, float((lg[0] - ref).abs().max()))
+    assert err <= TIE * scale, ("11c wrap logits", err, scale)
+    del params, full, steps
+    torch.cuda.empty_cache()
+    out = {"prompt": WRAP_PROMPT, "generated": int(toks.shape[1]),
+           "last_position": last, "ring_slots_rewritten": last + 1
+           - cfg.sliding_window, "max_abs_logit_err": err,
+           "logit_scale": scale, "decode_ms_median": med(
+               got["times"]["decode"]), "prefill_ms": got["times"]["prefill"]}
+    log(f"  11c gemma3-4b wrap: prompt {WRAP_PROMPT} + {toks.shape[1]} "
+        f"tokens, decoded up to position {last} (ring of "
+        f"{cfg.sliding_window}: {out['ring_slots_rewritten']} slots "
+        f"rewritten); every step's logits within {err:.3g} of the "
+        f"forward's (tolerance {TIE} x {scale:.3g}); prefill "
+        f"{got['times']['prefill'][0]:.1f} ms, decode step median "
+        f"{out['decode_ms_median']:.2f} ms")
+    return out
+
+
+def phase11e(torch, counts) -> dict:
+    """11e: the dry run's count of each 11b step
+    (``step_cost.count_temp_bytes`` on meta, rematerialised, with the
+    gradients' pack into the f32 bucket) against the card: the step's
+    peak above the memory allocated before it, the largest over the
+    steps after step 0 (step 0's peak holds the conservation check's
+    buffers); each within ``COUNT_TOLERANCE``, all logged first."""
+    from repro_torch.launch import step_cost
+    out = {}
+    for label, (cfg, B, T, measured) in counts.items():
+        counted = step_cost.count_temp_bytes(cfg, B, T, remat=True)
+        ratio = counted["temp_bytes"] / measured
+        out[label] = {"counted": counted["temp_bytes"],
+                      "method": counted["method"], "measured": measured,
+                      "ratio": ratio}
+        log(f"phase 11e: {label}: counted "
+            f"{counted['temp_bytes'] / 2 ** 30:.3f} GiB "
+            f"({counted['method']}), measured {measured / 2 ** 30:.3f} GiB "
+            f"on the card (count / card {ratio:.3f})")
+    for label, row in out.items():
+        assert abs(row["ratio"] - 1) <= COUNT_TOLERANCE, ("11e", label, row)
+    return out
+
+
 def phase11a_huge_leaf(torch, rows) -> dict:
     """11a: K1 (with and without its histogram), K2, both K3 launches and
-    the K3 sweep at d = ``HUGE_LEAF`` (jamba's ``embed``, the largest leaf
-    the kernels meet) against their plain versions on the card — counts,
+    the K3 sweep at d = ``HUGE_LEAF`` (jamba's ``embed``; the largest
+    one-card leaf, gemma3-4b's ``embed``, is checked in 11b by
+    :func:`embed_row_check`) against their plain versions on the card — counts,
     the histogram, staging and residual bitwise,
     the sweep bitwise the two launches and the assembly (in place too),
     the moments within tolerance, the pipeline conserving — then each
@@ -3046,95 +3273,157 @@ def phase11a_huge_leaf(torch, rows) -> dict:
 
 
 def phase11_archs(torch, by_path, rows) -> dict:
-    """Phase 11, slice 8: the MoE, Mamba-hybrid and xLSTM blocks and the
-    ``embeds`` frontend, each path with the launch counters set to 0
-    just before it and read just after.
+    """Phase 11, slices 8 and 16: the MoE, Mamba-hybrid, xLSTM,
+    sliding-window and parallel blocks and the ``embeds`` frontend, each
+    path with the launch counters set to 0 just before it and read just
+    after.
 
     11a. K1, K2, the K3 sweep and both K3 launches at d = 536,870,912
          against their plain versions, timed (``phase11a_huge_leaf``);
     11b. ``launch.train.run`` at full width, Gaussian-k fused at 0.001
-         (the CLI's default), world 1, batch 8 x 128: deepseek-moe-16b
-         with 2 layers, jamba-1.5-large with 1 (layer 0: Mamba + MLP),
-         musicgen-medium and xlstm-125m whole, 3 steps each (2 for
-         jamba); one K1, K2, K3 stage and K3 residual launch a leaf a
-         step (and an ``embeds`` batch's three draws a step); step ms and
-         the compression's ms within it (CUDA events around
-         ``bucket_compress``), losses, peak memory;
-    11c. ``launch.serve.run`` on the same four configs: 8 sequences,
-         prompt 64, up to 8 new tokens (KV, Mamba and xLSTM caches,
-         musicgen's embeddings prompt); prefill ms, decode ms a step,
-         peak memory; the launches the params' and the prompts' draws;
-    11d. card against CPU on the smoke variants of deepseek-moe-16b,
-         phi3.5-moe, jamba-1.5-large (Mamba, attention, MLP and MoE
-         layers), xlstm-125m and musicgen-medium: 2 train steps each
-         (the CPU at the card's block geometry), losses within rtol
-         1e-4; prefill and 4 decode steps, logits within rtol 1e-5
-         (atol 1e-5), the greedy tokens equal; jamba-smoke at chunks 3
-         and per leaf bitwise its bucketed run on the card."""
+         (the CLI's default), world 1, each of ``ARCH_PATHS`` at its
+         depth, batch and sequence (:func:`train_path`): one K1, K2 and
+         K3 sweep launch a leaf a step (and an ``embeds`` batch's three
+         draws a step), every step-0 bucket conserving bitwise; step ms
+         and the compression's ms within it (CUDA events around
+         ``bucket_compress``), losses, peak memory and each step's
+         memory.  gemma3-4b at 2 x 2048 runs ``layers._sdpa_chunked``
+         with its 1024-token window and without (its global layer), and
+         its step-0 ``embed`` row goes through :func:`embed_row_check`;
+         phi3.5-moe trains under its config's ``absmax`` (K1 as pass A
+         once a segment row, ``k_total`` the host's budget every step,
+         ``sum(k) == K_eff``, every ``k`` within its bounds);
+    11c. ``launch.serve.run`` on the same archs, each at the deepest
+         depth whose two copies of the params fit ``SERVE_PARAM_BYTES``
+         (:func:`serve_layers`): 8 sequences, prompt 64, up to 8 new
+         tokens (KV, ring, Mamba and xLSTM caches, the embeddings
+         prompts); prefill ms, decode ms a step, peak memory; the
+         launches the params' and the prompts' draws; then gemma3-4b's
+         window ring wrapping (:func:`gemma_wrap`);
+    11d. card against CPU on the smoke variants of ``SMOKE_ARCHS`` (MoE,
+         Mamba, attention, MLP, xLSTM, sliding-window and parallel
+         blocks, the embeddings frontend): 2 train steps each (the CPU at
+         the card's block geometry), losses within rtol 1e-4; prefill
+         and 4 decode steps, logits within rtol 1e-5 (atol 1e-5), the
+         greedy tokens equal; jamba-smoke at chunks 3 and per leaf
+         bitwise its bucketed run on the card;
+    11e. the dry run's count of each 11b step against the card
+         (:func:`phase11e`)."""
     import numpy as np
 
     from repro_torch import tree
-    from repro_torch.configs import get_config
+    from repro_torch.core import adaptk
     from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.compressors import get_compressor
     from repro_torch.data import batch_for
+    from repro_torch.dist.layout import build_layout
     from repro_torch.kernels.ef_fused import tuning
     from repro_torch.launch import serve, train
-    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import decode_step, init_params, layers, prefill
     t_start = time.time()
     out = {}
 
     log(f"phase 11a: K1, K2, the K3 sweep and both K3 launches at "
-        f"d={HUGE_LEAF:,} (jamba embed) against their plain versions")
+        f"d={HUGE_LEAF:,} (jamba-1.5-large's embed) against their plain "
+        f"versions; the largest one-card leaf, gemma3-4b's embed and "
+        f"lm_head ({GEMMA_EMBED:,}), is held in 11b, and command-r-35b's "
+        f"embed (2,097,152,000) runs as rows of 524,288,000 at M = 4 on "
+        f"four cards")
     out["11a"] = phase11a_huge_leaf(torch, rows)
     out["11a_s"] = time.time() - t_start
 
+    chunked = {}
+    one_block = layers._sdpa_chunked
+
+    def count_chunked(q, k, v, cfg, window, chunk):
+        chunked[window] = chunked.get(window, 0) + 1
+        return one_block(q, k, v, cfg, window, chunk)
+
     t0 = time.time()
-    out["11b"] = {}
-    for arch, layers, steps in ARCH_PATHS:
-        cfg = full_width(arch, layers)
-        n_leaves = len(tree.leaves(init_params(cfg, 0, "meta")))
-        label = f"11b {arch}" + (f" ({layers} layers)" if layers else "")
+    out["11b"], counts = {}, {}
+    for arch, depth, steps, B, T in ARCH_PATHS:
+        t_path = time.time()
+        cfg = full_width(arch, depth)
+        meta = init_params(cfg, 0, "meta")
+        n_leaves = len(tree.leaves(meta))
+        label = f"11b {arch}" + (f" ({depth} layers)" if depth else "")
+        argv = ["--arch", arch, "--mesh", "1x1", "--batch", str(B),
+                "--seq", str(T)]
+        pol, policy = train.density_policy_of(train.parse_args(argv), cfg)
+        lay = build_layout(meta, 1, RATIO, get_compressor("gaussiank"),
+                           density_policy=pol)
         log(f"phase {label}: train.run at full width, Gaussian-k fused, "
-            f"{steps} steps of 8 x 128, {n_leaves} leaves")
+            f"{steps} steps of {B} x {T}, {n_leaves} leaves, "
+            f"{lay.d_row_total:,} bucket columns, density policy "
+            f"{policy or 'none'}")
         expect = {n: n_leaves for n in MAIN_KERNELS}
         if batch_draws(cfg):
             expect["threefry_bits"] = batch_draws(cfg)
-        torch.cuda.reset_peak_memory_stats()
-        timer = CompressTimer(torch)
-        with timer:
-            launches, recs = drive(
-                label, lambda: train.run(
-                    ["--arch", arch, "--mesh", "1x1", "--batch", "8",
-                     "--seq", "128", "--steps", str(steps), "--log-every",
-                     "1"], cfg=cfg),
-                expect, steps, {"threefry_bits": init_draws(cfg)})
-        peak = torch.cuda.max_memory_allocated()
-        compress_ms = timer.per_step(steps)
-        by_path[label] = launches
-        losses = [r["loss"] for r in recs]
-        assert all(math.isfinite(x) for x in losses), (label, losses)
-        for r in recs:
-            assert 0 < r["density"] <= r["density_cap"], (label, r)
-        out["11b"][arch] = {
-            "num_layers": cfg.num_layers, "leaves": n_leaves,
-            "params": sum(math.prod(x.shape) for x in tree.leaves(
-                init_params(cfg, 0, "meta"))),
-            "losses": losses, "step_ms": [r["ms"] for r in recs],
-            "compress_ms": compress_ms, "peak_gib": peak / 2 ** 30,
-            "launches": launches}
-        log(f"  {label}: losses {losses}; step ms "
-            f"{[round(r['ms'], 1) for r in recs]} (compression "
-            f"{[round(x, 1) for x in compress_ms]}); peak {peak / 2**30:.2f} "
-            f"GiB; launches {({n: c for n, c in launches.items() if c})}")
-        del recs
+        kw = {}
+        if pol is not None:
+            kw = {"leaf_bytes": ADAPTIVE_LEAF_BYTES,
+                  "bounds": ([s.k_lo for s in lay.segments],
+                             [s.k_hi for s in lay.segments])}
+        embed = {s.name: s for s in lay.segments}["embed"]
+        if embed.size == GEMMA_EMBED:
+            kw["keep"] = (embed.row_off, embed.row_off + embed.size)
+        chunked.clear()
+        layers._sdpa_chunked = count_chunked
+        try:
+            by_path[label], recs, peak, _, extra = train_path(
+                label, argv, expect, steps, torch, cfg=cfg,
+                leaves=n_leaves, step_memory=True, **kw)
+        finally:
+            layers._sdpa_chunked = one_block
+        res = {"num_layers": cfg.num_layers, "batch": B, "seq": T,
+               "leaves": n_leaves, "bucket_columns": lay.d_row_total,
+               "params": sum(x.numel() for x in tree.leaves(meta)),
+               "density_policy": policy or None,
+               "losses": [r["loss"] for r in recs],
+               "step_ms": [r["ms"] for r in recs],
+               "compress_ms": extra["compress_ms"],
+               "peak_gib": peak / 2 ** 30,
+               "step_memory": extra["step_memory"],
+               "launches": by_path[label]}
+        if pol is not None:
+            K = int(adaptk.budget([s.size for s in lay.segments], RATIO,
+                                  pol))
+            assert [k for _, k in extra["allocs"]] == [K] * steps, (
+                label, extra["allocs"], K)
+            res["k_total"] = [r["k_total"] for r in recs]
+            log(f"  {label}: k_total {K} every step (the host's budget), "
+                f"sum(k) == K_eff, every k within its bounds")
+        if T > layers._SDPA_CHUNK and T % layers._SDPA_CHUNK == 0:
+            want = {cfg.sliding_window if cfg.block_kind(i) == "swa" else 0
+                    for i in range(cfg.num_layers)
+                    if cfg.block_kind(i) in ("attn", "swa")}
+            assert set(chunked) == want and all(chunked.values()), (
+                label, "chunked attention", chunked, want)
+            res["chunked_calls"] = dict(chunked)
+            log(f"  {label}: query-chunked attention calls by window "
+                f"{chunked}")
+        if extra["kept"] is not None:
+            torch.cuda.empty_cache()
+            res["embed_row"] = embed_row_check(torch, extra["kept"], embed,
+                                               label)
+        counts[label] = (cfg, B, T, max(p - b for b, p in
+                                        extra["step_memory"][1:]))
+        res["seconds"] = time.time() - t_path
+        out["11b"][arch] = res
+        log(f"  {label}: step ms {[round(x, 1) for x in res['step_ms']]} "
+            f"(compression {[round(x, 1) for x in res['compress_ms']]}); "
+            f"peak {res['peak_gib']:.2f} GiB; {res['seconds']:.1f} s")
+        del recs, extra
         torch.cuda.empty_cache()
     out["11b_s"] = time.time() - t0
 
     t0 = time.time()
     out["11c"] = {}
-    for arch, layers, _ in ARCH_PATHS:
-        cfg = full_width(arch, layers)
-        label = f"11c {arch}"
+    for arch, *_ in ARCH_PATHS:
+        depth = serve_layers(arch)
+        cfg = full_width(arch, depth)
+        label = f"11c {arch} ({depth} of {full_width(arch, None).num_layers}"\
+            " layers)"
         log(f"phase {label}: serve.run at full width, 8 sequences, prompt "
             "64, up to 8 new tokens")
         prompt_draws = 1 if cfg.frontend == "embeds" else 2
@@ -3153,7 +3442,8 @@ def phase11_archs(torch, by_path, rows) -> dict:
         assert toks.shape[0] == 8 and bool((toks >= 0).all()) and bool(
             (toks < cfg.vocab_size).all()), (label, toks)
         times = got["times"]
-        out["11c"][arch] = {"prefill_ms": times["prefill"],
+        out["11c"][arch] = {"num_layers": depth,
+                            "prefill_ms": times["prefill"],
                             "decode_ms_median": med(times["decode"]),
                             "decode_steps": got["decode_steps"],
                             "tok_s": got["tok_s"],
@@ -3164,13 +3454,15 @@ def phase11_archs(torch, by_path, rows) -> dict:
             f"{peak / 2**30:.2f} GiB; tokens {toks[:2].tolist()}")
         del got
         torch.cuda.empty_cache()
+    log("phase 11c gemma3-4b: one request past the 1024-token window")
+    out["11c"]["gemma3-4b wrap"] = gemma_wrap(torch)
     out["11c_s"] = time.time() - t0
 
     t0 = time.time()
     out["11d"] = {}
     comp = CompressionConfig(compressor="gaussiank", ratio=0.01)
-    for arch in SMOKE_ARCHS:
-        cfg = get_config(arch).reduced()
+    for arch, window in SMOKE_ARCHS:
+        cfg = smoke_cfg(arch, window)
         base = init_params(cfg, 0, "cpu")
         losses = {}
         for dev in ("cuda", "cpu"):
@@ -3205,14 +3497,17 @@ def phase11_archs(torch, by_path, rows) -> dict:
             err = max(err, float((a - b).abs().max()))
         for a, b in zip(toks["cuda"], toks["cpu"]):
             assert torch.equal(a, b), (arch, "tokens")
-        out["11d"][arch] = {"losses": losses, "max_abs_logit_err": err}
-        log(f"phase 11d {cfg.name}: card {losses['cuda']} vs CPU "
-            f"{losses['cpu']} within rtol 1e-4; prefill + 4 decode logits "
-            f"within rtol 1e-5, atol 1e-5 (largest difference {err:.3g}), "
-            f"greedy tokens equal")
+        out["11d"][arch] = {"losses": losses, "max_abs_logit_err": err,
+                            "sliding_window": cfg.sliding_window
+                            if window else None}
+        log(f"phase 11d {cfg.name}" + (f" (window {window})" if window
+                                       else "") +
+            f": card {losses['cuda']} vs CPU {losses['cpu']} within rtol "
+            f"1e-4; prefill + 4 decode logits within rtol 1e-5, atol 1e-5 "
+            f"(largest difference {err:.3g}), greedy tokens equal")
         del caches
 
-    cfg = get_config("jamba-1.5-large-398b").reduced()
+    cfg = smoke_cfg("jamba-1.5-large-398b")
     n_leaves = len(tree.leaves(init_params(cfg, 0, "meta")))
     comp = CompressionConfig(ratio=RATIO)
     out["11d"]["jamba chunks"] = variant_runs(
@@ -3222,26 +3517,31 @@ def phase11_archs(torch, by_path, rows) -> dict:
          ("per leaf", comp, True)],
         steps=2, expect={n: n_leaves for n in MAIN_KERNELS})
     out["11d_s"] = time.time() - t0
+    t0 = time.time()
+    out["11e"] = phase11e(torch, counts)
+    out["11e_s"] = time.time() - t0
     out["phase11_s"] = time.time() - t_start
     log(f"phase 11 took {out['phase11_s']:.1f} s (11a {out['11a_s']:.1f}, "
         f"11b {out['11b_s']:.1f}, 11c {out['11c_s']:.1f}, 11d "
-        f"{out['11d_s']:.1f})")
+        f"{out['11d_s']:.1f}, 11e {out['11e_s']:.1f})")
     return out
 
 
 TP_STEPS = 3
 
 
-def tp_shared_gradient(torch, rank, backend, port) -> dict:
+def tp_shared_gradient(torch, rank, backend, port, world=2,
+                       cfg=None) -> dict:
     """12b's check of the relayout and of the row's compression at full
-    width, in a process group of its own on ``port``: one shared random
-    gradient of llama3.2-1b (drawn alike on both ranks from one seed)
-    cut to this rank's shards and moved into its row by ``ModelRow``,
-    held against the one-process ``(2, d_row_total)`` bucket bitwise:
-    the row equal to the bucket's row ``rank``, the bucket's row moved
-    back equal to the shards, and ``bucket_compress`` of the row (K1-K3)
-    equal to the whole bucket's row ``rank`` in values, indices, ``e'``
-    and nnz.  Returns the relayout's ms each way and the row's nnz."""
+    width, in a process group of ``world`` ranks of its own on ``port``:
+    one shared random gradient of ``cfg`` (llama3.2-1b by default; drawn
+    alike on every rank from one seed) cut to this rank's shards and
+    moved into its row by ``ModelRow``, held against the one-process
+    ``(world, d_row_total)`` bucket bitwise: the row equal to the
+    bucket's row ``rank``, the bucket's row moved back equal to the
+    shards, and ``bucket_compress`` of the row (K1-K3) equal to the whole
+    bucket's row ``rank`` in values, indices, ``e'`` and nnz.  Returns
+    the relayout's ms each way and the row's nnz."""
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.core import codec
@@ -3254,13 +3554,13 @@ def tp_shared_gradient(torch, rank, backend, port) -> dict:
     from repro_torch.models import init_params
 
     os.environ["MASTER_PORT"] = str(port)
-    init_process_group(backend, rank=rank, world_size=2, local_rank=rank,
-                       local_world_size=2)
+    init_process_group(backend, rank=rank, world_size=world,
+                       local_rank=rank, local_world_size=world)
     try:
-        cfg = get_config("llama3.2-1b")
+        cfg = cfg or get_config("llama3.2-1b")
         meta = init_params(cfg, 0, "meta")
-        tp = tpm.TensorParallel(cfg, ProcessGroupWire(parse_mesh("1x2")),
-                                meta)
+        tp = tpm.TensorParallel(cfg, ProcessGroupWire(
+            parse_mesh(f"1x{world}")), meta)
         M, r = tp.axis.size, tp.axis.rank
         comp = CompressionConfig(compressor="gaussiank", ratio=RATIO)
         layout = build_layout(meta, M, comp)
@@ -3283,7 +3583,7 @@ def tp_shared_gradient(torch, rank, backend, port) -> dict:
         assert torch.equal(mine[0], full[r]), "relayout into the row"
         for a, b, seg in zip(back, local, layout.segments):
             assert torch.equal(a, b), ("relayout back", seg.name)
-        del back
+        del back, local
         E = torch.randn((M, layout.d_row_total), generator=gen,
                         device=dev).mul_(5e-4)
         E_row = E[r:r + 1].clone()
@@ -3372,19 +3672,23 @@ def _tp_env(torch, rank, world, backend, port) -> None:
         torch.cuda.set_device(rank)
 
 
-def tp_child(rank, world, backend, port, argv, check_port, queue):
-    """Phase 12b, one rank of the tensor-parallel launch: :func:`tp_train`
-    of ``argv`` (at ``--mesh 1x2``), then :func:`tp_shared_gradient` on
-    ``check_port``; puts ``(rank, results)`` on ``queue``."""
+def tp_child(rank, world, backend, port, argv, check_port, queue,
+             cfg=None, shared_cfg=None):
+    """One rank of a tensor-parallel launch (12b's at ``--mesh 1x2``,
+    the four-card command-r-35b's at ``1x4``): :func:`tp_train` of
+    ``argv`` on ``cfg`` (12b's llama3.2-1b at ``TP_LAYERS`` by default),
+    then :func:`tp_shared_gradient` of ``shared_cfg`` on ``check_port``;
+    puts ``(rank, results)`` on ``queue``."""
     import traceback
     try:
         import torch
         _tp_env(torch, rank, world, backend, port)
         out = tp_train(torch, argv + ["--steps", str(TP_STEPS),
                                       "--dist-backend", backend],
-                       cfg=llama_layers(TP_LAYERS))
-        out["shared_gradient"] = tp_shared_gradient(torch, rank, backend,
-                                                    check_port)
+                       cfg=cfg or llama_layers(TP_LAYERS))
+        torch.cuda.empty_cache()
+        out["shared_gradient"] = tp_shared_gradient(
+            torch, rank, backend, check_port, world, shared_cfg)
         queue.put((rank, out))
     except BaseException:  # noqa: BLE001 — reported to the parent
         queue.put((rank, {"error": traceback.format_exc()}))
@@ -3461,10 +3765,10 @@ def phase12a(torch, by_path, llama) -> dict:
     return out
 
 
-# 12b's trainers at full width and this depth (16 until PR 28): their
-# relayout through gloo's host staging scales with the layers; the
-# shared-gradient check keeps the whole model
-TP_LAYERS = 4
+# 12b's trainers at full width and this depth (cut from 16 for the
+# smoke's time): their relayout through gloo's host staging scales with
+# the layers; the shared-gradient check keeps the whole model
+TP_LAYERS = 2
 
 
 def phase12b(torch, by_path, llama) -> dict:
@@ -3529,20 +3833,21 @@ def phase12b(torch, by_path, llama) -> dict:
 
 
 # the configs of phase 12c at full width: (arch, num_layers kept or None
-# for the whole model); xlstm-125m also runs the per-leaf loop, at 4 of
-# its 12 layers (two mLSTM/sLSTM periods: its recurrences are host-bound,
-# twice over with remat, and the whole model's 4 runs took ~35 s)
-TP_ARCHS = (("deepseek-moe-16b", 2), ("jamba-1.5-large-398b", 1),
-            ("xlstm-125m", 4))
+# for the whole model); xlstm-125m also runs the per-leaf loop, at 2 of
+# its 12 layers (one mLSTM/sLSTM period: its recurrences are host-bound,
+# twice over with remat, and the whole model's 4 runs took ~35 s); the
+# depths are cut for the smoke's time, every layer kind kept
+TP_ARCHS = (("deepseek-moe-16b", 1), ("jamba-1.5-large-398b", 1),
+            ("xlstm-125m", 2))
 TP_BLOCK_STEPS = 2
 
 
 def phase12c(torch, by_path) -> dict:
     """Phase 12c, slice 2d: the tensor-parallel step of the MoE, Mamba
     and xLSTM blocks at full width, ``--mesh 1x2``, Gaussian-k fixed-k at
-    0.001, 8 x 128, 2 steps: deepseek-moe-16b at 2 of its 28 layers (MoE
+    0.001, 8 x 128, 2 steps: deepseek-moe-16b at 1 of its 28 layers (MoE
     with shared experts), jamba-1.5-large at 1 of its 72 (Mamba + MLP)
-    and xlstm-125m at 4 of its 12 (mLSTM + sLSTM), and xlstm-125m's
+    and xlstm-125m at 2 of its 12 (mLSTM + sLSTM), and xlstm-125m's
     per-leaf loop.
     Each first in one process (``--host-devices 2``: two rows a leaf,
     each worker's step-0 bucket conserving bitwise), then in two
@@ -3702,7 +4007,9 @@ def tensor_parallel_cards(torch) -> dict:
     of its one-process ``--mesh 1x4`` run on card 0 (deepseek's 8 layers
     do not fit one card).  Step ms, relayout ms and its share, peak a
     rank; then ``launch.profile``'s tensor-parallel breakdown of the
-    deepseek config (rank 0 prints every rank's and the slowest)."""
+    deepseek config (rank 0 prints every rank's and the slowest); then
+    command-r-35b trained at ``1x4`` (:func:`command_r_cards`), serving
+    (:func:`placed_cards`) and 16c at ``1x4``."""
     import numpy as np
 
     from repro_torch import tree
@@ -3784,10 +4091,82 @@ def tensor_parallel_cards(torch) -> dict:
         if not line.startswith("{"):
             log("  profile: " + line)
     out["profile"] = prof["json"]
+    out["command-r-35b"] = command_r_cards(torch)
     out["serving"] = placed_cards(torch)
     out["16c"] = phase16c(torch, 4)
     out["seconds"] = time.time() - t_start
     log(f"four cards took {out['seconds']:.1f} s")
+    return out
+
+
+# the four-card training of command-r-35b (``--tensor-parallel-cards``):
+# full width at this depth, --mesh 1x4 over NCCL.  Its 256000 x 8192
+# embed (2,097,152,000 elements) puts its bucket over the int32 index
+# range at a model axis below 4 (4,898,971,648 columns at one layer); at
+# 1x4 a row is 1,753,237,504 columns, the embed's 524,288,000 of them
+CMDR_TRAIN_LAYERS = 4
+
+
+def command_r_cards(torch) -> dict:
+    """command-r-35b (parallel attention and FFN blocks) trained on four
+    cards: ``train.run`` at ``--mesh 1x4`` over NCCL, full width with
+    ``CMDR_TRAIN_LAYERS`` layers, Gaussian-k fixed-k at 0.001, 8 x 128,
+    ``TP_STEPS`` steps, each rank holding a quarter of every split leaf:
+    one K1, K2 and K3 sweep a leaf a step a rank, the same finite losses
+    on every rank; then :func:`tp_shared_gradient` at 1x4 (the model does
+    not fit one card, its ``(4, 1,753,237,504)`` f32 bucket does): each
+    rank's relayout and its row's compression bitwise the one-process
+    bucket's.  Step ms, relayout ms and each rank's peak."""
+    from repro_torch import tree
+    from repro_torch.models import init_params
+    assert torch.cuda.device_count() >= 4, "command-r-35b needs four cards"
+    t0 = time.time()
+    cfg = full_width("command-r-35b", CMDR_TRAIN_LAYERS)
+    n_leaves = len(tree.leaves(init_params(cfg, 0, "meta")))
+    argv = ["--arch", "command-r-35b", "--density-policy", "none",
+            "--batch", "8", "--seq", "128", "--mesh", "1x4", "--log-every",
+            "1"]
+    check_port = []
+
+    def args_of(backend, port):
+        while not check_port or check_port[0] == port:
+            check_port[:] = [free_port()]
+        return argv, check_port[0]
+
+    label = f"4 cards command-r-35b ({CMDR_TRAIN_LAYERS} layers)"
+    log(f"{label}: the tensor-parallel step, --mesh 1x4 in 4 processes, "
+        f"{TP_STEPS} steps, then the shared-gradient check")
+    backend, got = spawn_ranks(torch, tp_child, args_of, world=4,
+                               cfg=cfg, shared_cfg=cfg)
+    assert backend == "nccl", backend
+    draws = init_draws(cfg)
+    ranks = {}
+    for rank in range(4):
+        res = got[rank]
+        want = {n: (n_leaves * TP_STEPS if n in MAIN_KERNELS else
+                    draws if n == "threefry_bits" else 0)
+                for n in res["launches"]}
+        assert res["launches"] == want, (rank, res["launches"], want)
+        assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
+        assert res["losses"] == got[0]["losses"], (rank, res["losses"])
+        assert len(res["pack_ms"]) == len(res["unpack_ms"]) == TP_STEPS
+        relayout = [a + b for a, b in zip(res["pack_ms"],
+                                          res["unpack_ms"])]
+        ranks[rank] = {k: res[k] for k in ("losses", "step_ms", "peak_gib",
+                                           "density", "device",
+                                           "launches", "shared_gradient")}
+        ranks[rank].update(relayout_ms=relayout, relayout_share=[
+            a / b for a, b in zip(relayout, res["step_ms"])])
+        log(f"  {label} rank {rank} (cuda:{res['device']}, {backend}): "
+            f"losses {res['losses']}; step ms "
+            f"{[round(x, 1) for x in res['step_ms']]}; relayout ms "
+            f"{[round(x, 1) for x in relayout]}; peak "
+            f"{res['peak_gib']:.2f} GiB; launches {res['launches']}; "
+            f"shared gradient bitwise (relayout and row compression): "
+            f"{res['shared_gradient']}")
+    out = {"backend": backend, "num_layers": CMDR_TRAIN_LAYERS,
+           "leaves": n_leaves, "ranks": ranks, "seconds": time.time() - t0}
+    log(f"{label} took {out['seconds']:.1f} s")
     return out
 
 
@@ -4216,16 +4595,17 @@ PLACED_SMOKE = (("deepseek-moe-16b", None), ("jamba-1.5-large-398b", None),
 # head with this many layers, one wave of 8 requests of up to 8 tokens
 PLACED_2D_LAYERS = 2
 PLACED_2D_TRAFFIC = ["--requests", "8", "--gen", "8"]
-# 14a's serving at full width and this depth (16 until PR 28): each
-# decode step's collectives over gloo scale with the layers
-PLACED_LAYERS = 4
+# 14a's serving at full width and this depth (cut from 16 for the
+# smoke's time): each decode step's collectives over gloo scale with the
+# layers
+PLACED_LAYERS = 2
 # 14c's shared-params check at full width: rank 0 holds the whole params
 # and the one-process publisher beside its own row's, so this depth
-SHARED_LAYERS = 4
+SHARED_LAYERS = 2
 # 14c's trainers at full width and this depth: their relayout through
-# gloo's host staging scales with the layers, and at 16 they took 98.5-
-# 141.8 s of the smoke (PR 28)
-PUBLISH_LAYERS = 4
+# gloo's host staging scales with the layers, and at 16 they took
+# 98.5-141.8 s of the smoke
+PUBLISH_LAYERS = 2
 # a near tie: the one-process logits' top two within TIE of the row's
 # largest |logit|; the placed logits within TIE of the step's
 TIE = 1e-4
@@ -4890,25 +5270,12 @@ def remat_run(torch, label, argv, cfg, remat, by_path,
     memory and the digests; with ``step_memory`` also each step's
     ``(memory allocated before it, its own peak)`` in bytes, the train
     step wrapped for it (``repro_torch.train.make_train_step``)."""
-    from repro_torch import checkpoint, train as train_mod, tree
+    import contextlib
+
+    from repro_torch import checkpoint, tree
     from repro_torch.launch import train
     digests = {}
-    steps_mem = []
-    make_step = train_mod.make_train_step
-
-    def measured(*a, **k):
-        step = make_step(*a, **k)
-
-        def run(state, batch):
-            torch.cuda.synchronize()
-            steps_mem.append([torch.cuda.memory_allocated(),
-                              torch.cuda.max_memory_allocated()])
-            torch.cuda.reset_peak_memory_stats()
-            out = step(state, batch)
-            torch.cuda.synchronize()
-            steps_mem[-1].append(torch.cuda.max_memory_allocated())
-            return out
-        return run
+    mem = StepMemory(torch)
 
     def digest(path, state):
         for p, leaf in tree.flatten_with_path(state)[0]:
@@ -4918,24 +5285,22 @@ def remat_run(torch, label, argv, cfg, remat, by_path,
 
     save = checkpoint.save_state
     checkpoint.save_state = digest
-    if step_memory:
-        train_mod.make_train_step = measured
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     try:
-        by_path[label], records = drive(
-            label, lambda: train.run(
-                argv + ["--steps", str(REMAT_STEPS), "--log-every", "1",
-                        "--checkpoint", "state.npz"]
-                + ([] if remat else ["--smoke"]), cfg=cfg),
-            {n: 12 for n in MAIN_KERNELS}, REMAT_STEPS,
-            {"threefry_bits": init_draws(cfg)})
+        with mem if step_memory else contextlib.nullcontext():
+            by_path[label], records = drive(
+                label, lambda: train.run(
+                    argv + ["--steps", str(REMAT_STEPS), "--log-every",
+                            "1", "--checkpoint", "state.npz"]
+                    + ([] if remat else ["--smoke"]), cfg=cfg),
+                {n: 12 for n in MAIN_KERNELS}, REMAT_STEPS,
+                {"threefry_bits": init_draws(cfg)})
     finally:
         checkpoint.save_state = save
-        train_mod.make_train_step = make_step
     # the peak before, during and after every step
     peak = max([torch.cuda.max_memory_allocated()]
-               + [x for m in steps_mem for x in m[1:]])
+               + [x for m in mem.steps for x in m[1:]])
     ms = [r["ms"] for r in records]
     losses = [r["loss"] for r in records]
     assert all(math.isfinite(x) for x in losses), (label, losses)
@@ -4944,8 +5309,8 @@ def remat_run(torch, label, argv, cfg, remat, by_path,
            "steady_ms": statistics.median(ms[1:]),
            "peak_gib": peak / 2 ** 30, "digests": digests}
     if step_memory:
-        assert len(steps_mem) == REMAT_STEPS, (label, steps_mem)
-        out["step_memory"] = [(m[0], m[2]) for m in steps_mem]
+        assert len(mem.steps) == REMAT_STEPS, (label, mem.steps)
+        out["step_memory"] = [(m[0], m[2]) for m in mem.steps]
     log(f"  {label}: losses {losses}, step ms {[round(x, 1) for x in ms]}, "
         f"peak {out['peak_gib']:.2f} GiB")
     return out
@@ -6337,6 +6702,7 @@ def main(argv) -> int:
     dry = None if kernels_only else start_dryrun()
 
     # -- phase 2: kernels against their plain versions --
+    log(f"-- phase 2 starts at {time.time() - t_start:.1f} s")
     sizes = (2048, 1_000_003) if kernels_only else (2048, 1_000_003,
                                                     BIG_LEAF)
     log("phase 2: kernels against their plain versions on the card")
@@ -6354,6 +6720,7 @@ def main(argv) -> int:
         return 0
 
     # -- phase 3: the paths at full width --
+    log(f"-- phase 3 starts at {time.time() - t_start:.1f} s")
     by_path = {}
     log("phase 3: llama3.2-1b at full width, Gaussian-k (fused), 3 steps")
     by_path["gaussiank fused"], records, peak, bnd, _ = train_path(
@@ -6435,6 +6802,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # -- phase 4: card against CPU on a small config --
+    log(f"-- phase 4 starts at {time.time() - t_start:.1f} s")
     from repro_torch.core.compression import CompressionConfig
     from repro_torch.data import lm_batch
     from repro_torch.dist.layout import build_layout
@@ -6478,6 +6846,7 @@ def main(argv) -> int:
             f"{out['cpu']} within rtol 1e-4")
 
     # -- phase 5: the data-parallel wire --
+    log(f"-- phase 5 starts at {time.time() - t_start:.1f} s")
     phase5 = {}
     per4 = {n: 48 for n in MAIN_KERNELS}     # 12 leaves x 4 workers
     log("phase 5a: llama3.2-1b at full width and depth, 4 workers in this "
@@ -6567,45 +6936,58 @@ def main(argv) -> int:
             f"CPU {out['cpu']} within rtol 1e-4")
 
     # -- phase 6: adaptive layer-wise density --
+    log(f"-- phase 6 starts at {time.time() - t_start:.1f} s")
     phase6 = phase6_adaptive(torch, by_path, llama_adaptive=[
         "--arch", "llama3.2-1b", "--mesh", "1x1", "--batch", "8", "--seq",
         "128"], fixed_step_ms=main_path["step_ms"], fixed_peak=main_path[
             "peak_mem_gib"], base=base, cfg=cfg)
 
     # -- phase 7: the PRNG, the keyed compressors, momentum correction --
+    log(f"-- phase 7 starts at {time.time() - t_start:.1f} s")
     phase7 = phase7_keyed(torch, by_path, rows, base, cfg)
 
     # -- phase 8: the paper's experiments --
+    log(f"-- phase 8 starts at {time.time() - t_start:.1f} s")
     phase8 = phase8_paper(torch, by_path)
 
     # -- phase 9: the chunked schedule and the per-leaf loop --
+    log(f"-- phase 9 starts at {time.time() - t_start:.1f} s")
     phase9 = phase9_chunked(torch, by_path, ref5c, cfg, base)
 
     # -- phase 10: serving and the weight-delta stream --
+    log(f"-- phase 10 starts at {time.time() - t_start:.1f} s")
     phase10 = phase10_serve(torch, by_path)
 
     # -- phase 11: the other architectures --
+    log(f"-- phase 11 starts at {time.time() - t_start:.1f} s")
     phase11 = phase11_archs(torch, by_path, rows)
 
     # -- phase 12: the model axis --
+    log(f"-- phase 12 starts at {time.time() - t_start:.1f} s")
     phase12 = phase12_model_axis(torch, by_path, llama)
 
     # -- phase 13: the launch and tuning stack --
+    log(f"-- phase 13 starts at {time.time() - t_start:.1f} s")
     phase13 = phase13_tuner(torch, by_path, llama, dry)
 
     # -- phase 14: serving placed over the mesh --
+    log(f"-- phase 14 starts at {time.time() - t_start:.1f} s")
     phase14 = phase14_placed(torch, by_path)
 
     # -- phase 15: rematerialised training, the kernel-config table --
+    log(f"-- phase 15 starts at {time.time() - t_start:.1f} s")
     phase15 = phase15_remat_table(torch, by_path)
 
     # -- phase 16: long sequences --
+    log(f"-- phase 16 starts at {time.time() - t_start:.1f} s")
     phase16 = phase16_long(torch, by_path)
 
     # -- phase 17: bf16 operands --
+    log(f"-- phase 17 starts at {time.time() - t_start:.1f} s")
     phase17 = phase17_bf16(torch, by_path, rows)
 
     # -- phase 18: bf16 state end to end --
+    log(f"-- phase 18 starts at {time.time() - t_start:.1f} s")
     phase18 = phase18_bf16_state(torch, by_path, smi)
 
     for n, row in rows.items():

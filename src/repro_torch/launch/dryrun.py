@@ -18,7 +18,8 @@ here, so a record is assembled from the port's own pieces:
   train step, the decode cache (``dist.sharding.cache_specs``), and
   ``temp_bytes``, the live bytes the call allocates
   (``launch.step_cost.count_temp_bytes`` at the per-card batch on model
-  rank 0's shards; a train step rematerialised; the record's
+  rank 0's shards; a train step rematerialised, its gradients' pack
+  into the bucket row counted beside them; the record's
   ``temp_method`` says whether it was counted whole or piecewise), where
   the reference reads XLA's ``temp_size_in_bytes``;
 * FLOPs: ``launch.step_cost.count_flops`` of the global batch, divided

@@ -467,14 +467,24 @@ def count_temp_bytes(cfg, batch: int, seq: int, *, kind: str = "train",
     cache given), counted on meta tensors by :class:`LiveBytes` at
     ``batch`` sequences of ``seq`` on model rank 0's shards of a model
     axis of ``model_size`` (:class:`MetaAxis`; ``cfg.shard_activations``
-    as the config says).  ``remat`` as in :func:`count_flops`.  Returns
-    ``{"temp_bytes", "method"}``: ``whole``, or ``piecewise`` where
-    :func:`count_flops` goes piecewise (:func:`_temp_piecewise`)."""
+    as the config says).  ``remat`` as in :func:`count_flops`.
+
+    A train step also packs its gradients into the bucket: every
+    gradient shard is alive beside the rank's bucket row (``d_row_total``
+    columns, the residual in the params' dtype) while it is packed
+    (``dist/aggregate.ChunkedAggregation.release``), the step's peak
+    wherever the activations are small beside the gradients; the count
+    is the larger of the two.  Returns ``{"temp_bytes", "method"}``:
+    ``whole``, or ``piecewise`` where :func:`count_flops` goes piecewise
+    (:func:`_temp_piecewise`)."""
     from repro_torch import tree
     from repro_torch.models import init_params
 
     if params is None:
         params = init_params(cfg, 0, "meta")
+    # a leaf's row is ceil(size / M) columns (``dist.layout.flat_dims``)
+    bucket_cols = sum(-(-x.numel() // model_size)
+                      for x in tree.leaves(params))
     params = _rank_params(cfg, params, model_size)
     axis = MetaAxis(model_size) if model_size > 1 else None
     train = kind == "train"
@@ -492,6 +502,10 @@ def count_temp_bytes(cfg, batch: int, seq: int, *, kind: str = "train",
     finally:
         for leaf in leaves:
             leaf.requires_grad_(False)
+    if train:
+        itemsize = getattr(torch, cfg.param_dtype).itemsize
+        n = max(n, sum(x.numel() * x.element_size() for x in leaves)
+                + bucket_cols * itemsize)
     return {"temp_bytes": int(n), "method": method}
 
 
